@@ -1,0 +1,6 @@
+"""The paper's hash-based multi-phase SpGEMM, single device.
+
+Phases: Algorithm 1 IP counting + Table-I grouping (``grouping``), then
+allocation and accumulation per group-chunk (``phases``, dispatched by
+``executor``).  ``spgemm.spgemm`` is the public entry point.
+"""

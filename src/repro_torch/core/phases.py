@@ -1,0 +1,165 @@
+"""Allocation + accumulation phase engines (paper Algorithms 2/3/5).
+
+Each engine consumes one group-chunk of rows with static shapes: ``a_cap``
+= max nnz(A-row) in the group, ``kb_cap`` = max nnz(B-row) globally,
+``table_cap`` = the group's Table-I hash capacity.
+
+* ``*_hash`` — Algorithm 4's linear-probing table per row, filled in
+  stream order (``kernels.hash_accum``: the CUDA kernel on a CUDA tensor,
+  the lockstep plain version on the CPU).
+* ``*_sort`` — the vectorised sort + segment-sum engine: the same columns
+  and counts; the same sums on the CPU, where ``scatter_add_`` adds in
+  index order, and sums in another order on CUDA, where it uses atomics.
+
+Every function keeps its operands' device and reads nothing back to the
+host, so a chunk is dispatched without a sync.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.hash_accum import (
+    hash_accumulate, hash_accumulate_sorted)
+
+INT_MAX = 2**31 - 1
+
+
+# ---------------------------------------------------------------------------
+# Intermediate-product enumeration (the two-level indirection itself)
+# ---------------------------------------------------------------------------
+
+def gather_group_rows(indptr, indices, data, rows, a_cap: int):
+    """Gather the A entries of ``rows`` (-1 = padding row) into (R, a_cap)
+    tensors padded with -1 / 0."""
+    n_rows = indptr.shape[0] - 1
+    safe_rows = rows.clamp(0, max(n_rows - 1, 0)).long()
+    starts = indptr[safe_rows]
+    counts = indptr[safe_rows + 1] - starts
+    offs = torch.arange(a_cap, dtype=torch.int32, device=rows.device)[None, :]
+    ok = (offs < counts[:, None]) & (rows >= 0)[:, None]
+    pos = torch.where(ok, starts[:, None] + offs, 0).long()
+    cols = torch.where(ok, indices[pos], -1)
+    vals = torch.where(ok, data[pos], 0)
+    return cols, vals
+
+
+def combine_products(cols_a, vals_a, bi, bv):
+    """Form intermediate products from already-gathered B rows.
+
+    cols_a, vals_a: (R, a_cap) padded with -1 / 0 — the rows' A entries.
+    bi, bv:         (R, a_cap, kb) the gathered B rows (padding rows may
+                    hold anything: they are masked by ``cols_a < 0``).
+    Returns keys (R, a_cap*kb) int32 (-1 padded) and vals (same shape); each
+    product is rounded on its own, as the reference forms it.
+    """
+    r, a_cap = cols_a.shape
+    kb = bi.shape[2]
+    valid = (cols_a >= 0)[:, :, None] & (bi >= 0)
+    keys = torch.where(valid, bi, -1).reshape(r, a_cap * kb)
+    vals = torch.where(valid, vals_a[:, :, None] * bv, 0).reshape(r, a_cap * kb)
+    return keys, vals
+
+
+def enumerate_products(cols_a, vals_a, b_idx, b_val):
+    """Per-row intermediate products through a plain row take of B's ELL.
+
+    ``b_idx[cols_a]`` is the AIA ranged indirect access (``rpt_B[col_A[j]]``
+    → row of B); the executor's ``gather="aia"`` serves it with the kernel
+    in ``kernels.aia_gather`` instead.
+    """
+    safe = cols_a.clamp(0, b_idx.shape[0] - 1).long()
+    return combine_products(cols_a, vals_a, b_idx[safe], b_val[safe])
+
+
+# ---------------------------------------------------------------------------
+# Hash engine (Algorithms 2/3 allocation; Algorithms 4/5 accumulation)
+# ---------------------------------------------------------------------------
+
+def allocate_hash(keys, table_cap: int):
+    """uniqueCount per row (Algorithms 2/3 output).  keys: (R, ip_cap)."""
+    zeros = torch.zeros(keys.shape, dtype=torch.float32, device=keys.device)
+    return hash_accumulate(keys, zeros, table_cap)[2]
+
+
+def accumulate_hash(keys, vals, table_cap: int):
+    """(cols, vals, counts) per row, column-sorted (Algorithm 5 output)."""
+    return hash_accumulate_sorted(keys, vals, table_cap, table_cap)
+
+
+def fused_hash_sorted(keys, vals, table_cap: int, out_cap: int):
+    """Algorithms 2/3/5 in one pass: the product stream goes straight into
+    the per-row table and the column-sorted rows come back trimmed to
+    ``out_cap``, which the caller sizes from an a-priori bound (uniqueCount
+    <= min(IP, n_cols) per row)."""
+    return hash_accumulate_sorted(keys, vals, table_cap, out_cap)
+
+
+# ---------------------------------------------------------------------------
+# Sort engine (vectorised; the same columns and counts)
+# ---------------------------------------------------------------------------
+
+def _sorted_starts(keys):
+    skey = torch.where(keys >= 0, keys, INT_MAX)
+    sk, order = torch.sort(skey, dim=1, stable=True)
+    valid = sk != INT_MAX
+    is_start = torch.ones_like(valid)
+    is_start[:, 1:] = sk[:, 1:] != sk[:, :-1]
+    return sk, order, valid, is_start & valid
+
+
+def sort_unique(keys, vals, out_cap: int):
+    """Per-row stable sort + segment-sum + compaction.  keys: (R, ip_cap).
+
+    Returns (cols, vals, counts) with column-sorted rows padded to
+    ``out_cap`` (-1 / 0).
+    """
+    r = keys.shape[0]
+    sk, order, valid, is_start = _sorted_starts(keys)
+    sv = torch.gather(vals, 1, order)
+    ur = torch.cumsum(is_start, dim=1, dtype=torch.int32) - 1  # unique rank
+    counts = torch.where(valid, ur + 1, 0).amax(dim=1).to(torch.int32)
+    tgt = torch.where(valid & (ur < out_cap), ur, out_cap).long()
+    out_vals = torch.zeros((r, out_cap + 1), dtype=vals.dtype,
+                           device=vals.device)
+    out_vals.scatter_add_(1, tgt, torch.where(valid, sv, 0))
+    start_tgt = torch.where(is_start & (ur < out_cap), ur, out_cap).long()
+    out_cols = torch.full((r, out_cap + 1), -1, dtype=torch.int32,
+                          device=keys.device)
+    out_cols.scatter_(1, start_tgt, torch.where(is_start, sk, -1))
+    return out_cols[:, :out_cap], out_vals[:, :out_cap], counts
+
+
+def allocate_sort(keys):
+    """uniqueCount per row via sort (no value accumulation)."""
+    return _sorted_starts(keys)[3].sum(dim=1, dtype=torch.int32)
+
+
+def accumulate_sort(keys, vals, out_cap: int):
+    return sort_unique(keys, vals, out_cap)
+
+
+# ---------------------------------------------------------------------------
+# Device-side CSR reassembly epilogue
+# ---------------------------------------------------------------------------
+
+def reassemble_device(idx_buf, dat_buf, cols, vals, counts, starts):
+    """Scatter one chunk's accumulated rows into the final CSR buffers.
+
+    idx_buf, dat_buf: (cap + 1,) int32 / dtype — the output CSR's index and
+                      value buffers, with one trailing *sink* slot; updated
+                      in place and returned.
+    cols, vals:       (R_pad, out_cap) the chunk's column-sorted rows.
+    counts:           (R_pad,) int32 per-row occupancy; padding rows are 0.
+    starts:           (R_pad,) CSR start offset of each row.
+
+    Slots past a row's count are sent to the sink slot, which also retires
+    padding rows; the caller keeps ``[:cap]``.
+    """
+    sink = idx_buf.shape[0] - 1
+    offs = torch.arange(cols.shape[1], dtype=torch.int64,
+                        device=cols.device)[None, :]
+    pos = torch.where(offs < counts[:, None], starts[:, None].long() + offs,
+                      sink)
+    idx_buf[pos] = cols
+    dat_buf[pos] = vals
+    return idx_buf, dat_buf
