@@ -2,5 +2,7 @@
 
 Phases: Algorithm 1 IP counting + Table-I grouping (``grouping``), then
 allocation and accumulation per group-chunk (``phases``, dispatched by
-``executor``).  ``spgemm.spgemm`` is the public entry point.
+``executor``).  ``spgemm.spgemm`` is the public entry point;
+``spgemm_bsr`` is the block-CSR x dense product of the sparse-activation
+path.
 """

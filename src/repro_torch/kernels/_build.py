@@ -24,13 +24,25 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_longlong
-# C entry points and their arguments (pointers and the stream as void*).
+_P, _I, _B = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# C entry points and their arguments (pointers and the stream as void*;
+# ``_B`` is 1 for bfloat16 operands, 0 for float32).
 SIGNATURES = {
     # x, idx, out, n_x_rows, row_words, n_idx, stream
     "repro_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
     # keys, vals, cols, out_vals, cnt, rows, ip_cap, table_cap, stream
     "repro_hash_accumulate": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, idx, out, n_blocks, range_words, n_idx, stream
+    "repro_aia_ranged_gather": [_P, _P, _P, _I, _I, _I, _P],
+    # rowptr, colidx, a_blocks, b, out, n_brows, n_bcols, bs, d,
+    # max_blocks_per_row, bcap, bf16, stream
+    "repro_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B, _P],
+    # vals, idx, w2, out, n, k, d, d_ff, bf16, stream
+    "repro_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
+    # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, bf16,
+    # stream
+    "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B,
+                              _P],
 }
 
 _LIB = None

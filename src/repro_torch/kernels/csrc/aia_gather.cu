@@ -2,7 +2,11 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/aia_gather.py:gather_rows
 // (scalar-prefetched row ids drive one DMA descriptor per row) together with
-// its wrapper gather_rows_any (clip, pad to 8 rows, trim).
+// its wrapper gather_rows_any (clip, pad to 8 rows, trim).  A second entry
+// point, repro_aia_ranged_gather, replaces aia_gather.py:aia_ranged_gather
+// (the Fig. 2 ranged form, one BlockSpec DMA of R rows per id): a range of
+// R rows of x is one row of the (n_blocks, R * row_words) view, so the same
+// kernel copies it.
 //
 // What bounds it on an H100: bytes.  Each output row is written once; each
 // distinct source row needs reading once, and each id once: at most
@@ -67,4 +71,15 @@ extern "C" int repro_gather_rows(const void* x, const void* idx, void* out,
         static_cast<int*>(out), n_x_rows, words, n_idx, tile_rows);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The ranged AIA gather: out[i*R:(i+1)*R, :] = x[clip(idx[i])*R : +R, :],
+// with x viewed as (n_blocks, range_words) 4-byte words and one range per
+// id.  Bound by bytes like the row gather: each distinct range read once,
+// every output range written once.
+extern "C" int repro_aia_ranged_gather(const void* x, const void* idx,
+                                       void* out, long long n_blocks,
+                                       long long range_words, long long n_idx,
+                                       void* stream) {
+  return repro_gather_rows(x, idx, out, n_blocks, range_words, n_idx, stream);
 }

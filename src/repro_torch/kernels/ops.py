@@ -1,10 +1,22 @@
-"""Device dispatch and launch counters for the port's kernels.
+"""Device dispatch, launch counters and the public kernel entry points.
 
 A kernel wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel for a tensor on a CUDA device; any other device
 raises.  There is no fallback from the card to the plain version.  Each
 launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
 that its path went through the kernels.
+
+The public wrappers ``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and
+``block_topk_spmm`` keep the reference's signatures
+(``repro.kernels.ops``), ``backend=`` included, with this device policy:
+
+* ``"auto"`` (default): the kernel on CUDA, the plain version on the CPU;
+* ``"xla"``: the reference's software-only baseline, asked for by name, in
+  plain PyTorch on any device (for ``bsr_spmm`` that is
+  ``core.spgemm_bsr.bsr_spgemm_dense_rhs``, as in the reference);
+* ``"pallas"`` and ``"interpret"`` name TPU paths and raise ``ValueError``.
+
+No environment variable and no ``try`` moves a CUDA call off its kernel.
 """
 from __future__ import annotations
 
@@ -12,7 +24,10 @@ from typing import Callable, Dict
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"gather_rows": 0, "hash_accumulate": 0}
+LAUNCHES: Dict[str, int] = {
+    "gather_rows": 0, "hash_accumulate": 0, "aia_ranged_gather": 0,
+    "bsr_spmm": 0, "topk_spmm": 0, "block_topk_spmm": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -51,3 +66,69 @@ def expect(x: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:
             f"{what}: expected a contiguous {ndim}-d {dtype} tensor, got "
             f"{x.dtype} of shape {tuple(x.shape)} (contiguous="
             f"{x.is_contiguous()})")
+
+
+def expect_float(x: torch.Tensor, ndim: int, what: str) -> int:
+    """Validate a float32 or bfloat16 kernel operand; return the C entry
+    points' dtype flag (1 for bfloat16, 0 for float32)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: expected float32 or bfloat16, got {x.dtype}")
+    expect(x, x.dtype, ndim, what)
+    return int(x.dtype == torch.bfloat16)
+
+
+def same_device(*named: tuple) -> None:
+    """Raise unless every ``(name, tensor)`` lies on the first one's device."""
+    dev = named[0][1].device
+    for name, x in named[1:]:
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, {named[0][0]} on {dev}")
+
+
+def _route(backend: str, auto: Callable, plain: Callable) -> Callable:
+    """The function ``backend`` names: ``auto`` dispatches by device."""
+    if backend == "auto":
+        return auto
+    if backend == "xla":
+        return plain
+    if backend in ("pallas", "interpret"):
+        raise ValueError(f"backend={backend!r} names a TPU path; the port "
+                         f"takes 'auto' (kernel on CUDA, plain on the CPU) "
+                         f"or 'xla' (plain)")
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def aia_ranged_gather(x, idx, r: int = 1, backend: str = "auto"):
+    """``out[i*R:(i+1)*R] = x[idx[i]*R : +R]`` (ids clipped)."""
+    from repro_torch.kernels import aia_gather as k
+    return _route(backend, k.aia_ranged_gather,
+                  k.aia_ranged_gather_plain)(x, idx, r)
+
+
+def bsr_spmm(rowptr, colidx, a_blocks, b, max_blocks_per_row: int,
+             backend: str = "auto"):
+    """BSR ``(rowptr, colidx, a_blocks)`` @ dense ``b``, float32 out; the
+    blocks of a row past ``max_blocks_per_row`` are dropped.
+
+    ``backend="xla"`` runs the reference's XLA path instead,
+    ``core.spgemm_bsr.bsr_spgemm_dense_rhs``: it keeps every block and
+    returns the blocks' dtype, as ``repro.kernels.ops.bsr_spmm`` does.
+    """
+    from repro_torch.kernels import spgemm_bsr as k
+    return _route(backend, k.bsr_spmm, k.bsr_spmm_xla)(
+        rowptr, colidx, a_blocks, b, max_blocks_per_row)
+
+
+def topk_spmm(vals, idx, w2, backend: str = "auto"):
+    """``y[i] = sum_t vals[i, t] * w2[idx[i, t]]`` in float32."""
+    from repro_torch.kernels import topk_spmm as k
+    return _route(backend, k.topk_spmm, k.topk_spmm_plain)(vals, idx, w2)
+
+
+def block_topk_spmm(h_kept, bidx, w2, block: int = 128,
+                    backend: str = "auto"):
+    """``y[tile] = sum_t h_kept[tile, t] @ w2[bidx[tile, t]*block : +block]``
+    in float32, shape ``(n_tiles * tile, d)``."""
+    from repro_torch.kernels import topk_spmm as k
+    return _route(backend, k.block_topk_spmm, k.block_topk_spmm_plain)(
+        h_kept, bidx, w2, block)

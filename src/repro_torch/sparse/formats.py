@@ -9,14 +9,20 @@ Counterpart of ``repro.sparse.formats``, with the same conventions:
 * ``ELL``: ``indices[(n_rows, k_cap)]`` padded with ``-1``;
   ``data[(n_rows, k_cap)]`` padded with ``0``.  Per-row occupancy is
   ``(indices >= 0).sum(-1)``.
+* ``BSR``: block-CSR; ``indptr[(n_brows+1,)]``, ``indices[(bcap,)]`` block
+  column ids (``0`` padded), ``blocks[(bcap, bs_r, bs_c)]``.
+* ``TopKRows``: the paper's Eq. (2) sparsified activation, exactly ``k``
+  entries per row (``values[(n, k)]``, ``indices[(n, k)]``), no padding.
 
 The capacity (``indices.shape[0]``, ``k_cap``) is kept separate from the
 occupancy (``indptr[-1]``, ``indices >= 0``), so a result can be sized from
 a bound without reading its true size back to the host.
 
-Host-side constructors compact on the host with numpy and place the result
-on ``device`` (default ``"cuda"``; tests pass ``"cpu"``).  Converters keep
-their operands' device and never read data back to the host.
+Host-side constructors compact on the host and place the result on
+``device`` (default ``"cuda"``; tests pass ``"cpu"``).  ``from_numpy``
+carries a host array of any dtype across, bfloat16 (``ml_dtypes``, as JAX
+hands it out) included.  Converters keep their operands' device and never
+read data back to the host.
 """
 from __future__ import annotations
 
@@ -97,13 +103,78 @@ class ELL:
         return self.valid_mask().sum(-1).to(torch.int32)
 
 
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block-CSR with dense ``(bs_r, bs_c)`` blocks."""
+
+    indptr: torch.Tensor  # (n_brows + 1,) int32
+    indices: torch.Tensor  # (bcap,) int32 block-column ids, 0-padded
+    blocks: torch.Tensor  # (bcap, bs_r, bs_c)
+    shape: Tuple[int, int]  # element shape (rows, cols)
+
+    @property
+    def block_shape(self) -> Tuple[int, int]:
+        return (self.blocks.shape[1], self.blocks.shape[2])
+
+    @property
+    def n_brows(self) -> int:
+        return self.indptr.shape[0] - 1
+
+    @property
+    def n_bcols(self) -> int:
+        return self.shape[1] // self.blocks.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+    @property
+    def nnzb(self) -> torch.Tensor:
+        """Occupied blocks as a 0-d device tensor (reading it is a host sync)."""
+        return self.indptr[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKRows:
+    """Eq. (2) of the paper: exactly-k-per-row sparse activations."""
+
+    values: torch.Tensor  # (n, k)
+    indices: torch.Tensor  # (n, k) int32
+    shape: Tuple[int, int]  # (n, d_full)
+
+    @property
+    def k(self) -> int:
+        return self.values.shape[1]
+
+    def to_dense(self) -> torch.Tensor:
+        """(n, d_full) with each kept value added at its index (a repeated
+        index accumulates, as the reference's ``.at[].add``)."""
+        n, d = self.shape
+        out = torch.zeros((n, d), dtype=self.values.dtype,
+                          device=self.values.device)
+        rows = torch.arange(n, device=out.device)[:, None].expand_as(
+            self.indices)
+        return out.index_put_((rows, self.indices.long()), self.values,
+                              accumulate=True)
+
+
 # ---------------------------------------------------------------------------
 # Host-side constructors
 # ---------------------------------------------------------------------------
 
-def _place(x: np.ndarray, device) -> torch.Tensor:
-    # a copy, so the CSR never shares memory with the caller's array
-    return torch.from_numpy(np.array(x, order="C")).to(device)
+def from_numpy(x, device="cuda") -> torch.Tensor:
+    """A host array -> a tensor on ``device``, bit for bit.
+
+    ``torch.from_numpy`` refuses numpy's ``bfloat16`` (the ``ml_dtypes`` type
+    that ``np.asarray`` gives for a JAX bf16 array), so such an array goes
+    across as its 16-bit patterns and is viewed as ``torch.bfloat16``.  The
+    result is a copy: it never shares memory with ``x``.
+    """
+    x = np.array(x, order="C")
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(x).to(device)
 
 
 def csr_from_arrays(indptr, indices, data, shape, device="cuda") -> CSR:
@@ -122,9 +193,9 @@ def csr_from_arrays(indptr, indices, data, shape, device="cuda") -> CSR:
     if indices.shape != data.shape or indices.ndim != 1:
         raise ValueError(
             f"indices {indices.shape} and data {data.shape} must be equal 1-d")
-    return CSR(_place(indptr.astype(np.int32), device),
-               _place(indices.astype(np.int32), device),
-               _place(data, device), (n, m))
+    return CSR(from_numpy(indptr.astype(np.int32), device),
+               from_numpy(indices.astype(np.int32), device),
+               from_numpy(data, device), (n, m))
 
 
 def _csr_from_sorted(rows, cols, vals, shape, capacity, device) -> CSR:
@@ -170,9 +241,93 @@ def csr_from_coo(rows, cols, vals, shape, capacity: int | None = None,
     return _csr_from_sorted(rows, cols, vals, (n, m), capacity, device)
 
 
+def bsr_from_arrays(indptr, indices, blocks, shape, device="cuda") -> BSR:
+    """Host arrays (e.g. the reference's BSR read out with numpy) -> BSR.
+
+    ``indptr``/``indices`` become int32, ``blocks`` keeps its dtype
+    (bfloat16 included), and the capacity is ``len(indices)``.
+    """
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices)
+    blocks = np.asarray(blocks)
+    n, m = (int(s) for s in shape)
+    if blocks.ndim != 3 or indices.shape != blocks.shape[:1]:
+        raise ValueError(f"indices {indices.shape} and blocks {blocks.shape} "
+                         f"must be (bcap,) and (bcap, bs_r, bs_c)")
+    br, bc = blocks.shape[1:]
+    if br == 0 or bc == 0 or n % br or m % bc:
+        raise ValueError(f"shape {(n, m)} is not a whole number of "
+                         f"{(br, bc)} blocks")
+    if indptr.shape != (n // br + 1,):
+        raise ValueError(f"indptr has shape {indptr.shape}, expected "
+                         f"({n // br + 1},)")
+    return BSR(from_numpy(indptr.astype(np.int32), device),
+               from_numpy(indices.astype(np.int32), device),
+               from_numpy(blocks, device), (n, m))
+
+
+def topk_rows_from_arrays(values, indices, shape, device="cuda") -> TopKRows:
+    """Host arrays (e.g. the reference's TopKRows) -> TopKRows."""
+    values = np.asarray(values)
+    indices = np.asarray(indices)
+    n, d = (int(s) for s in shape)
+    if values.shape != indices.shape or values.ndim != 2 \
+            or values.shape[0] != n:
+        raise ValueError(f"values {values.shape} and indices {indices.shape} "
+                         f"must both be ({n}, k)")
+    return TopKRows(from_numpy(values, device),
+                    from_numpy(indices.astype(np.int32), device), (n, d))
+
+
+def bsr_from_dense(x, block_shape: Tuple[int, int],
+                   capacity: int | None = None, device="cuda") -> BSR:
+    """Dense -> BSR keeping every block with a nonzero, in row-major block
+    order.  Host-side helper: ``x`` (a numpy array, bfloat16 included, or
+    a tensor) is compacted on the host."""
+    x = x.cpu() if isinstance(x, torch.Tensor) else from_numpy(x, "cpu")
+    n, m = x.shape
+    br, bc = block_shape
+    if n % br or m % bc:
+        raise ValueError(f"shape {(n, m)} is not a whole number of "
+                         f"{(br, bc)} blocks")
+    nbr, nbc = n // br, m // bc
+    blocks4 = x.reshape(nbr, br, nbc, bc).permute(0, 2, 1, 3)
+    rows, cols = torch.nonzero((blocks4 != 0).flatten(2).any(-1),
+                               as_tuple=True)
+    nnzb = rows.shape[0]
+    cap = capacity if capacity is not None else max(nnzb, 1)
+    if nnzb > cap:
+        raise ValueError(f"capacity {cap} < nnzb {nnzb}")
+    indptr = torch.zeros(nbr + 1, dtype=torch.int32)
+    indptr[1:] = torch.bincount(rows, minlength=nbr).cumsum(0)
+    indices = torch.zeros(cap, dtype=torch.int32)
+    indices[:nnzb] = cols.to(torch.int32)
+    blocks = torch.zeros((cap, br, bc), dtype=x.dtype)
+    blocks[:nnzb] = blocks4[rows, cols]
+    return BSR(indptr.to(device), indices.to(device), blocks.to(device),
+               (n, m))
+
+
 # ---------------------------------------------------------------------------
 # Device-side converters
 # ---------------------------------------------------------------------------
+
+def bsr_to_dense(a: BSR) -> torch.Tensor:
+    """BSR -> dense on the BSR's device (padding blocks are dropped)."""
+    br, bc = a.block_shape
+    nbr, nbc = a.n_brows, a.n_bcols
+    cap = a.indices.shape[0]
+    p = torch.arange(cap, dtype=torch.int32, device=a.device)
+    rid = torch.searchsorted(a.indptr, p, right=True, out_int32=True) - 1
+    valid = p < a.nnzb
+    rid = torch.where(valid, rid, nbr)
+    out = torch.zeros((nbr + 1, nbc, br, bc), dtype=a.blocks.dtype,
+                      device=a.device)
+    out.index_put_((rid.long(), a.indices.long()),
+                   torch.where(valid[:, None, None], a.blocks, 0),
+                   accumulate=True)
+    return out[:nbr].permute(0, 2, 1, 3).reshape(a.shape)
+
 
 def csr_to_dense(a: CSR) -> torch.Tensor:
     """CSR -> dense (n, m) on the CSR's device."""

@@ -69,7 +69,9 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     keys, vals = random_stream(rng, 3, 9, 5)
     aia_gather.gather_rows(t(vals), t(np.array([2, 0], np.int32)))
     hash_accum.hash_accumulate(t(keys), t(vals), 16)
-    assert ops.launch_counts() == {"gather_rows": 0, "hash_accumulate": 0}
+    counts = ops.launch_counts()
+    assert {"gather_rows", "hash_accumulate"} <= set(counts)
+    assert all(n == 0 for n in counts.values())
 
 
 def test_wrappers_refuse_other_devices():

@@ -252,4 +252,6 @@ def test_cpu_path_launches_no_kernel():
     ops.reset_launch_counts()
     a = csr_from_dense(np.eye(6, dtype=np.float32), device="cpu")
     spgemm(a, a, engine="fused_hash", gather="aia")
-    assert ops.launch_counts() == {"gather_rows": 0, "hash_accumulate": 0}
+    counts = ops.launch_counts()
+    assert {"gather_rows", "hash_accumulate"} <= set(counts)
+    assert all(n == 0 for n in counts.values())
