@@ -10,6 +10,9 @@
 * ``topk_spmm`` — the paper's Eq. (1) ``TopK(h) @ W2``, per token and per
   token tile (replaces the Pallas ``repro.kernels.topk_spmm.topk_spmm`` and
   ``block_topk_spmm``).
+* ``flash_attention`` — fused online-softmax attention on ``(BH, S, D)``
+  (replaces the Pallas ``repro.kernels.flash_attention.
+  flash_attention_fused``).
 
 ``ops`` holds the device dispatch, the launch counters and the public
 entry points with the reference's signatures; ``_build`` builds the CUDA

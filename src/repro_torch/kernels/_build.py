@@ -25,8 +25,9 @@ FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P, _I, _B = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_F = ctypes.c_float
 # C entry points and their arguments (pointers and the stream as void*;
-# ``_B`` is 1 for bfloat16 operands, 0 for float32).
+# ``_B`` is 1 for bfloat16 operands, 0 for float32, or a flag).
 SIGNATURES = {
     # x, idx, out, n_x_rows, row_words, n_idx, stream
     "repro_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
@@ -43,6 +44,8 @@ SIGNATURES = {
     # stream
     "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B,
                               _P],
+    # q, k, v, o, bh, s, d, causal, bf16, scale, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _B, _B, _F, _P],
 }
 
 _LIB = None

@@ -1,0 +1,292 @@
+// Fused online-softmax attention (flash attention) on (BH, S, D) tensors.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
+// flash_attention_fused (_flash_kernel: grid (BH, nq, nk) with the kv axis
+// innermost and sequential on a TPU core, the running max m, denominator l
+// and accumulator acc carried in VMEM scratch across kv steps; causal calls
+// skip kv blocks wholly above the diagonal and mask the diagonal block with
+// -1e30; the output is acc / max(l, 1e-30) in the operands' dtype).  K and V
+// come already expanded to the query head count.
+//
+// What bounds it on an H100: operations.  At Phi-3-mini's prefill (BH 64,
+// S 4,096, D 96, bf16, causal) the blocks on and below the diagonal need
+// about 2.1e11 FLOP (Q.K^T and P.V), 0.22 ms at the 989 TFLOP/s bf16 tensor
+// core rate, against about 201 MB of q, k, v and o, 0.06 ms at 3.35 TB/s.
+// The S x S scores never reach device memory: that is the point of the
+// kernel, as on the TPU.
+//
+// Design: this first kernel does its arithmetic in float32 on the CUDA cores
+// (67 TFLOP/s, so at best ~3 ms at that shape); wgmma and TMA are later
+// work.  One thread block of 256 threads owns one (bh, 64-query tile) and
+// runs the kv loop itself, in ascending order: the loop takes the place of
+// the TPU's sequential grid axis, since blocks on a GPU run in no order and
+// carry nothing between them.  Per 64-key tile:
+//   1. K and V are staged in shared memory as float32 (Q once, before the
+//      loop), rows padded so that each thread's float4 reads of its four
+//      key rows fall in distinct banks;
+//   2. each thread forms a 4 x 4 patch of S = Q.K^T (rows 4*ty+i, keys
+//      tx+16*j), scales it by 1/sqrt(D), and masks keys past the diagonal
+//      (causal) or past S with -1e30, as the reference does;
+//   3. row max and row sum go across the 16 threads of a row group with
+//      warp shuffles; m, l and the rescale corr = exp(m_prev - m_new) stay
+//      in registers, expf (not __expf) throughout;
+//   4. P goes to shared memory transposed, and each thread adds P.V into
+//      its 4 rows x ceil(D/16) columns of the float32 accumulator.
+// Causal calls stop the loop at the last tile that holds a key <= the
+// tile's last query; the heaviest query tiles are scheduled first.
+//
+// The masked-row trap: a row whose first processed tile were wholly masked
+// would get m = -1e30 and p = exp(0) = 1 on every masked key until a later
+// tile corrected it.  Here the kv loop starts at key 0, which every query
+// may see (causal or not), so every row's max is a real score after the
+// first tile, and a masked key's p = exp(-1e30 - m) is exactly 0.
+//
+// Internal tiles (64 x 64) are the kernel's choice: masking is elementwise
+// and the function does not depend on them.  The kernel and the Python
+// version differ only in the order of float32 sums.  D <= 128.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBQ = 64;        // queries per block
+constexpr int kBK = 64;        // keys per kv tile
+constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
+constexpr int kMaxD = 128;
+constexpr int kLdP = kBQ + 4;  // row stride of P^T in shared memory
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);  // round to nearest even, as astype
+}
+
+// rows x dp floats from src (rows x d, row-major, starting at row r0 of
+// s_len) into dst with row stride ld; zero past d and past s_len.
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      int r0, int rows, int s_len, int d,
+                                      int dp, int ld) {
+  for (int e = threadIdx.x; e < rows * dp; e += kThreads) {
+    const int r = e / dp;
+    const int c = e - r * dp;
+    const int row = r0 + r;
+    dst[r * ld + c] = (row < s_len && c < d)
+                          ? to_f32(src[(long long)row * d + c]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// NC = ceil(D / 16): output columns per thread (tx + 16 * kk).
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int bh_count,
+             int s_len, int d, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int dp = (d + 3) & ~3;  // D padded to whole float4s
+  const int ld = dp + 4;        // row stride of Q and K
+  constexpr int kLdV = 16 * NC;
+  float* qs = smem;             // kBQ x ld
+  float* ks = qs + kBQ * ld;    // kBK x ld
+  float* vs = ks + kBK * ld;    // kBK x kLdV
+  float* pt = vs + kBK * kLdV;  // kBK x kLdP, P transposed
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int nq = (s_len + kBQ - 1) / kBQ;
+  // heaviest causal tiles (the last query tiles) first
+  const int qt = nq - 1 - (int)(blockIdx.x / bh_count);
+  const long long bh = blockIdx.x % bh_count;
+  const int q0 = qt * kBQ;
+  const long long base = bh * s_len * (long long)d;
+
+  stage(qs, q + base, q0, kBQ, s_len, d, dp, ld);
+
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk) acc[i][kk] = 0.0f;
+  }
+
+  const int n_kv = (s_len + kBK - 1) / kBK;
+  int n_tiles = n_kv;
+  if (causal) {
+    const int last_q = min(q0 + kBQ, s_len) - 1;
+    n_tiles = min(n_kv, last_q / kBK + 1);
+  }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    stage(ks, k + base, k0, kBK, s_len, d, dp, ld);
+    for (int e = tid; e < kBK * kLdV; e += kThreads) {
+      const int r = e / kLdV;
+      const int c = e - r * kLdV;
+      const int row = k0 + r;
+      vs[e] = (row < s_len && c < d)
+                  ? to_f32(v[base + (long long)row * d + c]) : 0.0f;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    for (int c = 0; c < dp; c += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&qs[(4 * ty + i) * ld + c]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * ld + c]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float t = s[i][j];
+          t = fmaf(a[i].x, b[j].x, t);
+          t = fmaf(a[i].y, b[j].y, t);
+          t = fmaf(a[i].z, b[j].z, t);
+          t = fmaf(a[i].w, b[j].w, t);
+          s[i][j] = t;
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + 4 * ty + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        const bool ok = kpos < s_len && (!causal || kpos <= qpos);
+        s[i][j] = ok ? s[i][j] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_warp_max(mx));
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);  // now p
+        rs += s[i][j];
+      }
+      const float corr = expf(m[i] - m_new);
+      l[i] = l[i] * corr + half_warp_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) acc[i][kk] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&pt[(tx + 16 * j) * kLdP + 4 * ty]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      const float4 p = *reinterpret_cast<const float4*>(&pt[c * kLdP + 4 * ty]);
+      const float* vr = vs + c * kLdV + tx;
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        const float vv = vr[16 * kk];
+        acc[0][kk] = fmaf(p.x, vv, acc[0][kk]);
+        acc[1][kk] = fmaf(p.y, vv, acc[1][kk]);
+        acc[2][kk] = fmaf(p.z, vv, acc[2][kk]);
+        acc[3][kk] = fmaf(p.w, vv, acc[3][kk]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= s_len) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* orow = o + base + (long long)row * d;
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk) {
+      const int n = tx + 16 * kk;
+      if (n < d) store(orow + n, acc[i][kk] / denom);
+    }
+  }
+}
+
+template <typename T, int NC>
+int launch(const void* q, const void* k, const void* v, void* o,
+           long long bh, long long s_len, long long d, int causal,
+           float scale, cudaStream_t stream) {
+  const long long dp = (d + 3) & ~3LL;
+  const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * (dp + 4)
+                                       + (size_t)kBK * 16 * NC
+                                       + (size_t)kBK * kLdP);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long nq = (s_len + kBQ - 1) / kBQ;
+  flash_kernel<T, NC><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), (int)bh, (int)s_len,
+      (int)d, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             long long bh, long long s_len, long long d, int causal,
+             float scale, cudaStream_t s) {
+  switch ((d + 15) / 16) {
+    case 1: return launch<T, 1>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 2: return launch<T, 2>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 3: return launch<T, 3>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 4: return launch<T, 4>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 5: return launch<T, 5>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 6: return launch<T, 6>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 7: return launch<T, 7>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 8: return launch<T, 8>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// q, k, v, o: (bh, s_len, d), contiguous, all float32 (bf16 = 0) or all
+// bfloat16 (bf16 = 1); o is written in full.  causal: 1 masks keys after
+// each query.  scale: the score scale, 1/sqrt(d) rounded once to float32.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// d outside 1..128 or a grid the launch cannot hold.
+extern "C" int repro_flash_attention(const void* q, const void* k,
+                                     const void* v, void* o, long long bh,
+                                     long long s_len, long long d, int causal,
+                                     int bf16, float scale, void* stream) {
+  if (bh <= 0 || s_len <= 0) return 0;
+  if (d <= 0 || d > kMaxD || s_len > 2147483647LL
+      || ((s_len + kBQ - 1) / kBQ) * bh > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, bh, s_len, d, causal,
+                                        scale, s)
+              : dispatch<float>(q, k, v, o, bh, s_len, d, causal, scale, s);
+}

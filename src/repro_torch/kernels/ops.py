@@ -7,13 +7,16 @@ launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
 that its path went through the kernels.
 
 The public wrappers ``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and
-``block_topk_spmm`` keep the reference's signatures
-(``repro.kernels.ops``), ``backend=`` included, with this device policy:
+``block_topk_spmm`` keep the reference's signatures (``repro.kernels.ops``),
+``backend=`` included; ``flash_attention_fused`` takes the signature of the
+reference's Pallas ``repro.kernels.flash_attention.flash_attention_fused``
+with ``backend=`` in place of ``interpret=``.  The device policy:
 
 * ``"auto"`` (default): the kernel on CUDA, the plain version on the CPU;
 * ``"xla"``: the reference's software-only baseline, asked for by name, in
   plain PyTorch on any device (for ``bsr_spmm`` that is
-  ``core.spgemm_bsr.bsr_spgemm_dense_rhs``, as in the reference);
+  ``core.spgemm_bsr.bsr_spgemm_dense_rhs``, as in the reference; for
+  ``flash_attention_fused`` the kernel's plain blockwise version);
 * ``"pallas"`` and ``"interpret"`` name TPU paths and raise ``ValueError``.
 
 No environment variable and no ``try`` moves a CUDA call off its kernel.
@@ -27,6 +30,7 @@ import torch
 LAUNCHES: Dict[str, int] = {
     "gather_rows": 0, "hash_accumulate": 0, "aia_ranged_gather": 0,
     "bsr_spmm": 0, "topk_spmm": 0, "block_topk_spmm": 0,
+    "flash_attention_fused": 0,
 }
 
 
@@ -132,3 +136,14 @@ def block_topk_spmm(h_kept, bidx, w2, block: int = 128,
     from repro_torch.kernels import topk_spmm as k
     return _route(backend, k.block_topk_spmm, k.block_topk_spmm_plain)(
         h_kept, bidx, w2, block)
+
+
+def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
+                          k_blk: int = 128, backend: str = "auto"):
+    """Online-softmax attention on ``(BH, S, D)`` with KV expanded to the
+    query heads, scale ``1/sqrt(D)``, output in ``q``'s dtype; ``S`` must be
+    a multiple of ``min(q_blk, S)`` and ``min(k_blk, S)``."""
+    from repro_torch.kernels import flash_attention as k7
+    return _route(backend, k7.flash_attention_fused,
+                  k7.flash_attention_fused_plain)(q, k, v, causal, q_blk,
+                                                  k_blk)

@@ -1,0 +1,253 @@
+"""Attention, the GQA half: train/prefill and decode paths.
+
+Counterpart of ``repro.models.attention`` (MLA is not ported yet: ROADMAP
+Queue A item 12).  Layouts are the reference's: activations ``(B, S, H,
+D)``, KV caches ``(B, S_max, KV, D)``.
+
+``flash_attention`` is the reference's online softmax over query and key
+chunks.  A call that lies inside the fused kernel's contract goes through
+``kernels.ops.flash_attention_fused`` (K7: the CUDA kernel on the card, its
+plain blockwise version on the CPU): no window, no query offset, no
+``kv_valid_len``, Sq == Sk, Dv == D, no ``p_dtype``, and S at most 128 or a
+multiple of 128.  Every other call runs the chunked PyTorch code on the
+CPU; on the card it raises, since the port has no kernel for it.
+
+The K7 route scales scores by ``1/sqrt(D)`` rounded once from double, as
+the Pallas kernel does; the chunked code by ``1/sqrt(float32(D))``, as the
+reference's model code does (one float32 ulp apart for D = 96).
+
+``decode_attention`` is plain PyTorch, as the reference leaves it to XLA.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.common import apply_rope, dense_init
+
+NEG_INF = -1e30
+K7_MAX_BLOCK = 128  # the kernel contract's default q/k block
+
+
+def _mask_val(qpos, kpos, causal: bool, window: int):
+    ok = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+    if window:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
+def on_k7_route(sq: int, sk: int, d: int, dv: int, window: int = 0,
+                q_offset: int = 0, kv_valid_len=None, p_dtype=None) -> bool:
+    """True when ``flash_attention`` with these arguments goes through the
+    fused kernel (K7)."""
+    return (window == 0 and q_offset == 0 and kv_valid_len is None
+            and sq == sk and dv == d and p_dtype is None
+            and (sq <= K7_MAX_BLOCK or sq % K7_MAX_BLOCK == 0))
+
+
+def _fused(q, k, v, causal: bool):
+    """K7 on the ``(B*H, S, D)`` layout: heads next to the batch, KV
+    expanded to the query heads (head h reads kv head h // G)."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+
+    def heads_first(t):
+        return t.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+
+    out = ops.flash_attention_fused(heads_first(q), heads_first(k),
+                                    heads_first(v), causal=causal)
+    return out.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
+def flash_attention(
+    q: torch.Tensor,            # (B, Sq, H, D)
+    k: torch.Tensor,            # (B, Sk, KV, D)
+    v: torch.Tensor,            # (B, Sk, KV, Dv)
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    q_chunk: int = 512,
+    k_chunk: int = 1024,
+    kv_valid_len=None,
+    p_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Online-softmax attention; O(S·chunk) memory.  GQA via head groups.
+
+    ``p_dtype=torch.bfloat16`` rounds the softmax probabilities to bf16
+    between the two products (the sums stay float32).  Returns ``(B, Sq, H,
+    Dv)`` in ``q``'s dtype.
+    """
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dv = v.shape[3]
+    if on_k7_route(sq, sk, d, dv, window, q_offset, kv_valid_len, p_dtype):
+        return _fused(q, k, v, causal)
+    if q.device.type != "cpu":
+        raise NotImplementedError(
+            f"flash_attention(window={window}, q_offset={q_offset}, "
+            f"kv_valid_len={'set' if kv_valid_len is not None else None}, "
+            f"Sq={sq}, Sk={sk}, D={d}, Dv={dv}, p_dtype={p_dtype}) is outside "
+            f"the fused kernel's contract and the port has no kernel for it "
+            f"on {q.device} (ROADMAP Queue A item 12)")
+    g = h // kv
+    scale = float(1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32)))
+    q_chunk = min(q_chunk, sq)
+    k_chunk = min(k_chunk, sk)
+    # pad ragged lengths up to the chunk grid; padded keys are masked via
+    # kv_valid_len, padded queries are sliced off the output
+    sq_orig, sk_orig = sq, sk
+    if sq % q_chunk or sk % k_chunk:
+        sq_pad, sk_pad = (-sq) % q_chunk, (-sk) % k_chunk
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sq_pad))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, sk_pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_pad))
+        sq, sk = sq + sq_pad, sk + sk_pad
+        if kv_valid_len is None:
+            kv_valid_len = sk_orig
+        else:
+            kv_valid_len = torch.clamp(torch.as_tensor(kv_valid_len),
+                                       max=sk_orig)
+    nq, nk = sq // q_chunk, sk // k_chunk
+
+    qr = q.reshape(b, nq, q_chunk, kv, g, d)
+    kr = k.reshape(b, nk, k_chunk, kv, d)
+    vr = v.reshape(b, nk, k_chunk, kv, dv)
+    outs = []
+    for qi in range(nq):
+        qc = qr[:, qi].float()  # (B, q_chunk, KV, G, D)
+        m = torch.full((b, q_chunk, kv, g), NEG_INF, dtype=torch.float32)
+        l = torch.zeros((b, q_chunk, kv, g), dtype=torch.float32)
+        acc = torch.zeros((b, q_chunk, kv, g, dv), dtype=torch.float32)
+        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk)
+        for kj in range(nk):
+            s = torch.einsum("bqkgd,bckd->bqkgc", qc,
+                             kr[:, kj].float()) * scale
+            kpos = kj * k_chunk + torch.arange(k_chunk)
+            ok = _mask_val(qpos[:, None], kpos[None, :], causal, window)
+            if kv_valid_len is not None:
+                ok = ok & (kpos[None, :] < kv_valid_len)
+            s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            vs = vr[:, kj]
+            if p_dtype is not None:
+                # rounded to p_dtype, multiplied and summed in float32
+                p = p.to(p_dtype).float()
+                vs = vs.to(p_dtype)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqkgc,bckd->bqkgd", p, vs.float())
+            m = m_new
+        outs.append((acc / l[..., None].clamp_min(1e-30)).to(q.dtype))
+    out = torch.stack(outs, dim=1).reshape(b, sq, h, dv)
+    return out[:, :sq_orig]
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S_max, KV, D)
+    v_cache: torch.Tensor,
+    cache_len,              # () current length INCLUDING the new token
+    window: int = 0,
+) -> torch.Tensor:
+    """Single-token attention over the cache (plain PyTorch)."""
+    b, smax, kv, d = k_cache.shape
+    h = q.shape[2]
+    g = h // kv
+    scale = float(1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32)))
+    qr = q.reshape(b, kv, g, d).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qr, k_cache.float()) * scale
+    kpos = torch.arange(smax, device=q.device)
+    ok = kpos < cache_len
+    if window:
+        ok = ok & (kpos >= cache_len - window)
+    s = torch.where(ok[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block-level wrappers
+# ---------------------------------------------------------------------------
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor  # (D, H*hd)
+    wk: torch.Tensor  # (D, KV*hd)
+    wv: torch.Tensor  # (D, KV*hd)
+    wo: torch.Tensor  # (H*hd, D)
+
+
+def gqa_init(generator, d_model, n_heads, n_kv, hd, dtype,
+             layers: Optional[int] = None) -> AttnParams:
+    """Projections for one layer, or stacked for ``layers`` layers."""
+    return AttnParams(
+        wq=dense_init(generator, d_model, n_heads * hd, dtype, layers=layers),
+        wk=dense_init(generator, d_model, n_kv * hd, dtype, layers=layers),
+        wv=dense_init(generator, d_model, n_kv * hd, dtype, layers=layers),
+        wo=dense_init(generator, n_heads * hd, d_model, dtype, layers=layers),
+    )
+
+
+def gqa_forward(p: AttnParams, x, *, n_heads, n_kv, hd, rope_theta,
+                causal=True, window=0, positions=None, cross_kv=None,
+                attn_chunk=0, p_dtype=None):
+    """Train/prefill attention.  cross_kv=(k,v) switches to cross-attention."""
+    b, s, d = x.shape
+    q = (x @ p.wq).reshape(b, s, n_heads, hd)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    g = n_heads // n_kv
+    kw = dict(q_chunk=attn_chunk, k_chunk=attn_chunk) if attn_chunk else {}
+    if cross_kv is None:
+        k = (x @ p.wk).reshape(b, s, n_kv, hd)
+        v = (x @ p.wv).reshape(b, s, n_kv, hd)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+        if g > 1:  # expand KV to the full head count, as jnp.repeat
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              p_dtype=p_dtype, **kw)
+    else:
+        k, v = cross_kv
+        if g > 1:
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        out = flash_attention(q, k, v, causal=False, p_dtype=p_dtype, **kw)
+    return out.reshape(b, s, n_heads * hd) @ p.wo
+
+
+def gqa_cross_kv(p: AttnParams, enc: torch.Tensor, n_kv, hd):
+    """Encoder K/V computed once per sequence."""
+    b, s, _ = enc.shape
+    k = (enc @ p.wk).reshape(b, s, n_kv, hd)
+    v = (enc @ p.wv).reshape(b, s, n_kv, hd)
+    return k, v
+
+
+def gqa_decode(p: AttnParams, x, k_cache, v_cache, pos, *, n_heads, n_kv,
+               hd, rope_theta, window=0):
+    """One decode step: write the token's K/V into the caches at ``pos`` (in
+    place: the port does not copy the caches, where the reference returns
+    new ones), attend over positions ``<= pos``.  pos: () integer tensor or
+    int.  Returns (output, k_cache, v_cache)."""
+    b = x.shape[0]
+    q = (x @ p.wq).reshape(b, 1, n_heads, hd)
+    k = (x @ p.wk).reshape(b, 1, n_kv, hd)
+    v = (x @ p.wv).reshape(b, 1, n_kv, hd)
+    pos = torch.as_tensor(pos, device=x.device)
+    posb = pos.reshape(1, 1).expand(b, 1)
+    q = apply_rope(q, posb, rope_theta)
+    k = apply_rope(k, posb, rope_theta)
+    at = pos.reshape(1).long()
+    k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+    out = decode_attention(q, k_cache, v_cache, pos + 1, window=window)
+    return out.reshape(b, 1, n_heads * hd) @ p.wo, k_cache, v_cache

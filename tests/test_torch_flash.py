@@ -1,0 +1,210 @@
+"""The port's flash attention against the JAX package, on the CPU.
+
+* K7's plain version (``kernels.flash_attention.flash_attention_fused_plain``,
+  what ``ops.flash_attention_fused`` runs on a CPU tensor) against the
+  reference's Pallas kernel in interpret mode, on
+  ``tests/test_flash_kernel.py``'s 12 cases.  float32: within 1e-5 + 1e-5
+  relative (both sum in float32, in another order).  bfloat16: the output is
+  rounded to bfloat16 once, so a sum that lands near a rounding boundary
+  may round the other way: within one bfloat16 step, 2**-7 relative.
+* The port's model attention (``models.attention.flash_attention``) against
+  the reference's, on the K7 route (the fused kernel's contract) and on the
+  chunked route (window, ``q_offset``, ``kv_valid_len``, ragged S, GQA,
+  ``p_dtype``, cross-attention).  The K7 route differs from the reference's
+  chunked loop in its blocks (so the order of sums) and in its scale
+  (``1/sqrt(D)`` rounded from double, one float32 ulp from
+  ``1/sqrt(float32(D))`` for some D): within rtol 2e-4 / atol 2e-5, the
+  reference's own kernel-vs-model bar (``test_flash_fused_matches_model_
+  flash``).  The chunked route repeats the reference's arithmetic: within
+  1e-5 relative / 1e-6; with ``p_dtype=bfloat16`` the probabilities are
+  rounded to bfloat16, so a probability near a rounding boundary may round
+  the other way: within 2**-8 relative / 1e-4.
+* ``ops`` routing: a CPU call launches nothing; the TPU backends raise.
+The CUDA kernel is held against the same plain version on the card by
+``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_fused as ref_fused
+from repro.models import attention as ref_attn
+from repro_torch.kernels import flash_attention as k7
+from repro_torch.kernels import ops
+from repro_torch.models import attention
+
+DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+DTYPE_IDS = ["f32", "bf16"]
+KERNEL_CASES = [(2, 64, 32, 16, 16), (1, 128, 64, 32, 64), (3, 32, 16, 32, 16)]
+
+
+def to_torch(x, dtype=torch.float32):
+    """A host or JAX array -> torch ``dtype`` (bf16 values carried exactly)."""
+    return torch.from_numpy(np.array(x, np.float32)).to(dtype)
+
+
+def host(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,d,qb,kb", KERNEL_CASES)
+def test_k7_plain_matches_pallas(dtypes, causal, bh, s, d, qb, kb):
+    jdt, tdt = dtypes
+    rng = np.random.default_rng(0)
+    q, k, v = (jnp.asarray(rng.standard_normal((bh, s, d)), jdt)
+               for _ in range(3))
+    want = ref_fused(q, k, v, causal=causal, q_blk=qb, k_blk=kb,
+                     interpret=True)
+    before = ops.launch_counts()
+    got = ops.flash_attention_fused(to_torch(q, tdt), to_torch(k, tdt),
+                                    to_torch(v, tdt), causal=causal,
+                                    q_blk=qb, k_blk=kb)
+    assert ops.launch_counts() == before  # the CPU runs the plain version
+    assert got.dtype == tdt and tuple(got.shape) == (bh, s, d)
+    if tdt == torch.float32:
+        np.testing.assert_allclose(host(got), host(want), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        np.testing.assert_allclose(host(got), host(want), rtol=2 ** -7,
+                                   atol=1e-6)
+
+
+def test_k7_keeps_the_reference_divisibility_contract():
+    x = torch.zeros((1, 96, 16))
+    with pytest.raises(AssertionError):
+        k7.flash_attention_fused(x, x, x, q_blk=64, k_blk=64)
+    with pytest.raises(ValueError):
+        k7.flash_attention_fused(x, x, x[:, :, :8])
+
+
+def test_ops_routing():
+    x = torch.zeros((1, 16, 8))
+    before = ops.launch_counts()
+    ops.flash_attention_fused(x, x, x, backend="xla")
+    ops.flash_attention_fused(x, x, x)
+    assert ops.launch_counts() == before
+    for backend in ("pallas", "interpret"):
+        with pytest.raises(ValueError):
+            ops.flash_attention_fused(x, x, x, backend=backend)
+
+
+class Spy:
+    """Counts the model's calls of ``ops.flash_attention_fused``."""
+
+    def __init__(self, monkeypatch):
+        self.calls = 0
+        real = ops.flash_attention_fused
+
+        def spy(*args, **kwargs):
+            self.calls += 1
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(attention.ops, "flash_attention_fused", spy)
+
+
+def qkv(rng, b, sq, sk, h, kv, d, dv=None):
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, kv, d)).astype(np.float32),
+            rng.standard_normal((b, sk, kv, dv or d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal", [
+    (2, 64, 4, 4, 32, True), (2, 64, 4, 4, 32, False),
+    (1, 256, 4, 2, 16, True), (2, 16, 6, 2, 8, True),
+    (1, 128, 2, 1, 24, False),
+])
+def test_model_flash_k7_route(monkeypatch, b, s, h, kv, d, causal):
+    q, k, v = qkv(np.random.default_rng(1), b, s, s, h, kv, d)
+    assert attention.on_k7_route(s, s, d, d)
+    spy = Spy(monkeypatch)
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                    causal=causal)
+    assert spy.calls == 1
+    want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                    causal=causal)
+    np.testing.assert_allclose(host(got), host(want), rtol=2e-4, atol=2e-5)
+
+
+CHUNKED = {
+    "window": dict(shape=(2, 64, 64, 4, 4, 16), kw=dict(window=24,
+                                                      q_chunk=16, k_chunk=32)),
+    "q_offset": dict(shape=(1, 16, 64, 4, 2, 16),
+                     kw=dict(q_offset=48, q_chunk=8, k_chunk=16)),
+    "kv_valid_len": dict(shape=(2, 32, 32, 4, 4, 16),
+                         kw=dict(kv_valid_len=20, causal=False, q_chunk=16,
+                                 k_chunk=16)),
+    "ragged": dict(shape=(1, 150, 150, 4, 4, 16), kw=dict(q_chunk=16,
+                                                        k_chunk=32)),
+    "gqa_ragged": dict(shape=(2, 200, 200, 6, 2, 16), kw=dict(q_chunk=64,
+                                                             k_chunk=128)),
+    "p_dtype": dict(shape=(2, 64, 64, 4, 2, 16), kw=dict(
+        p_dtype=(jnp.bfloat16, torch.bfloat16), q_chunk=32, k_chunk=16)),
+    "cross": dict(shape=(2, 8, 24, 4, 4, 16), kw=dict(causal=False)),
+    "dv": dict(shape=(1, 32, 32, 2, 2, 16), dv=8, kw={}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHUNKED))
+def test_model_flash_chunked_route(monkeypatch, case):
+    spec = CHUNKED[case]
+    b, sq, sk, h, kv, d = spec["shape"]
+    q, k, v = qkv(np.random.default_rng(2), b, sq, sk, h, kv, d,
+                  spec.get("dv"))
+    kw_ref, kw_port = dict(spec["kw"]), dict(spec["kw"])
+    if "p_dtype" in kw_ref:
+        kw_ref["p_dtype"], kw_port["p_dtype"] = kw_ref["p_dtype"]
+    spy = Spy(monkeypatch)
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                    **kw_port)
+    assert spy.calls == 0
+    want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)), **kw_ref)
+    assert tuple(got.shape) == want.shape
+    if "p_dtype" in kw_ref:
+        np.testing.assert_allclose(host(got), host(want), rtol=2 ** -8,
+                                   atol=1e-4)
+    else:
+        np.testing.assert_allclose(host(got), host(want), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_chunked_route_raises_off_the_cpu():
+    """Outside K7's contract the port has no kernel: a tensor that is not on
+    the CPU raises instead of running the chunked code there."""
+    q = torch.zeros((1, 16, 2, 8), device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.flash_attention(q, q, q, window=4)
+
+
+def test_fused_matches_model_chunked_in_the_port():
+    """The port's counterpart of ``test_flash_fused_matches_model_flash``:
+    K7's plain version against the port's own chunked loop."""
+    b, s, h, d = 2, 64, 4, 32
+    q, k, v = map(torch.from_numpy, qkv(np.random.default_rng(1), b, s, s,
+                                        h, h, d))
+    chunked = attention.flash_attention(q, k, v, causal=True, q_chunk=32,
+                                        k_chunk=32, kv_valid_len=s)
+    fused = attention.flash_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(host(fused), host(chunked), rtol=2e-4,
+                               atol=2e-5)
+
+
+def test_decode_attention_matches_reference():
+    rng = np.random.default_rng(3)
+    b, smax, h, kv, d = 2, 16, 4, 2, 8
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    kc, vc = (rng.standard_normal((b, smax, kv, d)).astype(np.float32)
+              for _ in range(2))
+    for cache_len, window in ((5, 0), (16, 0), (11, 4)):
+        got = attention.decode_attention(
+            *map(torch.from_numpy, (q, kc, vc)),
+            torch.tensor(cache_len, dtype=torch.int32), window=window)
+        want = ref_attn.decode_attention(*map(jnp.asarray, (q, kc, vc)),
+                                         jnp.asarray(cache_len, jnp.int32),
+                                         window=window)
+        np.testing.assert_allclose(host(got), host(want), rtol=1e-5,
+                                   atol=1e-6)
