@@ -31,12 +31,17 @@ products run in full float32 (TF32 off).  It
    down-projection beside them;
 4. holds K7 (``ops.flash_attention_fused``) against its plain version on
    the 12 cases of ``tests/test_flash_kernel.py`` (float32 and bf16, causal
-   and not), then at Phi-3-mini's prefill shape (BH 64 = batch 2 x 32
-   heads, S 4,096, D 96, bf16, causal), one launch per call; float32 within
-   1e-5 + 1e-5 relative, bf16 within one bf16 step (2**-7 relative); and
-   times it there (CUDA events; device time from ``torch.profiler``) beside
-   its bound (operations), its plain version and
-   ``F.scaled_dot_product_attention`` (a yardstick the port never calls);
+   and not), on the edges of the bf16 kernel's tiles (D 7, 36, 40, 96 and
+   128 at S 64 and 192, causal and not, blocks of 64), the float32 kernel
+   at the decode check's shape (32 heads, S 512, D 96), then at Phi-3-mini's
+   prefill shape (BH 64 = batch 2 x 32 heads, S 4,096, D 96, bf16,
+   causal), one launch per call; float32 within 1e-5 + 1e-5 relative, bf16
+   within one bf16 step (2**-7 relative); and times it there (CUDA events;
+   device time from ``torch.profiler``) beside its bound (operations), its
+   plain version and ``F.scaled_dot_product_attention`` (a yardstick the
+   port never calls), with its route (bf16: ``wgmma``), its rate, and
+   ``ptxas``'s registers and spills and its shared memory; then holds and
+   times the float32 route (CUDA cores) at the same shape in float32;
 5. drives the LM path of Phi-3-mini (``phi3_mini_3_8b``) at full width and
    depth (32 layers, bf16, random weights from seed 0), each part with the
    launch counts from 0: ``models.transformer.train_loss`` forward-only on
@@ -830,6 +835,16 @@ def ffn_kernel_records(out, w2, launches, log):
 # tests/test_flash_kernel.py's shapes (bh, s, d, q_blk, k_blk), then
 # Phi-3-mini's prefill: batch 2 x 32 heads, 4,096 tokens, head dim 96, bf16
 FLASH_CASES = ((2, 64, 32, 16, 16), (1, 128, 64, 32, 64), (3, 32, 16, 32, 16))
+# the bf16 kernel's edges: D = 7 (odd: element-wise staging, scalar
+# stores), 36 (even, not a multiple of 8: element-wise staging, paired
+# stores), 40 (one panel, padded), 96 (two panels, the second half used),
+# 128; S = 64 (one kv tile, half a query block) and 192 (a partial query
+# block); q_blk = k_blk = 64 for the divisibility contract
+FLASH_EDGES = tuple((2, s, d, 64, 64) for d in (7, 36, 40, 96, 128)
+                    for s in (64, 192))
+# the float32 kernel at the decode check's shape (1 x 32 heads, a 512-token
+# prompt, D 96)
+FLASH_F32 = ((32, 512, 96, 128, 128),)
 FLASH_PHI3 = (64, 4096, 96, 128, 128)
 # (rtol, atol) against the plain version: float32 sums in another order;
 # a bf16 output is rounded once, so a sum near a rounding boundary may round
@@ -864,8 +879,10 @@ def flash_hold(q, k, v, causal, q_blk, k_blk):
 
 def flash_phase(log):
     """Hold K7 against its plain version on the 12 cases of the reference's
-    kernel test and at the Phi-3 prefill shape, then time it there beside
-    its bound, its plain version and ``scaled_dot_product_attention``."""
+    kernel test, the bf16 kernel's tile edges and the Phi-3 prefill shape,
+    then time it there beside its bound, its plain version and
+    ``scaled_dot_product_attention``; then hold and time the float32 route
+    there."""
     import torch
     import torch.nn.functional as F
 
@@ -881,14 +898,16 @@ def flash_phase(log):
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         for causal in (True, False):
-            for bh, s, d, qb, kb in FLASH_CASES:
+            cases = FLASH_CASES + (FLASH_EDGES if dt == torch.bfloat16
+                                   else FLASH_F32)
+            for bh, s, d, qb, kb in cases:
                 errs[f"{dt}/{causal}/{bh}x{s}x{d}"] = flash_hold(
                     *rand((bh, s, d), dt), causal, qb, kb)
     emit({"flash_cases": {"cases": len(errs), "max_abs_err": errs}}, log)
 
     bh, s, d, qb, kb = FLASH_PHI3
     q, k, v = rand((bh, s, d), torch.bfloat16)
-    rec = {"name": "flash_attention_fused",
+    rec = {"name": "flash_attention_fused", "route": k7.route(q.dtype),
            "shape": {"bh": bh, "s": s, "d": d, "dtype": "bfloat16",
                      "causal": True},
            "max_abs_err": flash_hold(q, k, v, True, qb, kb)}
@@ -913,11 +932,55 @@ def flash_phase(log):
     rec["bytes"] = 4 * bh * s * d * q.element_size()
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
                                              q.dtype)
+    rec["tflops"] = rec["flops"] / rec["device_ms"] / 1e9 \
+        if rec["device_ms"] else None
+    # what the tensor cores do: Q.K^T once, P.V once for each bf16 term of P
+    consts = k7.wgmma_constants()
+    rec["tensor_flops"] = rec["flops"] * (1 + consts["kPTerms"]) // 2
+    rec["tensor_bound_ms"] = bound(0, rec["tensor_flops"], q.dtype)[0]
+    rec["ptxas"] = ptxas_report(f"flash_wgmma_kernelILi{d}E")
+    # dynamic shared memory a block (smem_bytes in the source): Q's 64 x kWG
+    # rows and the K/V ring, in 64-column panels of 128-byte rows, and 1024
+    # bytes of alignment
+    rec["ptxas"]["dynamic_smem_bytes"] = 1024 + (d + 63) // 64 * 128 * (
+        64 * consts["kWG"] + consts["kStages"] * 2 * consts["kBK"])
     rec.update(library_call([(
         "F.scaled_dot_product_attention(is_causal=True) on (2, 32, s, d)",
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))]))
     emit({"flash_kernel": rec}, log)
+
+    # the float32 route at the same shape
+    del q4, k4, v4
+    q, k, v = (x.float() for x in (q, k, v))
+    f32 = {"route": k7.route(q.dtype),
+           "max_abs_err": flash_hold(q, k, v, True, qb, kb),
+           "ms": time_ms(kernel, reps=3)}
+    _, _, top = profile(lambda: [kernel() for _ in range(3)])
+    f32["device_ms"] = top[0][1] / top[0][2] if top else None
+    f32["ptxas"] = ptxas_report(f"flash_kernelILi{(d + 15) // 16}E")
+    emit({"flash_kernel_f32": f32}, log)
     return rec
+
+
+def ptxas_report(kernel: str) -> dict:
+    """Registers, spills and static shared memory of the kernel whose
+    mangled name holds ``kernel``, from ``ptxas -v`` in ``build.log``."""
+    import re
+
+    from repro_torch.kernels._build import build
+
+    text = (build().parent / "build.log").read_text()
+    blocks = text.split("Compiling entry function '")[1:]
+    for block in blocks:
+        if kernel in block.split("'", 1)[0]:
+            nums = {k: int(v) for v, k in re.findall(
+                r"(\d+) (bytes spill stores|bytes spill loads|registers|"
+                r"bytes smem)", block)}
+            return {"registers": nums.get("registers"),
+                    "spill_stores": nums.get("bytes spill stores"),
+                    "spill_loads": nums.get("bytes spill loads"),
+                    "static_smem_bytes": nums.get("bytes smem", 0)}
+    return {}
 
 
 # ---------------------------------------------------------------------------
@@ -1183,7 +1246,8 @@ def main(argv=None) -> int:
             "library_call": rec["library_call"]})
     kernels.append({
         "name": "flash_attention_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "tpu_kernel": "src/repro/kernels/flash_attention.py:"
                       "flash_attention_fused",

@@ -1,4 +1,6 @@
-// Fused online-softmax attention (flash attention) on (BH, S, D) tensors.
+// Fused online-softmax attention (flash attention) on float32 (BH, S, D)
+// tensors, on the CUDA cores: the float32 route of ops.flash_attention_fused.
+// bf16 inputs go to the tensor-core kernel, flash_attention_wgmma.cu.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_fused (_flash_kernel: grid (BH, nq, nk) with the kv axis
@@ -8,16 +10,16 @@
 // -1e30; the output is acc / max(l, 1e-30) in the operands' dtype).  K and V
 // come already expanded to the query head count.
 //
-// What bounds it on an H100: operations.  At Phi-3-mini's prefill (BH 64,
-// S 4,096, D 96, bf16, causal) the blocks on and below the diagonal need
-// about 2.1e11 FLOP (Q.K^T and P.V), 0.22 ms at the 989 TFLOP/s bf16 tensor
-// core rate, against about 201 MB of q, k, v and o, 0.06 ms at 3.35 TB/s.
-// The S x S scores never reach device memory: that is the point of the
-// kernel, as on the TPU.
+// What bounds it on an H100: operations.  At Phi-3-mini's prefill shape in
+// float32 (BH 64, S 4,096, D 96, causal) the blocks on and below the
+// diagonal need about 2.1e11 FLOP (Q.K^T and P.V), ~3 ms at the CUDA
+// cores' 67 TFLOP/s float32 rate, against about 403 MB of q, k, v and o,
+// 0.12 ms at 3.35 TB/s.  The S x S scores never reach device memory: that
+// is the point of the kernel, as on the TPU.
 //
-// Design: this first kernel does its arithmetic in float32 on the CUDA cores
-// (67 TFLOP/s, so at best ~3 ms at that shape); wgmma and TMA are later
-// work.  One thread block of 256 threads owns one (bh, 64-query tile) and
+// Design: the arithmetic is float32 on the CUDA cores, as the reference's
+// float32 products are (wgmma in TF32 would keep 10 mantissa bits).  One
+// thread block of 256 threads owns one (bh, 64-query tile) and
 // runs the kv loop itself, in ascending order: the loop takes the place of
 // the TPU's sequential grid axis, since blocks on a GPU run in no order and
 // carry nothing between them.  Per 64-key tile:
@@ -44,7 +46,6 @@
 // Internal tiles (64 x 64) are the kernel's choice: masking is elementwise
 // and the function does not depend on them.  The kernel and the Python
 // version differ only in the order of float32 sums.  D <= 128.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,19 +57,10 @@ constexpr int kMaxD = 128;
 constexpr int kLdP = kBQ + 4;  // row stride of P^T in shared memory
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as astype
-}
-
 // rows x dp floats from src (rows x d, row-major, starting at row r0 of
 // s_len) into dst with row stride ld; zero past d and past s_len.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+__device__ __forceinline__ void stage(float* dst,
+                                      const float* __restrict__ src,
                                       int r0, int rows, int s_len, int d,
                                       int dp, int ld) {
   for (int e = threadIdx.x; e < rows * dp; e += kThreads) {
@@ -76,7 +68,7 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     const int c = e - r * dp;
     const int row = r0 + r;
     dst[r * ld + c] = (row < s_len && c < d)
-                          ? to_f32(src[(long long)row * d + c]) : 0.0f;
+                          ? src[(long long)row * d + c] : 0.0f;
   }
 }
 
@@ -94,10 +86,10 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 // NC = ceil(D / 16): output columns per thread (tx + 16 * kk).
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int bh_count,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int bh_count,
              int s_len, int d, int causal, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -144,7 +136,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e - r * kLdV;
       const int row = k0 + r;
       vs[e] = (row < s_len && c < d)
-                  ? to_f32(v[base + (long long)row * d + c]) : 0.0f;
+                  ? v[base + (long long)row * d + c] : 0.0f;
     }
     __syncthreads();
 
@@ -224,16 +216,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= s_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + base + (long long)row * d;
+    float* orow = o + base + (long long)row * d;
 #pragma unroll
     for (int kk = 0; kk < NC; ++kk) {
       const int n = tx + 16 * kk;
-      if (n < d) store(orow + n, acc[i][kk] / denom);
+      if (n < d) orow[n] = acc[i][kk] / denom;
     }
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 int launch(const void* q, const void* k, const void* v, void* o,
            long long bh, long long s_len, long long d, int causal,
            float scale, cudaStream_t stream) {
@@ -242,51 +234,48 @@ int launch(const void* q, const void* k, const void* v, void* o,
                                        + (size_t)kBK * 16 * NC
                                        + (size_t)kBK * kLdP);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nq = (s_len + kBQ - 1) / kBQ;
-  flash_kernel<T, NC><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), (int)bh, (int)s_len,
-      (int)d, causal, scale);
+  flash_kernel<NC><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), (int)bh,
+      (int)s_len, (int)d, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              long long bh, long long s_len, long long d, int causal,
              float scale, cudaStream_t s) {
   switch ((d + 15) / 16) {
-    case 1: return launch<T, 1>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 2: return launch<T, 2>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 3: return launch<T, 3>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 4: return launch<T, 4>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 5: return launch<T, 5>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 6: return launch<T, 6>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 7: return launch<T, 7>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 8: return launch<T, 8>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 1: return launch<1>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 2: return launch<2>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 3: return launch<3>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 4: return launch<4>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 5: return launch<5>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 6: return launch<6>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 7: return launch<7>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 8: return launch<8>(q, k, v, o, bh, s_len, d, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, s_len, d), contiguous, all float32 (bf16 = 0) or all
-// bfloat16 (bf16 = 1); o is written in full.  causal: 1 masks keys after
-// each query.  scale: the score scale, 1/sqrt(d) rounded once to float32.
+// q, k, v, o: (bh, s_len, d) float32, contiguous; o is written in full.
+// causal: 1 masks keys after each query.  scale: the score scale,
+// 1/sqrt(d) rounded once to float32.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // d outside 1..128 or a grid the launch cannot hold.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, long long bh,
                                      long long s_len, long long d, int causal,
-                                     int bf16, float scale, void* stream) {
+                                     float scale, void* stream) {
   if (bh <= 0 || s_len <= 0) return 0;
   if (d <= 0 || d > kMaxD || s_len > 2147483647LL
       || ((s_len + kBQ - 1) / kBQ) * bh > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, bh, s_len, d, causal,
-                                        scale, s)
-              : dispatch<float>(q, k, v, o, bh, s_len, d, causal, scale, s);
+  return dispatch(q, k, v, o, bh, s_len, d, causal, scale,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,398 @@
+// Fused online-softmax attention (flash attention) for bf16 (BH, S, D)
+// tensors on the tensor cores of a Hopper GPU (sm_90a): the bf16 route of
+// ops.flash_attention_fused.  float32 inputs go to flash_attention.cu.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:73
+// (flash_attention_fused; body _flash_kernel :29).  What it computes, as
+// there: q, k and v taken as float32, S = Q.K^T * (1/sqrt(D)) in float32,
+// causal keys past the query masked with -1e30, a running max m,
+// denominator l and accumulator acc in float32 over kv tiles in ascending
+// order, P = exp(S - m) kept in float32 for P.V, and the output
+// acc / max(l, 1e-30) rounded to bf16 (round to nearest even).
+//
+// What bounds it on an H100: operations.  At Phi-3-mini's prefill (BH 64,
+// S 4,096, D 96, causal) Q.K^T and P.V over the pairs on and below the
+// diagonal are 2.06e11 FLOP, 0.2085 ms at the 989 TFLOP/s bf16 tensor-core
+// rate, against 201 MB of q, k, v and o (0.060 ms at 3.35 TB/s).  P in
+// three bf16 terms (below) makes the tensor cores do 4.12e11 operations,
+// 0.417 ms at that rate.
+//
+// Design (what it does about that bound): both products on the tensor
+// cores with wgmma, bf16 operands and float32 accumulators.
+//   * One block of two consumer warpgroups owns 128 query rows of one bh
+//     (64 rows a warpgroup) and runs the kv loop over tiles of 64 keys;
+//     causal calls stop at the last tile that holds a key <= the block's
+//     last query, a warpgroup skips the products of a tile wholly above its
+//     own diagonal, and the heaviest query tiles are scheduled first.  For
+//     D <= 96 two blocks share an SM (128 registers a thread, 97 KB of
+//     shared memory a block), so four warpgroups interleave their softmax
+//     with each other's products (one block an SM, one warpgroup a block
+//     and tiles of 32 keys each measured slower at the Phi-3 shape).
+//   * Q (once) and each K and V tile are staged into shared memory by
+//     cp.async (16-byte copies with zero-fill) into a ring of two stages:
+//     the copies of tile i+1 are in flight while tile i is multiplied.
+//     cp.async rather than TMA: a TMA tensor map needs row strides that are
+//     multiples of 16 bytes (D % 8 == 0), and every D from 1 to 128 is
+//     taken; zero-fill pads rows past S and columns past D in the same
+//     instruction.  For D % 8 != 0 (or unaligned tensors) the same tiles
+//     are filled element by element, synchronously.  No producer warp, no
+//     setmaxnreg, no overlap of one tile's softmax with the next tile's
+//     Q.K^T inside a warpgroup (FlashAttention-3's shape): every thread
+//     copies, then computes.
+//   * Tiles are SW128 panels of 64 columns (hopper.cuh); D is padded with
+//     zeros to DP, a multiple of 32 (D = 96: two panels, the second half
+//     used), and the padded output columns are not stored.
+//   * S = Q.K^T: DP/16 wgmma m64n64k16, Q and K both K-major from shared
+//     memory.  bf16 x bf16 products are exact in float32, so the scores
+//     differ from the reference only in the order of the sums.
+//   * Softmax on the accumulator fragments, in float32: a thread holds two
+//     rows (r and r + 8) x 16 keys; the row max goes across the quad of
+//     threads that share the rows with two shuffles, each thread keeps a
+//     partial l (the quad's l is summed once, at the end).  The scale is
+//     folded with log2(e) into one multiply, and p = 2^(x - m) comes from
+//     the special-function unit (ex2.approx, relative error about 2^-22).
+//     The exponentials and bf16 terms of each 16 keys are computed while
+//     the tensor cores multiply the 16 before them.
+//   * P.V: P is the register A operand (the m64n64 accumulator layout is
+//     the A fragment layout of the following m64k16 products, so no data
+//     moves), V the B operand read MN-major from shared memory (transpose
+//     bit).  P keeps float32 precision as three bf16 terms, p1 = bf16(p),
+//     p2 = bf16(p - p1), p3 = bf16(p - p1 - p2), each multiplied into the
+//     same float32 accumulator: a relative error of at most 2^-24 of p.
+//     Two terms (2^-16 of p) miss chip_smoke.py's bf16 gate on outputs near
+//     zero, where the gate's absolute 1e-6 binds (tests/test_torch_flash.py
+//     emulates both).
+//
+// The masked-row trap: a row whose first processed tile were wholly masked
+// would get m = -1e30 and p = exp(0) = 1 on every masked key until a later
+// tile corrected it.  The kv loop starts at key 0, which every query may
+// see (causal or not), and tile 0 is never skipped, so every row's max is a
+// real score after the first tile, and a masked key's p = 2^(-1e30 - m) is
+// exactly 0.  Keys past S are masked the same way; query rows past S are
+// computed on zero rows and not stored.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+namespace {
+
+using hopper::sw128;
+using hopper::sw128_desc;
+
+constexpr int kWG = 2;               // consumer warpgroups per block
+constexpr int kRows = 64 * kWG;      // query rows per block
+constexpr int kThreads = 128 * kWG;
+constexpr int kBK = 64;              // keys per kv tile
+constexpr int kStages = 2;           // K/V ring depth
+constexpr int kPTerms = 3;           // bf16 terms of P
+constexpr int kMaxD = 128;
+constexpr float kNegInf = -1e30f;
+constexpr uint32_t kTile = kBK * 128;  // one 64-column panel of a K/V tile
+
+// Columns of panel p of a DP-wide tile.
+template <int DP>
+__device__ constexpr int panel_cols(int p) {
+  return (p + 1) * 64 <= DP ? 64 : DP - 64 * p;
+}
+
+// Keep the compiler from moving accesses of the accumulator values a
+// DP-wide tile uses across a wgmma region.
+template <int DP, int NP>
+__device__ __forceinline__ void fence_acc(float (&acc)[NP][32]) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (i < panel_cols<DP>(p) / 2)
+        asm volatile("" : "+f"(acc[p][i]) :: "memory");
+}
+
+// Rows [r0, r0 + rows) of an (s_len x d) bf16 matrix into the DP-wide SW128
+// tile at shared address `tile` (panels `rows` x 128 bytes apart): zeros
+// past s_len and past d.  vec: whole 16-byte chunks by cp.async (d % 8 == 0
+// and 16-byte aligned rows); else element by element.
+template <int DP>
+__device__ __forceinline__ void load_tile(uint32_t tile,
+                                          const __nv_bfloat16* src, int r0,
+                                          int rows, int s_len, int d,
+                                          bool vec) {
+  const uint32_t panel = rows * 128;
+  if (vec) {
+    constexpr int kChunks = DP / 8;
+    for (int e = threadIdx.x; e < rows * kChunks; e += kThreads) {
+      const int r = e / kChunks;
+      const int ch = e - r * kChunks;
+      const int row = r0 + r;
+      const bool ok = row < s_len && ch * 8 < d;
+      hopper::cp_async_16(tile + (ch >> 3) * panel + sw128(r, ch & 7),
+                          ok ? src + (long long)row * d + ch * 8 : src,
+                          ok ? 16 : 0);
+    }
+  } else {
+    const uint16_t* bits = reinterpret_cast<const uint16_t*>(src);
+    for (int e = threadIdx.x; e < rows * DP; e += kThreads) {
+      const int r = e / DP;
+      const int c = e - r * DP;
+      const int row = r0 + r;
+      hopper::st_shared_u16(
+          tile + (c >> 6) * panel + sw128(r, (c >> 3) & 7) + (c & 7) * 2,
+          row < s_len && c < d ? bits[(long long)row * d + c] : 0);
+    }
+  }
+}
+
+// Two blocks an SM hold the accumulators of D <= 96 in 128 registers a
+// thread; D = 128's need the registers of one block an SM.
+template <int DP>
+__global__ void __launch_bounds__(kThreads, DP > 96 ? 1 : 2)
+flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, int bh_count, int s_len,
+                   int d, int causal, float scale_log2, int vec) {
+  constexpr int NP = (DP + 63) / 64;  // 64-column panels
+  constexpr uint32_t kQBytes = NP * kRows * 128;
+  extern __shared__ unsigned char smem_raw[];
+  // panels start on 1024-byte boundaries (the SW128 pattern's period)
+  const uint32_t qs = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+  // stage st: K panels at ks(st), V panels kTile * NP after
+  auto ks = [&](int st) { return qs + kQBytes + st * 2 * NP * kTile; };
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int nq = (s_len + kRows - 1) / kRows;
+  const int qt = nq - 1 - (int)(blockIdx.x / bh_count);  // heaviest first
+  const long long bh = blockIdx.x % bh_count;
+  const int q0 = qt * kRows;
+  const long long base = bh * s_len * (long long)d;
+  const __nv_bfloat16* qb = q + base;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+
+  const int n_kv = (s_len + kBK - 1) / kBK;
+  const int n_tiles =
+      causal ? min(n_kv, (min(q0 + kRows, s_len) - 1) / kBK + 1) : n_kv;
+
+  load_tile<DP>(qs, qb, q0, kRows, s_len, d, vec);
+  load_tile<DP>(ks(0), kb, 0, kBK, s_len, d, vec);
+  load_tile<DP>(ks(0) + NP * kTile, vb, 0, kBK, s_len, d, vec);
+  hopper::cp_async_commit();
+
+  // This thread's accumulator rows (r and r + 8) and first column: the
+  // wgmma layout puts value i of a 64 x N accumulator at row
+  // 16 * warp + lane / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) +
+  // 2 * (lane % 4) + i % 2.
+  const int wg_q0 = q0 + 64 * wg;
+  const int row0 = wg_q0 + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  const uint32_t q_wg = qs + wg * 64 * 128;
+
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  float s[32];
+  float acc[NP][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    if (t + 1 < n_tiles) {
+      const uint32_t nxt = ks((t + 1) % kStages);
+      load_tile<DP>(nxt, kb, (t + 1) * kBK, kBK, s_len, d, vec);
+      load_tile<DP>(nxt + NP * kTile, vb, (t + 1) * kBK, kBK, s_len, d, vec);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();  // tile t (and Q) have landed
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    const int k0 = t * kBK;
+    if (!causal || k0 <= wg_q0 + 63) {
+      const uint32_t kt = ks(st);
+      const uint32_t vt = kt + NP * kTile;
+      // S = Q.K^T over DP in steps of 16 (32 bytes of a 128-byte row)
+      hopper::fence_regs(s);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        hopper::wgmma_ss_m64n64k16(
+            s, sw128_desc(q_wg + (kk >> 2) * (kRows * 128) + off, 16, 1024),
+            sw128_desc(kt + (kk >> 2) * kTile + off, 16, 1024), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+
+      // scale into the log2 domain; mask only tiles that reach past S or
+      // past this warpgroup's first query
+      const bool edge =
+          k0 + kBK > s_len || (causal && k0 + kBK - 1 > wg_q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = s[i] * scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          const int qpos = row0 + 8 * ((i >> 1) & 1);
+          if (key >= s_len || (causal && key > qpos)) x = kNegInf;
+        }
+        s[i] = x;
+      }
+      // the running max over the quad's 64 keys; rescale l and acc
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        const float corr = hopper::ex2(m[h] - m_new);
+        l[h] *= corr;
+        m[h] = m_new;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (8 * j >= panel_cols<DP>(p)) continue;
+            acc[p][4 * j + 2 * h] *= corr;
+            acc[p][4 * j + 2 * h + 1] *= corr;
+          }
+      }
+
+      // acc += P.V in four steps of 16 keys (V rows 16 kk .. 16 kk + 15,
+      // 2048 bytes into a panel).  Step kk's A fragments are accumulator
+      // values 8 kk .. 8 kk + 7, pairwise (rows r, r + 8, r, r + 8); its
+      // exponentials and bf16 terms are computed while the tensor cores run
+      // the steps before it.
+      uint32_t pa[4][kPTerms][4];
+      fence_acc<DP>(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int h = r & 1;
+          float a = hopper::ex2(s[8 * kk + 2 * r] - m[h]);
+          float b = hopper::ex2(s[8 * kk + 2 * r + 1] - m[h]);
+          l[h] += a + b;
+#pragma unroll
+          for (int term = 0; term < kPTerms; ++term) {
+            const __nv_bfloat162 t2 = __floats2bfloat162_rn(a, b);
+            const float2 back = __bfloat1622float2(t2);
+            pa[kk][term][r] = hopper::bf16x2_bits(t2);
+            a -= back.x;  // exact: the term is within half a bf16 step
+            b -= back.y;
+          }
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const uint64_t desc = sw128_desc(vt + p * kTile + kk * 2048,
+                                           kTile, 1024);
+#pragma unroll
+          for (int term = 0; term < kPTerms; ++term) {
+            if (panel_cols<DP>(p) == 64)
+              hopper::wgmma_rs_m64n64k16(acc[p], pa[kk][term], desc);
+            else
+              hopper::wgmma_rs_m64n32k16(acc[p], pa[kk][term], desc);
+          }
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      fence_acc<DP>(acc);
+    }
+    __syncthreads();  // stage st is consumed before it is loaded again
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= s_len) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow = o + base + (long long)row * d;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * j >= panel_cols<DP>(p)) continue;
+        const int c = 64 * p + 8 * j + col0;
+        const float x = acc[p][4 * j + 2 * h] / denom;
+        const float y = acc[p][4 * j + 2 * h + 1] / denom;
+        if (c + 1 < d && (d & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(x, y);
+        } else {
+          if (c < d) orow[c] = __float2bfloat16(x);
+          if (c + 1 < d) orow[c + 1] = __float2bfloat16(y);
+        }
+      }
+  }
+}
+
+// Dynamic shared memory of a launch for head dim d: Q and the K/V ring,
+// 64-column panels of 128-byte rows, and 1024 bytes to align them.
+int smem_bytes(long long d) {
+  return 1024 + (int)((d + 63) / 64) * 128 * (kRows + kStages * 2 * kBK);
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o,
+           long long bh, long long s_len, long long d, int causal,
+           float scale, cudaStream_t stream) {
+  const int smem = smem_bytes(DP);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec = d % 8 == 0
+      && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
+           | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  // the scale and log2(e) in one float, for exp2
+  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
+  const long long nq = (s_len + kRows - 1) / kRows;
+  flash_wgmma_kernel<DP><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      (int)bh, (int)s_len, (int)d, causal, scale_log2, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, k, v, o: (bh, s_len, d) bfloat16, contiguous; o is written in full.
+// causal: 1 masks keys after each query.  scale: the score scale,
+// 1/sqrt(d) rounded once to float32.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for d outside 1..128 or a grid the
+// launch cannot hold.
+extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
+                                           const void* v, void* o,
+                                           long long bh, long long s_len,
+                                           long long d, int causal,
+                                           float scale, void* stream) {
+  if (bh <= 0 || s_len <= 0) return 0;
+  if (d <= 0 || d > kMaxD || s_len > 2147483647LL
+      || ((s_len + kRows - 1) / kRows) * bh > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 31) / 32) {
+    case 1: return launch<32>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 2: return launch<64>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 3: return launch<96>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    default: return launch<128>(q, k, v, o, bh, s_len, d, causal, scale, s);
+  }
+}

@@ -13,11 +13,19 @@ as the Pallas kernel's ``1.0 / (d ** 0.5)``.  (The model's chunked
 attention computes ``1/sqrt(float32(D))``; for D = 96 the two differ by one
 float32 ulp, a relative 6e-8 on every score.)
 
-The CUDA kernel is ``csrc/flash_attention.cu``.  It has no backward: on
-CUDA, a call whose inputs need a gradient raises rather than return an
-output without one.
+On CUDA the dtype chooses the kernel (``route``): bfloat16 inputs go to
+``csrc/flash_attention_wgmma.cu``, both products on the tensor cores
+(``wgmma``, float32 accumulators, P carried in three bfloat16 terms so that
+it keeps float32 precision); float32 inputs to ``csrc/flash_attention.cu``,
+float32 on the CUDA cores.  Either is one launch per call.  Neither has a
+backward: on CUDA, a call whose inputs need a gradient raises rather than
+return an output without one.
 """
 from __future__ import annotations
+
+import functools
+import pathlib
+import re
 
 import torch
 
@@ -25,7 +33,29 @@ from repro_torch.kernels import ops
 from repro_torch.kernels._build import library
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # the kernel's register tiles hold up to 8 x 16 columns
+MAX_HEAD_DIM = 128  # both kernels' register tiles hold up to 128 columns
+# the kernel each dtype goes to on CUDA: (C entry point, route)
+KERNELS = {torch.bfloat16: ("repro_flash_attention_wgmma", "wgmma"),
+           torch.float32: ("repro_flash_attention", "cuda_cores")}
+
+
+WGMMA_SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention_wgmma.cu"
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_constants() -> dict:
+    """The bf16 kernel's integer constants, read from its source (each
+    ``constexpr int kName = N;``): ``kPTerms``, the bf16 terms P is carried
+    in (p1 = bf16(p), p2 = bf16(p - p1), ...), ``kWG``, ``kBK``,
+    ``kStages``."""
+    return {name: int(val) for name, val in re.findall(
+        r"constexpr int (k\w+) = (\d+);", WGMMA_SOURCE.read_text())}
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with ``dtype`` inputs launches: ``"wgmma"``
+    (bfloat16, tensor cores) or ``"cuda_cores"`` (float32)."""
+    return KERNELS[dtype][1]
 
 
 def _blocks(q, k, v, q_blk, k_blk):
@@ -74,7 +104,7 @@ def flash_attention_fused_plain(q, k, v, causal: bool = True,
 def _flash_attention_cuda(q, k, v, causal: bool = True, q_blk: int = 128,
                           k_blk: int = 128):
     _blocks(q, k, v, q_blk, k_blk)
-    bf16 = ops.expect_float(q, 3, "q")
+    ops.expect_float(q, 3, "q")
     ops.expect(k, q.dtype, 3, "k")
     ops.expect(v, q.dtype, 3, "v")
     ops.same_device(("q", q), ("k", k), ("v", v))
@@ -88,11 +118,11 @@ def _flash_attention_cuda(q, k, v, causal: bool = True, q_blk: int = 128,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    kernel = getattr(library(), KERNELS[q.dtype][0])
     with torch.cuda.device(q.device):
-        rc = library().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
-            d, int(bool(causal)), bf16, 1.0 / (d ** 0.5),
-            torch.cuda.current_stream().cuda_stream)
+        rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    bh, s, d, int(bool(causal)), 1.0 / (d ** 0.5),
+                    torch.cuda.current_stream().cuda_stream)
     ops.check_launch("flash_attention_fused", rc)
     return out
 
@@ -100,8 +130,8 @@ def _flash_attention_cuda(q, k, v, causal: bool = True, q_blk: int = 128,
 def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
                           k_blk: int = 128):
     """Flash attention on ``(BH, S, D)``: the plain version on the CPU, the
-    kernel on CUDA (q, k and v float32 or bfloat16 of one dtype, D <= 128).
-    ``q_blk`` and ``k_blk`` keep the reference's divisibility contract; the
-    kernel's own tiles are its choice."""
+    dtype's kernel on CUDA (q, k and v float32 or bfloat16 of one dtype,
+    D <= 128).  ``q_blk`` and ``k_blk`` keep the reference's divisibility
+    contract; the kernels' own tiles are their choice."""
     return ops.dispatch(flash_attention_fused_plain, _flash_attention_cuda,
                         q, k, v, causal, q_blk, k_blk)

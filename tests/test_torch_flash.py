@@ -20,9 +20,23 @@
   rounded to bfloat16, so a probability near a rounding boundary may round
   the other way: within 2**-8 relative / 1e-4.
 * ``ops`` routing: a CPU call launches nothing; the TPU backends raise.
-The CUDA kernel is held against the same plain version on the card by
+* The bf16 kernel's arithmetic (``csrc/flash_attention_wgmma.cu``),
+  emulated here, with the tile and the term count read from its source:
+  bf16 q, k, v; float32 scores over tiles of ``kBK`` keys, scaled
+  by ``1/sqrt(D)`` and ``log2(e)`` folded into one float32; the online
+  softmax in base 2; P split into ``kPTerms`` bfloat16 terms, each
+  multiplied by V into a float32 accumulator; the output rounded to
+  bfloat16.  It is held to the plain version under ``chip_smoke.py``'s
+  ``FLASH_TOL["torch.bfloat16"]``, the gate the kernel meets on the card.
+  Two terms miss that gate on outputs near zero, where its absolute 1e-6
+  binds; the kernel therefore carries three.
+The CUDA kernels are held against the same plain version on the card by
 ``chip_smoke.py``.
 """
+import importlib.util
+import math
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,6 +105,16 @@ def test_ops_routing():
     for backend in ("pallas", "interpret"):
         with pytest.raises(ValueError):
             ops.flash_attention_fused(x, x, x, backend=backend)
+
+
+def test_routes_by_dtype_to_built_entry_points():
+    """bf16 goes to the tensor-core kernel, float32 to the CUDA-core one;
+    each names a C entry point the build binds."""
+    from repro_torch.kernels._build import SIGNATURES
+
+    assert k7.route(torch.bfloat16) == "wgmma"
+    assert k7.route(torch.float32) == "cuda_cores"
+    assert all(name in SIGNATURES for name, _ in k7.KERNELS.values())
 
 
 class Spy:
@@ -208,3 +232,84 @@ def test_decode_attention_matches_reference():
                                          window=window)
         np.testing.assert_allclose(host(got), host(want), rtol=1e-5,
                                    atol=1e-6)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+BF16_GATE = _chip_smoke().FLASH_TOL["torch.bfloat16"]  # (rtol, atol)
+WGMMA = k7.wgmma_constants()  # the kernel's kv tile kBK, P's terms kPTerms
+WGMMA_KEYS = WGMMA["kBK"]
+
+
+def emulate_wgmma(q, k, v, causal: bool, terms: int):
+    """The bf16 kernel's rounding, step by step, on the CPU."""
+    bh, s, d = q.shape
+    c = float(np.float32(np.float64(np.float32(1.0 / d ** 0.5))
+                         * math.log2(math.e)))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((bh, s, 1), k7.NEG_INF)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, d))
+    pos = torch.arange(s)
+    for k0 in range(0, s, WGMMA_KEYS):
+        x = torch.matmul(qf, kf[:, k0:k0 + WGMMA_KEYS].transpose(1, 2)) * c
+        if causal:
+            x = torch.where(pos[None, k0:k0 + WGMMA_KEYS] <= pos[:, None], x,
+                            k7.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        p = torch.exp2(x - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pv = torch.zeros_like(acc)
+        for _ in range(terms):
+            term = p.bfloat16().float()
+            pv += torch.matmul(term, vf[:, k0:k0 + WGMMA_KEYS])
+            p = p - term
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+def gate_misses(got, want):
+    rtol, atol = BF16_GATE
+    diff = (got.double() - want.double()).abs()
+    return int((diff > atol + rtol * want.double().abs()).sum())
+
+
+def bf16_qkv(seed, bh, s, d):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((bh, s, d))
+                             .astype(np.float32)).bfloat16()
+            for _ in range(3)]
+
+
+# the reference test's shapes, a Phi-3-like head (D 96) at small S, and 64
+# heads of it (the early causal rows of many heads, where outputs near zero
+# test the split)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,d", [(2, 64, 32), (1, 128, 64), (3, 32, 16),
+                                    (2, 256, 96), (64, 256, 96)])
+def test_wgmma_arithmetic_meets_the_bf16_gate(causal, bh, s, d):
+    q, k, v = bf16_qkv(0, bh, s, d)
+    want = k7.flash_attention_fused_plain(q, k, v, causal, min(128, s),
+                                          min(128, s))
+    got = emulate_wgmma(q, k, v, causal, WGMMA["kPTerms"])
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert gate_misses(got, want) == 0
+
+
+def test_two_term_split_misses_the_bf16_gate():
+    """Why P carries three terms: with two (2^-16 of p), outputs near zero
+    on the early causal rows of 64 heads miss the gate's absolute 1e-6."""
+    misses = 0
+    for seed in range(3):
+        q, k, v = bf16_qkv(seed, 64, 256, 96)
+        want = k7.flash_attention_fused_plain(q, k, v, True)
+        misses += gate_misses(emulate_wgmma(q, k, v, True, 2), want)
+    assert misses > 0
