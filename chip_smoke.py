@@ -19,16 +19,20 @@ products run in full float32 (TF32 off).  It
    3-of-24 block-pruned W1^T as a BSR (``bsr_from_dense``) times x^T through
    ``ops.bsr_spmm`` (K4); checks the results (finite, shaped, K5 against
    ``topk_rows_st(h, k) @ W2``, K6 against K3's blocks times h, K4 against
-   the dense product, each within 1e-5 of the largest |value|); holds each
-   kernel against its plain version (K3 and K5 bit-exact, K4 and K6 within
-   1e-5 of the largest |value|) on a sweep of the CPU tests' shapes in
-   float32 and bf16, then on the path's own inputs, where each call must
-   add exactly one launch; and times kernel (CUDA events; device time of
-   its own launches from ``torch.profiler``), plain version and one
+   the dense product, each within 1e-5 of the largest |value|), with K3 on
+   its 16-byte route and K4 on its bf16 ``wgmma`` kernel (``FFN_ROUTES``);
+   holds each kernel against its plain version (K3 and K5 bit-exact, K4
+   and K6 within 1e-5 of the largest |value|) on a sweep of the CPU tests'
+   shapes in float32 and bf16, on both of K3's routes (``RANGED_ROUTES``)
+   and on K4's tile edges (``BSR_EDGES``), then on the path's own inputs,
+   where each call must add exactly one launch; and times kernel (CUDA
+   events; device time of its own launches from ``torch.profiler``),
+   plain version and one
    library call that computes the same function (``index_select``,
    ``torch.sparse_bsr_tensor @ b``, ``F.embedding_bag``, ``torch.bmm`` on
    pre-gathered blocks), with the dense bf16 ``torch.matmul`` of the whole
-   down-projection beside them;
+   down-projection beside them, and K3's and K4's routes and ``ptxas``
+   registers, spills and shared memory;
 4. holds K7 (``ops.flash_attention_fused``) against its plain version on
    the 12 cases of ``tests/test_flash_kernel.py`` (float32 and bf16, causal
    and not), on the edges of the bf16 kernel's tiles (D 7, 36, 40, 96 and
@@ -578,14 +582,18 @@ def ffn_phase(log):
     out = ffn_path(x, w1, w2, h)
     path_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
+    routes = ops.route_counts()
     for name in FFN_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was never launched on the FFN path")
+    for name, path in FFN_ROUTES.items():
+        check(routes.get(f"{name}/{path}", 0) == launches[name],
+              f"FFN path: {name} did not take its {path} route ({routes})")
     errs = check_ffn_outputs(out, h, w2)
     ffn_shape_sweep(log)
     host_ms, dev_ms, top = profile(lambda: ffn_path(x, w1, w2, h))
     emit({"ffn_path": {**FFN, "ms": path_ms, "launches": launches,
-                       "checks_rel_err": errs,
+                       "route_launches": routes, "checks_rel_err": errs,
                        "profiled": {"host_ms": host_ms, "device_ms": dev_ms,
                                     "device_busy_share": None if dev_ms is None
                                     else dev_ms / host_ms,
@@ -602,14 +610,76 @@ def ffn_phase(log):
     return recs
 
 
+# K3's routes (aia_gather.ranged_route): (dtype, n_blocks, r, d, n_idx, x's
+# element offset into its allocation, the route).  16-byte ranges go to the
+# 16-byte copy: one vector, 64 vectors, two 16 KB chunks and a ragged 577
+# vectors more (bf16 7 x 3,000), ten chunks and 10 vectors (float32 5 x
+# 8,200); 12-byte ranges (bf16 1 x 6, float32 1 x 3) and a 16-byte range at
+# an x 4 bytes past a 16-byte boundary take the word copy.
+RANGED_ROUTES = (
+    ("bfloat16", 8, 1, 8, 9, 0, "v16"), ("float32", 8, 2, 128, 7, 0, "v16"),
+    ("bfloat16", 6, 7, 3000, 5, 0, "v16"), ("float32", 3, 5, 8200, 4, 0, "v16"),
+    ("bfloat16", 8, 1, 6, 9, 0, "words"), ("float32", 8, 1, 3, 9, 0, "words"),
+    ("float32", 8, 2, 128, 7, 1, "words"),
+)
+# K4's bf16 kernel (csrc/bsr_spmm_wgmma.cu): block sizes around its
+# 128-row tiles and 64-deep stages at d 40, widths around its 128-column
+# tiles at bs 128; bs 12 and d 7 take its element-wise staging (rows that
+# are not whole 16-byte chunks), d 7 its scalar stores.  Held in both
+# dtypes (float32 goes to the CUDA-core kernel).
+BSR_EDGES = tuple((bs, 40) for bs in (8, 12, 16, 64, 128, 200, 256)) \
+    + tuple((128, d) for d in (7, 200, 2050)) + ((8, 7),)
+# K4's bf16 kernel is persistent (block k takes tiles k, k + grid, ...; a
+# grid of 264 on an H100): (block-rows, bs, d) with several tiles a block,
+# so that its load cursor crosses tiles, skips empty ones and refills ring
+# slots during an epilogue; 40 x 17 column tiles with element-wise B
+# staging (d 2,050), and 300 x 2 x 2 tiles with ragged rows, depth and
+# columns (bs 200, d 200).  Both dtypes.
+BSR_MULTITILE = ((40, 128, 2050), (300, 200, 200))
+
+
+def bsr_edge_operands(bs, d, dt, randn):
+    """Five block-rows over 4 block-columns, max_blocks_per_row 2: a row of
+    3 blocks (the third dropped), an empty row, a row naming one column
+    twice, a row with ids past both ends of B (clipped), and a row whose
+    second slot lies past the last stored block (it reads the last)."""
+    import torch
+
+    nbc = 4
+    rp = torch.tensor((0, 3, 3, 5, 7, 9), dtype=torch.int32, device="cuda")
+    ci = torch.tensor((0, 2, 1, 1, 1, nbc + 3, -2, 3), dtype=torch.int32,
+                      device="cuda")
+    return rp, ci, randn(8, bs, bs, dtype=dt), randn(nbc * bs, d, dtype=dt), 2
+
+
+def bsr_multitile_operands(n_brows, bs, d, dt, randn, randint):
+    """``n_brows`` block-rows over 6 block-columns, max_blocks_per_row 3:
+    row lengths cycle 0, 3, 1, 5, 0, 0, 2 (empty rows alone and in a run,
+    rows past max_blocks_per_row), ids from -2 to 8 (clipped at both ends,
+    repeats), and the last row's second slot past the last stored block
+    (it reads the last).  Returns the operands and the row lengths."""
+    import torch
+
+    nbc = 6
+    lens = [(0, 3, 1, 5, 0, 0, 2)[i % 7] for i in range(n_brows - 1)] + [2]
+    rp = torch.tensor([0] + lens, dtype=torch.int32).cumsum(0).to(
+        torch.int32).cuda()
+    bcap = sum(lens) - 1
+    return (rp, randint(nbc + 3, bcap, lo=-2),
+            randn(bcap, bs, bs, dtype=dt), randn(nbc * bs, d, dtype=dt),
+            3), lens
+
+
 def ffn_shape_sweep(log):
     """K3-K6 against their plain versions on the card at the CPU tests'
     shapes (``tests/test_torch_ops.py``), float32 and bfloat16: ragged
     tiles, narrow and odd widths, a block-row past ``max_blocks_per_row``,
-    an empty block-row, repeated and out-of-range ids."""
+    an empty block-row, repeated and out-of-range ids; then K3 on both of
+    its routes (``RANGED_ROUTES``) and K4 on its tile edges
+    (``BSR_EDGES``), each call counted on the route it should take."""
     import torch
 
-    from repro_torch.kernels import aia_gather, spgemm_bsr, topk_spmm
+    from repro_torch.kernels import aia_gather, ops, spgemm_bsr, topk_spmm
 
     g = torch.Generator(device="cuda").manual_seed(1)
 
@@ -619,6 +689,14 @@ def ffn_shape_sweep(log):
     def randint(hi, *shape, lo=0):
         return torch.randint(lo, hi, shape, generator=g, device="cuda",
                              dtype=torch.int32)
+
+    def routed(name, path, fn):
+        key = f"{name}/{path}"
+        before = ops.route_counts().get(key, 0)
+        got = fn()
+        check(ops.route_counts().get(key, 0) == before + 1,
+              f"sweep: {name} did not take its {path} route")
+        return got
 
     cases = 0
     for dt in (torch.float32, torch.bfloat16):
@@ -643,6 +721,31 @@ def ffn_shape_sweep(log):
                         spgemm_bsr.bsr_spmm_plain(rp, ci, a, b, mbpr))
             check(e <= FFN_REL, f"sweep: bsr_spmm {dt} bs {bs} d {d}: {e}")
             cases += 1
+        for bs, d in BSR_EDGES:
+            args = bsr_edge_operands(bs, d, dt, randn)
+            got = routed("bsr_spmm", spgemm_bsr.route(dt),
+                         lambda: spgemm_bsr.bsr_spmm(*args))
+            want = spgemm_bsr.bsr_spmm_plain(*args)
+            check(bool(torch.isfinite(got).all())
+                  and float(got[bs:2 * bs].abs().max()) == 0.0,
+                  f"sweep: bsr_spmm {dt} bs {bs} d {d}: the empty row")
+            e = rel_err(got, want)
+            check(e <= FFN_REL, f"sweep: bsr_spmm {dt} bs {bs} d {d}: {e}")
+            cases += 1
+        for n_brows, bs, d in BSR_MULTITILE:
+            args, lens = bsr_multitile_operands(n_brows, bs, d, dt, randn,
+                                                randint)
+            case = f"sweep: bsr_spmm {dt} {n_brows} rows bs {bs} d {d}"
+            got = routed("bsr_spmm", spgemm_bsr.route(dt),
+                         lambda: spgemm_bsr.bsr_spmm(*args))
+            want = spgemm_bsr.bsr_spmm_plain(*args)
+            empty = torch.tensor(lens, device="cuda") == 0
+            check(bool(torch.isfinite(got).all()) and float(
+                got.view(n_brows, bs, d)[empty].abs().max()) == 0.0,
+                f"{case}: the empty rows")
+            e = rel_err(got, want)
+            check(e <= FFN_REL, f"{case}: {e}")
+            cases += 1
         for n, k, dff, d in ((4, 2, 16, 8), (16, 4, 64, 128), (3, 8, 32, 16),
                              (5, 300, 40, 1100)):
             v, w2 = randn(n, k, dtype=dt), randn(dff, d, dtype=dt)
@@ -661,16 +764,32 @@ def ffn_shape_sweep(log):
             check(e <= FFN_REL, f"sweep: block_topk_spmm {dt} "
                                 f"{(nt, kb, tile, block, d)}: {e}")
             cases += 1
+    for dt, nb, r, d, n, off, path in RANGED_ROUTES:
+        dt = getattr(torch, dt)
+        x = randn(nb * r * d + off, dtype=dt)[off:].view(nb * r, d)
+        idx = randint(nb + 2, n, lo=-2)
+        case = f"sweep: aia_ranged_gather {dt} {(nb, r, d, n, off)}"
+        check(aia_gather.ranged_route(r * d * x.element_size(),
+                                      x.data_ptr()) == path,
+              f"{case}: not the {path} route")
+        got = routed("aia_ranged_gather", path,
+                     lambda: aia_gather.aia_ranged_gather(x, idx, r))
+        check(torch.equal(got, aia_gather.aia_ranged_gather_plain(x, idx, r)),
+              case)
+        cases += 1
     emit({"ffn_shape_sweep": {"cases": cases, "ok": True}}, log)
 
 
 FFN_KERNELS = ("aia_ranged_gather", "bsr_spmm", "topk_spmm",
                "block_topk_spmm")
+# the route each routed kernel takes on the path: W2's ranges are whole
+# 16-byte vectors, the BSR is bf16
+FFN_ROUTES = {"aia_ranged_gather": "v16", "bsr_spmm": "wgmma"}
 # kernel, its CUDA source, the TPU kernel it replaces
 FFN_SOURCES = (
     ("aia_ranged_gather", "aia_gather.cu",
      "src/repro/kernels/aia_gather.py:47"),
-    ("bsr_spmm", "bsr_spmm.cu", "src/repro/kernels/spgemm_bsr.py:46"),
+    ("bsr_spmm", "bsr_spmm_wgmma.cu", "src/repro/kernels/spgemm_bsr.py:46"),
     ("topk_spmm", "topk_spmm.cu", "src/repro/kernels/topk_spmm.py:40"),
     ("block_topk_spmm", "topk_spmm.cu", "src/repro/kernels/topk_spmm.py:74"),
 )
@@ -725,6 +844,34 @@ def library_call(calls):
             "library_refused": refused}
 
 
+def launch_config(fn, kernel: str) -> dict:
+    """How one call of ``fn`` launched the kernel whose name holds
+    ``kernel``, as the profiler's trace records that launch: shared memory
+    a block (static and dynamic), registers a thread, grid and block; {}
+    when the trace holds no such launch."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    for ev in events:
+        if ev.get("cat") == "kernel" and kernel in ev.get("name", ""):
+            args = ev.get("args", {})
+            return {"shared_memory_bytes": args.get("shared memory"),
+                    "registers": args.get("registers per thread"),
+                    "grid": args.get("grid"), "block": args.get("block")}
+    return {}
+
+
 def ffn_kernel_records(out, w2, launches, log):
     """Each kernel of the path held (called through its ``ops`` wrapper),
     timed and bounded on the path's own inputs; the bounds count what these
@@ -767,7 +914,9 @@ def ffn_kernel_records(out, w2, launches, log):
             library=[("index_select on the (n_blocks, R*d) view",
                       lambda: torch.index_select(w2_view, 0, flat.long()))],
             shape={"x": list(w2.shape), "r": block, "n_idx": flat.numel(),
-                   "out_gb": flat.numel() * block * d * el / 1e9}),
+                   "out_gb": flat.numel() * block * d * el / 1e9},
+            route=aia_gather.ranged_route(block * d * el, w2.data_ptr()),
+            ptxas="ranged_gather_v16_kernel"),
         "bsr_spmm": dict(
             kernel=lambda: ops.bsr_spmm(bsr.indptr, bsr.indices, bsr.blocks,
                                         xt, keep),
@@ -781,7 +930,9 @@ def ffn_kernel_records(out, w2, launches, log):
                       lambda dt=dt: lib_bsr[dt][0] @ lib_bsr[dt][1])
                      for dt in lib_bsr],
             shape={"a": list(bsr.shape), "block": block, "nnzb": nnzb,
-                   "b": list(xt.shape)}),
+                   "b": list(xt.shape)},
+            route=spgemm_bsr.route(bsr.blocks.dtype),
+            ptxas="bsr_spmm_wgmma_kernel"),
         "topk_spmm": dict(
             kernel=lambda: ops.topk_spmm(vals, idx, w2),
             plain=lambda: topk_spmm.topk_spmm_plain(vals, idx, w2),
@@ -809,6 +960,9 @@ def ffn_kernel_records(out, w2, launches, log):
     recs = {}
     for name, sp in specs.items():
         rec = {"name": name, "launches": launches[name], "shape": sp["shape"]}
+        if "route" in sp:
+            rec["route"] = sp["route"]
+            rec["ptxas"] = ptxas_report(sp["ptxas"])
         rec.update(hold(name, sp["kernel"], sp["plain"], sp["exact"]))
         reps, plain_reps = sp["reps"]
         rec["ms"] = time_ms(sp["kernel"], reps=reps)
@@ -822,6 +976,11 @@ def ffn_kernel_records(out, w2, launches, log):
                                                  sp["dtype"])
         rec["bytes"], rec["flops"] = sp["nbytes"], sp["flops"]
         rec.update(library_call(sp["library"]))
+        if "route" in sp:
+            rec["launch"] = launch_config(sp["kernel"], sp["ptxas"])
+        if name == "bsr_spmm":
+            rec["tflops"] = sp["flops"] / rec["device_ms"] / 1e9 \
+                if rec["device_ms"] else None
         emit({"ffn_kernel": rec}, log)
         recs[name] = rec
         torch.cuda.empty_cache()
@@ -939,11 +1098,7 @@ def flash_phase(log):
     rec["tensor_flops"] = rec["flops"] * (1 + consts["kPTerms"]) // 2
     rec["tensor_bound_ms"] = bound(0, rec["tensor_flops"], q.dtype)[0]
     rec["ptxas"] = ptxas_report(f"flash_wgmma_kernelILi{d}E")
-    # dynamic shared memory a block (smem_bytes in the source): Q's 64 x kWG
-    # rows and the K/V ring, in 64-column panels of 128-byte rows, and 1024
-    # bytes of alignment
-    rec["ptxas"]["dynamic_smem_bytes"] = 1024 + (d + 63) // 64 * 128 * (
-        64 * consts["kWG"] + consts["kStages"] * 2 * consts["kBK"])
+    rec["launch"] = launch_config(kernel, "flash_wgmma_kernel")
     rec.update(library_call([(
         "F.scaled_dot_product_attention(is_causal=True) on (2, 32, s, d)",
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))]))
@@ -1244,6 +1399,12 @@ def main(argv=None) -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_call": rec["library_call"]})
+        if "route" in rec:  # the CUDA kernel the path's call took
+            kernels[-1].update(path=rec["route"], ptxas=rec["ptxas"],
+                               launch=rec["launch"])
+        if name == "bsr_spmm":
+            kernels[-1]["float32_source"] = \
+                "src/repro_torch/kernels/csrc/bsr_spmm.cu"
     kernels.append({
         "name": "flash_attention_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",

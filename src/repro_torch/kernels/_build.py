@@ -12,8 +12,10 @@ shared-memory report.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -33,11 +35,14 @@ SIGNATURES = {
     "repro_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
     # keys, vals, cols, out_vals, cnt, rows, ip_cap, table_cap, stream
     "repro_hash_accumulate": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, idx, out, n_blocks, range_words, n_idx, stream
-    "repro_aia_ranged_gather": [_P, _P, _P, _I, _I, _I, _P],
+    # x, idx, out, n_blocks, range_words, n_idx, v16 (1: the 16-byte
+    # copy, 0: the word copy), stream
+    "repro_aia_ranged_gather": [_P, _P, _P, _I, _I, _I, _B, _P],
     # rowptr, colidx, a_blocks, b, out, n_brows, n_bcols, bs, d,
-    # max_blocks_per_row, bcap, bf16, stream
-    "repro_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B, _P],
+    # max_blocks_per_row, bcap, stream (float32; bfloat16 for the wgmma
+    # kernel)
+    "repro_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_bsr_spmm_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # vals, idx, w2, out, n, k, d, d_ff, bf16, stream
     "repro_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
     # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, bf16,
@@ -104,6 +109,15 @@ def build() -> Path:
         obj.unlink()
     os.replace(tmp, lib)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def source_constants(source: str) -> dict:
+    """The integer constants of ``csrc/<source>`` (each ``constexpr int
+    kName = N;``), read from the source, so that no copy of them is kept
+    in Python."""
+    return {name: int(val) for name, val in re.findall(
+        r"constexpr int (k\w+) = (\d+);", (CSRC / source).read_text())}
 
 
 def library() -> ctypes.CDLL:

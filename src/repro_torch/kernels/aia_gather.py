@@ -11,11 +11,14 @@ scalar-prefetch DMA kernel) and its wrapper ``gather_rows_any``.
 ``aia_ranged_gather`` (any R): ``out[i*R:(i+1)*R] = x[idx[i]*R : +R]``,
 ranges aligned to multiples of R as the reference's BlockSpec indices are.
 The reference's contract is ids in range; here an id outside
-``[0, n_blocks)`` is clipped, as in the row gather.  The kernel is the row
-gather's word copy on the ``(n_blocks, R*d)`` view, through its own entry
-point and launch count, so a range must be a whole number of 4-byte words
-(else ``ValueError``).  Replaces ``repro.kernels.aia_gather.
-aia_ranged_gather``.
+``[0, n_blocks)`` is clipped, as in the row gather.  Its entry point
+(``repro_aia_ranged_gather``, its own launch count) copies by one of two
+routes (``ranged_route``): a range that is a whole number of 16-byte
+vectors at a 16-byte aligned ``x`` goes to a 16-byte streaming copy,
+chunk by chunk (``"v16"``); any other range to the row gather's word copy
+on the ``(n_blocks, R*d)`` view (``"words"``), so a range must be a whole
+number of 4-byte words at a 4-byte aligned ``x`` (else ``ValueError``).
+Replaces ``repro.kernels.aia_gather.aia_ranged_gather``.
 
 Both are copies, so each kernel and its plain version agree bit for bit.
 """
@@ -79,6 +82,14 @@ def aia_ranged_gather_plain(x: torch.Tensor, idx: torch.Tensor,
     return x.reshape(n_blocks, r * d)[ids].reshape(idx.shape[0] * r, d)
 
 
+def ranged_route(range_bytes: int, x_ptr: int) -> str:
+    """The copy a CUDA ranged gather takes: ``"v16"`` (16-byte vectors) for
+    a range of whole 16-byte vectors at a 16-byte aligned ``x``, else
+    ``"words"`` (4-byte words).  The output, a fresh allocation, is always
+    16-byte aligned."""
+    return "v16" if range_bytes % 16 == 0 and x_ptr % 16 == 0 else "words"
+
+
 def _aia_ranged_gather_cuda(x: torch.Tensor, idx: torch.Tensor,
                             r: int = 1) -> torch.Tensor:
     n_blocks = _n_blocks(x, idx, r)
@@ -92,15 +103,18 @@ def _aia_ranged_gather_cuda(x: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"a range of {r} x {d} {x.dtype} is {range_bytes} "
                          f"bytes, not a whole number of the kernel's 4-byte "
                          f"words")
+    if x.data_ptr() % 4:
+        raise ValueError("x: the word copy needs a 4-byte aligned tensor")
     out = torch.empty((idx.shape[0] * r, d), dtype=x.dtype, device=x.device)
     if idx.shape[0] == 0 or d == 0:
         return out
+    path = ranged_route(range_bytes, x.data_ptr())
     with torch.cuda.device(x.device):
         rc = library().repro_aia_ranged_gather(
             x.data_ptr(), idx.data_ptr(), out.data_ptr(), n_blocks,
-            range_bytes // 4, idx.shape[0],
+            range_bytes // 4, idx.shape[0], int(path == "v16"),
             torch.cuda.current_stream().cuda_stream)
-    ops.check_launch("aia_ranged_gather", rc)
+    ops.check_launch("aia_ranged_gather", rc, path)
     return out
 
 

@@ -1,7 +1,10 @@
-// Block-row Gustavson product of a BSR matrix with a dense one:
+// Block-row Gustavson product of a float32 BSR matrix with a float32 dense
+// one, on the CUDA cores: the float32 route of ops.bsr_spmm.  bfloat16
+// inputs go to bsr_spmm_wgmma.cu (the tensor cores; a TF32 wgmma would keep
+// only 10 mantissa bits of float32 operands).
 //   C[i*bs:(i+1)*bs, :] = sum over j < min(max_blocks_per_row, row length)
 //                         of A_blocks[rowptr[i] + j] @ B[colidx[.]*bs : +bs, :]
-// accumulated in float32 from float32 or bfloat16 inputs.
+// accumulated in float32.
 //
 // Replaces the Pallas TPU kernel repro/kernels/spgemm_bsr.py:bsr_spmm
 // (_accum_kernel: grid (block-rows, max_blocks_per_row), rowptr and colidx
@@ -11,23 +14,20 @@
 // reads the last block, and an empty row gives zeros.  Block-column ids are
 // clipped to B's block rows, so no id reads outside B.
 //
-// What bounds it on an H100: at the smoke's shape (bf16, 128 x 128 blocks,
-// 3 per block-row, d = 2048) the bytes (A's blocks, the B rows it names and
-// C written once in float32, ~86 MB) over 3.35 TB/s, not the operations at
-// the tensor cores' bf16 rate.  This first kernel does its products on the
-// CUDA cores in float32 (fmaf), so it runs far above that bound; wgmma on
-// staged tiles is later work.
+// What bounds it on an H100: at the FFN path's shape in float32 (128 x 128
+// blocks, 3 per block-row, d = 2048) the bytes (A's blocks, the B rows it
+// names and C written once, ~105 MB) over 3.35 TB/s against the operations
+// at the 67 TFLOP/s float32 rate of the CUDA cores (12.9 GFLOP, 0.19 ms):
+// operations.
 //
 // Design: the sequential inner grid axis of the TPU kernel becomes a loop
 // inside a block.  A block owns a 64 x 64 tile of one block-row's output
 // (rows m0.. of the block-row, columns n0..), walks the row's blocks in
 // order and, for each, the block's depth in steps of 16: it stages the
 // 64 x 16 slice of the A block (transposed) and the 16 x 64 slice of the B
-// row-block in shared memory as float32, then each of 256 threads
-// accumulates a 4 x 4 patch in registers.  Rows past bs and columns past d
-// are staged as zeros and not stored, so any bs and d are served.  Offsets
-// are 64-bit.
-#include <cuda_bf16.h>
+// row-block in shared memory, then each of 256 threads accumulates a 4 x 4
+// patch in registers (fmaf).  Rows past bs and columns past d are staged as
+// zeros and not stored, so any bs and d are served.  Offsets are 64-bit.
 #include <cuda_runtime.h>
 
 namespace {
@@ -38,15 +38,10 @@ constexpr int kTK = 16;
 constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 patch each
 constexpr int kPad = 4;        // keeps As's columns 16-byte aligned
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bsr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colidx,
-                const T* __restrict__ a_blocks, const T* __restrict__ b,
+                const float* __restrict__ a_blocks,
+                const float* __restrict__ b,
                 float* __restrict__ out, int n_bcols, int bs, long long d,
                 int max_bpr, long long bcap, int m_tiles) {
   __shared__ __align__(16) float As[kTK][kTM + kPad];  // As[k][m]
@@ -70,19 +65,19 @@ bsr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colidx,
     const long long p = start + j < bcap ? start + j : bcap - 1;
     int c = colidx[p];
     c = c < 0 ? 0 : (c >= n_bcols ? n_bcols - 1 : c);
-    const T* a = a_blocks + p * bs * bs;
-    const T* bb = b + (long long)c * bs * d;
+    const float* a = a_blocks + p * bs * bs;
+    const float* bb = b + (long long)c * bs * d;
     for (int k0 = 0; k0 < bs; k0 += kTK) {
       for (int e = threadIdx.x; e < kTM * kTK; e += kThreads) {
         const int m = e / kTK, k = e % kTK;
         As[k][m] = (m0 + m < bs && k0 + k < bs)
-                       ? to_f32(a[(long long)(m0 + m) * bs + k0 + k])
+                       ? a[(long long)(m0 + m) * bs + k0 + k]
                        : 0.0f;
       }
       for (int e = threadIdx.x; e < kTK * kTN; e += kThreads) {
         const int k = e / kTN, n = e % kTN;
         Bs[k][n] = (k0 + k < bs && n0 + n < d)
-                       ? to_f32(bb[(long long)(k0 + k) * d + n0 + n])
+                       ? bb[(long long)(k0 + k) * d + n0 + n]
                        : 0.0f;
       }
       __syncthreads();
@@ -114,7 +109,6 @@ bsr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colidx,
   }
 }
 
-template <typename T>
 int launch(const void* rowptr, const void* colidx, const void* a_blocks,
            const void* b, void* out, long long n_brows, long long n_bcols,
            long long bs, long long d, long long max_bpr, long long bcap,
@@ -125,10 +119,10 @@ int launch(const void* rowptr, const void* colidx, const void* a_blocks,
   if (gx > 2147483647LL || gy > 65535 || n_bcols > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (max_bpr > 2147483647LL) max_bpr = 2147483647LL;
-  bsr_spmm_kernel<T><<<dim3((unsigned)gx, (unsigned)gy), kThreads, 0,
-                       stream>>>(
+  bsr_spmm_kernel<<<dim3((unsigned)gx, (unsigned)gy), kThreads, 0,
+                    stream>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(colidx),
-      static_cast<const T*>(a_blocks), static_cast<const T*>(b),
+      static_cast<const float*>(a_blocks), static_cast<const float*>(b),
       static_cast<float*>(out), (int)n_bcols, (int)bs, d, (int)max_bpr, bcap,
       (int)m_tiles);
   return static_cast<int>(cudaGetLastError());
@@ -137,21 +131,18 @@ int launch(const void* rowptr, const void* colidx, const void* a_blocks,
 }  // namespace
 
 // rowptr: (n_brows + 1,) int32; colidx: (bcap,) int32; a_blocks:
-// (bcap, bs, bs); b: (n_bcols * bs, d), both float32 (bf16 = 0) or bfloat16
-// (bf16 = 1); out: (n_brows * bs, d) float32, written in full.  bcap > 0.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a shape the grid cannot hold.
+// (bcap, bs, bs) float32; b: (n_bcols * bs, d) float32; out:
+// (n_brows * bs, d) float32, written in full.  bcap > 0.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
+// the grid cannot hold.
 extern "C" int repro_bsr_spmm(const void* rowptr, const void* colidx,
                               const void* a_blocks, const void* b, void* out,
                               long long n_brows, long long n_bcols,
                               long long bs, long long d, long long max_bpr,
-                              long long bcap, int bf16, void* stream) {
+                              long long bcap, void* stream) {
   if (n_brows <= 0 || bs <= 0 || d <= 0) return 0;
   if (bcap <= 0 || n_bcols <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(rowptr, colidx, a_blocks, b, out,
-                                      n_brows, n_bcols, bs, d, max_bpr, bcap, s)
-              : launch<float>(rowptr, colidx, a_blocks, b, out, n_brows,
-                              n_bcols, bs, d, max_bpr, bcap, s);
+  return launch(rowptr, colidx, a_blocks, b, out, n_brows, n_bcols, bs, d,
+                max_bpr, bcap, static_cast<cudaStream_t>(stream));
 }

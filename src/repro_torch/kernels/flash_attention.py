@@ -23,14 +23,10 @@ return an output without one.
 """
 from __future__ import annotations
 
-import functools
-import pathlib
-import re
-
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import library, source_constants
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # both kernels' register tiles hold up to 128 columns
@@ -39,17 +35,12 @@ KERNELS = {torch.bfloat16: ("repro_flash_attention_wgmma", "wgmma"),
            torch.float32: ("repro_flash_attention", "cuda_cores")}
 
 
-WGMMA_SOURCE = pathlib.Path(__file__).parent / "csrc" / "flash_attention_wgmma.cu"
-
-
-@functools.lru_cache(maxsize=None)
 def wgmma_constants() -> dict:
-    """The bf16 kernel's integer constants, read from its source (each
-    ``constexpr int kName = N;``): ``kPTerms``, the bf16 terms P is carried
+    """The bf16 kernel's integer constants, read from its source
+    (``_build.source_constants``): ``kPTerms``, the bf16 terms P is carried
     in (p1 = bf16(p), p2 = bf16(p - p1), ...), ``kWG``, ``kBK``,
     ``kStages``."""
-    return {name: int(val) for name, val in re.findall(
-        r"constexpr int (k\w+) = (\d+);", WGMMA_SOURCE.read_text())}
+    return source_constants("flash_attention_wgmma.cu")
 
 
 def route(dtype: torch.dtype) -> str:

@@ -4,7 +4,9 @@ A kernel wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel for a tensor on a CUDA device; any other device
 raises.  There is no fallback from the card to the plain version.  Each
 launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
-that its path went through the kernels.
+that its path went through the kernels.  The ranged gather (by the
+range's alignment) and the BSR product (by dtype) also count the CUDA route
+they took in ``ROUTE_LAUNCHES``, under ``"<kernel>/<route>"``.
 
 The public wrappers ``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and
 ``block_topk_spmm`` keep the reference's signatures (``repro.kernels.ops``),
@@ -32,17 +34,25 @@ LAUNCHES: Dict[str, int] = {
     "bsr_spmm": 0, "topk_spmm": 0, "block_topk_spmm": 0,
     "flash_attention_fused": 0,
 }
+ROUTE_LAUNCHES: Dict[str, int] = {}
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and every route's, to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     """A copy of the launch counts, by kernel name."""
     return dict(LAUNCHES)
+
+
+def route_counts() -> Dict[str, int]:
+    """A copy of the launch counts of routed kernels, by
+    ``"<kernel>/<route>"``."""
+    return dict(ROUTE_LAUNCHES)
 
 
 def dispatch(plain: Callable, kernel: Callable, x: torch.Tensor, *args):
@@ -54,13 +64,16 @@ def dispatch(plain: Callable, kernel: Callable, x: torch.Tensor, *args):
     raise ValueError(f"no kernel for tensors on {x.device}")
 
 
-def check_launch(name: str, rc: int) -> None:
-    """Count one launch of ``name``, or raise on a non-zero CUDA error code
-    returned by the launch (a refused launch never runs, and a later
-    synchronize would not report it)."""
+def check_launch(name: str, rc: int, route: str | None = None) -> None:
+    """Count one launch of ``name`` (and of ``name/route``), or raise on a
+    non-zero CUDA error code returned by the launch (a refused launch never
+    runs, and a later synchronize would not report it)."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     LAUNCHES[name] += 1
+    if route is not None:
+        key = f"{name}/{route}"
+        ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
 
 
 def expect(x: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:

@@ -6,9 +6,16 @@ or bfloat16 operands.  As in the reference's grid of ``(n_brows,
 max_blocks_per_row)`` steps, the blocks of a row past
 ``max_blocks_per_row`` are dropped, a slot past the last stored block reads
 the last block, and an empty row gives zeros; block-column ids are clipped
-to B's block rows.  The CUDA kernel is ``csrc/bsr_spmm.cu``; the plain
-version takes the same steps in the same order, one batched product per
-``j``, so the two differ only in the order of each block product's sums.
+to B's block rows.  The plain version takes the same steps in the same
+order, one batched product per ``j``, so it and the kernels differ only in
+the order of each block product's sums.
+
+On CUDA the dtype chooses the kernel (``route``): bfloat16 blocks and ``b``
+go to ``csrc/bsr_spmm_wgmma.cu``, the products on the tensor cores
+(``wgmma`` on ``cp.async``-staged block tiles, float32 accumulators: bf16
+products are exact in float32); float32 ones to ``csrc/bsr_spmm.cu``,
+float32 on the CUDA cores (a TF32 ``wgmma`` would keep 10 mantissa bits).
+Either is one launch per call.
 
 Replaces ``repro.kernels.spgemm_bsr.bsr_spmm`` (the Pallas
 ``_accum_kernel``).  ``bsr_spmm_xla`` is the counterpart of the reference
@@ -20,6 +27,16 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import library
+
+# the kernel each dtype goes to on CUDA: (C entry point, route)
+KERNELS = {torch.bfloat16: ("repro_bsr_spmm_wgmma", "wgmma"),
+           torch.float32: ("repro_bsr_spmm", "cuda_cores")}
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with ``dtype`` blocks and ``b`` launches:
+    ``"wgmma"`` (bfloat16, tensor cores) or ``"cuda_cores"`` (float32)."""
+    return KERNELS[dtype][1]
 
 
 def _check_shapes(rowptr, colidx, a_blocks, b):
@@ -78,7 +95,7 @@ def _bsr_spmm_cuda(rowptr, colidx, a_blocks, b, max_blocks_per_row: int):
     _check_shapes(rowptr, colidx, a_blocks, b)
     ops.expect(rowptr, torch.int32, 1, "rowptr")
     ops.expect(colidx, torch.int32, 1, "colidx")
-    bf16 = ops.expect_float(a_blocks, 3, "a_blocks")
+    ops.expect_float(a_blocks, 3, "a_blocks")
     ops.expect(b, a_blocks.dtype, 2, "b")
     ops.same_device(("rowptr", rowptr), ("colidx", colidx),
                     ("a_blocks", a_blocks), ("b", b))
@@ -92,18 +109,18 @@ def _bsr_spmm_cuda(rowptr, colidx, a_blocks, b, max_blocks_per_row: int):
     out = torch.empty((n_brows * bs, d), dtype=torch.float32, device=b.device)
     if out.numel() == 0:
         return out
+    entry, path = KERNELS[b.dtype]
     with torch.cuda.device(b.device):
-        rc = library().repro_bsr_spmm(
+        rc = getattr(library(), entry)(
             rowptr.data_ptr(), colidx.data_ptr(), a_blocks.data_ptr(),
             b.data_ptr(), out.data_ptr(), n_brows, n_bcols, bs, d,
-            max_blocks_per_row, bcap, bf16,
-            torch.cuda.current_stream().cuda_stream)
-    ops.check_launch("bsr_spmm", rc)
+            max_blocks_per_row, bcap, torch.cuda.current_stream().cuda_stream)
+    ops.check_launch("bsr_spmm", rc, path)
     return out
 
 
 def bsr_spmm(rowptr, colidx, a_blocks, b, max_blocks_per_row: int):
-    """BSR @ dense in float32: the plain version on the CPU, the kernel on
-    CUDA (float32 or bfloat16 blocks and ``b`` of one dtype)."""
+    """BSR @ dense in float32: the plain version on the CPU, the dtype's
+    kernel on CUDA (float32 or bfloat16 blocks and ``b`` of one dtype)."""
     return ops.dispatch(bsr_spmm_plain, _bsr_spmm_cuda, rowptr, colidx,
                         a_blocks, b, max_blocks_per_row)
