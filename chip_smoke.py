@@ -20,19 +20,21 @@ products run in full float32 (TF32 off).  It
    ``ops.bsr_spmm`` (K4); checks the results (finite, shaped, K5 against
    ``topk_rows_st(h, k) @ W2``, K6 against K3's blocks times h, K4 against
    the dense product, each within 1e-5 of the largest |value|), with K3 on
-   its 16-byte route and K4 on its bf16 ``wgmma`` kernel (``FFN_ROUTES``);
-   holds each kernel against its plain version (K3 and K5 bit-exact, K4
-   and K6 within 1e-5 of the largest |value|) on a sweep of the CPU tests'
-   shapes in float32 and bf16, on both of K3's routes (``RANGED_ROUTES``)
-   and on K4's tile edges (``BSR_EDGES``), then on the path's own inputs,
+   its 16-byte route and K4 and K6 on their bf16 ``wgmma`` kernels
+   (``FFN_ROUTES``); holds each kernel against its plain version (K3 and
+   K5 bit-exact, K4 and K6 within 1e-5 of the largest |value|) on a sweep
+   of the CPU tests' shapes in float32 and bf16, on both of K3's routes
+   (``RANGED_ROUTES``), on K4's tile edges (``BSR_EDGES``) and on K6's
+   edges (``K6_EDGES``: repeated, clipped and unpicked ids, tile 1, a block
+   every tile picks, odd widths), then on the path's own inputs,
    where each call must add exactly one launch; and times kernel (CUDA
    events; device time of its own launches from ``torch.profiler``),
    plain version and one
    library call that computes the same function (``index_select``,
    ``torch.sparse_bsr_tensor @ b``, ``F.embedding_bag``, ``torch.bmm`` on
    pre-gathered blocks), with the dense bf16 ``torch.matmul`` of the whole
-   down-projection beside them, and K3's and K4's routes and ``ptxas``
-   registers, spills and shared memory;
+   down-projection beside them, and K3's, K4's and K6's routes and
+   ``ptxas`` registers, spills and shared memory;
 4. holds K7 (``ops.flash_attention_fused``) against its plain version on
    the 12 cases of ``tests/test_flash_kernel.py`` (float32 and bf16, causal
    and not), on the edges of the bf16 kernel's tiles (D 7, 36, 40, 96 and
@@ -60,9 +62,11 @@ products run in full float32 (TF32 off).  It
    ``torch.profiler``): K1 (the AIA row gather) on the first chunk of
    every Table-I group of RoadTX and p2p-Gnutella04, both ELL planes, and
    timed on the RoadTX group-0 chunk beside ``torch.index_select``; K2
-   (Algorithm 4's hash accumulate) on the same chunks, compared where the
-   stream is at most 16,384 long; each kernel's bound counts the bytes this
-   run's data needs (distinct source rows, real products);
+   (Algorithm 4's hash accumulate) on the same chunks, each on the route
+   its table size chooses (groups 0-2: ``"smem"``, group 3: ``"global"``)
+   and held bit for bit, a stream wider than 16,384 slots on its products
+   packed to the front (the same tables); each kernel's bound counts the
+   bytes this run's data needs (distinct source rows, real products);
 7. runs the self-products of RoadTX (1,393,383 rows) and p2p-Gnutella04
    (10,876 rows), seed 0, through ``spgemm(a, a)`` (sort engine, AIA
    gather, measured sizing), ``spgemm(a, a, engine="fused_hash")`` (AIA
@@ -211,6 +215,7 @@ def kernel_phase(mats, log):
     from repro_torch.kernels import aia_gather, hash_accum
 
     k1 = k2 = None
+    chunks = []
     for name, a in mats.items():
         ell, firsts = chunk_operands(a)
         for g, (item, rows) in sorted(firsts.items()):
@@ -225,10 +230,14 @@ def kernel_phase(mats, log):
             keys, vals = phases.enumerate_products(cols_a, vals_a,
                                                    ell.indices, ell.data)
             rec = hash_check(name, g, keys, vals, item.table_cap, hash_accum,
-                             log, compare=keys.shape[1] <= K2_MAX_STREAM)
+                             log)
+            chunks.append({k: rec[k] for k in (
+                "matrix", "group", "rows", "ip_cap", "table_cap", "route",
+                "compared", "device_ms", "bound_ms")})
             if main:
                 k2 = rec
     check(k1 is not None and k2 is not None, "RoadTX group 0 chunk missing")
+    k2["chunks"] = chunks
     return k1, k2
 
 
@@ -281,31 +290,70 @@ def gather_check(name, g, ell, flat, aia_gather, log, timed=False):
     return rec
 
 
-def hash_check(name, g, keys, vals, table_cap, hash_accum, log,
-               compare=True):
-    """Time K2 on one chunk; with ``compare``, first hold it against the
-    plain version (too slow beyond ``K2_MAX_STREAM`` stream slots)."""
+def packed_stream(keys, vals):
+    """Each row's products moved to the front of its stream in stream order
+    (a stable pack), cut to the longest row's count.  Algorithm 4 skips
+    padding, so the packed stream gives the same tables."""
     import torch
 
+    valid = keys >= 0
+    width = int(valid.sum(1).max()) if keys.numel() else 0
+    order = torch.argsort((~valid).to(torch.int8), dim=1,
+                          stable=True)[:, :width]
+    return keys.gather(1, order), vals.gather(1, order)
+
+
+def hash_check(name, g, keys, vals, table_cap, hash_accum, log):
+    """Hold K2 bit for bit against the plain version on one chunk, then
+    time it.  A chunk whose stream is wider than ``K2_MAX_STREAM`` slots
+    (the plain version's reach) is held on its packed stream
+    (``"packed"``); a packed stream still too wide, on its rows of at most
+    ``K2_MAX_STREAM`` products (``"rows"``).  The chunk must take the route
+    its table size chooses: shared memory for Table-I groups 0-2, global
+    memory for group 3."""
+    import torch
+
+    from repro_torch.kernels import ops
+
     r, ip_cap = keys.shape
+    route = hash_accum.route(table_cap)
+    check(route == ("global" if g == 3 else "smem"),
+          f"K2 {name} group {g}: {table_cap}-slot tables take {route}")
     rec = {"matrix": name, "group": g, "rows": r, "ip_cap": ip_cap,
-           "table_cap": table_cap, "compared": compare}
-    if compare:
-        got = hash_accum.hash_accumulate(keys, vals, table_cap)
-        t0 = time.perf_counter()
-        want = hash_accum.hash_accumulate_plain(keys, vals, table_cap)
-        torch.cuda.synchronize()
-        rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
-        for part, gp, wp in zip(("cols", "vals", "cnt"), got, want):
-            check(torch.equal(gp, wp), f"K2 {part} differ from the plain "
-                                       f"version ({name} group {g})")
-        rec["max_abs_err"] = float((got[1] - want[1]).abs().max())
+           "table_cap": table_cap, "route": route}
+    before = ops.route_counts().get(f"hash_accumulate/{route}", 0)
+    got = hash_accum.hash_accumulate(keys, vals, table_cap)
+    check(ops.route_counts().get(f"hash_accumulate/{route}", 0) == before + 1,
+          f"K2 {name} group {g}: the call did not take the {route} route")
+    held_k, held_v, rows = keys, vals, slice(None)
+    rec["compared"] = "full"
+    if ip_cap > K2_MAX_STREAM:
+        held_k, held_v = packed_stream(keys, vals)
+        rec["compared"], rec["packed_width"] = "packed", held_k.shape[1]
+        if held_k.shape[1] > K2_MAX_STREAM:
+            rows = ((held_k >= 0).sum(1) <= K2_MAX_STREAM).nonzero()[:, 0]
+            held_k = held_k[rows, :K2_MAX_STREAM].contiguous()
+            held_v = held_v[rows, :K2_MAX_STREAM].contiguous()
+            rec["compared"], rec["rows_held"] = "rows", int(rows.numel())
+    t0 = time.perf_counter()
+    want = hash_accum.hash_accumulate_plain(held_k, held_v, table_cap)
+    torch.cuda.synchronize()
+    rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    for part, gp, wp in zip(("cols", "vals", "cnt"), got, want):
+        check(torch.equal(gp[rows], wp), f"K2 {part} differ from the plain "
+                                         f"version ({name} group {g})")
+    rec["max_abs_err"] = float((got[1][rows] - want[1]).abs().max())
 
     def kernel():
         return hash_accum.hash_accumulate(keys, vals, table_cap)
 
-    rec["ms"] = time_ms(kernel, reps=10 if compare else 3)
-    rec["device_ms"] = device_ms(kernel, reps=10 if compare else 3)
+    rec["ms"] = time_ms(kernel, reps=10)
+    # device time per call (the window-mask and insert kernels), and each
+    # kernel's own share
+    kernel()
+    _, dev, top = profile(lambda: [kernel() for _ in range(10)])
+    rec["device_ms"] = None if dev is None else dev / 10
+    rec["device_kernels"] = [(k, ms / 10) for k, ms, _ in top]
     # Every key read once, a value only where its key is a product (the
     # kernel skips the value of a padding key), the tables and the counts
     # written once.
@@ -365,6 +413,7 @@ def run_call(a, kwargs, count_syncs=False):
     torch.cuda.reset_peak_memory_stats()
     executor.clear_program_cache()
     before = ops.launch_counts()
+    routes_before = ops.route_counts()
     syncs = None
     t0 = time.perf_counter()
     if count_syncs:
@@ -382,7 +431,10 @@ def run_call(a, kwargs, count_syncs=False):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     after = ops.launch_counts()
-    return res, ms, {k: after[k] - before[k] for k in after}, \
+    routes = {k: n - routes_before.get(k, 0)
+              for k, n in ops.route_counts().items()
+              if n != routes_before.get(k, 0)}
+    return res, ms, {k: after[k] - before[k] for k in after}, routes, \
         executor.cache_stats()["host_sync_count"], syncs
 
 
@@ -411,7 +463,7 @@ def end_to_end_phase(mats, log):
         results = {}
         for label, kwargs, kernels, syncs_expected in CALLS:
             planned = label == "fused_hash"
-            res, cold_ms, launches, syncs, debug_syncs = run_call(
+            res, cold_ms, launches, routes, syncs, debug_syncs = run_call(
                 a, kwargs, count_syncs=planned)
             nnz = res.info["nnz_c"]
             err = check_against_scipy(name, label, res.c, nnz, want)
@@ -421,7 +473,7 @@ def end_to_end_phase(mats, log):
             for k, n in launches.items():
                 check((n > 0) == (k in kernels),
                       f"{name}/{label}: {k} launched {n} times")
-            _, ms, _, _, _ = run_call(a, kwargs)
+            _, ms, _, _, _, _ = run_call(a, kwargs)
             results[label] = res
             per_call[f"{name}/{label}"] = launches
             rec = {"matrix": name, "call": label, "rows": a.n_rows,
@@ -429,7 +481,8 @@ def end_to_end_phase(mats, log):
                    "intermediate_products": res.info["intermediate_products"],
                    "group_sizes": res.info["group_sizes"],
                    "ms": ms, "cold_ms": cold_ms, "host_sync_count": syncs,
-                   "launches": launches, "max_abs_err_vs_scipy": err,
+                   "launches": launches, "route_launches": routes,
+                   "max_abs_err_vs_scipy": err,
                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
             if planned:
                 rec["sync_debug_warnings"] = len(debug_syncs)
@@ -754,15 +807,16 @@ def ffn_shape_sweep(log):
                               topk_spmm.topk_spmm_plain(v, idx, w2)),
                   f"sweep: topk_spmm {dt} {(n, k, dff, d)}")
             cases += 1
-        for nt, kb, tile, block, d in ((2, 2, 8, 16, 32), (4, 3, 8, 128, 64),
-                                       (1, 1, 8, 8, 8), (3, 2, 11, 24, 600)):
+        for nt, kb, tile, block, d, ids in K6_EDGES:
             h, w2 = randn(nt, kb, tile, block, dtype=dt), randn(
                 (kb + 2) * block, d, dtype=dt)
-            bidx = randint(kb + 4, nt, kb, lo=-1)
-            e = rel_err(topk_spmm.block_topk_spmm(h, bidx, w2, block),
-                        topk_spmm.block_topk_spmm_plain(h, bidx, w2, block))
-            check(e <= FFN_REL, f"sweep: block_topk_spmm {dt} "
-                                f"{(nt, kb, tile, block, d)}: {e}")
+            bidx = k6_ids(ids, nt, kb, randint)
+            case = f"sweep: block_topk_spmm {dt} {(nt, kb, tile, block, d)} {ids}"
+            got = routed("block_topk_spmm", topk_spmm.route(dt),
+                         lambda: topk_spmm.block_topk_spmm(h, bidx, w2, block))
+            e = rel_err(got, topk_spmm.block_topk_spmm_plain(h, bidx, w2,
+                                                             block))
+            check(e <= FFN_REL, f"{case}: {e}")
             cases += 1
     for dt, nb, r, d, n, off, path in RANGED_ROUTES:
         dt = getattr(torch, dt)
@@ -780,19 +834,54 @@ def ffn_shape_sweep(log):
     emit({"ffn_shape_sweep": {"cases": cases, "ok": True}}, log)
 
 
+# K6 (block_topk_spmm), both dtypes (bf16: the wgmma kernel of
+# csrc/block_topk_spmm_wgmma.cu; float32: the CUDA-core kernel): (n_tiles,
+# kb, tile, block, d, ids) over kb + 2 blocks of W2.  ids "clipped": random
+# in [-1, kb + 4), clipped at both ends; "repeat": the same, with tile 0
+# naming one block twice; "unpicked": ids below kb only, so two blocks go
+# unpicked; "every": every tile picks block 1 (300 tiles x 8 rows, far past
+# one 64-row chunk).  Blocks 8-128 (24 and 12: not a panel's width; 12:
+# element-wise staging of h), tile 11 and tile 1, d 7 (element-wise W2
+# staging, scalar atomics) and 2,050 (17 column slices, the last ragged).
+K6_EDGES = (
+    (2, 2, 8, 16, 32, "clipped"), (4, 3, 8, 128, 64, "clipped"),
+    (1, 1, 8, 8, 8, "clipped"), (3, 2, 11, 24, 600, "clipped"),
+    (5, 3, 8, 16, 40, "repeat"), (6, 4, 1, 16, 40, "clipped"),
+    (4, 3, 5, 12, 33, "unpicked"), (300, 2, 8, 16, 64, "every"),
+    (4, 3, 8, 128, 7, "clipped"), (4, 3, 8, 128, 2050, "repeat"),
+)
+
+
+def k6_ids(kind, nt, kb, randint):
+    """bidx (nt, kb) for a K6_EDGES case."""
+    if kind == "unpicked":
+        return randint(kb, nt, kb)
+    bidx = randint(kb + 4, nt, kb, lo=-1)
+    if kind == "repeat":
+        bidx[0, 1] = bidx[0, 0]
+    elif kind == "every":
+        bidx[:, 0] = 1
+    return bidx
+
+
 FFN_KERNELS = ("aia_ranged_gather", "bsr_spmm", "topk_spmm",
                "block_topk_spmm")
 # the route each routed kernel takes on the path: W2's ranges are whole
-# 16-byte vectors, the BSR is bf16
-FFN_ROUTES = {"aia_ranged_gather": "v16", "bsr_spmm": "wgmma"}
+# 16-byte vectors; the BSR, h and W2 are bf16
+FFN_ROUTES = {"aia_ranged_gather": "v16", "bsr_spmm": "wgmma",
+              "block_topk_spmm": "wgmma"}
 # kernel, its CUDA source, the TPU kernel it replaces
 FFN_SOURCES = (
     ("aia_ranged_gather", "aia_gather.cu",
      "src/repro/kernels/aia_gather.py:47"),
     ("bsr_spmm", "bsr_spmm_wgmma.cu", "src/repro/kernels/spgemm_bsr.py:46"),
     ("topk_spmm", "topk_spmm.cu", "src/repro/kernels/topk_spmm.py:40"),
-    ("block_topk_spmm", "topk_spmm.cu", "src/repro/kernels/topk_spmm.py:74"),
+    ("block_topk_spmm", "block_topk_spmm_wgmma.cu",
+     "src/repro/kernels/topk_spmm.py:74"),
 )
+# the CUDA-core kernel of a routed kernel's float32 calls
+FLOAT32_SOURCES = {"bsr_spmm": "bsr_spmm.cu",
+                   "block_topk_spmm": "topk_spmm.cu"}
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple:
@@ -955,7 +1044,9 @@ def ffn_kernel_records(out, w2, launches, log):
             flops=2 * h_kept.numel() * d,
             library=[("torch.bmm on the pre-gathered blocks (gather "
                       "excluded)", lambda: torch.bmm(hk_flat, sel_view))],
-            shape={"h_kept": list(h_kept.shape), "w2": list(w2.shape)}),
+            shape={"h_kept": list(h_kept.shape), "w2": list(w2.shape)},
+            route=topk_spmm.route(h_kept.dtype),
+            ptxas="block_topk_wgmma_kernel"),
     }
     recs = {}
     for name, sp in specs.items():
@@ -966,10 +1057,14 @@ def ffn_kernel_records(out, w2, launches, log):
         rec.update(hold(name, sp["kernel"], sp["plain"], sp["exact"]))
         reps, plain_reps = sp["reps"]
         rec["ms"] = time_ms(sp["kernel"], reps=reps)
-        # the mean of the kernel's own recorded launches (one per call)
-        _, _, top = profile(lambda: [sp["kernel"]() for _ in range(5)])
-        rec["device_ms"] = top[0][1] / top[0][2] if top else None
+        # device time per call: every launch of the call (K6's bf16 route:
+        # the selection's inversion with y's zero fill, and the product),
+        # and the largest kernel's own mean
+        _, dev, top = profile(lambda: [sp["kernel"]() for _ in range(5)])
+        rec["device_ms"] = None if dev is None else dev / 5
+        rec["kernel_device_ms"] = top[0][1] / top[0][2] if top else None
         rec["device_launches_recorded"] = top[0][2] if top else 0
+        rec["device_kernels"] = [(k, ms / n) for k, ms, n in top]
         rec["plain_ms"] = time_ms(sp["plain"], reps=plain_reps, warmup=0)
         rec["plain_device_ms"] = device_ms(sp["plain"], reps=1)
         rec["bound_ms"], rec["bound_by"] = bound(sp["nbytes"], sp["flops"],
@@ -978,7 +1073,7 @@ def ffn_kernel_records(out, w2, launches, log):
         rec.update(library_call(sp["library"]))
         if "route" in sp:
             rec["launch"] = launch_config(sp["kernel"], sp["ptxas"])
-        if name == "bsr_spmm":
+        if name in ("bsr_spmm", "block_topk_spmm"):
             rec["tflops"] = sp["flops"] / rec["device_ms"] / 1e9 \
                 if rec["device_ms"] else None
         emit({"ffn_kernel": rec}, log)
@@ -1385,7 +1480,7 @@ def main(argv=None) -> int:
          "kernel_ms": k2["ms"], "device_ms": k2["device_ms"],
          "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "path": k2["route"], "chunks": k2["chunks"]},
     ]
     for name, src, tpu in FFN_SOURCES:
         rec = ffn[name]
@@ -1402,9 +1497,9 @@ def main(argv=None) -> int:
         if "route" in rec:  # the CUDA kernel the path's call took
             kernels[-1].update(path=rec["route"], ptxas=rec["ptxas"],
                                launch=rec["launch"])
-        if name == "bsr_spmm":
+        if name in FLOAT32_SOURCES:
             kernels[-1]["float32_source"] = \
-                "src/repro_torch/kernels/csrc/bsr_spmm.cu"
+                f"src/repro_torch/kernels/csrc/{FLOAT32_SOURCES[name]}"
     kernels.append({
         "name": "flash_attention_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",

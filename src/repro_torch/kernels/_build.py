@@ -33,8 +33,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, idx, out, n_x_rows, row_words, n_idx, stream
     "repro_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
-    # keys, vals, cols, out_vals, cnt, rows, ip_cap, table_cap, stream
-    "repro_hash_accumulate": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # keys, vals, masks (scratch), cols, out_vals, cnt, rows, ip_cap,
+    # table_cap, stream (the table in shared memory up to kSmemTableBytes,
+    # else in cols and out_vals)
+    "repro_hash_accumulate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, idx, out, n_blocks, range_words, n_idx, v16 (1: the 16-byte
     # copy, 0: the word copy), stream
     "repro_aia_ranged_gather": [_P, _P, _P, _I, _I, _I, _B, _P],
@@ -45,10 +47,12 @@ SIGNATURES = {
     "repro_bsr_spmm_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # vals, idx, w2, out, n, k, d, d_ff, bf16, stream
     "repro_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
-    # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, bf16,
-    # stream
-    "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B,
-                              _P],
+    # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, stream
+    # (float32; bfloat16 for the wgmma kernel, with pair_ptr and pairs
+    # scratch after w2)
+    "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_block_topk_spmm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _P],
     # q, k, v, o, bh, s, d, causal, scale, stream (float32; bfloat16 for
     # the wgmma kernel)
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _B, _F, _P],

@@ -2,7 +2,8 @@
 // the async-proxy fence, the 128-byte shared-memory swizzle, wgmma
 // descriptors, the wgmma fence / commit / wait, the wgmma instructions the
 // kernels issue (bf16 operands, float32 accumulators), and a fast exp2.
-// Used by flash_attention_wgmma.cu and bsr_spmm_wgmma.cu.
+// Used by flash_attention_wgmma.cu, bsr_spmm_wgmma.cu,
+// block_topk_spmm_wgmma.cu and hash_accum.cu.
 //
 // Shared-memory tiles use the 128-byte swizzle (SW128): a tile is stored
 // as panels of 64 bf16 columns, each row of a panel 128 bytes, rows
@@ -32,6 +33,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (cached in L1);
+// src_bytes 0 writes 4 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 

@@ -9,9 +9,10 @@
 //   Replaces topk_spmm.py:block_topk_spmm (_tile_kernel: grid (tiles, kb),
 //   each step a (tile x block) @ (block x d) MXU product on a DMA'd W2 block).
 //
-// Both take float32 or bfloat16 inputs and accumulate in float32.  Ids
-// outside W2 are clipped to its first or last row (block), so no id reads
-// outside W2.
+// topk_spmm takes float32 or bfloat16 inputs, block_topk_spmm float32 (its
+// bfloat16 calls go to block_topk_spmm_wgmma.cu); both accumulate in
+// float32.  Ids outside W2 are clipped to its first or last row (block), so
+// no id reads outside W2.
 //
 // What bounds them on an H100: the bytes each input needs once (the
 // activations and ids, the W2 rows or blocks the ids name, y in float32)
@@ -32,8 +33,8 @@
 // (128 threads, 4 columns each, strided).  For each t it stages the 8 rows
 // of h_kept[tile, t] in shared memory as float32, then streams the selected
 // W2 block's rows, each thread adding h[m][k] * w into 8 x 4 float32
-// accumulators with fmaf.  A bfloat16 product is exact in float32, so only
-// the order of the sums differs from the reference's per-step dot.
+// accumulators with fmaf, so only the order of the sums differs from the
+// reference's per-step dot.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -179,15 +180,15 @@ extern "C" int repro_topk_spmm(const void* vals, const void* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// h: (n_tiles, kb, tile, block) float32 (bf16 = 0) or bfloat16 (bf16 = 1);
-// bidx: (n_tiles, kb) int32; w2: (n_blocks * block, d) of h's type; out:
-// (n_tiles * tile, d) float32, written in full.  block * 32 bytes of shared
-// memory must fit the default 48 KB (block <= 1536).
+// h: (n_tiles, kb, tile, block) float32; bidx: (n_tiles, kb) int32; w2:
+// (n_blocks * block, d) float32; out: (n_tiles * tile, d) float32, written
+// in full.  block * 32 bytes of shared memory must fit the default 48 KB
+// (block <= 1536).
 extern "C" int repro_block_topk_spmm(const void* h, const void* bidx,
                                      const void* w2, void* out,
                                      long long n_tiles, long long kb,
                                      long long tile, long long block,
-                                     long long d, long long n_blocks, int bf16,
+                                     long long d, long long n_blocks,
                                      void* stream) {
   if (n_tiles <= 0 || tile <= 0 || d <= 0) return 0;
   const long long gy = (d + kTileThreads * kTileCols - 1)
@@ -199,16 +200,10 @@ extern "C" int repro_block_topk_spmm(const void* h, const void* bidx,
       || n_blocks > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)n_tiles, (unsigned)gy, (unsigned)gz);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    block_topk_spmm_kernel<__nv_bfloat16><<<grid, kTileThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(h), static_cast<const int*>(bidx),
-        static_cast<const __nv_bfloat16*>(w2), static_cast<float*>(out),
-        (int)kb, (int)tile, (int)block, d, (int)n_blocks);
-  else
-    block_topk_spmm_kernel<float><<<grid, kTileThreads, smem, s>>>(
-        static_cast<const float*>(h), static_cast<const int*>(bidx),
-        static_cast<const float*>(w2), static_cast<float*>(out), (int)kb,
-        (int)tile, (int)block, d, (int)n_blocks);
+  block_topk_spmm_kernel<float><<<grid, kTileThreads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(h), static_cast<const int*>(bidx),
+      static_cast<const float*>(w2), static_cast<float*>(out), (int)kb,
+      (int)tile, (int)block, d, (int)n_blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,15 @@ in stream order into its own ``table_cap``-slot linear-probing table
 (``EMPTY = -1``; keys < 0 are padding; home slot
 ``uint32(key) * 2654435761 mod table_cap``; probe bound ``table_cap``).
 The table comes back unsorted, in probe order, with the occupied count.
-Because every key's sum is taken in stream order, the CUDA kernel
-(``csrc/hash_accum.cu``), the plain version (``core.hashtable``) and the
-reference's scan engine and Pallas kernel give the same table bit for bit.
+Because every key takes the slot, and every key's sum the terms and order,
+of a one-at-a-time insert in stream order, the CUDA kernel
+(``csrc/hash_accum.cu``: the windows of 32 slots that hold a product
+found in parallel, then a warp per row inserting them a window at a time),
+the plain version (``core.hashtable``) and the reference's scan engine and
+Pallas kernel give the same table bit for bit.  On CUDA the table's size
+chooses where the kernel keeps it (``route``): in shared memory up to
+8,192 slots (Table-I groups 0-2, ``"smem"``), else in the output buffers
+in global memory (group 3, ``"global"``).
 
 Replaces ``repro.kernels.hash_accum.hash_accumulate`` (the Pallas
 ``_hash_kernel``); ``hash_accumulate_sorted`` is the counterpart of the
@@ -20,7 +26,15 @@ import torch
 
 from repro_torch.core import hashtable
 from repro_torch.kernels import ops
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import library, source_constants
+
+
+def route(table_cap: int) -> str:
+    """Where a CUDA call keeps its ``table_cap``-slot tables: ``"smem"``
+    (shared memory, 8 bytes a slot up to the source's
+    ``kSmemTableBytes``) or ``"global"``."""
+    limit = source_constants("hash_accum.cu")["kSmemTableBytes"]
+    return "smem" if table_cap * 8 <= limit else "global"
 
 
 def hash_accumulate_plain(keys: torch.Tensor, vals: torch.Tensor,
@@ -45,12 +59,16 @@ def _hash_accumulate_cuda(keys: torch.Tensor, vals: torch.Tensor,
     cnt = torch.empty(r, dtype=torch.int32, device=dev)
     if r == 0:
         return cols, out, cnt
+    # a bit for each window of 32 slots that holds a product
+    word = source_constants("hash_accum.cu")["kWordSlots"]
+    masks = torch.empty((r, -(-ip_cap // word)), dtype=torch.int32,
+                        device=dev)
     with torch.cuda.device(dev):
         rc = library().repro_hash_accumulate(
-            keys.data_ptr(), vals.data_ptr(), cols.data_ptr(),
-            out.data_ptr(), cnt.data_ptr(), r, ip_cap, table_cap,
-            torch.cuda.current_stream().cuda_stream)
-    ops.check_launch("hash_accumulate", rc)
+            keys.data_ptr(), vals.data_ptr(), masks.data_ptr(),
+            cols.data_ptr(), out.data_ptr(), cnt.data_ptr(), r, ip_cap,
+            table_cap, torch.cuda.current_stream().cuda_stream)
+    ops.check_launch("hash_accumulate", rc, route(table_cap))
     return cols, out, cnt
 
 

@@ -5,8 +5,9 @@ launches its CUDA kernel for a tensor on a CUDA device; any other device
 raises.  There is no fallback from the card to the plain version.  Each
 launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
 that its path went through the kernels.  The ranged gather (by the
-range's alignment) and the BSR product (by dtype) also count the CUDA route
-they took in ``ROUTE_LAUNCHES``, under ``"<kernel>/<route>"``.
+range's alignment), the BSR and block TopK products (by dtype) and the hash
+accumulate (by table size) also count the CUDA route they took in
+``ROUTE_LAUNCHES``, under ``"<kernel>/<route>"``.
 
 The public wrappers ``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and
 ``block_topk_spmm`` keep the reference's signatures (``repro.kernels.ops``),

@@ -8,11 +8,16 @@
   agree bit for bit, and a repeated id accumulates.
 * ``block_topk_spmm`` (per token tile): ``y[tile] = sum_{t < kb}
   h_kept[tile, t] (tile x block) @ W2[bidx[tile, t]*block : +block]``, in
-  float32; the kernel and the plain version differ only in the order of
-  each block product's sums.
+  float32; the kernels and the plain version differ only in the order of
+  the sums.  On CUDA the dtype chooses the kernel (``route``): bfloat16
+  goes to ``csrc/block_topk_spmm_wgmma.cu`` (block-major: each selected W2
+  block read once, ``wgmma`` on the stacked tile rows that picked it, the
+  partial products added into y by float32 reductions, so the order of the
+  sums over ``t`` varies from run to run); float32 to the CUDA-core kernel
+  in ``csrc/topk_spmm.cu`` (tile by tile, deterministic).
 
-Ids outside W2 are clipped to its first or last row (block).  The CUDA
-kernels are ``csrc/topk_spmm.cu``.  Replace ``repro.kernels.topk_spmm.
+Ids outside W2 are clipped to its first or last row (block).  The per-token
+kernel is ``csrc/topk_spmm.cu``.  Replace ``repro.kernels.topk_spmm.
 topk_spmm`` and ``block_topk_spmm`` (the Pallas ``_token_kernel`` and
 ``_tile_kernel``).
 """
@@ -21,7 +26,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import library, source_constants
+
+# the block-form kernel each dtype goes to on CUDA: (C entry point, route)
+KERNELS = {torch.bfloat16: ("repro_block_topk_spmm_wgmma", "wgmma"),
+           torch.float32: ("repro_block_topk_spmm", "cuda_cores")}
+# the CUDA-core kernel stages 8 rows of a block as float32 in 48 KB
+F32_MAX_BLOCK = 1536
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA ``block_topk_spmm`` call with ``dtype`` operands
+    launches: ``"wgmma"`` (bfloat16, tensor cores) or ``"cuda_cores"``
+    (float32)."""
+    return KERNELS[dtype][1]
 
 
 def _check_topk(vals, idx, w2):
@@ -104,27 +122,47 @@ def block_topk_spmm_plain(h_kept, bidx, w2, block: int = 128):
 
 def _block_topk_spmm_cuda(h_kept, bidx, w2, block: int = 128):
     _check_tiles(h_kept, bidx, w2, block)
-    bf16 = ops.expect_float(h_kept, 4, "h_kept")
+    ops.expect_float(h_kept, 4, "h_kept")
     ops.expect(bidx, torch.int32, 2, "bidx")
     ops.expect(w2, h_kept.dtype, 2, "w2")
     ops.same_device(("h_kept", h_kept), ("bidx", bidx), ("w2", w2))
-    if block > 1536:
-        raise ValueError(f"block={block}: the kernel stages 8 rows of a block "
-                         f"in 48 KB of shared memory (block <= 1536)")
     n_tiles, kb, tile, _ = h_kept.shape
     d = w2.shape[1]
-    out = torch.empty((n_tiles * tile, d), dtype=torch.float32,
-                      device=w2.device)
-    if out.numel() == 0:
-        return out
-    if kb == 0:
-        return out.zero_()
+    n_blocks = w2.shape[0] // block
+    path = route(h_kept.dtype)
+    if path == "wgmma":
+        c = source_constants("block_topk_spmm_wgmma.cu")
+        if block > c["kMaxBlock"] or n_blocks > c["kMaxInvertBlocks"]:
+            raise ValueError(
+                f"block={block}, {n_blocks} blocks: the bf16 kernel takes "
+                f"block <= {c['kMaxBlock']} (W2's slice and four A slots in "
+                f"one block's shared memory) and at most "
+                f"{c['kMaxInvertBlocks']} blocks (its counting sort)")
+    elif block > F32_MAX_BLOCK:
+        raise ValueError(f"block={block}: the float32 kernel stages 8 rows "
+                         f"of a block in 48 KB of shared memory (block <= "
+                         f"{F32_MAX_BLOCK})")
+    if n_tiles * tile * d == 0 or kb == 0:
+        return torch.zeros((n_tiles * tile, d), dtype=torch.float32,
+                           device=w2.device)
     with torch.cuda.device(w2.device):
-        rc = library().repro_block_topk_spmm(
-            h_kept.data_ptr(), bidx.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            n_tiles, kb, tile, block, d, w2.shape[0] // block, bf16,
-            torch.cuda.current_stream().cuda_stream)
-    ops.check_launch("block_topk_spmm", rc)
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty((n_tiles * tile, d), dtype=torch.float32,
+                          device=w2.device)
+        if path == "wgmma":  # the kernel's first launch also zeroes out
+            pair_ptr = torch.empty(n_blocks + 1, dtype=torch.int32,
+                                   device=w2.device)
+            pairs = torch.empty(n_tiles * kb, dtype=torch.int32,
+                                device=w2.device)
+            rc = library().repro_block_topk_spmm_wgmma(
+                h_kept.data_ptr(), bidx.data_ptr(), w2.data_ptr(),
+                pair_ptr.data_ptr(), pairs.data_ptr(), out.data_ptr(),
+                n_tiles, kb, tile, block, d, n_blocks, stream)
+        else:
+            rc = library().repro_block_topk_spmm(
+                h_kept.data_ptr(), bidx.data_ptr(), w2.data_ptr(),
+                out.data_ptr(), n_tiles, kb, tile, block, d, n_blocks, stream)
+    ops.check_launch("block_topk_spmm", rc, path)
     return out
 
 
