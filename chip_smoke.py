@@ -13,7 +13,8 @@ products run in full float32 (TF32 off).  It
    of Phi-3-mini (``phi3_mini_3_8b``: d_model 3072, d_ff 8192, bf16; 2,048
    tokens, TopK k = d_ff/8 = 1,024, blocks of 128 lanes, tiles of 8 tokens;
    random weights from seed 0), with the launch counts set to 0 before and
-   read after: ``topk_rows -> ops.topk_spmm`` (K5), the per-tile block
+   read after: ``topk_rows -> ops.topk_spmm`` (K5, on its ``"smem"``
+   route: W2 column slices in shared memory), the per-tile block
    selection of ``block_topk_ffn`` -> ``ops.block_topk_spmm`` (K6) and
    ``ops.aia_ranged_gather`` of the selected W2 blocks (K3, 1.61 GB), and a
    3-of-24 block-pruned W1^T as a BSR (``bsr_from_dense``) times x^T through
@@ -24,17 +25,19 @@ products run in full float32 (TF32 off).  It
    (``FFN_ROUTES``); holds each kernel against its plain version (K3 and
    K5 bit-exact, K4 and K6 within 1e-5 of the largest |value|) on a sweep
    of the CPU tests' shapes in float32 and bf16, on both of K3's routes
-   (``RANGED_ROUTES``), on K4's tile edges (``BSR_EDGES``) and on K6's
-   edges (``K6_EDGES``: repeated, clipped and unpicked ids, tile 1, a block
-   every tile picks, odd widths), then on the path's own inputs,
-   where each call must add exactly one launch; and times kernel (CUDA
-   events; device time of its own launches from ``torch.profiler``),
-   plain version and one
-   library call that computes the same function (``index_select``,
-   ``torch.sparse_bsr_tensor @ b``, ``F.embedding_bag``, ``torch.bmm`` on
-   pre-gathered blocks), with the dense bf16 ``torch.matmul`` of the whole
-   down-projection beside them, and K3's, K4's and K6's routes and
-   ``ptxas`` registers, spills and shared memory;
+   (``RANGED_ROUTES``), on K4's tile edges (``BSR_EDGES``), on K5's edges
+   on both of its routes (``k5_edges``: d_ff at and past the shared-memory
+   limit, ragged slices and chunks, few tokens, repeated and clipped ids)
+   and on K6's edges (``K6_EDGES``: repeated, clipped and unpicked ids,
+   tile 1, a block every tile picks, odd widths), then on the path's own
+   inputs, where each call must add exactly one launch; and times kernel
+   (CUDA events; device time of its own launches from ``torch.profiler``),
+   plain version and one library call that computes the same function
+   (``index_select``, ``torch.sparse_bsr_tensor @ b``,
+   ``F.embedding_bag``, ``torch.bmm`` on pre-gathered blocks), with the
+   dense bf16 ``torch.matmul`` of the whole down-projection beside them,
+   and K3's to K6's routes and ``ptxas`` registers, spills and shared
+   memory;
 4. holds K7 (``ops.flash_attention_fused``) against its plain version on
    the 12 cases of ``tests/test_flash_kernel.py`` (float32 and bf16, causal
    and not), on the edges of the bf16 kernel's tiles (D 7, 36, 40, 96 and
@@ -60,13 +63,16 @@ products run in full float32 (TF32 off).  It
    the shapes the SpGEMM path gives them, for exact equality, and times both
    (CUDA events around the call, and the kernels' own device time from
    ``torch.profiler``): K1 (the AIA row gather) on the first chunk of
-   every Table-I group of RoadTX and p2p-Gnutella04, both ELL planes, and
-   timed on the RoadTX group-0 chunk beside ``torch.index_select``; K2
-   (Algorithm 4's hash accumulate) on the same chunks, each on the route
-   its table size chooses (groups 0-2: ``"smem"``, group 3: ``"global"``)
-   and held bit for bit, a stream wider than 16,384 slots on its products
-   packed to the front (the same tables); each kernel's bound counts the
-   bytes this run's data needs (distinct source rows, real products);
+   every Table-I group of RoadTX and p2p-Gnutella04, both ELL planes in
+   one launch, and timed on the RoadTX group-0 chunk beside
+   ``torch.index_select`` and two one-plane calls (with the host's cost a
+   call over back-to-back calls), then on every copy unit (``K1_EDGES``);
+   K2 (Algorithm 4's hash accumulate) on the same chunks, each on the
+   route its table size chooses (groups 0-2: ``"smem"``, group 3:
+   ``"global"``) and held bit for bit, a stream wider than 16,384 slots on
+   its products packed to the front (the same tables); each kernel's bound
+   counts the bytes this run's data needs (distinct source rows, real
+   products);
 7. runs the self-products of RoadTX (1,393,383 rows) and p2p-Gnutella04
    (10,876 rows), seed 0, through ``spgemm(a, a)`` (sort engine, AIA
    gather, measured sizing), ``spgemm(a, a, engine="fused_hash")`` (AIA
@@ -75,9 +81,10 @@ products run in full float32 (TF32 off).  It
    ``scipy.sparse`` (structure exact, values within rtol 1e-4 / atol 1e-6:
    float32 sums in another order than scipy's float64), the hash path
    bit-identical to hash/xla, zero pipeline syncs on the planned call and
-   the kernels' launch counts; profiles one more run of each call (device
-   time, busy share, top kernels); and times ``torch.sparse.mm``
-   (cuSPARSE) on the same CSR as a yardstick the port never calls;
+   the kernels' launch counts (one K1 launch a chunk); profiles one more
+   run of each call (device time, busy share, top kernels); and times
+   ``torch.sparse.mm`` (cuSPARSE) on the same CSR as a yardstick the port
+   never calls;
 8. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Every check raises on failure, so the script exits non-zero; it also exits
@@ -238,18 +245,39 @@ def kernel_phase(mats, log):
                 k2 = rec
     check(k1 is not None and k2 is not None, "RoadTX group 0 chunk missing")
     k2["chunks"] = chunks
+    k1_edges(log)
     return k1, k2
+
+
+def routed_call(name, fn, expect=None):
+    """``fn()``, which must launch kernel ``name`` once (on route ``expect``
+    where given); returns its result and the route the launch was counted
+    under."""
+    from repro_torch.kernels import ops
+
+    before, routes = ops.launch_counts()[name], ops.route_counts()
+    got = fn()
+    taken = [k.split("/", 1)[1] for k, c in ops.route_counts().items()
+             if k.startswith(f"{name}/") and c != routes.get(k, 0)]
+    check(ops.launch_counts()[name] == before + 1 and len(taken) == 1,
+          f"{name}: one call launched {ops.launch_counts()[name] - before} "
+          f"times on routes {taken}")
+    check(expect is None or taken[0] == expect,
+          f"{name}: took its {taken[0]} route, not {expect}")
+    return got, taken[0]
 
 
 def gather_check(name, g, ell, flat, aia_gather, log, timed=False):
     """Hold K1 against its plain version on one chunk's id stream, both
-    ELL planes; with ``timed``, also time it beside the plain version and
-    ``index_select``."""
+    ELL planes in one launch (the executor's call); with ``timed``, also
+    time it beside the plain version, ``index_select`` and two one-plane
+    calls."""
     import torch
 
     planes = (ell.indices, ell.data)
-    got = [aia_gather.gather_rows(x, flat) for x in planes]
-    want = [aia_gather.gather_rows_plain(x, flat) for x in planes]
+    got, route = routed_call("gather_rows",
+                             lambda: aia_gather.gather_planes(planes, flat))
+    want = aia_gather.gather_planes_plain(planes, flat)
     torch.cuda.synchronize()
     for gp, wp in zip(got, want):
         check(torch.equal(gp, wp), f"K1 differs from its plain version "
@@ -258,6 +286,7 @@ def gather_check(name, g, ell, flat, aia_gather, log, timed=False):
     safe = flat.clamp(0, n_x - 1).long()
     n = flat.shape[0]
     rec = {"matrix": name, "group": g, "n_idx": n, "row_words": kb,
+           "route": route,
            "max_abs_err": max(float((gp.double() - wp.double()).abs().max())
                               for gp, wp in zip(got, want))}
     if not timed:
@@ -269,25 +298,95 @@ def gather_check(name, g, ell, flat, aia_gather, log, timed=False):
     rec["distinct_rows"] = distinct
 
     def kernel():
+        return aia_gather.gather_planes(planes, flat)
+
+    def one_plane_pair():
         return [aia_gather.gather_rows(x, flat) for x in planes]
 
     def plain():
-        return [aia_gather.gather_rows_plain(x, flat) for x in planes]
+        return aia_gather.gather_planes_plain(planes, flat)
 
     def library():
         return [torch.index_select(x, 0, safe) for x in planes]
 
+    def host_ms(fn, calls=200):
+        """Wall time a call over back-to-back calls: the host's cost where
+        the device keeps up."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
     rec.update({
         "ms": time_ms(kernel, reps=20),
-        "plain_ms": time_ms(plain, reps=20),
-        "library_ms": time_ms(library, reps=20),
+        "host_ms": host_ms(kernel),
         "device_ms": device_ms(kernel),
+        "one_plane_pair_ms": time_ms(one_plane_pair, reps=20),
+        "one_plane_pair_host_ms": host_ms(one_plane_pair),
+        "one_plane_pair_device_ms": device_ms(one_plane_pair),
+        "plain_ms": time_ms(plain, reps=20),
         "plain_device_ms": device_ms(plain),
+        "library_ms": time_ms(library, reps=20),
+        "library_host_ms": host_ms(library),
         "library_device_ms": device_ms(library),
         "bound_ms": bound_ms(2 * (distinct + n) * kb * 4 + n * 4),
     })
     emit({"k1_chunk": rec}, log)
     return rec
+
+
+# K1's copy units (aia_gather.gather_unit): (planes as (dtype, width), rows
+# of x, ids, the planes' element offset into their allocations, the unit).
+# 16-byte rows; RoadTX's and p2p-Gnutella04's ELL rows (56 and 2,364
+# bytes; the latter one row a tile, 5,000 ids past the grid's cap); 16-byte
+# rows in 4-byte aligned views; an odd-width bf16 plane beside an int32
+# one, and alone; int8 rows of 3 bytes; int8 planes 1 byte off alignment;
+# a bf16 plane of 16 bytes; int8 rows of 3,001 bytes (past a tile's units).
+K1_EDGES = (
+    ((("int32", 4), ("float32", 4)), 40, 300, 0, "v16"),
+    ((("int32", 14), ("float32", 14)), 40, 300, 0, "v8"),
+    ((("int32", 591), ("float32", 591)), 40, 5000, 0, "words"),
+    ((("int32", 4), ("float32", 4)), 40, 300, 1, "words"),
+    ((("int32", 3), ("bfloat16", 7)), 40, 300, 0, "u16"),
+    ((("bfloat16", 7),), 40, 300, 0, "u16"),
+    ((("int8", 3),), 40, 300, 0, "bytes"),
+    ((("int8", 16), ("int8", 16)), 40, 300, 1, "bytes"),
+    ((("bfloat16", 8),), 40, 300, 0, "v16"),
+    ((("int8", 3001),), 40, 30, 0, "bytes"),
+)
+
+
+def k1_edges(log):
+    """K1 on every copy unit (``K1_EDGES``), ids clipped at both ends, each
+    call one launch on its unit and equal to the plain version; an empty
+    stream launches nothing."""
+    import torch
+
+    from repro_torch.kernels import aia_gather, ops
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for planes_spec, n_x, n_idx, off, unit in K1_EDGES:
+        planes = []
+        for dt, width in planes_spec:
+            flat = torch.randint(-100, 100, (n_x * width + off,), generator=g,
+                                 device="cuda").to(getattr(torch, dt))
+            planes.append(flat[off:].view(n_x, width))
+        idx = torch.randint(-3, n_x + 3, (n_idx,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        case = f"K1 edge {planes_spec} off {off}"
+        got, _ = routed_call(
+            "gather_rows", lambda: aia_gather.gather_planes(planes, idx), unit)
+        want = aia_gather.gather_planes_plain(planes, idx)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), case)
+    before = ops.launch_counts()["gather_rows"]
+    empty = aia_gather.gather_planes(planes, idx[:0])
+    check(ops.launch_counts()["gather_rows"] == before
+          and all(e.shape == (0, p.shape[1]) for e, p in zip(empty, planes)),
+          "K1: an empty stream")
+    emit({"k1_edges": {"cases": len(K1_EDGES) + 1, "ok": True}}, log)
 
 
 def packed_stream(keys, vals):
@@ -732,7 +831,7 @@ def ffn_shape_sweep(log):
     (``BSR_EDGES``), each call counted on the route it should take."""
     import torch
 
-    from repro_torch.kernels import aia_gather, ops, spgemm_bsr, topk_spmm
+    from repro_torch.kernels import aia_gather, spgemm_bsr, topk_spmm
 
     g = torch.Generator(device="cuda").manual_seed(1)
 
@@ -742,14 +841,6 @@ def ffn_shape_sweep(log):
     def randint(hi, *shape, lo=0):
         return torch.randint(lo, hi, shape, generator=g, device="cuda",
                              dtype=torch.int32)
-
-    def routed(name, path, fn):
-        key = f"{name}/{path}"
-        before = ops.route_counts().get(key, 0)
-        got = fn()
-        check(ops.route_counts().get(key, 0) == before + 1,
-              f"sweep: {name} did not take its {path} route")
-        return got
 
     cases = 0
     for dt in (torch.float32, torch.bfloat16):
@@ -776,8 +867,9 @@ def ffn_shape_sweep(log):
             cases += 1
         for bs, d in BSR_EDGES:
             args = bsr_edge_operands(bs, d, dt, randn)
-            got = routed("bsr_spmm", spgemm_bsr.route(dt),
-                         lambda: spgemm_bsr.bsr_spmm(*args))
+            got, _ = routed_call("bsr_spmm",
+                                 lambda: spgemm_bsr.bsr_spmm(*args),
+                                 spgemm_bsr.route(dt))
             want = spgemm_bsr.bsr_spmm_plain(*args)
             check(bool(torch.isfinite(got).all())
                   and float(got[bs:2 * bs].abs().max()) == 0.0,
@@ -789,8 +881,9 @@ def ffn_shape_sweep(log):
             args, lens = bsr_multitile_operands(n_brows, bs, d, dt, randn,
                                                 randint)
             case = f"sweep: bsr_spmm {dt} {n_brows} rows bs {bs} d {d}"
-            got = routed("bsr_spmm", spgemm_bsr.route(dt),
-                         lambda: spgemm_bsr.bsr_spmm(*args))
+            got, _ = routed_call("bsr_spmm",
+                                 lambda: spgemm_bsr.bsr_spmm(*args),
+                                 spgemm_bsr.route(dt))
             want = spgemm_bsr.bsr_spmm_plain(*args)
             empty = torch.tensor(lens, device="cuda") == 0
             check(bool(torch.isfinite(got).all()) and float(
@@ -799,21 +892,30 @@ def ffn_shape_sweep(log):
             e = rel_err(got, want)
             check(e <= FFN_REL, f"{case}: {e}")
             cases += 1
-        for n, k, dff, d in ((4, 2, 16, 8), (16, 4, 64, 128), (3, 8, 32, 16),
-                             (5, 300, 40, 1100)):
+        for n, k, dff, d, ids in ((4, 2, 16, 8, "clipped"),
+                                  (16, 4, 64, 128, "clipped"),
+                                  (3, 8, 32, 16, "clipped"),
+                                  (5, 300, 40, 1100, "clipped")) + k5_edges():
             v, w2 = randn(n, k, dtype=dt), randn(dff, d, dtype=dt)
             idx = randint(dff + 3, n, k, lo=-3)
-            check(torch.equal(topk_spmm.topk_spmm(v, idx, w2),
-                              topk_spmm.topk_spmm_plain(v, idx, w2)),
-                  f"sweep: topk_spmm {dt} {(n, k, dff, d)}")
+            if ids == "repeat":  # every token names one row twice, or more
+                idx[:, 1::3] = idx[:, :1]
+            case = f"sweep: topk_spmm {dt} {(n, k, dff, d)} {ids}"
+            got, _ = routed_call("topk_spmm",
+                                 lambda: topk_spmm.topk_spmm(v, idx, w2),
+                                 topk_spmm.topk_spmm_route(dff))
+            check(torch.equal(got, topk_spmm.topk_spmm_plain(v, idx, w2)),
+                  case)
             cases += 1
         for nt, kb, tile, block, d, ids in K6_EDGES:
             h, w2 = randn(nt, kb, tile, block, dtype=dt), randn(
                 (kb + 2) * block, d, dtype=dt)
             bidx = k6_ids(ids, nt, kb, randint)
             case = f"sweep: block_topk_spmm {dt} {(nt, kb, tile, block, d)} {ids}"
-            got = routed("block_topk_spmm", topk_spmm.route(dt),
-                         lambda: topk_spmm.block_topk_spmm(h, bidx, w2, block))
+            got, _ = routed_call(
+                "block_topk_spmm",
+                lambda: topk_spmm.block_topk_spmm(h, bidx, w2, block),
+                topk_spmm.route(dt))
             e = rel_err(got, topk_spmm.block_topk_spmm_plain(h, bidx, w2,
                                                              block))
             check(e <= FFN_REL, f"{case}: {e}")
@@ -826,12 +928,37 @@ def ffn_shape_sweep(log):
         check(aia_gather.ranged_route(r * d * x.element_size(),
                                       x.data_ptr()) == path,
               f"{case}: not the {path} route")
-        got = routed("aia_ranged_gather", path,
-                     lambda: aia_gather.aia_ranged_gather(x, idx, r))
+        got, _ = routed_call("aia_ranged_gather",
+                             lambda: aia_gather.aia_ranged_gather(x, idx, r),
+                             path)
         check(torch.equal(got, aia_gather.aia_ranged_gather_plain(x, idx, r)),
               case)
         cases += 1
     emit({"ffn_shape_sweep": {"cases": cases, "ok": True}}, log)
+
+
+def k5_edges():
+    """K5's edges, both dtypes: (n, k, d_ff, d, ids) with ids clipped at both
+    ends ("clipped") or each token naming one row again and again
+    ("repeat").  d_ff at the ``"smem"`` route's limit and one past it (the
+    ``"l2"`` route); k not a multiple of a chunk's steps (16 bf16, 8
+    float32) and a chunk of one step; fewer tokens than a warp; d of 7 and 1,100 (the
+    last slice ragged, rows not whole 16-byte slices) and 3,075; 1,100
+    tokens (five groups of 256, the last ragged) over 5 column slices in
+    bf16."""
+    from repro_torch.kernels import topk_spmm
+    from repro_torch.kernels._build import source_constants
+
+    c = source_constants("topk_spmm_smem.cu")
+    limit = (c["kMaxSmem"] - topk_spmm.topk_spmm_smem_bytes(0)) \
+        // c["kSliceBytes"]
+    check(topk_spmm.topk_spmm_route(limit) == "smem"
+          and topk_spmm.topk_spmm_route(limit + 1) == "l2",
+          f"K5: d_ff {limit} is not the smem route's limit")
+    return ((40, 20, limit, 24, "clipped"), (40, 20, limit + 1, 24, "repeat"),
+            (3, 13, 64, 7, "repeat"), (31, 301, 96, 1100, "clipped"),
+            (1100, 33, 500, 40, "repeat"), (600, 9, 128, 3075, "clipped"),
+            (2, 1, 16, 16, "clipped"))
 
 
 # K6 (block_topk_spmm), both dtypes (bf16: the wgmma kernel of
@@ -869,19 +996,21 @@ FFN_KERNELS = ("aia_ranged_gather", "bsr_spmm", "topk_spmm",
 # the route each routed kernel takes on the path: W2's ranges are whole
 # 16-byte vectors; the BSR, h and W2 are bf16
 FFN_ROUTES = {"aia_ranged_gather": "v16", "bsr_spmm": "wgmma",
-              "block_topk_spmm": "wgmma"}
+              "topk_spmm": "smem", "block_topk_spmm": "wgmma"}
 # kernel, its CUDA source, the TPU kernel it replaces
 FFN_SOURCES = (
     ("aia_ranged_gather", "aia_gather.cu",
      "src/repro/kernels/aia_gather.py:47"),
     ("bsr_spmm", "bsr_spmm_wgmma.cu", "src/repro/kernels/spgemm_bsr.py:46"),
-    ("topk_spmm", "topk_spmm.cu", "src/repro/kernels/topk_spmm.py:40"),
+    ("topk_spmm", "topk_spmm_smem.cu", "src/repro/kernels/topk_spmm.py:40"),
     ("block_topk_spmm", "block_topk_spmm_wgmma.cu",
      "src/repro/kernels/topk_spmm.py:74"),
 )
-# the CUDA-core kernel of a routed kernel's float32 calls
+# the CUDA-core kernel of a routed kernel's float32 calls, and the kernel
+# of K5's calls whose W2 slice does not fit shared memory
 FLOAT32_SOURCES = {"bsr_spmm": "bsr_spmm.cu",
                    "block_topk_spmm": "topk_spmm.cu"}
+L2_SOURCES = {"topk_spmm": "topk_spmm.cu"}
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple:
@@ -1033,7 +1162,10 @@ def ffn_kernel_records(out, w2, launches, log):
                       lambda: F.embedding_bag(idx, w2,
                                               per_sample_weights=vals,
                                               mode="sum"))],
-            shape={"vals": list(vals.shape), "w2": list(w2.shape)}),
+            shape={"vals": list(vals.shape), "w2": list(w2.shape)},
+            route=topk_spmm.topk_spmm_route(f),
+            ptxas="topk_smem_kernelIt",  # the bf16 instantiation
+            trace="topk_smem_kernel<unsigned short"),
         "block_topk_spmm": dict(
             kernel=lambda: ops.block_topk_spmm(h_kept, bidx, w2, block),
             plain=lambda: topk_spmm.block_topk_spmm_plain(h_kept, bidx, w2,
@@ -1072,7 +1204,8 @@ def ffn_kernel_records(out, w2, launches, log):
         rec["bytes"], rec["flops"] = sp["nbytes"], sp["flops"]
         rec.update(library_call(sp["library"]))
         if "route" in sp:
-            rec["launch"] = launch_config(sp["kernel"], sp["ptxas"])
+            rec["launch"] = launch_config(sp["kernel"],
+                                          sp.get("trace", sp["ptxas"]))
         if name in ("bsr_spmm", "block_topk_spmm"):
             rec["tflops"] = sp["flops"] / rec["device_ms"] / 1e9 \
                 if rec["device_ms"] else None
@@ -1463,10 +1596,10 @@ def main(argv=None) -> int:
          "launches_per_spgemm": {c: n["gather_rows"]
                                  for c, n in per_call.items()},
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "kernel_ms": k1["ms"], "device_ms": k1["device_ms"],
-         "plain_ms": k1["plain_ms"],
+         "kernel_ms": k1["ms"], "host_ms": k1["host_ms"],
+         "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes",
-         "library_ms": k1["library_ms"]},
+         "library_ms": k1["library_ms"], "path": k1["route"]},
         {"name": "hash_accumulate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_accum.cu",
          "replaces": "src/repro/kernels/hash_accum.py:130",
@@ -1500,6 +1633,9 @@ def main(argv=None) -> int:
         if name in FLOAT32_SOURCES:
             kernels[-1]["float32_source"] = \
                 f"src/repro_torch/kernels/csrc/{FLOAT32_SOURCES[name]}"
+        if name in L2_SOURCES:
+            kernels[-1]["l2_source"] = \
+                f"src/repro_torch/kernels/csrc/{L2_SOURCES[name]}"
     kernels.append({
         "name": "flash_attention_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",

@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.core import phases
 from repro_torch.core.grouping import GroupPlan, group_rows
-from repro_torch.kernels.aia_gather import gather_rows_any
+from repro_torch.kernels.aia_gather import gather_planes
 from repro_torch.sparse.formats import CSR, csr_to_ell
 
 Gather = Literal["auto", "xla", "aia"]
@@ -152,13 +152,11 @@ def _gather_b_xla(b_idx, b_val, cols_a):
 
 def _gather_b_aia(b_idx, b_val, cols_a):
     """B-row gather as the paper's AIA stream: ``cols_a`` flattened into one
-    index stream, served by the row-gather kernel for both planes."""
+    index stream, served by one row-gather launch for both planes."""
     r, a_cap = cols_a.shape
     kb = b_idx.shape[1]
-    flat = cols_a.reshape(-1)
-    bi = gather_rows_any(b_idx, flat).reshape(r, a_cap, kb)
-    bv = gather_rows_any(b_val, flat).reshape(r, a_cap, kb)
-    return bi, bv
+    bi, bv = gather_planes((b_idx, b_val), cols_a.reshape(-1))
+    return bi.reshape(r, a_cap, kb), bv.reshape(r, a_cap, kb)
 
 
 GATHERS: Dict[str, Callable] = {"xla": _gather_b_xla, "aia": _gather_b_aia}

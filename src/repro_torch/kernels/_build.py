@@ -31,8 +31,9 @@ _F = ctypes.c_float
 # C entry points and their arguments (pointers and the stream as void*;
 # ``_B`` is 1 for bfloat16 operands, 0 for float32, or a flag).
 SIGNATURES = {
-    # x, idx, out, n_x_rows, row_words, n_idx, stream
-    "repro_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
+    # idx, n_idx, n_x_rows, x0, out0, row_bytes0, x1, out1, row_bytes1
+    # (NULL, NULL, 0 for one plane), unit bytes, stream
+    "repro_gather_planes": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _B, _P],
     # keys, vals, masks (scratch), cols, out_vals, cnt, rows, ip_cap,
     # table_cap, stream (the table in shared memory up to kSmemTableBytes,
     # else in cols and out_vals)
@@ -45,8 +46,11 @@ SIGNATURES = {
     # kernel)
     "repro_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_bsr_spmm_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # vals, idx, w2, out, n, k, d, d_ff, bf16, stream
+    # vals, idx, w2, out, n, k, d, d_ff, bf16, stream (the "l2" route)
     "repro_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
+    # vals, idx, w2, pairs (scratch), out, n, k, d, d_ff, bf16, stream (the
+    # "smem" route)
+    "repro_topk_spmm_smem": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
     # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, stream
     # (float32; bfloat16 for the wgmma kernel, with pair_ptr and pairs
     # scratch after w2)

@@ -1,9 +1,10 @@
 // Inline-PTX helpers for Hopper (sm_90a) kernels: cp.async with zero-fill,
 // the async-proxy fence, the 128-byte shared-memory swizzle, wgmma
 // descriptors, the wgmma fence / commit / wait, the wgmma instructions the
-// kernels issue (bf16 operands, float32 accumulators), and a fast exp2.
-// Used by flash_attention_wgmma.cu, bsr_spmm_wgmma.cu,
-// block_topk_spmm_wgmma.cu and hash_accum.cu.
+// kernels use (bf16 operands, float32 accumulators), a fast exp2, and
+// mbarriers with bulk copies.  Used by flash_attention_wgmma.cu,
+// bsr_spmm_wgmma.cu, block_topk_spmm_wgmma.cu, hash_accum.cu and
+// topk_spmm_smem.cu.
 //
 // Shared-memory tiles use the 128-byte swizzle (SW128): a tile is stored
 // as panels of 64 bf16 columns, each row of a panel 128 bytes, rows
@@ -211,6 +212,52 @@ __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[32],
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// --- mbarriers and bulk copies --------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// Make mbarrier.init visible to the async proxy (the only form of the fence
+// is cluster-scoped; a block launched alone is a cluster of one).
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrive (release, block scope) on this block's barrier.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Arrive on this block's barrier and add `bytes` to the transactions the
+// current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of this block's barrier has
+// completed (acquire, block scope: the block's own arrivals and bulk copies
+// completed on the barrier).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile("{\n.reg .pred done;\n"
+               "WAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+               "@!done bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16, 16-byte aligned at both ends) from global to
+// this block's shared memory; completion counted on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
 }  // namespace hopper

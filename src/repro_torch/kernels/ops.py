@@ -4,9 +4,10 @@ A kernel wrapper runs its plain PyTorch version for a tensor on the CPU and
 launches its CUDA kernel for a tensor on a CUDA device; any other device
 raises.  There is no fallback from the card to the plain version.  Each
 launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
-that its path went through the kernels.  The ranged gather (by the
-range's alignment), the BSR and block TopK products (by dtype) and the hash
-accumulate (by table size) also count the CUDA route they took in
+that its path went through the kernels.  The row gather (by its copy
+unit), the ranged gather (by the range's alignment), the BSR and block
+TopK products (by dtype), the per-token TopK product (by W2's rows) and
+the hash accumulate (by table size) also count the CUDA route they took in
 ``ROUTE_LAUNCHES``, under ``"<kernel>/<route>"``.
 
 The public wrappers ``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and
@@ -63,6 +64,16 @@ def dispatch(plain: Callable, kernel: Callable, x: torch.Tensor, *args):
     if x.device.type == "cuda":
         return kernel(x, *args)
     raise ValueError(f"no kernel for tensors on {x.device}")
+
+
+def launch_on(device: torch.device, fn: Callable, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, entering
+    ``device`` only when it is not the current one; returns ``fn``'s
+    CUDA error code."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def check_launch(name: str, rc: int, route: str | None = None) -> None:

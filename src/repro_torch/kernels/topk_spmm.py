@@ -4,8 +4,14 @@
   ranged indirect read of W2 rows driven by the activation ids (the AIA
   pattern).  Each product is rounded on its own and added in ``t`` order
   from zero, in float32, as in the reference's grid of ``(tokens, k)``
-  steps, so the kernel, the plain version and the reference's Pallas kernel
-  agree bit for bit, and a repeated id accumulates.
+  steps, so the kernels, the plain version and the reference's Pallas
+  kernel agree bit for bit, and a repeated id accumulates.  On CUDA W2's
+  rows choose the kernel (``topk_spmm_route``): where a 16-byte column
+  slice of W2 for all its rows, and the pair buffers, fit one block's
+  shared memory (d_ff <= 10,424), ``csrc/topk_spmm_smem.cu`` (``"smem"``:
+  each block holds one slice, so W2 leaves L2 once, and walks every
+  token's pairs, one thread a token); otherwise ``csrc/topk_spmm.cu``
+  (``"l2"``: a block a token, W2's rows read through L2).
 * ``block_topk_spmm`` (per token tile): ``y[tile] = sum_{t < kb}
   h_kept[tile, t] (tile x block) @ W2[bidx[tile, t]*block : +block]``, in
   float32; the kernels and the plain version differ only in the order of
@@ -16,10 +22,9 @@
   sums over ``t`` varies from run to run); float32 to the CUDA-core kernel
   in ``csrc/topk_spmm.cu`` (tile by tile, deterministic).
 
-Ids outside W2 are clipped to its first or last row (block).  The per-token
-kernel is ``csrc/topk_spmm.cu``.  Replace ``repro.kernels.topk_spmm.
-topk_spmm`` and ``block_topk_spmm`` (the Pallas ``_token_kernel`` and
-``_tile_kernel``).
+Ids outside W2 are clipped to its first or last row (block).  Replace
+``repro.kernels.topk_spmm.topk_spmm`` and ``block_topk_spmm`` (the Pallas
+``_token_kernel`` and ``_tile_kernel``).
 """
 from __future__ import annotations
 
@@ -64,6 +69,23 @@ def topk_spmm_plain(vals, idx, w2):
     return out
 
 
+def topk_spmm_smem_bytes(d_ff: int) -> int:
+    """Shared memory a block of the ``"smem"`` kernel takes for W2 of
+    ``d_ff`` rows: a 16-byte column slice of every row, the pair buffers and
+    their barriers (``csrc/topk_spmm_smem.cu``'s constants)."""
+    c = source_constants("topk_spmm_smem.cu")
+    return c["kSliceBytes"] * d_ff + c["kStages"] * c["kStageBytes"] \
+        + c["kBarrierBytes"]
+
+
+def topk_spmm_route(d_ff: int) -> str:
+    """The kernel a CUDA ``topk_spmm`` call with W2 of ``d_ff`` rows
+    launches: ``"smem"`` where its block fits the shared memory a block may
+    use (``kMaxSmem``), else ``"l2"``."""
+    c = source_constants("topk_spmm_smem.cu")
+    return "smem" if topk_spmm_smem_bytes(d_ff) <= c["kMaxSmem"] else "l2"
+
+
 def _topk_spmm_cuda(vals, idx, w2):
     _check_topk(vals, idx, w2)
     bf16 = ops.expect_float(vals, 2, "vals")
@@ -76,11 +98,22 @@ def _topk_spmm_cuda(vals, idx, w2):
         return out
     if k == 0:
         return out.zero_()
-    with torch.cuda.device(w2.device):
-        rc = library().repro_topk_spmm(
-            vals.data_ptr(), idx.data_ptr(), w2.data_ptr(), out.data_ptr(),
-            n, k, d, d_ff, bf16, torch.cuda.current_stream().cuda_stream)
-    ops.check_launch("topk_spmm", rc)
+    path = topk_spmm_route(d_ff)
+    if path == "smem":  # (id, value) pairs, t-major in token groups
+        group = source_constants("topk_spmm_smem.cu")["kThreads"]
+        pair_bytes = 4 if bf16 else 8
+        pairs = torch.empty(-(-n // group) * group * k * pair_bytes,
+                            dtype=torch.uint8, device=w2.device)
+        rc = ops.launch_on(
+            w2.device, library().repro_topk_spmm_smem, vals.data_ptr(),
+            idx.data_ptr(), w2.data_ptr(), pairs.data_ptr(), out.data_ptr(),
+            n, k, d, d_ff, bf16)
+    else:
+        rc = ops.launch_on(
+            w2.device, library().repro_topk_spmm, vals.data_ptr(),
+            idx.data_ptr(), w2.data_ptr(), out.data_ptr(), n, k, d, d_ff,
+            bf16)
+    ops.check_launch("topk_spmm", rc, path)
     return out
 
 

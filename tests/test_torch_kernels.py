@@ -87,9 +87,10 @@ def test_cuda_wrappers_validate_before_launch():
     x = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="idx"):
         aia_gather._gather_rows_cuda(x, torch.zeros(2, dtype=torch.int64))
-    with pytest.raises(ValueError, match="multiple of 4"):
-        aia_gather._gather_rows_cuda(torch.zeros((4, 3), dtype=torch.int8),
-                                     torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        aia_gather._gather_rows_cuda(
+            torch.zeros((4, 6), dtype=torch.int8)[:, ::2],
+            torch.zeros(2, dtype=torch.int32))
     keys = torch.zeros((2, 5), dtype=torch.int32)
     with pytest.raises(ValueError, match="vals"):
         hash_accum._hash_accumulate_cuda(keys, torch.zeros((2, 5),
