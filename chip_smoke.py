@@ -85,7 +85,32 @@ products run in full float32 (TF32 off).  It
    run of each call (device time, busy share, top kernels); and times
    ``torch.sparse.mm`` (cuSPARSE) on the same CSR as a yardstick the port
    never calls;
-8. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+8. runs the paper's three applications at paper size, each lane with the
+   launch counts and the pipeline's sync count from 0: graph contraction
+   ``S·G·Sᵀ`` (``apps.graph_contraction``, labels n/64 from seed 0) on
+   RoadTX, Economics and Protein on the default lane and ``fused_hash``,
+   against scipy's float64 product (structure exact, values within rtol
+   1e-4 / atol 1e-6, the total weight kept), beside cuSPARSE's two
+   products; Markov clustering (``apps.mcl``, bench_mcl's parameters, 2
+   iterations) on Economics on both lanes, every expansion and iterate
+   recorded inside ``mcl`` and held, iteration by iteration, against a
+   scipy/numpy float64 step from the port's previous iterate (the first
+   from the same input): the expansion's structure equal to the pattern
+   product with explicit zeros kept, values within rtol 1e-4 / atol 1e-6,
+   every prune decision the reference's unless within 1e-4 (relative) of
+   theta or of its column's k-th value (those counted), nonzero columns
+   summing to 1, the clusters the reference's partition; beside cuSPARSE's
+   expansions; full-batch GNN training (``apps.train_gnn``) on ogbn-arxiv
+   (169,343 nodes, R-MAT, 64 features, 40 classes, TopK 16, 2 layers, 5
+   steps) for GCN, GIN and SAGE in both modes: step 1's logits within 1e-4
+   of the largest |logit| of a float64 numpy forward (rows fed by a TopK
+   near-tie counted and left out), its gradients within 1e-4 of a float64
+   CPU autograd run of the port's plain path, every loss finite, one K1
+   launch per aggregation; and K1 on ``csr_spmm``'s one-plane shape (Â's
+   ids, 256-byte rows of X) bit for bit, on a transposed X through
+   ``csr_spmm``'s take too, timed beside ``index_select`` and its bound;
+   one aggregation beside cuSPARSE SpMM;
+9. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Every check raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available.  ``--json``
@@ -94,6 +119,7 @@ writes every number it printed to PATH as well.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import statistics
@@ -168,10 +194,25 @@ def profile(fn):
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type) and _self_device_us(e) > 0]
-    device_us = sum(_self_device_us(e) for e in events)
+    device_us = sum(_self_device_us(e) for e in events) \
+        or _trace_device_us(prof)
     top = sorted(events, key=_self_device_us, reverse=True)[:6]
     return host_ms, (device_us / 1e3 if device_us else None), \
         [(e.key[:80], _self_device_us(e) / 1e3, e.count) for e in top]
+
+
+def _trace_device_us(prof) -> float:
+    """The summed durations of the kernels, copies and fills in the
+    profiler's trace: the device time where ``key_averages`` attributes
+    none to a device event."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    return sum(ev.get("dur", 0) for ev in events
+               if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
 
 
 def device_ms(fn, reps: int = 10):
@@ -180,6 +221,23 @@ def device_ms(fn, reps: int = 10):
     fn()
     _, dev, _ = profile(lambda: [fn() for _ in range(reps)])
     return None if dev is None else dev / reps
+
+
+def loop_ms(fn, reps: int = 20) -> float:
+    """CUDA-event time of ``reps`` back-to-back calls of ``fn``, per call
+    (after one warm-up call): the device's time per call where it is busy
+    throughout, with no profiler involved."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(nbytes: int) -> float:
@@ -1541,6 +1599,650 @@ def lm_phase(log):
     return prefill, serve, decode
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the paper's three applications at paper size
+# ---------------------------------------------------------------------------
+
+# Graph contraction on the reference bench's list (bench_graph_apps.py:31)
+# less web-Google (its ELL width fits no card), WindTunnel and amazon0601;
+# Table II's rows.
+CONTRACTION = {"RoadTX": 1_393_383, "Economics": 206_500, "Protein": 36_417}
+# (lane, app kwargs, kernels it must launch, pipeline syncs per SpGEMM)
+APP_LANES = (
+    ("default", {}, {"gather_rows"}, 1),
+    ("fused_hash", {"method": "fused_hash"},
+     {"gather_rows", "hash_accumulate"}, 0),
+)
+# bench_mcl's parameters (bench_graph_apps.py:58-66) on Economics at paper
+# size (206,500 rows), with 2 iterations for its 3: the reference keeps
+# every pruned entry in the structure, so iteration i multiplies a matrix
+# with the structure of A^(2^(i-1)), and a third expansion would form
+# about 6e11 products.
+MCL_MATRIX = ("Economics", 206_500)
+MCL_ARGS = {"e": 2, "r": 2.0, "theta": 1e-4, "k": 32, "tol": 0.0,
+            "max_iters": 2}
+NEAR = 1e-4  # a decision this close (relative) to its threshold is "near"
+# ogbn-arxiv at paper size (Table III: 169,343 nodes, average degree 15.8,
+# 40 classes, R-MAT as TABLE_III_SCALED has it) with bench_gnn.bench_one's
+# settings: 64 input and hidden features, TopK 16, 2 layers, 5 steps.
+GNN = {"dataset": "ogbn-arxiv", "nodes": 169_343, "avg_deg": 15.8,
+       "n_classes": 40, "d": 64, "topk": 16, "n_layers": 2, "steps": 5}
+GNN_REL = 1e-4  # logits and step-1 gradients, of the largest |value|
+
+
+def host_csr(c, dtype=np.float64):
+    """A port CSR's occupied slots as a scipy CSR (explicit zeros kept)."""
+    import scipy.sparse as sp
+
+    indptr = c.indptr.cpu().numpy()
+    nnz = int(indptr[-1])
+    return sp.csr_matrix((c.data[:nnz].cpu().numpy().astype(dtype),
+                          c.indices[:nnz].cpu().numpy(), indptr),
+                         shape=c.shape)
+
+
+def torch_csr(c):
+    """A port CSR as a ``torch.sparse_csr_tensor`` (for cuSPARSE)."""
+    import torch
+
+    nnz = int(c.nnz)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        return torch.sparse_csr_tensor(c.indptr, c.indices[:nnz],
+                                       c.data[:nnz], size=c.shape,
+                                       check_invariants=False)
+
+
+def counted_call(fn):
+    """``fn()`` with the launch counts and the pipeline's sync count from 0:
+    (result, wall ms ending in a sync, launches, host syncs, peak GB)."""
+    import torch
+
+    from repro_torch.core import executor
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    executor.clear_program_cache()
+    ops.reset_launch_counts()  # this lane's count starts here
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, ops.launch_counts(), \
+        executor.cache_stats()["host_sync_count"], \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_lane_kernels(what, launches, kernels):
+    for k in SPGEMM_KERNELS:
+        check((launches[k] > 0) == (k in kernels),
+              f"{what}: {k} launched {launches[k]} times")
+
+
+def profiled(fn) -> dict:
+    host_ms, dev_ms, top = profile(fn)
+    return {"host_ms": host_ms, "device_ms": dev_ms,
+            "device_busy_share": None if dev_ms is None else dev_ms / host_ms,
+            "top_kernels": top}
+
+
+def contraction_phase(log):
+    """Graph contraction S·G·Sᵀ on each CONTRACTION matrix, on both lanes,
+    against scipy's float64 product; cuSPARSE's two products beside it."""
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.apps.graph_contraction import (graph_contraction,
+                                                    label_matrix)
+    from repro_torch.apps.graphs import table_ii_matrix
+    from repro_torch.sparse.ops import csr_transpose
+
+    per_lane = {}
+    for name, n in CONTRACTION.items():
+        g = table_ii_matrix(name, seed=0, n_override=n, device="cuda")
+        labels = np.random.default_rng(0).integers(0, n // 64, n)
+        gh = host_csr(g)
+        s = sp.csr_matrix((np.ones(n), (labels, np.arange(n))),
+                          shape=(int(labels.max()) + 1, n))
+        want = (s @ gh @ s.T).tocsr()
+        want.sort_indices()
+        total = float(gh.sum())
+        for lane, kwargs, kernels, syncs_per in APP_LANES:
+            def run():
+                return graph_contraction(g, labels, **kwargs)
+
+            (c, infos), cold_ms, launches, syncs, peak = counted_call(run)
+            what = f"contraction {name}/{lane}"
+            err = check_against_scipy(name, f"contraction/{lane}", c,
+                                      int(c.nnz), want)
+            kept = float(c.data[: int(c.nnz)].double().sum())
+            check(abs(kept - total) <= RTOL * total,
+                  f"{what}: total weight {kept} != {total}")
+            check_lane_kernels(what, launches, kernels)
+            check(syncs == 2 * syncs_per,
+                  f"{what}: {syncs} pipeline syncs, expected {2 * syncs_per}")
+            _, ms, _, _, _ = counted_call(run)
+            per_lane[f"contraction/{name}/{lane}"] = launches
+            emit({"contraction": {
+                "matrix": name, "lane": lane, "rows": n,
+                "labels": int(labels.max()) + 1, "nnz_g": gh.nnz,
+                "nnz_c": int(c.nnz), "ms": ms, "cold_ms": cold_ms,
+                "intermediate_products": [i["intermediate_products"]
+                                          for i in infos],
+                "group_sizes": [i["group_sizes"] for i in infos],
+                "host_sync_count": syncs, "launches": launches,
+                "peak_mem_gb": peak, "max_abs_err_vs_scipy": err,
+                "total_weight": kept, "profiled": profiled(run)}}, log)
+        st = label_matrix(labels, n=n, device="cuda")
+        ts, tg, tst = torch_csr(st), torch_csr(g), torch_csr(csr_transpose(st))
+
+        def cusparse():
+            return torch.sparse.mm(torch.sparse.mm(ts, tg), tst)
+
+        emit({"cusparse_contraction": {
+            "matrix": name, "ms": time_ms(cusparse, reps=3),
+            "device_ms": device_ms(cusparse, reps=3)}}, log)
+        del g, st, ts, tg, tst
+        torch.cuda.empty_cache()
+    return per_lane
+
+
+@contextlib.contextmanager
+def recording_mcl():
+    """Record, inside ``markov_clustering.mcl``, every expansion's product
+    and every column-normalized iterate (the first is the normalized
+    input), each with the host clock after a sync."""
+    import torch
+
+    from repro_torch.apps import markov_clustering as mc
+
+    rec = {"expansions": [], "iterates": [], "t": [time.perf_counter()]}
+    spgemm, normalize = mc.spgemm, mc.csr_column_normalize
+
+    def spgemm_rec(*args, **kwargs):
+        res = spgemm(*args, **kwargs)
+        rec["expansions"].append(res.c)
+        return res
+
+    def normalize_rec(*args, **kwargs):
+        out = normalize(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["iterates"].append(out)
+        return out
+
+    mc.spgemm, mc.csr_column_normalize = spgemm_rec, normalize_rec
+    try:
+        yield rec
+    finally:
+        mc.spgemm, mc.csr_column_normalize = spgemm, normalize
+
+
+def nonzero_part(c):
+    """The entries of scipy CSR ``c`` whose value is not 0, and the mask of
+    them over ``c``'s entries."""
+    import scipy.sparse as sp
+
+    mask = c.data != 0
+    cm = np.concatenate([[0], np.cumsum(mask)])
+    return sp.csr_matrix((c.data[mask], c.indices[mask], cm[c.indptr]),
+                         shape=c.shape), mask
+
+
+def column_normalized(c):
+    """scipy CSR ``c`` with each column divided by its sum (as
+    Algorithm 6's ColumnNormalize, an empty column stays empty)."""
+    s = np.bincount(c.indices, weights=c.data, minlength=c.shape[1])
+    inv = np.where(s > 1e-12, 1.0 / np.maximum(s, 1e-12), 0.0)
+    out = c.copy()
+    out.data = c.data * inv[c.indices]
+    return out
+
+
+def prune_reference(v, theta, k):
+    """Algorithm 6's prune of float64 CSR ``v`` (entries not 0): the kept
+    mask over its entries, the mask of near decisions, and each column's
+    k-th value.  A decision is near where its value lies within NEAR of
+    theta, or within NEAR of its column's k-th value in a column whose
+    (k+1)-th candidate lies within NEAR of the k-th (the cut between kept
+    and dropped is then a near tie).  Within a column, entries rank by
+    value descending, then by row, as the port ranks equal values by
+    slot."""
+    vals, cols = v.data, v.indices
+    ok = np.nonzero(vals >= theta)[0]
+    # one stable sort of col*2 + (1 - value) (values lie in (0, 1]): column,
+    # then value descending, then CSR order (row); keys closer than ~6e-11
+    # may misorder, far inside the NEAR band
+    order = ok[np.argsort(cols[ok] * 2.0 + (1.0 - vals[ok]), kind="stable")]
+    sc = cols[order]
+    pos = np.arange(len(order))
+    start = np.maximum.accumulate(np.where(
+        np.concatenate([[True], sc[1:] != sc[:-1]]), pos, 0))
+    rank = pos - start
+    kept = np.zeros(len(vals), bool)
+    kept[order[rank < k]] = True
+    kth = np.full(v.shape[1], np.nan)
+    kth[sc[rank == k - 1]] = vals[order[rank == k - 1]]
+    next_ = np.full(v.shape[1], np.nan)
+    next_[sc[rank == k]] = vals[order[rank == k]]
+    tie = kth - next_ <= NEAR * kth  # False where a column has <= k
+    near = (np.abs(vals - theta) <= NEAR * theta) | (
+        tie[cols] & (vals >= theta)
+        & (np.abs(vals - kth[cols]) <= NEAR * kth[cols]))
+    return kept, near, kth
+
+
+def pattern_product(x, cache):
+    """The structure of ``x @ x`` with explicit zeros kept (scipy drops a
+    product's zeros, so on a pattern of ones); ``cache`` keeps the last
+    one, for another lane's ``x`` of the same structure."""
+    hit = cache.get("x")
+    if hit is not None and np.array_equal(hit.indptr, x.indptr) \
+            and np.array_equal(hit.indices, x.indices):
+        return cache["p"]
+    pattern = x.copy()
+    pattern.data = np.ones(len(x.data), np.float32)
+    p = (pattern @ pattern).tocsr()
+    p.sort_indices()
+    cache.update(x=pattern, p=p)
+    return p
+
+
+def mcl_iteration_check(i, x, e_port, m_port, theta, k, r, cache):
+    """Iteration ``i`` of Algorithm 6 in float64 with scipy, from the
+    port's iterate ``x`` (host CSR with its explicit zeros), against the
+    port's expansion ``e_port`` and iterate ``m_port`` (host CSRs).
+
+    The expansion's structure must equal the pattern product (explicit
+    zeros kept) and its values the float64 product; every prune decision
+    of the port must match the reference's unless it is near; columns with
+    a differing decision are left out of the value check and counted."""
+    p = pattern_product(x, cache.setdefault(i, {}))
+    check(np.array_equal(e_port.indptr, p.indptr)
+          and np.array_equal(e_port.indices, p.indices),
+          f"MCL iteration {i}: the expansion's structure is not the pattern "
+          f"product")
+    xn, _ = nonzero_part(x)
+    v = (xn @ xn).tocsr()
+    v.sort_indices()
+    e_nz, e_mask = nonzero_part(e_port)
+    check(np.array_equal(e_nz.indptr, v.indptr)
+          and np.array_equal(e_nz.indices, v.indices),
+          f"MCL iteration {i}: the expansion's nonzero entries differ")
+    check(np.allclose(e_nz.data, v.data, rtol=RTOL, atol=ATOL),
+          f"MCL iteration {i}: expansion values beyond rtol {RTOL} / atol "
+          f"{ATOL}")
+    check(np.array_equal(m_port.indptr, p.indptr)
+          and np.array_equal(m_port.indices, p.indices),
+          f"MCL iteration {i}: the iterate lost the expansion's structure")
+    kept_ref, near, kth = prune_reference(v, theta, k)
+    m_vals = m_port.data[e_mask]  # over v's entries
+    check(not m_port.data[~e_mask].any(),
+          f"MCL iteration {i}: an entry zero after expansion came back")
+    differ = (m_vals != 0) != kept_ref
+    far = np.nonzero(differ & ~near)[0]
+    if len(far):
+        cols = v.indices[far[:5]]
+        print(json.dumps({"mcl_far_decisions": {
+            "iteration": i, "count": len(far),
+            "value": v.data[far[:5]].tolist(),
+            "port_value": e_nz.data[far[:5]].tolist(),
+            "kept_ref": kept_ref[far[:5]].tolist(),
+            "column": cols.tolist(), "kth": kth[cols].tolist()}}),
+              flush=True)
+    check(not len(far),
+          f"MCL iteration {i}: {len(far)} prune decisions differ from the "
+          f"reference away from their thresholds")
+    want = v.copy()
+    want.data = np.where(kept_ref, v.data, 0.0) ** r
+    want = column_normalized(want)
+    tainted = np.zeros(v.shape[1], bool)
+    tainted[v.indices[differ]] = True
+    cols_ok = ~tainted[v.indices]
+    check(np.allclose(m_vals[cols_ok], want.data[cols_ok], rtol=RTOL,
+                      atol=ATOL),
+          f"MCL iteration {i}: iterate values beyond rtol {RTOL} / atol "
+          f"{ATOL}")
+    sums = np.bincount(m_port.indices, weights=m_port.data,
+                       minlength=m_port.shape[1])
+    check(np.all(np.abs(sums[sums > 0] - 1.0) <= 1e-5),
+          f"MCL iteration {i}: a nonzero column does not sum to 1")
+    return {"iteration": i, "nnz_in": x.nnz, "expansion_nnz": p.nnz,
+            "expansion_nonzero": v.nnz, "kept": int((m_vals != 0).sum()),
+            "near_decisions": int(near.sum()),
+            "differing_decisions": int(differ.sum()),
+            "columns_left_out": int(tainted.sum()),
+            "max_abs_err": float(np.abs(m_vals[cols_ok]
+                                        - want.data[cols_ok]).max(
+                                            initial=0.0))}, want
+
+
+def same_partition(a, b) -> bool:
+    pairs = np.unique(np.stack([a, b]), axis=1).shape[1]
+    return pairs == len(np.unique(a)) == len(np.unique(b))
+
+
+def weak_components(c, dtype=np.float64):
+    """Component labels of the support above 1e-6 of host CSR ``c``, the
+    values and the cut compared in ``dtype`` (the port's: float32)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    support = c.copy()
+    support.data = (support.data.astype(dtype) > dtype(1e-6)).astype(np.int8)
+    support.eliminate_zeros()
+    return connected_components(sp.csr_matrix(support), directed=True,
+                                connection="weak")[1]
+
+
+def mcl_phase(log):
+    """Algorithm 6 on Economics at paper size, on both lanes: each
+    iteration held against scipy from the port's previous iterate (the
+    first from the same input), the clusters against the reference's
+    partition; per-iteration times and cuSPARSE's expansions beside
+    them."""
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.apps.graphs import table_ii_matrix
+    from repro_torch.apps.markov_clustering import mcl
+
+    name, n = MCL_MATRIX
+    g = table_ii_matrix(name, seed=0, n_override=n, device="cuda")
+    a0 = column_normalized((host_csr(g) + sp.identity(n, format="csr"))
+                           .tocsr())
+    a0.sort_indices()
+    args = MCL_ARGS
+    per_lane, patterns = {}, {}
+    cusparse_in = None
+    for lane, kwargs, kernels, syncs_per in APP_LANES:
+        with recording_mcl() as rec:
+            res, cold_ms, launches, syncs, peak = counted_call(
+                lambda: mcl(g, **args, **kwargs))
+        what = f"MCL {name}/{lane}"
+        check_lane_kernels(what, launches, kernels)
+        check(res.n_iterations == MCL_ARGS["max_iters"]
+              and len(res.spgemm_info) == MCL_ARGS["max_iters"],
+              f"{what}: {res.n_iterations} iterations")
+        check(syncs == syncs_per * MCL_ARGS["max_iters"],
+              f"{what}: {syncs} pipeline syncs")
+        x = host_csr(rec["iterates"][0])
+        check(np.array_equal(x.indptr, a0.indptr)
+              and np.array_equal(x.indices, a0.indices)
+              and np.allclose(x.data, a0.data, rtol=RTOL, atol=ATOL),
+              f"{what}: the normalized input differs from scipy's")
+        iters = []
+        for i in range(1, MCL_ARGS["max_iters"] + 1):
+            e_port = host_csr(rec["expansions"][i - 1])
+            m_port = host_csr(rec["iterates"][i])
+            t0 = time.perf_counter()
+            rec_i, want = mcl_iteration_check(i, x, e_port, m_port,
+                                              args["theta"], args["k"],
+                                              args["r"], patterns)
+            rec_i["check_s"] = time.perf_counter() - t0
+            rec_i["ms"] = (rec["t"][i + 1] - rec["t"][i]) * 1e3
+            iters.append(rec_i)
+            x = m_port
+        if cusparse_in is None:
+            cusparse_in = [rec["iterates"][0], rec["iterates"][1]]
+        ref_clusters = weak_components(want)
+        check(same_partition(res.clusters,
+                             weak_components(m_port, np.float32)),
+              f"{what}: clusters are not the components of the port's "
+              f"iterate")
+        near_support = int((np.abs(want.data - 1e-6) <= NEAR * 1e-6).sum())
+        same = same_partition(res.clusters, ref_clusters)
+        check(same or near_support or iters[-1]["columns_left_out"],
+              f"{what}: the clusters differ from the reference's partition")
+        del rec
+        torch.cuda.empty_cache()
+        _, ms, _, _, _ = counted_call(lambda: mcl(g, **args, **kwargs))
+        per_lane[f"mcl/{name}/{lane}"] = launches
+        emit({"mcl": {
+            "matrix": name, "lane": lane, "rows": n, "args": MCL_ARGS,
+            "reduced": {"max_iters": "2 of bench_mcl's 3: the reference "
+                        "keeps pruned entries, so a third expansion forms "
+                        "~6e11 products"},
+            "ms": ms, "recorded_ms": cold_ms, "iterations": iters,
+            "intermediate_products": [i["intermediate_products"]
+                                      for i in res.spgemm_info],
+            "nnz_c": [i["nnz_c"] for i in res.spgemm_info],
+            "plan_cache_hits": res.plan_cache_hits,
+            "clusters": int(len(np.unique(res.clusters))),
+            "same_partition_as_reference": bool(same),
+            "support_near_1e-6": near_support,
+            "host_sync_count": syncs, "launches": launches,
+            "peak_mem_gb": peak,
+            "profiled": profiled(lambda: mcl(g, **args, **kwargs))}}, log)
+        torch.cuda.empty_cache()
+    exp = []
+    for i, a in enumerate(cusparse_in, 1):
+        t = torch_csr(a)
+        exp.append({"iteration": i, "nnz_in": int(a.nnz),
+                    "ms": time_ms(lambda: torch.sparse.mm(t, t), reps=1),
+                    "device_ms": device_ms(lambda: torch.sparse.mm(t, t),
+                                           reps=1),
+                    "loop_ms": loop_ms(lambda: torch.sparse.mm(t, t),
+                                       reps=3)})
+        del t
+        torch.cuda.empty_cache()
+    emit({"cusparse_mcl_expansions": {"matrix": name, "expansions": exp}},
+         log)
+    return per_lane
+
+
+def gnn_reference_forward(cfg, params, a, x):
+    """Float64 numpy/scipy forward of ``gnn_forward``: logits, and the
+    rows whose k-th and (k+1)-th largest |value| lie within 1e-5
+    (relative) at a TopK layer, where float32 may pick another entry."""
+    h, near = x, np.zeros(x.shape[0], bool)
+    for layer in range(cfg.n_layers):
+        k = min(cfg.topk, h.shape[1])
+        hs = h
+        if cfg.sparse_mode == "topk" and layer > 0:
+            order = np.argsort(-np.abs(h), axis=1, kind="stable")
+            hs = np.zeros_like(h)
+            rows = np.arange(h.shape[0])[:, None]
+            hs[rows, order[:, :k]] = h[rows, order[:, :k]]
+            mag = np.take_along_axis(np.abs(h), order, 1)
+            near |= (mag[:, k - 1] > 0) & \
+                (mag[:, k - 1] - mag[:, k] <= 1e-5 * mag[:, k - 1])
+        agg = a @ hs
+        w = params[f"w{layer}"]
+        if cfg.arch == "gcn":
+            h = agg @ w
+        elif cfg.arch == "gin":
+            h = ((1.0 + params[f"eps{layer}"]) * h + agg) @ w
+        else:
+            h = h @ params[f"w_self{layer}"] + agg @ w
+        if layer < cfg.n_layers - 1:
+            h = np.maximum(h, 0)
+    return h, near
+
+
+def k1_spmm_shape(a, x, log):
+    """K1 on ``csr_spmm``'s one-plane shape (the ids of Â, rows of X), bit
+    for bit against its plain version, on a contiguous X and, through
+    ``csr_spmm``'s take, a transposed one; timed beside ``index_select``
+    and its bound."""
+    import torch
+
+    from repro_torch.kernels import aia_gather
+    from repro_torch.sparse.ops import _TakeRows
+
+    idx = a.indices
+    got, route = routed_call("gather_rows",
+                             lambda: aia_gather.gather_rows(x, idx))
+    want = aia_gather.gather_rows_plain(x, idx)
+    check(torch.equal(got, want), "K1 on csr_spmm's shape differs")
+    xt = x.T.contiguous().T  # the same values, column-major
+    check(not xt.is_contiguous(), "the transposed case is contiguous")
+    try:
+        aia_gather.gather_rows(xt, idx)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "K1's wrapper took a strided x")
+    got_t, _ = routed_call("gather_rows",
+                           lambda: _TakeRows.apply(xt, idx, "aia"))
+    check(torch.equal(got_t, aia_gather.gather_rows_plain(xt, idx)),
+          "K1 through csr_spmm's take differs on a transposed X")
+    safe = idx.clamp(0, x.shape[0] - 1).long()
+    n = idx.shape[0]
+    row_bytes = x.shape[1] * x.element_size()
+    distinct = int(torch.unique(safe).numel())
+
+    def kernel():
+        return aia_gather.gather_rows(x, idx)
+
+    def plain():
+        return aia_gather.gather_rows_plain(x, idx)
+
+    def library():
+        return torch.index_select(x, 0, safe)
+
+    rec = {"rows": x.shape[0], "n_idx": n, "row_bytes": row_bytes,
+           "distinct_rows": distinct, "route": route,
+           "transposed_held": True, "max_abs_err": 0.0,
+           "ms": time_ms(kernel, reps=20), "device_ms": device_ms(kernel),
+           "loop_ms": loop_ms(kernel),
+           "plain_ms": time_ms(plain, reps=20),
+           "plain_device_ms": device_ms(plain), "plain_loop_ms": loop_ms(plain),
+           "library_ms": time_ms(library, reps=20),
+           "library_device_ms": device_ms(library),
+           "library_loop_ms": loop_ms(library),
+           "bound_ms": bound_ms((distinct + n) * row_bytes + n * 4)}
+    emit({"k1_csr_spmm": rec}, log)
+    return rec
+
+
+def gnn_phase(log):
+    """Full-batch GNN training on ogbn-arxiv at paper size, 3 archs x 2
+    modes: step 1's logits against a float64 numpy forward, its gradients
+    against a float64 CPU autograd run of the port's plain path, then
+    ``train_gnn`` with one K1 launch per aggregation; cuSPARSE SpMM beside
+    one aggregation."""
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.apps import gnn
+    from repro_torch.apps.graphs import rmat_graph
+    from repro_torch.sparse.formats import CSR
+    from repro_torch.sparse.ops import csr_spmm
+
+    n = GNN["nodes"]
+    g = rmat_graph(n, GNN["avg_deg"], seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    x_np = rng.standard_normal((n, GNN["d"])).astype(np.float32)
+    labels_np = rng.integers(0, GNN["n_classes"], n)
+    a = gnn.normalize_adjacency(g)
+    x = torch.from_numpy(x_np).cuda()
+    labels = torch.from_numpy(labels_np).cuda()
+    # Â = D^-1/2 (G + I) D^-1/2 in float64 from G (D: entries per row),
+    # independently of the port
+    ai = (host_csr(g) + sp.identity(n, format="csr")).tocsr()
+    dinv = 1.0 / np.sqrt(np.maximum(np.diff(ai.indptr), 1.0))
+    a64 = sp.diags(dinv) @ ai @ sp.diags(dinv)
+    a_cpu = CSR(a.indptr.cpu(), a.indices.cpu(), a.data.cpu().double(),
+                a.shape)
+    k1 = k1_spmm_shape(a, x, log)
+    per_lane = {}
+    for arch in ("gcn", "gin", "sage"):
+        for mode in ("topk", "dense"):
+            cfg = gnn.GNNConfig(arch=arch, d_in=GNN["d"], d_hidden=GNN["d"],
+                                n_classes=GNN["n_classes"], topk=GNN["topk"],
+                                sparse_mode=mode, n_layers=GNN["n_layers"])
+            what = f"GNN {arch}/{mode}"
+            params = gnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                                  device="cuda")
+            p64 = {k: v.cpu().double().numpy() for k, v in params.items()}
+            want, near = gnn_reference_forward(cfg, p64, a64,
+                                               x_np.astype(np.float64))
+            with torch.no_grad():
+                got = gnn.gnn_forward(cfg, params, a, x).double().cpu()
+            affected = (a64 @ near.astype(np.float64)) > 0
+            scale = np.abs(want).max()
+            err = np.abs(got.numpy() - want)[~affected].max()
+            check(err <= GNN_REL * scale,
+                  f"{what}: logits {err} beyond {GNN_REL} of {scale}")
+            # step 1's gradients: float32 on the card, float64 on the CPU
+            mask = torch.ones(n, device="cuda")
+            live = {k: v.clone().requires_grad_() for k, v in params.items()}
+            loss = gnn._loss_fn(cfg, live, a, x, labels, mask)
+            g32 = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+            live64 = {k: torch.from_numpy(v).requires_grad_()
+                      for k, v in p64.items()}
+            loss64 = gnn._loss_fn(cfg, live64, a_cpu,
+                                  torch.from_numpy(x_np).double(),
+                                  torch.from_numpy(labels_np),
+                                  torch.ones(n, dtype=torch.float64))
+            g64 = dict(zip(live64, torch.autograd.grad(
+                loss64, list(live64.values()))))
+            grad_err = {}
+            for k in g32:
+                ref = g64[k].numpy()
+                e = float(np.abs(g32[k].double().cpu().numpy() - ref).max())
+                grad_err[k] = e / max(np.abs(ref).max(), 1e-300)
+                check(grad_err[k] <= GNN_REL,
+                      f"{what}: step-1 gradient of {k} {grad_err[k]} beyond "
+                      f"{GNN_REL}")
+            del live, g32, loss
+            (_, hist), ms, launches, _, peak = counted_call(
+                lambda: gnn.train_gnn(cfg, a, x, labels,
+                                      n_steps=GNN["steps"], seed=0))
+            check(all(np.isfinite(hist)), f"{what}: loss {hist}")
+            check(launches["gather_rows"] == GNN["steps"] * cfg.n_layers
+                  and launches["hash_accumulate"] == 0,
+                  f"{what}: launches {launches}, expected one K1 launch per "
+                  f"aggregation")
+            per_lane[f"gnn/{arch}/{mode}"] = launches
+            emit({"gnn": {
+                "dataset": GNN["dataset"], "arch": arch, "mode": mode,
+                "nodes": n, "edges": int(g.nnz), "nnz_a_hat": int(a.nnz),
+                "steps": GNN["steps"], "loss": hist,
+                "loss_step1": float(loss64.detach()),
+                "ms": ms, "ms_per_step": ms / GNN["steps"],
+                "launches": launches, "peak_mem_gb": peak,
+                "logits_err": float(err), "logits_scale": float(scale),
+                "rows_near_topk_tie": int(near.sum()),
+                "logit_rows_left_out": int(affected.sum()),
+                "grad_rel_err": grad_err,
+                "profiled_2_steps": profiled(
+                    lambda: gnn.train_gnn(cfg, a, x, labels, n_steps=2,
+                                          seed=0))}}, log)
+            torch.cuda.empty_cache()
+
+    def aggregation():
+        return csr_spmm(a, x, gather="aia")
+
+    ta = torch_csr(a)
+
+    def cusparse():
+        return torch.sparse.mm(ta, x)
+
+    emit({"gnn_aggregation": {
+        "nodes": n, "nnz_a_hat": int(a.nnz), "d": GNN["d"],
+        "ms": time_ms(aggregation, reps=10),
+        "device_ms": device_ms(aggregation),
+        "loop_ms": loop_ms(aggregation),
+        "cusparse_ms": time_ms(cusparse, reps=10),
+        "cusparse_device_ms": device_ms(cusparse),
+        "cusparse_loop_ms": loop_ms(cusparse)}}, log)
+    return per_lane, k1
+
+
+def apps_phase(log):
+    """The three applications, each lane with its launch counts from 0;
+    MCL last, since the profiler reads later kernels low after its
+    traces."""
+    per_lane = contraction_phase(log)
+    gnn_lanes, k1 = gnn_phase(log)
+    per_lane.update(gnn_lanes)
+    per_lane.update(mcl_phase(log))
+    return per_lane, k1
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every record to this file")
@@ -1584,6 +2286,9 @@ def main(argv=None) -> int:
             for name, n in MATRICES.items()}
     k1, k2 = kernel_phase(mats, log)
     totals, per_call = end_to_end_phase(mats, log)
+    del mats
+    torch.cuda.empty_cache()
+    per_app, k1_spmm = apps_phase(log)
 
     kernels = [
         {"name": "aia_gather_rows", "route": "cuda",
@@ -1595,11 +2300,15 @@ def main(argv=None) -> int:
          "launches": totals["gather_rows"],
          "launches_per_spgemm": {c: n["gather_rows"]
                                  for c, n in per_call.items()},
+         "launches_per_app": {c: n["gather_rows"]
+                              for c, n in per_app.items()},
+         "csr_spmm_shape": k1_spmm,
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "kernel_ms": k1["ms"], "host_ms": k1["host_ms"],
          "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": "bytes",
-         "library_ms": k1["library_ms"], "path": k1["route"]},
+         "library_ms": k1["library_ms"],
+         "library_device_ms": k1["library_device_ms"], "path": k1["route"]},
         {"name": "hash_accumulate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_accum.cu",
          "replaces": "src/repro/kernels/hash_accum.py:130",
@@ -1609,6 +2318,8 @@ def main(argv=None) -> int:
          "launches": totals["hash_accumulate"],
          "launches_per_spgemm": {c: n["hash_accumulate"]
                                  for c, n in per_call.items()},
+         "launches_per_app": {c: n["hash_accumulate"]
+                              for c, n in per_app.items()},
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "kernel_ms": k2["ms"], "device_ms": k2["device_ms"],
          "plain_ms": k2["plain_ms"],

@@ -281,7 +281,8 @@ def test_pattern_fingerprint_and_plan_cache():
 
 
 # ---------------------------------------------------------------------------
-# The port stands alone: no JAX, nothing of the JAX package
+# The port stands alone: no JAX, nothing of the JAX package, and no
+# networkx (the card's machine has none)
 # ---------------------------------------------------------------------------
 
 def _imports(path):
@@ -299,7 +300,8 @@ def test_port_imports_neither_jax_nor_reference():
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+            assert top not in ("jax", "jaxlib", "repro", "networkx"), \
+                f"{path}: {name}"
 
 
 def test_kernel_modules_import_first():
