@@ -70,9 +70,10 @@ products run in full float32 (TF32 off).  It
    K2 (Algorithm 4's hash accumulate) on the same chunks, each on the
    route its table size chooses (groups 0-2: ``"smem"``, group 3:
    ``"global"``) and held bit for bit, a stream wider than 16,384 slots on
-   its products packed to the front (the same tables); each kernel's bound
-   counts the bytes this run's data needs (distinct source rows, real
-   products);
+   its products packed to the front (the same tables), and timed beside
+   one PyTorch call that sums duplicate keys the same way (the chunk's
+   products as a COO tensor, ``coalesce()``); each kernel's bound counts
+   the bytes this run's data needs (distinct source rows, real products);
 7. runs the self-products of RoadTX (1,393,383 rows) and p2p-Gnutella04
    (10,876 rows), seed 0, through ``spgemm(a, a)`` (sort engine, AIA
    gather, measured sizing), ``spgemm(a, a, engine="fused_hash")`` (AIA
@@ -85,7 +86,27 @@ products run in full float32 (TF32 off).  It
    run of each call (device time, busy share, top kernels); and times
    ``torch.sparse.mm`` (cuSPARSE) on the same CSR as a yardstick the port
    never calls;
-8. runs the paper's three applications at paper size, each lane with the
+8. serves SpGEMM requests through ``serve.SpGEMMService`` at paper size
+   (``serve_phase``): 48 requests from 4 tenants, A·B with B the pattern's
+   matrix (RoadTX, p2p-Gnutella04, Economics, drawn by Zipf 1.2
+   popularity) and A its structure with fresh values, tenants 0-1 on the
+   default lane and 2-3 on ``fused_hash``, ``max_batch`` 8 (cut where a
+   batch's reckoned memory passes 60 GB), one flush at the end; every
+   dispatch recorded with its launch and sync counts from 0: one K1 launch
+   a chunk, K2 batch x chunks on ``fused_hash`` and none on the default
+   lane, no pipeline sync on the planned lane, the OperandCache's hits as
+   its lead tenants predict; every request against its solo ``spgemm``
+   with the same knobs (structure exact; values bit for bit on
+   ``fused_hash``, within rtol 1e-4 / atol 1e-6 on the sort lane), one
+   per (pattern, lane) against scipy's float64 product; requests/s,
+   p50/p99 latency, dispatches and coalescing ratio; the first batched
+   dispatch of each (pattern, lane) profiled beside the same members as a
+   loop of ``spgemm``; ``engine="auto"`` on the RoadTX and p2p
+   self-products until the autotune cache converges (against scipy; a
+   converged call measures nothing; a forced all-``fused_hash``
+   assignment pays no pipeline sync); ``dispatch_fail`` armed once on a
+   batched dispatch, every member replayed bit for bit;
+9. runs the paper's three applications at paper size, each lane with the
    launch counts and the pipeline's sync count from 0: graph contraction
    ``S·G·Sᵀ`` (``apps.graph_contraction``, labels n/64 from seed 0) on
    RoadTX, Economics and Protein on the default lane and ``fused_hash``,
@@ -110,7 +131,8 @@ products run in full float32 (TF32 off).  It
    ids, 256-byte rows of X) bit for bit, on a transposed X through
    ``csr_spmm``'s take too, timed beside ``index_select`` and its bound;
    one aggregation beside cuSPARSE SpMM;
-9. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+10. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
+    last, and the whole script's time on a line before them.
 
 Every check raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, when no CUDA device is available.  ``--json``
@@ -298,7 +320,8 @@ def kernel_phase(mats, log):
                              log)
             chunks.append({k: rec[k] for k in (
                 "matrix", "group", "rows", "ip_cap", "table_cap", "route",
-                "compared", "device_ms", "bound_ms")})
+                "compared", "device_ms", "bound_ms", "library_ms",
+                "library_device_ms")})
             if main:
                 k2 = rec
     check(k1 is not None and k2 is not None, "RoadTX group 0 chunk missing")
@@ -511,6 +534,23 @@ def hash_check(name, g, keys, vals, table_cap, hash_accum, log):
     _, dev, top = profile(lambda: [kernel() for _ in range(10)])
     rec["device_ms"] = None if dev is None else dev / 10
     rec["device_kernels"] = [(k, ms / 10) for k, ms, _ in top]
+    # One PyTorch call that sums duplicate (row, column) keys as K2 does:
+    # the chunk's products as a COO tensor, coalesced (its indices and
+    # values gathered outside the clock).
+    prow, pslot = (keys >= 0).nonzero(as_tuple=True)
+    coo_idx = torch.stack([prow, keys[prow, pslot].long()])
+    coo_val = vals[prow, pslot]
+    coo_size = (r, int(keys.max()) + 1)
+
+    def library():
+        return torch.sparse_coo_tensor(coo_idx, coo_val, coo_size).coalesce()
+
+    check(library()._nnz() == int(got[2].long().sum()),
+          f"K2 {name} group {g}: coalesce found another number of keys")
+    rec["library_call"] = "torch.sparse_coo_tensor(keys, vals).coalesce()"
+    rec["library_ms"] = time_ms(library, reps=10)
+    rec["library_device_ms"] = device_ms(library, reps=5)
+    del coo_idx, coo_val
     # Every key read once, a value only where its key is a product (the
     # kernel skips the value of a padding key), the tables and the counts
     # written once.
@@ -662,6 +702,448 @@ def end_to_end_phase(mats, log):
     for k in SPGEMM_KERNELS:
         check(totals[k] > 0, f"kernel {k} was never launched on the main path")
     return totals, per_call
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: SpGEMM serving on the Table-II patterns
+# ---------------------------------------------------------------------------
+
+# repro.launch.serve's run_spgemm traffic on Table-II patterns: a request is
+# A·B with B the pattern's matrix (one B for the pattern's requests, so the
+# tenants' OperandCaches hit) and A that structure with fresh values from
+# np.random.default_rng(seed); patterns by Zipf 1.2 popularity in this
+# order, tenant i % 4, flushed at the end.
+SERVE = {"patterns": {"RoadTX": 1_393_383, "p2p-Gnutella04": 10_876,
+                      "Economics": 206_500},
+         "requests": 48, "tenants": 4, "zipf": 1.2, "max_batch": 8,
+         "seed": 0, "memory_limit_gb": 60.0}
+# tenants 0-1 on the default lane (sort, AIA, measured), 2-3 on fused_hash
+# (planned): the knob signature splits their groups
+SERVE_KNOBS = ({}, {}, {"engine": "fused_hash"}, {"engine": "fused_hash"})
+AUTO_MATRICES = ("RoadTX", "p2p-Gnutella04")
+
+
+def lane_of(knobs) -> str:
+    return "fused_hash" if knobs.get("engine") == "fused_hash" else "default"
+
+
+def reckoned_batch_gb(a, batch: int):
+    """Reckoned peak GB of a batched sort-lane product on ``a``'s pattern
+    (the larger lane): wave 1 holds every chunk's keys and ``batch`` value
+    streams, and the largest chunk's sort adds its keys, int64 order and
+    targets, masks and ranks, and each member's gathered values.  Also
+    returns the pattern's chunks and B's ELL width."""
+    from repro_torch.core import executor as ex
+    from repro_torch.core.grouping import group_rows
+
+    row_nnz = np.diff(a.indptr.cpu().numpy().astype(np.int64))
+    kb = int(row_nnz.max())
+    items = ex.partition_plan(group_rows(a, a), row_nnz, 4096)
+    slots = [ex._pad_rows(len(i.rows)) * i.a_cap * kb for i in items]
+    return ((sum(slots) * (4 + 4 * batch) + max(slots) * (26 + 8 * batch))
+            / 1e9, len(items), kb)
+
+
+def fresh_values(b, rng):
+    """A CSR on ``b``'s structure tensors with fresh float32 values."""
+    import torch
+
+    from repro_torch.sparse.formats import CSR
+
+    nnz = int(b.nnz)
+    data = torch.zeros(b.capacity, dtype=torch.float32, device=b.device)
+    data[:nnz] = torch.from_numpy(
+        rng.standard_normal(nnz).astype(np.float32)).to(b.device)
+    return CSR(b.indptr, b.indices, data, b.shape)
+
+
+@contextlib.contextmanager
+def recorded_dispatches(records, patterns):
+    """Record every call the service makes to ``spgemm`` and
+    ``spgemm_batched``: pattern, members, knobs, wall ms, and the launches,
+    routes and pipeline syncs it made."""
+    import torch
+
+    from repro_torch.core import executor
+    from repro_torch.kernels import ops
+    from repro_torch.serve import spgemm_service as svc_mod
+
+    def wrap(kind, fn):
+        def call(a, b, **kw):
+            a0 = a[0] if isinstance(a, list) else a
+            name = next(n for n, m in patterns.items()
+                        if a0.indptr is m.indptr)
+            l0, r0 = ops.launch_counts(), ops.route_counts()
+            s0 = executor.cache_stats()["host_sync_count"]
+            t0 = time.perf_counter()
+            out = fn(a, b, **kw)
+            torch.cuda.synchronize()
+            records.append({
+                "kind": kind, "pattern": name, "lane": lane_of(kw),
+                "operand_cache": id(kw.get("operand_cache")),
+                "batch": len(a) if isinstance(a, list) else 1,
+                "a": a, "b": b, "knobs": kw,
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "launches": {k: n - l0[k]
+                             for k, n in ops.launch_counts().items()},
+                "routes": {k: n - r0.get(k, 0)
+                           for k, n in ops.route_counts().items()
+                           if n != r0.get(k, 0)},
+                "syncs": executor.cache_stats()["host_sync_count"] - s0})
+            return out
+        return call
+
+    orig = {k: getattr(svc_mod, k) for k in ("spgemm", "spgemm_batched")}
+    for k, fn in orig.items():
+        setattr(svc_mod, k, wrap(k, fn))
+    try:
+        yield
+    finally:
+        for k, fn in orig.items():
+            setattr(svc_mod, k, fn)
+
+
+def pair_product(a, b):
+    """scipy's float64 A·B of two port CSRs, indices sorted."""
+    c = (host_csr(a) @ host_csr(b)).tocsr()
+    c.sort_indices()
+    return c
+
+
+LANE_KNOBS = ("engine", "gather", "schedule", "row_chunk", "pipeline",
+              "sizing", "operands")
+
+
+def serve_traffic(patterns, caps, log):
+    """The service over SERVE's traffic, every dispatch recorded; returns
+    (tickets as (request, ticket), records, stats, wall s, operand stats)."""
+    import torch
+
+    from repro_torch.core import executor
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SpGEMMService
+
+    names = list(patterns)
+    rng = np.random.default_rng(SERVE["seed"])  # the patterns' draws
+    values = np.random.default_rng(SERVE["seed"] + 1)  # A's fresh values
+    ranks = np.arange(1, len(names) + 1, dtype=np.float64)
+    popularity = ranks ** -SERVE["zipf"]
+    popularity /= popularity.sum()
+    # one service per batch cap (a pattern whose reckoned memory passes the
+    # limit at max_batch gets a smaller cap); max_wait past the run, so
+    # batches form by size and the final flush
+    services = {cap: SpGEMMService(max_batch=cap, max_wait=3600.0)
+                for cap in sorted(set(caps.values()))}
+    records, tickets = [], []
+    torch.cuda.synchronize()
+    executor.clear_program_cache()
+    ops.reset_launch_counts()  # the serving run's counts start here
+    t0 = time.perf_counter()
+    with recorded_dispatches(records, patterns):
+        for i in range(SERVE["requests"]):
+            name = names[int(rng.choice(len(names), p=popularity))]
+            knobs = SERVE_KNOBS[i % SERVE["tenants"]]
+            a = fresh_values(patterns[name], values)
+            svc = services[caps[name]]
+            tickets.append(((name, knobs, a),
+                            svc.submit(f"tenant{i % SERVE['tenants']}", a,
+                                       patterns[name], **knobs)))
+        for svc in services.values():
+            svc.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    opstats = {k: v for k, v in executor.cache_stats().items()
+               if k.startswith("operand")}
+    stats = [svc.stats() for svc in services.values()]
+    return tickets, records, stats, wall, opstats
+
+
+def check_dispatches(records, chunks):
+    """Per dispatch: one K1 launch a chunk; on fused_hash K2 batch x chunks
+    and no pipeline sync; on the default lane no K2 and one sync."""
+    for r in records:
+        n = chunks[r["pattern"]]
+        what = f"serve {r['pattern']}/{r['lane']} {r['kind']} x{r['batch']}"
+        check(r["launches"]["gather_rows"] == n,
+              f"{what}: {r['launches']['gather_rows']} K1 launches for "
+              f"{n} chunks")
+        fused = r["lane"] == "fused_hash"
+        check(r["launches"]["hash_accumulate"]
+              == (r["batch"] * n if fused else 0),
+              f"{what}: {r['launches']['hash_accumulate']} K2 launches")
+        check(r["syncs"] == (0 if fused else 1),
+              f"{what}: {r['syncs']} pipeline syncs")
+
+
+def check_members(tickets, patterns, log):
+    """Every request against its solo ``spgemm`` on the card with the same
+    knobs (structure exact; values bit for bit on fused_hash, within
+    RTOL/ATOL on the sort lane), and one request per (pattern, lane)
+    against scipy's float64 product."""
+    import torch
+
+    from repro_torch.core.spgemm import spgemm
+
+    worst = {}
+    scipy_err = {}
+    for (name, knobs, a), tk in tickets:
+        check(tk.done and tk._error is None,
+              f"serve {name}: a request did not complete ({tk._error!r})")
+        res = tk.result()
+        c, nnz = res.c, res.info["nnz_c"]
+        solo = spgemm(a, patterns[name], **knobs)
+        lane = lane_of(knobs)
+        what = f"serve {name}/{lane} member of {tk.coalesced_with}"
+        check(solo.info["nnz_c"] == nnz
+              and torch.equal(c.indptr, solo.c.indptr)
+              and torch.equal(c.indices[:nnz], solo.c.indices[:nnz]),
+              f"{what}: structure differs from the solo product")
+        got, want = c.data[:nnz], solo.c.data[:nnz]
+        if lane == "fused_hash":
+            check(torch.equal(got, want), f"{what}: not bit-identical to "
+                                          f"the solo product")
+        else:
+            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+                  f"{what}: beyond rtol {RTOL} atol {ATOL} of the solo "
+                  f"product")
+        key = f"{name}/{lane}"
+        worst[key] = max(worst.get(key, 0.0),
+                         float((got.double() - want.double()).abs().max()
+                               if nnz else 0.0))
+        if key not in scipy_err:
+            scipy_err[key] = check_against_scipy(
+                name, f"serve/{lane}", c, nnz,
+                pair_product(a, patterns[name]))
+        del res, solo
+    return worst, scipy_err
+
+
+def batched_vs_loop(records):
+    """For the first batched dispatch of each (pattern, lane): the same
+    members through one ``spgemm_batched`` and through a loop of
+    ``spgemm``, each profiled (device ms, busy share) with its peak GB."""
+    import torch
+
+    from repro_torch.core.spgemm import spgemm, spgemm_batched
+
+    out = {}
+    for r in records:
+        key = f"{r['pattern']}/{r['lane']}"
+        if r["kind"] != "spgemm_batched" or key in out:
+            continue
+        kw = {k: r["knobs"][k] for k in LANE_KNOBS}
+        calls = {
+            "batched": lambda: spgemm_batched(r["a"], r["b"], **kw),
+            "loop": lambda: [spgemm(a, b, **kw)
+                             for a, b in zip(r["a"], r["b"])]}
+        out[key] = {"batch": r["batch"]}
+        for label, fn in calls.items():
+            fn()  # warm
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 1e9
+            rec = profiled(fn)
+            rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["base_gb"] = base
+            rec.pop("top_kernels")
+            out[key][label] = rec
+    return out
+
+
+def serve_auto(patterns, log):
+    """``engine="auto"`` on AUTO_MATRICES' self-products: rounds until the
+    autotune cache converges, the result against scipy, a converged call
+    that measures nothing, and an all-fused_hash forced assignment with no
+    pipeline sync.  No particular assignment is asserted."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import executor as ex
+    from repro_torch.core.spgemm import spgemm
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name in AUTO_MATRICES:
+        a = patterns[name]
+        tuner = ex.AutotuneCache()
+        ex.clear_program_cache()
+        ops.reset_launch_counts()
+        rounds = []
+        for _ in range(len(ex.available_engines())):
+            t0 = time.perf_counter()
+            res = spgemm(a, a, engine="auto", autotune=tuner)
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t0) * 1e3)
+        key = ex.autotune_key(a, a, res.plan)
+        check(tuner.converged(key), f"auto {name}: not converged after "
+                                    f"{len(rounds)} rounds")
+        err = check_against_scipy(name, "auto", res.c, res.info["nnz_c"],
+                                  scipy_product(a))
+        hits, misses = tuner.hits, tuner.misses
+        t0 = time.perf_counter()
+        res = spgemm(a, a, engine="auto", autotune=tuner)
+        torch.cuda.synchronize()
+        converged_ms = (time.perf_counter() - t0) * 1e3
+        check((tuner.hits, tuner.misses) == (hits + 1, misses),
+              f"auto {name}: the converged call measured again")
+        forced = dataclasses.replace(res.plan,
+                                     group_engines=("fused_hash",) * 4)
+        s0 = ex.cache_stats()["host_sync_count"]
+        k2 = ops.launch_counts()["hash_accumulate"]
+        fres = spgemm(a, a, engine="auto", plan=forced)
+        syncs = ex.cache_stats()["host_sync_count"] - s0
+        check(syncs == 0, f"auto {name}: forced fused_hash paid {syncs} "
+                          f"pipeline syncs")
+        check(ops.launch_counts()["hash_accumulate"] > k2,
+              f"auto {name}: forced fused_hash launched no K2")
+        check(fres.info["nnz_c"] == res.info["nnz_c"],
+              f"auto {name}: forced fused_hash nnz differs")
+        [summary] = tuner.summary()
+        out[name] = {"assignment": summary["assignment"],
+                     "group_sizes": summary["group_sizes"],
+                     "timings_us": summary["timings_us"],
+                     "round_ms": rounds, "converged_call_ms": converged_ms,
+                     "measuring_ms": sum(rounds) - len(rounds) * converged_ms,
+                     "max_abs_err_vs_scipy": err,
+                     "autotune_hits": tuner.hits,
+                     "autotune_misses": tuner.misses}
+        emit({"serve_auto": {"matrix": name, **out[name]}}, log)
+    return out
+
+
+def serve_dispatch_fail(patterns, log):
+    """``dispatch_fail`` armed once on a batched fused_hash dispatch of 4
+    p2p-Gnutella04 requests: every member completes by replay, each
+    bit-identical to its solo product."""
+    import torch
+
+    from repro_torch.core import executor, faults
+    from repro_torch.core.spgemm import spgemm
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SpGEMMService
+
+    b = patterns["p2p-Gnutella04"]
+    rng = np.random.default_rng(SERVE["seed"] + 2)
+    members = [fresh_values(b, rng) for _ in range(4)]
+    svc = SpGEMMService(max_batch=4, max_wait=3600.0)
+    executor.clear_program_cache()
+    ops.reset_launch_counts()
+    with faults.fault_injection("dispatch_fail", times=1) as fault:
+        tickets = [svc.submit("t", a, b, engine="fused_hash")
+                   for a in members]
+    st = svc.stats()
+    check(fault.triggers == 1 and st["batched_dispatches"] == 1
+          and st["quarantined"] == 0 and st["requests_completed"] == 4,
+          f"dispatch_fail: {fault.triggers} triggers, stats {st}")
+    # the failed dispatch placed nothing; the first replay converts B into
+    # the tenant's OperandCache and the other three are served from it
+    opstats = executor.cache_stats()
+    check((opstats["operand_hits"], opstats["operand_misses"]) == (3, 1),
+          f"dispatch_fail: OperandCache {opstats}")
+    launches = ops.launch_counts()
+    for a, tk in zip(members, tickets):
+        c = tk.result().c
+        solo = spgemm(a, b, engine="fused_hash").c
+        check(torch.equal(c.indptr, solo.indptr)
+              and torch.equal(c.indices, solo.indices)
+              and torch.equal(c.data, solo.data),
+              "dispatch_fail: a replayed member differs from its solo run")
+    rec = {"triggers": fault.triggers, "replayed": 4,
+           "quarantined": st["quarantined"],
+           "operand_hits": opstats["operand_hits"],
+           "operand_misses": opstats["operand_misses"],
+           "launches": launches}
+    emit({"serve_dispatch_fail": rec}, log)
+    return rec
+
+
+def serve_phase(mats, log):
+    """SpGEMM serving through ``SpGEMMService`` on RoadTX, p2p-Gnutella04
+    and Economics at paper size; returns K1/K2 launches per pattern/lane."""
+    import torch
+
+    from repro_torch.apps.graphs import table_ii_matrix
+
+    t_phase = time.perf_counter()
+    patterns = {name: mats[name] if name in mats else table_ii_matrix(
+        name, seed=0, n_override=n, device="cuda")
+        for name, n in SERVE["patterns"].items()}
+    caps, chunks, plan_rec = {}, {}, {}
+    for name, a in patterns.items():
+        cap = SERVE["max_batch"]
+        gb, chunks[name], kb = reckoned_batch_gb(a, cap)
+        while cap > 1 and reckoned_batch_gb(a, cap)[0] \
+                > SERVE["memory_limit_gb"]:
+            cap -= 1
+        caps[name] = cap
+        plan_rec[name] = {"rows": a.n_rows, "nnz": int(a.nnz),
+                          "chunks": chunks[name], "kb": kb,
+                          "reckoned_gb_at_max_batch": gb, "max_batch": cap,
+                          "k1_row_bytes": {"index": 4 * kb,
+                                           "folded_values": 4 * cap * kb}}
+    emit({"serve_patterns": plan_rec}, log)
+
+    tickets, records, stats, wall, opstats = serve_traffic(patterns, caps,
+                                                           log)
+    check_dispatches(records, chunks)
+    # a dispatch runs on its lead tenant's OperandCache: it hits where that
+    # cache served the pattern's B before
+    seen, expect_hits = set(), 0
+    for r in records:
+        expect_hits += (r["operand_cache"], r["pattern"]) in seen
+        seen.add((r["operand_cache"], r["pattern"]))
+    check(opstats == {"operand_hits": expect_hits,
+                      "operand_misses": len(records) - expect_hits},
+          f"serve: OperandCache {opstats}, expected {expect_hits} hits")
+    per_serve = {}
+    for r in records:
+        key = f"{r['pattern']}/{r['lane']}"
+        tot = per_serve.setdefault(key, {"gather_rows": 0,
+                                         "hash_accumulate": 0})
+        for k in tot:
+            tot[k] += r["launches"][k]
+    folded = {}
+    for r in records:
+        if r["kind"] == "spgemm_batched":
+            folded.setdefault(f"{r['pattern']}/x{r['batch']}", {
+                "index_row_bytes": 4 * plan_rec[r["pattern"]]["kb"],
+                "value_row_bytes": 4 * r["batch"]
+                * plan_rec[r["pattern"]]["kb"],
+                "routes": r["routes"]})
+    lat = sorted(tk.latency_s for _, tk in tickets)
+    st = stats[0] if len(stats) == 1 else stats
+    rec = {"requests": len(tickets), "wall_s": wall,
+           "requests_per_s": len(tickets) / wall,
+           "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+           "latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+           "dispatches": sum(s["dispatches"] for s in stats),
+           "batched_dispatches": sum(s["batched_dispatches"] for s in stats),
+           "singleton_dispatches": sum(s["singleton_dispatches"]
+                                       for s in stats),
+           "coalescing_ratio": len(tickets) / sum(s["dispatches"]
+                                                  for s in stats),
+           "operand_cache": opstats, "launches": per_serve,
+           "k1_folded_rows": folded,
+           "dispatch_log": [{k: r[k] for k in ("pattern", "lane", "kind",
+                                              "batch", "ms", "syncs",
+                                              "launches")}
+                            for r in records],
+           "service_stats": st}
+    emit({"serve": rec}, log)
+    worst, scipy_err = check_members(tickets, patterns, log)
+    emit({"serve_members": {"max_abs_diff_vs_solo": worst,
+                            "max_abs_err_vs_scipy": scipy_err}}, log)
+    del tickets
+    torch.cuda.empty_cache()
+    emit({"serve_batched_vs_loop": batched_vs_loop(records)}, log)
+    del records
+    torch.cuda.empty_cache()
+    serve_auto(patterns, log)
+    serve_dispatch_fail(patterns, log)
+    emit({"serve_phase_s": time.perf_counter() - t_phase}, log)
+    return per_serve
 
 
 # ---------------------------------------------------------------------------
@@ -1600,7 +2082,7 @@ def lm_phase(log):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the paper's three applications at paper size
+# Phase 9: the paper's three applications at paper size
 # ---------------------------------------------------------------------------
 
 # Graph contraction on the reference bench's list (bench_graph_apps.py:31)
@@ -2248,6 +2730,7 @@ def main(argv=None) -> int:
     parser.add_argument("--json", help="also write every record to this file")
     args = parser.parse_args(argv)
 
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2286,6 +2769,7 @@ def main(argv=None) -> int:
             for name, n in MATRICES.items()}
     k1, k2 = kernel_phase(mats, log)
     totals, per_call = end_to_end_phase(mats, log)
+    per_serve = serve_phase(mats, log)
     del mats
     torch.cuda.empty_cache()
     per_app, k1_spmm = apps_phase(log)
@@ -2302,6 +2786,8 @@ def main(argv=None) -> int:
                                  for c, n in per_call.items()},
          "launches_per_app": {c: n["gather_rows"]
                               for c, n in per_app.items()},
+         "launches_per_serve": {c: n["gather_rows"]
+                                for c, n in per_serve.items()},
          "csr_spmm_shape": k1_spmm,
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "kernel_ms": k1["ms"], "host_ms": k1["host_ms"],
@@ -2324,7 +2810,12 @@ def main(argv=None) -> int:
          "kernel_ms": k2["ms"], "device_ms": k2["device_ms"],
          "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": "bytes",
-         "library_ms": None, "path": k2["route"], "chunks": k2["chunks"]},
+         "library_ms": k2["library_ms"],
+         "library_device_ms": k2["library_device_ms"],
+         "library_call": k2["library_call"],
+         "launches_per_serve": {c: n["hash_accumulate"]
+                                for c, n in per_serve.items()},
+         "path": k2["route"], "chunks": k2["chunks"]},
     ]
     for name, src, tpu in FFN_SOURCES:
         rec = ffn[name]
@@ -2361,6 +2852,7 @@ def main(argv=None) -> int:
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "library_call": flash["library_call"]})
+    emit({"script_s": time.perf_counter() - t_script}, log)
     emit({"kernels": kernels}, log)
     if args.json:
         pathlib.Path(args.json).parent.mkdir(parents=True, exist_ok=True)

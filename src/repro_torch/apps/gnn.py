@@ -183,12 +183,10 @@ def train_gnn(
 def gnn_forward_minibatch(*args, **kwargs):
     """Not ported: the layer-wise forward over ``bulk_sample`` subgraphs."""
     raise NotImplementedError(
-        "gnn_forward_minibatch needs apps/sampling.py and spgemm_batched: "
-        "ROADMAP Queue A items 3 and 4")
+        "gnn_forward_minibatch needs apps/sampling.py: ROADMAP Queue A item 4")
 
 
 def train_gnn_minibatch(*args, **kwargs):
     """Not ported: mini-batch training on ``bulk_sample`` subgraph chains."""
     raise NotImplementedError(
-        "train_gnn_minibatch needs apps/sampling.py and spgemm_batched: "
-        "ROADMAP Queue A items 3 and 4")
+        "train_gnn_minibatch needs apps/sampling.py: ROADMAP Queue A item 4")

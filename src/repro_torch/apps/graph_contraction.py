@@ -15,25 +15,6 @@ from repro_torch.sparse.formats import CSR, csr_from_coo
 from repro_torch.sparse.ops import csr_transpose
 
 
-def refuse_unported(mesh=None, pipeline: str = "two_wave",
-                    engine: str = "sort") -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP Queue A item that
-    ports a knob of the reference's apps that the port does not have."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= runs the sharded multi-device executor, ROADMAP Queue A "
-            "item 7")
-    if pipeline == "legacy":
-        raise NotImplementedError(
-            "pipeline='legacy' (per-chunk syncs) is ROADMAP Queue A item 3")
-    if pipeline != "two_wave":
-        raise ValueError(f"unknown pipeline {pipeline!r}")
-    if engine == "auto":
-        raise NotImplementedError(
-            "engine/method='auto' (per-bin autotuning) is ROADMAP Queue A "
-            "item 3")
-
-
 def label_matrix(labels: np.ndarray, n: int | None = None,
                  m: int | None = None, device="cuda") -> CSR:
     """S = sparse(labels, 1:n, 1, m, n) (Algorithm 7 line 3)."""
@@ -52,16 +33,18 @@ def graph_contraction(g: CSR, labels: np.ndarray, method: str = "sort",
     counters.
 
     ``method``/``gather``/``schedule``/``sizing`` select the executor's
-    engine, B-row gather, Table-I scheduling and output sizing (the paper's
-    ablation axes); ``sizing="auto"`` is planned (zero host syncs in the
-    pipeline) for ``"fused_hash"``.
+    engine (``"auto"``: one per Table-I bin), B-row gather, Table-I
+    scheduling and output sizing (the paper's ablation axes);
+    ``sizing="auto"`` is planned (zero host syncs in the pipeline) for
+    ``"fused_hash"``.  ``pipeline`` picks the two-wave or the legacy
+    (per-chunk read) sync structure; ``mesh`` must be None (ROADMAP Queue
+    A item 7).
     """
-    refuse_unported(mesh, pipeline, method)
     method = executor.resolve_engine(method)
     s = label_matrix(labels, n=g.n_rows, device=g.device)
     st = csr_transpose(s)
     r1 = spgemm(s, g, engine=method, gather=gather, schedule=schedule,
-                sizing=sizing)
+                mesh=mesh, pipeline=pipeline, sizing=sizing)
     r2 = spgemm(r1.c, st, engine=method, gather=gather, schedule=schedule,
-                sizing=sizing)
+                mesh=mesh, pipeline=pipeline, sizing=sizing)
     return r2.c, [r1.info, r2.info]

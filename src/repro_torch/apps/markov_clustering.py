@@ -17,7 +17,6 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch.apps.graph_contraction import refuse_unported
 from repro_torch.core import executor
 from repro_torch.core.spgemm import PlanCache, spgemm
 from repro_torch.sparse.formats import CSR
@@ -129,10 +128,15 @@ def mcl(
     ``spgemm``.  ``reuse_plan`` keeps a per-run ``PlanCache`` over the
     expansions: once the support stabilizes, every further iteration skips
     Algorithm 1 and the Table-I binning (``MCLResult.plan_cache_hits``).
-    The streamed lane (``stream``, ``prefetch``), ``on_budget="stream"``,
-    ``mesh`` and ``method="auto"`` are not ported and raise.
+    ``pipeline`` picks the two-wave or the legacy (per-chunk read) sync
+    structure; ``method="auto"`` dispatches one engine per Table-I bin
+    through the executor's autotune cache.  The streamed lane (``stream``,
+    ``prefetch``), ``on_budget="stream"`` and ``mesh`` are not ported and
+    raise.
     """
-    refuse_unported(mesh, pipeline, method)
+    executor.refuse_mesh(mesh)
+    if pipeline not in ("two_wave", "legacy"):
+        raise ValueError(f"unknown pipeline {pipeline!r}")
     if stream is not None:
         raise NotImplementedError(
             "mcl(stream=...) runs the streamed lane, ROADMAP Queue A item 5")
@@ -153,7 +157,8 @@ def mcl(
         b = a
         for _ in range(e - 1):
             res = spgemm(b, a, engine=method, gather=gather,
-                         schedule=schedule, plan=plan_cache, sizing=sizing)
+                         schedule=schedule, plan=plan_cache,
+                         pipeline=pipeline, sizing=sizing)
             infos.append(res.info)
             b = res.c
         # Prune: drop < theta, keep top-k per column

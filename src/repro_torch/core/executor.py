@@ -6,17 +6,20 @@ it into group-chunks, and ``execute_plan`` runs each chunk's A-row gather →
 B-row gather → product formation → per-row accumulation on the operands'
 device, then reassembles the CSR on that device.
 
-Two pluggable axes:
+Three pluggable axes:
 
 * **engine** — ``"hash"`` (Algorithms 2/3/5, the linear-probing table),
   ``"sort"`` (the vectorised sort + segment-sum engine) and ``"fused_hash"``
-  (the hash engine as one pass per chunk, with no allocate pass).
+  (the hash engine as one pass per chunk, with no allocate pass);
+  ``"auto"`` picks one engine per Table-I bin (the ``AutotuneCache``, or a
+  plan's forced ``group_engines``).
 * **gather** — how B's rows are fetched for ``b_ell[cols_A]``: ``"xla"`` is
   a plain tensor take, ``"aia"`` the AIA row-gather kernel
   (``kernels.aia_gather``).  ``"auto"`` is ``"aia"`` on a CUDA device and
   ``"xla"`` on the CPU — the paper's Fig. 7 "without AIA" axis is one flag.
+* **pipeline** — ``"two_wave"`` or ``"legacy"`` (below).
 
-Two sizing lanes:
+Three sync structures:
 
 * **measured** (two waves): wave 1 forms every chunk's products and
   uniqueCounts, one coalesced device-to-host read sizes every chunk's
@@ -25,19 +28,36 @@ Two sizing lanes:
   bounds (uniqueCount <= min(IP, n_cols) per row), the indptr is built on
   the device, and the lane reads nothing back (``host_sync_count`` 0;
   ``nnz`` comes back as a 0-d device tensor).
+* **legacy** (``pipeline="legacy"``): one blocking read of the uniqueCounts
+  per chunk and the CSR reassembled on the host — the reference lane the
+  others are diffed against.
 
 All chunks' row ids go to the device in one copy from pinned memory before
 the dispatch loop, and every shape in the loop comes from the host plan, so
-the loop itself never waits for the device.  Before it, ``execute_plan``
-reads A's and B's ``indptr`` back once (to cut the plan into chunks and
-size B's ELL), as the reference does.
+the two-wave loop itself never waits for the device.  Before it,
+``execute_plan`` reads A's and B's ``indptr`` back once (to cut the plan
+into chunks and size B's ELL), as the reference does.
+
+Amortisation across calls:
+
+* ``PlanCache`` — plans keyed on the operands' sparsity patterns.
+* ``OperandCache`` — B's ELL buffers keyed on B's tensors and their
+  versions, so repeated calls against one B convert it once.
+* ``AutotuneCache`` — ``engine="auto"``'s measured per-bin assignments.
+* ``execute_plan_batched`` — one plan run for a batch of same-pattern
+  operands: keys, sizing, output structure and reassembly offsets are
+  computed once per chunk, and only the value streams carry the batch
+  axis.  B's batched values are held folded, ``(n_b, batch * kb)``, so one
+  row-gather launch a chunk serves B's index plane and every member's
+  values.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from collections import OrderedDict
-from typing import Callable, Dict, List, Literal, Optional, Tuple
+from typing import Callable, Dict, List, Literal, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,10 +65,13 @@ import torch
 from repro_torch.core import phases
 from repro_torch.core.grouping import GroupPlan, group_rows
 from repro_torch.kernels.aia_gather import gather_planes
-from repro_torch.sparse.formats import CSR, csr_to_ell
+from repro_torch.sparse.formats import (
+    CSR, ELL, csr_to_ell, ell_values_folded)
 
 Gather = Literal["auto", "xla", "aia"]
+Pipeline = Literal["two_wave", "legacy"]
 Sizing = Literal["auto", "planned", "measured"]
+Operands = Literal["auto", "footprint", "replicate"]
 
 # Rows per chunk are padded to a multiple of this (-1 = padding row).
 ROW_QUANTUM = 8
@@ -57,6 +80,29 @@ ROW_QUANTUM = 8
 def next_pow2(x: int) -> int:
     """Smallest power of two >= ``x`` (and >= 1)."""
     return 1 << int(np.ceil(np.log2(max(int(x), 1))))
+
+
+def refuse_mesh(mesh) -> None:
+    """The port runs on one device: ``mesh=`` other than ``None`` raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= runs the sharded multi-device executor, ROADMAP Queue A "
+            "item 7")
+
+
+def resolve_operands(operands: Operands) -> str:
+    """Validate ``operands=``.  On one device ``"auto"`` and ``"replicate"``
+    are the same placement (B's whole ELL); ``"footprint"`` places
+    per-shard blocks of B, a multi-device lane that is not ported."""
+    if operands not in ("auto", "footprint", "replicate"):
+        raise ValueError(
+            f"unknown operands policy {operands!r}; valid choices: "
+            "'auto', 'footprint', 'replicate'")
+    if operands == "footprint":
+        raise NotImplementedError(
+            "operands='footprint' places per-shard B blocks for the "
+            "multi-device executor, ROADMAP Queue A item 7")
+    return operands
 
 
 # ---------------------------------------------------------------------------
@@ -70,8 +116,10 @@ class Engine:
     ``allocate(keys, table_cap)`` → per-row uniqueCount (Algorithms 2/3).
     ``accumulate(keys, vals, table_cap, out_cap)`` → (cols, vals, counts)
     with rows column-sorted and trimmed/padded to ``out_cap`` (Algorithm 5).
-    ``fused=True`` marks a single-pass engine, which ``sizing="auto"`` runs
-    in the planned lane.
+    ``accumulate`` also takes a batch ``(B, R, L)`` of value streams over
+    the one key stream and returns (B, R, out_cap) values.  ``fused=True``
+    marks a single-pass engine, which ``sizing="auto"`` runs in the planned
+    lane.
     """
 
     name: str
@@ -100,22 +148,43 @@ def get_engine(name: str) -> Engine:
 
 
 def available_engines() -> Tuple[str, ...]:
-    """Sorted names of every registered engine (the ``engine=`` choices)."""
+    """Sorted names of every registered engine (the ``engine=`` choices
+    besides ``"auto"``)."""
     return tuple(sorted(ENGINES))
+
+
+AUTO_ENGINE = "auto"
 
 
 def resolve_engine(engine: Optional[str] = None,
                    method: Optional[str] = None) -> str:
-    """Validate ``engine=``; ``None`` falls back to ``method or "sort"``
-    (``method`` is the façade's legacy alias)."""
+    """Validate ``engine=``: a registered name or ``"auto"`` (per-bin
+    dispatch); ``None`` falls back to ``method or "sort"`` (``method`` is
+    the façade's legacy alias)."""
     if engine is None:
         engine = method or "sort"
     elif method is not None and method != engine:
         raise ValueError(
             f"conflicting method={method!r} (legacy alias) and "
             f"engine={engine!r}")
-    get_engine(engine)
+    if engine != AUTO_ENGINE and engine not in ENGINES:
+        raise ValueError(
+            f"unknown engine {engine!r}; valid choices: "
+            f"{', '.join(sorted(ENGINES))}, or 'auto' (per-bin adaptive "
+            "dispatch)")
     return engine
+
+
+def static_bin_engines(device) -> Tuple[str, ...]:
+    """The seed of ``engine="auto"`` for every Table-I bin, by the
+    operands' device type: ``"sort"`` on the CPU (as the reference seeds
+    off-TPU) and ``"fused_hash"`` on CUDA.  The CUDA seed is the port's
+    choice: on the H100 the fused lane ran ahead of the sort lane on both
+    Table-II self-products (device time RoadTX 75.6 vs 145.0 ms,
+    p2p-Gnutella04 7.47 vs 65.4 ms; ``PERF.md`` §5).  It is only the
+    starting point: the ``AutotuneCache`` measures each bin's candidates."""
+    name = "fused_hash" if torch.device(device).type == "cuda" else "sort"
+    return (name,) * 4
 
 
 def _sort_accumulate(keys, vals, table_cap: int, out_cap: int):
@@ -127,7 +196,7 @@ register_engine(Engine("sort", lambda keys, cap: phases.allocate_sort(keys),
                        _sort_accumulate))
 # The paper's Alg. 2/3/5 as one pass over A's row: gather → products →
 # linear-probe insert, with no allocate pass.  The allocate/accumulate pair
-# serves sizing="measured".
+# serves sizing="measured" and pipeline="legacy".
 register_engine(Engine("fused_hash", phases.allocate_hash,
                        phases.fused_hash_sorted, fused=True))
 
@@ -136,12 +205,17 @@ register_engine(Engine("fused_hash", phases.allocate_hash,
 # Gather backends — how b_ell[cols_A] is served
 # ---------------------------------------------------------------------------
 
+def check_gather(gather: Gather) -> str:
+    """Validate a ``gather=`` name without resolving ``"auto"``."""
+    if gather not in ("auto", "xla", "aia"):
+        raise ValueError(f"unknown gather backend {gather!r}")
+    return gather
+
+
 def resolve_gather(gather: Gather, device) -> str:
     """``"auto"`` → the AIA kernel on a CUDA device, a plain take on the CPU."""
-    if gather == "auto":
+    if check_gather(gather) == "auto":
         return "aia" if torch.device(device).type == "cuda" else "xla"
-    if gather not in ("xla", "aia"):
-        raise ValueError(f"unknown gather backend {gather!r}")
     return gather
 
 
@@ -152,11 +226,12 @@ def _gather_b_xla(b_idx, b_val, cols_a):
 
 def _gather_b_aia(b_idx, b_val, cols_a):
     """B-row gather as the paper's AIA stream: ``cols_a`` flattened into one
-    index stream, served by one row-gather launch for both planes."""
+    index stream, served by one row-gather launch for both planes (on the
+    batched lane the value plane is the folded ``(n_b, batch * kb)``)."""
     r, a_cap = cols_a.shape
-    kb = b_idx.shape[1]
     bi, bv = gather_planes((b_idx, b_val), cols_a.reshape(-1))
-    return bi.reshape(r, a_cap, kb), bv.reshape(r, a_cap, kb)
+    return (bi.reshape(r, a_cap, b_idx.shape[1]),
+            bv.reshape(r, a_cap, b_val.shape[1]))
 
 
 GATHERS: Dict[str, Callable] = {"xla": _gather_b_xla, "aia": _gather_b_aia}
@@ -166,15 +241,31 @@ GATHERS: Dict[str, Callable] = {"xla": _gather_b_xla, "aia": _gather_b_aia}
 # Output sizing — measured (uniqueCount read) vs planned (Alg. 1 bounds)
 # ---------------------------------------------------------------------------
 
-def resolve_sizing(sizing: Sizing, engine: str, plan=None) -> str:
-    """``"auto"`` → ``"planned"`` for fused engines, ``"measured"``
-    otherwise; ``"planned"`` needs a plan that carries ``row_ip``."""
+def _engines_in_use(engine: str, plan=None,
+                    group_engines: Optional[Sequence[str]] = None
+                    ) -> Tuple[str, ...]:
+    """The engines a call dispatches: the per-bin assignment restricted to
+    non-empty groups when one is set, else the uniform ``engine=``."""
+    if group_engines is None:
+        return (engine,)
+    sizes = getattr(plan, "group_sizes", None)
+    used = tuple(e for g, e in enumerate(group_engines)
+                 if sizes is None or sizes[g] > 0)
+    return used or (group_engines[0],)
+
+
+def resolve_sizing(sizing: Sizing, engine: str, plan=None,
+                   group_engines: Optional[Sequence[str]] = None) -> str:
+    """``"auto"`` → ``"planned"`` when every engine the call dispatches is
+    fused (and the plan carries ``row_ip``), ``"measured"`` otherwise;
+    ``"planned"`` needs a plan that carries ``row_ip``."""
     if sizing not in ("auto", "planned", "measured"):
         raise ValueError(f"unknown sizing {sizing!r}")
     has_ip = getattr(plan, "row_ip", None) is not None
     if sizing == "auto":
-        return "planned" if get_engine(engine).fused and has_ip \
-            else "measured"
+        engines = _engines_in_use(engine, plan, group_engines)
+        all_fused = all(get_engine(e).fused for e in engines)
+        return "planned" if all_fused and has_ip else "measured"
     if sizing == "planned" and plan is not None and not has_ip:
         raise ValueError(
             "sizing='planned' needs a plan carrying Alg. 1 row IP counts "
@@ -217,20 +308,30 @@ def _int32_nnz_capacity(nnz: int) -> int:
 
 _PLAN_STATS = {"plan_hits": 0, "plan_misses": 0}
 # One increment per deliberate blocking read of device results inside the
-# pipeline: one per measured call, none per planned call.
+# pipeline: one per measured call, none per planned call, one per chunk on
+# the legacy lane.
 _SYNC_STATS = {"host_sync_count": 0}
+_OPERAND_STATS = {"operand_hits": 0, "operand_misses": 0}
+_AUTOTUNE_STATS = {"autotune_hits": 0, "autotune_misses": 0}
 
 
 def cache_stats() -> Dict[str, int]:
     """Executor counters: ``plan_hits``/``plan_misses`` (``PlanCache``
-    lookups, every instance folded in) and ``host_sync_count`` (blocking
-    reads of device results inside the pipeline)."""
-    return {**_PLAN_STATS, **_SYNC_STATS}
+    lookups), ``host_sync_count`` (blocking reads of device results inside
+    the pipeline), ``operand_hits``/``operand_misses`` (``OperandCache``
+    lookups: a hit converts nothing) and ``autotune_hits``/
+    ``autotune_misses`` (``engine="auto"`` lookups: a hit measures
+    nothing).  Every cache instance folds into these."""
+    return {**_PLAN_STATS, **_SYNC_STATS, **_OPERAND_STATS,
+            **_AUTOTUNE_STATS}
 
 
 def clear_program_cache() -> None:
-    """Zero the ``cache_stats()`` counters."""
-    for stats in (_PLAN_STATS, _SYNC_STATS):
+    """Zero the ``cache_stats()`` counters and drop the module-level
+    operand and autotune caches."""
+    _OPERAND_CACHE.clear()
+    _AUTOTUNE_CACHE.clear()
+    for stats in (_PLAN_STATS, _SYNC_STATS, _OPERAND_STATS, _AUTOTUNE_STATS):
         for k in stats:
             stats[k] = 0
 
@@ -265,14 +366,19 @@ class PlanCache:
     def __len__(self) -> int:
         return len(self._entries)
 
-    def plan_for(self, a: CSR, b: CSR) -> GroupPlan:
-        """Serve (hit) or build (miss) the plan for ``(a, b)``'s pattern."""
+    def plan_for(self, a: CSR, b: CSR,
+                 supplier: Optional[Callable[[], GroupPlan]] = None
+                 ) -> GroupPlan:
+        """Serve (hit) or build (miss) the plan for ``(a, b)``'s pattern.
+        ``supplier`` fills a miss instead of ``group_rows`` (the serving
+        layer accounts a plan another tenant built against this cache's
+        quota); it still counts as a miss."""
         key = pattern_fingerprint(a, b)
         plan = self._entries.get(key)
         if plan is None:
             self.misses += 1
             _PLAN_STATS["plan_misses"] += 1
-            plan = group_rows(a, b)
+            plan = group_rows(a, b) if supplier is None else supplier()
             self._entries[key] = plan
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
@@ -286,6 +392,290 @@ class PlanCache:
         """Per-instance ``hits``, ``misses`` and ``entries``."""
         return {"hits": self.hits, "misses": self.misses,
                 "entries": len(self._entries)}
+
+
+# ---------------------------------------------------------------------------
+# Operand cache — B's ELL buffers shared across calls
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _OperandEntry:
+    """B's ELL conversion.  ``source`` pins B's three tensors so their
+    ``id()``s (part of the key) cannot be reused while the entry lives."""
+
+    source: tuple
+    b_ell: ELL
+
+
+class OperandCache:
+    """(B's tensors and versions, ``kb_cap``, device)-keyed cache of B's
+    ELL buffers (LRU, bounded).
+
+    Iterative and batched workloads multiply against the same B object call
+    after call; a hit serves its ELL with no conversion.  A torch tensor is
+    mutable, so the key holds each of B's three tensors' identity *and*
+    its ``_version``, which every in-place PyTorch operation on the tensor
+    or a view of it bumps: an edit of ``b.data`` between calls misses and
+    rebuilds instead of serving stale values.  (Writes that bypass
+    autograd's version counter — through a NumPy view of the storage or
+    ``tensor.data`` — are not seen.)  Lookups fold into ``cache_stats()``
+    as ``operand_hits``/``operand_misses``.
+    """
+
+    def __init__(self, max_entries: int = 8):
+        self.max_entries = max_entries
+        self._entries: "OrderedDict[tuple, _OperandEntry]" = OrderedDict()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        """Drop every cached entry (does not touch the counters)."""
+        self._entries.clear()
+
+    def b_operands(self, b: CSR, kb_cap: int) -> _OperandEntry:
+        """Serve (hit) or build (miss) B's ELL at row capacity ``kb_cap``."""
+        source = (b.indptr, b.indices, b.data)
+        key = tuple((id(t), t._version) for t in source) \
+            + (int(kb_cap), str(b.device))
+        entry = self._entries.get(key)
+        if entry is None:
+            _OPERAND_STATS["operand_misses"] += 1
+            entry = _OperandEntry(source, csr_to_ell(b, kb_cap))
+            self._entries[key] = entry
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+        else:
+            _OPERAND_STATS["operand_hits"] += 1
+            self._entries.move_to_end(key)
+        return entry
+
+
+_OPERAND_CACHE = OperandCache()
+
+
+# ---------------------------------------------------------------------------
+# Autotune cache — measured per-bin engine assignment for engine="auto"
+# ---------------------------------------------------------------------------
+
+def autotune_key(a: CSR, b: CSR, plan: GroupPlan) -> tuple:
+    """AutotuneCache key: the operands' pattern fingerprint, the device
+    type (the winning engine depends on it) and the plan's bin signature
+    (group sizes and table capacities)."""
+    return (pattern_fingerprint(a, b), a.device.type,
+            tuple(plan.group_sizes), tuple(plan.table_capacities))
+
+
+@dataclasses.dataclass
+class _AutotuneEntry:
+    """Measured per-bin state for one key: each non-empty group's
+    candidates still to measure (seed first), the measured µs per (group,
+    engine), and the current pick (argmin where measured, else the seed)."""
+
+    seed: Tuple[str, ...]
+    pending: Dict[int, List[str]]
+    timings: Dict[int, Dict[str, float]]
+    assignment: Tuple[str, ...]
+
+    @property
+    def converged(self) -> bool:
+        return not any(self.pending.values())
+
+    def _recompute(self) -> None:
+        picks = []
+        for g in range(4):
+            t = self.timings.get(g)
+            picks.append(min(t, key=t.get) if t else self.seed[g])
+        self.assignment = tuple(picks)
+
+
+class AutotuneCache:
+    """LRU cache of measured per-bin engine assignments (``engine="auto"``).
+
+    The first sighting of a key seeds every non-empty Table-I group with
+    ``static_bin_engines`` for the key's device type and queues the other
+    registered engines (or ``candidates``); each later ``engine="auto"``
+    call measures **one** candidate per bin until the queue drains, after
+    which every call is a pure hit with no measurement.  Lookups fold into
+    ``cache_stats()`` as ``autotune_hits``/``autotune_misses``.
+    """
+
+    def __init__(self, max_entries: int = 64,
+                 candidates: Optional[Sequence[str]] = None):
+        self.max_entries = max_entries
+        self.candidates = tuple(candidates) if candidates else None
+        self._entries: "OrderedDict[tuple, _AutotuneEntry]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        """Drop every cached assignment (does not touch the counters)."""
+        self._entries.clear()
+
+    def _candidate_order(self, seed_engine: str) -> List[str]:
+        cands = self.candidates or available_engines()
+        return [seed_engine] + [e for e in sorted(cands) if e != seed_engine]
+
+    def _entry_for(self, key: tuple, plan: GroupPlan) -> _AutotuneEntry:
+        entry = self._entries.get(key)
+        if entry is None:
+            seed = static_bin_engines(key[1])
+            entry = _AutotuneEntry(
+                seed=seed,
+                pending={g: self._candidate_order(seed[g])
+                         for g in range(4) if plan.group_sizes[g] > 0},
+                timings={},
+                assignment=seed,
+            )
+            self._entries[key] = entry
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+        else:
+            self._entries.move_to_end(key)
+        return entry
+
+    def converged(self, key: tuple) -> bool:
+        """True when ``key``'s assignment has no candidate left to measure."""
+        entry = self._entries.get(key)
+        return entry is not None and entry.converged
+
+    def assignment_for(self, key: tuple, plan: GroupPlan,
+                       measure: Callable[[int, str], float]
+                       ) -> Tuple[str, ...]:
+        """Serve (hit) or refine (miss + one measurement round) the per-bin
+        assignment; ``measure(group, engine)`` returns µs."""
+        entry = self._entry_for(key, plan)
+        if entry.converged:
+            self.hits += 1
+            _AUTOTUNE_STATS["autotune_hits"] += 1
+            return entry.assignment
+        self.misses += 1
+        _AUTOTUNE_STATS["autotune_misses"] += 1
+        for g, cands in entry.pending.items():
+            if cands:
+                eng = cands.pop(0)
+                entry.timings.setdefault(g, {})[eng] = float(measure(g, eng))
+        entry._recompute()
+        return entry.assignment
+
+    def record(self, key: tuple, plan: GroupPlan, group: int, engine: str,
+               us: float) -> None:
+        """Fold one externally measured timing in."""
+        entry = self._entry_for(key, plan)
+        pend = entry.pending.get(group)
+        if pend is not None and engine in pend:
+            pend.remove(engine)
+        entry.timings.setdefault(group, {})[engine] = float(us)
+        entry._recompute()
+
+    def stats(self) -> Dict[str, int]:
+        """Per-instance ``hits``, ``misses`` and ``entries``."""
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._entries)}
+
+    def summary(self) -> List[Dict]:
+        """JSON-friendly view of every entry: device type, bin signature,
+        measured timings and the chosen assignment."""
+        return [
+            {
+                "device": key[1],
+                "group_sizes": list(key[2]),
+                "assignment": list(e.assignment),
+                "converged": e.converged,
+                "timings_us": {str(g): dict(t)
+                               for g, t in sorted(e.timings.items())},
+            }
+            for key, e in self._entries.items()
+        ]
+
+
+_AUTOTUNE_CACHE = AutotuneCache()
+
+
+def default_autotune_cache() -> AutotuneCache:
+    """The module-level cache ``engine="auto"`` uses when no ``autotune=``
+    cache is passed (cleared by ``clear_program_cache``)."""
+    return _AUTOTUNE_CACHE
+
+
+def bin_subplan(plan: GroupPlan, group: int) -> GroupPlan:
+    """A plan restricted to one Table-I group (every other bin empty):
+    executing it runs exactly that bin's chunks (other rows come back
+    empty), so its time isolates the bin's cost under one engine."""
+    rows = np.asarray(plan.rows_of_group(group), np.int32)
+    sizes = [0, 0, 0, 0]
+    sizes[group] = len(rows)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    return GroupPlan(
+        map_rows=rows,
+        group_id=plan.group_id,
+        group_offsets=offsets,
+        group_sizes=tuple(sizes),
+        group_sizes_padded=tuple(sizes),
+        table_capacities=plan.table_capacities,
+        max_ip=plan.max_ip,
+        total_ip=plan.total_ip,
+        row_ip=plan.row_ip,
+    )
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_group_engine(
+    a: CSR,
+    b: CSR,
+    plan: GroupPlan,
+    group: int,
+    engine: str,
+    gather: Gather = "auto",
+    row_chunk: int = 4096,
+    mesh=None,
+    pipeline: Pipeline = "two_wave",
+    reps: int = 2,
+    warmup: int = 1,
+    timer: Callable[[], float] = None,
+) -> float:
+    """Wall time (µs) of one Table-I bin under one concrete engine: the
+    bin-restricted subplan through ``execute_plan``, ``warmup`` untimed
+    passes, then the min over ``reps`` timed passes, each ending in a
+    synchronise of the operands' device.  ``timer`` is injectable."""
+    timer = timer or time.perf_counter
+    get_engine(engine)  # concrete engines only
+    sub = bin_subplan(plan, group)
+
+    def run():
+        c, _ = execute_plan(a, b, sub, engine=engine, gather=gather,
+                            row_chunk=row_chunk, mesh=mesh,
+                            pipeline=pipeline)
+        _sync(c.device)
+
+    for _ in range(warmup):
+        run()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = timer()
+        run()
+        best = min(best, timer() - t0)
+    return best * 1e6
+
+
+def _autotune_assignment(a, b, plan, gather, row_chunk, pipeline,
+                         cache: Optional[AutotuneCache]) -> Tuple[str, ...]:
+    """``engine="auto"``'s per-bin assignment through ``cache`` (the module
+    cache when None)."""
+    cache = _AUTOTUNE_CACHE if cache is None else cache
+
+    def measure(g, eng):
+        return measure_group_engine(a, b, plan, g, eng, gather=gather,
+                                    row_chunk=row_chunk, pipeline=pipeline)
+
+    return cache.assignment_for(autotune_key(a, b, plan), plan, measure)
 
 
 # ---------------------------------------------------------------------------
@@ -322,13 +712,16 @@ class WorkItem:
     rows: np.ndarray  # (R,) original row ids of this chunk
     a_cap: int        # exact max nnz(A row) over the *group*
     table_cap: int    # Table-I hash-table capacity of the group
+    engine: Optional[str] = None  # per-bin engine (None = caller's engine=)
 
 
-def partition_plan(plan: GroupPlan, a_row_nnz: np.ndarray,
-                   row_chunk: int) -> List[WorkItem]:
+def partition_plan(plan: GroupPlan, a_row_nnz: np.ndarray, row_chunk: int,
+                   group_engines: Optional[Sequence[str]] = None
+                   ) -> List[WorkItem]:
     """Split a ``GroupPlan`` into group-chunks of at most ``row_chunk``
     rows.  ``a_cap`` is a group-level maximum, so a row's result never
-    depends on the chunking."""
+    depends on the chunking.  ``group_engines`` stamps each chunk with its
+    bin's engine."""
     items: List[WorkItem] = []
     for g in range(4):
         rows = plan.rows_of_group(g)
@@ -336,8 +729,10 @@ def partition_plan(plan: GroupPlan, a_row_nnz: np.ndarray,
             continue
         a_cap = max(int(a_row_nnz[rows].max(initial=0)), 1)
         for lo in range(0, len(rows), row_chunk):
-            items.append(WorkItem(g, np.asarray(rows[lo: lo + row_chunk]),
-                                  a_cap, plan.table_capacities[g]))
+            items.append(WorkItem(
+                g, np.asarray(rows[lo: lo + row_chunk]), a_cap,
+                plan.table_capacities[g],
+                None if group_engines is None else group_engines[g]))
     return items
 
 
@@ -379,74 +774,200 @@ def _coalesced_sync(counts: List[torch.Tensor]) -> List[np.ndarray]:
     return np.split(host, np.cumsum([len(c) for c in counts])[:-1])
 
 
+@dataclasses.dataclass(frozen=True)
+class _Operands:
+    """One call's operands on the device: A's structure with one value set
+    ``(cap,)`` or a batch ``(B, cap)``; B's ELL index plane and its value
+    plane, ``(n_b, kb)`` or the batch folded ``(n_b, B * kb)``."""
+
+    a_indptr: torch.Tensor
+    a_indices: torch.Tensor
+    a_data: torch.Tensor
+    b_idx: torch.Tensor
+    b_val: torch.Tensor
+    batch: Optional[int] = None
+
+
+@dataclasses.dataclass
+class _Setup:
+    """A call's resolved knobs and its chunks."""
+
+    engine: str
+    mode: str  # "measured", "planned" or "legacy"
+    gather: str
+    kb_cap: int
+    ncol_cap: int
+    items: List[WorkItem]
+    rows_all: torch.Tensor
+    chunk_rows: List[torch.Tensor]
+
+
+def _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
+           autotune, operands) -> _Setup:
+    """Validate and resolve the knobs (``engine="auto"`` through the plan's
+    forced ``group_engines`` or the autotune cache), then read A's and B's
+    ``indptr`` back once to cut the plan into chunks and size B's ELL."""
+    device = operand_device(a, b)
+    refuse_mesh(mesh)
+    resolve_operands(operands)
+    if row_chunk < 1:
+        raise ValueError(f"row_chunk must be >= 1; got {row_chunk}")
+    if pipeline not in ("two_wave", "legacy"):
+        raise ValueError(f"unknown pipeline {pipeline!r}")
+    engine = resolve_engine(engine)
+    group_engines = plan.group_engines
+    if group_engines is None and engine == AUTO_ENGINE:
+        group_engines = _autotune_assignment(a, b, plan, gather, row_chunk,
+                                             pipeline, autotune)
+    for name in group_engines or (engine,):
+        get_engine(name)  # the whole assignment, before any dispatch
+    mode = resolve_sizing(sizing, engine, plan, group_engines)
+    if pipeline == "legacy":
+        if sizing == "planned":
+            raise ValueError(
+                "sizing='planned' requires pipeline='two_wave' (the legacy "
+                "reference lane sizes each chunk from a blocking read)")
+        mode = "legacy"
+    gather = resolve_gather(gather, device)
+    indptrs = torch.cat([a.indptr, b.indptr]).cpu().numpy().astype(np.int64)
+    a_row_nnz = np.diff(indptrs[: a.n_rows + 1])
+    kb_cap = int(np.diff(indptrs[a.n_rows + 1:]).max(initial=0)) or 1
+    items = partition_plan(plan, a_row_nnz, row_chunk, group_engines)
+    rows_all, chunk_rows = _chunk_rows(items, device)
+    return _Setup(engine, mode, gather, kb_cap, next_pow2(max(b.n_cols, 1)),
+                  items, rows_all, chunk_rows)
+
+
+def _enumerate(ops: _Operands, rows: torch.Tensor, item: WorkItem,
+               gather: str):
+    """A-row gather → B-row gather → intermediate products of one chunk.
+    On the batched lane one gather of the folded plane serves every member;
+    its rows unfold to (B, R, a_cap, kb)."""
+    cols_a, vals_a = phases.gather_group_rows(ops.a_indptr, ops.a_indices,
+                                              ops.a_data, rows, item.a_cap)
+    bi, bv = GATHERS[gather](ops.b_idx, ops.b_val, cols_a)
+    if ops.batch is not None:
+        r, a_cap, kb = bi.shape
+        bv = bv.reshape(r, a_cap, ops.batch, kb).movedim(2, 0)
+    return phases.combine_products(cols_a, vals_a, bi, bv)
+
+
 @dataclasses.dataclass
 class _ChunkRun:
     """One chunk's accumulated output, on the device."""
 
     rows: torch.Tensor    # (R_pad,) row ids, -1 = padding
     cols: torch.Tensor    # (R_pad, out_cap)
-    vals: torch.Tensor    # (R_pad, out_cap)
+    vals: torch.Tensor    # (R_pad, out_cap) or (B, R_pad, out_cap)
     counts: torch.Tensor  # (R_pad,)
 
 
-def _enumerate(a: CSR, rows: torch.Tensor, item: WorkItem, b_idx, b_val,
-               gather: str):
-    """A-row gather → B-row gather → intermediate products of one chunk."""
-    cols_a, vals_a = phases.gather_group_rows(a.indptr, a.indices, a.data,
-                                              rows, item.a_cap)
-    bi, bv = GATHERS[gather](b_idx, b_val, cols_a)
-    return phases.combine_products(cols_a, vals_a, bi, bv)
-
-
-def _run_measured(a, items, chunk_rows, b_idx, b_val, gather, eng, ncol_cap):
+def _run_measured(ops: _Operands, s: _Setup):
     """Two waves around one coalesced read of every chunk's uniqueCounts."""
     pend = []
-    for item, rows in zip(items, chunk_rows):
-        keys, vals = _enumerate(a, rows, item, b_idx, b_val, gather)
-        pend.append((keys, vals, eng.allocate(keys, item.table_cap)))
+    for item, rows in zip(s.items, s.chunk_rows):
+        eng = get_engine(item.engine or s.engine)
+        keys, vals = _enumerate(ops, rows, item, s.gather)
+        pend.append((eng, keys, vals, eng.allocate(keys, item.table_cap)))
     unique = _coalesced_sync(
-        [p[2][: len(item.rows)] for p, item in zip(pend, items)])
+        [p[3][: len(item.rows)] for p, item in zip(pend, s.items)])
     nnz = int(sum(int(u.sum()) for u in unique))
     runs = []
-    for i, (item, rows) in enumerate(zip(items, chunk_rows)):
-        keys, vals, _ = pend[i]
+    for i, (item, rows) in enumerate(zip(s.items, s.chunk_rows)):
+        eng, keys, vals, _ = pend[i]
         pend[i] = None  # free this chunk's products once consumed
         out_cap = _out_cap(int(unique[i].max(initial=0)), item.table_cap,
-                           ncol_cap)
+                           s.ncol_cap)
         runs.append(_ChunkRun(rows, *eng.accumulate(keys, vals,
                                                     item.table_cap, out_cap)))
     return runs, nnz, _int32_nnz_capacity(nnz)
 
 
-def _run_planned(a, items, chunk_rows, b_idx, b_val, gather, eng, ncol_cap,
-                 plan, ncol):
+def _run_planned(ops: _Operands, s: _Setup, plan: GroupPlan, ncol: int):
     """Sizes from the plan's Alg. 1 bounds: nothing is read back."""
-    bounds = [chunk_capacity_bounds(plan, item.rows, ncol) for item in items]
+    bounds = [chunk_capacity_bounds(plan, item.rows, ncol)
+              for item in s.items]
     runs = []
-    for item, rows, (max_u, _) in zip(items, chunk_rows, bounds):
-        out_cap = _out_cap(max_u, item.table_cap, ncol_cap)
-        keys, vals = _enumerate(a, rows, item, b_idx, b_val, gather)
-        runs.append(_ChunkRun(rows, *eng.accumulate(keys, vals,
-                                                    item.table_cap, out_cap)))
-    return runs, _int32_nnz_capacity(sum(s for _, s in bounds))
+    for item, rows, (max_u, _) in zip(s.items, s.chunk_rows, bounds):
+        out_cap = _out_cap(max_u, item.table_cap, s.ncol_cap)
+        keys, vals = _enumerate(ops, rows, item, s.gather)
+        runs.append(_ChunkRun(rows, *get_engine(item.engine or s.engine)
+                              .accumulate(keys, vals, item.table_cap,
+                                          out_cap)))
+    return runs, _int32_nnz_capacity(sum(t for _, t in bounds))
 
 
 def _epilogue(runs: List[_ChunkRun], rows_all: torch.Tensor, n: int,
-              cap: int, dtype, device):
+              cap: int, dtype, device, batch: Optional[int]):
     """Build the int32 indptr on the device from the chunks' counts, then
-    scatter every chunk's rows into the (cap,) index and value buffers."""
+    scatter every chunk's rows into the (cap,) index and value buffers
+    (value buffers (B, cap) on the batched lane: one structure)."""
     counts_all = torch.zeros(n + 1, dtype=torch.int32, device=device)
     if runs:  # padding rows (-1) land in the extra slot n; their count is 0
         dest = torch.where(rows_all < 0, n, rows_all).long()
         counts_all[dest] = torch.cat([r.counts for r in runs])
     indptr = torch.zeros(n + 1, dtype=torch.int32, device=device)
     indptr[1:] = torch.cumsum(counts_all[:n], 0, dtype=torch.int32)
+    lead = () if batch is None else (batch,)
     idx_buf = torch.zeros(cap + 1, dtype=torch.int32, device=device)
-    dat_buf = torch.zeros(cap + 1, dtype=dtype, device=device)
+    dat_buf = torch.zeros(lead + (cap + 1,), dtype=dtype, device=device)
     for run in runs:
         phases.reassemble_device(idx_buf, dat_buf, run.cols, run.vals,
                                  run.counts, indptr[run.rows.clamp(min=0)])
-    return indptr, idx_buf[:cap], dat_buf[:cap]
+    return indptr, idx_buf[:cap], dat_buf[..., :cap]
+
+
+def _run_legacy(ops: _Operands, s: _Setup, n: int, dtype, device):
+    """The reference lane: one blocking read of the uniqueCounts per chunk
+    (``host_sync_count`` one a chunk), each chunk's output copied to the
+    host, and the CSR reassembled there at its exact nnz."""
+    chunks = []
+    counts_all = torch.zeros(n, dtype=torch.int64)
+    for item, rows in zip(s.items, s.chunk_rows):
+        eng = get_engine(item.engine or s.engine)
+        keys, vals = _enumerate(ops, rows, item, s.gather)
+        _SYNC_STATS["host_sync_count"] += 1
+        unique = eng.allocate(keys, item.table_cap).cpu()
+        out_cap = _out_cap(int(unique.max()) if unique.numel() else 0,
+                           item.table_cap, s.ncol_cap)
+        cols, out_vals, counts = (t.cpu() for t in eng.accumulate(
+            keys, vals, item.table_cap, out_cap))
+        r = len(item.rows)
+        ids = torch.from_numpy(item.rows.astype(np.int64))
+        counts_all[ids] = counts[:r].long()
+        chunks.append((ids, cols[:r], out_vals[..., :r, :], counts[:r]))
+    indptr = torch.zeros(n + 1, dtype=torch.int64)
+    indptr[1:] = torch.cumsum(counts_all, 0)
+    nnz = int(indptr[-1])
+    cap = max(nnz, 1)
+    lead = () if ops.batch is None else (ops.batch,)
+    indices = torch.zeros(cap, dtype=torch.int32)
+    data = torch.zeros(lead + (cap,), dtype=dtype)
+    for ids, cols, out_vals, counts in chunks:
+        offs = torch.arange(cols.shape[1])[None, :]
+        ok = offs < counts[:, None]
+        pos = (indptr[ids][:, None] + offs)[ok]
+        indices[pos] = cols[ok]
+        data[..., pos] = out_vals[..., ok]
+    return (indptr.to(torch.int32).to(device), indices.to(device),
+            data.to(device), nnz)
+
+
+def _execute(ops: _Operands, s: _Setup, plan: GroupPlan, n: int, ncol: int,
+             device):
+    """Run the chunks on ``s.mode``'s lane; (indptr, indices, data, nnz)."""
+    dtype = ops.a_data.dtype
+    if s.mode == "legacy":
+        return _run_legacy(ops, s, n, dtype, device)
+    if s.mode == "planned":
+        runs, cap = _run_planned(ops, s, plan, ncol)
+    else:
+        runs, nnz, cap = _run_measured(ops, s)
+    indptr, indices, data = _epilogue(runs, s.rows_all, n, cap, dtype,
+                                      device, ops.batch)
+    if s.mode == "planned":
+        nnz = indptr[-1]
+    return indptr, indices, data, nnz
 
 
 def operand_device(a: CSR, b: CSR) -> torch.device:
@@ -456,42 +977,97 @@ def operand_device(a: CSR, b: CSR) -> torch.device:
     return a.device
 
 
+def _operand_cache(operand_cache: Optional[OperandCache]) -> OperandCache:
+    return _OPERAND_CACHE if operand_cache is None else operand_cache
+
+
 def execute_plan(a: CSR, b: CSR, plan: GroupPlan, engine: str = "sort",
-                 gather: Gather = "auto", row_chunk: int = 4096,
-                 sizing: Sizing = "auto"):
+                 gather: Gather = "auto", row_chunk: int = 4096, mesh=None,
+                 pipeline: Pipeline = "two_wave", sizing: Sizing = "auto",
+                 autotune: Optional[AutotuneCache] = None,
+                 operands: Operands = "auto",
+                 operand_cache: Optional[OperandCache] = None):
     """Run the group pipeline on the operands' device; returns (C, nnz_C).
 
     ``sizing="measured"`` reads every chunk's uniqueCounts back in one
     coalesced copy and returns ``nnz`` as an int; ``"planned"`` sizes from
     the plan's Alg. 1 bounds, reads nothing back and returns ``nnz`` as a
-    0-d device tensor; ``"auto"`` is planned for fused engines and measured
-    otherwise.  On a CUDA device the hash engines need float32 values.
+    0-d device tensor; ``"auto"`` is planned when every engine the call
+    dispatches is fused, measured otherwise.  ``pipeline="legacy"`` reads
+    each chunk's counts back on its own and reassembles on the host.
+    ``engine="auto"`` dispatches one engine per Table-I bin: the plan's
+    ``group_engines`` when set (which also wins over a concrete engine),
+    else the ``autotune`` cache's assignment (the module cache when None).
+    ``operand_cache`` scopes B's ELL cache (the module cache when None).
+    ``mesh`` must be None and ``operands`` ``"auto"`` or ``"replicate"``
+    (one device).  On a CUDA device the hash engines need float32 values.
     """
-    device = operand_device(a, b)
-    if row_chunk < 1:
-        raise ValueError(f"row_chunk must be >= 1; got {row_chunk}")
-    engine = resolve_engine(engine)
-    mode = resolve_sizing(sizing, engine, plan)
-    gather = resolve_gather(gather, device)
-    eng = get_engine(engine)
-    # The one read of structure before the dispatch loop: A's row lengths
-    # cut the plan into chunks, B's longest row sizes its ELL.
-    indptrs = torch.cat([a.indptr, b.indptr]).cpu().numpy().astype(np.int64)
-    a_row_nnz = np.diff(indptrs[: a.n_rows + 1])
-    kb_cap = int(np.diff(indptrs[a.n_rows + 1:]).max(initial=0)) or 1
-    ncol_cap = next_pow2(max(b.n_cols, 1))
-    b_ell = csr_to_ell(b, kb_cap)
-    items = partition_plan(plan, a_row_nnz, row_chunk)
-    rows_all, chunk_rows = _chunk_rows(items, device)
-    if mode == "planned":
-        runs, cap = _run_planned(a, items, chunk_rows, b_ell.indices,
-                                 b_ell.data, gather, eng, ncol_cap, plan,
-                                 b.n_cols)
-    else:
-        runs, nnz, cap = _run_measured(a, items, chunk_rows, b_ell.indices,
-                                       b_ell.data, gather, eng, ncol_cap)
-    indptr, indices, data = _epilogue(runs, rows_all, a.n_rows, cap,
-                                      a.data.dtype, device)
-    if mode == "planned":
-        nnz = indptr[-1]
+    s = _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
+               autotune, operands)
+    b_ell = _operand_cache(operand_cache).b_operands(b, s.kb_cap).b_ell
+    ops = _Operands(a.indptr, a.indices, a.data, b_ell.indices, b_ell.data)
+    indptr, indices, data, nnz = _execute(ops, s, plan, a.n_rows, b.n_cols,
+                                          a.device)
     return CSR(indptr, indices, data, (a.n_rows, b.n_cols)), nnz
+
+
+def _batched_operands(a: CSR, b: CSR, a_data_batch, b_data_batch,
+                      kb_cap: int, operand_cache) -> _Operands:
+    """The batched lane's operands: A's value stack, B's cached ELL index
+    plane, and B's value planes folded ``(n_b, batch * kb)`` (``b.data``
+    repeated when ``b_data_batch`` is None: one B for every member)."""
+    a_data_batch = torch.as_tensor(a_data_batch, device=a.device)
+    if a_data_batch.dim() != 2:
+        raise ValueError(f"a_data_batch must be (batch, capacity), got "
+                         f"{tuple(a_data_batch.shape)}")
+    batch = a_data_batch.shape[0]
+    b_ell = _operand_cache(operand_cache).b_operands(b, kb_cap).b_ell
+    if b_data_batch is None:
+        b_val = b_ell.data.repeat(1, batch)
+    else:
+        b_data_batch = torch.as_tensor(b_data_batch, device=b.device)
+        if b_data_batch.shape[0] != batch:
+            raise ValueError(
+                f"batch mismatch: {batch} A value sets vs "
+                f"{b_data_batch.shape[0]} B value sets")
+        b_val = ell_values_folded(b, kb_cap, b_data_batch)
+    return _Operands(a.indptr, a.indices, a_data_batch, b_ell.indices, b_val,
+                     batch)
+
+
+def execute_plan_batched(
+    a: CSR,
+    b: CSR,
+    a_data_batch,
+    b_data_batch=None,
+    plan: Optional[GroupPlan] = None,
+    engine: str = "sort",
+    gather: Gather = "auto",
+    row_chunk: int = 4096,
+    mesh=None,
+    pipeline: Pipeline = "two_wave",
+    sizing: Sizing = "auto",
+    autotune: Optional[AutotuneCache] = None,
+    operands: Operands = "auto",
+    operand_cache: Optional[OperandCache] = None,
+):
+    """Run the pipeline once for a batch of same-pattern operands; returns
+    ``(indptr, indices, data_batch, nnz)``.
+
+    ``a``/``b`` carry the shared structure; ``a_data_batch`` is a ``(batch,
+    capacity)`` stack of A's value sets, ``b_data_batch`` the same for B
+    (``None``: ``b.data`` for every member).  Keys, sizing (one coalesced
+    read for the whole batch on the measured lane, none on the planned
+    lane), output structure and reassembly offsets are computed once per
+    chunk; only the value streams carry the batch axis.  Member i's result
+    is ``CSR(indptr, indices, data_batch[i], (a.n_rows, b.n_cols))``, the
+    same as ``execute_plan`` on member i's values (bit for bit on the CPU).
+    Every knob means what it means for ``execute_plan``.
+    """
+    if plan is None:
+        plan = group_rows(a, b)
+    s = _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
+               autotune, operands)
+    ops = _batched_operands(a, b, a_data_batch, b_data_batch, s.kb_cap,
+                            operand_cache)
+    return _execute(ops, s, plan, a.n_rows, b.n_cols, a.device)

@@ -43,6 +43,11 @@ class GroupPlan:
     ``row_ip`` keeps the Algorithm-1 IP count per original row: it bounds
     every row's uniqueCount, which the sync-free ``sizing="planned"`` lane
     uses to size outputs without reading counts back from the device.
+    ``group_engines`` is a per-bin engine assignment (one registered engine
+    name per Table-I group), or ``None`` for uniform dispatch under the
+    caller's ``engine=``.  ``group_rows`` leaves it ``None``; callers force
+    a mixed assignment with ``dataclasses.replace(plan,
+    group_engines=(...))``, which wins over the call's ``engine=``.
     """
 
     map_rows: np.ndarray  # (n_rows,) int32
@@ -54,6 +59,7 @@ class GroupPlan:
     max_ip: int
     total_ip: int
     row_ip: np.ndarray  # (n_rows,) int64 Alg. 1 IP per original row
+    group_engines: Tuple[str, str, str, str] = None  # per-bin engine names
 
     def rows_of_group(self, g: int) -> np.ndarray:
         return self.map_rows[self.group_offsets[g]: self.group_offsets[g + 1]]

@@ -12,7 +12,9 @@ Each engine consumes one group-chunk of rows with static shapes: ``a_cap``
   index order, and sums in another order on CUDA, where it uses atomics.
 
 Every function keeps its operands' device and reads nothing back to the
-host, so a chunk is dispatched without a sync.
+host, so a chunk is dispatched without a sync.  The value streams may carry
+a leading batch axis (same-pattern operands, values differ): the keys are
+computed once and only the values broadcast over the batch.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ INT_MAX = 2**31 - 1
 
 def gather_group_rows(indptr, indices, data, rows, a_cap: int):
     """Gather the A entries of ``rows`` (-1 = padding row) into (R, a_cap)
-    tensors padded with -1 / 0."""
+    tensors padded with -1 / 0.  ``data`` may be a batch ``(B, cap)`` of
+    value sets on the one structure: the values come back (B, R, a_cap)."""
     n_rows = indptr.shape[0] - 1
     safe_rows = rows.clamp(0, max(n_rows - 1, 0)).long()
     starts = indptr[safe_rows]
@@ -39,7 +42,7 @@ def gather_group_rows(indptr, indices, data, rows, a_cap: int):
     ok = (offs < counts[:, None]) & (rows >= 0)[:, None]
     pos = torch.where(ok, starts[:, None] + offs, 0).long()
     cols = torch.where(ok, indices[pos], -1)
-    vals = torch.where(ok, data[pos], 0)
+    vals = torch.where(ok, data[..., pos], 0)
     return cols, vals
 
 
@@ -50,14 +53,16 @@ def combine_products(cols_a, vals_a, bi, bv):
     bi, bv:         (R, a_cap, kb) the gathered B rows (padding rows may
                     hold anything: they are masked by ``cols_a < 0``).
     Returns keys (R, a_cap*kb) int32 (-1 padded) and vals (same shape); each
-    product is rounded on its own, as the reference forms it.
+    product is rounded on its own, as the reference forms it.  Batched:
+    ``vals_a`` (B, R, a_cap) and ``bv`` (B, R, a_cap, kb) give contiguous
+    vals (B, R, a_cap*kb) over the same keys.
     """
     r, a_cap = cols_a.shape
     kb = bi.shape[2]
     valid = (cols_a >= 0)[:, :, None] & (bi >= 0)
     keys = torch.where(valid, bi, -1).reshape(r, a_cap * kb)
-    vals = torch.where(valid, vals_a[:, :, None] * bv, 0).reshape(r, a_cap * kb)
-    return keys, vals
+    vals = torch.where(valid, vals_a[..., None] * bv, 0)
+    return keys, vals.reshape(*vals.shape[:-3], r, a_cap * kb).contiguous()
 
 
 def enumerate_products(cols_a, vals_a, b_idx, b_val):
@@ -90,8 +95,15 @@ def fused_hash_sorted(keys, vals, table_cap: int, out_cap: int):
     """Algorithms 2/3/5 in one pass: the product stream goes straight into
     the per-row table and the column-sorted rows come back trimmed to
     ``out_cap``, which the caller sizes from an a-priori bound (uniqueCount
-    <= min(IP, n_cols) per row)."""
-    return hash_accumulate_sorted(keys, vals, table_cap, out_cap)
+    <= min(IP, n_cols) per row).  A batch of value streams (B, R, L) is
+    inserted once per member over the same keys (one kernel launch a
+    member on CUDA); every member has the same cols and counts, so member
+    0's are returned beside the (B, R, out_cap) values."""
+    if vals.dim() == 2:
+        return hash_accumulate_sorted(keys, vals, table_cap, out_cap)
+    outs = [hash_accumulate_sorted(keys, v, table_cap, out_cap)
+            for v in vals]
+    return outs[0][0], torch.stack([o[1] for o in outs]), outs[0][2]
 
 
 # ---------------------------------------------------------------------------
@@ -108,25 +120,29 @@ def _sorted_starts(keys):
 
 
 def sort_unique(keys, vals, out_cap: int):
-    """Per-row stable sort + segment-sum + compaction.  keys: (R, ip_cap).
+    """Per-row stable sort + segment-sum + compaction.  keys: (R, ip_cap);
+    vals: (R, ip_cap), or a batch (B, R, ip_cap) of value streams over the
+    same keys (sorted once, every member's values summed in its order).
 
     Returns (cols, vals, counts) with column-sorted rows padded to
-    ``out_cap`` (-1 / 0).
+    ``out_cap`` (-1 / 0); vals keep the batch axis.
     """
     r = keys.shape[0]
+    lead = vals.shape[:-2]
     sk, order, valid, is_start = _sorted_starts(keys)
-    sv = torch.gather(vals, 1, order)
+    sv = torch.gather(vals, -1, order.expand(*lead, -1, -1))
     ur = torch.cumsum(is_start, dim=1, dtype=torch.int32) - 1  # unique rank
     counts = torch.where(valid, ur + 1, 0).amax(dim=1).to(torch.int32)
     tgt = torch.where(valid & (ur < out_cap), ur, out_cap).long()
-    out_vals = torch.zeros((r, out_cap + 1), dtype=vals.dtype,
+    out_vals = torch.zeros((*lead, r, out_cap + 1), dtype=vals.dtype,
                            device=vals.device)
-    out_vals.scatter_add_(1, tgt, torch.where(valid, sv, 0))
+    out_vals.scatter_add_(-1, tgt.expand(*lead, -1, -1),
+                          torch.where(valid, sv, 0))
     start_tgt = torch.where(is_start & (ur < out_cap), ur, out_cap).long()
     out_cols = torch.full((r, out_cap + 1), -1, dtype=torch.int32,
                           device=keys.device)
     out_cols.scatter_(1, start_tgt, torch.where(is_start, sk, -1))
-    return out_cols[:, :out_cap], out_vals[:, :out_cap], counts
+    return out_cols[:, :out_cap], out_vals[..., :out_cap], counts
 
 
 def allocate_sort(keys):
@@ -147,7 +163,8 @@ def reassemble_device(idx_buf, dat_buf, cols, vals, counts, starts):
 
     idx_buf, dat_buf: (cap + 1,) int32 / dtype — the output CSR's index and
                       value buffers, with one trailing *sink* slot; updated
-                      in place and returned.
+                      in place and returned.  Batched: dat_buf (B, cap + 1)
+                      and vals (B, R_pad, out_cap), one structure.
     cols, vals:       (R_pad, out_cap) the chunk's column-sorted rows.
     counts:           (R_pad,) int32 per-row occupancy; padding rows are 0.
     starts:           (R_pad,) CSR start offset of each row.
@@ -161,5 +178,5 @@ def reassemble_device(idx_buf, dat_buf, cols, vals, counts, starts):
     pos = torch.where(offs < counts[:, None], starts[:, None].long() + offs,
                       sink)
     idx_buf[pos] = cols
-    dat_buf[pos] = vals
+    dat_buf[..., pos] = vals
     return idx_buf, dat_buf

@@ -8,21 +8,29 @@
      executor (``repro_torch.core.executor``).
   3. **Reassembly** into one CSR in original row order, on the device.
 
-``plan=`` amortizes phase 1: a ``GroupPlan`` is used as it is, a
-``PlanCache`` skips ``group_rows`` whenever the operands' sparsity patterns
-were seen before.
+Amortized entry points:
+
+* ``spgemm(..., plan=)`` — a ``GroupPlan`` is used as it is, a
+  ``PlanCache`` skips ``group_rows`` whenever the operands' sparsity
+  patterns were seen before.
+* ``spgemm_batched`` — one pipeline run for a batch of same-pattern
+  operands (values differ, structure shared); bit-identical to a
+  per-matrix loop on the CPU.
+
+``spgemm_ell_fixed`` is the single-group, fixed-capacity variant with no
+host read (for loops over a fixed structure).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Literal, Optional, Union
+from typing import Dict, List, Literal, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.core import executor
+from repro_torch.core import executor, phases
 from repro_torch.core.executor import PlanCache
 from repro_torch.core.grouping import GroupPlan, group_rows
-from repro_torch.sparse.formats import CSR
+from repro_torch.sparse.formats import CSR, ELL
 
 PlanLike = Union[GroupPlan, PlanCache, None]
 
@@ -33,6 +41,16 @@ class SpGEMMResult:
     executed it, and the ``info`` counter dict."""
 
     c: CSR
+    plan: GroupPlan
+    info: Dict[str, float]
+
+
+@dataclasses.dataclass
+class SpGEMMBatchResult:
+    """Batched product: ``cs[i] = a_batch[i] @ b_batch[i]``; every member
+    shares one output structure (indptr/indices are the same tensors)."""
+
+    cs: List[CSR]
     plan: GroupPlan
     info: Dict[str, float]
 
@@ -48,6 +66,16 @@ def _resolve_plan(a: CSR, b: CSR, plan: PlanLike) -> GroupPlan:
     return group_rows(a, b)
 
 
+def _check_on_budget(on_budget: str) -> None:
+    if on_budget == "stream":
+        raise NotImplementedError(
+            "on_budget='stream' degrades to the streamed lane, ROADMAP "
+            "Queue A item 5")
+    if on_budget != "error":
+        raise ValueError(f"unknown on_budget policy {on_budget!r}; valid "
+                         "choices: 'error', 'stream'")
+
+
 def spgemm(
     a: CSR,
     b: CSR,
@@ -56,35 +84,48 @@ def spgemm(
     schedule: Literal["grouped", "natural"] = "grouped",
     engine: Optional[str] = None,
     gather: executor.Gather = "auto",
+    mesh=None,
     plan: PlanLike = None,
+    pipeline: executor.Pipeline = "two_wave",
     sizing: executor.Sizing = "auto",
+    autotune: Optional[executor.AutotuneCache] = None,
+    operands: executor.Operands = "auto",
+    operand_cache: Optional[executor.OperandCache] = None,
+    on_budget: str = "error",
 ) -> SpGEMMResult:
     """C = A @ B via the paper's multi-phase pipeline.
 
     ``engine`` picks the allocation/accumulation engine (``"sort"``, the
-    default, ``"hash"`` or ``"fused_hash"``; ``method`` is the legacy
+    default, ``"hash"``, ``"fused_hash"``, or ``"auto"``: one engine per
+    Table-I bin from the ``autotune`` cache; ``method`` is the legacy
     alias).  ``gather`` picks how B's rows are served: ``"xla"`` (a plain
     take), ``"aia"`` (the AIA row-gather kernel) or ``"auto"`` (``"aia"`` on
     a CUDA device, ``"xla"`` on the CPU).  ``schedule="natural"`` turns the
     Table-I grouping off (every row at the worst-case capacity).  ``sizing``
     picks the measured lane (one coalesced read of the uniqueCounts) or the
     planned lane (sizes from the plan's Alg. 1 bounds, no read);
-    ``"auto"`` is planned for ``"fused_hash"`` and measured otherwise.  The
-    façade reads ``nnz`` back once, after every chunk was dispatched, to
-    fill ``info``.
+    ``"auto"`` is planned for ``"fused_hash"`` and measured otherwise.
+    ``pipeline="legacy"`` is the per-chunk-read reference lane.
+    ``operand_cache`` scopes B's ELL cache (the executor's module cache
+    when None).  ``mesh`` must be None, ``operands`` ``"auto"`` or
+    ``"replicate"`` and ``on_budget`` ``"error"``: the multi-device and
+    streamed lanes are not ported.  The façade reads ``nnz`` back once,
+    after every chunk was dispatched, to fill ``info``.
     """
     if a.n_cols != b.n_rows:
         raise ValueError(f"shapes {a.shape} and {b.shape} do not chain")
     executor.operand_device(a, b)
+    _check_on_budget(on_budget)
     if schedule not in ("grouped", "natural"):
         raise ValueError(f"unknown schedule {schedule!r}")
     engine = executor.resolve_engine(engine, method)
     plan = _resolve_plan(a, b, plan)
     run_plan = executor.ungrouped_plan(plan) if schedule == "natural" \
         else plan
-    c, nnz = executor.execute_plan(a, b, run_plan, engine=engine,
-                                   gather=gather, row_chunk=row_chunk,
-                                   sizing=sizing)
+    c, nnz = executor.execute_plan(
+        a, b, run_plan, engine=engine, gather=gather, row_chunk=row_chunk,
+        mesh=mesh, pipeline=pipeline, sizing=sizing, autotune=autotune,
+        operands=operands, operand_cache=operand_cache)
     return SpGEMMResult(c=c, plan=run_plan,
                         info=spgemm_info(a, b, run_plan, nnz))
 
@@ -106,3 +147,138 @@ def spgemm_info(a: CSR, b: CSR, plan: GroupPlan, nnz_c) -> Dict[str, float]:
         "group_sizes": list(plan.group_sizes),
         "max_ip": plan.max_ip,
     }
+
+
+def spgemm_streamed(*args, **kwargs):
+    """Not ported: the out-of-core lane over row-block tiles of A."""
+    raise NotImplementedError(
+        "spgemm_streamed (row-block tiles with prefetch) is ROADMAP Queue A "
+        "item 5")
+
+
+# ---------------------------------------------------------------------------
+# Batched SpGEMM over same-pattern operands
+# ---------------------------------------------------------------------------
+
+def _as_members(x, what: str) -> List[CSR]:
+    if isinstance(x, CSR):
+        return [x]
+    members = list(x)
+    if not members:
+        raise ValueError(f"{what} must contain at least one matrix")
+    return members
+
+
+def _require_same_pattern(mats: List[CSR], what: str) -> None:
+    """Raise unless every member has ``mats[0]``'s shape and occupied
+    structure (members sharing its structure tensors pass without a read)."""
+    t = mats[0]
+    nnz = None
+    for i, m in enumerate(mats[1:], 1):
+        if (m.shape == t.shape and m.indptr is t.indptr
+                and m.indices is t.indices):
+            continue
+        if nnz is None:
+            nnz = int(t.nnz)
+        if (m.shape != t.shape or m.device != t.device
+                or not torch.equal(m.indptr, t.indptr)
+                or not torch.equal(m.indices[:nnz], t.indices[:nnz])):
+            raise ValueError(
+                f"{what}[{i}] does not share {what}[0]'s sparsity pattern; "
+                "spgemm_batched requires structure-identical operands "
+                "(values may differ)")
+
+
+def _stack_values(mats: List[CSR], template: CSR,
+                  batch: int) -> torch.Tensor:
+    """(batch, capacity) value stack aligned to the template's slots, on
+    its device (a one-member list broadcasts)."""
+    nnz = int(template.nnz)
+    out = torch.zeros((batch, template.capacity), dtype=template.data.dtype,
+                      device=template.device)
+    out[:, :nnz] = torch.stack([mats[i % len(mats)].data[:nnz]
+                                for i in range(batch)])
+    return out
+
+
+def spgemm_batched(
+    a_batch: Union[CSR, Sequence[CSR]],
+    b_batch: Union[CSR, Sequence[CSR]],
+    method: Optional[Literal["hash", "sort"]] = None,
+    row_chunk: int = 4096,
+    schedule: Literal["grouped", "natural"] = "grouped",
+    engine: Optional[str] = None,
+    gather: executor.Gather = "auto",
+    mesh=None,
+    plan: PlanLike = None,
+    pipeline: executor.Pipeline = "two_wave",
+    sizing: executor.Sizing = "auto",
+    autotune: Optional[executor.AutotuneCache] = None,
+    operands: executor.Operands = "auto",
+    operand_cache: Optional[executor.OperandCache] = None,
+) -> SpGEMMBatchResult:
+    """``cs[i] = a_batch[i] @ b_batch[i]`` for same-pattern operand batches.
+
+    Either side may be a single ``CSR`` (its values shared by every member)
+    or a sequence of CSRs with one sparsity pattern.  The plan runs once for
+    the whole batch (``executor.execute_plan_batched``); results equal a
+    loop of ``spgemm`` over the members (bit for bit on the CPU).  Every
+    knob means what it means for ``spgemm``.
+    """
+    a_members = _as_members(a_batch, "a_batch")
+    b_members = _as_members(b_batch, "b_batch")
+    batch = max(len(a_members), len(b_members))
+    if len(a_members) not in (1, batch) or len(b_members) not in (1, batch):
+        raise ValueError(
+            f"batch mismatch: {len(a_members)} A members vs "
+            f"{len(b_members)} B members")
+    a, b = a_members[0], b_members[0]
+    if a.n_cols != b.n_rows:
+        raise ValueError(f"shapes {a.shape} and {b.shape} do not chain")
+    executor.operand_device(a, b)
+    if schedule not in ("grouped", "natural"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    engine = executor.resolve_engine(engine, method)
+    _require_same_pattern(a_members, "a_batch")
+    _require_same_pattern(b_members, "b_batch")
+
+    plan = _resolve_plan(a, b, plan)
+    run_plan = executor.ungrouped_plan(plan) if schedule == "natural" \
+        else plan
+    a_data = _stack_values(a_members, a, batch)
+    b_data = None if len(b_members) == 1 \
+        else _stack_values(b_members, b, batch)
+    indptr, indices, data_batch, nnz = executor.execute_plan_batched(
+        a, b, a_data, b_data, run_plan, engine=engine, gather=gather,
+        row_chunk=row_chunk, mesh=mesh, pipeline=pipeline, sizing=sizing,
+        autotune=autotune, operands=operands, operand_cache=operand_cache)
+    shape = (a.n_rows, b.n_cols)
+    cs = [CSR(indptr, indices, data_batch[i], shape) for i in range(batch)]
+    info = spgemm_info(a, b, run_plan, nnz)
+    info["batch"] = batch
+    return SpGEMMBatchResult(cs=cs, plan=run_plan, info=info)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-capacity variant (no host read)
+# ---------------------------------------------------------------------------
+
+def spgemm_ell_fixed(a: ELL, b: ELL, out_cap: int,
+                     engine: str = "sort") -> ELL:
+    """C = A @ B as one group at static capacities, with no host read.
+
+    C's row capacity is ``out_cap`` (entries beyond it are dropped — size it
+    from Algorithm-1 IP bounds), which is also the hash table's capacity.
+    ``engine="auto"`` has no Table-I bins to dispatch over and raises.
+    """
+    engine = executor.resolve_engine(engine)
+    if engine == executor.AUTO_ENGINE:
+        raise ValueError(
+            "spgemm_ell_fixed runs a single fixed-capacity group, so there "
+            "are no Table-I bins for engine='auto' to dispatch over; pick a "
+            f"concrete engine: {', '.join(executor.available_engines())}")
+    keys, vals = phases.enumerate_products(a.indices, a.data, b.indices,
+                                           b.data)
+    cols, out_vals, _ = executor.get_engine(engine).accumulate(
+        keys, vals, out_cap, out_cap)
+    return ELL(cols, out_vals, (a.shape[0], b.shape[1]))

@@ -340,21 +340,44 @@ def csr_to_dense(a: CSR) -> torch.Tensor:
     return out[: a.n_rows]
 
 
-def csr_to_ell(a: CSR, k_cap: int) -> ELL:
-    """CSR -> ELL with per-row capacity ``k_cap`` (entries past it drop)."""
+def _ell_slots(a: CSR, k_cap: int):
+    """(ELL row, ELL slot, kept) of each of ``a``'s capacity slots; a slot
+    not kept (padding, or past ``k_cap`` in its row) goes to row n_rows."""
     n = a.n_rows
     rid = a.row_ids()
     p = torch.arange(a.capacity, dtype=torch.int32, device=a.device)
     within = p - a.indptr[rid.clamp(0, n).long()]  # slot's place in its row
     valid = a.valid_mask() & (within < k_cap)
-    srow = torch.where(valid, rid, n).long()
-    scol = torch.where(valid, within, 0).long()
+    return (torch.where(valid, rid, n).long(),
+            torch.where(valid, within, 0).long(), valid)
+
+
+def csr_to_ell(a: CSR, k_cap: int) -> ELL:
+    """CSR -> ELL with per-row capacity ``k_cap`` (entries past it drop)."""
+    n = a.n_rows
+    srow, scol, valid = _ell_slots(a, k_cap)
     indices = torch.full((n + 1, k_cap), -1, dtype=torch.int32,
                          device=a.device)
     indices.index_put_((srow, scol), torch.where(valid, a.indices, -1))
     data = torch.zeros((n + 1, k_cap), dtype=a.data.dtype, device=a.device)
     data.index_put_((srow, scol), torch.where(valid, a.data, 0))
     return ELL(indices[:n], data[:n], a.shape)
+
+
+def ell_values_folded(a: CSR, k_cap: int,
+                      data_batch: torch.Tensor) -> torch.Tensor:
+    """The ELL value planes of a batch of value sets on ``a``'s structure,
+    folded row-major: ``(n_rows, batch * k_cap)``, member i's row in
+    columns ``[i * k_cap, (i + 1) * k_cap)``.  ``data_batch`` is
+    ``(batch, capacity)``.  One contiguous plane, so a row gather serves
+    every member's B rows in one copy."""
+    n = a.n_rows
+    batch = data_batch.shape[0]
+    srow, scol, valid = _ell_slots(a, k_cap)
+    out = torch.zeros((n + 1, batch, k_cap), dtype=data_batch.dtype,
+                      device=a.device)
+    out[srow, :, scol] = torch.where(valid[:, None], data_batch.t(), 0)
+    return out[:n].reshape(n, batch * k_cap)
 
 
 def ell_to_csr(a: ELL, capacity: int | None = None) -> CSR:

@@ -329,15 +329,11 @@ def test_unported_knobs_name_their_item():
     gc = graph_contraction.graph_contraction
     cases = [
         (lambda: gc(g, labels, mesh=object()), "item 7"),
-        (lambda: gc(g, labels, pipeline="legacy"), "item 3"),
-        (lambda: gc(g, labels, method="auto"), "item 3"),
-        (lambda: apps.mcl(g, method="auto"), "item 3"),
-        (lambda: apps.mcl(g, pipeline="legacy"), "item 3"),
         (lambda: apps.mcl(g, stream=8), "item 5"),
         (lambda: apps.mcl(g, on_budget="stream"), "item 5"),
         (lambda: apps.mcl(g, mesh=object()), "item 7"),
-        (lambda: gnn.gnn_forward_minibatch(), "items 3 and 4"),
-        (lambda: gnn.train_gnn_minibatch(), "items 3 and 4"),
+        (lambda: gnn.gnn_forward_minibatch(), "item 4"),
+        (lambda: gnn.train_gnn_minibatch(), "item 4"),
         (lambda: apps.train_gnn(apps.GNNConfig(d_in=4, d_hidden=4),
                                 gnn.normalize_adjacency(g),
                                 np.zeros((16, 4), np.float32),

@@ -243,9 +243,9 @@ def test_knob_resolution():
         executor.resolve_gather("dma", "cpu")
     assert executor.resolve_engine() == "sort"
     assert executor.resolve_engine(method="hash") == "hash"
-    for bad in ("auto", "nope"):
-        with pytest.raises(ValueError, match="unknown engine"):
-            executor.resolve_engine(bad)
+    assert executor.resolve_engine("auto") == "auto"
+    with pytest.raises(ValueError, match="unknown engine"):
+        executor.resolve_engine("nope")
     with pytest.raises(ValueError, match="conflicting"):
         executor.resolve_engine("sort", method="hash")
     assert set(executor.available_engines()) == {"hash", "sort", "fused_hash"}

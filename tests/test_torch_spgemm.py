@@ -242,7 +242,7 @@ def test_knobs_and_devices_are_checked():
     with pytest.raises(ValueError, match="unknown schedule"):
         spgemm(a, a, schedule="shuffled")
     with pytest.raises(ValueError, match="unknown engine"):
-        spgemm(a, a, engine="auto")
+        spgemm(a, a, engine="osrt")
     on_meta = csr_from_dense(np.eye(4, dtype=np.float32), device="meta")
     with pytest.raises(ValueError, match="is on"):
         spgemm(a, on_meta)
