@@ -131,7 +131,43 @@ products run in full float32 (TF32 off).  It
    ids, 256-byte rows of X) bit for bit, on a transposed X through
    ``csr_spmm``'s take too, timed beside ``index_select`` and its bound;
    one aggregation beside cuSPARSE SpMM;
-10. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
+10. trains a GNN on bulk-sampled subgraphs of ogbn-arxiv at paper size
+    (``minibatch_phase``; sizes in ``MB``): ``apps.sampling.bulk_sample``
+    on the first 4 batches of ``train_gnn_minibatch``'s order (1,024
+    vertices, fanout 10, 2 layers, the per-batch seed) on the default lane
+    and ``fused_hash``, the default lane held layer by layer against a
+    numpy/scipy re-run of the reference's sampler from the port's previous
+    frontier (frontiers equal, each adjacency ``A[rows][:, cols]`` bit for
+    bit) and ``fused_hash`` bit for bit against the default lane; 4
+    DropEdge reweightings (keep 0.9, seed 0) through ``spgemm_batched``,
+    each member bit for bit against scipy, their mean within 1e-6, one K1
+    launch a chunk; ``gnn_forward_minibatch`` for gcn, gin and sage (topk)
+    on one sampled chain against a float64 numpy forward and its step-1
+    gradients against a float64 CPU autograd run, within 1e-4; then
+    ``train_gnn_minibatch`` (sage, ``fused_hash``, fanout 10, 2 epochs, at
+    batches of 16,384, a cut the time limit forces) with every loss finite
+    and every SpGEMM of epoch 2 a ``PlanCache`` hit, the ms a step split
+    into host sampling, the six SpGEMMs and forward + backward + AdamW, the
+    launches a step and one step profiled;
+11. runs the out-of-core lane and its resilience layer (``stream_phase``;
+    sizes in ``STREAM``): ``spgemm_streamed`` of the p2p-Gnutella04
+    self-product in 6 tiles at prefetch 1, 2 and 3 on both lanes
+    (``fused_hash`` bit for bit the monolithic product, the sort lane's
+    structure equal and values within rtol 1e-4 / atol 1e-6; both against
+    scipy; 6 tiles, the reference's overlap count), one profiled call's
+    side-stream copies and the ms of them that overlap a kernel; a device
+    budget of half the monolithic estimate (``on_budget="error"`` raises
+    before any allocation, ``"stream"`` degrades bit for bit with the
+    derived ``tile_rows``); each fault point (``capacity_undersize`` on
+    the planned and the batched lane, ``gather_fail``, ``stage_tile_fail``)
+    armed once, firing once and recovering bit for bit, and a clean
+    planned call after them with no pipeline sync; RoadTX in 6 tiles of
+    2^18 rows bit for bit the monolithic product; MCL on Economics (2
+    iterations, ``fused_hash``) under a 1 GiB budget with
+    ``on_budget="stream"``, each expansion held bit for bit against a
+    monolithic ``spgemm`` of its iterate, each estimate beside the real
+    peak;
+12. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
     last, and the whole script's time on a line before them.
 
 Every check raises on failure, so the script exits non-zero; it also exits
@@ -223,17 +259,21 @@ def profile(fn):
         [(e.key[:80], _self_device_us(e) / 1e3, e.count) for e in top]
 
 
-def _trace_device_us(prof) -> float:
-    """The summed durations of the kernels, copies and fills in the
-    profiler's trace: the device time where ``key_averages`` attributes
-    none to a device event."""
+def _trace_events(prof) -> list:
+    """The events of the profiler's chrome trace."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text()).get("traceEvents", [])
-    return sum(ev.get("dur", 0) for ev in events
+        return json.loads(path.read_text()).get("traceEvents", [])
+
+
+def _trace_device_us(prof) -> float:
+    """The summed durations of the kernels, copies and fills in the
+    profiler's trace: the device time where ``key_averages`` attributes
+    none to a device event."""
+    return sum(ev.get("dur", 0) for ev in _trace_events(prof)
                if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
 
 
@@ -2725,6 +2765,834 @@ def apps_phase(log):
     return per_lane, k1
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: mini-batch GNN training on bulk-sampled subgraphs
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"  # the device of the mini-batch and stream phases
+# ogbn-arxiv as GNN has it.  Sampling: the first 4 vertex batches of
+# train_gnn_minibatch's order at 1,024 vertices, fanout 10 (GraphSAGE's
+# per-layer fanout), each with its per-batch seed; the ensemble: 4 DropEdge
+# reweightings keeping an edge with probability 0.9; training: sage on
+# fused_hash, 2 epochs, at batches of 16,384 (a cut forced by the time
+# limit: each step draws every frontier row on the host).
+MB = {"batch": 1024, "fanout": 10, "sample_batches": 4, "members": 4,
+      "keep": 0.9, "train_batch": 16_384, "epochs": 2}
+MB_LANES = (("default", {}), ("fused_hash", {"engine": "fused_hash"}))
+MB_KERNELS = {"default": {"gather_rows"},
+              "fused_hash": {"gather_rows", "hash_accumulate"}}
+ENSEMBLE_REL = 1e-6  # the ensemble mean, as tests/test_torch_sampling.py
+
+
+def sync() -> None:
+    import torch
+
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def same_csr(x, y) -> bool:
+    """Two port CSRs with the same shape, indptr and occupied slots, bit
+    for bit."""
+    import torch
+
+    if x.shape != y.shape or not torch.equal(x.indptr, y.indptr):
+        return False
+    nnz = int(x.nnz)
+    return torch.equal(x.indices[:nnz], y.indices[:nnz]) and \
+        torch.equal(x.data[:nnz], y.data[:nnz])
+
+
+def numpy_layer(a_host, q, fanout, rng):
+    """One layer of the reference's sampler (``src/repro/apps/sampling.py``
+    :51-78) in numpy/scipy from frontier ``q``: P = A[q] in float32, row
+    sums by ``np.add.at`` in slot order, the per-row draws from ``rng``;
+    returns the next frontier."""
+    p = a_host[q]
+    rid = np.repeat(np.arange(len(q)), np.diff(p.indptr))
+    rowsum = np.zeros(len(q), np.float32)
+    np.add.at(rowsum, rid, p.data)
+    inv = np.where(rowsum > 0, 1.0 / np.maximum(rowsum, 1e-12), 0.0) \
+        .astype(np.float32)
+    data = p.data * inv[rid]
+    picks = set()
+    for i in range(len(q)):
+        lo, hi = p.indptr[i], p.indptr[i + 1]
+        cols, w = p.indices[lo:hi], np.maximum(data[lo:hi], 0)
+        if len(cols) == 0 or w.sum() <= 0:
+            continue
+        chosen = rng.choice(cols, size=min(fanout, len(cols)), replace=False,
+                            p=w / w.sum())
+        picks.update(int(c) for c in chosen)
+    return np.unique(np.concatenate([q, np.asarray(sorted(picks), np.int64)]))
+
+
+def check_chain(what, a_host, seed, adjs, frontiers):
+    """Hold a sampled chain layer by layer against ``numpy_layer`` from the
+    port's own previous frontier (one generator across the layers, as the
+    reference) and each adjacency against ``A[rows][:, cols]``, exactly."""
+    rng = np.random.default_rng(seed)
+    for layer, adj in enumerate(adjs):
+        q, q_next = frontiers[layer], frontiers[layer + 1]
+        check(np.array_equal(q, np.unique(q)) and np.isin(q, q_next).all(),
+              f"{what}: frontier {layer} is not sorted inside the next")
+        check(np.array_equal(q_next, numpy_layer(a_host, q, MB["fanout"],
+                                                 rng)),
+              f"{what}: frontier {layer + 1} differs from the reference's")
+        want = a_host[q][:, q_next].tocsr()
+        want.sort_indices()
+        got = host_csr(adj, np.float32)
+        check(got.shape == want.shape
+              and np.array_equal(got.indptr, want.indptr)
+              and np.array_equal(got.indices, want.indices)
+              and np.array_equal(got.data, want.data),
+              f"{what}: A^{layer} is not A[rows][:, cols] bit for bit")
+
+
+def sample_chains(a, a_host, batches, log):
+    """(a) ``bulk_sample`` on both lanes: the default lane against the
+    numpy re-run, ``fused_hash`` bit for bit against the default lane (so
+    against the re-run too)."""
+    from repro_torch.apps import sampling
+
+    chains, per_lane = {}, {}
+    kb_cap = int(np.diff(a_host.indptr).max())
+    for lane, kw in MB_LANES:
+        recs, total = [], {}
+        for bi, batch in enumerate(batches):
+            (adjs, frontiers), ms, launches, syncs, peak = counted_call(
+                lambda: sampling.bulk_sample(
+                    a, batch, fanout=MB["fanout"], n_layers=GNN["n_layers"],
+                    seed=bi, **kw))
+            what = f"bulk_sample {lane} batch {bi}"
+            check_lane_kernels(what, launches, MB_KERNELS[lane])
+            if lane == "default":
+                t0 = time.perf_counter()
+                check_chain(what, a_host, bi, adjs, frontiers)
+                check_s = time.perf_counter() - t0
+                chains[bi] = (adjs, frontiers)
+            else:
+                check_s = None
+                ref_adjs, ref_frontiers = chains[bi]
+                check(all(np.array_equal(f, r) for f, r in
+                          zip(frontiers, ref_frontiers))
+                      and all(same_csr(x, y) for x, y in zip(adjs, ref_adjs)),
+                      f"{what}: the chain differs from the default lane's")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            recs.append({"batch": bi, "seed": bi,
+                         "frontiers": [len(f) for f in frontiers],
+                         "adj_nnz": [int(x.nnz) for x in adjs],
+                         "ms": ms, "launches": launches,
+                         "host_sync_count": syncs, "peak_mem_gb": peak,
+                         "numpy_check_s": check_s})
+        per_lane[f"minibatch_sample/{lane}"] = total
+        emit({"minibatch_sample": {
+            "dataset": GNN["dataset"], "lane": lane, "batch": MB["batch"],
+            "fanout": MB["fanout"], "kb_cap": kb_cap,
+            "held": "numpy re-run" if lane == "default"
+                    else "bit for bit the default lane",
+            "batches": recs}}, log)
+    return chains, per_lane
+
+
+def ensemble_check(a, a_host, batch, log):
+    """(b) W DropEdge reweightings of A through ``spgemm_batched``: every
+    member bit for bit against scipy's product, the mean within
+    ENSEMBLE_REL of the float64 mean, K1 one launch a chunk (the folded
+    plane), K2 once a member a chunk; then ``bulk_sample`` on them."""
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.apps import sampling
+    from repro_torch.core import executor
+    from repro_torch.core.grouping import group_rows
+
+    nnz = int(a.nnz)
+    rng = np.random.default_rng(0)
+    base = a_host.data.astype(np.float32)
+    ws = (base * (rng.random((MB["members"], nnz)) < MB["keep"])
+          / np.float32(MB["keep"])).astype(np.float32)
+    q = sampling.selection_matrix(batch, a.n_rows, DEVICE)
+    members = sampling._weighted_members(a, ws)
+    items = executor.partition_plan(group_rows(q, a),
+                                    np.diff(q.indptr.cpu().numpy()), 4096)
+    res, ms, launches, syncs, peak = counted_call(
+        lambda: sampling.spgemm_batched(q, members, engine="fused_hash"))
+    check(launches["gather_rows"] == len(items)
+          and launches["hash_accumulate"] == MB["members"] * len(items),
+          f"ensemble: launches {launches} for {len(items)} chunks")
+    got = []
+    for i, c in enumerate(res.cs):
+        want = sp.csr_matrix((ws[i], a_host.indices, a_host.indptr),
+                             shape=a_host.shape)[batch]
+        h = host_csr(c, np.float32)
+        check(np.array_equal(h.indptr, want.indptr)
+              and np.array_equal(h.indices, want.indices)
+              and np.array_equal(h.data, want.data),
+              f"ensemble member {i} differs from scipy's product")
+        got.append(h.data.astype(np.float64))
+    mean = sampling._ensemble_mean(res.cs)
+    m = mean.data[:int(mean.nnz)].cpu().numpy().astype(np.float64)
+    want_mean = np.mean(got, axis=0)
+    err = float((np.abs(m - want_mean) / np.maximum(np.abs(want_mean),
+                                                    1e-300)).max())
+    check(err <= ENSEMBLE_REL, f"ensemble mean {err} beyond {ENSEMBLE_REL}")
+    # The reference's sampler draws min(fanout, row nnz) columns whatever
+    # their weights, so a row whose mean weight is 0 on too many of its
+    # edges (every member dropped them) makes numpy's choice raise there;
+    # the port keeps that behaviour (ROADMAP Queue C).
+    try:
+        (adjs, frontiers), s_ms, _, _, s_peak = counted_call(
+            lambda: sampling.bulk_sample(a, batch, fanout=MB["fanout"],
+                                         n_layers=GNN["n_layers"], seed=0,
+                                         weight_sets=ws))
+        chain = {"frontiers": [len(f) for f in frontiers], "ms": s_ms,
+                 "peak_mem_gb": s_peak}
+        for layer, adj in enumerate(adjs):
+            want = a_host[frontiers[layer]][:, frontiers[layer + 1]].tocsr()
+            want.sort_indices()
+            h = host_csr(adj, np.float32)
+            check(np.array_equal(h.indptr, want.indptr)
+                  and np.array_equal(h.data, want.data),
+                  f"ensemble chain: A^{layer} is not a submatrix of A")
+    except ValueError as exc:
+        check("non-zero entries in p" in str(exc), f"ensemble chain: {exc}")
+        chain = {"raised": str(exc)}
+    del res, mean
+    torch.cuda.empty_cache()
+    emit({"minibatch_ensemble": {
+        "members": MB["members"], "keep": MB["keep"], "rows": len(batch),
+        "chunks": len(items), "launches": launches, "ms": ms,
+        "host_sync_count": syncs, "peak_mem_gb": peak,
+        "mean_rel_err": err, "tolerance": ENSEMBLE_REL,
+        "bulk_sample": chain}}, log)
+
+
+def minibatch_reference_forward(cfg, params, adjs, frontiers, x):
+    """Float64 numpy forward of ``gnn_forward_minibatch`` over a chain
+    (host CSRs in float64): the logits and the output rows that a TopK
+    near-tie (k-th and (k+1)-th |value| within 1e-5 relative) can reach."""
+    n_layers = cfg.n_layers
+    h = x[frontiers[n_layers]]
+    near = np.zeros(h.shape[0], bool)
+    for layer in range(n_layers):
+        t = n_layers - 1 - layer
+        rows, cols = frontiers[t], frontiers[t + 1]
+        k = min(cfg.topk, h.shape[1])
+        hs = h
+        if cfg.sparse_mode == "topk" and layer > 0:
+            order = np.argsort(-np.abs(h), axis=1, kind="stable")
+            hs = np.zeros_like(h)
+            r = np.arange(h.shape[0])[:, None]
+            hs[r, order[:, :k]] = h[r, order[:, :k]]
+            mag = np.take_along_axis(np.abs(h), order, 1)
+            near |= (mag[:, k - 1] > 0) & \
+                (mag[:, k - 1] - mag[:, k] <= 1e-5 * mag[:, k - 1])
+        agg = adjs[t] @ hs
+        self_idx = np.searchsorted(cols, rows)
+        h_self = h[self_idx]
+        near = ((adjs[t] @ near.astype(np.float64)) > 0) | near[self_idx]
+        w = params[f"w{layer}"]
+        if cfg.arch == "gcn":
+            h = agg @ w
+        elif cfg.arch == "gin":
+            h = ((1.0 + params[f"eps{layer}"]) * h_self + agg) @ w
+        else:
+            h = h_self @ params[f"w_self{layer}"] + agg @ w
+        if layer < n_layers - 1:
+            h = np.maximum(h, 0)
+    return h, near
+
+
+def minibatch_loss(cfg, params, adjs, frontiers, x, y):
+    import torch
+
+    from repro_torch.apps import gnn
+
+    logits = gnn.gnn_forward_minibatch(cfg, params, adjs, frontiers, x)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.take_along_dim(logp, y[:, None], dim=1))
+
+
+def forward_check(chain, x_np, labels_np, log):
+    """(c) ``gnn_forward_minibatch`` for gcn, gin and sage (topk) on one
+    sampled chain: logits against a float64 numpy forward, step-1
+    gradients against a float64 CPU autograd run of the port's plain
+    path, each within GNN_REL of the largest |value|."""
+    import torch
+
+    from repro_torch.apps import gnn
+    from repro_torch.sparse.formats import CSR
+
+    adjs, frontiers = chain
+    adj64 = [host_csr(t) for t in adjs]
+    adj_cpu = [CSR(t.indptr.cpu(), t.indices.cpu(), t.data.cpu().double(),
+                   t.shape) for t in adjs]
+    x = torch.from_numpy(x_np).to(DEVICE)
+    y = torch.from_numpy(labels_np[frontiers[0]]).long()
+    out = {}
+    for arch in ("gcn", "gin", "sage"):
+        cfg = gnn.GNNConfig(arch=arch, d_in=GNN["d"], d_hidden=GNN["d"],
+                            n_classes=GNN["n_classes"], topk=GNN["topk"],
+                            sparse_mode="topk", n_layers=GNN["n_layers"])
+        what = f"minibatch GNN {arch}"
+        params = gnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                              device=DEVICE)
+        p64 = {k: v.cpu().double().numpy() for k, v in params.items()}
+        want, near = minibatch_reference_forward(cfg, p64, adj64, frontiers,
+                                                 x_np.astype(np.float64))
+        with torch.no_grad():
+            got = gnn.gnn_forward_minibatch(cfg, params, adjs, frontiers,
+                                            x).double().cpu().numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want)[~near].max(initial=0.0))
+        check(err <= GNN_REL * scale,
+              f"{what}: logits {err} beyond {GNN_REL} of {scale}")
+        live = {k: v.clone().requires_grad_() for k, v in params.items()}
+        loss = minibatch_loss(cfg, live, adjs, frontiers, x, y.to(DEVICE))
+        g32 = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+        live64 = {k: torch.from_numpy(v).requires_grad_()
+                  for k, v in p64.items()}
+        loss64 = minibatch_loss(cfg, live64, adj_cpu, frontiers,
+                                torch.from_numpy(x_np).double(), y)
+        g64 = dict(zip(live64, torch.autograd.grad(loss64,
+                                                   list(live64.values()))))
+        grad_err = {}
+        for k in g32:
+            ref = g64[k].numpy()
+            e = float(np.abs(g32[k].double().cpu().numpy() - ref).max())
+            grad_err[k] = e / max(float(np.abs(ref).max()), 1e-300)
+            check(grad_err[k] <= GNN_REL,
+                  f"{what}: step-1 gradient of {k} {grad_err[k]} beyond "
+                  f"{GNN_REL}")
+        out[arch] = {"logits_err": err, "logits_scale": scale,
+                     "logit_rows_left_out": int(near.sum()),
+                     "loss_step1": float(loss64.detach()),
+                     "grad_rel_err": grad_err}
+    emit({"minibatch_forward": {"frontiers": [len(f) for f in frontiers],
+                                "tolerance": GNN_REL, "archs": out}}, log)
+
+
+@contextlib.contextmanager
+def timed_sampling():
+    """Time, inside ``apps.sampling``, every ``bulk_sample`` call (with the
+    plan-cache counters at its start), the host steps ``norm_rows`` and
+    ``sample_rows``, and every ``spgemm``/``spgemm_batched`` (a sync
+    before and after each)."""
+    from repro_torch.apps import sampling
+    from repro_torch.core import executor
+
+    rec = {k: [] for k in ("bulk_sample", "norm_rows", "sample_rows",
+                           "spgemm", "plan_stats")}
+    saved = {k: getattr(sampling, k) for k in (
+        "bulk_sample", "norm_rows", "sample_rows", "spgemm",
+        "spgemm_batched")}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            if name == "bulk_sample":
+                st = executor.cache_stats()
+                rec["plan_stats"].append((st["plan_hits"],
+                                          st["plan_misses"]))
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            rec[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(sampling, name,
+                timed("spgemm" if name == "spgemm_batched" else name, fn))
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(sampling, name, fn)
+
+
+def one_step(cfg, a, x, labels_np, batch, seed, params, opt, opt_state):
+    """One step of ``train_gnn_minibatch`` (its sampling, forward, loss,
+    gradients, clipping and AdamW), for the profiler."""
+    import torch
+
+    from repro_torch.apps import sampling
+    from repro_torch.optim import apply_updates, clip_by_global_norm
+
+    adjs, frontiers = sampling.bulk_sample(
+        a, batch, fanout=MB["fanout"], n_layers=cfg.n_layers, seed=seed,
+        engine="fused_hash", gather=cfg.gather)
+    y = torch.from_numpy(labels_np[frontiers[0]]).long().to(DEVICE)
+    live = {k: p.detach().requires_grad_() for k, p in params.items()}
+    loss = minibatch_loss(cfg, live, adjs, frontiers, x, y)
+    keys = sorted(live)
+    grads = dict(zip(keys, torch.autograd.grad(loss,
+                                               [live[k] for k in keys])))
+    grads, _ = clip_by_global_norm(grads, 1.0)
+    updates, opt_state = opt.update(grads, opt_state, params)
+    return apply_updates(params, updates), float(loss.detach())
+
+
+def train_check(a, x_np, labels_np, log):
+    """(d) ``train_gnn_minibatch`` itself (sage, fused_hash): every loss
+    finite, every SpGEMM of epoch 2 a PlanCache hit; ms a step split into
+    host sampling, the six SpGEMMs and forward + backward + AdamW, the
+    kernels' launches a step, and one step profiled."""
+    import torch
+
+    from repro_torch.apps import gnn
+    from repro_torch.core import executor
+    from repro_torch.optim import adamw
+
+    cfg = gnn.GNNConfig(arch="sage", d_in=GNN["d"], d_hidden=GNN["d"],
+                        n_classes=GNN["n_classes"], topk=GNN["topk"],
+                        sparse_mode="topk", n_layers=GNN["n_layers"])
+    n = a.n_rows
+    x = torch.from_numpy(x_np).to(DEVICE)
+    n_batches = -(-n // MB["train_batch"])
+    steps = MB["epochs"] * n_batches
+    with timed_sampling() as rec:
+        (params, hist, stats), ms, launches, syncs, peak = counted_call(
+            lambda: gnn.train_gnn_minibatch(
+                cfg, a, x, labels_np, batch_size=MB["train_batch"],
+                n_epochs=MB["epochs"], fanout=MB["fanout"], seed=0,
+                engine="fused_hash"))
+    check(len(hist) == steps and all(np.isfinite(hist)),
+          f"train_gnn_minibatch: losses {hist}")
+    hits0, misses0 = rec["plan_stats"][n_batches]
+    end = executor.cache_stats()
+    sgemm_per_step = 3 * cfg.n_layers
+    check(end["plan_misses"] == misses0
+          and end["plan_hits"] - hits0 == sgemm_per_step * n_batches,
+          f"epoch 2: {end['plan_misses'] - misses0} PlanCache misses, "
+          f"{end['plan_hits'] - hits0} hits")
+    check(stats["plan_cache_misses"] == end["plan_misses"]
+          and stats["plan_cache_hits"] == end["plan_hits"],
+          f"stats {stats} vs executor {end}")
+    check(len(rec["spgemm"]) == sgemm_per_step * steps,
+          f"{len(rec['spgemm'])} SpGEMMs in {steps} steps")
+    sample_s = sum(rec["bulk_sample"])
+    host_s = sum(rec["norm_rows"]) + sum(rec["sample_rows"])
+    spgemm_s = sum(rec["spgemm"])
+    split = {"step": ms / steps,
+             "host_sampling": host_s * 1e3 / steps,
+             "norm_rows": sum(rec["norm_rows"]) * 1e3 / steps,
+             "sample_rows": sum(rec["sample_rows"]) * 1e3 / steps,
+             "six_spgemms": spgemm_s * 1e3 / steps,
+             "sampling_other": (sample_s - host_s - spgemm_s) * 1e3 / steps,
+             "forward_backward_adamw": (ms / 1e3 - sample_s) * 1e3 / steps}
+    opt = adamw(1e-2, weight_decay=0.0)
+    order = np.random.default_rng(0).permutation(n)
+    batch0 = np.sort(order[:MB["train_batch"]])
+    prof = profiled(lambda: one_step(cfg, a, x, labels_np, batch0, 0,
+                                     params, opt, opt.init(params)))
+    per_step = {k: v / steps for k, v in launches.items()}
+    emit({"minibatch_train": {
+        "dataset": GNN["dataset"], "arch": "sage", "engine": "fused_hash",
+        "batch_size": MB["train_batch"], "batches_an_epoch": n_batches,
+        "epochs": MB["epochs"], "fanout": MB["fanout"],
+        "reduced": {"batch_size": f"{MB['train_batch']}: the largest that "
+                    "kept the phase inside the script's time limit"},
+        "loss": hist, "ms": ms, "ms_a_step": split,
+        "plan_cache": stats, "epoch2_plan_hits": end["plan_hits"] - hits0,
+        "launches": launches, "launches_a_step": per_step,
+        "host_sync_count": syncs, "peak_mem_gb": peak,
+        "profiled_step": prof}}, log)
+    return per_step
+
+
+def minibatch_phase(log):
+    """Mini-batch GNN training on ogbn-arxiv at paper size: (a) sampling
+    held bit for bit on both lanes, (b) the weight ensemble, (c) forward
+    and gradients on a sampled chain, (d) ``train_gnn_minibatch``."""
+    import torch
+
+    from repro_torch.apps import gnn
+    from repro_torch.apps.graphs import rmat_graph
+    from repro_torch.core import executor
+
+    t0 = time.perf_counter()
+    emit({"minibatch_phase_resident_gb":
+          torch.cuda.memory_allocated() / 1e9}, log)
+    n = GNN["nodes"]
+    g = rmat_graph(n, GNN["avg_deg"], seed=0, device=DEVICE)
+    a = gnn.normalize_adjacency(g)
+    rng = np.random.default_rng(0)
+    x_np = rng.standard_normal((n, GNN["d"])).astype(np.float32)
+    labels_np = rng.integers(0, GNN["n_classes"], n)
+    a_host = host_csr(a, np.float32)
+    order = np.random.default_rng(0).permutation(n)
+    batches = [np.sort(order[i * MB["batch"]:(i + 1) * MB["batch"]])
+               for i in range(MB["sample_batches"])]
+    chains, per_lane = sample_chains(a, a_host, batches, log)
+    ensemble_check(a, a_host, batches[0], log)
+    forward_check(chains[0], x_np, labels_np, log)
+    del chains
+    torch.cuda.empty_cache()
+    per_step = train_check(a, x_np, labels_np, log)
+    executor.clear_program_cache()  # drops Â's 13.6 GB ELL from the cache
+    torch.cuda.empty_cache()
+    emit({"minibatch_phase_s": time.perf_counter() - t0}, log)
+    return per_lane, per_step
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the out-of-core streamed lane and its resilience layer
+# ---------------------------------------------------------------------------
+
+# p2p-Gnutella04 in 6 tiles of 2,048 rows (the last ragged) at prefetch
+# 1-3; RoadTX in 6 tiles of 2^18 rows; a budget of half p2p's estimate;
+# MCL on Economics under 1 GiB.
+STREAM = {"matrix": ("p2p-Gnutella04", 10_876), "tile_rows": 2048,
+          "prefetch": (1, 2, 3), "roadtx": ("RoadTX", 1_393_383),
+          "roadtx_tile_rows": 1 << 18, "mcl_budget": 1 << 30}
+
+
+def stream_overlap(trace_events) -> dict:
+    """From a profiler trace: the host-to-device copies on streams other
+    than the compute stream (the one with the most kernel time), their
+    total ms, and the ms of them that overlap a kernel on the compute
+    stream."""
+    kernels, copies = {}, []
+    for ev in trace_events:
+        args = ev.get("args", {})
+        if ev.get("cat") == "kernel":
+            kernels.setdefault(args.get("stream"), []).append(
+                (ev["ts"], ev["ts"] + ev["dur"]))
+        elif ev.get("cat") == "gpu_memcpy" and "HtoD" in ev.get("name", ""):
+            copies.append((args.get("stream"), ev["ts"],
+                           ev["ts"] + ev["dur"]))
+    check(kernels and copies, "the profiler traced no kernel or no copy")
+    compute = max(kernels, key=lambda s: sum(e - b for b, e in kernels[s]))
+    spans = []
+    for b, e in sorted(kernels[compute]):
+        if spans and b <= spans[-1][1]:
+            spans[-1][1] = max(spans[-1][1], e)
+        else:
+            spans.append([b, e])
+    side = [(b, e) for s, b, e in copies if s != compute]
+    overlap = sum(max(0.0, min(e, se) - max(b, sb))
+                  for b, e in side for sb, se in spans)
+    return {"compute_stream": compute,
+            "side_copies": len(side),
+            "side_copy_ms": sum(e - b for b, e in side) / 1e3,
+            "side_copy_overlap_ms": overlap / 1e3,
+            "compute_stream_copies": len(copies) - len(side)}
+
+
+def traced(fn) -> list:
+    """The chrome-trace events of one profiled call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _trace_events(prof)
+
+
+def stream_p2p(a, log):
+    """(a) ``spgemm_streamed`` of the p2p self-product at prefetch 1-3 on
+    both lanes against the monolithic call and scipy."""
+    from repro_torch.core import executor
+    from repro_torch.core.spgemm import spgemm, spgemm_streamed
+
+    name = STREAM["matrix"][0]
+    want = scipy_product(a)
+    n_tiles = len(executor.tile_ranges(a.n_rows, STREAM["tile_rows"]))
+    monos, per_stream = {}, {}
+    for lane, kw in MB_LANES:
+        mono, mono_ms, mono_launches, _, mono_peak = counted_call(
+            lambda: spgemm(a, a, **kw))
+        monos[lane] = (mono, mono_ms, mono_peak)
+        recs = []
+        for prefetch in STREAM["prefetch"]:
+            res, ms, launches, syncs, peak = counted_call(
+                lambda: spgemm_streamed(a, a, tile_rows=STREAM["tile_rows"],
+                                        prefetch=prefetch, **kw))
+            st = executor.cache_stats()
+            what = f"streamed {name}/{lane}/prefetch {prefetch}"
+            check_lane_kernels(what, launches, MB_KERNELS[lane])
+            check(st["tiles_streamed"] == n_tiles == res.info["n_tiles"],
+                  f"{what}: {st['tiles_streamed']} tiles")
+            check(st["prefetch_overlap_hits"]
+                  == (0 if prefetch == 1 else n_tiles - 1),
+                  f"{what}: {st['prefetch_overlap_hits']} overlap hits")
+            nnz = int(res.info["nnz_c"])
+            if lane == "fused_hash":
+                check(same_csr(res.c, mono.c),
+                      f"{what}: not the monolithic product bit for bit")
+            else:
+                m = host_csr(mono.c)
+                h = host_csr(res.c)
+                check(np.array_equal(h.indptr, m.indptr)
+                      and np.array_equal(h.indices, m.indices)
+                      and np.allclose(h.data, m.data, rtol=RTOL, atol=ATOL),
+                      f"{what}: differs from the monolithic product")
+            err = check_against_scipy(name, f"streamed/{lane}", res.c, nnz,
+                                      want)
+            if prefetch == 2:
+                per_stream[f"stream/{name}/{lane}"] = launches
+            recs.append({"prefetch": prefetch, "ms": ms,
+                         "launches": launches, "host_sync_count": syncs,
+                         "peak_mem_gb": peak,
+                         "tile_bytes_h2d": st["tile_bytes_h2d"],
+                         "prefetch_overlap_hits":
+                             st["prefetch_overlap_hits"],
+                         "max_abs_err_vs_scipy": err})
+        emit({"stream_p2p": {
+            "matrix": name, "rows": a.n_rows, "lane": lane,
+            "tile_rows": STREAM["tile_rows"], "n_tiles": n_tiles,
+            "monolithic_ms": mono_ms, "monolithic_peak_gb": mono_peak,
+            "monolithic_launches": mono_launches, "calls": recs}}, log)
+    overlap = stream_overlap(traced(lambda: spgemm_streamed(
+        a, a, tile_rows=STREAM["tile_rows"], prefetch=2,
+        engine="fused_hash")))
+    check(overlap["side_copies"] > 0, "no tile copy on the side stream")
+    emit({"stream_overlap": {"matrix": name, "lane": "fused_hash",
+                             "prefetch": 2, **overlap}}, log)
+    return monos, per_stream
+
+
+def stream_roadtx(log):
+    """(a) RoadTX on ``fused_hash`` in 6 tiles, bit for bit the
+    monolithic product, wall and peak beside it."""
+    import torch
+
+    from repro_torch.apps.graphs import table_ii_matrix
+    from repro_torch.core.spgemm import spgemm, spgemm_streamed
+
+    name, n = STREAM["roadtx"]
+    road = table_ii_matrix(name, seed=0, n_override=n, device=DEVICE)
+    mono, mono_ms, _, _, mono_peak = counted_call(
+        lambda: spgemm(road, road, engine="fused_hash"))
+    res, ms, launches, syncs, peak = counted_call(
+        lambda: spgemm_streamed(road, road,
+                                tile_rows=STREAM["roadtx_tile_rows"],
+                                engine="fused_hash"))
+    check(res.info["n_tiles"] == 6 and same_csr(res.c, mono.c),
+          f"streamed {name}: {res.info['n_tiles']} tiles, not the "
+          "monolithic product bit for bit")
+    emit({"stream_roadtx": {
+        "matrix": name, "rows": n, "lane": "fused_hash",
+        "tile_rows": STREAM["roadtx_tile_rows"],
+        "n_tiles": res.info["n_tiles"], "ms": ms, "peak_mem_gb": peak,
+        "launches": launches, "monolithic_ms": mono_ms,
+        "monolithic_peak_gb": mono_peak,
+        "max_tile_ip": res.info["max_tile_ip"],
+        "intermediate_products": res.info["intermediate_products"]}}, log)
+    del road, mono, res
+    torch.cuda.empty_cache()
+
+
+def budget_check(a, mono, log):
+    """(b) a budget of half p2p's estimate: ``on_budget="error"`` raises
+    before any allocation, ``"stream"`` degrades bit for bit."""
+    import torch
+
+    from repro_torch.core import executor
+    from repro_torch.core.grouping import group_rows
+    from repro_torch.core.spgemm import spgemm
+
+    mono_c, _, mono_peak = mono
+    plan = group_rows(a, a)
+    est = executor.estimated_device_bytes(plan, 4)
+    budget = est // 2
+    executor.set_device_budget(budget)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        try:
+            spgemm(a, a, engine="fused_hash", plan=plan, on_budget="error")
+            raised = False
+        except executor.DeviceBudgetExceeded:
+            raised = True
+        check(raised, "on_budget='error' did not raise")
+        check(torch.cuda.memory_allocated() == before
+              and torch.cuda.max_memory_allocated() == before,
+              "the refused call allocated device memory")
+        res, ms, launches, syncs, peak = counted_call(
+            lambda: spgemm(a, a, engine="fused_hash", on_budget="stream"))
+        st = executor.cache_stats()
+        tile_rows = executor.derive_degradation_tile_rows(plan, a.n_rows, 4)
+    finally:
+        executor.set_device_budget(None)
+    check(res.info.get("degraded_to_stream") == 1
+          and res.info["tile_rows"] == tile_rows
+          and st["budget_degradations"] == 1,
+          f"degradation: info {res.info}, stats {st}")
+    check(same_csr(res.c, mono_c.c), "the degraded product differs")
+    emit({"stream_budget": {
+        "matrix": STREAM["matrix"][0], "lane": "fused_hash",
+        "budget_bytes": budget, "monolithic_estimate_bytes": est,
+        "monolithic_peak_gb": mono_peak, "tile_rows": tile_rows,
+        "n_tiles": res.info["n_tiles"],
+        "tile_estimate_bytes": res.info["max_tile_ip"] * 8,
+        "degraded_peak_gb": peak, "degraded_ms": ms,
+        "launches": launches, "budget_degradations":
+            st["budget_degradations"]}}, log)
+
+
+def stream_mcl(log):
+    """(c) MCL on Economics under a 1 GiB budget with
+    ``on_budget="stream"``: each expansion recorded inside ``mcl`` and
+    held bit for bit against a monolithic ``spgemm`` of its iterate."""
+    import torch
+
+    from repro_torch.apps.graphs import table_ii_matrix
+    from repro_torch.apps.markov_clustering import mcl
+    from repro_torch.core import executor
+    from repro_torch.core.spgemm import spgemm
+
+    from repro_torch.apps import markov_clustering as mc
+
+    name, n = MCL_MATRIX
+    g = table_ii_matrix(name, seed=0, n_override=n, device=DEVICE)
+    peaks = []
+    executor.set_device_budget(STREAM["mcl_budget"])
+    try:
+        with recording_mcl() as rec:
+            recorded = mc.spgemm
+
+            def expansion(*args, **kwargs):  # each expansion's own peak
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                out = recorded(*args, **kwargs)
+                torch.cuda.synchronize()
+                peaks.append((resident / 1e9,
+                              torch.cuda.max_memory_allocated() / 1e9))
+                return out
+
+            mc.spgemm = expansion
+            try:
+                res, ms, launches, syncs, peak = counted_call(
+                    lambda: mcl(g, **MCL_ARGS, method="fused_hash",
+                                on_budget="stream"))
+            finally:
+                mc.spgemm = recorded
+        st = executor.cache_stats()
+    finally:
+        executor.set_device_budget(None)
+    iters = []
+    for i, info in enumerate(res.spgemm_info):
+        x = rec["iterates"][i]
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        mono = spgemm(x, x, engine="fused_hash")
+        torch.cuda.synchronize()
+        mono_ms = (time.perf_counter() - t0) * 1e3
+        check(same_csr(rec["expansions"][i], mono.c),
+              f"MCL {name} iteration {i + 1}: the expansion differs from "
+              "the monolithic product")
+        iters.append({"iteration": i + 1,
+                      "intermediate_products": info["intermediate_products"],
+                      "estimate_bytes": info["intermediate_products"] * 8,
+                      "degraded": bool(info.get("degraded_to_stream")),
+                      "n_tiles": info.get("n_tiles", 1),
+                      "tile_rows": info.get("tile_rows"),
+                      "nnz_c": info["nnz_c"],
+                      "resident_gb": peaks[i][0],
+                      "peak_gb": peaks[i][1],
+                      "monolithic_ms": mono_ms,
+                      "monolithic_resident_gb": resident,
+                      "monolithic_peak_gb":
+                          torch.cuda.max_memory_allocated() / 1e9})
+        del mono
+        torch.cuda.empty_cache()
+    check(st["budget_degradations"] == sum(i["degraded"] for i in iters)
+          and st["budget_degradations"] >= 1,
+          f"MCL {name}: {st['budget_degradations']} degradations")
+    emit({"stream_mcl": {
+        "matrix": name, "rows": n, "args": MCL_ARGS, "lane": "fused_hash",
+        "budget_bytes": STREAM["mcl_budget"], "ms": ms, "peak_mem_gb": peak,
+        "launches": launches, "budget_degradations":
+            st["budget_degradations"], "tiles_streamed":
+            st["tiles_streamed"], "iterations": iters}}, log)
+    del rec, res
+    torch.cuda.empty_cache()
+
+
+def fault_check(a, mono, log):
+    """(d) each fault point armed once on the p2p ``fused_hash`` product:
+    it fires once, the result is the clean one bit for bit, a retried call
+    counts one retry; then a clean planned call pays no pipeline sync."""
+    from repro_torch.core import executor, faults
+    from repro_torch.core.spgemm import spgemm, spgemm_batched
+    from repro_torch.core.spgemm import spgemm_streamed
+
+    clean = mono[0].c
+    rng = np.random.default_rng(1)
+    members = [fresh_values(a, rng) for _ in range(4)]
+    clean_batch = spgemm_batched(members, a, engine="fused_hash").cs
+    clean_stream = spgemm_streamed(a, a, tile_rows=STREAM["tile_rows"],
+                                   engine="fused_hash").c
+    calls = (
+        ("capacity_undersize", "planned",
+         lambda: [spgemm(a, a, engine="fused_hash").c], [clean], 1),
+        ("capacity_undersize", "batched x4",
+         lambda: spgemm_batched(members, a, engine="fused_hash").cs,
+         clean_batch, 1),
+        ("gather_fail", "planned",
+         lambda: [spgemm(a, a, engine="fused_hash").c], [clean], 0),
+        ("stage_tile_fail", "streamed",
+         lambda: [spgemm_streamed(a, a, tile_rows=STREAM["tile_rows"],
+                                  engine="fused_hash").c], [clean_stream], 0),
+    )
+    recs = []
+    for point, lane, fn, want, retries in calls:
+        with faults.fault_injection(point) as fault:
+            got, ms, launches, syncs, _ = counted_call(fn)
+        st = executor.cache_stats()
+        what = f"fault {point} on the {lane} lane"
+        check(fault.triggers == 1, f"{what}: fired {fault.triggers} times")
+        check(st["capacity_retries"] == retries,
+              f"{what}: {st['capacity_retries']} capacity retries")
+        check(all(same_csr(x, y) for x, y in zip(got, want)),
+              f"{what}: not the clean result bit for bit")
+        recs.append({"point": point, "lane": lane, "triggers":
+                     fault.triggers, "capacity_retries":
+                     st["capacity_retries"], "ms": ms, "launches": launches,
+                     "host_sync_count": syncs})
+    _, ms, _, syncs, _ = counted_call(lambda: spgemm(a, a,
+                                                     engine="fused_hash"))
+    check(syncs == 0 and executor.cache_stats()["capacity_retries"] == 0,
+          f"the clean planned call after the faults paid {syncs} syncs")
+    emit({"stream_faults": {"matrix": STREAM["matrix"][0], "calls": recs,
+                            "clean_after": {"ms": ms,
+                                            "host_sync_count": syncs}}},
+         log)
+
+
+def stream_phase(log):
+    """The out-of-core lane and its resilience layer: (a) the streamed
+    p2p and RoadTX self-products, (b) the device budget, (c) MCL under a
+    budget, (d) the three fault points."""
+    from repro_torch.apps.graphs import table_ii_matrix
+
+    import torch
+
+    t0 = time.perf_counter()
+    emit({"stream_phase_resident_gb": torch.cuda.memory_allocated() / 1e9},
+         log)
+    name, n = STREAM["matrix"]
+    a = table_ii_matrix(name, seed=0, n_override=n, device=DEVICE)
+    monos, per_stream = stream_p2p(a, log)
+    budget_check(a, monos["fused_hash"], log)
+    fault_check(a, monos["fused_hash"], log)
+    del monos
+    stream_roadtx(log)
+    stream_mcl(log)
+    emit({"stream_phase_s": time.perf_counter() - t0}, log)
+    return per_stream
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every record to this file")
@@ -2773,6 +3641,11 @@ def main(argv=None) -> int:
     del mats
     torch.cuda.empty_cache()
     per_app, k1_spmm = apps_phase(log)
+    torch.cuda.empty_cache()
+    per_sample, per_step = minibatch_phase(log)
+    per_app.update(per_sample)
+    torch.cuda.empty_cache()
+    per_stream = stream_phase(log)
 
     kernels = [
         {"name": "aia_gather_rows", "route": "cuda",
@@ -2788,6 +3661,9 @@ def main(argv=None) -> int:
                               for c, n in per_app.items()},
          "launches_per_serve": {c: n["gather_rows"]
                                 for c, n in per_serve.items()},
+         "launches_per_minibatch_step": per_step["gather_rows"],
+         "launches_per_stream": {c: n["gather_rows"]
+                                 for c, n in per_stream.items()},
          "csr_spmm_shape": k1_spmm,
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "kernel_ms": k1["ms"], "host_ms": k1["host_ms"],
@@ -2815,6 +3691,9 @@ def main(argv=None) -> int:
          "library_call": k2["library_call"],
          "launches_per_serve": {c: n["hash_accumulate"]
                                 for c, n in per_serve.items()},
+         "launches_per_minibatch_step": per_step["hash_accumulate"],
+         "launches_per_stream": {c: n["hash_accumulate"]
+                                 for c, n in per_stream.items()},
          "path": k2["route"], "chunks": k2["chunks"]},
     ]
     for name, src, tpu in FFN_SOURCES:

@@ -13,13 +13,19 @@ Eq. (3) winner-take-all mask (``topk_rows_st``).
   * "dense" — the cuSPARSE-role baseline: dense Â @ X @ W.
 
 Every tensor lives on the adjacency's device; a training step is eager
-``torch.autograd``.  The mini-batch path (bulk-sampled subgraphs) is not
-ported.
+``torch.autograd``.
+
+Mini-batch path (``train_gnn_minibatch``): each step trains on a
+bulk-sampled subgraph chain from ``apps.sampling.bulk_sample``, the
+SpGEMM-expressed sampler whose per-batch probability patterns repeat every
+epoch, so one shared ``PlanCache`` serves the sampler's plans from the
+second epoch on; ``weight_sets`` routes the probability products through
+the batched executor.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Literal, Mapping, Optional, Tuple
+from typing import Dict, List, Literal, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -180,13 +186,124 @@ def train_gnn(
     return params, history
 
 
-def gnn_forward_minibatch(*args, **kwargs):
-    """Not ported: the layer-wise forward over ``bulk_sample`` subgraphs."""
-    raise NotImplementedError(
-        "gnn_forward_minibatch needs apps/sampling.py: ROADMAP Queue A item 4")
+def gnn_forward_minibatch(cfg: GNNConfig, params: Dict,
+                          adjs: Sequence[CSR], frontiers: Sequence,
+                          x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Layer-wise forward over one ``bulk_sample`` subgraph chain; returns
+    the logits of ``frontiers[0]`` (the batch vertices).
+
+    ``adjs[l]`` maps frontier l+1's features onto frontier l.  Features
+    flow from the outermost frontier inwards: layer 0 (dense, as in the
+    full-batch path) consumes the last adjacency.  GIN's and SAGE's self
+    features are the previous frontier's rows at the positions of the
+    current one (``Q^l ⊆ Q^{l+1}``, both sorted, so ``np.searchsorted``).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "gnn_forward_minibatch(mesh=...) is multi-device, ROADMAP Queue A "
+            "item 7")
+    n_layers = cfg.n_layers
+    if len(adjs) != n_layers:
+        raise ValueError(f"{len(adjs)} adjacencies for {n_layers} layers")
+    dev = x.device
+    h = x[torch.as_tensor(np.asarray(frontiers[n_layers]), device=dev)]
+    for layer in range(n_layers):
+        t = n_layers - 1 - layer  # chain position this layer consumes
+        rows = np.asarray(frontiers[t])
+        cols = np.asarray(frontiers[t + 1])
+        k = min(cfg.topk, h.shape[1])
+        mode = cfg.sparse_mode if layer > 0 else "dense"
+        agg = _aggregate(adjs[t], h, mode, k, gather=cfg.gather)
+        h_self = h[torch.from_numpy(np.searchsorted(cols, rows)).to(dev)]
+        if cfg.arch == "gcn":
+            h = agg @ params[f"w{layer}"]
+        elif cfg.arch == "gin":
+            h = ((1.0 + params[f"eps{layer}"]) * h_self + agg) \
+                @ params[f"w{layer}"]
+        else:  # sage
+            h = h_self @ params[f"w_self{layer}"] + agg @ params[f"w{layer}"]
+        if layer < n_layers - 1:
+            h = torch.relu(h)
+    return h
 
 
-def train_gnn_minibatch(*args, **kwargs):
-    """Not ported: mini-batch training on ``bulk_sample`` subgraph chains."""
-    raise NotImplementedError(
-        "train_gnn_minibatch needs apps/sampling.py: ROADMAP Queue A item 4")
+def train_gnn_minibatch(
+    cfg: GNNConfig,
+    a: CSR,
+    x,
+    labels,
+    batch_size: int = 32,
+    n_epochs: int = 2,
+    fanout: int = 4,
+    lr: float = 1e-2,
+    seed: int = 0,
+    engine: str = "sort",
+    mesh=None,
+    weight_sets: Optional[np.ndarray] = None,
+    reuse_plan: bool = True,
+    pipeline: str = "two_wave",
+    sizing: str = "auto",
+    params: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[Dict, List[float], Dict[str, int]]:
+    """Mini-batch training on ``bulk_sample`` subgraph chains, on ``a``'s
+    device; returns (params, per-step loss history, amortisation stats).
+
+    The batches are ``np.random.default_rng(seed).permutation(n)`` cut
+    into ``batch_size`` slices (each sorted); batch ``bi`` is sampled with
+    seed ``seed * 100_000 + bi`` in every epoch, so a revisited batch
+    repeats its frontiers and its SpGEMM patterns, and with ``reuse_plan``
+    one ``PlanCache(max_entries=256)`` serves them (``stats``:
+    ``plan_cache_hits``, ``plan_cache_misses``).  ``params`` are the
+    starting parameters (by default ``init_gnn`` from a generator seeded
+    with ``seed``).  ``engine``, ``weight_sets``, ``pipeline`` and
+    ``sizing`` go to every sampling SpGEMM; ``a`` should already be
+    normalised as the architecture expects.  Each step reads its loss
+    back to the host.
+    """
+    from repro_torch.apps.sampling import bulk_sample
+    from repro_torch.core import executor
+    from repro_torch.core.executor import PlanCache
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "train_gnn_minibatch(mesh=...) is multi-device, ROADMAP Queue A "
+            "item 7")
+    engine = executor.resolve_engine(engine)
+    dev = a.device
+    if params is None:
+        params = init_gnn(cfg, torch.Generator().manual_seed(seed), dev)
+    opt = adamw(lr, weight_decay=0.0)
+    opt_state = opt.init(params)
+    x = torch.as_tensor(x, device=dev)
+    labels_np = np.asarray(torch.as_tensor(labels).cpu())
+    n = a.n_rows
+    order = np.random.default_rng(seed).permutation(n)
+    batches = [np.sort(order[i: i + batch_size])
+               for i in range(0, n, batch_size)]
+    plan_cache = PlanCache(max_entries=256) if reuse_plan else None
+
+    history: List[float] = []
+    for _ in range(n_epochs):
+        for bi, batch in enumerate(batches):
+            adjs, frontiers = bulk_sample(
+                a, batch, fanout=fanout, n_layers=cfg.n_layers,
+                seed=seed * 100_000 + bi,  # the same in every epoch
+                engine=engine, gather=cfg.gather, plan_cache=plan_cache,
+                weight_sets=weight_sets, pipeline=pipeline, sizing=sizing)
+            y = torch.from_numpy(labels_np[frontiers[0]]).long().to(dev)
+            live = {k: p.detach().requires_grad_() for k, p in params.items()}
+            logits = gnn_forward_minibatch(cfg, live, adjs, frontiers, x)
+            logp = torch.log_softmax(logits, dim=-1)
+            loss = -torch.mean(torch.take_along_dim(logp, y[:, None], dim=1))
+            keys = sorted(live)
+            grads = dict(zip(keys, torch.autograd.grad(
+                loss, [live[k] for k in keys])))
+            grads, _ = clip_by_global_norm(grads, 1.0)
+            updates, opt_state = opt.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
+            history.append(float(loss.detach()))
+    stats = {
+        "plan_cache_hits": plan_cache.hits if plan_cache else 0,
+        "plan_cache_misses": plan_cache.misses if plan_cache else 0,
+    }
+    return params, history, stats

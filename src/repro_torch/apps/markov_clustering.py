@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import executor
-from repro_torch.core.spgemm import PlanCache, spgemm
+from repro_torch.core.spgemm import PlanCache, spgemm, spgemm_streamed
 from repro_torch.sparse.formats import CSR
 from repro_torch.sparse.ops import (
     csr_column_normalize,
@@ -130,22 +130,21 @@ def mcl(
     Algorithm 1 and the Table-I binning (``MCLResult.plan_cache_hits``).
     ``pipeline`` picks the two-wave or the legacy (per-chunk read) sync
     structure; ``method="auto"`` dispatches one engine per Table-I bin
-    through the executor's autotune cache.  The streamed lane (``stream``,
-    ``prefetch``), ``on_budget="stream"`` and ``mesh`` are not ported and
-    raise.
+    through the executor's autotune cache.  ``stream`` runs every
+    expansion through the out-of-core lane (``spgemm_streamed``) with
+    ``stream`` rows a tile and ``prefetch`` tiles in flight, the plan cache
+    then keeping tile plans; ``on_budget="stream"`` lets a monolithic
+    expansion whose plan exceeds ``executor.set_device_budget`` degrade to
+    that lane instead of raising ``DeviceBudgetExceeded``.  Both give the
+    monolithic run's result bit for bit on a deterministic lane.  ``mesh``
+    is not ported and raises.
     """
     executor.refuse_mesh(mesh)
     if pipeline not in ("two_wave", "legacy"):
         raise ValueError(f"unknown pipeline {pipeline!r}")
-    if stream is not None:
-        raise NotImplementedError(
-            "mcl(stream=...) runs the streamed lane, ROADMAP Queue A item 5")
-    if on_budget == "stream":
-        raise NotImplementedError(
-            "on_budget='stream' is ROADMAP Queue A item 5")
-    if on_budget != "error":
-        raise ValueError(f"unknown on_budget {on_budget!r}")
     method = executor.resolve_engine(method)
+    stream = None if stream is None else executor.resolve_tile_rows(stream)
+    on_budget = executor.resolve_on_budget(on_budget)
     a = add_self_loops(g)
     a = csr_column_normalize(a)
     plan_cache = PlanCache() if reuse_plan else None
@@ -156,9 +155,16 @@ def mcl(
         # Expansion: B <- A^e  (e-1 SpGEMM products)
         b = a
         for _ in range(e - 1):
-            res = spgemm(b, a, engine=method, gather=gather,
-                         schedule=schedule, plan=plan_cache,
-                         pipeline=pipeline, sizing=sizing)
+            if stream is not None:
+                res = spgemm_streamed(
+                    b, a, tile_rows=stream, prefetch=prefetch,
+                    engine=method, gather=gather, schedule=schedule,
+                    plan=plan_cache, pipeline=pipeline, sizing=sizing)
+            else:
+                res = spgemm(b, a, engine=method, gather=gather,
+                             schedule=schedule, plan=plan_cache,
+                             pipeline=pipeline, sizing=sizing,
+                             on_budget=on_budget)
             infos.append(res.info)
             b = res.c
         # Prune: drop < theta, keep top-k per column

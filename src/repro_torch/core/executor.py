@@ -62,7 +62,7 @@ from typing import Callable, Dict, List, Literal, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import phases
+from repro_torch.core import faults, phases
 from repro_torch.core.grouping import GroupPlan, group_rows
 from repro_torch.kernels.aia_gather import gather_planes
 from repro_torch.sparse.formats import (
@@ -72,6 +72,8 @@ Gather = Literal["auto", "xla", "aia"]
 Pipeline = Literal["two_wave", "legacy"]
 Sizing = Literal["auto", "planned", "measured"]
 Operands = Literal["auto", "footprint", "replicate"]
+OnBudget = Literal["error", "stream"]
+Schedule = Literal["grouped", "natural"]
 
 # Rows per chunk are padded to a multiple of this (-1 = padding row).
 ROW_QUANTUM = 8
@@ -303,6 +305,131 @@ def _int32_nnz_capacity(nnz: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Streamed-lane knobs and the device budget
+# ---------------------------------------------------------------------------
+
+# Rows per A row-block tile, and how many staged tiles may be resident on
+# the device at once (1 = no overlap, 2 = double buffering: tile k+1's
+# host-to-device copy overlaps tile k's compute).
+DEFAULT_TILE_ROWS = 4096
+DEFAULT_PREFETCH = 2
+
+
+def _positive_int(value, what: str, default: int) -> int:
+    if value is None:
+        return default
+    if isinstance(value, bool) or not isinstance(value, (int, np.integer)):
+        raise ValueError(f"{what} must be a positive int (or None for the "
+                         f"default {default}); got {value!r}")
+    if int(value) < 1:
+        raise ValueError(f"{what} must be >= 1; got {int(value)}")
+    return int(value)
+
+
+def resolve_tile_rows(tile_rows) -> int:
+    """Validate ``tile_rows=`` (rows per tile; ``None`` is
+    ``DEFAULT_TILE_ROWS``).  ``tile_rows >= n_rows(A)`` is one tile."""
+    return _positive_int(tile_rows, "tile_rows", DEFAULT_TILE_ROWS)
+
+
+def resolve_prefetch(prefetch) -> int:
+    """Validate ``prefetch=`` (staged tiles in flight; ``None`` is
+    ``DEFAULT_PREFETCH``)."""
+    return _positive_int(prefetch, "prefetch", DEFAULT_PREFETCH)
+
+
+# Optional cap (bytes) on the estimated working set of one execute_plan
+# call; None disables the check.
+_DEVICE_BUDGET = {"bytes": None}
+
+
+class DeviceBudgetExceeded(RuntimeError):
+    """A plan's estimated working set exceeds ``set_device_budget``.
+
+    Raised by ``execute_plan`` before anything is allocated; the streamed
+    lane runs the same check per tile, so a product whose whole plan
+    exceeds the budget completes there with small enough tiles.
+    """
+
+
+def set_device_budget(nbytes: Optional[int]) -> None:
+    """Set (or clear, with ``None``) the working-set budget in bytes.  It
+    is a model of the device's memory (``estimated_device_bytes``), not a
+    reading of it."""
+    _DEVICE_BUDGET["bytes"] = None if nbytes is None else int(nbytes)
+
+
+def device_budget() -> Optional[int]:
+    """The configured working-set budget in bytes (None = off)."""
+    return _DEVICE_BUDGET["bytes"]
+
+
+def estimated_device_bytes(plan: GroupPlan, itemsize: int) -> int:
+    """The reference's model of a plan's working set: every intermediate
+    product held as an int32 key and one value, ``total_ip × (4 +
+    itemsize)`` bytes.  Operands and the output are left out."""
+    return int(plan.total_ip) * (4 + int(itemsize))
+
+
+def resolve_on_budget(on_budget: OnBudget) -> str:
+    """Validate ``on_budget=``: ``"error"`` raises ``DeviceBudgetExceeded``
+    for an over-budget plan, ``"stream"`` re-routes the call through the
+    streamed lane (bit-identical).  Inert with no budget set."""
+    if on_budget not in ("error", "stream"):
+        raise ValueError(
+            f"unknown on_budget policy {on_budget!r}; valid choices: "
+            "'error', 'stream'")
+    return on_budget
+
+
+def derive_degradation_tile_rows(plan: GroupPlan, n_rows: int,
+                                 itemsize: int) -> int:
+    """The largest power-of-two ``tile_rows`` whose worst row-block tile
+    fits the budget under ``estimated_device_bytes``'s model (the fewest
+    tiles).  Raises ``DeviceBudgetExceeded`` when one row alone exceeds
+    it, ``ValueError`` with no budget set."""
+    budget = _DEVICE_BUDGET["bytes"]
+    if budget is None:
+        raise ValueError(
+            "derive_degradation_tile_rows needs a device budget; call "
+            "set_device_budget first")
+    row_bytes = np.asarray(plan.row_ip, dtype=np.int64) * (4 + int(itemsize))
+    if row_bytes.size != n_rows:
+        raise ValueError(
+            f"plan has {row_bytes.size} row_ip entries but n_rows={n_rows}")
+    worst_row = int(row_bytes.max()) if row_bytes.size else 0
+    if worst_row > budget:
+        raise DeviceBudgetExceeded(
+            f"a single row's intermediate products need ~{worst_row} device "
+            f"bytes but the configured device budget is {budget}; no "
+            "tile_rows can degrade this call: raise the budget")
+    prefix = np.concatenate(([0], np.cumsum(row_bytes)))
+
+    def worst_tile(t: int) -> int:
+        starts = np.arange(0, n_rows, t)
+        ends = np.minimum(starts + t, n_rows)
+        return int((prefix[ends] - prefix[starts]).max()) if starts.size else 0
+
+    t = next_pow2(max(n_rows, 1))
+    while t > 1 and worst_tile(t) > budget:
+        t //= 2
+    return t
+
+
+def _check_budget(plan: GroupPlan, dtype: torch.dtype) -> None:
+    budget = _DEVICE_BUDGET["bytes"]
+    if budget is None:
+        return
+    need = estimated_device_bytes(plan, dtype.itemsize)
+    if need > budget:
+        raise DeviceBudgetExceeded(
+            f"plan needs ~{need} device bytes for its intermediate products "
+            f"(total IP {plan.total_ip}) but the configured device budget "
+            f"is {budget}; stream the call instead: spgemm_streamed with "
+            "tile_rows small enough that every tile's estimate fits")
+
+
+# ---------------------------------------------------------------------------
 # Counters
 # ---------------------------------------------------------------------------
 
@@ -313,17 +440,30 @@ _PLAN_STATS = {"plan_hits": 0, "plan_misses": 0}
 _SYNC_STATS = {"host_sync_count": 0}
 _OPERAND_STATS = {"operand_hits": 0, "operand_misses": 0}
 _AUTOTUNE_STATS = {"autotune_hits": 0, "autotune_misses": 0}
+# The streamed lane: tiles dispatched, bytes of tile operands staged host
+# to device, and tiles staged while an earlier tile's compute was in flight.
+_STREAM_STATS = {"tiles_streamed": 0, "tile_bytes_h2d": 0,
+                 "prefetch_overlap_hits": 0}
+# Recovery events, 0 on every clean path: planned calls whose overflow flag
+# tripped and were re-run at measured capacity, and calls that
+# on_budget="stream" re-routed through the streamed lane.
+_RESILIENCE_STATS = {"capacity_retries": 0, "budget_degradations": 0}
 
 
 def cache_stats() -> Dict[str, int]:
     """Executor counters: ``plan_hits``/``plan_misses`` (``PlanCache``
     lookups), ``host_sync_count`` (blocking reads of device results inside
     the pipeline), ``operand_hits``/``operand_misses`` (``OperandCache``
-    lookups: a hit converts nothing) and ``autotune_hits``/
+    lookups: a hit converts nothing), ``autotune_hits``/
     ``autotune_misses`` (``engine="auto"`` lookups: a hit measures
-    nothing).  Every cache instance folds into these."""
+    nothing), ``tiles_streamed``/``tile_bytes_h2d``/
+    ``prefetch_overlap_hits`` (the streamed lane; the last is the
+    reference's count of tiles staged while an earlier tile was
+    dispatched, 0 at ``prefetch=1``) and ``capacity_retries``/
+    ``budget_degradations`` (recovery events).  Every cache instance folds
+    into these."""
     return {**_PLAN_STATS, **_SYNC_STATS, **_OPERAND_STATS,
-            **_AUTOTUNE_STATS}
+            **_AUTOTUNE_STATS, **_STREAM_STATS, **_RESILIENCE_STATS}
 
 
 def clear_program_cache() -> None:
@@ -331,7 +471,8 @@ def clear_program_cache() -> None:
     operand and autotune caches."""
     _OPERAND_CACHE.clear()
     _AUTOTUNE_CACHE.clear()
-    for stats in (_PLAN_STATS, _SYNC_STATS, _OPERAND_STATS, _AUTOTUNE_STATS):
+    for stats in (_PLAN_STATS, _SYNC_STATS, _OPERAND_STATS, _AUTOTUNE_STATS,
+                  _STREAM_STATS, _RESILIENCE_STATS):
         for k in stats:
             stats[k] = 0
 
@@ -890,11 +1031,27 @@ def _run_planned(ops: _Operands, s: _Setup, plan: GroupPlan, ncol: int):
     runs = []
     for item, rows, (max_u, _) in zip(s.items, s.chunk_rows, bounds):
         out_cap = _out_cap(max_u, item.table_cap, s.ncol_cap)
+        if faults.trigger("capacity_undersize"):
+            # Chaos hook: a capacity below the chunk's uniqueCounts, so the
+            # overflow flag and the measured-capacity retry run.
+            out_cap = 1
         keys, vals = _enumerate(ops, rows, item, s.gather)
         runs.append(_ChunkRun(rows, *get_engine(item.engine or s.engine)
                               .accumulate(keys, vals, item.table_cap,
                                           out_cap)))
     return runs, _int32_nnz_capacity(sum(t for _, t in bounds))
+
+
+def _capacity_overflow(runs: List[_ChunkRun]) -> bool:
+    """The planned lane's overflow flag: a chunk whose true uniqueCounts
+    (the engines never clip them) pass its output width was trimmed.  It
+    is computed and read only while ``capacity_undersize`` is armed: a
+    clean planned capacity is a bound that cannot overflow, and the clean
+    lane keeps ``host_sync_count`` 0."""
+    if not runs or not faults.armed("capacity_undersize"):
+        return False
+    return bool(torch.stack([(r.counts > r.cols.shape[1]).any()
+                             for r in runs]).any())
 
 
 def _epilogue(runs: List[_ChunkRun], rows_all: torch.Tensor, n: int,
@@ -959,13 +1116,21 @@ def _execute(ops: _Operands, s: _Setup, plan: GroupPlan, n: int, ncol: int,
     dtype = ops.a_data.dtype
     if s.mode == "legacy":
         return _run_legacy(ops, s, n, dtype, device)
-    if s.mode == "planned":
+    mode = s.mode
+    if mode == "planned":
         runs, cap = _run_planned(ops, s, plan, ncol)
-    else:
+        if _capacity_overflow(runs):
+            # An under-sized chunk makes the whole planned result
+            # untrustworthy: drop it before the epilogue and re-run every
+            # chunk on the measured lane, sized from the real counts.
+            _RESILIENCE_STATS["capacity_retries"] += 1
+            runs = None
+            mode = "measured"
+    if mode == "measured":
         runs, nnz, cap = _run_measured(ops, s)
     indptr, indices, data = _epilogue(runs, s.rows_all, n, cap, dtype,
                                       device, ops.batch)
-    if s.mode == "planned":
+    if mode == "planned":
         nnz = indptr[-1]
     return indptr, indices, data, nnz
 
@@ -1001,10 +1166,19 @@ def execute_plan(a: CSR, b: CSR, plan: GroupPlan, engine: str = "sort",
     ``operand_cache`` scopes B's ELL cache (the module cache when None).
     ``mesh`` must be None and ``operands`` ``"auto"`` or ``"replicate"``
     (one device).  On a CUDA device the hash engines need float32 values.
+    A plan whose ``estimated_device_bytes`` exceed ``set_device_budget``
+    raises ``DeviceBudgetExceeded`` before anything is allocated.
     """
+    _check_budget(plan, a.data.dtype)
     s = _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
                autotune, operands)
-    b_ell = _operand_cache(operand_cache).b_operands(b, s.kb_cap).b_ell
+    ocache = _operand_cache(operand_cache)
+    try:
+        faults.fire("gather_fail")
+        b_ell = ocache.b_operands(b, s.kb_cap).b_ell
+    except faults.FaultInjected:
+        # B's ELL is a pure function of B: one re-issue recovers.
+        b_ell = ocache.b_operands(b, s.kb_cap).b_ell
     ops = _Operands(a.indptr, a.indices, a.data, b_ell.indices, b_ell.data)
     indptr, indices, data, nnz = _execute(ops, s, plan, a.n_rows, b.n_cols,
                                           a.device)
@@ -1071,3 +1245,170 @@ def execute_plan_batched(
     ops = _batched_operands(a, b, a_data_batch, b_data_batch, s.kb_cap,
                             operand_cache)
     return _execute(ops, s, plan, a.n_rows, b.n_cols, a.device)
+
+
+# ---------------------------------------------------------------------------
+# Streamed (out-of-core) lane: row-block tiles of A through the same pipeline
+# ---------------------------------------------------------------------------
+
+def tile_ranges(n_rows: int, tile_rows: int) -> List[Tuple[int, int]]:
+    """Half-open ``[r0, r1)`` row blocks of ``tile_rows`` rows covering
+    ``[0, n_rows)``; the last is ragged when ``tile_rows`` does not divide
+    ``n_rows``."""
+    return [(r0, min(r0 + tile_rows, n_rows))
+            for r0 in range(0, n_rows, tile_rows)]
+
+
+def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """``t`` in host memory, page-locked when ``pin`` (so that slices of
+    it copy to the card without waiting)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    return out.copy_(t)
+
+
+def execute_plan_streamed(
+    a: CSR,
+    b: CSR,
+    *,
+    tile_rows: Optional[int] = None,
+    prefetch: Optional[int] = None,
+    plan: Optional[PlanCache] = None,
+    engine: str = "sort",
+    gather: Gather = "auto",
+    row_chunk: int = 4096,
+    schedule: Schedule = "grouped",
+    mesh=None,
+    pipeline: Pipeline = "two_wave",
+    sizing: Sizing = "auto",
+    autotune: Optional[AutotuneCache] = None,
+    operands: Operands = "auto",
+    operand_cache: Optional[OperandCache] = None,
+) -> Tuple[CSR, int, Dict[str, int]]:
+    """Out-of-core SpGEMM: A in host memory, streamed through the pipeline
+    in row-block tiles; returns ``(C, nnz_C, stream_info)``.
+
+    A's structure and values are copied once into page-locked host memory.
+    Each tile is staged on B's device (``launch.sharding.stage_tile``: on
+    CUDA a copy on a side stream that the compute stream waits for), planned
+    through the lane's ``PlanCache`` (fingerprinted on the host slices, so
+    a tile hits whichever device it went to; a miss plans on the staged
+    tile) and run by ``execute_plan`` with every knob as it means there,
+    the budget checked per tile.  Up to ``prefetch`` tiles are staged at
+    once: the next tiles are staged after this tile's work is dispatched
+    and before its result is read back, so their copies overlap its
+    compute.  Each tile's compact segment (exact nnz) comes back to the
+    host and is merged there with ``phases.merge_segments_host``; C is
+    returned on B's device.  Tiles are disjoint row blocks and each row is
+    planned into the same Table-I bin as in the whole call, so C is the
+    monolithic product bit for bit wherever that lane is deterministic.
+    ``stream_info`` holds ``n_tiles``, the resolved ``tile_rows`` and
+    ``prefetch``, ``max_tile_ip`` and ``total_ip``.
+    """
+    from repro_torch.launch.sharding import stage_tile
+
+    refuse_mesh(mesh)
+    t_rows = resolve_tile_rows(tile_rows)
+    depth = resolve_prefetch(prefetch)
+    if plan is not None and not isinstance(plan, PlanCache):
+        raise TypeError(
+            "the streamed lane plans per tile, so plan= must be a "
+            f"PlanCache (or None for a call-local cache); got {type(plan)!r}")
+    if a.n_cols != b.n_rows:
+        raise ValueError(f"shapes {a.shape} and {b.shape} do not chain")
+    if schedule not in ("grouped", "natural"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    cache = plan if plan is not None else PlanCache()
+    n = a.n_rows
+    dev = b.device
+    pin = dev.type == "cuda"
+    a_indptr = a.indptr.cpu().numpy().astype(np.int64)
+    nnz_a = int(a_indptr[-1])
+    ipt_h = _host_copy(a.indptr.to(torch.int32), pin)
+    idx_h = _host_copy(a.indices[:nnz_a], pin)
+    dat_h = _host_copy(a.data[:nnz_a], pin)
+    side = torch.cuda.Stream(dev) if pin else None
+    tiles = tile_ranges(n, t_rows)
+    staged: List[tuple] = []
+    next_tile = [0]
+
+    def stage(in_flight: bool) -> None:
+        r0, r1 = tiles[next_tile[0]]
+        lo, hi = int(a_indptr[r0]), int(a_indptr[r1])
+        host = (ipt_h[r0:r1 + 1], idx_h[lo:hi], dat_h[lo:hi])
+        try:
+            faults.fire("stage_tile_fail")
+            placed, ready = stage_tile(host, dev, side)
+        except faults.FaultInjected:
+            # Staging is a pure copy of host slices: re-stage the tile.
+            placed, ready = stage_tile(host, dev, side)
+        _STREAM_STATS["tile_bytes_h2d"] += sum(
+            t.numel() * t.element_size() for t in host)
+        if in_flight:
+            _STREAM_STATS["prefetch_overlap_hits"] += 1
+        staged.append((r0, r1, host, placed, ready))
+        next_tile[0] += 1
+
+    segments = []
+    max_tile_ip = total_ip = 0
+    for _ in range(len(tiles)):
+        if not staged:
+            stage(in_flight=False)
+        r0, r1, host, placed, ready = staged.pop(0)
+        if ready is not None:  # the compute stream waits for the copy
+            compute = torch.cuda.current_stream(dev)
+            compute.wait_event(ready)
+            for t in placed:
+                t.record_stream(compute)
+        shape_t = (r1 - r0, a.n_cols)
+        ipt_t = host[0] - host[0][0]
+        tile_host = CSR(ipt_t, host[1], host[2], shape_t)
+        tile_dev = CSR(placed[0] - placed[0][0], placed[1], placed[2],
+                       shape_t)
+        tplan = cache.plan_for(tile_host, b,
+                               supplier=lambda: group_rows(tile_dev, b))
+        _STREAM_STATS["tiles_streamed"] += 1
+        max_tile_ip = max(max_tile_ip, int(tplan.total_ip))
+        total_ip += int(tplan.total_ip)
+        run = None
+        if tplan.total_ip > 0:
+            run_plan = ungrouped_plan(tplan) if schedule == "natural" \
+                else tplan
+            run = execute_plan(
+                tile_dev, b, run_plan, engine=engine, gather=gather,
+                row_chunk=row_chunk, pipeline=pipeline, sizing=sizing,
+                autotune=autotune, operands=operands,
+                operand_cache=operand_cache)
+        # stage the next tiles while this tile's work runs, then read back
+        while next_tile[0] < len(tiles) and len(staged) < depth - 1:
+            stage(in_flight=run is not None)
+        if run is None:  # no products: only empty rows
+            segments.append((r0, r1, np.zeros(r1 - r0 + 1, np.int64),
+                             np.empty(0, np.int32),
+                             np.empty(0, dat_h.numpy().dtype)))
+            continue
+        c_t = run[0]
+        t_ipt = c_t.indptr.cpu().numpy().astype(np.int64)
+        t_nnz = int(t_ipt[-1])
+        segments.append((r0, r1, t_ipt, c_t.indices[:t_nnz].cpu().numpy(),
+                         c_t.data[:t_nnz].cpu().numpy()))
+        del run, c_t, tile_dev, placed  # free them before the next tile runs
+
+    # tiles are contiguous disjoint row blocks: the merged indptr is their
+    # offset-shifted concatenation, and each segment lands in one scatter
+    indptr = np.zeros(n + 1, np.int64)
+    for r0, r1, t_ipt, _, _ in segments:
+        indptr[r0 + 1:r1 + 1] = indptr[r0] + t_ipt[1:]
+    nnz = int(indptr[-1])
+    _int32_nnz_capacity(nnz)  # the int32 index space, as the other lanes
+    cap = max(nnz, 1)
+    idx_buf = np.zeros(cap, np.int32)
+    dat_buf = np.zeros(cap, dat_h.numpy().dtype)
+    for r0, _, _, seg_idx, seg_dat in segments:
+        dest = int(indptr[r0]) + np.arange(len(seg_idx), dtype=np.int64)
+        phases.merge_segments_host(idx_buf, dat_buf, seg_idx, seg_dat, dest)
+    c = CSR(torch.from_numpy(indptr.astype(np.int32)).to(dev),
+            torch.from_numpy(idx_buf).to(dev),
+            torch.from_numpy(dat_buf).to(dev), (n, b.n_cols))
+    info = {"n_tiles": len(tiles), "tile_rows": t_rows, "prefetch": depth,
+            "max_tile_ip": max_tile_ip, "total_ip": total_ip}
+    return c, nnz, info

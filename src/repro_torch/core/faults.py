@@ -8,12 +8,11 @@ times), then drives the normal API: the site consults the registry, the
 fault fires where a real failure would, and the recovery path runs end to
 end.
 
-One point has a site in the port: ``dispatch_fail`` in
-``serve.spgemm_service`` (a failed micro-batch replays its members one by
-one).  The reference's other three points guard lanes the port does not
-have yet (the capacity retry, B's placement retry and the streamed lane's
-staging); arming one raises ``NotImplementedError`` naming ROADMAP Queue A
-item 5, so a chaos test can never pass while testing nothing.
+All four of the reference's points have their sites: the planned lane's
+capacity retry (``capacity_undersize``), B's placement retry
+(``gather_fail``), the streamed lane's tile staging (``stage_tile_fail``)
+and the serving layer's replay of a failed micro-batch
+(``dispatch_fail``).
 
 Disarmed points cost one dict lookup per consult and never fire.
 
@@ -40,17 +39,20 @@ class FaultInjected(RuntimeError):
 #: Every failure point a site consults, with where it lives.  Arming an
 #: unknown name is a ``ValueError``: a typo'd chaos test must fail loudly.
 FAULT_POINTS: Dict[str, str] = {
+    "capacity_undersize": (
+        "planned sizing: shrink one chunk's out_cap below its true "
+        "uniqueCounts (executor._run_planned) so the overflow flag and the "
+        "measured-capacity retry run"),
+    "gather_fail": (
+        "B-operand placement: fail building B's ELL once "
+        "(executor.execute_plan); recovery re-issues it"),
+    "stage_tile_fail": (
+        "streamed lane: fail one tile's host-to-device staging "
+        "(executor.execute_plan_streamed); recovery re-stages the tile"),
     "dispatch_fail": (
         "serving layer: fail a dispatch (SpGEMMService._dispatch_key); "
         "recovery replays the micro-batch members individually and "
         "quarantines a member that fails alone"),
-}
-
-#: The reference's points whose sites are not ported yet.
-UNPORTED_POINTS: Dict[str, str] = {
-    "capacity_undersize": "the planned lane's capacity detect-and-retry",
-    "gather_fail": "the retry of B's operand placement",
-    "stage_tile_fail": "the streamed lane's tile staging",
 }
 
 
@@ -84,10 +86,6 @@ _ARMED: Dict[str, FaultHandle] = {}
 
 
 def _validate(name: str) -> None:
-    if name in UNPORTED_POINTS:
-        raise NotImplementedError(
-            f"fault point {name!r} guards {UNPORTED_POINTS[name]}, which is "
-            "not ported yet: ROADMAP Queue A item 5")
     if name not in FAULT_POINTS:
         raise ValueError(
             f"unknown fault point {name!r}; registered points: "

@@ -180,3 +180,14 @@ def reassemble_device(idx_buf, dat_buf, cols, vals, counts, starts):
     idx_buf[pos] = cols
     dat_buf[..., pos] = vals
     return idx_buf, dat_buf
+
+
+def merge_segments_host(idx_buf, dat_buf, seg_idx, seg_dat, dest):
+    """Scatter one compact CSR segment into host (numpy) output buffers at
+    positions ``dest`` — the streamed lane's merge of a finished tile.
+    Positions at or past the buffers' capacity are dropped.  Mutates and
+    returns ``idx_buf``/``dat_buf``."""
+    keep = dest < idx_buf.shape[0]
+    idx_buf[dest[keep]] = seg_idx[keep]
+    dat_buf[dest[keep]] = seg_dat[keep]
+    return idx_buf, dat_buf

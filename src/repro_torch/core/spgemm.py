@@ -17,6 +17,11 @@ Amortized entry points:
   operands (values differ, structure shared); bit-identical to a
   per-matrix loop on the CPU.
 
+``spgemm_streamed`` is the out-of-core lane: A streamed from host memory
+in row-block tiles, each through the same pipeline, merged on the host.
+``spgemm(on_budget="stream")`` re-routes a call whose plan exceeds
+``executor.set_device_budget`` through it.
+
 ``spgemm_ell_fixed`` is the single-group, fixed-capacity variant with no
 host read (for loops over a fixed structure).
 """
@@ -66,16 +71,6 @@ def _resolve_plan(a: CSR, b: CSR, plan: PlanLike) -> GroupPlan:
     return group_rows(a, b)
 
 
-def _check_on_budget(on_budget: str) -> None:
-    if on_budget == "stream":
-        raise NotImplementedError(
-            "on_budget='stream' degrades to the streamed lane, ROADMAP "
-            "Queue A item 5")
-    if on_budget != "error":
-        raise ValueError(f"unknown on_budget policy {on_budget!r}; valid "
-                         "choices: 'error', 'stream'")
-
-
 def spgemm(
     a: CSR,
     b: CSR,
@@ -107,21 +102,37 @@ def spgemm(
     ``"auto"`` is planned for ``"fused_hash"`` and measured otherwise.
     ``pipeline="legacy"`` is the per-chunk-read reference lane.
     ``operand_cache`` scopes B's ELL cache (the executor's module cache
-    when None).  ``mesh`` must be None, ``operands`` ``"auto"`` or
-    ``"replicate"`` and ``on_budget`` ``"error"``: the multi-device and
-    streamed lanes are not ported.  The façade reads ``nnz`` back once,
-    after every chunk was dispatched, to fill ``info``.
+    when None).  ``on_budget`` picks what a plan whose
+    ``executor.estimated_device_bytes`` exceed ``executor.
+    set_device_budget`` does: ``"error"`` raises ``DeviceBudgetExceeded``,
+    ``"stream"`` re-routes the call through ``spgemm_streamed`` with the
+    largest power-of-two ``tile_rows`` whose every tile fits (bit-identical
+    on a deterministic lane; ``info["degraded_to_stream"]``,
+    ``cache_stats()["budget_degradations"]``); inert with no budget.
+    ``mesh`` must be None and ``operands`` ``"auto"`` or ``"replicate"``:
+    the multi-device lane is not ported.  The façade reads ``nnz`` back
+    once, after every chunk was dispatched, to fill ``info``.
     """
     if a.n_cols != b.n_rows:
         raise ValueError(f"shapes {a.shape} and {b.shape} do not chain")
     executor.operand_device(a, b)
-    _check_on_budget(on_budget)
+    on_budget = executor.resolve_on_budget(on_budget)
     if schedule not in ("grouped", "natural"):
         raise ValueError(f"unknown schedule {schedule!r}")
     engine = executor.resolve_engine(engine, method)
     plan = _resolve_plan(a, b, plan)
     run_plan = executor.ungrouped_plan(plan) if schedule == "natural" \
         else plan
+    budget = executor.device_budget()
+    if on_budget == "stream" and budget is not None:
+        itemsize = a.data.element_size()
+        if executor.estimated_device_bytes(plan, itemsize) > budget:
+            return _degrade_to_stream(
+                a, b, plan, run_plan, itemsize, method=method,
+                row_chunk=row_chunk, schedule=schedule, engine=engine,
+                gather=gather, mesh=mesh, pipeline=pipeline, sizing=sizing,
+                autotune=autotune, operands=operands,
+                operand_cache=operand_cache)
     c, nnz = executor.execute_plan(
         a, b, run_plan, engine=engine, gather=gather, row_chunk=row_chunk,
         mesh=mesh, pipeline=pipeline, sizing=sizing, autotune=autotune,
@@ -149,11 +160,91 @@ def spgemm_info(a: CSR, b: CSR, plan: GroupPlan, nnz_c) -> Dict[str, float]:
     }
 
 
-def spgemm_streamed(*args, **kwargs):
-    """Not ported: the out-of-core lane over row-block tiles of A."""
-    raise NotImplementedError(
-        "spgemm_streamed (row-block tiles with prefetch) is ROADMAP Queue A "
-        "item 5")
+def _degrade_to_stream(a, b, plan, run_plan, itemsize, *, method,
+                       row_chunk, schedule, engine, gather, mesh, pipeline,
+                       sizing, autotune, operands,
+                       operand_cache) -> SpGEMMResult:
+    """``on_budget="stream"``: the whole plan's estimate exceeds the budget,
+    so the call runs through ``spgemm_streamed`` with the largest
+    ``tile_rows`` whose worst tile fits.  The result keeps the monolithic
+    ``run_plan`` (still the pattern's plan) and marks ``info`` with
+    ``degraded_to_stream`` beside the streamed lane's tile counters."""
+    tile_rows = executor.derive_degradation_tile_rows(plan, a.n_rows,
+                                                      itemsize)
+    executor._RESILIENCE_STATS["budget_degradations"] += 1
+    sres = spgemm_streamed(
+        a, b, tile_rows=tile_rows, method=method, row_chunk=row_chunk,
+        schedule=schedule, engine=engine, gather=gather, mesh=mesh,
+        pipeline=pipeline, sizing=sizing, autotune=autotune,
+        operands=operands, operand_cache=operand_cache)
+    info = dict(sres.info)
+    info["degraded_to_stream"] = 1
+    return SpGEMMResult(c=sres.c, plan=run_plan, info=info)
+
+
+# ---------------------------------------------------------------------------
+# Streamed (out-of-core) SpGEMM over row-block tiles of A
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SpGEMMStreamResult:
+    """Streamed product: the merged CSR ``c`` and ``info`` with the lane's
+    tile counters (``n_tiles``, the resolved ``tile_rows`` and
+    ``prefetch``, ``max_tile_ip``).  Each tile ran its own ``GroupPlan``,
+    kept by the lane's ``PlanCache``."""
+
+    c: CSR
+    info: Dict[str, float]
+
+
+def spgemm_streamed(
+    a: CSR,
+    b: CSR,
+    *,
+    tile_rows: Optional[int] = None,
+    prefetch: int = 2,
+    method: Optional[Literal["hash", "sort"]] = None,
+    row_chunk: int = 4096,
+    schedule: Literal["grouped", "natural"] = "grouped",
+    engine: Optional[str] = None,
+    gather: executor.Gather = "auto",
+    mesh=None,
+    plan: Optional[PlanCache] = None,
+    pipeline: executor.Pipeline = "two_wave",
+    sizing: executor.Sizing = "auto",
+    autotune: Optional[executor.AutotuneCache] = None,
+    operands: executor.Operands = "auto",
+    operand_cache: Optional[executor.OperandCache] = None,
+) -> SpGEMMStreamResult:
+    """C = A @ B out-of-core (``executor.execute_plan_streamed``): A is
+    streamed from page-locked host memory in ``tile_rows`` row blocks
+    (default ``executor.DEFAULT_TILE_ROWS``), ``prefetch`` tiles staged at
+    once (default 2: the next tile's copy overlaps this tile's compute),
+    each tile planned through ``plan`` (a ``PlanCache``, or None for a
+    call-local one) and run with every other knob as ``spgemm`` runs it.
+    The device holds B, the staged tiles and one tile's intermediates; C
+    is merged on the host and returned on B's device, the monolithic
+    product bit for bit on a deterministic lane.
+    """
+    engine = executor.resolve_engine(engine, method)
+    c, nnz, stream = executor.execute_plan_streamed(
+        a, b, tile_rows=tile_rows, prefetch=prefetch, plan=plan,
+        engine=engine, gather=gather, row_chunk=row_chunk,
+        schedule=schedule, mesh=mesh, pipeline=pipeline, sizing=sizing,
+        autotune=autotune, operands=operands, operand_cache=operand_cache)
+    total_ip = stream["total_ip"]
+    nnz_a, nnz_b = torch.stack([a.nnz.long().cpu(),
+                                b.nnz.long().cpu()]).tolist()
+    info = {
+        "nnz_a": nnz_a,
+        "nnz_b": nnz_b,
+        "nnz_c": int(nnz),
+        "intermediate_products": int(total_ip),
+        "flops": 2.0 * total_ip,
+        "compression_ratio": float(total_ip) / max(nnz, 1),
+        **stream,
+    }
+    return SpGEMMStreamResult(c=c, info=info)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The port's applications (graph contraction, Markov clustering, full-batch
-GNN training) and the ``optim`` functions they use, against the JAX
-package, on the CPU.
+"""The port's applications (graph contraction, Markov clustering with its
+streamed and degraded lanes, full-batch GNN training) and the ``optim``
+functions they use, against the JAX package, on the CPU.
 
 Both packages run on the same numpy-built graphs (the generators draw the
 same arrays from one seed) and, for the GNN, on the reference's parameters
@@ -219,6 +219,53 @@ def gnn_case(arch, mode, n=48, seed=6):
     return cfg, ref_cfg, params, ref_params, g, rg, x, labels
 
 
+def assert_close_csr(got, want, rtol):
+    """Structure equal, values within ``rtol``."""
+    indptr = np.asarray(want.indptr)
+    np.testing.assert_array_equal(got.indptr.numpy(), indptr)
+    n = int(indptr[-1])
+    np.testing.assert_array_equal(got.indices[:n].numpy(),
+                                  np.asarray(want.indices)[:n])
+    np.testing.assert_allclose(got.data[:n].numpy(),
+                               np.asarray(want.data)[:n], rtol=rtol)
+
+
+def test_mcl_streamed_and_degraded_match_reference():
+    """``mcl(stream=...)`` and ``mcl(on_budget="stream")`` under a budget
+    that every expansion exceeds: bit for bit the port's monolithic MCL;
+    the reference's streamed MCL's tile counts, plan hits and clusters,
+    and its iterate within 1e-6 relative (inflation's ``torch.pow(x,
+    2.0)`` is correctly rounded where XLA's CPU ``pow`` can be one ulp
+    off; two iterations of the per-iteration case, one engine: the
+    reference compiles every tile's programs.  The degraded lane is held
+    against the reference in ``tests/test_torch_resilience.py``)."""
+    from repro_torch.core import executor
+
+    make, kwargs = MCL_CASES["spgemm_per_iteration"]
+    kwargs = dict(kwargs, max_iters=2, method="fused_hash")
+    g, rg = make()
+    mono = markov_clustering.mcl(g, **kwargs)
+    streamed = markov_clustering.mcl(g, stream=16, **kwargs)
+    want = ref_mcl.mcl(rg, stream=16, **kwargs)
+    assert [i["n_tiles"] for i in streamed.spgemm_info] == \
+        [i["n_tiles"] for i in want.spgemm_info] == [2, 2]
+    assert streamed.plan_cache_hits == want.plan_cache_hits
+    assert_same_csr(streamed.matrix, mono.matrix)
+    assert_close_csr(streamed.matrix, want.matrix, rtol=1e-6)
+    np.testing.assert_array_equal(streamed.clusters, want.clusters)
+    budget = 8 * min(i["intermediate_products"]
+                     for i in streamed.spgemm_info) - 1
+    executor.set_device_budget(budget)
+    try:
+        degraded = markov_clustering.mcl(g, on_budget="stream", **kwargs)
+    finally:
+        executor.set_device_budget(None)
+    assert all(i["degraded_to_stream"] for i in degraded.spgemm_info)
+    assert all(i["n_tiles"] > 1 for i in degraded.spgemm_info)
+    assert_same_csr(degraded.matrix, mono.matrix)
+    np.testing.assert_array_equal(degraded.clusters, want.clusters)
+
+
 def test_normalize_adjacency_matches_reference():
     g, rg = rmat_graph(40, 4.0, seed=2, device="cpu"), ref_rmat(40, 4.0,
                                                                 seed=2)
@@ -329,11 +376,7 @@ def test_unported_knobs_name_their_item():
     gc = graph_contraction.graph_contraction
     cases = [
         (lambda: gc(g, labels, mesh=object()), "item 7"),
-        (lambda: apps.mcl(g, stream=8), "item 5"),
-        (lambda: apps.mcl(g, on_budget="stream"), "item 5"),
         (lambda: apps.mcl(g, mesh=object()), "item 7"),
-        (lambda: gnn.gnn_forward_minibatch(), "item 4"),
-        (lambda: gnn.train_gnn_minibatch(), "item 4"),
         (lambda: apps.train_gnn(apps.GNNConfig(d_in=4, d_hidden=4),
                                 gnn.normalize_adjacency(g),
                                 np.zeros((16, 4), np.float32),

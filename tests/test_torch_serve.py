@@ -263,12 +263,11 @@ def test_dispatch_fail_replays_every_member_bit_exact():
 
 
 def test_unported_fault_points_raise():
-    for name in ("capacity_undersize", "gather_fail", "stage_tile_fail"):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            with faults.fault_injection(name):
-                pass
-        with pytest.raises(NotImplementedError):
-            faults.armed(name)
+    """Every reference point is registered now; an unknown name or a bad
+    schedule still raises."""
+    assert set(faults.FAULT_POINTS) == {
+        "capacity_undersize", "gather_fail", "stage_tile_fail",
+        "dispatch_fail"}
     with pytest.raises(ValueError, match="unknown fault point"):
         with faults.fault_injection("dispatch_fial"):
             pass
@@ -276,6 +275,37 @@ def test_unported_fault_points_raise():
         with faults.fault_injection("dispatch_fail", on_hit=0):
             pass
     assert not faults.armed("dispatch_fail")
+
+
+@pytest.mark.parametrize("name, n_requests", [("capacity_undersize", 3),
+                                               ("gather_fail", 1)])
+def test_ported_fault_points_recover_in_the_service(name, n_requests):
+    """``capacity_undersize`` under a batched ``fused_hash`` dispatch and
+    ``gather_fail`` under a single one: each fires once and every result is
+    the reference's ``spgemm`` of that request, bit for bit."""
+    from repro.core.spgemm import spgemm as ref_spgemm
+
+    mask_a, mask_b = _pattern(100, (12, 12), 0.3), _pattern(101, (12, 12),
+                                                            0.3)
+    svc, _ = _service()
+    with faults.fault_injection(name) as fault:
+        tickets = [svc.submit("t", _csr(mask_a, 10 + i), _csr(mask_b, 20 + i),
+                              engine="fused_hash")
+                   for i in range(n_requests)]
+        svc.flush()
+    assert fault.triggers == 1
+    for i, ticket in enumerate(tickets):
+        want = ref_spgemm(ref_csr_from_dense(_dense(mask_a, 10 + i)),
+                          ref_csr_from_dense(_dense(mask_b, 20 + i)),
+                          engine="fused_hash").c
+        c = ticket.result().c
+        nnz = int(np.asarray(want.indptr)[-1])
+        np.testing.assert_array_equal(c.indptr.numpy(),
+                                      np.asarray(want.indptr))
+        np.testing.assert_array_equal(c.indices[:nnz].numpy(),
+                                      np.asarray(want.indices)[:nnz])
+        np.testing.assert_array_equal(c.data[:nnz].numpy(),
+                                      np.asarray(want.data)[:nnz])
 
 
 # ---------------------------------------------------------------------------
