@@ -106,6 +106,23 @@ products run in full float32 (TF32 off).  It
    converged call measures nothing; a forced all-``fused_hash``
    assignment pays no pipeline sync); ``dispatch_fail`` armed once on a
    batched dispatch, every member replayed bit for bit;
+8b. runs the sharded executor (``mesh_phase``; sizes in ``MESH``) on
+   logical shards of the one card, each call with its launch and sync
+   counts from 0: the RoadTX and p2p-Gnutella04 self-products under
+   ``make_spgemm_mesh()``, ``[cuda:0] * 2`` and ``[cuda:0] * 4`` on the
+   default lane (structure equal to ``mesh=None``, values within rtol 1e-4
+   / atol 1e-6 of scipy, one pipeline sync) and ``fused_hash`` (bit for
+   bit ``mesh=None``, no sync), K1 and K2 once a chunk of the mesh's
+   partition; on p2p ``operands`` auto, footprint and replicate, bit for
+   bit each; wall, device and busy (one profiled call), peak, B rows and
+   bytes placed; ``spgemm_batched`` p2p x 4 and ``spgemm_streamed`` p2p in
+   6 tiles under 4 shards, bit for bit; ``csr_hadamard_power``'s count of
+   entries off the correctly rounded float64 power at r 1.5, 2, 3, 0.5;
+   one gcn/topk ``train_gnn`` step on ogbn-arxiv under 4 shards, step 1
+   within 1e-4 of float64; MCL on Economics under 4 shards, each expansion
+   bit for bit the ``mesh=None`` product of its inputs and each iterate
+   within rtol 1e-4 / atol 1e-6 of that iteration finished from it.  The
+   copy between cards is the identity on one card and is not measured;
 9. runs the paper's three applications at paper size, each lane with the
    launch counts and the pipeline's sync count from 0: graph contraction
    ``S·G·Sᵀ`` (``apps.graph_contraction``, labels n/64 from seed 0) on
@@ -329,7 +346,7 @@ def chunk_operands(a):
     kb_cap = int(row_nnz.max())
     ell = csr_to_ell(a, kb_cap)
     items = ex.partition_plan(plan, row_nnz, 4096)
-    _, rows = ex._chunk_rows(items, a.device)
+    _, rows = ex._chunk_rows(items, [a.device])
     firsts = {}
     for item, r in zip(items, rows):
         firsts.setdefault(item.group, (item, r))
@@ -893,7 +910,7 @@ def serve_traffic(patterns, caps, log):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     opstats = {k: v for k, v in executor.cache_stats().items()
-               if k.startswith("operand")}
+               if k in ("operand_hits", "operand_misses")}
     stats = [svc.stats() for svc in services.values()]
     return tickets, records, stats, wall, opstats
 
@@ -2639,19 +2656,17 @@ def k1_spmm_shape(a, x, log):
     return rec
 
 
-def gnn_phase(log):
-    """Full-batch GNN training on ogbn-arxiv at paper size, 3 archs x 2
-    modes: step 1's logits against a float64 numpy forward, its gradients
-    against a float64 CPU autograd run of the port's plain path, then
-    ``train_gnn`` with one K1 launch per aggregation; cuSPARSE SpMM beside
-    one aggregation."""
+def gnn_inputs() -> dict:
+    """ogbn-arxiv at paper size (GNN) from seed 0: the graph, Â, X and the
+    labels on the card and on the host, Â = D^-1/2 (G + I) D^-1/2 in
+    float64 from G by scipy (D: entries per row, independently of the
+    port), and the port's Â in float64 on the CPU."""
     import scipy.sparse as sp
     import torch
 
     from repro_torch.apps import gnn
     from repro_torch.apps.graphs import rmat_graph
     from repro_torch.sparse.formats import CSR
-    from repro_torch.sparse.ops import csr_spmm
 
     n = GNN["nodes"]
     g = rmat_graph(n, GNN["avg_deg"], seed=0, device="cuda")
@@ -2659,15 +2674,75 @@ def gnn_phase(log):
     x_np = rng.standard_normal((n, GNN["d"])).astype(np.float32)
     labels_np = rng.integers(0, GNN["n_classes"], n)
     a = gnn.normalize_adjacency(g)
-    x = torch.from_numpy(x_np).cuda()
-    labels = torch.from_numpy(labels_np).cuda()
-    # Â = D^-1/2 (G + I) D^-1/2 in float64 from G (D: entries per row),
-    # independently of the port
     ai = (host_csr(g) + sp.identity(n, format="csr")).tocsr()
     dinv = 1.0 / np.sqrt(np.maximum(np.diff(ai.indptr), 1.0))
-    a64 = sp.diags(dinv) @ ai @ sp.diags(dinv)
-    a_cpu = CSR(a.indptr.cpu(), a.indices.cpu(), a.data.cpu().double(),
-                a.shape)
+    return {"g": g, "a": a, "x": torch.from_numpy(x_np).cuda(),
+            "labels": torch.from_numpy(labels_np).cuda(), "x_np": x_np,
+            "labels_np": labels_np,
+            "a64": sp.diags(dinv) @ ai @ sp.diags(dinv),
+            "a_cpu": CSR(a.indptr.cpu(), a.indices.cpu(),
+                         a.data.cpu().double(), a.shape)}
+
+
+def gnn_step1_check(what, cfg, params, d, mesh=None) -> dict:
+    """Step 1 of ``cfg`` on ``d`` (``gnn_inputs``), under ``mesh``: its
+    logits against a float64 numpy forward (rows that a near TopK tie
+    reaches left out) and its gradients against a float64 CPU autograd run
+    of the port's plain path, each within GNN_REL of the largest |value|."""
+    import torch
+
+    from repro_torch.apps import gnn
+
+    a, x, n = d["a"], d["x"], d["a"].n_rows
+    p64 = {k: v.cpu().double().numpy() for k, v in params.items()}
+    want, near = gnn_reference_forward(cfg, p64, d["a64"],
+                                       d["x_np"].astype(np.float64))
+    with torch.no_grad():
+        got = gnn.gnn_forward(cfg, params, a, x, mesh=mesh).double().cpu()
+    affected = (d["a64"] @ near.astype(np.float64)) > 0
+    scale = np.abs(want).max()
+    err = np.abs(got.numpy() - want)[~affected].max()
+    check(err <= GNN_REL * scale,
+          f"{what}: logits {err} beyond {GNN_REL} of {scale}")
+    # step 1's gradients: float32 on the card, float64 on the CPU
+    mask = torch.ones(n, device=a.device)
+    live = {k: v.clone().requires_grad_() for k, v in params.items()}
+    loss = gnn._loss_fn(cfg, live, a, x, d["labels"], mask, mesh=mesh)
+    g32 = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
+    live64 = {k: torch.from_numpy(v).requires_grad_()
+              for k, v in p64.items()}
+    loss64 = gnn._loss_fn(cfg, live64, d["a_cpu"],
+                          torch.from_numpy(d["x_np"]).double(),
+                          torch.from_numpy(d["labels_np"]),
+                          torch.ones(n, dtype=torch.float64))
+    g64 = dict(zip(live64, torch.autograd.grad(
+        loss64, list(live64.values()))))
+    grad_err = {}
+    for k in g32:
+        ref = g64[k].numpy()
+        e = float(np.abs(g32[k].double().cpu().numpy() - ref).max())
+        grad_err[k] = e / max(np.abs(ref).max(), 1e-300)
+        check(grad_err[k] <= GNN_REL,
+              f"{what}: step-1 gradient of {k} {grad_err[k]} beyond "
+              f"{GNN_REL}")
+    return {"logits_err": float(err), "logits_scale": float(scale),
+            "rows_near_topk_tie": int(near.sum()),
+            "logit_rows_left_out": int(affected.sum()),
+            "grad_rel_err": grad_err, "loss_step1": float(loss64.detach())}
+
+
+def gnn_phase(log):
+    """Full-batch GNN training on ogbn-arxiv at paper size, 3 archs x 2
+    modes: step 1 held by ``gnn_step1_check``, then ``train_gnn`` with one
+    K1 launch per aggregation; cuSPARSE SpMM beside one aggregation."""
+    import torch
+
+    from repro_torch.apps import gnn
+    from repro_torch.sparse.ops import csr_spmm
+
+    n = GNN["nodes"]
+    d = gnn_inputs()
+    g, a, x, labels = d["g"], d["a"], d["x"], d["labels"]
     k1 = k1_spmm_shape(a, x, log)
     per_lane = {}
     for arch in ("gcn", "gin", "sage"):
@@ -2678,38 +2753,7 @@ def gnn_phase(log):
             what = f"GNN {arch}/{mode}"
             params = gnn.init_gnn(cfg, torch.Generator().manual_seed(0),
                                   device="cuda")
-            p64 = {k: v.cpu().double().numpy() for k, v in params.items()}
-            want, near = gnn_reference_forward(cfg, p64, a64,
-                                               x_np.astype(np.float64))
-            with torch.no_grad():
-                got = gnn.gnn_forward(cfg, params, a, x).double().cpu()
-            affected = (a64 @ near.astype(np.float64)) > 0
-            scale = np.abs(want).max()
-            err = np.abs(got.numpy() - want)[~affected].max()
-            check(err <= GNN_REL * scale,
-                  f"{what}: logits {err} beyond {GNN_REL} of {scale}")
-            # step 1's gradients: float32 on the card, float64 on the CPU
-            mask = torch.ones(n, device="cuda")
-            live = {k: v.clone().requires_grad_() for k, v in params.items()}
-            loss = gnn._loss_fn(cfg, live, a, x, labels, mask)
-            g32 = dict(zip(live, torch.autograd.grad(loss, list(live.values()))))
-            live64 = {k: torch.from_numpy(v).requires_grad_()
-                      for k, v in p64.items()}
-            loss64 = gnn._loss_fn(cfg, live64, a_cpu,
-                                  torch.from_numpy(x_np).double(),
-                                  torch.from_numpy(labels_np),
-                                  torch.ones(n, dtype=torch.float64))
-            g64 = dict(zip(live64, torch.autograd.grad(
-                loss64, list(live64.values()))))
-            grad_err = {}
-            for k in g32:
-                ref = g64[k].numpy()
-                e = float(np.abs(g32[k].double().cpu().numpy() - ref).max())
-                grad_err[k] = e / max(np.abs(ref).max(), 1e-300)
-                check(grad_err[k] <= GNN_REL,
-                      f"{what}: step-1 gradient of {k} {grad_err[k]} beyond "
-                      f"{GNN_REL}")
-            del live, g32, loss
+            step1 = gnn_step1_check(what, cfg, params, d)
             (_, hist), ms, launches, _, peak = counted_call(
                 lambda: gnn.train_gnn(cfg, a, x, labels,
                                       n_steps=GNN["steps"], seed=0))
@@ -2723,13 +2767,8 @@ def gnn_phase(log):
                 "dataset": GNN["dataset"], "arch": arch, "mode": mode,
                 "nodes": n, "edges": int(g.nnz), "nnz_a_hat": int(a.nnz),
                 "steps": GNN["steps"], "loss": hist,
-                "loss_step1": float(loss64.detach()),
                 "ms": ms, "ms_per_step": ms / GNN["steps"],
-                "launches": launches, "peak_mem_gb": peak,
-                "logits_err": float(err), "logits_scale": float(scale),
-                "rows_near_topk_tie": int(near.sum()),
-                "logit_rows_left_out": int(affected.sum()),
-                "grad_rel_err": grad_err,
+                "launches": launches, "peak_mem_gb": peak, **step1,
                 "profiled_2_steps": profiled(
                     lambda: gnn.train_gnn(cfg, a, x, labels, n_steps=2,
                                           seed=0))}}, log)
@@ -3593,6 +3632,328 @@ def stream_phase(log):
     return per_stream
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the sharded executor on logical shards of the one card
+# ---------------------------------------------------------------------------
+
+# The meshes: make_spgemm_mesh() (every visible card, here the one) and
+# logical shards of cuda:0.  Logical shards run every line a mesh of cards
+# runs but the copy between cards, which stays unmeasured here.
+MESH = {"shards": (None, 2, 4), "batch": 4, "stream_tiles": 6,
+        "pow_r": (1.5, 2.0, 3.0, 0.5), "pow_n": 1 << 20}
+MESH_LANES = (("default", {}, 1), ("fused_hash", {"engine": "fused_hash"}, 0))
+
+
+def mesh_of(shards):
+    """(mesh, label): ``make_spgemm_mesh()`` for None, else ``shards``
+    logical shards of cuda:0."""
+    import torch
+
+    from repro_torch.launch.mesh import make_spgemm_mesh
+
+    if shards is None:
+        return make_spgemm_mesh(), "make_spgemm_mesh()"
+    return [torch.device("cuda", 0)] * shards, f"[cuda:0] * {shards}"
+
+
+def mesh_chunks(a, n_shards: int) -> int:
+    """The chunks ``a``'s self-product is cut into on ``n_shards`` shards
+    (a group's chunk shrinks to ceil(rows / n_shards))."""
+    from repro_torch.core import executor as ex
+    from repro_torch.core.grouping import group_rows
+
+    row_nnz = np.diff(a.indptr.cpu().numpy().astype(np.int64))
+    return len(ex.partition_plan(group_rows(a, a), row_nnz, 4096,
+                                 n_shards=n_shards))
+
+
+def operand_counters() -> dict:
+    from repro_torch.core import executor
+
+    st = executor.cache_stats()
+    return {k: st[k] for k in ("operand_bytes_placed",
+                               "operand_rows_footprint",
+                               "operand_rows_total")}
+
+
+def mesh_products(mats, log):
+    """The Table-II self-products under each mesh on both lanes, against
+    the ``mesh=None`` product (``fused_hash`` bit for bit; the default
+    lane's structure equal and its values within RTOL/ATOL of scipy), with
+    the pipeline's syncs and K1/K2 launches per chunk; on p2p the three
+    ``operands`` placements, bit for bit."""
+    from repro_torch.core.spgemm import spgemm
+
+    per_call = {}
+    for name, a in mats.items():
+        want = scipy_product(a)
+        base = {lane: spgemm(a, a, **kw).c for lane, kw, _ in MESH_LANES}
+        for shards in MESH["shards"]:
+            mesh, label = mesh_of(shards)
+            chunks = mesh_chunks(a, len(mesh))
+            placements = ("auto", "footprint", "replicate") \
+                if name == "p2p-Gnutella04" else ("auto",)
+            for lane, kw, syncs_expected in MESH_LANES:
+                for placement in placements if lane == "fused_hash" \
+                        else ("auto",):
+                    what = f"mesh {name}/{label}/{lane}/{placement}"
+                    res, ms, launches, syncs, peak = counted_call(
+                        lambda: spgemm(a, a, mesh=mesh, operands=placement,
+                                       **kw))
+                    placed = operand_counters()
+                    c, nnz = res.c, res.info["nnz_c"]
+                    check(syncs == syncs_expected,
+                          f"{what}: host_sync_count {syncs}")
+                    check(launches["gather_rows"] == chunks,
+                          f"{what}: {launches['gather_rows']} K1 launches "
+                          f"for {chunks} chunks")
+                    check(launches["hash_accumulate"] ==
+                          (chunks if lane == "fused_hash" else 0),
+                          f"{what}: {launches['hash_accumulate']} K2 "
+                          f"launches for {chunks} chunks")
+                    if lane == "fused_hash":
+                        check(same_csr(c, base[lane]),
+                              f"{what}: not bit-identical to mesh=None")
+                        err = 0.0
+                    else:
+                        check(torch_equal_structure(c, base[lane]),
+                              f"{what}: structure differs from mesh=None")
+                        err = check_against_scipy(name, what, c, nnz, want)
+                    per_call[f"{name}/{label}/{lane}/{placement}"] = launches
+                    emit({"mesh_spgemm": {
+                        "matrix": name, "mesh": label, "shards": len(mesh),
+                        "lane": lane, "operands": placement,
+                        "nnz_c": nnz, "chunks": chunks, "ms": ms,
+                        "host_sync_count": syncs, "launches": launches,
+                        "peak_mem_gb": peak,
+                        "bit_identical_to_mesh_none": lane == "fused_hash",
+                        "max_abs_err_vs_scipy": err,
+                        "operand_rows_share":
+                            placed["operand_rows_footprint"]
+                            / max(placed["operand_rows_total"], 1),
+                        **placed,
+                        "profiled": profiled(lambda: spgemm(
+                            a, a, mesh=mesh, operands=placement, **kw))}},
+                        log)
+                    del res, c
+        del base
+    return per_call
+
+
+def torch_equal_structure(x, y) -> bool:
+    import torch
+
+    nnz = int(x.nnz)
+    return x.shape == y.shape and torch.equal(x.indptr, y.indptr) and \
+        torch.equal(x.indices[:nnz], y.indices[:nnz])
+
+
+def mesh_batched_and_streamed(a, log):
+    """p2p x MESH["batch"] through ``spgemm_batched`` on ``fused_hash``
+    under [cuda:0] * 4, each member against its solo ``mesh=None``
+    product; p2p in MESH["stream_tiles"] tiles under the same mesh against
+    the monolithic product; both bit for bit."""
+    from repro_torch.core.spgemm import spgemm, spgemm_batched, \
+        spgemm_streamed
+
+    mesh, label = mesh_of(4)
+    chunks = mesh_chunks(a, 4)
+    rng = np.random.default_rng(1)
+    members = [fresh_values(a, rng) for _ in range(MESH["batch"])]
+    res, ms, launches, syncs, peak = counted_call(
+        lambda: spgemm_batched(members, members, engine="fused_hash",
+                               mesh=mesh))
+    check(syncs == 0, f"mesh batched: host_sync_count {syncs}")
+    check(launches["gather_rows"] == chunks
+          and launches["hash_accumulate"] == MESH["batch"] * chunks,
+          f"mesh batched: launches {launches} for {chunks} chunks")
+    for i, (m, c) in enumerate(zip(members, res.cs)):
+        check(same_csr(c, spgemm(m, m, engine="fused_hash").c),
+              f"mesh batched: member {i} differs from its solo product")
+    per_call = {f"batched/{label}": launches}
+    emit({"mesh_batched": {"matrix": "p2p-Gnutella04", "mesh": label,
+                           "batch": MESH["batch"], "chunks": chunks,
+                           "ms": ms, "launches": launches,
+                           "host_sync_count": syncs, "peak_mem_gb": peak,
+                           "bit_identical_to_solo": True}}, log)
+    del res, members
+    mono = spgemm(a, a, engine="fused_hash").c
+    tile_rows = -(-a.n_rows // MESH["stream_tiles"])
+    res, ms, launches, syncs, peak = counted_call(
+        lambda: spgemm_streamed(a, a, tile_rows=tile_rows,
+                                engine="fused_hash", mesh=mesh))
+    check(res.info["n_tiles"] == MESH["stream_tiles"]
+          and res.info["n_shards"] == 4, f"mesh streamed: {res.info}")
+    check(same_csr(res.c, mono), "mesh streamed: not bit-identical to the "
+          "monolithic product")
+    check(launches["gather_rows"] > 0 and launches["hash_accumulate"] > 0,
+          f"mesh streamed: launches {launches}")
+    per_call[f"streamed/{label}"] = launches
+    emit({"mesh_streamed": {"matrix": "p2p-Gnutella04", "mesh": label,
+                            "tiles": MESH["stream_tiles"],
+                            "tile_rows": tile_rows, "ms": ms,
+                            "launches": launches, "peak_mem_gb": peak,
+                            "bit_identical_to_monolithic": True}}, log)
+    return per_call
+
+
+def mesh_pow(log):
+    """``csr_hadamard_power`` on the card at MESH["pow_r"]: entries that
+    differ from numpy's float64 power rounded once to float32 (0 expected;
+    the count is written down either way)."""
+    import torch
+
+    from repro_torch.sparse.formats import CSR
+    from repro_torch.sparse.ops import csr_hadamard_power
+
+    n = MESH["pow_n"]
+    x = (np.random.default_rng(2).random(n) * 4).astype(np.float32)
+    a = CSR(torch.tensor([0, n], dtype=torch.int32, device="cuda"),
+            torch.zeros(n, dtype=torch.int32, device="cuda"),
+            torch.from_numpy(x).cuda(), (1, 1))
+    counts = {}
+    for r in MESH["pow_r"]:
+        got = csr_hadamard_power(a, r).data.cpu().numpy()
+        want = np.power(x.astype(np.float64), r).astype(np.float32)
+        counts[str(r)] = int((got != want).sum())
+    emit({"mesh_pow": {"values": n, "differ_from_float64_rounded_once":
+                       counts}}, log)
+
+
+def mesh_gnn(log):
+    """One ``train_gnn`` step of gcn/topk on ogbn-arxiv under [cuda:0] * 4:
+    step 1's logits and gradients within GNN_REL of float64
+    (``gnn_step1_check``), then the step with K1 once a shard an
+    aggregation."""
+    import torch
+
+    from repro_torch.apps import gnn
+
+    mesh, label = mesh_of(4)
+    d = gnn_inputs()
+    cfg = gnn.GNNConfig(arch="gcn", d_in=GNN["d"], d_hidden=GNN["d"],
+                        n_classes=GNN["n_classes"], topk=GNN["topk"],
+                        sparse_mode="topk", n_layers=GNN["n_layers"])
+    params = gnn.init_gnn(cfg, torch.Generator().manual_seed(0),
+                          device="cuda")
+    step1 = gnn_step1_check(f"mesh GNN {label}", cfg, params, d, mesh=mesh)
+    (_, hist), ms, launches, _, peak = counted_call(
+        lambda: gnn.train_gnn(cfg, d["a"], d["x"], d["labels"], n_steps=1,
+                              seed=0, mesh=mesh))
+    check(all(np.isfinite(hist)), f"mesh GNN: loss {hist}")
+    check(launches["gather_rows"] == 4 * cfg.n_layers
+          and launches["hash_accumulate"] == 0,
+          f"mesh GNN: launches {launches}, expected one K1 launch a shard "
+          f"an aggregation")
+    emit({"mesh_gnn": {"dataset": GNN["dataset"], "arch": "gcn",
+                       "mode": "topk", "mesh": label, "loss": hist,
+                       "ms": ms, "launches": launches, "peak_mem_gb": peak,
+                       **step1}}, log)
+    return {f"gnn/{label}": launches}
+
+
+def mesh_mcl(log):
+    """MCL (MCL_ARGS) on Economics on ``fused_hash`` under [cuda:0] * 4,
+    operands "auto".  The mesh reaches only the expansions, so inside the
+    run each expansion is held bit for bit against the ``mesh=None``
+    product of its own inputs, and the iteration is finished from that
+    product (prune, inflation, normalisation) as ``mcl`` does: each
+    iterate of the run has that one's structure and values within RTOL of
+    the largest |value| plus ATOL (column sums add with atomics on the
+    card, so two runs differ in the last bits).  The checks' time (the
+    iterates' host copies too) and launches are left out of the run's."""
+    import torch
+
+    from repro_torch.apps import markov_clustering as mc
+    from repro_torch.apps.graphs import table_ii_matrix
+    from repro_torch.kernels import ops
+
+    mesh, label = mesh_of(4)
+    name, n = MCL_MATRIX
+    g = table_ii_matrix(name, seed=0, n_override=n, device="cuda")
+    args = MCL_ARGS
+    real_spgemm, real_normalize = mc.spgemm, mc.csr_column_normalize
+    iterates, wanted = [], []
+    check_s = [0.0]
+
+    def spgemm_checked(b, a, **kwargs):
+        res = real_spgemm(b, a, **kwargs)
+        t0 = time.perf_counter()
+        counts = ops.launch_counts()
+        plain = real_spgemm(b, a, **dict(kwargs, mesh=None))
+        check(same_csr(res.c, plain.c), f"mesh MCL {label}: expansion "
+              f"{len(wanted) + 1} differs from mesh=None")
+        inflated = mc.csr_hadamard_power(
+            mc.csr_prune_columns(plain.c, args["theta"], args["k"]),
+            args["r"])
+        wanted.append(host_csr(real_normalize(inflated)))
+        del plain, inflated
+        ops.LAUNCHES.update(counts)
+        torch.cuda.synchronize()
+        check_s[0] += time.perf_counter() - t0
+        return res
+
+    def normalize_rec(*a, **kw):
+        out = real_normalize(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterates.append(host_csr(out))
+        check_s[0] += time.perf_counter() - t0
+        return out
+
+    mc.spgemm, mc.csr_column_normalize = spgemm_checked, normalize_rec
+    try:
+        res, ms, launches, syncs, peak = counted_call(
+            lambda: mc.mcl(g, mesh=mesh, method="fused_hash", **args))
+    finally:
+        mc.spgemm, mc.csr_column_normalize = real_spgemm, real_normalize
+    check(res.n_iterations == args["max_iters"] == len(wanted),
+          f"mesh MCL: {res.n_iterations} iterations")
+    check(syncs == 0, f"mesh MCL: host_sync_count {syncs}")
+    check(launches["gather_rows"] > 0 and launches["hash_accumulate"] > 0,
+          f"mesh MCL: launches {launches}")
+    errs = []
+    for i, (x, y) in enumerate(zip(iterates[1:], wanted), 1):
+        check(np.array_equal(x.indptr, y.indptr)
+              and np.array_equal(x.indices, y.indices),
+              f"mesh MCL: iterate {i}'s structure differs")
+        err = float(np.abs(x.data - y.data).max(initial=0.0))
+        scale = float(np.abs(y.data).max(initial=0.0))
+        check(err <= RTOL * scale + ATOL,
+              f"mesh MCL: iterate {i} differs by {err} (scale {scale})")
+        errs.append({"iterate": i, "max_abs_diff": err, "scale": scale,
+                     "nnz": int(x.nnz)})
+    emit({"mesh_mcl": {"matrix": name, "rows": n, "mesh": label,
+                       "args": args, "lane": "fused_hash",
+                       "operands": "auto",
+                       "ms_less_checks": ms - check_s[0] * 1e3,
+                       "check_s": check_s[0], "launches": launches,
+                       "host_sync_count": syncs, "peak_mem_gb": peak,
+                       "expansions_bit_identical": True,
+                       "iterates_vs_mesh_none": errs,
+                       "clusters": int(len(np.unique(res.clusters)))}}, log)
+    return {f"mcl/{name}/{label}": launches}
+
+
+def mesh_phase(mats, log):
+    """The sharded executor on the card: the Table-II products under three
+    meshes, the batched and streamed lanes, ``csr_hadamard_power``, one
+    GNN step and MCL, each with its launch counts from 0."""
+    import torch
+
+    t0 = time.perf_counter()
+    per_call = mesh_products(mats, log)
+    per_call.update(mesh_batched_and_streamed(mats["p2p-Gnutella04"], log))
+    mesh_pow(log)
+    torch.cuda.empty_cache()
+    per_call.update(mesh_gnn(log))
+    torch.cuda.empty_cache()
+    per_call.update(mesh_mcl(log))
+    torch.cuda.empty_cache()
+    emit({"mesh_phase_s": time.perf_counter() - t0}, log)
+    return per_call
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every record to this file")
@@ -3638,6 +3999,8 @@ def main(argv=None) -> int:
     k1, k2 = kernel_phase(mats, log)
     totals, per_call = end_to_end_phase(mats, log)
     per_serve = serve_phase(mats, log)
+    torch.cuda.empty_cache()
+    per_mesh = mesh_phase(mats, log)
     del mats
     torch.cuda.empty_cache()
     per_app, k1_spmm = apps_phase(log)
@@ -3664,6 +4027,8 @@ def main(argv=None) -> int:
          "launches_per_minibatch_step": per_step["gather_rows"],
          "launches_per_stream": {c: n["gather_rows"]
                                  for c, n in per_stream.items()},
+         "launches_per_mesh": {c: n["gather_rows"]
+                               for c, n in per_mesh.items()},
          "csr_spmm_shape": k1_spmm,
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "kernel_ms": k1["ms"], "host_ms": k1["host_ms"],
@@ -3694,6 +4059,8 @@ def main(argv=None) -> int:
          "launches_per_minibatch_step": per_step["hash_accumulate"],
          "launches_per_stream": {c: n["hash_accumulate"]
                                  for c, n in per_stream.items()},
+         "launches_per_mesh": {c: n["hash_accumulate"]
+                               for c, n in per_mesh.items()},
          "path": k2["route"], "chunks": k2["chunks"]},
     ]
     for name, src, tpu in FFN_SOURCES:

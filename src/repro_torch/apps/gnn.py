@@ -30,6 +30,7 @@ from typing import Dict, List, Literal, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.launch.sharding import shard_devices
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
 from repro_torch.sparse.formats import CSR
 from repro_torch.sparse.ops import csr_spmm
@@ -157,12 +158,11 @@ def train_gnn(
 
     ``params`` are the starting parameters (e.g. the reference's, carried
     across with ``gnn_params_from_numpy``); by default ``init_gnn`` draws
-    them from a generator seeded with ``seed``.  Each step reads its loss
-    back to the host.
+    them from a generator seeded with ``seed``.  ``mesh`` row-shards every
+    aggregation, forward and backward (``sparse.ops.csr_spmm``; ``a`` on
+    the mesh's merge device).  Each step reads its loss back to the host.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_gnn(mesh=...) is multi-device, ROADMAP Queue A item 7")
+    shard_devices(mesh)  # a bad mesh fails before any work
     dev = a.device
     if params is None:
         params = init_gnn(cfg, torch.Generator().manual_seed(seed), dev)
@@ -175,7 +175,7 @@ def train_gnn(
     history = []
     for _ in range(n_steps):
         live = {k: p.detach().requires_grad_() for k, p in params.items()}
-        loss = _loss_fn(cfg, live, a, x, labels, mask)
+        loss = _loss_fn(cfg, live, a, x, labels, mask, mesh=mesh)
         keys = sorted(live)
         grads = dict(zip(keys, torch.autograd.grad(
             loss, [live[k] for k in keys])))
@@ -197,11 +197,9 @@ def gnn_forward_minibatch(cfg: GNNConfig, params: Dict,
     full-batch path) consumes the last adjacency.  GIN's and SAGE's self
     features are the previous frontier's rows at the positions of the
     current one (``Q^l ⊆ Q^{l+1}``, both sorted, so ``np.searchsorted``).
+    ``mesh`` row-shards every aggregation (``sparse.ops.csr_spmm``).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "gnn_forward_minibatch(mesh=...) is multi-device, ROADMAP Queue A "
-            "item 7")
+    shard_devices(mesh)  # a bad mesh fails before any work
     n_layers = cfg.n_layers
     if len(adjs) != n_layers:
         raise ValueError(f"{len(adjs)} adjacencies for {n_layers} layers")
@@ -213,7 +211,7 @@ def gnn_forward_minibatch(cfg: GNNConfig, params: Dict,
         cols = np.asarray(frontiers[t + 1])
         k = min(cfg.topk, h.shape[1])
         mode = cfg.sparse_mode if layer > 0 else "dense"
-        agg = _aggregate(adjs[t], h, mode, k, gather=cfg.gather)
+        agg = _aggregate(adjs[t], h, mode, k, gather=cfg.gather, mesh=mesh)
         h_self = h[torch.from_numpy(np.searchsorted(cols, rows)).to(dev)]
         if cfg.arch == "gcn":
             h = agg @ params[f"w{layer}"]
@@ -257,17 +255,15 @@ def train_gnn_minibatch(
     starting parameters (by default ``init_gnn`` from a generator seeded
     with ``seed``).  ``engine``, ``weight_sets``, ``pipeline`` and
     ``sizing`` go to every sampling SpGEMM; ``a`` should already be
-    normalised as the architecture expects.  Each step reads its loss
-    back to the host.
+    normalised as the architecture expects.  ``mesh`` runs the sampling
+    SpGEMMs and the aggregations on its shards (``a`` on its merge
+    device).  Each step reads its loss back to the host.
     """
     from repro_torch.apps.sampling import bulk_sample
     from repro_torch.core import executor
     from repro_torch.core.executor import PlanCache
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_gnn_minibatch(mesh=...) is multi-device, ROADMAP Queue A "
-            "item 7")
+    shard_devices(mesh)  # a bad mesh fails before any work
     engine = executor.resolve_engine(engine)
     dev = a.device
     if params is None:
@@ -288,11 +284,13 @@ def train_gnn_minibatch(
             adjs, frontiers = bulk_sample(
                 a, batch, fanout=fanout, n_layers=cfg.n_layers,
                 seed=seed * 100_000 + bi,  # the same in every epoch
-                engine=engine, gather=cfg.gather, plan_cache=plan_cache,
+                engine=engine, gather=cfg.gather, mesh=mesh,
+                plan_cache=plan_cache,
                 weight_sets=weight_sets, pipeline=pipeline, sizing=sizing)
             y = torch.from_numpy(labels_np[frontiers[0]]).long().to(dev)
             live = {k: p.detach().requires_grad_() for k, p in params.items()}
-            logits = gnn_forward_minibatch(cfg, live, adjs, frontiers, x)
+            logits = gnn_forward_minibatch(cfg, live, adjs, frontiers, x,
+                                           mesh=mesh)
             logp = torch.log_softmax(logits, dim=-1)
             loss = -torch.mean(torch.take_along_dim(logp, y[:, None], dim=1))
             keys = sorted(live)

@@ -37,8 +37,8 @@ def graph_contraction(g: CSR, labels: np.ndarray, method: str = "sort",
     scheduling and output sizing (the paper's ablation axes);
     ``sizing="auto"`` is planned (zero host syncs in the pipeline) for
     ``"fused_hash"``.  ``pipeline`` picks the two-wave or the legacy
-    (per-chunk read) sync structure; ``mesh`` must be None (ROADMAP Queue
-    A item 7).
+    (per-chunk read) sync structure; ``mesh`` runs both products through
+    the sharded executor (``g`` on its merge device).
     """
     method = executor.resolve_engine(method)
     s = label_matrix(labels, n=g.n_rows, device=g.device)

@@ -137,9 +137,9 @@ def mcl(
     expansion whose plan exceeds ``executor.set_device_budget`` degrade to
     that lane instead of raising ``DeviceBudgetExceeded``.  Both give the
     monolithic run's result bit for bit on a deterministic lane.  ``mesh``
-    is not ported and raises.
+    runs every expansion through the sharded executor (``g`` on its merge
+    device), with the same result.
     """
-    executor.refuse_mesh(mesh)
     if pipeline not in ("two_wave", "legacy"):
         raise ValueError(f"unknown pipeline {pipeline!r}")
     method = executor.resolve_engine(method)
@@ -159,10 +159,11 @@ def mcl(
                 res = spgemm_streamed(
                     b, a, tile_rows=stream, prefetch=prefetch,
                     engine=method, gather=gather, schedule=schedule,
-                    plan=plan_cache, pipeline=pipeline, sizing=sizing)
+                    mesh=mesh, plan=plan_cache, pipeline=pipeline,
+                    sizing=sizing)
             else:
                 res = spgemm(b, a, engine=method, gather=gather,
-                             schedule=schedule, plan=plan_cache,
+                             schedule=schedule, mesh=mesh, plan=plan_cache,
                              pipeline=pipeline, sizing=sizing,
                              on_budget=on_budget)
             infos.append(res.info)

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core import executor
 from repro_torch.core.spgemm import spgemm, spgemm_batched
+from repro_torch.launch.sharding import shard_devices
 from repro_torch.sparse.formats import CSR, csr_from_coo
 from repro_torch.sparse.ops import csr_scale_rows, csr_transpose
 
@@ -83,15 +84,15 @@ def extract(a: CSR, rows: np.ndarray, cols: np.ndarray,
             sizing: str = "auto") -> CSR:
     """A[rows, cols] as R · A · Cᵀ: two SpGEMMs with selection matrices,
     on ``a``'s device.  ``engine`` is any registered engine or ``"auto"``,
-    validated up front."""
-    executor.refuse_mesh(mesh)
+    validated up front; ``mesh`` runs both through the sharded executor."""
     engine = executor.resolve_engine(engine)
     r = selection_matrix(rows, a.n_rows, a.device)
     c = selection_matrix(cols, a.n_cols, a.device)
-    ra = spgemm(r, a, engine=engine, gather=gather, plan=plan_cache,
-                pipeline=pipeline, sizing=sizing).c
+    ra = spgemm(r, a, engine=engine, gather=gather, mesh=mesh,
+                plan=plan_cache, pipeline=pipeline, sizing=sizing).c
     return spgemm(ra, csr_transpose(c), engine=engine, gather=gather,
-                  plan=plan_cache, pipeline=pipeline, sizing=sizing).c
+                  mesh=mesh, plan=plan_cache, pipeline=pipeline,
+                  sizing=sizing).c
 
 
 def _weighted_members(a: CSR, weight_sets: np.ndarray) -> List[CSR]:
@@ -144,9 +145,10 @@ def bulk_sample(
     for every SpGEMM of the chain, ``plan_cache`` (a ``PlanCache``) serves
     their plans, and ``weight_sets`` (W, nnz) turns each probability step
     into one ``spgemm_batched`` over the reweightings, sampling from their
-    mean.  ``mesh`` is multi-device and raises.
+    mean.  ``mesh`` runs every SpGEMM of the chain through the sharded
+    executor (``a`` on its merge device).
     """
-    executor.refuse_mesh(mesh)
+    shard_devices(mesh)  # a bad mesh fails before any work
     engine = executor.resolve_engine(engine)
     rng = np.random.default_rng(seed)
     frontiers = [np.asarray(batch_vertices, np.int64)]
@@ -157,20 +159,20 @@ def bulk_sample(
     for _ in range(n_layers):
         q_mat = selection_matrix(q_cur, a.n_rows, a.device)
         if members is None:
-            p = spgemm(q_mat, a, engine=engine, gather=gather,
+            p = spgemm(q_mat, a, engine=engine, gather=gather, mesh=mesh,
                        plan=plan_cache, pipeline=pipeline,
                        sizing=sizing).c  # P = Q^l · A
         else:
             batch = spgemm_batched(q_mat, members, engine=engine,
-                                   gather=gather, plan=plan_cache,
+                                   gather=gather, mesh=mesh, plan=plan_cache,
                                    pipeline=pipeline, sizing=sizing)
             p = _ensemble_mean(batch.cs)
         p = norm_rows(p)                            # NORM
         sampled = sample_rows(p, fanout, rng)       # SAMPLE
         q_next = np.unique(np.concatenate([q_cur, sampled]))  # self + nbrs
         adjs.append(extract(a, q_cur, q_next, engine=engine, gather=gather,
-                            plan_cache=plan_cache, pipeline=pipeline,
-                            sizing=sizing))
+                            mesh=mesh, plan_cache=plan_cache,
+                            pipeline=pipeline, sizing=sizing))
         frontiers.append(q_next)
         q_cur = q_next
     return adjs, frontiers

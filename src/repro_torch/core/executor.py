@@ -1,10 +1,18 @@
 """Plan-compiled SpGEMM executor — the group pipeline behind ``spgemm()``.
 
-Single-device counterpart of ``repro.core.executor``.  The row-grouping
-phase (``core.grouping``) produces a ``GroupPlan``; ``partition_plan`` cuts
-it into group-chunks, and ``execute_plan`` runs each chunk's A-row gather →
-B-row gather → product formation → per-row accumulation on the operands'
-device, then reassembles the CSR on that device.
+Counterpart of ``repro.core.executor``.  The row-grouping phase
+(``core.grouping``) produces a ``GroupPlan``; ``partition_plan`` cuts it
+into group-chunks, each pinned to a shard, and ``execute_plan`` runs each
+chunk's A-row gather → B-row gather → product formation → per-row
+accumulation on its shard's device, then reassembles the CSR on the merge
+device.  ``mesh=None`` is one shard on the operands' device; a mesh is a
+sequence of ``torch.device``s (``launch.sharding``), one a shard, where a
+device may repeat.  Under a mesh the operands live on the merge device
+(the first shard's), each shard gets A and its placement of B, the
+chunks pack into shard-local CSR segments on their own devices, and the
+merge device applies one destination-mapped scatter a shard.  Rows are
+disjoint across shards and ``a_cap`` is a group-level maximum, so every
+row's result is the one ``mesh=None`` gives.
 
 Three pluggable axes:
 
@@ -18,16 +26,22 @@ Three pluggable axes:
   (``kernels.aia_gather``).  ``"auto"`` is ``"aia"`` on a CUDA device and
   ``"xla"`` on the CPU — the paper's Fig. 7 "without AIA" axis is one flag.
 * **pipeline** — ``"two_wave"`` or ``"legacy"`` (below).
+* **operands** — where B's rows go under a mesh: ``"replicate"`` places
+  B's whole ELL on every shard, ``"footprint"`` only the rows a shard's
+  chunks read (``place_operand_block``, with a global→local ``remap``
+  that the chunk's gather goes through), ``"auto"`` the footprint where it
+  is under ``FOOTPRINT_THRESHOLD`` of B's rows on more than one shard.
 
 Three sync structures:
 
 * **measured** (two waves): wave 1 forms every chunk's products and
   uniqueCounts, one coalesced device-to-host read sizes every chunk's
   output at once (``host_sync_count`` 1), wave 2 accumulates.
-* **planned**: every output capacity comes from the plan's Alg. 1 IP
-  bounds (uniqueCount <= min(IP, n_cols) per row), the indptr is built on
-  the device, and the lane reads nothing back (``host_sync_count`` 0;
-  ``nnz`` comes back as a 0-d device tensor).
+* **planned**: every output capacity (and every shard's segment) comes
+  from the plan's Alg. 1 IP bounds (uniqueCount <= min(IP, n_cols) per
+  row), the indptr is built on the merge device, and the lane reads
+  nothing back (``host_sync_count`` 0; ``nnz`` comes back as a 0-d device
+  tensor).
 * **legacy** (``pipeline="legacy"``): one blocking read of the uniqueCounts
   per chunk and the CSR reassembled on the host — the reference lane the
   others are diffed against.
@@ -41,8 +55,11 @@ into chunks and size B's ELL), as the reference does.
 Amortisation across calls:
 
 * ``PlanCache`` — plans keyed on the operands' sparsity patterns.
-* ``OperandCache`` — B's ELL buffers keyed on B's tensors and their
-  versions, so repeated calls against one B convert it once.
+* ``OperandCache`` — B's ELL buffers and their per-shard placements,
+  keyed on B's tensors and their versions, the shard devices and the
+  footprints, so repeated calls against one B convert and place it once.
+* ``partition_plan_cached`` / the footprint cache — a plan served twice
+  keeps its chunks, shards and footprints.
 * ``AutotuneCache`` — ``engine="auto"``'s measured per-bin assignments.
 * ``execute_plan_batched`` — one plan run for a batch of same-pattern
   operands: keys, sizing, output structure and reassembly offsets are
@@ -56,6 +73,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
+import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, List, Literal, Optional, Sequence, Tuple
 
@@ -63,8 +81,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults, phases
-from repro_torch.core.grouping import GroupPlan, group_rows
+from repro_torch.core.grouping import GroupPlan, group_rows, support_footprint
 from repro_torch.kernels.aia_gather import gather_planes
+from repro_torch.launch.sharding import (
+    merge_device, place_operand_block, replicate_to, shard_devices)
 from repro_torch.sparse.formats import (
     CSR, ELL, csr_to_ell, ell_values_folded)
 
@@ -84,27 +104,38 @@ def next_pow2(x: int) -> int:
     return 1 << int(np.ceil(np.log2(max(int(x), 1))))
 
 
-def refuse_mesh(mesh) -> None:
-    """The port runs on one device: ``mesh=`` other than ``None`` raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= runs the sharded multi-device executor, ROADMAP Queue A "
-            "item 7")
+# A shard whose B-row footprint covers at least this share of B's rows
+# keeps the full replica under operands="auto".
+FOOTPRINT_THRESHOLD = 0.7
 
 
 def resolve_operands(operands: Operands) -> str:
-    """Validate ``operands=``.  On one device ``"auto"`` and ``"replicate"``
-    are the same placement (B's whole ELL); ``"footprint"`` places
-    per-shard blocks of B, a multi-device lane that is not ported."""
+    """Validate ``operands=``: ``"auto"`` (footprint blocks on shards whose
+    footprint is under ``FOOTPRINT_THRESHOLD`` of B's rows, on more than
+    one shard; full replicas elsewhere), ``"footprint"`` (blocks on every
+    shard, one included) or ``"replicate"`` (B's whole ELL everywhere).
+    All three give the same result bit for bit."""
     if operands not in ("auto", "footprint", "replicate"):
         raise ValueError(
             f"unknown operands policy {operands!r}; valid choices: "
             "'auto', 'footprint', 'replicate'")
-    if operands == "footprint":
-        raise NotImplementedError(
-            "operands='footprint' places per-shard B blocks for the "
-            "multi-device executor, ROADMAP Queue A item 7")
     return operands
+
+
+def mesh_devices(mesh, a: CSR, b: CSR) -> list:
+    """The shards' devices for a call on ``(a, b)``: ``[a.device]`` for
+    ``mesh=None``, else the mesh's, whose first (the merge device) must
+    hold both operands."""
+    if mesh is None:
+        return [operand_device(a, b)]
+    devices = shard_devices(mesh)
+    merge = merge_device(devices)
+    for name, m in (("A", a), ("B", b)):
+        if m.device != merge:
+            raise ValueError(
+                f"{name} is on {m.device} but the mesh's merge device (its "
+                f"first) is {merge}; place the operands there")
+    return devices
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +469,13 @@ _PLAN_STATS = {"plan_hits": 0, "plan_misses": 0}
 # pipeline: one per measured call, none per planned call, one per chunk on
 # the legacy lane.
 _SYNC_STATS = {"host_sync_count": 0}
-_OPERAND_STATS = {"operand_hits": 0, "operand_misses": 0}
+# OperandCache lookups, and what its builds placed: bytes of B's blocks
+# (indices, values, remap) on the shards, B rows placed summed over the
+# shards, and the rows full replication would have placed (n_shards x
+# n_rows(B)).
+_OPERAND_STATS = {"operand_hits": 0, "operand_misses": 0,
+                  "operand_bytes_placed": 0, "operand_rows_footprint": 0,
+                  "operand_rows_total": 0}
 _AUTOTUNE_STATS = {"autotune_hits": 0, "autotune_misses": 0}
 # The streamed lane: tiles dispatched, bytes of tile operands staged host
 # to device, and tiles staged while an earlier tile's compute was in flight.
@@ -454,7 +491,10 @@ def cache_stats() -> Dict[str, int]:
     """Executor counters: ``plan_hits``/``plan_misses`` (``PlanCache``
     lookups), ``host_sync_count`` (blocking reads of device results inside
     the pipeline), ``operand_hits``/``operand_misses`` (``OperandCache``
-    lookups: a hit converts nothing), ``autotune_hits``/
+    lookups: a hit converts and places nothing), ``operand_bytes_placed``/
+    ``operand_rows_footprint``/``operand_rows_total`` (what the builds
+    placed on the shards: bytes, B rows, and the rows full replication
+    would have placed), ``autotune_hits``/
     ``autotune_misses`` (``engine="auto"`` lookups: a hit measures
     nothing), ``tiles_streamed``/``tile_bytes_h2d``/
     ``prefetch_overlap_hits`` (the streamed lane; the last is the
@@ -468,7 +508,9 @@ def cache_stats() -> Dict[str, int]:
 
 def clear_program_cache() -> None:
     """Zero the ``cache_stats()`` counters and drop the module-level
-    operand and autotune caches."""
+    operand, autotune, partition and footprint caches."""
+    _PARTITION_CACHE.clear()
+    _FOOTPRINT_CACHE.clear()
     _OPERAND_CACHE.clear()
     _AUTOTUNE_CACHE.clear()
     for stats in (_PLAN_STATS, _SYNC_STATS, _OPERAND_STATS, _AUTOTUNE_STATS,
@@ -541,26 +583,55 @@ class PlanCache:
 
 @dataclasses.dataclass
 class _OperandEntry:
-    """B's ELL conversion.  ``source`` pins B's three tensors so their
-    ``id()``s (part of the key) cannot be reused while the entry lives."""
+    """B's ELL conversion and its per-shard placements.  ``source`` pins
+    B's three tensors so their ``id()``s (part of the key) cannot be reused
+    while the entry lives.  Each shard holds ``(b_idx, b_val, remap)``: the
+    whole ELL with ``remap=None``, or its footprint block with the block's
+    global→local row map; ``footprints`` keeps each shard's rows (None =
+    whole ELL) so that the batched lane cuts its value planes alike."""
 
     source: tuple
     b_ell: ELL
+    shards: List[tuple]
+    footprints: Optional[List[Optional[np.ndarray]]] = None
+
+
+def _footprint_fingerprint(footprints) -> Optional[str]:
+    """Digest of the shards' row selections (None = full replicas
+    everywhere): the key part that keeps blocks built for one partition
+    from serving another."""
+    if footprints is None:
+        return None
+    h = hashlib.blake2b(digest_size=8)
+    for fp in footprints:
+        if fp is None:
+            h.update(b"\xff")
+        else:
+            fp = np.asarray(fp, np.int64)
+            h.update(np.int64(fp.size).tobytes())
+            h.update(fp.tobytes())
+    return h.hexdigest()
 
 
 class OperandCache:
-    """(B's tensors and versions, ``kb_cap``, device)-keyed cache of B's
-    ELL buffers (LRU, bounded).
+    """(B's tensors and versions, ``kb_cap``, devices, footprints)-keyed
+    cache of B's ELL buffers and their per-shard placements (LRU, bounded).
 
     Iterative and batched workloads multiply against the same B object call
-    after call; a hit serves its ELL with no conversion.  A torch tensor is
-    mutable, so the key holds each of B's three tensors' identity *and*
-    its ``_version``, which every in-place PyTorch operation on the tensor
-    or a view of it bumps: an edit of ``b.data`` between calls misses and
-    rebuilds instead of serving stale values.  (Writes that bypass
-    autograd's version counter — through a NumPy view of the storage or
-    ``tensor.data`` — are not seen.)  Lookups fold into ``cache_stats()``
-    as ``operand_hits``/``operand_misses``.
+    after call; a hit serves its ELL and placements with no conversion and
+    no copy.  A torch tensor is mutable, so the key holds each of B's three
+    tensors' identity *and* its ``_version``, which every in-place PyTorch
+    operation on the tensor or a view of it bumps: an edit of ``b.data``
+    between calls misses and rebuilds instead of serving stale values.
+    (Writes that bypass autograd's version counter — through a NumPy view
+    of the storage or ``tensor.data`` — are not seen.)  The shard devices
+    and a digest of the footprints are in the key too, so blocks built for
+    one mesh or partition never serve another.  Lookups fold into
+    ``cache_stats()`` as ``operand_hits``/``operand_misses``; every build
+    adds what it placed to ``operand_bytes_placed``/
+    ``operand_rows_footprint``/``operand_rows_total``, counted as the
+    reference counts them (a shard on B's own device counts its placement
+    though no copy is made).
     """
 
     def __init__(self, max_entries: int = 8):
@@ -574,15 +645,43 @@ class OperandCache:
         """Drop every cached entry (does not touch the counters)."""
         self._entries.clear()
 
-    def b_operands(self, b: CSR, kb_cap: int) -> _OperandEntry:
-        """Serve (hit) or build (miss) B's ELL at row capacity ``kb_cap``."""
+    @staticmethod
+    def _build(b: CSR, kb_cap: int, devices, footprints) -> _OperandEntry:
+        b_ell = csr_to_ell(b, kb_cap)
+        n_rows = int(b_ell.indices.shape[0])
+        shards = []
+        for sh, dev in enumerate(devices):
+            fp = None if footprints is None else footprints[sh]
+            if fp is None:
+                shard = (replicate_to(b_ell.indices, dev),
+                         replicate_to(b_ell.data, dev), None)
+                rows_placed = n_rows
+            else:
+                shard = place_operand_block(b_ell.indices, b_ell.data, fp,
+                                            dev)
+                rows_placed = len(fp)
+            _OPERAND_STATS["operand_bytes_placed"] += sum(
+                t.numel() * t.element_size() for t in shard if t is not None)
+            _OPERAND_STATS["operand_rows_footprint"] += rows_placed
+            _OPERAND_STATS["operand_rows_total"] += n_rows
+            shards.append(shard)
+        return _OperandEntry((b.indptr, b.indices, b.data), b_ell, shards,
+                             None if footprints is None else list(footprints))
+
+    def b_operands(self, b: CSR, kb_cap: int, devices=None,
+                   footprints=None) -> _OperandEntry:
+        """Serve (hit) or build and place (miss) B's ELL at row capacity
+        ``kb_cap`` on ``devices`` (default: B's own device), each shard's
+        ``footprints`` entry choosing its block (None = the whole ELL)."""
+        devices = [b.device] if devices is None else list(devices)
         source = (b.indptr, b.indices, b.data)
         key = tuple((id(t), t._version) for t in source) \
-            + (int(kb_cap), str(b.device))
+            + (int(kb_cap), str(b.device), tuple(str(d) for d in devices),
+               _footprint_fingerprint(footprints))
         entry = self._entries.get(key)
         if entry is None:
             _OPERAND_STATS["operand_misses"] += 1
-            entry = _OperandEntry(source, csr_to_ell(b, kb_cap))
+            entry = self._build(b, kb_cap, devices, footprints)
             self._entries[key] = entry
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
@@ -763,9 +862,11 @@ def bin_subplan(plan: GroupPlan, group: int) -> GroupPlan:
     )
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    """Wait for every CUDA device among ``devices``."""
+    for d in {torch.device(d) for d in devices}:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def measure_group_engine(
@@ -783,18 +884,19 @@ def measure_group_engine(
     timer: Callable[[], float] = None,
 ) -> float:
     """Wall time (µs) of one Table-I bin under one concrete engine: the
-    bin-restricted subplan through ``execute_plan``, ``warmup`` untimed
-    passes, then the min over ``reps`` timed passes, each ending in a
-    synchronise of the operands' device.  ``timer`` is injectable."""
+    bin-restricted subplan through ``execute_plan`` (on ``mesh``'s shards),
+    ``warmup`` untimed passes, then the min over ``reps`` timed passes,
+    each ending in a synchronise of every shard's device.  ``timer`` is
+    injectable."""
     timer = timer or time.perf_counter
     get_engine(engine)  # concrete engines only
     sub = bin_subplan(plan, group)
+    devices = mesh_devices(mesh, a, b)
 
     def run():
-        c, _ = execute_plan(a, b, sub, engine=engine, gather=gather,
-                            row_chunk=row_chunk, mesh=mesh,
-                            pipeline=pipeline)
-        _sync(c.device)
+        execute_plan(a, b, sub, engine=engine, gather=gather,
+                     row_chunk=row_chunk, mesh=mesh, pipeline=pipeline)
+        _sync(devices)
 
     for _ in range(warmup):
         run()
@@ -806,15 +908,16 @@ def measure_group_engine(
     return best * 1e6
 
 
-def _autotune_assignment(a, b, plan, gather, row_chunk, pipeline,
+def _autotune_assignment(a, b, plan, gather, row_chunk, mesh, pipeline,
                          cache: Optional[AutotuneCache]) -> Tuple[str, ...]:
     """``engine="auto"``'s per-bin assignment through ``cache`` (the module
-    cache when None)."""
+    cache when None), measured on ``mesh``'s shards."""
     cache = _AUTOTUNE_CACHE if cache is None else cache
 
     def measure(g, eng):
         return measure_group_engine(a, b, plan, g, eng, gather=gather,
-                                    row_chunk=row_chunk, pipeline=pipeline)
+                                    row_chunk=row_chunk, mesh=mesh,
+                                    pipeline=pipeline)
 
     return cache.assignment_for(autotune_key(a, b, plan), plan, measure)
 
@@ -847,9 +950,10 @@ def _pad_rows(k: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class WorkItem:
-    """One (group, row-chunk) dispatch."""
+    """One (group, row-chunk) dispatch, pinned to one shard."""
 
     group: int
+    shard: int
     rows: np.ndarray  # (R,) original row ids of this chunk
     a_cap: int        # exact max nnz(A row) over the *group*
     table_cap: int    # Table-I hash-table capacity of the group
@@ -857,24 +961,121 @@ class WorkItem:
 
 
 def partition_plan(plan: GroupPlan, a_row_nnz: np.ndarray, row_chunk: int,
+                   n_shards: int = 1,
                    group_engines: Optional[Sequence[str]] = None
                    ) -> List[WorkItem]:
     """Split a ``GroupPlan`` into group-chunks of at most ``row_chunk``
-    rows.  ``a_cap`` is a group-level maximum, so a row's result never
-    depends on the chunking.  ``group_engines`` stamps each chunk with its
-    bin's engine."""
+    rows, dealt to the shards round-robin with a cursor that carries across
+    groups (every shard gets a mix of the Table-I bins).  With more than
+    one shard a group's chunk shrinks to ``ceil(rows / n_shards)``
+    (quantised to ``ROW_QUANTUM``) so that every shard gets work from every
+    group it can.  ``a_cap`` is a group-level maximum, so a row's result
+    never depends on the chunking or the shard count.  ``group_engines``
+    stamps each chunk with its bin's engine."""
     items: List[WorkItem] = []
+    cursor = 0
     for g in range(4):
         rows = plan.rows_of_group(g)
         if len(rows) == 0:
             continue
         a_cap = max(int(a_row_nnz[rows].max(initial=0)), 1)
-        for lo in range(0, len(rows), row_chunk):
+        chunk = row_chunk
+        if n_shards > 1:
+            per_shard = _pad_rows(int(np.ceil(len(rows) / n_shards)))
+            chunk = max(min(row_chunk, per_shard), ROW_QUANTUM)
+        for lo in range(0, len(rows), chunk):
             items.append(WorkItem(
-                g, np.asarray(rows[lo: lo + row_chunk]), a_cap,
-                plan.table_capacities[g],
+                g, cursor % n_shards, np.asarray(rows[lo: lo + chunk]),
+                a_cap, plan.table_capacities[g],
                 None if group_engines is None else group_engines[g]))
+            cursor += 1
     return items
+
+
+_PARTITION_CACHE: Dict[tuple, List[WorkItem]] = {}
+
+
+def partition_plan_cached(plan: GroupPlan, a_row_nnz: np.ndarray,
+                          row_chunk: int, n_shards: int = 1,
+                          group_engines: Optional[Sequence[str]] = None
+                          ) -> List[WorkItem]:
+    """``partition_plan`` memoised on the plan's identity: a plan served
+    twice (a ``PlanCache`` hit, a reused ``plan=``) keeps its chunks and
+    their shards.  A ``weakref.finalize`` on the plan drops the entry when
+    the plan dies, so a reused ``id()`` never aliases."""
+    key = (id(plan), int(row_chunk), int(n_shards),
+           None if group_engines is None else tuple(group_engines))
+    items = _PARTITION_CACHE.get(key)
+    if items is None:
+        items = partition_plan(plan, a_row_nnz, row_chunk, n_shards,
+                               group_engines)
+        _PARTITION_CACHE[key] = items
+        weakref.finalize(plan, _PARTITION_CACHE.pop, key, None)
+    return items
+
+
+def shard_footprints(items: Sequence[WorkItem], a_indptr: np.ndarray,
+                     a_indices: np.ndarray,
+                     n_shards: int) -> List[np.ndarray]:
+    """Each shard's B-row footprint: the union of A's column ids over the
+    rows of its chunks (``grouping.support_footprint``).  A shard with no
+    work (or only empty rows) gets ``[0]``, so that its block keeps a valid
+    shape; nothing gathers from it."""
+    by_shard: List[list] = [[] for _ in range(n_shards)]
+    for item in items:
+        by_shard[item.shard].append(item.rows)
+    out = []
+    for rows in by_shard:
+        fp = support_footprint(
+            a_indptr, a_indices,
+            np.concatenate(rows) if rows else np.empty(0, np.int64))
+        out.append(fp if fp.size else np.zeros(1, np.int64))
+    return out
+
+
+_FOOTPRINT_CACHE: Dict[tuple, List[np.ndarray]] = {}
+
+
+def _shard_footprints_cached(plan: GroupPlan, items: Sequence[WorkItem],
+                             a: CSR, a_indptr: np.ndarray, row_chunk: int,
+                             n_shards: int, group_engines) -> List[np.ndarray]:
+    """``shard_footprints`` memoised like the partition: a reused plan
+    reads A's indices back and derives its footprints once."""
+    key = (id(plan), int(row_chunk), int(n_shards),
+           None if group_engines is None else tuple(group_engines))
+    fps = _FOOTPRINT_CACHE.get(key)
+    if fps is None:
+        nnz = int(a_indptr[-1])
+        fps = shard_footprints(items, a_indptr,
+                               a.indices[:nnz].cpu().numpy(), n_shards)
+        _FOOTPRINT_CACHE[key] = fps
+        weakref.finalize(plan, _FOOTPRINT_CACHE.pop, key, None)
+    return fps
+
+
+def _resolve_footprints(operands: str, plan, items, a, a_indptr, row_chunk,
+                        n_shards, group_engines, n_b: int):
+    """The ``operands=`` policy: None (full replicas everywhere), or one
+    entry a shard, its footprint rows or None for that shard's replica.
+    ``"auto"`` engages on more than one shard only (one shard's footprint
+    is the whole support: nothing to save)."""
+    if operands == "replicate" or (operands == "auto" and n_shards == 1):
+        return None
+    raw = _shard_footprints_cached(plan, items, a, a_indptr, row_chunk,
+                                   n_shards, group_engines)
+    limit = FOOTPRINT_THRESHOLD * max(n_b, 1)
+    fps = [fp if operands == "footprint" or len(fp) < limit else None
+           for fp in raw]
+    return None if all(fp is None for fp in fps) else fps
+
+
+def _shard_a_operands(a_tensors: Sequence[torch.Tensor],
+                      devices) -> List[tuple]:
+    """A's tensors on every shard's device (the identity where a shard is
+    on A's own device).  A is placed per call; B's placements ride the
+    ``OperandCache``."""
+    return [tuple(replicate_to(x, dev) for x in a_tensors)
+            for dev in devices]
 
 
 # ---------------------------------------------------------------------------
@@ -890,67 +1091,89 @@ def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _chunk_rows(items: List[WorkItem], device) -> Tuple[torch.Tensor,
-                                                         List[torch.Tensor]]:
-    """Every chunk's row ids, padded to ``ROW_QUANTUM`` with -1, uploaded in
-    one copy; returns the whole stream and one view per chunk."""
+def _chunk_rows(items: List[WorkItem], devices
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Every chunk's row ids, padded to ``ROW_QUANTUM`` with -1: the whole
+    stream on the merge device in one copy, and each chunk's view on its
+    shard's device (a shard on another device gets its chunks' rows in one
+    copy of its own)."""
     parts = []
     for item in items:
         pad = _pad_rows(len(item.rows)) - len(item.rows)
         parts.append(np.concatenate([item.rows.astype(np.int32),
                                      np.full(pad, -1, np.int32)]))
+    merge = merge_device(devices)
     if not parts:
-        return torch.zeros(0, dtype=torch.int32, device=device), []
-    rows_all = _upload(np.concatenate(parts), device)
-    return rows_all, list(torch.split(rows_all, [len(p) for p in parts]))
+        return torch.zeros(0, dtype=torch.int32, device=merge), []
+    rows_all = _upload(np.concatenate(parts), merge)
+    views = list(torch.split(rows_all, [len(p) for p in parts]))
+    for dev in set(devices) - {merge}:
+        mine = [i for i, item in enumerate(items)
+                if devices[item.shard] == dev]
+        if mine:
+            up = _upload(np.concatenate([parts[i] for i in mine]), dev)
+            for i, v in zip(mine, torch.split(up, [len(parts[i])
+                                                   for i in mine])):
+                views[i] = v
+    return rows_all, views
 
 
-def _coalesced_sync(counts: List[torch.Tensor]) -> List[np.ndarray]:
+def _coalesced_sync(counts: List[torch.Tensor], merge) -> List[np.ndarray]:
     """The measured lane's one blocking read: every chunk's uniqueCounts,
-    already queued, come back in a single device-to-host copy."""
+    already queued on their shards, gathered on the merge device and read
+    back in a single device-to-host copy."""
     if not counts:
         return []
     _SYNC_STATS["host_sync_count"] += 1
-    host = torch.cat(counts).cpu().numpy()
+    host = torch.cat([replicate_to(c, merge) for c in counts]).cpu().numpy()
     return np.split(host, np.cumsum([len(c) for c in counts])[:-1])
 
 
 @dataclasses.dataclass(frozen=True)
 class _Operands:
-    """One call's operands on the device: A's structure with one value set
+    """One shard's operands on its device: A's structure with one value set
     ``(cap,)`` or a batch ``(B, cap)``; B's ELL index plane and its value
-    plane, ``(n_b, kb)`` or the batch folded ``(n_b, B * kb)``."""
+    plane, ``(n_b, kb)`` or the batch folded ``(n_b, B * kb)`` (a
+    footprint block's rows when ``remap`` is set: B's global row ids to
+    the block's)."""
 
     a_indptr: torch.Tensor
     a_indices: torch.Tensor
     a_data: torch.Tensor
     b_idx: torch.Tensor
     b_val: torch.Tensor
+    remap: Optional[torch.Tensor] = None
     batch: Optional[int] = None
 
 
 @dataclasses.dataclass
 class _Setup:
-    """A call's resolved knobs and its chunks."""
+    """A call's resolved knobs, its shards and its chunks."""
 
     engine: str
     mode: str  # "measured", "planned" or "legacy"
     gather: str
     kb_cap: int
     ncol_cap: int
+    devices: list
+    footprints: Optional[list]
     items: List[WorkItem]
     rows_all: torch.Tensor
     chunk_rows: List[torch.Tensor]
+
+    @property
+    def merge(self) -> torch.device:
+        return self.devices[0]
 
 
 def _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
            autotune, operands) -> _Setup:
     """Validate and resolve the knobs (``engine="auto"`` through the plan's
     forced ``group_engines`` or the autotune cache), then read A's and B's
-    ``indptr`` back once to cut the plan into chunks and size B's ELL."""
-    device = operand_device(a, b)
-    refuse_mesh(mesh)
-    resolve_operands(operands)
+    ``indptr`` back once to cut the plan into chunks, deal them to the
+    shards and size B's ELL; resolve each shard's placement of B."""
+    devices = mesh_devices(mesh, a, b)
+    operands = resolve_operands(operands)
     if row_chunk < 1:
         raise ValueError(f"row_chunk must be >= 1; got {row_chunk}")
     if pipeline not in ("two_wave", "legacy"):
@@ -959,7 +1182,7 @@ def _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
     group_engines = plan.group_engines
     if group_engines is None and engine == AUTO_ENGINE:
         group_engines = _autotune_assignment(a, b, plan, gather, row_chunk,
-                                             pipeline, autotune)
+                                             mesh, pipeline, autotune)
     for name in group_engines or (engine,):
         get_engine(name)  # the whole assignment, before any dispatch
     mode = resolve_sizing(sizing, engine, plan, group_engines)
@@ -969,23 +1192,32 @@ def _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
                 "sizing='planned' requires pipeline='two_wave' (the legacy "
                 "reference lane sizes each chunk from a blocking read)")
         mode = "legacy"
-    gather = resolve_gather(gather, device)
+    gather = resolve_gather(gather, devices[0])
     indptrs = torch.cat([a.indptr, b.indptr]).cpu().numpy().astype(np.int64)
-    a_row_nnz = np.diff(indptrs[: a.n_rows + 1])
+    a_indptr = indptrs[: a.n_rows + 1]
     kb_cap = int(np.diff(indptrs[a.n_rows + 1:]).max(initial=0)) or 1
-    items = partition_plan(plan, a_row_nnz, row_chunk, group_engines)
-    rows_all, chunk_rows = _chunk_rows(items, device)
+    n_shards = len(devices)
+    items = partition_plan_cached(plan, np.diff(a_indptr), row_chunk,
+                                  n_shards, group_engines)
+    footprints = _resolve_footprints(operands, plan, items, a, a_indptr,
+                                     row_chunk, n_shards, group_engines,
+                                     b.n_rows)
+    rows_all, chunk_rows = _chunk_rows(items, devices)
     return _Setup(engine, mode, gather, kb_cap, next_pow2(max(b.n_cols, 1)),
-                  items, rows_all, chunk_rows)
+                  devices, footprints, items, rows_all, chunk_rows)
 
 
 def _enumerate(ops: _Operands, rows: torch.Tensor, item: WorkItem,
                gather: str):
-    """A-row gather → B-row gather → intermediate products of one chunk.
-    On the batched lane one gather of the folded plane serves every member;
-    its rows unfold to (B, R, a_cap, kb)."""
+    """A-row gather → B-row gather → intermediate products of one chunk,
+    on its shard.  Through a footprint block, A's column ids are remapped
+    to the block's rows first (a column the block lacks becomes padding).
+    On the batched lane one gather of the folded plane serves every
+    member; its rows unfold to (B, R, a_cap, kb)."""
     cols_a, vals_a = phases.gather_group_rows(ops.a_indptr, ops.a_indices,
                                               ops.a_data, rows, item.a_cap)
+    if ops.remap is not None:
+        cols_a = phases.remap_columns(cols_a, ops.remap)
     bi, bv = GATHERS[gather](ops.b_idx, ops.b_val, cols_a)
     if ops.batch is not None:
         r, a_cap, kb = bi.shape
@@ -995,7 +1227,7 @@ def _enumerate(ops: _Operands, rows: torch.Tensor, item: WorkItem,
 
 @dataclasses.dataclass
 class _ChunkRun:
-    """One chunk's accumulated output, on the device."""
+    """One chunk's accumulated output, on its shard's device."""
 
     rows: torch.Tensor    # (R_pad,) row ids, -1 = padding
     cols: torch.Tensor    # (R_pad, out_cap)
@@ -1003,16 +1235,19 @@ class _ChunkRun:
     counts: torch.Tensor  # (R_pad,)
 
 
-def _run_measured(ops: _Operands, s: _Setup):
-    """Two waves around one coalesced read of every chunk's uniqueCounts."""
+def _run_measured(ops: List[_Operands], s: _Setup):
+    """Two waves around one coalesced read of every chunk's uniqueCounts
+    (all shards'); returns the runs, nnz, the capacity and each chunk's
+    nnz."""
     pend = []
     for item, rows in zip(s.items, s.chunk_rows):
         eng = get_engine(item.engine or s.engine)
-        keys, vals = _enumerate(ops, rows, item, s.gather)
+        keys, vals = _enumerate(ops[item.shard], rows, item, s.gather)
         pend.append((eng, keys, vals, eng.allocate(keys, item.table_cap)))
     unique = _coalesced_sync(
-        [p[3][: len(item.rows)] for p, item in zip(pend, s.items)])
-    nnz = int(sum(int(u.sum()) for u in unique))
+        [p[3][: len(item.rows)] for p, item in zip(pend, s.items)], s.merge)
+    chunk_nnz = [int(u.sum()) for u in unique]
+    nnz = sum(chunk_nnz)
     runs = []
     for i, (item, rows) in enumerate(zip(s.items, s.chunk_rows)):
         eng, keys, vals, _ = pend[i]
@@ -1021,11 +1256,13 @@ def _run_measured(ops: _Operands, s: _Setup):
                            s.ncol_cap)
         runs.append(_ChunkRun(rows, *eng.accumulate(keys, vals,
                                                     item.table_cap, out_cap)))
-    return runs, nnz, _int32_nnz_capacity(nnz)
+    return runs, nnz, _int32_nnz_capacity(nnz), chunk_nnz
 
 
-def _run_planned(ops: _Operands, s: _Setup, plan: GroupPlan, ncol: int):
-    """Sizes from the plan's Alg. 1 bounds: nothing is read back."""
+def _run_planned(ops: List[_Operands], s: _Setup, plan: GroupPlan,
+                 ncol: int):
+    """Sizes from the plan's Alg. 1 bounds: nothing is read back.  Returns
+    the runs, the capacity and each chunk's nnz bound."""
     bounds = [chunk_capacity_bounds(plan, item.rows, ncol)
               for item in s.items]
     runs = []
@@ -1035,14 +1272,15 @@ def _run_planned(ops: _Operands, s: _Setup, plan: GroupPlan, ncol: int):
             # Chaos hook: a capacity below the chunk's uniqueCounts, so the
             # overflow flag and the measured-capacity retry run.
             out_cap = 1
-        keys, vals = _enumerate(ops, rows, item, s.gather)
+        keys, vals = _enumerate(ops[item.shard], rows, item, s.gather)
         runs.append(_ChunkRun(rows, *get_engine(item.engine or s.engine)
                               .accumulate(keys, vals, item.table_cap,
                                           out_cap)))
-    return runs, _int32_nnz_capacity(sum(t for _, t in bounds))
+    return runs, _int32_nnz_capacity(sum(t for _, t in bounds)), \
+        [t for _, t in bounds]
 
 
-def _capacity_overflow(runs: List[_ChunkRun]) -> bool:
+def _capacity_overflow(runs: List[_ChunkRun], merge) -> bool:
     """The planned lane's overflow flag: a chunk whose true uniqueCounts
     (the engines never clip them) pass its output width was trimmed.  It
     is computed and read only while ``capacity_undersize`` is armed: a
@@ -1050,31 +1288,79 @@ def _capacity_overflow(runs: List[_ChunkRun]) -> bool:
     lane keeps ``host_sync_count`` 0."""
     if not runs or not faults.armed("capacity_undersize"):
         return False
-    return bool(torch.stack([(r.counts > r.cols.shape[1]).any()
-                             for r in runs]).any())
+    return bool(torch.stack([
+        replicate_to((r.counts > r.cols.shape[1]).any(), merge)
+        for r in runs]).any())
 
 
-def _epilogue(runs: List[_ChunkRun], rows_all: torch.Tensor, n: int,
-              cap: int, dtype, device, batch: Optional[int]):
-    """Build the int32 indptr on the device from the chunks' counts, then
-    scatter every chunk's rows into the (cap,) index and value buffers
-    (value buffers (B, cap) on the batched lane: one structure)."""
-    counts_all = torch.zeros(n + 1, dtype=torch.int32, device=device)
+def _shard_seg_caps(items: Sequence[WorkItem], n_shards: int,
+                    chunk_nnz: Sequence[int]) -> List[int]:
+    """Each shard's segment capacity (pow2), from its chunks' nnz: the
+    measured counts or the planned bounds; 0 for a shard with none."""
+    totals = [0] * n_shards
+    for item, nnz in zip(items, chunk_nnz):
+        totals[item.shard] += int(nnz)
+    return [next_pow2(t) if t > 0 else 0 for t in totals]
+
+
+def _epilogue(runs: List[_ChunkRun], s: _Setup, n: int, cap: int, dtype,
+              batch: Optional[int], chunk_nnz: Sequence[int]):
+    """Build the int32 indptr on the merge device from the chunks' counts,
+    then reassemble the (cap,) index and value buffers there (value buffers
+    (B, cap) on the batched lane: one structure).  One shard: every chunk
+    scatters straight into them.  More: each chunk packs into its shard's
+    segment on the shard's device (``phases.reassemble_segment``; buffers
+    a shard, never shared), then one merge scatter a shard
+    (``phases.merge_segments``)."""
+    merge = s.merge
+    counts_all = torch.zeros(n + 1, dtype=torch.int32, device=merge)
     if runs:  # padding rows (-1) land in the extra slot n; their count is 0
-        dest = torch.where(rows_all < 0, n, rows_all).long()
-        counts_all[dest] = torch.cat([r.counts for r in runs])
-    indptr = torch.zeros(n + 1, dtype=torch.int32, device=device)
+        dest = torch.where(s.rows_all < 0, n, s.rows_all).long()
+        counts_all[dest] = torch.cat([replicate_to(r.counts, merge)
+                                      for r in runs])
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=merge)
     indptr[1:] = torch.cumsum(counts_all[:n], 0, dtype=torch.int32)
     lead = () if batch is None else (batch,)
-    idx_buf = torch.zeros(cap + 1, dtype=torch.int32, device=device)
-    dat_buf = torch.zeros(lead + (cap + 1,), dtype=dtype, device=device)
-    for run in runs:
-        phases.reassemble_device(idx_buf, dat_buf, run.cols, run.vals,
-                                 run.counts, indptr[run.rows.clamp(min=0)])
+    idx_buf = torch.zeros(cap + 1, dtype=torch.int32, device=merge)
+    dat_buf = torch.zeros(lead + (cap + 1,), dtype=dtype, device=merge)
+    if len(s.devices) == 1:
+        for run in runs:
+            phases.reassemble_device(idx_buf, dat_buf, run.cols, run.vals,
+                                     run.counts,
+                                     indptr[run.rows.clamp(min=0)])
+        return indptr, idx_buf[:cap], dat_buf[..., :cap]
+    segs = {}
+    for sh, seg_cap in enumerate(_shard_seg_caps(s.items, len(s.devices),
+                                                 chunk_nnz)):
+        if seg_cap:  # a shard whose rows hold no output has no segment
+            dev = s.devices[sh]
+            segs[sh] = [
+                torch.zeros(seg_cap + 1, dtype=torch.int32, device=dev),
+                torch.zeros(lead + (seg_cap + 1,), dtype=dtype, device=dev),
+                # the sentinel: the final capacity, the merge's sink slot
+                torch.full((seg_cap + 1,), cap, dtype=torch.int32,
+                           device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev)]
+    indptr_on = {merge: indptr}
+    for item, run in zip(s.items, runs):
+        seg = segs.get(item.shard)
+        if seg is None:
+            continue
+        dev = s.devices[item.shard]
+        if dev not in indptr_on:
+            indptr_on[dev] = replicate_to(indptr, dev)
+        seg[:] = phases.reassemble_segment(
+            *seg, run.cols, run.vals, run.counts,
+            indptr_on[dev][run.rows.clamp(min=0)])
+    for sh in sorted(segs):
+        seg_idx, seg_dat, dest, _ = segs.pop(sh)
+        phases.merge_segments(idx_buf, dat_buf, replicate_to(seg_idx, merge),
+                              replicate_to(seg_dat, merge),
+                              replicate_to(dest, merge))
     return indptr, idx_buf[:cap], dat_buf[..., :cap]
 
 
-def _run_legacy(ops: _Operands, s: _Setup, n: int, dtype, device):
+def _run_legacy(ops: List[_Operands], s: _Setup, n: int, dtype):
     """The reference lane: one blocking read of the uniqueCounts per chunk
     (``host_sync_count`` one a chunk), each chunk's output copied to the
     host, and the CSR reassembled there at its exact nnz."""
@@ -1082,7 +1368,7 @@ def _run_legacy(ops: _Operands, s: _Setup, n: int, dtype, device):
     counts_all = torch.zeros(n, dtype=torch.int64)
     for item, rows in zip(s.items, s.chunk_rows):
         eng = get_engine(item.engine or s.engine)
-        keys, vals = _enumerate(ops, rows, item, s.gather)
+        keys, vals = _enumerate(ops[item.shard], rows, item, s.gather)
         _SYNC_STATS["host_sync_count"] += 1
         unique = eng.allocate(keys, item.table_cap).cpu()
         out_cap = _out_cap(int(unique.max()) if unique.numel() else 0,
@@ -1097,7 +1383,7 @@ def _run_legacy(ops: _Operands, s: _Setup, n: int, dtype, device):
     indptr[1:] = torch.cumsum(counts_all, 0)
     nnz = int(indptr[-1])
     cap = max(nnz, 1)
-    lead = () if ops.batch is None else (ops.batch,)
+    lead = () if ops[0].batch is None else (ops[0].batch,)
     indices = torch.zeros(cap, dtype=torch.int32)
     data = torch.zeros(lead + (cap,), dtype=dtype)
     for ids, cols, out_vals, counts in chunks:
@@ -1106,20 +1392,22 @@ def _run_legacy(ops: _Operands, s: _Setup, n: int, dtype, device):
         pos = (indptr[ids][:, None] + offs)[ok]
         indices[pos] = cols[ok]
         data[..., pos] = out_vals[..., ok]
-    return (indptr.to(torch.int32).to(device), indices.to(device),
-            data.to(device), nnz)
+    return (indptr.to(torch.int32).to(s.merge), indices.to(s.merge),
+            data.to(s.merge), nnz)
 
 
-def _execute(ops: _Operands, s: _Setup, plan: GroupPlan, n: int, ncol: int,
-             device):
-    """Run the chunks on ``s.mode``'s lane; (indptr, indices, data, nnz)."""
-    dtype = ops.a_data.dtype
+def _execute(ops: List[_Operands], s: _Setup, plan: GroupPlan, n: int,
+             ncol: int):
+    """Run the chunks on ``s.mode``'s lane; (indptr, indices, data, nnz)
+    on the merge device."""
+    dtype = ops[0].a_data.dtype
+    batch = ops[0].batch
     if s.mode == "legacy":
-        return _run_legacy(ops, s, n, dtype, device)
+        return _run_legacy(ops, s, n, dtype)
     mode = s.mode
     if mode == "planned":
-        runs, cap = _run_planned(ops, s, plan, ncol)
-        if _capacity_overflow(runs):
+        runs, cap, chunk_nnz = _run_planned(ops, s, plan, ncol)
+        if _capacity_overflow(runs, s.merge):
             # An under-sized chunk makes the whole planned result
             # untrustworthy: drop it before the epilogue and re-run every
             # chunk on the measured lane, sized from the real counts.
@@ -1127,9 +1415,9 @@ def _execute(ops: _Operands, s: _Setup, plan: GroupPlan, n: int, ncol: int,
             runs = None
             mode = "measured"
     if mode == "measured":
-        runs, nnz, cap = _run_measured(ops, s)
-    indptr, indices, data = _epilogue(runs, s.rows_all, n, cap, dtype,
-                                      device, ops.batch)
+        runs, nnz, cap, chunk_nnz = _run_measured(ops, s)
+    indptr, indices, data = _epilogue(runs, s, n, cap, dtype, batch,
+                                      chunk_nnz)
     if mode == "planned":
         nnz = indptr[-1]
     return indptr, indices, data, nnz
@@ -1146,67 +1434,92 @@ def _operand_cache(operand_cache: Optional[OperandCache]) -> OperandCache:
     return _OPERAND_CACHE if operand_cache is None else operand_cache
 
 
+def _placed_b(b: CSR, s: _Setup, operand_cache) -> _OperandEntry:
+    """B's ELL placed on the shards through the operand cache; a failed
+    placement (the ``gather_fail`` fault point) is re-issued once, since
+    it is a pure function of B and the shards."""
+    ocache = _operand_cache(operand_cache)
+    try:
+        faults.fire("gather_fail")
+        return ocache.b_operands(b, s.kb_cap, s.devices, s.footprints)
+    except faults.FaultInjected:
+        return ocache.b_operands(b, s.kb_cap, s.devices, s.footprints)
+
+
 def execute_plan(a: CSR, b: CSR, plan: GroupPlan, engine: str = "sort",
                  gather: Gather = "auto", row_chunk: int = 4096, mesh=None,
                  pipeline: Pipeline = "two_wave", sizing: Sizing = "auto",
                  autotune: Optional[AutotuneCache] = None,
                  operands: Operands = "auto",
                  operand_cache: Optional[OperandCache] = None):
-    """Run the group pipeline on the operands' device; returns (C, nnz_C).
+    """Run the group pipeline; returns (C, nnz_C) on the merge device.
 
     ``sizing="measured"`` reads every chunk's uniqueCounts back in one
-    coalesced copy and returns ``nnz`` as an int; ``"planned"`` sizes from
-    the plan's Alg. 1 bounds, reads nothing back and returns ``nnz`` as a
-    0-d device tensor; ``"auto"`` is planned when every engine the call
-    dispatches is fused, measured otherwise.  ``pipeline="legacy"`` reads
-    each chunk's counts back on its own and reassembles on the host.
-    ``engine="auto"`` dispatches one engine per Table-I bin: the plan's
-    ``group_engines`` when set (which also wins over a concrete engine),
-    else the ``autotune`` cache's assignment (the module cache when None).
+    coalesced copy (all shards') and returns ``nnz`` as an int;
+    ``"planned"`` sizes from the plan's Alg. 1 bounds, reads nothing back
+    and returns ``nnz`` as a 0-d device tensor; ``"auto"`` is planned when
+    every engine the call dispatches is fused, measured otherwise.
+    ``pipeline="legacy"`` reads each chunk's counts back on its own and
+    reassembles on the host.  ``engine="auto"`` dispatches one engine per
+    Table-I bin: the plan's ``group_engines`` when set (which also wins
+    over a concrete engine), else the ``autotune`` cache's assignment (the
+    module cache when None).  ``mesh`` deals the chunks to its shards
+    (``partition_plan``); A and B must be on its merge device (its first).
+    ``operands`` places B on the shards (``resolve_operands``);
     ``operand_cache`` scopes B's ELL cache (the module cache when None).
-    ``mesh`` must be None and ``operands`` ``"auto"`` or ``"replicate"``
-    (one device).  On a CUDA device the hash engines need float32 values.
-    A plan whose ``estimated_device_bytes`` exceed ``set_device_budget``
-    raises ``DeviceBudgetExceeded`` before anything is allocated.
+    Every mesh, placement and lane gives the ``mesh=None`` result: bit for
+    bit where the lane is deterministic.  On a CUDA device the hash
+    engines need float32 values.  A plan whose ``estimated_device_bytes``
+    exceed ``set_device_budget`` raises ``DeviceBudgetExceeded`` before
+    anything is allocated.
     """
     _check_budget(plan, a.data.dtype)
     s = _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
                autotune, operands)
-    ocache = _operand_cache(operand_cache)
-    try:
-        faults.fire("gather_fail")
-        b_ell = ocache.b_operands(b, s.kb_cap).b_ell
-    except faults.FaultInjected:
-        # B's ELL is a pure function of B: one re-issue recovers.
-        b_ell = ocache.b_operands(b, s.kb_cap).b_ell
-    ops = _Operands(a.indptr, a.indices, a.data, b_ell.indices, b_ell.data)
-    indptr, indices, data, nnz = _execute(ops, s, plan, a.n_rows, b.n_cols,
-                                          a.device)
+    entry = _placed_b(b, s, operand_cache)
+    ops = [_Operands(*a_sh, *b_sh) for a_sh, b_sh in zip(
+        _shard_a_operands((a.indptr, a.indices, a.data), s.devices),
+        entry.shards)]
+    indptr, indices, data, nnz = _execute(ops, s, plan, a.n_rows, b.n_cols)
     return CSR(indptr, indices, data, (a.n_rows, b.n_cols)), nnz
 
 
 def _batched_operands(a: CSR, b: CSR, a_data_batch, b_data_batch,
-                      kb_cap: int, operand_cache) -> _Operands:
-    """The batched lane's operands: A's value stack, B's cached ELL index
-    plane, and B's value planes folded ``(n_b, batch * kb)`` (``b.data``
-    repeated when ``b_data_batch`` is None: one B for every member)."""
+                      s: _Setup, operand_cache) -> List[_Operands]:
+    """The batched lane's operands on every shard: A's value stack, B's
+    cached ELL index plane (or footprint block), and B's value planes
+    folded ``(n_b, batch * kb)`` (``b.data`` repeated when ``b_data_batch``
+    is None: one B for every member), cut to the shard's footprint rows
+    where it has a block."""
     a_data_batch = torch.as_tensor(a_data_batch, device=a.device)
     if a_data_batch.dim() != 2:
         raise ValueError(f"a_data_batch must be (batch, capacity), got "
                          f"{tuple(a_data_batch.shape)}")
     batch = a_data_batch.shape[0]
-    b_ell = _operand_cache(operand_cache).b_operands(b, kb_cap).b_ell
-    if b_data_batch is None:
-        b_val = b_ell.data.repeat(1, batch)
-    else:
+    entry = _operand_cache(operand_cache).b_operands(b, s.kb_cap, s.devices,
+                                                     s.footprints)
+    folded = None
+    if b_data_batch is not None:
         b_data_batch = torch.as_tensor(b_data_batch, device=b.device)
         if b_data_batch.shape[0] != batch:
             raise ValueError(
                 f"batch mismatch: {batch} A value sets vs "
                 f"{b_data_batch.shape[0]} B value sets")
-        b_val = ell_values_folded(b, kb_cap, b_data_batch)
-    return _Operands(a.indptr, a.indices, a_data_batch, b_ell.indices, b_val,
-                     batch)
+        folded = ell_values_folded(b, s.kb_cap, b_data_batch)
+    fps = entry.footprints or [None] * len(s.devices)
+    out = []
+    for a_sh, (b_idx, b_val, remap), fp, dev in zip(
+            _shard_a_operands((a.indptr, a.indices, a_data_batch),
+                              s.devices), entry.shards, fps, s.devices):
+        if folded is None:
+            val = b_val.repeat(1, batch)
+        elif fp is None:
+            val = replicate_to(folded, dev)
+        else:
+            sel = torch.from_numpy(np.asarray(fp, np.int64)).to(b.device)
+            val = replicate_to(folded.index_select(0, sel), dev)
+        out.append(_Operands(*a_sh, b_idx, val, remap, batch))
+    return out
 
 
 def execute_plan_batched(
@@ -1233,7 +1546,9 @@ def execute_plan_batched(
     (``None``: ``b.data`` for every member).  Keys, sizing (one coalesced
     read for the whole batch on the measured lane, none on the planned
     lane), output structure and reassembly offsets are computed once per
-    chunk; only the value streams carry the batch axis.  Member i's result
+    chunk; only the value streams carry the batch axis.  Under a mesh the
+    whole batch rides one shard assignment, and a shard with a footprint
+    block takes those rows of the folded value plane.  Member i's result
     is ``CSR(indptr, indices, data_batch[i], (a.n_rows, b.n_cols))``, the
     same as ``execute_plan`` on member i's values (bit for bit on the CPU).
     Every knob means what it means for ``execute_plan``.
@@ -1242,9 +1557,9 @@ def execute_plan_batched(
         plan = group_rows(a, b)
     s = _setup(a, b, plan, engine, gather, row_chunk, mesh, pipeline, sizing,
                autotune, operands)
-    ops = _batched_operands(a, b, a_data_batch, b_data_batch, s.kb_cap,
+    ops = _batched_operands(a, b, a_data_batch, b_data_batch, s,
                             operand_cache)
-    return _execute(ops, s, plan, a.n_rows, b.n_cols, a.device)
+    return _execute(ops, s, plan, a.n_rows, b.n_cols)
 
 
 # ---------------------------------------------------------------------------
@@ -1293,10 +1608,11 @@ def execute_plan_streamed(
     through the lane's ``PlanCache`` (fingerprinted on the host slices, so
     a tile hits whichever device it went to; a miss plans on the staged
     tile) and run by ``execute_plan`` with every knob as it means there,
-    the budget checked per tile.  Up to ``prefetch`` tiles are staged at
-    once: the next tiles are staged after this tile's work is dispatched
-    and before its result is read back, so their copies overlap its
-    compute.  Each tile's compact segment (exact nnz) comes back to the
+    ``mesh`` included (B on the mesh's merge device, which each tile's
+    call fans out to the shards), the budget checked per tile.  Up to
+    ``prefetch`` tiles are staged at once: the next tiles are staged after
+    this tile's work is dispatched and before its result is read back, so
+    their copies overlap its compute.  Each tile's compact segment (exact nnz) comes back to the
     host and is merged there with ``phases.merge_segments_host``; C is
     returned on B's device.  Tiles are disjoint row blocks and each row is
     planned into the same Table-I bin as in the whole call, so C is the
@@ -1306,7 +1622,10 @@ def execute_plan_streamed(
     """
     from repro_torch.launch.sharding import stage_tile
 
-    refuse_mesh(mesh)
+    if mesh is not None and b.device != merge_device(shard_devices(mesh)):
+        raise ValueError(
+            f"B is on {b.device} but the mesh's merge device (its first) is "
+            f"{merge_device(shard_devices(mesh))}; place B there")
     t_rows = resolve_tile_rows(tile_rows)
     depth = resolve_prefetch(prefetch)
     if plan is not None and not isinstance(plan, PlanCache):
@@ -1375,8 +1694,8 @@ def execute_plan_streamed(
                 else tplan
             run = execute_plan(
                 tile_dev, b, run_plan, engine=engine, gather=gather,
-                row_chunk=row_chunk, pipeline=pipeline, sizing=sizing,
-                autotune=autotune, operands=operands,
+                row_chunk=row_chunk, mesh=mesh, pipeline=pipeline,
+                sizing=sizing, autotune=autotune, operands=operands,
                 operand_cache=operand_cache)
         # stage the next tiles while this tile's work runs, then read back
         while next_tile[0] < len(tiles) and len(staged) < depth - 1:

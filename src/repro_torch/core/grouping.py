@@ -71,6 +71,13 @@ def assign_groups(ip: np.ndarray) -> np.ndarray:
                            side="right").astype(np.int32)
 
 
+def build_map(ip) -> np.ndarray:
+    """The paper's Map: the rows' stable argsort by group id (int32).
+    ``ip`` is a host array or a tensor on any device."""
+    ip = ip.cpu().numpy() if hasattr(ip, "cpu") else ip
+    return np.argsort(assign_groups(ip), kind="stable").astype(np.int32)
+
+
 def _pad_size(n: int, quantum: int = 64) -> int:
     if n == 0:
         return 0
@@ -107,3 +114,29 @@ def group_rows(a: CSR, b: CSR, pad_quantum: int = 64) -> GroupPlan:
         total_ip=int(ip.sum()),
         row_ip=ip.astype(np.int64),
     )
+
+
+def support_footprint(indptr: np.ndarray, indices: np.ndarray,
+                      rows: np.ndarray) -> np.ndarray:
+    """Sorted unique column ids of A on ``rows``: the B rows that the
+    chunks owning those rows read, and nothing else.  Host arithmetic on
+    A's structure, with no loop over rows and no sort (the ids are marked
+    in a table of B's rows)."""
+    indptr = np.asarray(indptr, np.int64)
+    indices = np.asarray(indices)
+    rows = np.asarray(rows, np.int64)
+    if rows.size == 0:
+        return np.empty(0, np.int64)
+    starts = indptr[rows]
+    counts = indptr[rows + 1] - starts
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, np.int64)
+    # every (row, slot) pair's flat slot id
+    offsets = np.zeros(len(counts), np.int64)
+    np.cumsum(counts[:-1], out=offsets[1:])
+    flat = np.repeat(starts - offsets, counts) + np.arange(total)
+    cols = np.asarray(indices[flat], np.int64)
+    seen = np.zeros(int(cols.max()) + 1, bool)
+    seen[cols] = True
+    return np.flatnonzero(seen)

@@ -20,3 +20,20 @@ def intermediate_products(a: CSR, b: CSR) -> torch.Tensor:
     ip = torch.zeros(a.n_rows + 1, dtype=torch.int32, device=a.device)
     ip.index_add_(0, a.row_ids().long(), contrib.to(torch.int32))
     return ip[: a.n_rows]
+
+
+def total_intermediate_products(a: CSR, b: CSR) -> torch.Tensor:
+    """Sum of IP, the paper's FLOP basis (GFLOPS = 2 * total IP / time):
+    a 0-d tensor on A's device."""
+    return intermediate_products(a, b).sum()
+
+
+def ip_histogram(ip: torch.Tensor, boundaries=(32, 512, 8192)
+                 ) -> torch.Tensor:
+    """Row count of each Table-I group (log-binned), int32, on ``ip``'s
+    device."""
+    ip = torch.as_tensor(ip)
+    b = torch.as_tensor(boundaries, dtype=ip.dtype, device=ip.device)
+    group = torch.searchsorted(b, ip, right=True)
+    return torch.bincount(group, minlength=len(boundaries) + 1).to(
+        torch.int32)

@@ -20,8 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.hash_accum import (
-    hash_accumulate, hash_accumulate_sorted)
+# the module, not its names: kernels.hash_accum imports core.hashtable, so
+# importing it first runs this module while it is still loading
+from repro_torch.kernels import hash_accum
 
 INT_MAX = 2**31 - 1
 
@@ -65,6 +66,16 @@ def combine_products(cols_a, vals_a, bi, bv):
     return keys, vals.reshape(*vals.shape[:-3], r, a_cap * kb).contiguous()
 
 
+def remap_columns(cols, remap):
+    """Global A-column ids -> rows of a shard's footprint block of B.
+
+    ``remap`` is the block's (n_rows(B),) int32 map, ``-1`` for a row the
+    block does not hold.  Padding (``cols < 0``) stays -1, and so does a
+    column the block lacks, which ``combine_products`` then masks."""
+    safe = cols.clamp(0, remap.shape[0] - 1).long()
+    return torch.where(cols >= 0, remap[safe], -1)
+
+
 def enumerate_products(cols_a, vals_a, b_idx, b_val):
     """Per-row intermediate products through a plain row take of B's ELL.
 
@@ -83,12 +94,12 @@ def enumerate_products(cols_a, vals_a, b_idx, b_val):
 def allocate_hash(keys, table_cap: int):
     """uniqueCount per row (Algorithms 2/3 output).  keys: (R, ip_cap)."""
     zeros = torch.zeros(keys.shape, dtype=torch.float32, device=keys.device)
-    return hash_accumulate(keys, zeros, table_cap)[2]
+    return hash_accum.hash_accumulate(keys, zeros, table_cap)[2]
 
 
 def accumulate_hash(keys, vals, table_cap: int):
     """(cols, vals, counts) per row, column-sorted (Algorithm 5 output)."""
-    return hash_accumulate_sorted(keys, vals, table_cap, table_cap)
+    return hash_accum.hash_accumulate_sorted(keys, vals, table_cap, table_cap)
 
 
 def fused_hash_sorted(keys, vals, table_cap: int, out_cap: int):
@@ -100,8 +111,9 @@ def fused_hash_sorted(keys, vals, table_cap: int, out_cap: int):
     member on CUDA); every member has the same cols and counts, so member
     0's are returned beside the (B, R, out_cap) values."""
     if vals.dim() == 2:
-        return hash_accumulate_sorted(keys, vals, table_cap, out_cap)
-    outs = [hash_accumulate_sorted(keys, v, table_cap, out_cap)
+        return hash_accum.hash_accumulate_sorted(keys, vals, table_cap,
+                                                 out_cap)
+    outs = [hash_accum.hash_accumulate_sorted(keys, v, table_cap, out_cap)
             for v in vals]
     return outs[0][0], torch.stack([o[1] for o in outs]), outs[0][2]
 
@@ -180,6 +192,66 @@ def reassemble_device(idx_buf, dat_buf, cols, vals, counts, starts):
     idx_buf[pos] = cols
     dat_buf[..., pos] = vals
     return idx_buf, dat_buf
+
+
+# ---------------------------------------------------------------------------
+# Sharded epilogue: shard-local CSR segments + destination-mapped merge
+# ---------------------------------------------------------------------------
+
+def _exclusive_cumsum(x):
+    return torch.cumsum(x, 0, dtype=torch.int32) - x
+
+
+def reassemble_segment(seg_idx, seg_dat, dest, off, cols, vals, counts,
+                       fin_starts):
+    """Pack one chunk's rows densely into its shard's segment and record
+    each slot's position in the final CSR buffers (the shard-local half of
+    the sharded epilogue, on the shard's device).
+
+    seg_idx, seg_dat: (seg_cap + 1,) the segment, with one trailing sink
+                      slot; batched, seg_dat (B, seg_cap + 1) and vals
+                      (B, R_pad, out_cap) over one structure.
+    dest:             (seg_cap + 1,) int32 final position of each slot; it
+                      starts at the final capacity (a sentinel the merge
+                      drops), and the sink slot keeps it.
+    off:              () int32 slots packed so far (a device scalar).
+    cols, vals:       (R_pad, out_cap) the chunk's column-sorted rows.
+    counts:           (R_pad,) int32 per-row occupancy (padding rows 0).
+    fin_starts:       (R_pad,) int32 final CSR start of each row.
+
+    Empty slots, and slots past ``seg_cap``, go to the sink slot.  Updates
+    the buffers in place; returns them and the new offset.
+    """
+    sink = seg_idx.shape[0] - 1
+    offs = torch.arange(cols.shape[1], dtype=torch.int32,
+                        device=cols.device)[None, :]
+    pos = (off + _exclusive_cumsum(counts))[:, None] + offs
+    ok = (offs < counts[:, None]) & (pos < sink)
+    pos = torch.where(ok, pos, sink).long()
+    seg_idx[pos] = cols
+    seg_dat[..., pos] = vals
+    dest[pos] = torch.where(ok, fin_starts[:, None] + offs, dest[sink])
+    return seg_idx, seg_dat, dest, off + counts.sum(dtype=torch.int32)
+
+
+# One structure for every member: the value scatter broadcasts over B.
+reassemble_segment_batched = reassemble_segment
+
+
+def merge_segments(idx_buf, dat_buf, seg_idx, seg_dat, dest):
+    """Scatter one shard's packed segment into the final CSR buffers (on
+    the merge device), which carry one trailing sink slot: positions at or
+    past the capacity, the segment's unused slots, land there.  Updates in
+    place and returns the buffers; ``dat_buf`` may be batched (B, cap + 1)
+    with ``seg_dat`` (B, seg_cap + 1)."""
+    sink = idx_buf.shape[0] - 1
+    pos = torch.where(dest < sink, dest, sink).long()
+    idx_buf[pos] = seg_idx
+    dat_buf[..., pos] = seg_dat
+    return idx_buf, dat_buf
+
+
+merge_segments_batched = merge_segments
 
 
 def merge_segments_host(idx_buf, dat_buf, seg_idx, seg_dat, dest):

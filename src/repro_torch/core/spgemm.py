@@ -8,6 +8,11 @@
      executor (``repro_torch.core.executor``).
   3. **Reassembly** into one CSR in original row order, on the device.
 
+``mesh=`` (a sequence of ``torch.device``s, ``launch.sharding``) deals the
+chunks to its shards, each on its own device, with B placed whole or as a
+footprint block (``operands=``); the operands live on its merge device
+(the first), where the result is assembled.
+
 Amortized entry points:
 
 * ``spgemm(..., plan=)`` — a ``GroupPlan`` is used as it is, a
@@ -35,6 +40,7 @@ import torch
 from repro_torch.core import executor, phases
 from repro_torch.core.executor import PlanCache
 from repro_torch.core.grouping import GroupPlan, group_rows
+from repro_torch.launch.sharding import shard_devices
 from repro_torch.sparse.formats import CSR, ELL
 
 PlanLike = Union[GroupPlan, PlanCache, None]
@@ -109,13 +115,15 @@ def spgemm(
     largest power-of-two ``tile_rows`` whose every tile fits (bit-identical
     on a deterministic lane; ``info["degraded_to_stream"]``,
     ``cache_stats()["budget_degradations"]``); inert with no budget.
-    ``mesh`` must be None and ``operands`` ``"auto"`` or ``"replicate"``:
-    the multi-device lane is not ported.  The façade reads ``nnz`` back
-    once, after every chunk was dispatched, to fill ``info``.
+    ``mesh`` runs the chunks on its shards (``executor.execute_plan``; A
+    and B on its first device) and ``operands`` places B there
+    (``executor.resolve_operands``); every mesh and placement gives the
+    ``mesh=None`` product.  The façade reads ``nnz`` back once, after
+    every chunk was dispatched, to fill ``info``.
     """
     if a.n_cols != b.n_rows:
         raise ValueError(f"shapes {a.shape} and {b.shape} do not chain")
-    executor.operand_device(a, b)
+    executor.mesh_devices(mesh, a, b)
     on_budget = executor.resolve_on_budget(on_budget)
     if schedule not in ("grouped", "natural"):
         raise ValueError(f"unknown schedule {schedule!r}")
@@ -138,10 +146,11 @@ def spgemm(
         mesh=mesh, pipeline=pipeline, sizing=sizing, autotune=autotune,
         operands=operands, operand_cache=operand_cache)
     return SpGEMMResult(c=c, plan=run_plan,
-                        info=spgemm_info(a, b, run_plan, nnz))
+                        info=spgemm_info(a, b, run_plan, nnz, mesh=mesh))
 
 
-def spgemm_info(a: CSR, b: CSR, plan: GroupPlan, nnz_c) -> Dict[str, float]:
+def spgemm_info(a: CSR, b: CSR, plan: GroupPlan, nnz_c,
+                mesh=None) -> Dict[str, float]:
     """Hardware-independent counters; the three nnz values come back from
     the device in one read."""
     nnz_c = torch.as_tensor(nnz_c, device=a.device)
@@ -149,6 +158,7 @@ def spgemm_info(a: CSR, b: CSR, plan: GroupPlan, nnz_c) -> Dict[str, float]:
         [a.nnz.long(), b.nnz.long(), nnz_c.long()]).tolist()
     total_ip = plan.total_ip
     return {
+        "n_shards": len(shard_devices(mesh)),
         "nnz_a": nnz_a,
         "nnz_b": nnz_b,
         "nnz_c": nnz_c,
@@ -236,6 +246,7 @@ def spgemm_streamed(
     nnz_a, nnz_b = torch.stack([a.nnz.long().cpu(),
                                 b.nnz.long().cpu()]).tolist()
     info = {
+        "n_shards": len(shard_devices(mesh)),
         "nnz_a": nnz_a,
         "nnz_b": nnz_b,
         "nnz_c": int(nnz),
@@ -326,7 +337,7 @@ def spgemm_batched(
     a, b = a_members[0], b_members[0]
     if a.n_cols != b.n_rows:
         raise ValueError(f"shapes {a.shape} and {b.shape} do not chain")
-    executor.operand_device(a, b)
+    executor.mesh_devices(mesh, a, b)
     if schedule not in ("grouped", "natural"):
         raise ValueError(f"unknown schedule {schedule!r}")
     engine = executor.resolve_engine(engine, method)
@@ -345,7 +356,7 @@ def spgemm_batched(
         autotune=autotune, operands=operands, operand_cache=operand_cache)
     shape = (a.n_rows, b.n_cols)
     cs = [CSR(indptr, indices, data_batch[i], shape) for i in range(batch)]
-    info = spgemm_info(a, b, run_plan, nnz)
+    info = spgemm_info(a, b, run_plan, nnz, mesh=mesh)
     info["batch"] = batch
     return SpGEMMBatchResult(cs=cs, plan=run_plan, info=info)
 

@@ -10,9 +10,12 @@ TopK products (by dtype), the per-token TopK product (by W2's rows) and
 the hash accumulate (by table size) also count the CUDA route they took in
 ``ROUTE_LAUNCHES``, under ``"<kernel>/<route>"``.
 
-The public wrappers ``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and
-``block_topk_spmm`` keep the reference's signatures (``repro.kernels.ops``),
-``backend=`` included; ``flash_attention_fused`` takes the signature of the
+The public wrappers ``gather_rows``, ``hash_accumulate``,
+``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and ``block_topk_spmm``
+keep the reference's signatures (``repro.kernels.ops``), ``backend=``
+included (the reference's ``resolve_backend`` reads an environment
+variable, which this policy forbids, so it has no counterpart);
+``flash_attention_fused`` takes the signature of the
 reference's Pallas ``repro.kernels.flash_attention.flash_attention_fused``
 with ``backend=`` in place of ``interpret=``.  The device policy:
 
@@ -125,6 +128,27 @@ def _route(backend: str, auto: Callable, plain: Callable) -> Callable:
                          f"takes 'auto' (kernel on CUDA, plain on the CPU) "
                          f"or 'xla' (plain)")
     raise ValueError(f"unknown backend {backend!r}")
+
+
+def gather_rows(x, idx, rows_per_block: int = 8, backend: str = "auto"):
+    """``x[clip(idx)]`` (K1).  ``rows_per_block`` is the reference's Pallas
+    tile height; the CUDA kernel sizes its own tiles, so it is accepted
+    and unused."""
+    from repro_torch.kernels import aia_gather as k
+    return _route(backend, k.gather_rows, k.gather_rows_plain)(x, idx)
+
+
+def hash_accumulate(keys, vals, table_cap: int, backend: str = "auto"):
+    """Algorithm-4 accumulation (K2).  ``"auto"`` gives the table in probe
+    order (unsorted) with each row's uniqueCount, as the reference's
+    kernel does; ``"xla"`` is the reference's fallback, the hash engine's
+    column-sorted rows (``core.phases.accumulate_hash``).  Both carry the
+    same (column, sum) content and counts."""
+    if backend == "xla":
+        from repro_torch.core import phases
+        return phases.accumulate_hash(keys, vals, table_cap)
+    from repro_torch.kernels import hash_accum as k
+    return _route(backend, k.hash_accumulate, None)(keys, vals, table_cap)
 
 
 def aia_ranged_gather(x, idx, r: int = 1, backend: str = "auto"):

@@ -42,7 +42,8 @@ import numpy as np
 from repro_torch.core import faults
 from repro_torch.core.executor import (
     AutotuneCache, OperandCache, PlanCache, check_gather,
-    pattern_fingerprint, refuse_mesh, resolve_engine, resolve_operands)
+    pattern_fingerprint, resolve_engine, resolve_operands)
+from repro_torch.launch.sharding import shard_devices
 from repro_torch.core.spgemm import SpGEMMResult, spgemm, spgemm_batched
 from repro_torch.sparse.formats import CSR
 
@@ -129,9 +130,9 @@ class ServeKnobs:
     Requests coalesce only when their knob signatures match exactly — a
     tenant asking for ``engine="hash"`` never rides a ``"sort"`` batch.
     Every field is validated eagerly at ``submit`` time through the
-    executor's hooks, so a typo (or a knob the port does not have:
-    ``mesh=``, ``operands="footprint"``) fails the submitting caller
-    immediately instead of poisoning a whole micro-batch at dispatch.
+    executor's hooks, so a typo (or a ``mesh`` that is not a sequence of
+    devices) fails the submitting caller immediately instead of poisoning
+    a whole micro-batch at dispatch.
     ``gather`` is checked by name here and resolved against the operands'
     device at dispatch.  ``mesh`` participates in the signature by
     identity.
@@ -151,7 +152,7 @@ class ServeKnobs:
         resolve_engine(self.engine)
         check_gather(self.gather)
         resolve_operands(self.operands)
-        refuse_mesh(self.mesh)
+        shard_devices(self.mesh)
         if self.schedule not in ("grouped", "natural"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
         if self.pipeline not in ("two_wave", "legacy"):

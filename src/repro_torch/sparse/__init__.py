@@ -14,7 +14,9 @@ from repro_torch.sparse.formats import (
     csr_from_dense,
     csr_to_dense,
     csr_to_ell,
+    ell_from_dense,
     ell_to_csr,
+    ell_to_dense,
     from_numpy,
     topk_rows_from_arrays,
 )
@@ -41,7 +43,8 @@ from repro_torch.sparse.topk import (
 __all__ = [
     "BSR", "CSR", "ELL", "TopKRows", "bsr_from_arrays", "bsr_from_dense",
     "bsr_to_dense", "csr_from_arrays", "csr_from_coo", "csr_from_dense",
-    "csr_to_dense", "csr_to_ell", "ell_to_csr", "from_numpy",
+    "csr_to_dense", "csr_to_ell", "ell_from_dense", "ell_to_csr",
+    "ell_to_dense", "from_numpy",
     "topk_rows_from_arrays", "block_topk_rows", "topk_mask", "topk_rows",
     "topk_rows_st", "csr_column_normalize", "csr_column_sums",
     "csr_hadamard_power", "csr_permute_rows", "csr_prune_columns",

@@ -340,6 +340,38 @@ def csr_to_dense(a: CSR) -> torch.Tensor:
     return out[: a.n_rows]
 
 
+def ell_from_dense(x, k_cap: int | None = None, device="cuda") -> ELL:
+    """Dense (n, m) -> ELL with ``k_cap`` slots a row (default: the widest
+    row's nonzeros; a row's nonzeros past ``k_cap`` drop).  Host-side
+    helper (numpy compaction)."""
+    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    n, m = x.shape
+    nz = x != 0
+    per_row = nz.sum(axis=1)
+    k = k_cap if k_cap is not None else max(int(per_row.max(initial=0)), 1)
+    rows, cols = np.nonzero(nz)
+    within = np.arange(len(rows)) - np.repeat(
+        np.cumsum(per_row) - per_row, per_row)
+    keep = within < k
+    indices = np.full((n, k), -1, np.int32)
+    data = np.zeros((n, k), x.dtype)
+    indices[rows[keep], within[keep]] = cols[keep]
+    data[rows[keep], within[keep]] = x[rows[keep], cols[keep]]
+    return ELL(from_numpy(indices, device), from_numpy(data, device), (n, m))
+
+
+def ell_to_dense(a: ELL) -> torch.Tensor:
+    """ELL -> dense (n, m) on the ELL's device (entries of one column in a
+    row add up)."""
+    n, m = a.shape
+    mask = a.valid_mask()
+    out = torch.zeros((n, m + 1), dtype=a.data.dtype,
+                      device=a.indices.device)
+    col = torch.where(mask, a.indices, m).long()  # padding to a dropped col
+    out.scatter_add_(1, col, torch.where(mask, a.data, 0))
+    return out[:, :m]
+
+
 def _ell_slots(a: CSR, k_cap: int):
     """(ELL row, ELL slot, kept) of each of ``a``'s capacity slots; a slot
     not kept (padding, or past ``k_cap`` in its row) goes to row n_rows."""

@@ -102,20 +102,55 @@ def csr_spmm(a: CSR, x: torch.Tensor, gather: str = "xla",
     row.  ``gather="aia"`` serves the row gather with the AIA kernel,
     ``"xla"`` with a plain take, ``"auto"`` picks the kernel on a CUDA
     device and the take on the CPU.  Differentiable in ``x`` and in
-    ``a.data``.  ``mesh`` (row-sharding over devices) is not ported.
+    ``a.data``.
+
+    ``mesh`` (a sequence of devices, ``launch.sharding``) splits the
+    output rows into ``row_sharding``'s contiguous ranges: each shard
+    multiplies its rows of A (their slots, read off ``indptr`` in one
+    small read) by its copy of X on its own device, and the blocks are
+    concatenated on the merge device, where A and X must live.  Each row
+    sums its slots in the same order as with ``mesh=None``, so the result
+    is the same; X's gradient is the sum of the shards' gradients.
     """
     from repro_torch.core.executor import resolve_gather  # no import cycle
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "csr_spmm(mesh=...) is multi-device, ROADMAP Queue A item 7")
     if x.device != a.device:
         raise ValueError(f"A is on {a.device} but X is on {x.device}")
     gather = resolve_gather(gather, x.device)
+    if mesh is not None:
+        return _csr_spmm_sharded(a, x, gather, mesh)
+    return _csr_spmm(a, x, gather)
+
+
+def _csr_spmm(a: CSR, x: torch.Tensor, gather: str) -> torch.Tensor:
     rows_of_x = _TakeRows.apply(x, a.indices, gather)  # (cap, d)
     contrib = torch.where(a.valid_mask()[:, None],
                           a.data[:, None] * rows_of_x, 0)
     return _segment_sum(a.row_ids(), contrib, a.n_rows)
+
+
+def _csr_spmm_sharded(a: CSR, x: torch.Tensor, gather: str,
+                      mesh) -> torch.Tensor:
+    from repro_torch.launch.sharding import (
+        merge_device, replicate_to, row_sharding, shard_devices)
+
+    devices = shard_devices(mesh)
+    merge = merge_device(devices)
+    if a.device != merge:
+        raise ValueError(f"A is on {a.device} but the mesh's merge device "
+                         f"(its first) is {merge}")
+    ranges = row_sharding(devices, a.n_rows)
+    cuts = torch.tensor([r0 for r0, _ in ranges] + [a.n_rows])
+    slots = a.indptr[cuts.to(a.device)].tolist()
+    blocks = []
+    for sh, (dev, (r0, r1)) in enumerate(zip(devices, ranges)):
+        lo, hi = slots[sh], slots[sh + 1]
+        part = CSR(replicate_to(a.indptr[r0:r1 + 1] - lo, dev),
+                   replicate_to(a.indices[lo:hi], dev),
+                   replicate_to(a.data[lo:hi], dev), (r1 - r0, a.n_cols))
+        y = _csr_spmm(part, replicate_to(x, dev), gather)
+        blocks.append(replicate_to(y, merge))
+    return torch.cat(blocks)
 
 
 def _with_data(a: CSR, data: torch.Tensor) -> CSR:
@@ -135,10 +170,15 @@ def csr_scale_columns(a: CSR, s: torch.Tensor) -> CSR:
 
 
 def csr_hadamard_power(a: CSR, r: float) -> CSR:
-    """Elementwise power on stored entries (MCL inflation, Alg. 6 line 12)."""
+    """Elementwise power on stored entries (MCL inflation, Alg. 6 line 12).
+
+    The power is taken in float64 and rounded once to the data's dtype, so
+    a float32 entry gets its correctly rounded power (``torch.pow`` in
+    float32 misses it by an ulp on many entries at ``r`` other than 2)."""
     valid = a.valid_mask()
-    d = torch.where(valid, a.data, 1.0)
-    return _with_data(a, torch.where(valid, torch.pow(d, r), 0))
+    d = torch.where(valid, a.data, 1.0).to(torch.float64)
+    p = torch.pow(d, float(r)).to(a.data.dtype)
+    return _with_data(a, torch.where(valid, p, 0))
 
 
 def csr_column_sums(a: CSR) -> torch.Tensor:

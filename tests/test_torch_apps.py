@@ -367,7 +367,7 @@ def test_adamw_and_clipping_match_reference():
 
 
 # ---------------------------------------------------------------------------
-# Refusals: every knob the port does not have names its ROADMAP item
+# Refusals: a value that is not a mesh says what a mesh is
 # ---------------------------------------------------------------------------
 
 def test_unported_knobs_name_their_item():
@@ -375,18 +375,66 @@ def test_unported_knobs_name_their_item():
     labels = np.arange(16) % 4
     gc = graph_contraction.graph_contraction
     cases = [
-        (lambda: gc(g, labels, mesh=object()), "item 7"),
-        (lambda: apps.mcl(g, mesh=object()), "item 7"),
-        (lambda: apps.train_gnn(apps.GNNConfig(d_in=4, d_hidden=4),
-                                gnn.normalize_adjacency(g),
-                                np.zeros((16, 4), np.float32),
-                                np.zeros(16, np.int64), n_steps=1,
-                                mesh=object()), "item 7"),
+        lambda: gc(g, labels, mesh=object()),
+        lambda: apps.mcl(g, mesh=object()),
+        lambda: apps.train_gnn(apps.GNNConfig(d_in=4, d_hidden=4),
+                               gnn.normalize_adjacency(g),
+                               np.zeros((16, 4), np.float32),
+                               np.zeros(16, np.int64), n_steps=1,
+                               mesh=object()),
     ]
-    for call, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+    for call in cases:
+        with pytest.raises(TypeError, match="a mesh is"):
             call()
     with pytest.raises(ValueError, match="pipeline"):
         gc(g, labels, pipeline="three_wave")
     with pytest.raises(ValueError, match="on_budget"):
         apps.mcl(g, on_budget="ignore")
+
+
+# ---------------------------------------------------------------------------
+# The applications under a mesh of logical CPU shards
+# ---------------------------------------------------------------------------
+
+CPU_MESH = [torch.device("cpu")] * 3
+
+
+@pytest.mark.parametrize("engine", ("sort", "fused_hash"))
+def test_contraction_and_mcl_run_under_a_cpu_mesh(engine):
+    """Contraction against the reference's ``mesh=None`` result and MCL
+    (two iterations) against the port's, bit for bit, on three shards."""
+    g, rg, labels = contraction_case("total_weight")
+    got, infos = graph_contraction.graph_contraction(
+        g, labels, method=engine, mesh=CPU_MESH)
+    want, _ = ref_gc.graph_contraction(rg, labels, method=engine)
+    assert_same_csr(got, want)
+    assert [i["n_shards"] for i in infos] == [3, 3]
+    kw = dict(method=engine, max_iters=2, tol=0.0)
+    sharded = apps.mcl(g, mesh=CPU_MESH, **kw)
+    plain = apps.mcl(g, **kw)
+    assert sharded.n_iterations == plain.n_iterations == 2
+    for x, y in ((sharded.matrix.indptr, plain.matrix.indptr),
+                 (sharded.matrix.indices, plain.matrix.indices),
+                 (sharded.matrix.data, plain.matrix.data)):
+        assert torch.equal(x, y)
+    np.testing.assert_array_equal(sharded.clusters, plain.clusters)
+
+
+def test_train_gnn_runs_under_a_cpu_mesh():
+    """Three steps on three shards against the reference's ``mesh=None``
+    history, at the tolerance of
+    ``test_train_gnn_loss_history_matches_reference``; the first loss (the
+    forward alone) equals the port's ``mesh=None`` one bit for bit.  X's
+    gradient adds the shards' parts, in another order than one segment
+    sum, so later steps may differ in the last bits."""
+    cfg, ref_cfg, params, _, g, rg, x, labels = gnn_case("gcn", "topk",
+                                                         seed=0)
+    a, ra = gnn.normalize_adjacency(g), ref_gnn.normalize_adjacency(rg)
+    _, want = ref_gnn.train_gnn(ref_cfg, ra, x, labels, n_steps=3, lr=5e-3,
+                                seed=0)
+    _, got = gnn.train_gnn(cfg, a, x, labels, n_steps=3, lr=5e-3,
+                           params=params, mesh=CPU_MESH)
+    _, plain = gnn.train_gnn(cfg, a, x, labels, n_steps=1, lr=5e-3,
+                             params=params)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[0] == plain[0]

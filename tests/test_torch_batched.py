@@ -27,7 +27,8 @@ from repro_torch import apps
 from repro_torch.core import executor
 from repro_torch.core.grouping import group_rows
 from repro_torch.core.spgemm import spgemm, spgemm_batched, spgemm_ell_fixed
-from repro_torch.sparse.formats import ELL, csr_from_dense, csr_to_dense
+from repro_torch.sparse.formats import (
+    csr_from_dense, csr_to_dense, ell_from_dense)
 
 ENGINES = ("sort", "hash", "fused_hash", "auto")
 GATHERS = ("xla", "aia")
@@ -162,8 +163,23 @@ def test_batched_refuses_mismatched_members():
                            device="cpu")
     with pytest.raises(ValueError, match="sparsity pattern"):
         spgemm_batched([a_m[0], other], b_m[0])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="a mesh is"):
         spgemm_batched(a_m, b_m, mesh=object())
+
+
+@pytest.mark.parametrize("placement", ("auto", "footprint", "replicate"))
+@pytest.mark.parametrize("shared_b", (False, True))
+def test_batched_runs_under_a_cpu_mesh(placement, shared_b):
+    """Under three logical CPU shards every member is the reference's
+    batched result bit for bit, with B whole or as footprint blocks (a
+    shared B's values or per-member value planes cut to the rows)."""
+    xas, xbs = operands()
+    b = csr_from_dense(xbs[0], device="cpu") if shared_b \
+        else port_members(xbs)
+    res = spgemm_batched(port_members(xas), b, engine="sort", row_chunk=8,
+                         mesh=[torch.device("cpu")] * 3, operands=placement)
+    assert res.info["n_shards"] == 3
+    assert_members(res, reference_batch("sort", shared_b))
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +281,9 @@ def test_ell_fixed_matches_reference(engine):
     rng = np.random.default_rng(4)
     x = float_on(rng.random((12, 12)) < 0.25, rng)
     re = ref_ell_from_dense(x, k_cap=8)
-    e = ELL(torch.from_numpy(np.array(re.indices)),
-            torch.from_numpy(np.array(re.data)), re.shape)
+    e = ell_from_dense(x, k_cap=8, device="cpu")
+    np.testing.assert_array_equal(e.indices.numpy(), np.asarray(re.indices))
+    np.testing.assert_array_equal(e.data.numpy(), np.asarray(re.data))
     want = ref_spgemm_ell_fixed(re, re, out_cap=12, engine=engine)
     got = spgemm_ell_fixed(e, e, out_cap=12, engine=engine)
     np.testing.assert_array_equal(got.indices.numpy(),

@@ -2,7 +2,7 @@
 capacity, budget, degradation, ``gather_fail``, ``stage_tile_fail`` and
 int32-capacity cases of ``tests/test_resilience.py`` (its serving cases
 are in ``tests/test_torch_serve.py``; its trainer cases are ROADMAP Queue A
-item 8).
+item 12).
 
 Both packages multiply the same numpy-built small-integer matrices, so
 every recovered product is held bit for bit against the clean call and the

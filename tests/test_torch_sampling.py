@@ -18,6 +18,7 @@ results are held exactly:
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.apps import sampling as ref_sampling
 from repro.apps.graphs import rmat_graph as ref_rmat
@@ -250,8 +251,23 @@ def test_bulk_sample_errors_match_reference(g96):
             mod.bulk_sample(graph, one, fanout=2, n_layers=1, engine="nope")
         with pytest.raises(ValueError, match="unknown engine"):
             mod.extract(graph, one, one, engine="nope")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="a mesh is"):
         sampling.bulk_sample(g, one, fanout=2, n_layers=1, mesh=object())
+
+
+def test_bulk_sample_runs_under_a_cpu_mesh(g96):
+    """Under three logical CPU shards: the reference's ``mesh=None`` chain
+    bit for bit, and with a weight ensemble (through the batched lane) the
+    port's own ``mesh=None`` chain."""
+    g, rg = g96
+    mesh = [torch.device("cpu")] * 3
+    kw = dict(CHAIN, engine="fused_hash")
+    assert_same_chain(sampling.bulk_sample(g, BATCH, mesh=mesh, **kw),
+                      ref_sampling.bulk_sample(rg, BATCH, **kw))
+    ws = _weights(g, 1.0, 2.0)
+    assert_same_chain(
+        sampling.bulk_sample(g, BATCH, mesh=mesh, weight_sets=ws, **kw),
+        sampling.bulk_sample(g, BATCH, weight_sets=ws, **kw))
 
 
 def test_zero_weight_rows_raise_like_reference(g96):

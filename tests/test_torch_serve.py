@@ -164,13 +164,42 @@ def test_knob_signature_splits_groups_and_validates():
     for bad in ({"engine": "nope"}, {"sizing": "nope"}, {"gather": "dma"}):
         with pytest.raises(ValueError):
             svc.submit("t", _csr(mask_a, 5), _csr(mask_b, 6), **bad)
-    # knobs the port does not have fail the submitting caller, naming
-    # their ROADMAP item, instead of quarantining a batch at dispatch
-    for bad, item in (({"mesh": object()}, "item 7"),
-                      ({"operands": "footprint"}, "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            svc.submit("t", _csr(mask_a, 5), _csr(mask_b, 6), **bad)
+    # a value that is not a mesh fails the submitting caller, saying what
+    # a mesh is, instead of quarantining a batch at dispatch
+    with pytest.raises(TypeError, match="a mesh is"):
+        svc.submit("t", _csr(mask_a, 5), _csr(mask_b, 6), mesh=object())
+    # operands="footprint" is a knob of its own signature
+    svc.submit("t", _csr(mask_a, 5), _csr(mask_b, 6), engine="sort",
+               operands="footprint")
+    assert svc.stats()["queued_groups"] == 3
     svc.flush()
+
+
+def test_service_flush_under_a_cpu_mesh():
+    """Requests under one mesh object coalesce (the mesh joins the
+    signature by identity) and each result is its solo ``mesh=None``
+    product bit for bit; another mesh object is another group."""
+    svc, _ = _service(max_batch=8)
+    mesh = [torch.device("cpu")] * 3
+    mask_a, mask_b = _pattern(82), _pattern(83)
+    b = _csr(mask_b, 7)
+    a_mats = [_csr(mask_a, i) for i in range(4)]
+    tickets = [svc.submit("t", a, b, engine="fused_hash", mesh=mesh,
+                          operands="footprint") for a in a_mats[:3]]
+    other = svc.submit("t", a_mats[3], b, engine="fused_hash",
+                       mesh=list(mesh), operands="footprint")
+    assert svc.stats()["queued_groups"] == 2
+    svc.flush()
+    assert [t.coalesced_with for t in tickets] == [3, 3, 3]
+    assert other.coalesced_with == 1
+    for t, a in zip(tickets + [other], a_mats):
+        res = t.result()
+        assert res.info["n_shards"] == 3
+        want = spgemm(a, b, engine="fused_hash").c
+        nnz = int(want.indptr[-1])
+        assert torch.equal(res.c.indptr, want.indptr)
+        assert torch.equal(res.c.indices[:nnz], want.indices[:nnz])
+        assert torch.equal(res.c.data[:nnz], want.data[:nnz])
 
 
 def test_stats_latency_percentiles_use_injected_clock():

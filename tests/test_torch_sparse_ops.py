@@ -106,6 +106,27 @@ def test_value_ops_match_reference(op):
                                   np.asarray(ref_ops.csr_column_sums(ra)))
 
 
+@pytest.mark.parametrize("r", [1.5, 2.0, 3.0, 0.5])
+def test_hadamard_power_is_correctly_rounded(r):
+    """On 200,000 float32 values in (0, 4): bit-equal to the float64 power
+    rounded once to float32, and within one ulp of the reference's
+    ``jnp.power`` (which misses the correctly rounded value on about 0.06%
+    of them, by one ulp)."""
+    rng = np.random.default_rng(int(r * 10))
+    n = 200_000
+    x = (rng.random(n) * 4).astype(np.float32)
+    a = CSR(torch.tensor([0, n], dtype=torch.int32),
+            torch.zeros(n, dtype=torch.int32), torch.from_numpy(x), (1, 1))
+    got = ops.csr_hadamard_power(a, r).data.numpy()
+    np.testing.assert_array_equal(
+        got, np.power(x.astype(np.float64), r).astype(np.float32))
+    ref = np.asarray(ref_ops.csr_hadamard_power(
+        RefCSR(jnp.asarray([0, n], jnp.int32), jnp.zeros(n, jnp.int32),
+               jnp.asarray(x), (1, 1)), r).data)
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - ref.view(np.int32))
+    assert ulps.max() <= 1
+
+
 @pytest.mark.parametrize("theta,k", [(0.0, 2), (2.0, 3), (1.5, 1), (0.0, 99)])
 def test_prune_columns_with_ties_matches_reference(theta, k):
     """Values in {1, 2, 3}, so most columns hold ties at their k-th value:
@@ -175,13 +196,14 @@ def test_spmm_and_gradients_match_jax_grad(gather, transposed):
 
 
 def test_spmm_auto_gather_and_refusals():
-    """``gather="auto"`` is the plain take on the CPU; a mesh names the
-    multi-device item; operands on two devices and unknown gathers raise."""
+    """``gather="auto"`` is the plain take on the CPU; a value that is not
+    a mesh says what a mesh is; operands on two devices and unknown
+    gathers raise."""
     a, ra, x, x_np, _ = spmm_case(False)
     np.testing.assert_array_equal(
         ops.csr_spmm(a, x, gather="auto").numpy(),
         np.asarray(ref_ops.csr_spmm(ra, jnp.asarray(x_np), gather="xla")))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="a mesh is"):
         ops.csr_spmm(a, x, mesh=object())
     with pytest.raises(ValueError, match="gather"):
         ops.csr_spmm(a, x, gather="pallas")

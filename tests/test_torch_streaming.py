@@ -7,11 +7,13 @@ streamed product against the port's monolithic ``spgemm`` and against the
 reference's ``spgemm_streamed``, over the ``indptr``-addressed prefix
 (the monolithic lanes may pad their buffers).  Tile counts, ``PlanCache``
 hits and misses and the ``cache_stats()`` stream counters equal the
-reference's.  (The reference's mesh case is multi-device, ROADMAP Queue A
-item 7.)
+reference's.  The reference's mesh case runs here on logical CPU shards,
+against its ``mesh=None`` lane (the reference's own suite holds its
+sharded lanes to that).
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core import executor as ref_executor
 from repro.core.spgemm import PlanCache as RefPlanCache
@@ -99,6 +101,22 @@ def test_streamed_bit_exact_engine_pipeline(engine, pipeline):
     np.testing.assert_array_equal(
         csr_to_dense(res.c).numpy(),
         csr_to_dense(a).numpy() @ csr_to_dense(b).numpy())
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_streamed_bit_exact_under_mesh(n_shards):
+    """``tests/test_streaming.py``'s mesh case on logical CPU shards: the
+    streamed product under the mesh against the monolithic product under
+    it, the port's ``mesh=None`` one and the reference's ``mesh=None``
+    streamed one."""
+    pair, ref_pair = _pair()
+    mesh = [torch.device("cpu")] * n_shards
+    res = check_streamed(pair, ref_pair, tile_rows=48)
+    sharded = spgemm_streamed(*pair, tile_rows=48, mesh=mesh)
+    assert_bit_exact(sharded.c, res.c)
+    assert_bit_exact(sharded.c, spgemm(*pair, mesh=mesh).c)
+    assert sharded.info["n_shards"] == n_shards
+    assert sharded.info["n_tiles"] == res.info["n_tiles"] == 4
 
 
 @pytest.mark.parametrize("gather", ["xla", "aia"])
@@ -216,7 +234,7 @@ def test_spgemm_streamed_validates_knobs_up_front():
         spgemm_streamed(a, b, tile_rows=0)
     with pytest.raises(ValueError):
         spgemm_streamed(a, b, prefetch=0)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="a mesh is"):
         spgemm_streamed(a, b, mesh=object())
 
 
