@@ -42,15 +42,20 @@ products run in full float32 (TF32 off).  It
    the 12 cases of ``tests/test_flash_kernel.py`` (float32 and bf16, causal
    and not), on the edges of the bf16 kernel's tiles (D 7, 36, 40, 96 and
    128 at S 64 and 192, causal and not, blocks of 64), the float32 kernel
-   at the decode check's shape (32 heads, S 512, D 96), then at Phi-3-mini's
-   prefill shape (BH 64 = batch 2 x 32 heads, S 4,096, D 96, bf16,
-   causal), one launch per call; float32 within 1e-5 + 1e-5 relative, bf16
-   within one bf16 step (2**-7 relative); and times it there (CUDA events;
-   device time from ``torch.profiler``) beside its bound (operations), its
-   plain version and ``F.scaled_dot_product_attention`` (a yardstick the
-   port never calls), with its route (bf16: ``wgmma``), its rate, and
-   ``ptxas``'s registers and spills and its shared memory; then holds and
-   times the float32 route (CUDA cores) at the same shape in float32;
+   at the decode check's shape (32 heads, S 512, D 96), MLA's widths (qk
+   192, v 128) at the CPU tests' shapes and at S 64 and 192 in both dtypes
+   (``FLASH_MLA_CASES``) and the other (qk, v) kernels of the two-width
+   sources (``FLASH_WIDTH_EDGES``), then at Phi-3-mini's prefill shape (BH
+   64 = batch 2 x 32 heads, S 4,096, D 96, bf16, causal), one launch per
+   call; float32 within 1e-5 + 1e-5 relative, bf16 within one bf16 step
+   (2**-7 relative); and times it there (CUDA events; device time from
+   ``torch.profiler``) beside its bound (operations), its plain version and
+   ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
+   with its route (bf16: ``wgmma``), its rate, and ``ptxas``'s registers
+   and spills and its shared memory; then holds and times the float32 route
+   (CUDA cores) at the same shape in float32; then holds and times the bf16
+   route at DeepSeek-V2-Lite's prefill (BH 32 = 2 x 16 heads, S 4,096, qk
+   192, v 128, causal) the same way;
 5. drives the LM path of Phi-3-mini (``phi3_mini_3_8b``) at full width and
    depth (32 layers, bf16, random weights from seed 0), each part with the
    launch counts from 0: ``models.transformer.train_loss`` forward-only on
@@ -59,6 +64,17 @@ products run in full float32 (TF32 off).  It
    new tokens; then, in float32 at 4 layers, ``decode_step`` fed a 512-token
    prompt token by token against the prefill forward's last-position
    logits (within 1e-4 of the largest |logit|);
+5b. drives DeepSeek-V2-Lite (``deepseek_v2_lite_16b``: 27 layers, MLA,
+   64 routed experts top-6 + 2 shared, a dense first layer; bf16, random
+   weights from seed 0, drawn a MoE layer at a time) the same way
+   (``DS``): the prefill (27 K7 launches on the ``wgmma`` route at qk 192
+   / v 128; the top kernels show the MoE dispatch and expert products),
+   the server on MLA's absorbed decode (one step profiled), and the
+   float32 decode check at the prefix layer + 3 MoE layers with
+   ``capacity_factor`` = n_experts / top_k, so that the prefill drops no
+   token; a token that a router near-tie (within ``NEAR_TIE``) sends to
+   other experts in decode than in the prefill is named, and decode is
+   then held against the prefill routed to decode's experts;
 6. holds K1 and K2 against their plain PyTorch versions on the card, at
    the shapes the SpGEMM path gives them, for exact equality, and times both
    (CUDA events around the call, and the kernels' own device time from
@@ -251,10 +267,10 @@ def _self_device_us(event) -> float:
         or getattr(event, "self_cuda_time_total", 0.0)
 
 
-def profile(fn):
-    """(host ms, device ms, [(kernel, device ms)] by time) of one call of
-    ``fn``, from ``torch.profiler``; device ms is None when the profiler
-    recorded no device time."""
+def profile(fn, top_n: int = 6):
+    """(host ms, device ms, the ``top_n`` [(kernel, device ms, calls)] by
+    time) of one call of ``fn``, from ``torch.profiler``; device ms is None
+    when the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -271,7 +287,7 @@ def profile(fn):
               and "CUDA" in str(e.device_type) and _self_device_us(e) > 0]
     device_us = sum(_self_device_us(e) for e in events) \
         or _trace_device_us(prof)
-    top = sorted(events, key=_self_device_us, reverse=True)[:6]
+    top = sorted(events, key=_self_device_us, reverse=True)[:top_n]
     return host_ms, (device_us / 1e3 if device_us else None), \
         [(e.key[:80], _self_device_us(e) / 1e3, e.count) for e in top]
 
@@ -1830,6 +1846,22 @@ FLASH_EDGES = tuple((2, s, d, 64, 64) for d in (7, 36, 40, 96, 128)
 # prompt, D 96)
 FLASH_F32 = ((32, 512, 96, 128, 128),)
 FLASH_PHI3 = (64, 4096, 96, 128, 128)
+# MLA's widths (DeepSeek-V2-Lite: qk 128 + 64 rope lanes, v 128), as
+# (bh, s, d, dv, q_blk, k_blk): the CPU tests' shapes, then S 64 and 192
+# with blocks of 64; both dtypes, causal and not
+FLASH_MLA_CASES = tuple((bh, s, 192, 128, qb, kb)
+                        for bh, s, _, qb, kb in FLASH_CASES) \
+    + ((2, 64, 192, 128, 64, 64), (2, 192, 192, 128, 64, 64))
+# the other (qk, v) kernels of the two widths: (192, 192) and (160, 150)
+# (the DQ-wide accumulator), (150, 100) (element-wise staging into the
+# (160, 128) kernel), (136, 72) (16-byte staging, V zero-filled past 72),
+# (128, 64) (the 128-wide kernel, V zero-filled)
+FLASH_WIDTH_EDGES = tuple((2, s, d, dv, 64, 64)
+                          for d, dv in ((192, 192), (160, 150), (150, 100),
+                                        (136, 72), (128, 64))
+                          for s in (64, 192))
+# DeepSeek-V2-Lite's prefill: batch 2 x 16 heads, 4,096 tokens, bf16
+FLASH_MLA = (32, 4096, 192, 128, 128, 128)
 # (rtol, atol) against the plain version: float32 sums in another order;
 # a bf16 output is rounded once, so a sum near a rounding boundary may round
 # the other way, one bf16 step (2**-7 of the value)
@@ -1852,8 +1884,9 @@ def flash_hold(q, k, v, causal, q_blk, k_blk):
     want = k7.flash_attention_fused_plain(q, k, v, causal, q_blk, k_blk)
     rtol, atol = FLASH_TOL[str(q.dtype)]
     diff = (got.double() - want.double()).abs()
-    case = (str(q.dtype), causal, tuple(q.shape), q_blk, k_blk)
-    check(got.dtype == q.dtype and got.shape == q.shape,
+    case = (str(q.dtype), causal, tuple(q.shape), tuple(v.shape), q_blk,
+            k_blk)
+    check(got.dtype == q.dtype and got.shape == v.shape,
           f"flash_attention_fused {case}: {got.dtype} {tuple(got.shape)}")
     check(bool((diff <= atol + rtol * want.double().abs()).all()),
           f"flash_attention_fused {case}: max |error| {float(diff.max())} "
@@ -1861,23 +1894,78 @@ def flash_hold(q, k, v, causal, q_blk, k_blk):
     return float(diff.max())
 
 
+def flash_timed(q, k, v, heads: int, qb: int, kb: int) -> dict:
+    """K7 held and timed on causal bf16 (BH, S, D) q, k and (BH, S, Dv) v
+    beside its bound (operations), its plain version and
+    ``scaled_dot_product_attention`` on (BH / heads, heads, S, .)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+
+    bh, s, d = q.shape
+    dv = v.shape[2]
+    rec = {"name": "flash_attention_fused", "route": k7.route(q.dtype),
+           "shape": {"bh": bh, "s": s, "d": d, "dv": dv,
+                     "dtype": "bfloat16", "causal": True},
+           "max_abs_err": flash_hold(q, k, v, True, qb, kb)}
+
+    def kernel():
+        return ops.flash_attention_fused(q, k, v, True)
+
+    def plain():
+        return k7.flash_attention_fused_plain(q, k, v, True)
+
+    q4, k4, v4 = (x.view(bh // heads, heads, s, x.shape[2])
+                  for x in (q, k, v))
+    rec["ms"] = time_ms(kernel, reps=10)
+    _, _, top = profile(lambda: [kernel() for _ in range(5)])
+    rec["device_ms"] = top[0][1] / top[0][2] if top else None
+    rec["device_launches_recorded"] = top[0][2] if top else 0
+    rec["plain_ms"] = time_ms(plain, reps=3)
+    rec["plain_device_ms"] = device_ms(plain, reps=1)
+    # what this causal call needs: Q.K^T (D wide) and P.V (Dv wide) over the
+    # s(s+1)/2 pairs on and below the diagonal (2 FLOP per multiply-add);
+    # q, k, v read once and o written once
+    pairs = bh * s * (s + 1) // 2
+    rec["flops"] = 2 * pairs * (d + dv)
+    rec["bytes"] = bh * s * (2 * d + 2 * dv) * q.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
+                                             q.dtype)
+    rec["tflops"] = rec["flops"] / rec["device_ms"] / 1e9 \
+        if rec["device_ms"] else None
+    # what the tensor cores do: Q.K^T once, P.V once for each bf16 term of P
+    consts = k7.wgmma_constants()
+    rec["tensor_flops"] = 2 * pairs * (d + consts["kPTerms"] * dv)
+    rec["tensor_bound_ms"] = bound(0, rec["tensor_flops"], q.dtype)[0]
+    rec["ptxas"] = ptxas_report(
+        "flash_wgmma_kernelILi{}ELi{}E".format(*k7.wgmma_widths(d, dv)))
+    rec["launch"] = launch_config(kernel, "flash_wgmma_kernel")
+    rec.update(library_call([(
+        f"F.scaled_dot_product_attention(is_causal=True) on "
+        f"({bh // heads}, {heads}, s, d|dv)",
+        lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                               is_causal=True))]))
+    return rec
+
+
 def flash_phase(log):
     """Hold K7 against its plain version on the 12 cases of the reference's
-    kernel test, the bf16 kernel's tile edges and the Phi-3 prefill shape,
-    then time it there beside its bound, its plain version and
-    ``scaled_dot_product_attention``; then hold and time the float32 route
-    there."""
+    kernel test, the bf16 kernel's tile edges, MLA's widths (qk 192, v 128)
+    and the other widths of the two-width kernels, then time it at the
+    Phi-3 and DeepSeek-V2-Lite prefill shapes beside its bound, its plain
+    version and ``scaled_dot_product_attention``; then hold and time the
+    float32 route at the Phi-3 shape."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k7
     from repro_torch.kernels import ops
 
     g = torch.Generator(device="cuda").manual_seed(2)
 
-    def rand(shape, dtype):
+    def rand(shape, dtype, n=3):
         return [torch.randn(shape, generator=g, device="cuda").to(dtype)
-                for _ in range(3)]
+                for _ in range(n)]
 
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1887,51 +1975,23 @@ def flash_phase(log):
             for bh, s, d, qb, kb in cases:
                 errs[f"{dt}/{causal}/{bh}x{s}x{d}"] = flash_hold(
                     *rand((bh, s, d), dt), causal, qb, kb)
+            for bh, s, d, dv, qb, kb in FLASH_MLA_CASES + FLASH_WIDTH_EDGES:
+                q, k = rand((bh, s, d), dt, 2)
+                errs[f"{dt}/{causal}/{bh}x{s}x{d}/v{dv}"] = flash_hold(
+                    q, k, rand((bh, s, dv), dt, 1)[0], causal, qb, kb)
     emit({"flash_cases": {"cases": len(errs), "max_abs_err": errs}}, log)
 
     bh, s, d, qb, kb = FLASH_PHI3
     q, k, v = rand((bh, s, d), torch.bfloat16)
-    rec = {"name": "flash_attention_fused", "route": k7.route(q.dtype),
-           "shape": {"bh": bh, "s": s, "d": d, "dtype": "bfloat16",
-                     "causal": True},
-           "max_abs_err": flash_hold(q, k, v, True, qb, kb)}
+    rec = flash_timed(q, k, v, 32, qb, kb)
+    emit({"flash_kernel": rec}, log)
+
+    # the float32 route at the same shape
+    q, k, v = (x.float() for x in (q, k, v))
 
     def kernel():
         return ops.flash_attention_fused(q, k, v, True)
 
-    def plain():
-        return k7.flash_attention_fused_plain(q, k, v, True)
-
-    q4, k4, v4 = (x.view(2, bh // 2, s, d) for x in (q, k, v))
-    rec["ms"] = time_ms(kernel, reps=10)
-    _, _, top = profile(lambda: [kernel() for _ in range(5)])
-    rec["device_ms"] = top[0][1] / top[0][2] if top else None
-    rec["device_launches_recorded"] = top[0][2] if top else 0
-    rec["plain_ms"] = time_ms(plain, reps=3)
-    rec["plain_device_ms"] = device_ms(plain, reps=1)
-    # what this causal call needs: Q.K^T and P.V over the s(s+1)/2 pairs on
-    # and below the diagonal (2 FLOP per multiply-add); q, k, v read once
-    # and o written once
-    rec["flops"] = 4 * bh * d * s * (s + 1) // 2
-    rec["bytes"] = 4 * bh * s * d * q.element_size()
-    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
-                                             q.dtype)
-    rec["tflops"] = rec["flops"] / rec["device_ms"] / 1e9 \
-        if rec["device_ms"] else None
-    # what the tensor cores do: Q.K^T once, P.V once for each bf16 term of P
-    consts = k7.wgmma_constants()
-    rec["tensor_flops"] = rec["flops"] * (1 + consts["kPTerms"]) // 2
-    rec["tensor_bound_ms"] = bound(0, rec["tensor_flops"], q.dtype)[0]
-    rec["ptxas"] = ptxas_report(f"flash_wgmma_kernelILi{d}E")
-    rec["launch"] = launch_config(kernel, "flash_wgmma_kernel")
-    rec.update(library_call([(
-        "F.scaled_dot_product_attention(is_causal=True) on (2, 32, s, d)",
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))]))
-    emit({"flash_kernel": rec}, log)
-
-    # the float32 route at the same shape
-    del q4, k4, v4
-    q, k, v = (x.float() for x in (q, k, v))
     f32 = {"route": k7.route(q.dtype),
            "max_abs_err": flash_hold(q, k, v, True, qb, kb),
            "ms": time_ms(kernel, reps=3)}
@@ -1939,7 +1999,15 @@ def flash_phase(log):
     f32["device_ms"] = top[0][1] / top[0][2] if top else None
     f32["ptxas"] = ptxas_report(f"flash_kernelILi{(d + 15) // 16}E")
     emit({"flash_kernel_f32": f32}, log)
-    return rec
+    del q, k, v
+
+    # MLA's prefill widths at DeepSeek-V2-Lite's prefill shape
+    bh, s, d, dv, qb, kb = FLASH_MLA
+    q, k = rand((bh, s, d), torch.bfloat16, 2)
+    v = rand((bh, s, dv), torch.bfloat16, 1)[0]
+    mla = flash_timed(q, k, v, 16, qb, kb)
+    emit({"flash_kernel_mla": mla}, log)
+    return rec, mla
 
 
 def ptxas_report(kernel: str) -> dict:
@@ -1973,6 +2041,15 @@ def ptxas_report(kernel: str) -> dict:
 LM = {"arch": "phi3-mini-3.8b", "batch": 2, "seq": 4096,
       "decode_layers": 4, "decode_prompt": 512,
       "requests": 4, "new_tokens": 8, "slots": 4, "max_seq": 64}
+# DeepSeek-V2-Lite (src/repro/configs/deepseek_v2_lite_16b.py: 27 layers,
+# the first dense, MLA, 64 routed experts top-6 + 2 shared): the same
+# prefill and server; the decode check at the prefix layer + 3 MoE layers
+# in float32, at capacity_factor = n_experts / top_k so that the prefill
+# drops no token (cap = T; a prefill that drops tokens differs from decode
+# by design)
+DS = {"arch": "deepseek-v2-lite-16b", "batch": 2, "seq": 4096,
+      "decode_layers": 4, "decode_prompt": 512, "no_drop": True,
+      "requests": 4, "new_tokens": 8, "slots": 4, "max_seq": 64}
 LM_LOSS_BAND = (-1.0, 2.0)  # around ln(vocab), for random weights
 # decode logits against the prefill's last position, over the largest
 # |logit|: float32 sums in other orders (GEMV against GEMM, the decode
@@ -1980,16 +2057,18 @@ LM_LOSS_BAND = (-1.0, 2.0)  # around ln(vocab), for random weights
 DECODE_REL = 1e-4
 
 
-def lm_prefill(cfg, params, log):
+def lm_prefill(cfg, params, log, spec=LM, key="lm_prefill"):
     """``train_loss`` forward-only at batch x seq with the counts from 0:
-    one K7 launch per layer, and the loss inside its band."""
+    one K7 launch per layer, on the dtype's route, and the loss inside its
+    band."""
     import torch
 
+    from repro_torch.kernels import flash_attention as k7
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import train_loss
 
     rng = np.random.default_rng(0)
-    shape = (LM["batch"], LM["seq"])
+    shape = (spec["batch"], spec["seq"])
     batch = {name: torch.from_numpy(rng.integers(0, cfg.vocab, shape)
                                     .astype(np.int32)).cuda()
              for name in ("tokens", "labels")}
@@ -2004,30 +2083,31 @@ def lm_prefill(cfg, params, log):
     t0 = time.perf_counter()
     loss = float(forward())
     ms = (time.perf_counter() - t0) * 1e3
-    launches = ops.launch_counts()
+    launches, routes = ops.launch_counts(), ops.route_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lnv = float(np.log(cfg.vocab))
-    check(np.isfinite(loss), f"LM prefill: loss {loss}")
+    check(np.isfinite(loss), f"{key}: loss {loss}")
     check(lnv + LM_LOSS_BAND[0] <= loss <= lnv + LM_LOSS_BAND[1],
-          f"LM prefill: loss {loss} outside ln(vocab) {lnv} "
-          f"{LM_LOSS_BAND}")
-    check(launches["flash_attention_fused"] == cfg.n_layers,
-          f"LM prefill: {launches['flash_attention_fused']} K7 launches for "
-          f"{cfg.n_layers} layers")
-    host_ms, dev_ms, top = profile(forward)
+          f"{key}: loss {loss} outside ln(vocab) {lnv} {LM_LOSS_BAND}")
+    path = f"flash_attention_fused/{k7.route(cfg.activation_dtype)}"
+    check(launches["flash_attention_fused"] == cfg.n_layers
+          and routes.get(path) == cfg.n_layers,
+          f"{key}: {launches['flash_attention_fused']} K7 launches "
+          f"({routes}) for {cfg.n_layers} layers")
+    host_ms, dev_ms, top = profile(forward, top_n=12)
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-           "batch": LM["batch"], "seq": LM["seq"], "loss": loss,
+           "batch": spec["batch"], "seq": spec["seq"], "loss": loss,
            "ln_vocab": lnv, "ms": ms, "launches": launches,
-           "peak_mem_gb": peak_gb,
-           "tokens_per_s": LM["batch"] * LM["seq"] / (ms / 1e3),
+           "routes": routes, "peak_mem_gb": peak_gb,
+           "tokens_per_s": spec["batch"] * spec["seq"] / (ms / 1e3),
            "profiled": {"host_ms": host_ms, "device_ms": dev_ms,
                         "device_busy_share": None if dev_ms is None
                         else dev_ms / host_ms, "top_kernels": top}}
-    emit({"lm_prefill": rec}, log)
+    emit({key: rec}, log)
     return rec
 
 
-def lm_serve(cfg, params, log):
+def lm_serve(cfg, params, log, spec=LM, key="lm_serve"):
     """The ServeEngine answers its requests at full depth, with the counts
     from 0 (decode attention is plain PyTorch, so no kernel launches)."""
     import torch
@@ -2036,33 +2116,96 @@ def lm_serve(cfg, params, log):
     from repro_torch.serve import Request, ServeEngine
 
     rng = np.random.default_rng(0)
-    eng = ServeEngine(cfg, params, batch_slots=LM["slots"],
-                      max_seq=LM["max_seq"])
-    for i in range(LM["requests"]):
+    eng = ServeEngine(cfg, params, batch_slots=spec["slots"],
+                      max_seq=spec["max_seq"])
+    for i in range(spec["requests"]):
         eng.submit(Request(prompt=rng.integers(0, cfg.vocab, 4 + i % 3),
-                           max_new_tokens=LM["new_tokens"]))
+                           max_new_tokens=spec["new_tokens"]))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()  # this path's count starts here
     t0 = time.perf_counter()
     done = eng.run()
     ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
-    check(len(done) == LM["requests"]
-          and all(len(r.out_tokens) == LM["new_tokens"]
+    check(len(done) == spec["requests"]
+          and all(len(r.out_tokens) == spec["new_tokens"]
                   and all(0 <= tok < cfg.vocab for tok in r.out_tokens)
-                  for r in done), "server: a request went unanswered")
+                  for r in done), f"{key}: a request went unanswered")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = eng.steps
+    # one more step over the engine's cache, profiled
+    host_ms, dev_ms, top = profile(
+        lambda: eng._step(np.zeros((spec["slots"], 1), np.int32)), top_n=8)
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-           "requests": len(done), "steps": eng.steps, "ms": ms,
-           "ms_per_decode_step": ms / eng.steps, "launches": launches,
+           "requests": len(done), "steps": steps, "ms": ms,
+           "ms_per_decode_step": ms / steps, "launches": launches,
+           "peak_mem_gb": peak_gb,
+           "profiled_step": {"host_ms": host_ms, "device_ms": dev_ms,
+                             "device_busy_share": None if dev_ms is None
+                             else dev_ms / host_ms, "top_kernels": top},
            "out_tokens": [r.out_tokens for r in done]}
-    emit({"lm_serve": rec}, log)
+    emit({key: rec}, log)
     return rec
 
 
-def lm_decode_check(base, log):
+# A router logit (~N(0, 1) here) of the decode and of the prefill differ
+# by float32 sums in another order (~1e-6); a token whose experts differ
+# between the two must have had a gap this small between them
+NEAR_TIE = 1e-4
+
+
+@contextlib.contextmanager
+def routed(forced=None):
+    """Patch ``ffn.moe_route`` inside the block to record each call's
+    experts (T, k) and float32 logits; with ``forced`` (one (T, k) expert
+    tensor a call, in call order) route each call's tokens to those
+    experts instead, with the gates of the call's own logits."""
+    import torch
+
+    from repro_torch.models import ffn
+
+    real, calls = ffn.moe_route, []
+
+    def route(p, xt, cfg):
+        logits, idx, gates = real(p, xt, cfg)
+        if forced is not None:
+            idx = forced[len(calls)].to(idx.device)
+            gates = torch.softmax(torch.gather(logits, 1, idx), dim=-1)
+        calls.append((idx, logits))
+        return logits, idx, gates
+
+    ffn.moe_route = route
+    try:
+        yield calls
+    finally:
+        ffn.moe_route = real
+
+
+def route_gaps(logits, chosen):
+    """{token: gap} for each token whose ``chosen`` experts are not the top
+    k of its ``logits``: the k-th largest logit minus the smallest logit
+    among the chosen ones."""
+    import torch
+
+    k = chosen.shape[1]
+    top = torch.topk(logits, k, dim=-1)
+    differ = (top.indices.sort(1).values != chosen.sort(1).values).any(1)
+    gaps = top.values[:, -1] - torch.gather(logits, 1, chosen).min(1).values
+    return {int(t): float(gaps[t]) for t in torch.nonzero(differ)[:, 0]}
+
+
+def lm_decode_check(base, log, spec=LM, key="lm_decode_vs_prefill"):
     """Float32 at full width, ``decode_layers`` layers: the logits of
     ``decode_step`` after the prompt fed token by token against the
-    prefill forward's last position."""
+    prefill forward's last position.
+
+    With MoE, the experts each token took in decode are compared with the
+    prefill's.  Where a router near-tie (within NEAR_TIE) went the other
+    way, the two are different computations by design; the check then
+    names the tokens and holds decode against a prefill routed to decode's
+    experts, each of which must lie within NEAR_TIE of that prefill's own
+    top k."""
     import dataclasses
 
     import torch
@@ -2070,72 +2213,120 @@ def lm_decode_check(base, log):
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import (decode_step, forward_hidden,
                                                 init_decode_cache,
-                                                init_transformer)
+                                                init_transformer, is_moe,
+                                                n_prefix)
 
-    cfg = dataclasses.replace(base, n_layers=LM["decode_layers"],
+    cfg = dataclasses.replace(base, n_layers=spec["decode_layers"],
                               dtype="float32")
+    reduced = {"layers": f"{cfg.n_layers} of {base.n_layers}",
+               "dtype": f"float32 for {base.dtype}"}
+    if spec.get("no_drop"):
+        moe = base.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe, capacity_factor=moe.n_experts / moe.top_k))
+        reduced["capacity_factor"] = (
+            f"{cfg.moe.capacity_factor} (n_experts / top_k: cap = T, no "
+            f"token dropped) for {moe.capacity_factor}")
     params = init_transformer(
         cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
-    n = LM["decode_prompt"]
+    n = spec["decode_prompt"]
+    n_moe = cfg.n_layers - n_prefix(cfg) if is_moe(cfg) else 0
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (1, n)).astype(np.int32)).cuda()
+
+    def prefill_logits():
+        h, _ = forward_hidden(cfg, params, toks)
+        return (h[:, -1] @ params["lm_head"]).double()
+
     with torch.no_grad():
         ops.reset_launch_counts()  # this path's count starts here
-        h, _ = forward_hidden(cfg, params, toks)
-        prefill = (h[:, -1] @ params["lm_head"]).double()
+        with routed() as pre_calls:
+            prefill = prefill_logits()
         launches = ops.launch_counts()
         cache = init_decode_cache(cfg, 1, n, device="cuda")
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(n):
-            logits, cache = decode_step(cfg, params, cache, toks[:, i:i + 1])
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        with routed() as dec_calls:
+            t0 = time.perf_counter()
+            for i in range(n):
+                logits, cache = decode_step(cfg, params, cache,
+                                            toks[:, i:i + 1])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
     decoded = logits[:, 0].double()
     rel = rel_err(decoded, prefill)
     check(launches["flash_attention_fused"] == cfg.n_layers,
-          f"decode check: {launches['flash_attention_fused']} K7 launches")
-    check(rel <= DECODE_REL, f"decode check: decode vs prefill logits "
-                             f"{rel} > {DECODE_REL} of the largest |logit|")
+          f"{key}: {launches['flash_attention_fused']} K7 launches")
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-           "reduced": {"layers": f"{cfg.n_layers} of {base.n_layers}",
-                       "dtype": f"float32 for {base.dtype}"},
-           "prompt": n, "rel_err": rel, "tolerance": DECODE_REL,
+           "reduced": reduced, "prompt": n, "rel_err": rel,
+           "tolerance": DECODE_REL,
            "max_abs_err": float((decoded - prefill).abs().max()),
            "same_argmax": bool(decoded.argmax() == prefill.argmax()),
            "prefill_launches": launches, "decode_ms": ms,
            "ms_per_decode_step": ms / n}
-    emit({"lm_decode_vs_prefill": rec}, log)
+    held = rel
+    if n_moe:
+        # each MoE layer's experts, token by token, as decode chose them
+        dec = [torch.cat([dec_calls[i * n_moe + layer][0]
+                          for i in range(n)]) for layer in range(n_moe)]
+        flips = {layer: route_gaps(pre_calls[layer][1], dec[layer])
+                 for layer in range(n_moe)}
+        rec["router_flips"] = {f"moe layer {layer}": gaps
+                               for layer, gaps in flips.items() if gaps}
+        if rec["router_flips"]:
+            with torch.no_grad(), routed(forced=dec) as f_calls:
+                forced = prefill_logits()
+            ties = {layer: route_gaps(f_calls[layer][1], dec[layer])
+                    for layer in range(n_moe)}
+            rec["forced_route_gaps"] = {f"moe layer {layer}": gaps
+                                        for layer, gaps in ties.items()
+                                        if gaps}
+            worst = max((g for gaps in ties.values() for g in gaps.values()),
+                        default=0.0)
+            check(worst <= NEAR_TIE,
+                  f"{key}: decode's experts are {worst} from the top k of "
+                  f"the prefill routed to them (> NEAR_TIE {NEAR_TIE})")
+            held = rec["rel_err_routed_as_decode"] = rel_err(decoded, forced)
+    check(held <= DECODE_REL,
+          f"{key}: decode vs prefill logits {held} > {DECODE_REL} of the "
+          f"largest |logit| ({rec.get('router_flips')})")
+    emit({key: rec}, log)
     return rec
 
 
-def lm_phase(log):
-    """Phi-3-mini at full width and depth in bf16 with random weights from
-    a seeded generator: the prefill forward, then the server; then the
-    float32 decode-against-prefill check at 4 layers."""
+def lm_phase(log, spec=LM, prefix="lm"):
+    """One LM at full width and depth in bf16 with random weights from a
+    seeded generator: the prefill forward, then the server; then the
+    float32 decode-against-prefill check at reduced depth."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_transformer
 
-    cfg = get_config(LM["arch"])
+    cfg = get_config(spec["arch"])
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_transformer(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     torch.cuda.synchronize()
-    emit({"lm_init": {"arch": cfg.name, "layers": cfg.n_layers,
-                      "seconds": time.perf_counter() - t0,
-                      "param_gb": (torch.cuda.memory_allocated() - before)
-                      / 1e9}}, log)
-    prefill = lm_prefill(cfg, params, log)
-    serve = lm_serve(cfg, params, log)
+    emit({f"{prefix}_init": {"arch": cfg.name, "layers": cfg.n_layers,
+                             "seconds": time.perf_counter() - t0,
+                             "param_gb": (torch.cuda.memory_allocated()
+                                          - before) / 1e9}}, log)
+    prefill = lm_prefill(cfg, params, log, spec, f"{prefix}_prefill")
+    serve = lm_serve(cfg, params, log, spec, f"{prefix}_serve")
     del params
     torch.cuda.empty_cache()
-    decode = lm_decode_check(cfg, log)
+    decode = lm_decode_check(cfg, log, spec, f"{prefix}_decode_vs_prefill")
     torch.cuda.empty_cache()
     return prefill, serve, decode
+
+
+def deepseek_phase(log):
+    """DeepSeek-V2-Lite at full width and depth: MLA's prefill through K7 at
+    qk 192 / v 128, the capacity-routed MoE FFN and the dense prefix layer;
+    the server on MLA's absorbed decode; the float32 decode check."""
+    return lm_phase(log, DS, "deepseek")
 
 
 # ---------------------------------------------------------------------------
@@ -3991,9 +4182,10 @@ def main(argv=None) -> int:
     ffn = ffn_phase(log)
     torch.cuda.empty_cache()
     # then K7 and the LM path, still ahead of the SpGEMM traces
-    flash = flash_phase(log)
+    flash, flash_mla = flash_phase(log)
     torch.cuda.empty_cache()
     prefill, _, _ = lm_phase(log)
+    ds_prefill, _, _ = deepseek_phase(log)
     mats = {name: table_ii_matrix(name, seed=0, n_override=n, device="cuda")
             for name, n in MATRICES.items()}
     k1, k2 = kernel_phase(mats, log)
@@ -4097,7 +4289,14 @@ def main(argv=None) -> int:
         "kernel_ms": flash["ms"], "device_ms": flash["device_ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-        "library_call": flash["library_call"]})
+        "library_call": flash["library_call"],
+        # MLA's widths at DeepSeek-V2-Lite's prefill
+        "mla": {k: flash_mla[k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_call",
+            "ptxas")},
+        "launches_per_deepseek_prefill":
+            ds_prefill["launches"]["flash_attention_fused"]})
     emit({"script_s": time.perf_counter() - t_script}, log)
     emit({"kernels": kernels}, log)
     if args.json:

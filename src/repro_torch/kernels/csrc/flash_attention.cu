@@ -1,6 +1,7 @@
-// Fused online-softmax attention (flash attention) on float32 (BH, S, D)
-// tensors, on the CUDA cores: the float32 route of ops.flash_attention_fused.
-// bf16 inputs go to the tensor-core kernel, flash_attention_wgmma.cu.
+// Fused online-softmax attention (flash attention) on float32 q and k of
+// (BH, S, D) and v of (BH, S, Dv), Dv <= D <= 192, on the CUDA cores: the
+// float32 route of ops.flash_attention_fused.  bf16 inputs go to the
+// tensor-core kernel, flash_attention_wgmma.cu.  The output is (BH, S, Dv).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_fused (_flash_kernel: grid (BH, nq, nk) with the kv axis
@@ -33,7 +34,7 @@
 //      warp shuffles; m, l and the rescale corr = exp(m_prev - m_new) stay
 //      in registers, expf (not __expf) throughout;
 //   4. P goes to shared memory transposed, and each thread adds P.V into
-//      its 4 rows x ceil(D/16) columns of the float32 accumulator.
+//      its 4 rows x ceil(Dv/16) columns of the float32 accumulator.
 // Causal calls stop the loop at the last tile that holds a key <= the
 // tile's last query; the heaviest query tiles are scheduled first.
 //
@@ -45,7 +46,9 @@
 //
 // Internal tiles (64 x 64) are the kernel's choice: masking is elementwise
 // and the function does not depend on them.  The kernel and the Python
-// version differ only in the order of float32 sums.  D <= 128.
+// version differ only in the order of float32 sums.  D <= 192 (MLA's 128 +
+// 64 rope lanes; at D = Dv = 192, Q and K tiles of 64 x 196 floats and V's
+// and P's take 166,912 bytes of shared memory), Dv <= D.
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,7 +56,7 @@ namespace {
 constexpr int kBQ = 64;        // queries per block
 constexpr int kBK = 64;        // keys per kv tile
 constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 192;
 constexpr int kLdP = kBQ + 4;  // row stride of P^T in shared memory
 constexpr float kNegInf = -1e30f;
 
@@ -85,12 +88,12 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// NC = ceil(D / 16): output columns per thread (tx + 16 * kk).
+// NC = ceil(Dv / 16): output columns per thread (tx + 16 * kk).
 template <int NC>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int bh_count,
-             int s_len, int d, int causal, float scale) {
+             int s_len, int d, int dv, int causal, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int dp = (d + 3) & ~3;  // D padded to whole float4s
@@ -109,6 +112,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long bh = blockIdx.x % bh_count;
   const int q0 = qt * kBQ;
   const long long base = bh * s_len * (long long)d;
+  const long long base_v = bh * s_len * (long long)dv;
 
   stage(qs, q + base, q0, kBQ, s_len, d, dp, ld);
 
@@ -135,8 +139,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = e / kLdV;
       const int c = e - r * kLdV;
       const int row = k0 + r;
-      vs[e] = (row < s_len && c < d)
-                  ? v[base + (long long)row * d + c] : 0.0f;
+      vs[e] = (row < s_len && c < dv)
+                  ? v[base_v + (long long)row * dv + c] : 0.0f;
     }
     __syncthreads();
 
@@ -216,19 +220,19 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= s_len) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + base + (long long)row * d;
+    float* orow = o + base_v + (long long)row * dv;
 #pragma unroll
     for (int kk = 0; kk < NC; ++kk) {
       const int n = tx + 16 * kk;
-      if (n < d) orow[n] = acc[i][kk] / denom;
+      if (n < dv) orow[n] = acc[i][kk] / denom;
     }
   }
 }
 
 template <int NC>
 int launch(const void* q, const void* k, const void* v, void* o,
-           long long bh, long long s_len, long long d, int causal,
-           float scale, cudaStream_t stream) {
+           long long bh, long long s_len, long long d, long long dv,
+           int causal, float scale, cudaStream_t stream) {
   const long long dp = (d + 3) & ~3LL;
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * (dp + 4)
                                        + (size_t)kBK * 16 * NC
@@ -241,41 +245,44 @@ int launch(const void* q, const void* k, const void* v, void* o,
   flash_kernel<NC><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), (int)bh,
-      (int)s_len, (int)d, causal, scale);
+      (int)s_len, (int)d, (int)dv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+#define REPRO_FLASH_NC(n)                                                  \
+  case n:                                                                 \
+    return launch<n>(q, k, v, o, bh, s_len, d, dv, causal, scale, s);
+
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             long long bh, long long s_len, long long d, int causal,
-             float scale, cudaStream_t s) {
-  switch ((d + 15) / 16) {
-    case 1: return launch<1>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 2: return launch<2>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 3: return launch<3>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 4: return launch<4>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 5: return launch<5>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 6: return launch<6>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 7: return launch<7>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 8: return launch<8>(q, k, v, o, bh, s_len, d, causal, scale, s);
+             long long bh, long long s_len, long long d, long long dv,
+             int causal, float scale, cudaStream_t s) {
+  switch ((dv + 15) / 16) {
+    REPRO_FLASH_NC(1) REPRO_FLASH_NC(2) REPRO_FLASH_NC(3) REPRO_FLASH_NC(4)
+    REPRO_FLASH_NC(5) REPRO_FLASH_NC(6) REPRO_FLASH_NC(7) REPRO_FLASH_NC(8)
+    REPRO_FLASH_NC(9) REPRO_FLASH_NC(10) REPRO_FLASH_NC(11)
+    REPRO_FLASH_NC(12)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+#undef REPRO_FLASH_NC
+
 }  // namespace
 
-// q, k, v, o: (bh, s_len, d) float32, contiguous; o is written in full.
-// causal: 1 masks keys after each query.  scale: the score scale,
-// 1/sqrt(d) rounded once to float32.
+// q, k: (bh, s_len, d), v, o: (bh, s_len, dv) float32, contiguous; o is
+// written in full.  causal: 1 masks keys after each query.  scale: the
+// score scale, 1/sqrt(d) rounded once to float32.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// d outside 1..128 or a grid the launch cannot hold.
+// d outside 1..192, dv outside 1..d or a grid the launch cannot hold.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, long long bh,
-                                     long long s_len, long long d, int causal,
-                                     float scale, void* stream) {
+                                     long long s_len, long long d,
+                                     long long dv, int causal, float scale,
+                                     void* stream) {
   if (bh <= 0 || s_len <= 0) return 0;
-  if (d <= 0 || d > kMaxD || s_len > 2147483647LL
+  if (d <= 0 || d > kMaxD || dv <= 0 || dv > d || s_len > 2147483647LL
       || ((s_len + kBQ - 1) / kBQ) * bh > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, k, v, o, bh, s_len, d, causal, scale,
+  return dispatch(q, k, v, o, bh, s_len, d, dv, causal, scale,
                   static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
-// Fused online-softmax attention (flash attention) for bf16 (BH, S, D)
-// tensors on the tensor cores of a Hopper GPU (sm_90a): the bf16 route of
-// ops.flash_attention_fused.  float32 inputs go to flash_attention.cu.
+// Fused online-softmax attention (flash attention) for bf16 q and k of
+// (BH, S, D) and v of (BH, S, Dv), Dv <= D <= 192, on the tensor cores of a
+// Hopper GPU (sm_90a): the bf16 route of ops.flash_attention_fused.  float32
+// inputs go to flash_attention.cu.  The output is (BH, S, Dv).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:73
 // (flash_attention_fused; body _flash_kernel :29).  What it computes, as
@@ -15,7 +16,9 @@
 // diagonal are 2.06e11 FLOP, 0.2085 ms at the 989 TFLOP/s bf16 tensor-core
 // rate, against 201 MB of q, k, v and o (0.060 ms at 3.35 TB/s).  P in
 // three bf16 terms (below) makes the tensor cores do 4.12e11 operations,
-// 0.417 ms at that rate.
+// 0.417 ms at that rate.  At DeepSeek-V2-Lite's MLA prefill (BH 32, S
+// 4,096, D 192 = 128 + 64 rope lanes, Dv 128, causal): 1.72e11 FLOP, 0.174
+// ms, against 168 MB (0.050 ms); with P's three terms 3.09e11, 0.313 ms.
 //
 // Design (what it does about that bound): both products on the tensor
 // cores with wgmma, bf16 operands and float32 accumulators.
@@ -39,10 +42,17 @@
 //     setmaxnreg, no overlap of one tile's softmax with the next tile's
 //     Q.K^T inside a warpgroup (FlashAttention-3's shape): every thread
 //     copies, then computes.
-//   * Tiles are SW128 panels of 64 columns (hopper.cuh); D is padded with
-//     zeros to DP, a multiple of 32 (D = 96: two panels, the second half
-//     used), and the padded output columns are not stored.
-//   * S = Q.K^T: DP/16 wgmma m64n64k16, Q and K both K-major from shared
+//   * Tiles are SW128 panels of 64 columns (hopper.cuh).  The qk width D
+//     is padded with zeros to DQ and the value width Dv to DV, each a
+//     multiple of 32 (D = 96: two panels, the second half used); the
+//     padded output columns are not stored.  The two widths are template
+//     parameters of their own, so a wide Q.K^T (MLA's 192) costs shared
+//     memory and k-steps but no accumulator registers: DV <= 128 keeps the
+//     registers of the D = 128 kernel.  Dv < D below 128 runs the DQ-wide
+//     kernel with V's columns past Dv zero-filled.  Shared memory at
+//     (DQ, DV) = (192, 128): Q 48 KB, two K stages 48 KB, two V stages
+//     32 KB, 129 KB with the alignment: one block an SM.
+//   * S = Q.K^T: DQ/16 wgmma m64n64k16, Q and K both K-major from shared
 //     memory.  bf16 x bf16 products are exact in float32, so the scores
 //     differ from the reference only in the order of the sums.
 //   * Softmax on the accumulator fragments, in float32: a thread holds two
@@ -87,7 +97,7 @@ constexpr int kThreads = 128 * kWG;
 constexpr int kBK = 64;              // keys per kv tile
 constexpr int kStages = 2;           // K/V ring depth
 constexpr int kPTerms = 3;           // bf16 terms of P
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 192;
 constexpr float kNegInf = -1e30f;
 constexpr uint32_t kTile = kBK * 128;  // one 64-column panel of a K/V tile
 
@@ -144,21 +154,22 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
 }
 
 // Two blocks an SM hold the accumulators of D <= 96 in 128 registers a
-// thread; D = 128's need the registers of one block an SM.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, DP > 96 ? 1 : 2)
+// thread, and their shared memory; wider tiles need one block an SM.
+template <int DQ, int DV>
+__global__ void __launch_bounds__(kThreads, DQ > 96 || DV > 96 ? 1 : 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ o, int bh_count, int s_len,
-                   int d, int causal, float scale_log2, int vec) {
-  constexpr int NP = (DP + 63) / 64;  // 64-column panels
-  constexpr uint32_t kQBytes = NP * kRows * 128;
+                   int d, int dv, int causal, float scale_log2, int vec) {
+  constexpr int NQ = (DQ + 63) / 64;  // 64-column panels of Q and K
+  constexpr int NV = (DV + 63) / 64;  // of V and the accumulator
+  constexpr uint32_t kQBytes = NQ * kRows * 128;
   extern __shared__ unsigned char smem_raw[];
   // panels start on 1024-byte boundaries (the SW128 pattern's period)
   const uint32_t qs = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
-  // stage st: K panels at ks(st), V panels kTile * NP after
-  auto ks = [&](int st) { return qs + kQBytes + st * 2 * NP * kTile; };
+  // stage st: K panels at ks(st), V panels kTile * NQ after
+  auto ks = [&](int st) { return qs + kQBytes + st * (NQ + NV) * kTile; };
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -168,17 +179,18 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const long long bh = blockIdx.x % bh_count;
   const int q0 = qt * kRows;
   const long long base = bh * s_len * (long long)d;
+  const long long base_v = bh * s_len * (long long)dv;
   const __nv_bfloat16* qb = q + base;
   const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
+  const __nv_bfloat16* vb = v + base_v;
 
   const int n_kv = (s_len + kBK - 1) / kBK;
   const int n_tiles =
       causal ? min(n_kv, (min(q0 + kRows, s_len) - 1) / kBK + 1) : n_kv;
 
-  load_tile<DP>(qs, qb, q0, kRows, s_len, d, vec);
-  load_tile<DP>(ks(0), kb, 0, kBK, s_len, d, vec);
-  load_tile<DP>(ks(0) + NP * kTile, vb, 0, kBK, s_len, d, vec);
+  load_tile<DQ>(qs, qb, q0, kRows, s_len, d, vec);
+  load_tile<DQ>(ks(0), kb, 0, kBK, s_len, d, vec);
+  load_tile<DV>(ks(0) + NQ * kTile, vb, 0, kBK, s_len, dv, vec);
   hopper::cp_async_commit();
 
   // This thread's accumulator rows (r and r + 8) and first column: the
@@ -193,11 +205,11 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.0f, 0.0f};
   float s[32];
-  float acc[NP][32];
+  float acc[NV][32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.0f;
 #pragma unroll
-  for (int p = 0; p < NP; ++p)
+  for (int p = 0; p < NV; ++p)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
 
@@ -205,8 +217,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int st = t % kStages;
     if (t + 1 < n_tiles) {
       const uint32_t nxt = ks((t + 1) % kStages);
-      load_tile<DP>(nxt, kb, (t + 1) * kBK, kBK, s_len, d, vec);
-      load_tile<DP>(nxt + NP * kTile, vb, (t + 1) * kBK, kBK, s_len, d, vec);
+      load_tile<DQ>(nxt, kb, (t + 1) * kBK, kBK, s_len, d, vec);
+      load_tile<DV>(nxt + NQ * kTile, vb, (t + 1) * kBK, kBK, s_len, dv,
+                    vec);
     }
     hopper::cp_async_commit();
     hopper::cp_async_wait<1>();  // tile t (and Q) have landed
@@ -216,12 +229,12 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = t * kBK;
     if (!causal || k0 <= wg_q0 + 63) {
       const uint32_t kt = ks(st);
-      const uint32_t vt = kt + NP * kTile;
-      // S = Q.K^T over DP in steps of 16 (32 bytes of a 128-byte row)
+      const uint32_t vt = kt + NQ * kTile;
+      // S = Q.K^T over DQ in steps of 16 (32 bytes of a 128-byte row)
       hopper::fence_regs(s);
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;
         hopper::wgmma_ss_m64n64k16(
             s, sw128_desc(q_wg + (kk >> 2) * (kRows * 128) + off, 16, 1024),
@@ -259,10 +272,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         l[h] *= corr;
         m[h] = m_new;
 #pragma unroll
-        for (int p = 0; p < NP; ++p)
+        for (int p = 0; p < NV; ++p)
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
-            if (8 * j >= panel_cols<DP>(p)) continue;
+            if (8 * j >= panel_cols<DV>(p)) continue;
             acc[p][4 * j + 2 * h] *= corr;
             acc[p][4 * j + 2 * h + 1] *= corr;
           }
@@ -274,7 +287,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       // exponentials and bf16 terms are computed while the tensor cores run
       // the steps before it.
       uint32_t pa[4][kPTerms][4];
-      fence_acc<DP>(acc);
+      fence_acc<DV>(acc);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -294,12 +307,12 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         }
         hopper::wgmma_fence();
 #pragma unroll
-        for (int p = 0; p < NP; ++p) {
+        for (int p = 0; p < NV; ++p) {
           const uint64_t desc = sw128_desc(vt + p * kTile + kk * 2048,
                                            kTile, 1024);
 #pragma unroll
           for (int term = 0; term < kPTerms; ++term) {
-            if (panel_cols<DP>(p) == 64)
+            if (panel_cols<DV>(p) == 64)
               hopper::wgmma_rs_m64n64k16(acc[p], pa[kk][term], desc);
             else
               hopper::wgmma_rs_m64n32k16(acc[p], pa[kk][term], desc);
@@ -308,7 +321,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
-      fence_acc<DP>(acc);
+      fence_acc<DV>(acc);
     }
     __syncthreads();  // stage st is consumed before it is loaded again
   }
@@ -323,76 +336,102 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = row0 + 8 * h;
     if (row >= s_len) continue;
     const float denom = fmaxf(l[h], 1e-30f);
-    __nv_bfloat16* orow = o + base + (long long)row * d;
+    __nv_bfloat16* orow = o + base_v + (long long)row * dv;
 #pragma unroll
-    for (int p = 0; p < NP; ++p)
+    for (int p = 0; p < NV; ++p)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        if (8 * j >= panel_cols<DP>(p)) continue;
+        if (8 * j >= panel_cols<DV>(p)) continue;
         const int c = 64 * p + 8 * j + col0;
         const float x = acc[p][4 * j + 2 * h] / denom;
         const float y = acc[p][4 * j + 2 * h + 1] / denom;
-        if (c + 1 < d && (d & 1) == 0) {
+        if (c + 1 < dv && (dv & 1) == 0) {
           *reinterpret_cast<__nv_bfloat162*>(orow + c) =
               __floats2bfloat162_rn(x, y);
         } else {
-          if (c < d) orow[c] = __float2bfloat16(x);
-          if (c + 1 < d) orow[c + 1] = __float2bfloat16(y);
+          if (c < dv) orow[c] = __float2bfloat16(x);
+          if (c + 1 < dv) orow[c + 1] = __float2bfloat16(y);
         }
       }
   }
 }
 
-// Dynamic shared memory of a launch for head dim d: Q and the K/V ring,
-// 64-column panels of 128-byte rows, and 1024 bytes to align them.
-int smem_bytes(long long d) {
-  return 1024 + (int)((d + 63) / 64) * 128 * (kRows + kStages * 2 * kBK);
+// Dynamic shared memory of a launch: Q and the K/V ring in 64-column
+// panels of 128-byte rows (DQ wide for Q and K, DV for V), and 1024 bytes
+// to align them.
+template <int DQ, int DV>
+constexpr int smem_bytes() {
+  return 1024 + ((DQ + 63) / 64) * 128 * kRows
+         + kStages * (int)kTile * ((DQ + 63) / 64 + (DV + 63) / 64);
 }
 
-template <int DP>
+template <int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
-           long long bh, long long s_len, long long d, int causal,
-           float scale, cudaStream_t stream) {
-  const int smem = smem_bytes(DP);
+           long long bh, long long s_len, long long d, long long dv,
+           int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DQ, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_wgmma_kernel<DQ, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = d % 8 == 0
+  const int vec = d % 8 == 0 && dv % 8 == 0
       && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
            | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   // the scale and log2(e) in one float, for exp2
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
   const long long nq = (s_len + kRows - 1) / kRows;
-  flash_wgmma_kernel<DP><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+  flash_wgmma_kernel<DQ, DV><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      (int)bh, (int)s_len, (int)d, causal, scale_log2, vec);
+      (int)bh, (int)s_len, (int)d, (int)dv, causal, scale_log2, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The value width's kernel for a qk width of DQ: DV = DQ (V zero-filled
+// past dv), or 128 for a qk width past 128 with dv <= 128 (MLA's 192 / 128).
+template <int DQ>
+int launch_dq(const void* q, const void* k, const void* v, void* o,
+              long long bh, long long s_len, long long d, long long dv,
+              int causal, float scale, cudaStream_t stream) {
+  if constexpr (DQ > 128) {
+    if (dv <= 128)
+      return launch<DQ, 128>(q, k, v, o, bh, s_len, d, dv, causal, scale,
+                             stream);
+  }
+  return launch<DQ, DQ>(q, k, v, o, bh, s_len, d, dv, causal, scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, s_len, d) bfloat16, contiguous; o is written in full.
-// causal: 1 masks keys after each query.  scale: the score scale,
-// 1/sqrt(d) rounded once to float32.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for d outside 1..128 or a grid the
-// launch cannot hold.
+// q, k: (bh, s_len, d), v, o: (bh, s_len, dv) bfloat16, contiguous; o is
+// written in full.  causal: 1 masks keys after each query.  scale: the
+// score scale, 1/sqrt(d) rounded once to float32.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for d
+// outside 1..192, dv outside 1..d or a grid the launch cannot hold.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* o,
                                            long long bh, long long s_len,
-                                           long long d, int causal,
-                                           float scale, void* stream) {
+                                           long long d, long long dv,
+                                           int causal, float scale,
+                                           void* stream) {
   if (bh <= 0 || s_len <= 0) return 0;
-  if (d <= 0 || d > kMaxD || s_len > 2147483647LL
+  if (d <= 0 || d > kMaxD || dv <= 0 || dv > d || s_len > 2147483647LL
       || ((s_len + kRows - 1) / kRows) * bh > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 31) / 32) {
-    case 1: return launch<32>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 2: return launch<64>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    case 3: return launch<96>(q, k, v, o, bh, s_len, d, causal, scale, s);
-    default: return launch<128>(q, k, v, o, bh, s_len, d, causal, scale, s);
+    case 1: return launch_dq<32>(q, k, v, o, bh, s_len, d, dv, causal,
+                                 scale, s);
+    case 2: return launch_dq<64>(q, k, v, o, bh, s_len, d, dv, causal,
+                                 scale, s);
+    case 3: return launch_dq<96>(q, k, v, o, bh, s_len, d, dv, causal,
+                                 scale, s);
+    case 4: return launch_dq<128>(q, k, v, o, bh, s_len, d, dv, causal,
+                                  scale, s);
+    case 5: return launch_dq<160>(q, k, v, o, bh, s_len, d, dv, causal,
+                                  scale, s);
+    default: return launch_dq<192>(q, k, v, o, bh, s_len, d, dv, causal,
+                                   scale, s);
   }
 }

@@ -6,9 +6,10 @@ raises.  There is no fallback from the card to the plain version.  Each
 launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
 that its path went through the kernels.  The row gather (by its copy
 unit), the ranged gather (by the range's alignment), the BSR and block
-TopK products (by dtype), the per-token TopK product (by W2's rows) and
-the hash accumulate (by table size) also count the CUDA route they took in
-``ROUTE_LAUNCHES``, under ``"<kernel>/<route>"``.
+TopK products (by dtype), the per-token TopK product (by W2's rows),
+the hash accumulate (by table size) and the flash attention (by dtype)
+also count the CUDA route they took in ``ROUTE_LAUNCHES``, under
+``"<kernel>/<route>"``.
 
 The public wrappers ``gather_rows``, ``hash_accumulate``,
 ``aia_ranged_gather``, ``bsr_spmm``, ``topk_spmm`` and ``block_topk_spmm``
@@ -189,9 +190,10 @@ def block_topk_spmm(h_kept, bidx, w2, block: int = 128,
 
 def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
                           k_blk: int = 128, backend: str = "auto"):
-    """Online-softmax attention on ``(BH, S, D)`` with KV expanded to the
-    query heads, scale ``1/sqrt(D)``, output in ``q``'s dtype; ``S`` must be
-    a multiple of ``min(q_blk, S)`` and ``min(k_blk, S)``."""
+    """Online-softmax attention on ``(BH, S, D)`` q and k and a ``(BH, S,
+    Dv)`` v (Dv <= D) with KV expanded to the query heads, scale
+    ``1/sqrt(D)``, output ``(BH, S, Dv)`` in ``q``'s dtype; ``S`` must be a
+    multiple of ``min(q_blk, S)`` and ``min(k_blk, S)``."""
     from repro_torch.kernels import flash_attention as k7
     return _route(backend, k7.flash_attention_fused,
                   k7.flash_attention_fused_plain)(q, k, v, causal, q_blk,

@@ -1,22 +1,26 @@
-"""Attention, the GQA half: train/prefill and decode paths.
+"""Attention: GQA and MLA, train/prefill and decode paths.
 
-Counterpart of ``repro.models.attention`` (MLA is not ported yet: ROADMAP
-Queue A item 12).  Layouts are the reference's: activations ``(B, S, H,
-D)``, KV caches ``(B, S_max, KV, D)``.
+Counterpart of ``repro.models.attention``.  Layouts are the reference's:
+activations ``(B, S, H, D)``, KV caches ``(B, S_max, KV, D)``; MLA's decode
+cache holds the latent ``(B, S_max, kv_lora)`` and the shared rope key
+``(B, S_max, rope)``.
 
 ``flash_attention`` is the reference's online softmax over query and key
 chunks.  A call that lies inside the fused kernel's contract goes through
 ``kernels.ops.flash_attention_fused`` (K7: the CUDA kernel on the card, its
 plain blockwise version on the CPU): no window, no query offset, no
-``kv_valid_len``, Sq == Sk, Dv == D, no ``p_dtype``, and S at most 128 or a
-multiple of 128.  Every other call runs the chunked PyTorch code on the
-CPU; on the card it raises, since the port has no kernel for it.
+``kv_valid_len``, Sq == Sk, Dv <= D <= 192, no ``p_dtype``, and S at most
+128 or a multiple of 128.  MLA's expanded prefill (qk 192 = 128 + 64 rope
+lanes, v 128 at DeepSeek-V2-Lite's width) is such a call.  Every other
+call runs the chunked PyTorch code on the CPU; on the card it raises,
+since the port has no kernel for it.
 
 The K7 route scales scores by ``1/sqrt(D)`` rounded once from double, as
 the Pallas kernel does; the chunked code by ``1/sqrt(float32(D))``, as the
 reference's model code does (one float32 ulp apart for D = 96).
 
-``decode_attention`` is plain PyTorch, as the reference leaves it to XLA.
+``decode_attention`` and MLA's absorbed decode (``mla_decode``, float32
+einsums) are plain PyTorch, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
+from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 K7_MAX_BLOCK = 128  # the kernel contract's default q/k block
@@ -43,25 +48,27 @@ def on_k7_route(sq: int, sk: int, d: int, dv: int, window: int = 0,
     """True when ``flash_attention`` with these arguments goes through the
     fused kernel (K7)."""
     return (window == 0 and q_offset == 0 and kv_valid_len is None
-            and sq == sk and dv == d and p_dtype is None
+            and sq == sk and dv <= d <= MAX_HEAD_DIM and p_dtype is None
             and (sq <= K7_MAX_BLOCK or sq % K7_MAX_BLOCK == 0))
 
 
 def _fused(q, k, v, causal: bool):
     """K7 on the ``(B*H, S, D)`` layout: heads next to the batch, KV
-    expanded to the query heads (head h reads kv head h // G)."""
-    b, s, h, d = q.shape
+    expanded to the query heads (head h reads kv head h // G); v keeps its
+    own width."""
+    b, s, h, _ = q.shape
     g = h // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
 
     def heads_first(t):
-        return t.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
+        return t.permute(0, 2, 1, 3).reshape(b * h, s, t.shape[3]) \
+            .contiguous()
 
     out = ops.flash_attention_fused(heads_first(q), heads_first(k),
                                     heads_first(v), causal=causal)
-    return out.reshape(b, h, s, d).permute(0, 2, 1, 3)
+    return out.reshape(b, h, s, v.shape[3]).permute(0, 2, 1, 3)
 
 
 def flash_attention(
@@ -251,3 +258,101 @@ def gqa_decode(p: AttnParams, x, k_cache, v_cache, pos, *, n_heads, n_kv,
     v_cache.index_copy_(1, at, v.to(v_cache.dtype))
     out = decode_attention(q, k_cache, v_cache, pos + 1, window=window)
     return out.reshape(b, 1, n_heads * hd) @ p.wo, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLAParams(NamedTuple):
+    wq: torch.Tensor       # (D, H*(nope+rope))
+    w_dkv: torch.Tensor    # (D, kv_lora)
+    w_kr: torch.Tensor     # (D, rope_dim) shared rope key
+    w_uk: torch.Tensor     # (kv_lora, H*nope)
+    w_uv: torch.Tensor     # (kv_lora, H*v_dim)
+    wo: torch.Tensor       # (H*v_dim, D)
+    norm_kv: torch.Tensor  # (kv_lora,)
+
+
+def mla_init(generator, d_model, n_heads, mla, dtype,
+             layers: Optional[int] = None) -> MLAParams:
+    """Projections for one layer, or stacked for ``layers`` layers."""
+    qd = n_heads * (mla.qk_nope_dim + mla.qk_rope_dim)
+    norm = (mla.kv_lora,) if layers is None else (layers, mla.kv_lora)
+    return MLAParams(
+        wq=dense_init(generator, d_model, qd, dtype, layers=layers),
+        w_dkv=dense_init(generator, d_model, mla.kv_lora, dtype,
+                         layers=layers),
+        w_kr=dense_init(generator, d_model, mla.qk_rope_dim, dtype,
+                        layers=layers),
+        w_uk=dense_init(generator, mla.kv_lora, n_heads * mla.qk_nope_dim,
+                        dtype, layers=layers),
+        w_uv=dense_init(generator, mla.kv_lora, n_heads * mla.v_head_dim,
+                        dtype, layers=layers),
+        wo=dense_init(generator, n_heads * mla.v_head_dim, d_model, dtype,
+                      layers=layers),
+        norm_kv=torch.ones(norm, dtype=dtype, device=generator.device),
+    )
+
+
+def mla_forward(p: MLAParams, x, *, n_heads, mla, rope_theta, attn_chunk=0,
+                p_dtype=None):
+    """Train/prefill MLA (expanded form): q and k of ``nope + rope`` lanes,
+    the rope key shared by every head, v of ``v_head_dim``; one
+    ``flash_attention`` call, and so K7 on a full causal sequence."""
+    b, s, _ = x.shape
+    nd, rd, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_head_dim
+    q = (x @ p.wq).reshape(b, s, n_heads, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    pos = torch.arange(s, device=x.device)[None, :]
+    q_rope = apply_rope(q_rope, pos, rope_theta)
+    latent = rms_norm(x @ p.w_dkv, p.norm_kv)  # (B, S, kv_lora)
+    k_rope = apply_rope((x @ p.w_kr)[:, :, None, :], pos, rope_theta)
+    k_nope = (latent @ p.w_uk).reshape(b, s, n_heads, nd)
+    v = (latent @ p.w_uv).reshape(b, s, n_heads, vd)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, n_heads, rd)], dim=-1)
+    kw = dict(q_chunk=attn_chunk, k_chunk=attn_chunk) if attn_chunk else {}
+    out = flash_attention(qf, kf, v, causal=True, p_dtype=p_dtype, **kw)
+    return out.reshape(b, s, n_heads * vd) @ p.wo
+
+
+def mla_decode(p: MLAParams, x, latent_cache, krope_cache, pos, *, n_heads,
+               mla, rope_theta):
+    """Absorbed-form decode: the cache holds the latent and the rope key
+    only; W_uk is absorbed into q and W_uv applied after the softmax, in
+    float32.  The token's latent and rope key are written into the caches
+    at ``pos`` in place (the reference returns new arrays).  Returns
+    (output, latent_cache, krope_cache)."""
+    b = x.shape[0]
+    nd, rd, vd = mla.qk_nope_dim, mla.qk_rope_dim, mla.v_head_dim
+    lora = mla.kv_lora
+    q = (x @ p.wq).reshape(b, 1, n_heads, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    pos = torch.as_tensor(pos, device=x.device)
+    posb = pos.reshape(1, 1).expand(b, 1)
+    q_rope = apply_rope(q_rope, posb, rope_theta)
+    lat = rms_norm(x @ p.w_dkv, p.norm_kv)  # (B, 1, lora)
+    kr = apply_rope((x @ p.w_kr)[:, :, None, :], posb, rope_theta)[:, :, 0]
+    at = pos.reshape(1).long()
+    latent_cache.index_copy_(1, at, lat.to(latent_cache.dtype))
+    krope_cache.index_copy_(1, at, kr.to(krope_cache.dtype))
+    # absorb W_uk into q: q_lat[h] = q_nope[h] @ W_uk[h]^T -> (B, 1, H, lora)
+    wuk = p.w_uk.reshape(lora, n_heads, nd)
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope.float(), wuk.float())
+    smax = latent_cache.shape[1]
+    scale = float(1.0 / torch.sqrt(torch.tensor(nd + rd,
+                                                dtype=torch.float32)))
+    lat_all = latent_cache.float()
+    s_lat = torch.einsum("bqhl,bsl->bhqs", q_lat, lat_all)
+    s_rope = torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                          krope_cache.float())
+    s = (s_lat + s_rope) * scale
+    ok = torch.arange(smax, device=x.device) < pos + 1
+    s = torch.where(ok[None, None, None, :], s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bhqs,bsl->bqhl", pattn, lat_all)
+    wuv = p.w_uv.reshape(lora, n_heads, vd)
+    out = torch.einsum("bqhl,lhv->bqhv", ctx_lat, wuv.float())
+    out = out.reshape(b, 1, n_heads * vd).to(x.dtype)
+    return out @ p.wo, latent_cache, krope_cache

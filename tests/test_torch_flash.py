@@ -92,8 +92,13 @@ def test_k7_keeps_the_reference_divisibility_contract():
     x = torch.zeros((1, 96, 16))
     with pytest.raises(AssertionError):
         k7.flash_attention_fused(x, x, x, q_blk=64, k_blk=64)
+    # v may be narrower than q and k (MLA), never wider or of another S
+    assert tuple(k7.flash_attention_fused(x, x, x[:, :, :8]).shape) == \
+        (1, 96, 8)
     with pytest.raises(ValueError):
-        k7.flash_attention_fused(x, x, x[:, :, :8])
+        k7.flash_attention_fused(x[:, :, :8], x[:, :, :8], x)
+    with pytest.raises(ValueError):
+        k7.flash_attention_fused(x, x, x[:, :48])
 
 
 def test_ops_routing():
@@ -140,11 +145,12 @@ def qkv(rng, b, sq, sk, h, kv, d, dv=None):
 @pytest.mark.parametrize("b,s,h,kv,d,causal", [
     (2, 64, 4, 4, 32, True), (2, 64, 4, 4, 32, False),
     (1, 256, 4, 2, 16, True), (2, 16, 6, 2, 8, True),
-    (1, 128, 2, 1, 24, False),
+    (1, 128, 2, 1, 24, False), (1, 256, 2, 2, (24, 16), True),
 ])
 def test_model_flash_k7_route(monkeypatch, b, s, h, kv, d, causal):
-    q, k, v = qkv(np.random.default_rng(1), b, s, s, h, kv, d)
-    assert attention.on_k7_route(s, s, d, d)
+    d, dv = d if isinstance(d, tuple) else (d, d)  # qk and v widths
+    q, k, v = qkv(np.random.default_rng(1), b, s, s, h, kv, d, dv)
+    assert attention.on_k7_route(s, s, d, dv)
     spy = Spy(monkeypatch)
     got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)),
                                     causal=causal)
@@ -169,7 +175,8 @@ CHUNKED = {
     "p_dtype": dict(shape=(2, 64, 64, 4, 2, 16), kw=dict(
         p_dtype=(jnp.bfloat16, torch.bfloat16), q_chunk=32, k_chunk=16)),
     "cross": dict(shape=(2, 8, 24, 4, 4, 16), kw=dict(causal=False)),
-    "dv": dict(shape=(1, 32, 32, 2, 2, 16), dv=8, kw={}),
+    # v wider than q and k: outside K7's Dv <= D
+    "dv": dict(shape=(1, 32, 32, 2, 2, 8), dv=16, kw={}),
 }
 
 
@@ -248,14 +255,15 @@ WGMMA_KEYS = WGMMA["kBK"]
 
 
 def emulate_wgmma(q, k, v, causal: bool, terms: int):
-    """The bf16 kernel's rounding, step by step, on the CPU."""
+    """The bf16 kernel's rounding, step by step, on the CPU (v may be
+    narrower than q and k)."""
     bh, s, d = q.shape
     c = float(np.float32(np.float64(np.float32(1.0 / d ** 0.5))
                          * math.log2(math.e)))
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full((bh, s, 1), k7.NEG_INF)
     l = torch.zeros((bh, s, 1))
-    acc = torch.zeros((bh, s, d))
+    acc = torch.zeros((bh, s, v.shape[2]))
     pos = torch.arange(s)
     for k0 in range(0, s, WGMMA_KEYS):
         x = torch.matmul(qf, kf[:, k0:k0 + WGMMA_KEYS].transpose(1, 2)) * c
@@ -301,6 +309,18 @@ def test_wgmma_arithmetic_meets_the_bf16_gate(causal, bh, s, d):
                                           min(128, s))
     got = emulate_wgmma(q, k, v, causal, WGMMA["kPTerms"])
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert gate_misses(got, want) == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_arithmetic_meets_the_bf16_gate_at_mla_widths(causal):
+    """MLA's prefill widths, qk 192 (128 + 64 rope lanes) and v 128, on the
+    early causal rows of 32 heads."""
+    q, k, _ = bf16_qkv(0, 32, 256, 192)
+    v = bf16_qkv(1, 32, 256, 128)[0]
+    want = k7.flash_attention_fused_plain(q, k, v, causal)
+    got = emulate_wgmma(q, k, v, causal, WGMMA["kPTerms"])
+    assert got.shape == want.shape == (32, 256, 128)
     assert gate_misses(got, want) == 0
 
 

@@ -277,10 +277,8 @@ def test_init_transformer_shapes_match_reference():
     assert abs(float(w.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
-                                  "llama4-scout-17b-a16e", "zamba2-1.2b",
-                                  "rwkv6-1.6b", "whisper-large-v3",
-                                  "internvl2-76b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b",
+                                  "whisper-large-v3", "internvl2-76b"])
 def test_configs_outside_the_slice_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
         transformer.init_transformer(configs.smoke_config(arch),
