@@ -55,7 +55,13 @@ products run in full float32 (TF32 off).  It
    and spills and its shared memory; then holds and times the float32 route
    (CUDA cores) at the same shape in float32; then holds and times the bf16
    route at DeepSeek-V2-Lite's prefill (BH 32 = 2 x 16 heads, S 4,096, qk
-   192, v 128, causal) the same way;
+   192, v 128, causal) the same way; holds K7's masked entry
+   (``ops.flash_attention_masked``: windows, a query offset, a key limit,
+   Sq != Sk, ragged S) on ``FLASH_MASK_CASES`` in both dtypes, one launch
+   a call, and times it at the new families' shapes (``FLASH_TIMED``:
+   Whisper's encoder and cross-attention, Zamba2's windowed shared block)
+   beside its bound over the pairs the mask lets through, its plain
+   version and ``F.scaled_dot_product_attention`` with the same mask;
 5. drives the LM path of Phi-3-mini (``phi3_mini_3_8b``) at full width and
    depth (32 layers, bf16, random weights from seed 0), each part with the
    launch counts from 0: ``models.transformer.train_loss`` forward-only on
@@ -75,6 +81,21 @@ products run in full float32 (TF32 off).  It
    token; a token that a router near-tie (within ``NEAR_TIE``) sends to
    other experts in decode than in the prefill is named, and decode is
    then held against the prefill routed to decode's experts;
+5c. drives the remaining serving families the same way
+   (``families_phase``), each at full width and depth in bf16 from seed 0:
+   Zamba2-1.2B (``ZAMBA``: 38 Mamba2 layers with their plain SSD, the
+   shared block after every 6 through K7 with its 4,096-token window; the
+   prefill on 1 x 8,192 tokens, 6 K7 launches), RWKV6-1.6B (``RWKV``: 24
+   layers, the plain chunked WKV; 2 x 4,096 tokens, no K7 launch) and
+   Whisper-large-v3 (``WHISPER``: 2 x 448 decoder tokens over 2 x 1,500
+   stub frames from the seed, 96 K7 launches: the encoder's unmasked, the
+   decoder's causal and cross), each with its server (4 requests x 8 new
+   tokens; Whisper's on zero cross caches) and a float32 decode check at
+   reduced depth (Zamba2 12 layers with 2 shared applications, RWKV6 4,
+   Whisper 4 + 4 with its cross caches filled from the encoder's output;
+   512, 512 and 448 prompt tokens); then InternVL2-76B's vision stub
+   (``INTERNVL``: full width on 2 of 80 layers, 1 x 4,096 tokens with 256
+   patch embeddings, 2 K7 launches), the prefill only;
 6. holds K1 and K2 against their plain PyTorch versions on the card, at
    the shapes the SpGEMM path gives them, for exact equality, and times both
    (CUDA events around the call, and the kernels' own device time from
@@ -1866,32 +1887,91 @@ FLASH_MLA = (32, 4096, 192, 128, 128, 128)
 # a bf16 output is rounded once, so a sum near a rounding boundary may round
 # the other way, one bf16 step (2**-7 of the value)
 FLASH_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2 ** -7, 1e-6)}
+# K7's masked contract (ops.flash_attention_masked), as (bh, sq, sk, d,
+# causal, window, q_offset, kv_len): windows of 1, 64, 100 and 4,096 at S
+# 192 and 8,192, causal (window 1: each query's one key, its first tiles
+# all masked); Whisper's unequal lengths without a mask (1, 7, 448 and
+# 1,500 queries against 1,500 keys); a key limit below Sk, a query offset
+# with Sq < Sk (causal, and with a window); ragged S of 1 and 1,500; a
+# window at D 128
+FLASH_MASK_CASES = tuple((2, s, s, 64, True, w, 0, None)
+                         for w in (1, 64, 100, 4096) for s in (192, 8192)) \
+    + tuple((2, sq, 1500, 64, False, 0, 0, None)
+            for sq in (1, 7, 448, 1500)) \
+    + ((2, 448, 1500, 64, True, 0, 1052, 1400),
+       (2, 300, 1500, 64, False, 0, 0, 1000),
+       (2, 448, 1500, 64, True, 256, 1052, None),
+       (2, 1, 1, 64, True, 0, 0, None), (2, 1500, 1500, 64, True, 0, 0, None),
+       (2, 1500, 1500, 128, True, 100, 0, None))
+# the masked calls of the new families' prefills, timed: (name, bh, sq, sk,
+# d, causal, window, heads): Whisper's encoder (2 x 20 heads over 1,500
+# frames, no mask) and cross-attention (448 decoder queries against them),
+# Zamba2's shared block (1 x 32 heads, 8,192 tokens, window 4,096)
+FLASH_TIMED = (("whisper_encoder", 40, 1500, 1500, 64, False, 0, 20),
+               ("whisper_cross", 40, 448, 1500, 64, False, 0, 20),
+               ("zamba2_shared", 32, 8192, 8192, 64, True, 4096, 32))
 
 
-def flash_hold(q, k, v, causal, q_blk, k_blk):
-    """One K7 call through ``ops`` against its plain version on the same
-    inputs: exactly one launch, and within FLASH_TOL; the max |error|."""
-    import torch
-
-    from repro_torch.kernels import flash_attention as k7
-    from repro_torch.kernels import ops
-
-    before = ops.launch_counts()["flash_attention_fused"]
-    got = ops.flash_attention_fused(q, k, v, causal, q_blk, k_blk)
-    torch.cuda.synchronize()
-    n = ops.launch_counts()["flash_attention_fused"] - before
-    check(n == 1, f"flash_attention_fused: one call launched {n}")
-    want = k7.flash_attention_fused_plain(q, k, v, causal, q_blk, k_blk)
-    rtol, atol = FLASH_TOL[str(q.dtype)]
+def flash_check(got, want, case) -> float:
+    """``got`` within FLASH_TOL of ``want``, of its dtype and shape; the
+    max |error|."""
+    rtol, atol = FLASH_TOL[str(want.dtype)]
     diff = (got.double() - want.double()).abs()
-    case = (str(q.dtype), causal, tuple(q.shape), tuple(v.shape), q_blk,
-            k_blk)
-    check(got.dtype == q.dtype and got.shape == v.shape,
+    check(got.dtype == want.dtype and got.shape == want.shape,
           f"flash_attention_fused {case}: {got.dtype} {tuple(got.shape)}")
     check(bool((diff <= atol + rtol * want.double().abs()).all()),
           f"flash_attention_fused {case}: max |error| {float(diff.max())} "
           f"beyond rtol {rtol} atol {atol} of its plain version")
     return float(diff.max())
+
+
+def one_launch(fn):
+    """``fn()``, checked to launch K7 exactly once."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    before = ops.launch_counts()["flash_attention_fused"]
+    out = fn()
+    torch.cuda.synchronize()
+    n = ops.launch_counts()["flash_attention_fused"] - before
+    check(n == 1, f"flash_attention_fused: one call launched {n}")
+    return out
+
+
+def flash_hold(q, k, v, causal, q_blk, k_blk):
+    """One K7 call through ``ops`` against its plain version on the same
+    inputs: exactly one launch, and within FLASH_TOL; the max |error|."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+
+    got = one_launch(lambda: ops.flash_attention_fused(q, k, v, causal,
+                                                       q_blk, k_blk))
+    want = k7.flash_attention_fused_plain(q, k, v, causal, q_blk, k_blk)
+    return flash_check(got, want, (str(q.dtype), causal, tuple(q.shape),
+                                   tuple(v.shape), q_blk, k_blk))
+
+
+def flash_hold_masked(q, k, v, causal, window, q_offset, kv_len):
+    """One masked K7 call against its plain version, as ``flash_hold``."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+
+    args = (causal, window, q_offset, kv_len)
+    got = one_launch(lambda: ops.flash_attention_masked(q, k, v, *args))
+    want = k7.flash_attention_masked_plain(q, k, v, *args)
+    return flash_check(got, want, (str(q.dtype), tuple(q.shape),
+                                   tuple(k.shape), *args))
+
+
+def valid_pairs(sq, sk, causal, window, q_offset=0, kv_len=None) -> int:
+    """The (query, key) pairs a masked call's mask lets through, per head:
+    query i sees the keys [lo(i), hi(i))."""
+    kvl = sk if kv_len is None else min(kv_len, sk)
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(kvl, pos + 1) if causal else np.full(sq, kvl)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def flash_timed(q, k, v, heads: int, qb: int, kb: int) -> dict:
@@ -1949,13 +2029,77 @@ def flash_timed(q, k, v, heads: int, qb: int, kb: int) -> dict:
     return rec
 
 
+def flash_timed_masked(name, bh, sq, sk, d, causal, window, heads,
+                       rand) -> dict:
+    """Masked K7 held and timed on bf16 (BH, Sq, D) q and (BH, Sk, D) k and
+    v beside its bound (operations over the pairs the mask lets through),
+    its plain version and ``scaled_dot_product_attention`` with the same
+    mask on (BH / heads, heads, S, D)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+
+    q = rand((bh, sq, d), torch.bfloat16, 1)[0]
+    k, v = rand((bh, sk, d), torch.bfloat16, 2)
+    rec = {"name": name, "route": k7.route(q.dtype),
+           "shape": {"bh": bh, "sq": sq, "sk": sk, "d": d, "dv": d,
+                     "dtype": "bfloat16", "causal": causal,
+                     "window": window},
+           "max_abs_err": flash_hold_masked(q, k, v, causal, window, 0,
+                                            None)}
+
+    def kernel():
+        return ops.flash_attention_masked(q, k, v, causal, window)
+
+    def plain():
+        return k7.flash_attention_masked_plain(q, k, v, causal, window)
+
+    rec["ms"] = time_ms(kernel, reps=10)
+    _, _, top = profile(lambda: [kernel() for _ in range(5)])
+    rec["device_ms"] = top[0][1] / top[0][2] if top else None
+    rec["plain_ms"] = time_ms(plain, reps=3)
+    # Q.K^T and P.V over the pairs the mask lets through; q, k, v read
+    # once and o written once
+    pairs = bh * valid_pairs(sq, sk, causal, window)
+    rec["pairs"] = pairs
+    rec["flops"] = 4 * pairs * d
+    rec["bytes"] = bh * (2 * sq * d + 2 * sk * d) * q.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
+                                             q.dtype)
+    if window:  # the same call without its window
+        rec["bound_ms_unwindowed"] = bound(
+            rec["bytes"], 4 * bh * valid_pairs(sq, sk, causal, 0) * d,
+            q.dtype)[0]
+    rec["tflops"] = rec["flops"] / rec["device_ms"] / 1e9 \
+        if rec["device_ms"] else None
+    q4 = q.view(bh // heads, heads, sq, d)
+    k4, v4 = (x.view(bh // heads, heads, sk, d) for x in (k, v))
+    mask = None
+    if causal or window:
+        qpos = torch.arange(sq, device="cuda")[:, None]
+        kpos = torch.arange(sk, device="cuda")[None, :]
+        mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+        if window:
+            mask = mask & (kpos > qpos - window)
+    rec.update(library_call([(
+        f"F.scaled_dot_product_attention on ({bh // heads}, {heads}, s, d)"
+        + (", a boolean mask" if mask is not None else ""),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                               attn_mask=mask))]))
+    return rec
+
+
 def flash_phase(log):
     """Hold K7 against its plain version on the 12 cases of the reference's
     kernel test, the bf16 kernel's tile edges, MLA's widths (qk 192, v 128)
-    and the other widths of the two-width kernels, then time it at the
-    Phi-3 and DeepSeek-V2-Lite prefill shapes beside its bound, its plain
-    version and ``scaled_dot_product_attention``; then hold and time the
-    float32 route at the Phi-3 shape."""
+    and the other widths of the two-width kernels, and its masked contract
+    on ``FLASH_MASK_CASES`` in both dtypes; then time it at the Phi-3 and
+    DeepSeek-V2-Lite prefill shapes and at the masked shapes of
+    ``FLASH_TIMED`` beside its bound, its plain version and
+    ``scaled_dot_product_attention``; then hold and time the float32 route
+    at the Phi-3 shape."""
     import torch
 
     from repro_torch.kernels import flash_attention as k7
@@ -1980,6 +2124,17 @@ def flash_phase(log):
                 errs[f"{dt}/{causal}/{bh}x{s}x{d}/v{dv}"] = flash_hold(
                     q, k, rand((bh, s, dv), dt, 1)[0], causal, qb, kb)
     emit({"flash_cases": {"cases": len(errs), "max_abs_err": errs}}, log)
+    masked = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for bh, sq, sk, d, causal, window, off, kvl in FLASH_MASK_CASES:
+            q = rand((bh, sq, d), dt, 1)[0]
+            k, v = rand((bh, sk, d), dt, 2)
+            masked[f"{dt}/{bh}x{sq}x{sk}x{d}/causal={causal}/window="
+                   f"{window}/q_offset={off}/kv_len={kvl}"] = \
+                flash_hold_masked(q, k, v, causal, window, off, kvl)
+    del q, k, v
+    emit({"flash_mask_cases": {"cases": len(masked),
+                               "max_abs_err": masked}}, log)
 
     bh, s, d, qb, kb = FLASH_PHI3
     q, k, v = rand((bh, s, d), torch.bfloat16)
@@ -2007,7 +2162,15 @@ def flash_phase(log):
     v = rand((bh, s, dv), torch.bfloat16, 1)[0]
     mla = flash_timed(q, k, v, 16, qb, kb)
     emit({"flash_kernel_mla": mla}, log)
-    return rec, mla
+    del q, k, v
+
+    # the new families' masked shapes
+    timed = {}
+    for name, *shape in FLASH_TIMED:
+        timed[name] = flash_timed_masked(name, *shape, rand)
+        emit({f"flash_kernel_{name}": timed[name]}, log)
+        torch.cuda.empty_cache()
+    return rec, mla, {"cases": len(masked), "timed": timed}
 
 
 def ptxas_report(kernel: str) -> dict:
@@ -2050,6 +2213,32 @@ LM = {"arch": "phi3-mini-3.8b", "batch": 2, "seq": 4096,
 DS = {"arch": "deepseek-v2-lite-16b", "batch": 2, "seq": 4096,
       "decode_layers": 4, "decode_prompt": 512, "no_drop": True,
       "requests": 4, "new_tokens": 8, "slots": 4, "max_seq": 64}
+# Zamba2-1.2B (src/repro/configs/zamba2_1_2b.py: 38 Mamba2 layers, the
+# shared attention + FFN block after every 6, window 4,096): a prefill of
+# 1 x 8,192 tokens, so that the window masks (6 K7 launches); the decode
+# check at 12 Mamba2 layers (2 shared applications)
+ZAMBA = {"arch": "zamba2-1.2b", "batch": 1, "seq": 8192, "k7": 6,
+         "decode_layers": 12, "decode_prompt": 512,
+         "requests": 4, "new_tokens": 8, "slots": 4, "max_seq": 64}
+# RWKV6-1.6B (rwkv6_1_6b.py: 24 layers, attention-free): no K7 launch
+RWKV = {"arch": "rwkv6-1.6b", "batch": 2, "seq": 4096, "k7": 0,
+        "decode_layers": 4, "decode_prompt": 512,
+        "requests": 4, "new_tokens": 8, "slots": 4, "max_seq": 64}
+# Whisper-large-v3 (whisper_large_v3.py: 32 encoder layers over 1,500 stub
+# frames, 32 decoder layers with cross-attention): 2 x 448 decoder tokens
+# (its text context) with 2 x 1,500 frames from the seed, 96 K7 launches;
+# the decode check at 4 + 4 layers on a 448-token prompt, its cross caches
+# filled from the encoder's output
+WHISPER = {"arch": "whisper-large-v3", "batch": 2, "seq": 448, "k7": 96,
+           "decode_layers": 4, "decode_prompt": 448,
+           "requests": 4, "new_tokens": 8, "slots": 4, "max_seq": 64}
+# InternVL2-76B (internvl2_76b.py): its full width (d_model 8,192, 64 / 8
+# heads, d_ff 28,672) cut to 2 of its 80 layers, a prefill of 1 x 4,096
+# tokens with 256 stub patch embeddings; no server, no decode check
+INTERNVL = {"arch": "internvl2-76b", "batch": 1, "seq": 4096, "k7": 2,
+            "layers": 2, "serve": False, "decode": False,
+            "reduced": {"layers": "2 of 80: the 80 layers' bf16 weights "
+                        "take 141 GB, beyond one 80 GB card"}}
 LM_LOSS_BAND = (-1.0, 2.0)  # around ln(vocab), for random weights
 # decode logits against the prefill's last position, over the largest
 # |logit|: float32 sums in other orders (GEMV against GEMM, the decode
@@ -2057,10 +2246,41 @@ LM_LOSS_BAND = (-1.0, 2.0)  # around ln(vocab), for random weights
 DECODE_REL = 1e-4
 
 
+def k7_per_forward(cfg, frames: bool) -> int:
+    """K7 launches in one full-sequence forward of ``cfg``: one a layer's
+    attention; Mamba2 stacks one a shared-block application, RWKV6 none;
+    with ``frames``, Whisper's encoder layers and each decoder layer's
+    cross-attention too."""
+    from repro_torch.models.transformer import block_kind, n_shared_apps
+
+    kind = block_kind(cfg)
+    if kind == "M":
+        return n_shared_apps(cfg)
+    if kind == "R":
+        return 0
+    return cfg.n_layers + (cfg.encoder_layers + cfg.n_layers
+                           if frames and cfg.encoder_layers else 0)
+
+
+def stub_inputs(cfg, batch: int, rng) -> dict:
+    """The config's stub inputs from ``rng``, float32 on the card: Whisper's
+    frame embeddings (B, encoder_seq, D), InternVL2's patch embeddings
+    (B, vision_patches, D)."""
+    import torch
+
+    out = {}
+    if cfg.encoder_layers:
+        out["frames"] = (batch, cfg.encoder_seq, cfg.d_model)
+    if cfg.frontend == "vision_stub":
+        out["vision_embeds"] = (batch, cfg.vision_patches, cfg.d_model)
+    return {k: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .cuda() for k, shape in out.items()}
+
+
 def lm_prefill(cfg, params, log, spec=LM, key="lm_prefill"):
-    """``train_loss`` forward-only at batch x seq with the counts from 0:
-    one K7 launch per layer, on the dtype's route, and the loss inside its
-    band."""
+    """``train_loss`` forward-only at batch x seq (with the config's stub
+    inputs) with the counts from 0: ``k7_per_forward`` K7 launches, on the
+    dtype's route, and the loss inside its band."""
     import torch
 
     from repro_torch.kernels import flash_attention as k7
@@ -2072,6 +2292,11 @@ def lm_prefill(cfg, params, log, spec=LM, key="lm_prefill"):
     batch = {name: torch.from_numpy(rng.integers(0, cfg.vocab, shape)
                                     .astype(np.int32)).cuda()
              for name in ("tokens", "labels")}
+    batch.update(stub_inputs(cfg, spec["batch"], rng))
+    k7_want = k7_per_forward(cfg, "frames" in batch)
+    check(spec.get("k7", k7_want) == k7_want,
+          f"{key}: the spec's {spec.get('k7')} K7 launches, the config's "
+          f"{k7_want}")
 
     def forward():
         with torch.no_grad():
@@ -2090,13 +2315,16 @@ def lm_prefill(cfg, params, log, spec=LM, key="lm_prefill"):
     check(lnv + LM_LOSS_BAND[0] <= loss <= lnv + LM_LOSS_BAND[1],
           f"{key}: loss {loss} outside ln(vocab) {lnv} {LM_LOSS_BAND}")
     path = f"flash_attention_fused/{k7.route(cfg.activation_dtype)}"
-    check(launches["flash_attention_fused"] == cfg.n_layers
-          and routes.get(path) == cfg.n_layers,
+    check(launches["flash_attention_fused"] == k7_want
+          and routes.get(path, 0) == k7_want,
           f"{key}: {launches['flash_attention_fused']} K7 launches "
-          f"({routes}) for {cfg.n_layers} layers")
+          f"({routes}), {k7_want} wanted")
     host_ms, dev_ms, top = profile(forward, top_n=12)
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-           "batch": spec["batch"], "seq": spec["seq"], "loss": loss,
+           "batch": spec["batch"], "seq": spec["seq"],
+           "stub_inputs": {k: list(batch[k].shape) for k in batch
+                           if k not in ("tokens", "labels")},
+           "reduced": spec.get("reduced"), "loss": loss,
            "ln_vocab": lnv, "ms": ms, "launches": launches,
            "routes": routes, "peak_mem_gb": peak_gb,
            "tokens_per_s": spec["batch"] * spec["seq"] / (ms / 1e3),
@@ -2211,15 +2439,22 @@ def lm_decode_check(base, log, spec=LM, key="lm_decode_vs_prefill"):
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import (decode_step, forward_hidden,
+    from repro_torch.models.attention import gqa_cross_kv
+    from repro_torch.models.transformer import (decode_step, encode,
+                                                forward_hidden,
                                                 init_decode_cache,
                                                 init_transformer, is_moe,
-                                                n_prefix)
+                                                layer_params, n_prefix)
 
     cfg = dataclasses.replace(base, n_layers=spec["decode_layers"],
                               dtype="float32")
     reduced = {"layers": f"{cfg.n_layers} of {base.n_layers}",
-               "dtype": f"float32 for {base.dtype}"}
+               "dtype": f"float32 for {base.dtype}",
+               "prompt": f"{spec['decode_prompt']} tokens"}
+    if base.encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=spec["decode_layers"])
+        reduced["encoder_layers"] = \
+            f"{cfg.encoder_layers} of {base.encoder_layers}"
     if spec.get("no_drop"):
         moe = base.moe
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -2231,11 +2466,13 @@ def lm_decode_check(base, log, spec=LM, key="lm_decode_vs_prefill"):
         cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
     n = spec["decode_prompt"]
     n_moe = cfg.n_layers - n_prefix(cfg) if is_moe(cfg) else 0
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (1, n)).astype(np.int32)).cuda()
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, n))
+                            .astype(np.int32)).cuda()
+    stubs = stub_inputs(cfg, 1, rng)
 
     def prefill_logits():
-        h, _ = forward_hidden(cfg, params, toks)
+        h, _ = forward_hidden(cfg, params, toks, **stubs)
         return (h[:, -1] @ params["lm_head"]).double()
 
     with torch.no_grad():
@@ -2244,6 +2481,14 @@ def lm_decode_check(base, log, spec=LM, key="lm_decode_vs_prefill"):
             prefill = prefill_logits()
         launches = ops.launch_counts()
         cache = init_decode_cache(cfg, 1, n, device="cuda")
+        if "frames" in stubs:  # what a Whisper decoder attends to
+            enc = encode(cfg, params, stubs["frames"])
+            for i in range(cfg.n_layers):
+                k, v = gqa_cross_kv(layer_params(params, i)["cross"], enc,
+                                    cfg.n_kv_heads, cfg.hd)
+                cache["cross_k"][i].copy_(k)
+                cache["cross_v"][i].copy_(v)
+            del enc
         torch.cuda.synchronize()
         with routed() as dec_calls:
             t0 = time.perf_counter()
@@ -2254,8 +2499,10 @@ def lm_decode_check(base, log, spec=LM, key="lm_decode_vs_prefill"):
             ms = (time.perf_counter() - t0) * 1e3
     decoded = logits[:, 0].double()
     rel = rel_err(decoded, prefill)
-    check(launches["flash_attention_fused"] == cfg.n_layers,
-          f"{key}: {launches['flash_attention_fused']} K7 launches")
+    k7_want = k7_per_forward(cfg, "frames" in stubs)
+    check(launches["flash_attention_fused"] == k7_want,
+          f"{key}: {launches['flash_attention_fused']} K7 launches, "
+          f"{k7_want} wanted")
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
            "reduced": reduced, "prompt": n, "rel_err": rel,
            "tolerance": DECODE_REL,
@@ -2294,15 +2541,20 @@ def lm_decode_check(base, log, spec=LM, key="lm_decode_vs_prefill"):
 
 
 def lm_phase(log, spec=LM, prefix="lm"):
-    """One LM at full width and depth in bf16 with random weights from a
-    seeded generator: the prefill forward, then the server; then the
-    float32 decode-against-prefill check at reduced depth."""
+    """One LM at full width and depth (or the depth of ``spec["layers"]``)
+    in bf16 with random weights from a seeded generator: the prefill
+    forward, then the server; then the float32 decode-against-prefill check
+    at reduced depth (the last two unless the spec turns them off)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_transformer
 
     cfg = get_config(spec["arch"])
+    if "layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -2314,10 +2566,12 @@ def lm_phase(log, spec=LM, prefix="lm"):
                              "param_gb": (torch.cuda.memory_allocated()
                                           - before) / 1e9}}, log)
     prefill = lm_prefill(cfg, params, log, spec, f"{prefix}_prefill")
-    serve = lm_serve(cfg, params, log, spec, f"{prefix}_serve")
+    serve = lm_serve(cfg, params, log, spec, f"{prefix}_serve") \
+        if spec.get("serve", True) else None
     del params
     torch.cuda.empty_cache()
-    decode = lm_decode_check(cfg, log, spec, f"{prefix}_decode_vs_prefill")
+    decode = lm_decode_check(cfg, log, spec, f"{prefix}_decode_vs_prefill") \
+        if spec.get("decode", True) else None
     torch.cuda.empty_cache()
     return prefill, serve, decode
 
@@ -2327,6 +2581,20 @@ def deepseek_phase(log):
     qk 192 / v 128, the capacity-routed MoE FFN and the dense prefix layer;
     the server on MLA's absorbed decode; the float32 decode check."""
     return lm_phase(log, DS, "deepseek")
+
+
+def families_phase(log) -> dict:
+    """The remaining serving families, each the way ``lm_phase`` drives
+    Phi-3: Zamba2 (Mamba2's plain SSD, the shared block's windowed K7),
+    RWKV6 (the plain WKV, no K7), Whisper (the encoder's unmasked K7 over
+    1,500 frames, the decoder's causal and cross K7), then InternVL2's
+    vision stub at full width on 2 layers; their prefill records by
+    family."""
+    out = {}
+    for name, spec in (("zamba2", ZAMBA), ("rwkv6", RWKV),
+                       ("whisper", WHISPER), ("internvl2", INTERNVL)):
+        out[name] = lm_phase(log, spec, name)[0]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4182,10 +4450,11 @@ def main(argv=None) -> int:
     ffn = ffn_phase(log)
     torch.cuda.empty_cache()
     # then K7 and the LM path, still ahead of the SpGEMM traces
-    flash, flash_mla = flash_phase(log)
+    flash, flash_mla, flash_masked = flash_phase(log)
     torch.cuda.empty_cache()
     prefill, _, _ = lm_phase(log)
     ds_prefill, _, _ = deepseek_phase(log)
+    families = families_phase(log)
     mats = {name: table_ii_matrix(name, seed=0, n_override=n, device="cuda")
             for name, n in MATRICES.items()}
     k1, k2 = kernel_phase(mats, log)
@@ -4296,7 +4565,18 @@ def main(argv=None) -> int:
             "bound_ms", "bound_by", "library_ms", "library_call",
             "ptxas")},
         "launches_per_deepseek_prefill":
-            ds_prefill["launches"]["flash_attention_fused"]})
+            ds_prefill["launches"]["flash_attention_fused"],
+        # the masked entry: FLASH_MASK_CASES in both dtypes, and the new
+        # families' shapes timed
+        "mask_cases": flash_masked["cases"],
+        "masked": {name: {k: rec.get(k) for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_ms_unwindowed", "bound_by", "tflops",
+            "library_ms", "library_call")}
+            for name, rec in flash_masked["timed"].items()},
+        **{f"launches_per_{name}_prefill":
+           rec["launches"]["flash_attention_fused"]
+           for name, rec in families.items()}})
     emit({"script_s": time.perf_counter() - t_script}, log)
     emit({"kernels": kernels}, log)
     if args.json:

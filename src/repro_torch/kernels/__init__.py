@@ -12,7 +12,8 @@
   ``block_topk_spmm``).
 * ``flash_attention`` — fused online-softmax attention on ``(BH, S, D)``
   (replaces the Pallas ``repro.kernels.flash_attention.
-  flash_attention_fused``).
+  flash_attention_fused``), and the same kernel under the model attention's
+  masks (window, query offset, key limit, Sq != Sk).
 
 ``ops`` holds the device dispatch, the launch counters and the public
 entry points with the reference's signatures; ``_build`` builds the CUDA

@@ -57,11 +57,12 @@ SIGNATURES = {
     "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_block_topk_spmm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P],
-    # q, k, v, o, bh, s, d, dv, causal, scale, stream (float32; bfloat16
-    # for the wgmma kernel)
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _B, _F, _P],
-    "repro_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _B, _F,
-                                    _P],
+    # q, k, v, o, bh, sq, sk, d, dv, causal, q_offset, window, kv_len,
+    # scale, stream (float32; bfloat16 for the wgmma kernel)
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _I,
+                              _I, _I, _F, _P],
+    "repro_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B,
+                                    _I, _I, _I, _F, _P],
 }
 
 _LIB = None

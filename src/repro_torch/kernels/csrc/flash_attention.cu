@@ -1,15 +1,19 @@
-// Fused online-softmax attention (flash attention) on float32 q and k of
-// (BH, S, D) and v of (BH, S, Dv), Dv <= D <= 192, on the CUDA cores: the
-// float32 route of ops.flash_attention_fused.  bf16 inputs go to the
-// tensor-core kernel, flash_attention_wgmma.cu.  The output is (BH, S, Dv).
+// Fused online-softmax attention (flash attention) on float32 q of
+// (BH, Sq, D), k of (BH, Sk, D) and v of (BH, Sk, Dv), Dv <= D <= 192, on
+// the CUDA cores: the float32 route of ops.flash_attention_fused and
+// ops.flash_attention_masked.  bf16 inputs go to the tensor-core kernel,
+// flash_attention_wgmma.cu.  The output is (BH, Sq, Dv).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_fused (_flash_kernel: grid (BH, nq, nk) with the kv axis
 // innermost and sequential on a TPU core, the running max m, denominator l
 // and accumulator acc carried in VMEM scratch across kv steps; causal calls
 // skip kv blocks wholly above the diagonal and mask the diagonal block with
-// -1e30; the output is acc / max(l, 1e-30) in the operands' dtype).  K and V
-// come already expanded to the query head count.
+// -1e30; the output is acc / max(l, 1e-30) in the operands' dtype), and the
+// masks of the model's chunked attention (repro/models/attention.py:25-29,
+// :92-95): key j is valid for query i iff j < kv_len, j <= i + q_offset when
+// causal, and j > i + q_offset - window when window > 0.  K and V come
+// already expanded to the query head count.
 //
 // What bounds it on an H100: operations.  At Phi-3-mini's prefill shape in
 // float32 (BH 64, S 4,096, D 96, causal) the blocks on and below the
@@ -26,23 +30,28 @@
 // carry nothing between them.  Per 64-key tile:
 //   1. K and V are staged in shared memory as float32 (Q once, before the
 //      loop), rows padded so that each thread's float4 reads of its four
-//      key rows fall in distinct banks;
+//      key rows fall in distinct banks; rows at or past kv_len are zeros;
 //   2. each thread forms a 4 x 4 patch of S = Q.K^T (rows 4*ty+i, keys
-//      tx+16*j), scales it by 1/sqrt(D), and masks keys past the diagonal
-//      (causal) or past S with -1e30, as the reference does;
+//      tx+16*j), scales it by 1/sqrt(D), and masks the invalid keys with
+//      -1e30, as the reference does;
 //   3. row max and row sum go across the 16 threads of a row group with
 //      warp shuffles; m, l and the rescale corr = exp(m_prev - m_new) stay
 //      in registers, expf (not __expf) throughout;
 //   4. P goes to shared memory transposed, and each thread adds P.V into
 //      its 4 rows x ceil(Dv/16) columns of the float32 accumulator.
-// Causal calls stop the loop at the last tile that holds a key <= the
-// tile's last query; the heaviest query tiles are scheduled first.
+// The kv loop runs from the tile of the first key any query of the block
+// may see (past the window of its first query) to the tile of the last
+// (kv_len, and the causal limit of its last query); the heaviest query
+// tiles are scheduled first.
 //
-// The masked-row trap: a row whose first processed tile were wholly masked
-// would get m = -1e30 and p = exp(0) = 1 on every masked key until a later
-// tile corrected it.  Here the kv loop starts at key 0, which every query
-// may see (causal or not), so every row's max is a real score after the
-// first tile, and a masked key's p = exp(-1e30 - m) is exactly 0.
+// The masked-row trap: a row whose first processed tile is wholly masked
+// (under a window, the block's later queries see none of its first tiles)
+// gets m = -1e30 and p = exp(0) = 1 on every masked key, so l and acc pick
+// up terms that are not its own.  They are wiped exactly once a real score
+// arrives: corr = exp(-1e30 - m_new) is 0 in float32, and l * 0 and acc * 0
+// are 0.  From then on a masked key's p = exp(-1e30 - m) is exactly 0.  The
+// reference's chunked loop does the same.  A row with no valid key at all
+// would keep those terms; the wrappers refuse such calls.
 //
 // Internal tiles (64 x 64) are the kernel's choice: masking is elementwise
 // and the function does not depend on them.  The kernel and the Python
@@ -60,8 +69,8 @@ constexpr int kMaxD = 192;
 constexpr int kLdP = kBQ + 4;  // row stride of P^T in shared memory
 constexpr float kNegInf = -1e30f;
 
-// rows x dp floats from src (rows x d, row-major, starting at row r0 of
-// s_len) into dst with row stride ld; zero past d and past s_len.
+// rows x dp floats from src (rows x d, row-major, starting at row r0)
+// into dst with row stride ld; zero past d and at or past row s_len.
 __device__ __forceinline__ void stage(float* dst,
                                       const float* __restrict__ src,
                                       int r0, int rows, int s_len, int d,
@@ -93,7 +102,8 @@ template <int NC>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int bh_count,
-             int s_len, int d, int dv, int causal, float scale) {
+             int sq, int sk, int d, int dv, int causal, int q_offset,
+             int window, int kv_len, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int dp = (d + 3) & ~3;  // D padded to whole float4s
@@ -106,15 +116,17 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const int nq = (s_len + kBQ - 1) / kBQ;
+  const int nq = (sq + kBQ - 1) / kBQ;
   // heaviest causal tiles (the last query tiles) first
   const int qt = nq - 1 - (int)(blockIdx.x / bh_count);
   const long long bh = blockIdx.x % bh_count;
   const int q0 = qt * kBQ;
-  const long long base = bh * s_len * (long long)d;
-  const long long base_v = bh * s_len * (long long)dv;
+  const long long base_q = bh * sq * (long long)d;
+  const long long base_k = bh * sk * (long long)d;
+  const long long base_v = bh * sk * (long long)dv;
+  const long long base_o = bh * sq * (long long)dv;
 
-  stage(qs, q + base, q0, kBQ, s_len, d, dp, ld);
+  stage(qs, q + base_q, q0, kBQ, sq, d, dp, ld);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -125,21 +137,21 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < NC; ++kk) acc[i][kk] = 0.0f;
   }
 
-  const int n_kv = (s_len + kBK - 1) / kBK;
-  int n_tiles = n_kv;
-  if (causal) {
-    const int last_q = min(q0 + kBQ, s_len) - 1;
-    n_tiles = min(n_kv, last_q / kBK + 1);
-  }
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  // the keys [lo, hi) some query of this tile may see
+  const int last_q = min(q0 + kBQ, sq) - 1;
+  const int hi = causal ? min(kv_len, last_q + q_offset + 1) : kv_len;
+  const int lo = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int t_lo = lo / kBK;
+  const int t_hi = hi > lo ? (hi + kBK - 1) / kBK : t_lo;
+  for (int kt = t_lo; kt < t_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K, V and P are consumed
-    stage(ks, k + base, k0, kBK, s_len, d, dp, ld);
+    stage(ks, k + base_k, k0, kBK, kv_len, d, dp, ld);
     for (int e = tid; e < kBK * kLdV; e += kThreads) {
       const int r = e / kLdV;
       const int c = e - r * kLdV;
       const int row = k0 + r;
-      vs[e] = (row < s_len && c < dv)
+      vs[e] = (row < kv_len && c < dv)
                   ? v[base_v + (long long)row * dv + c] : 0.0f;
     }
     __syncthreads();
@@ -172,12 +184,13 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
+      const int qpos = q0 + 4 * ty + i + q_offset;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < s_len && (!causal || kpos <= qpos);
+        const bool ok = kpos < kv_len && (!causal || kpos <= qpos)
+                        && (window <= 0 || kpos > qpos - window);
         s[i][j] = ok ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -218,9 +231,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
-    if (row >= s_len) continue;
+    if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + base_v + (long long)row * dv;
+    float* orow = o + base_o + (long long)row * dv;
 #pragma unroll
     for (int kk = 0; kk < NC; ++kk) {
       const int n = tx + 16 * kk;
@@ -229,10 +242,17 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The arguments of one launch: shapes, mask and scale.
+struct Args {
+  long long bh, sq, sk, d, dv;
+  int causal, q_offset, window, kv_len;
+  float scale;
+};
+
 template <int NC>
 int launch(const void* q, const void* k, const void* v, void* o,
-           long long bh, long long s_len, long long d, long long dv,
-           int causal, float scale, cudaStream_t stream) {
+           const Args& a, cudaStream_t stream) {
+  const long long d = a.d;
   const long long dp = (d + 3) & ~3LL;
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * (dp + 4)
                                        + (size_t)kBK * 16 * NC
@@ -241,22 +261,22 @@ int launch(const void* q, const void* k, const void* v, void* o,
       flash_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long nq = (s_len + kBQ - 1) / kBQ;
-  flash_kernel<NC><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+  const long long nq = (a.sq + kBQ - 1) / kBQ;
+  flash_kernel<NC><<<(unsigned)(nq * a.bh), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), (int)bh,
-      (int)s_len, (int)d, (int)dv, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), (int)a.bh,
+      (int)a.sq, (int)a.sk, (int)d, (int)a.dv, a.causal, a.q_offset,
+      a.window, a.kv_len, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define REPRO_FLASH_NC(n)                                                  \
   case n:                                                                 \
-    return launch<n>(q, k, v, o, bh, s_len, d, dv, causal, scale, s);
+    return launch<n>(q, k, v, o, a, s);
 
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             long long bh, long long s_len, long long d, long long dv,
-             int causal, float scale, cudaStream_t s) {
-  switch ((dv + 15) / 16) {
+             const Args& a, cudaStream_t s) {
+  switch ((a.dv + 15) / 16) {
     REPRO_FLASH_NC(1) REPRO_FLASH_NC(2) REPRO_FLASH_NC(3) REPRO_FLASH_NC(4)
     REPRO_FLASH_NC(5) REPRO_FLASH_NC(6) REPRO_FLASH_NC(7) REPRO_FLASH_NC(8)
     REPRO_FLASH_NC(9) REPRO_FLASH_NC(10) REPRO_FLASH_NC(11)
@@ -269,20 +289,29 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, k: (bh, s_len, d), v, o: (bh, s_len, dv) float32, contiguous; o is
-// written in full.  causal: 1 masks keys after each query.  scale: the
-// score scale, 1/sqrt(d) rounded once to float32.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// d outside 1..192, dv outside 1..d or a grid the launch cannot hold.
+// q: (bh, sq, d), k: (bh, sk, d), v: (bh, sk, dv), o: (bh, sq, dv)
+// float32, contiguous; o is written in full.  Key j is valid for query i
+// iff j < kv_len, j <= i + q_offset when causal is 1, and
+// j > i + q_offset - window when window > 0 (kv_len is clipped to
+// 0..sk).  A query with no valid key gets zeros.  scale: the score scale,
+// 1/sqrt(d) rounded once to float32.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for d outside 1..192, dv outside 1..d,
+// sk < 1, an sq, sk, |q_offset| or window past 2^28 (so that positions
+// and their sums stay in int), or a grid the launch cannot hold.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, long long bh,
-                                     long long s_len, long long d,
-                                     long long dv, int causal, float scale,
+                                     long long sq, long long sk, long long d,
+                                     long long dv, int causal,
+                                     long long q_offset, long long window,
+                                     long long kv_len, float scale,
                                      void* stream) {
-  if (bh <= 0 || s_len <= 0) return 0;
-  if (d <= 0 || d > kMaxD || dv <= 0 || dv > d || s_len > 2147483647LL
-      || ((s_len + kBQ - 1) / kBQ) * bh > 2147483647LL)
+  if (bh <= 0 || sq <= 0) return 0;
+  if (d <= 0 || d > kMaxD || dv <= 0 || dv > d || sk <= 0
+      || sq > (1LL << 28) || sk > (1LL << 28) || q_offset > (1LL << 28)
+      || q_offset < -(1LL << 28) || window < 0 || window > (1LL << 28)
+      || ((sq + kBQ - 1) / kBQ) * bh > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(q, k, v, o, bh, s_len, d, dv, causal, scale,
-                  static_cast<cudaStream_t>(stream));
+  const Args a{bh, sq, sk, d, dv, causal, (int)q_offset, (int)window,
+               (int)(kv_len < 0 ? 0 : kv_len > sk ? sk : kv_len), scale};
+  return dispatch(q, k, v, o, a, static_cast<cudaStream_t>(stream));
 }

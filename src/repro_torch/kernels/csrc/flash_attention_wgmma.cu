@@ -1,15 +1,21 @@
-// Fused online-softmax attention (flash attention) for bf16 q and k of
-// (BH, S, D) and v of (BH, S, Dv), Dv <= D <= 192, on the tensor cores of a
-// Hopper GPU (sm_90a): the bf16 route of ops.flash_attention_fused.  float32
-// inputs go to flash_attention.cu.  The output is (BH, S, Dv).
+// Fused online-softmax attention (flash attention) for bf16 q of
+// (BH, Sq, D), k of (BH, Sk, D) and v of (BH, Sk, Dv), Dv <= D <= 192, on
+// the tensor cores of a Hopper GPU (sm_90a): the bf16 route of
+// ops.flash_attention_fused and ops.flash_attention_masked.  float32
+// inputs go to flash_attention.cu.  The output is (BH, Sq, Dv).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:73
 // (flash_attention_fused; body _flash_kernel :29).  What it computes, as
 // there: q, k and v taken as float32, S = Q.K^T * (1/sqrt(D)) in float32,
-// causal keys past the query masked with -1e30, a running max m,
-// denominator l and accumulator acc in float32 over kv tiles in ascending
-// order, P = exp(S - m) kept in float32 for P.V, and the output
-// acc / max(l, 1e-30) rounded to bf16 (round to nearest even).
+// invalid keys masked with -1e30, a running max m, denominator l and
+// accumulator acc in float32 over kv tiles in ascending order,
+// P = exp(S - m) kept in float32 for P.V, and the output
+// acc / max(l, 1e-30) rounded to bf16 (round to nearest even).  Key j is
+// valid for query i iff j < kv_len, j <= i + q_offset when causal, and
+// j > i + q_offset - window when window > 0: the Pallas kernel's causal
+// mask widened to the masks of the model's chunked attention
+// (repro/models/attention.py:25-29, :92-95), so that windowed, offset,
+// cross- and ragged attention run here too.
 //
 // What bounds it on an H100: operations.  At Phi-3-mini's prefill (BH 64,
 // S 4,096, D 96, causal) Q.K^T and P.V over the pairs on and below the
@@ -19,14 +25,21 @@
 // 0.417 ms at that rate.  At DeepSeek-V2-Lite's MLA prefill (BH 32, S
 // 4,096, D 192 = 128 + 64 rope lanes, Dv 128, causal): 1.72e11 FLOP, 0.174
 // ms, against 168 MB (0.050 ms); with P's three terms 3.09e11, 0.313 ms.
+// Zamba2's shared block (BH 32, S 8,192, D 64, causal, window 4,096) needs
+// 2.06e11 FLOP over the valid pairs, 0.21 ms; Whisper's encoder (BH 40,
+// S 1,500, D 64, no mask) 2.3e10, 0.023 ms.
 //
 // Design (what it does about that bound): both products on the tensor
 // cores with wgmma, bf16 operands and float32 accumulators.
 //   * One block of two consumer warpgroups owns 128 query rows of one bh
-//     (64 rows a warpgroup) and runs the kv loop over tiles of 64 keys;
-//     causal calls stop at the last tile that holds a key <= the block's
-//     last query, a warpgroup skips the products of a tile wholly above its
-//     own diagonal, and the heaviest query tiles are scheduled first.  For
+//     (64 rows a warpgroup) and runs the kv loop over tiles of 64 keys,
+//     from the tile of the first key any of its queries may see (past the
+//     window of its first query) to the tile of the last (kv_len, and the
+//     causal limit of its last query); a warpgroup skips the products of a
+//     tile that none of its own 64 queries may see, and the heaviest query
+//     tiles are scheduled first.  Only tiles that reach past kv_len, a
+//     diagonal or a window edge of the warpgroup are masked elementwise.
+//     Q is staged against Sq, K and V against kv_len.  For
 //     D <= 96 two blocks share an SM (128 registers a thread, 97 KB of
 //     shared memory a block), so four warpgroups interleave their softmax
 //     with each other's products (one block an SM, one warpgroup a block
@@ -73,13 +86,16 @@
 //     zero, where the gate's absolute 1e-6 binds (tests/test_torch_flash.py
 //     emulates both).
 //
-// The masked-row trap: a row whose first processed tile were wholly masked
-// would get m = -1e30 and p = exp(0) = 1 on every masked key until a later
-// tile corrected it.  The kv loop starts at key 0, which every query may
-// see (causal or not), and tile 0 is never skipped, so every row's max is a
-// real score after the first tile, and a masked key's p = 2^(-1e30 - m) is
-// exactly 0.  Keys past S are masked the same way; query rows past S are
-// computed on zero rows and not stored.
+// The masked-row trap: a row whose first processed tile is wholly masked
+// (under a window, the later queries of a warpgroup see none of its first
+// tiles) gets m = -1e30 and p = 2^0 = 1 on every masked key, so l and acc
+// pick up terms that are not its own.  They are wiped exactly once a real
+// score arrives: corr = 2^(-1e30 - m_new) is 0 (ex2.approx flushes it to
+// +0), and l * 0 and acc * 0 are 0.  From then on a masked key's
+// p = 2^(-1e30 - m) is exactly 0.  The reference's chunked loop does the
+// same.  A row with no valid key at all would keep those terms; the
+// wrappers refuse such calls.  Query rows past Sq are computed on zero rows
+// and not stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,8 +176,9 @@ __global__ void __launch_bounds__(kThreads, DQ > 96 || DV > 96 ? 1 : 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int bh_count, int s_len,
-                   int d, int dv, int causal, float scale_log2, int vec) {
+                   __nv_bfloat16* __restrict__ o, int bh_count, int sq,
+                   int sk, int d, int dv, int causal, int q_offset,
+                   int window, int kv_len, float scale_log2, int vec) {
   constexpr int NQ = (DQ + 63) / 64;  // 64-column panels of Q and K
   constexpr int NV = (DV + 63) / 64;  // of V and the accumulator
   constexpr uint32_t kQBytes = NQ * kRows * 128;
@@ -174,24 +191,29 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int lane = tid & 31;
-  const int nq = (s_len + kRows - 1) / kRows;
+  const int nq = (sq + kRows - 1) / kRows;
   const int qt = nq - 1 - (int)(blockIdx.x / bh_count);  // heaviest first
   const long long bh = blockIdx.x % bh_count;
   const int q0 = qt * kRows;
-  const long long base = bh * s_len * (long long)d;
-  const long long base_v = bh * s_len * (long long)dv;
-  const __nv_bfloat16* qb = q + base;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base_v;
+  const __nv_bfloat16* qb = q + bh * sq * (long long)d;
+  const __nv_bfloat16* kb = k + bh * sk * (long long)d;
+  const __nv_bfloat16* vb = v + bh * sk * (long long)dv;
+  const long long base_o = bh * sq * (long long)dv;
 
-  const int n_kv = (s_len + kBK - 1) / kBK;
-  const int n_tiles =
-      causal ? min(n_kv, (min(q0 + kRows, s_len) - 1) / kBK + 1) : n_kv;
+  // the kv tiles [t_lo, t_hi) that hold the keys [lo, hi) some query of
+  // this block may see
+  const int last_q = min(q0 + kRows, sq) - 1;
+  const int hi = causal ? min(kv_len, last_q + q_offset + 1) : kv_len;
+  const int lo = window > 0 ? max(0, q0 + q_offset - window + 1) : 0;
+  const int t_lo = lo / kBK;
+  const int t_hi = hi > lo ? (hi + kBK - 1) / kBK : t_lo;
 
-  load_tile<DQ>(qs, qb, q0, kRows, s_len, d, vec);
-  load_tile<DQ>(ks(0), kb, 0, kBK, s_len, d, vec);
-  load_tile<DV>(ks(0) + NQ * kTile, vb, 0, kBK, s_len, dv, vec);
-  hopper::cp_async_commit();
+  if (t_lo < t_hi) {
+    load_tile<DQ>(qs, qb, q0, kRows, sq, d, vec);
+    load_tile<DQ>(ks(0), kb, t_lo * kBK, kBK, kv_len, d, vec);
+    load_tile<DV>(ks(0) + NQ * kTile, vb, t_lo * kBK, kBK, kv_len, dv, vec);
+    hopper::cp_async_commit();
+  }
 
   // This thread's accumulator rows (r and r + 8) and first column: the
   // wgmma layout puts value i of a 64 x N accumulator at row
@@ -200,6 +222,17 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int wg_q0 = q0 + 64 * wg;
   const int row0 = wg_q0 + 16 * ((tid >> 5) & 3) + (lane >> 2);
   const int col0 = 2 * (lane & 3);
+  // Query p (in key coordinates) sees the keys [key_lo(p), key_hi(p)),
+  // both nondecreasing in p.  This warpgroup's queries p0 .. p0 + 63: some
+  // of them see a key of [some_lo, some_hi), all of them every key of
+  // [all_lo, all_hi); this thread's two rows see [lo_r[h], hi_r[h]).
+  const int p0 = wg_q0 + q_offset;
+  auto key_lo = [&](int p) { return window > 0 ? p - window + 1 : 0; };
+  auto key_hi = [&](int p) { return causal ? min(kv_len, p + 1) : kv_len; };
+  const int some_lo = key_lo(p0), some_hi = key_hi(p0 + 63);
+  const int all_lo = key_lo(p0 + 63), all_hi = key_hi(p0);
+  const int lo_r[2] = {key_lo(row0 + q_offset), key_lo(row0 + 8 + q_offset)};
+  const int hi_r[2] = {key_hi(row0 + q_offset), key_hi(row0 + 8 + q_offset)};
   const uint32_t q_wg = qs + wg * 64 * 128;
 
   float m[2] = {kNegInf, kNegInf};
@@ -213,12 +246,12 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    if (t + 1 < n_tiles) {
-      const uint32_t nxt = ks((t + 1) % kStages);
-      load_tile<DQ>(nxt, kb, (t + 1) * kBK, kBK, s_len, d, vec);
-      load_tile<DV>(nxt + NQ * kTile, vb, (t + 1) * kBK, kBK, s_len, dv,
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int st = (t - t_lo) % kStages;
+    if (t + 1 < t_hi) {
+      const uint32_t nxt = ks((t + 1 - t_lo) % kStages);
+      load_tile<DQ>(nxt, kb, (t + 1) * kBK, kBK, kv_len, d, vec);
+      load_tile<DV>(nxt + NQ * kTile, vb, (t + 1) * kBK, kBK, kv_len, dv,
                     vec);
     }
     hopper::cp_async_commit();
@@ -227,7 +260,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
 
     const int k0 = t * kBK;
-    if (!causal || k0 <= wg_q0 + 63) {
+    if (k0 + kBK > some_lo && k0 < some_hi) {  // a query here sees a key
       const uint32_t kt = ks(st);
       const uint32_t vt = kt + NQ * kTile;
       // S = Q.K^T over DQ in steps of 16 (32 bytes of a 128-byte row)
@@ -244,17 +277,18 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(s);
 
-      // scale into the log2 domain; mask only tiles that reach past S or
-      // past this warpgroup's first query
-      const bool edge =
-          k0 + kBK > s_len || (causal && k0 + kBK - 1 > wg_q0);
+      // scale into the log2 domain; mask only the tiles where some key is
+      // invalid for some query of this warpgroup, against each row's
+      // bounds moved to this thread's first column of the tile
+      const bool edge = k0 < all_lo || k0 + kBK > all_hi;
+      const int c0 = k0 + col0;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         float x = s[i] * scale_log2;
         if (edge) {
-          const int key = k0 + 8 * (i >> 2) + col0 + (i & 1);
-          const int qpos = row0 + 8 * ((i >> 1) & 1);
-          if (key >= s_len || (causal && key > qpos)) x = kNegInf;
+          const int h = (i >> 1) & 1;
+          const int key = 8 * (i >> 2) + (i & 1);  // past c0
+          if (key < lo_r[h] - c0 || key >= hi_r[h] - c0) x = kNegInf;
         }
         s[i] = x;
       }
@@ -334,9 +368,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + 8 * h;
-    if (row >= s_len) continue;
+    if (row >= sq) continue;
     const float denom = fmaxf(l[h], 1e-30f);
-    __nv_bfloat16* orow = o + base_v + (long long)row * dv;
+    __nv_bfloat16* orow = o + base_o + (long long)row * dv;
 #pragma unroll
     for (int p = 0; p < NV; ++p)
 #pragma unroll
@@ -365,26 +399,34 @@ constexpr int smem_bytes() {
          + kStages * (int)kTile * ((DQ + 63) / 64 + (DV + 63) / 64);
 }
 
+// The arguments of one launch: shapes, mask and scale.
+struct Args {
+  long long bh, sq, sk, d, dv;
+  int causal, q_offset, window, kv_len;
+  float scale;
+};
+
 template <int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
-           long long bh, long long s_len, long long d, long long dv,
-           int causal, float scale, cudaStream_t stream) {
+           const Args& a, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DQ, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<DQ, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = d % 8 == 0 && dv % 8 == 0
+  const int vec = a.d % 8 == 0 && a.dv % 8 == 0
       && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
            | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   // the scale and log2(e) in one float, for exp2
-  const float scale_log2 = (float)((double)scale * 1.4426950408889634);
-  const long long nq = (s_len + kRows - 1) / kRows;
-  flash_wgmma_kernel<DQ, DV><<<(unsigned)(nq * bh), kThreads, smem, stream>>>(
+  const float scale_log2 = (float)((double)a.scale * 1.4426950408889634);
+  const long long nq = (a.sq + kRows - 1) / kRows;
+  flash_wgmma_kernel<DQ, DV><<<(unsigned)(nq * a.bh), kThreads, smem,
+                               stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      (int)bh, (int)s_len, (int)d, (int)dv, causal, scale_log2, vec);
+      (int)a.bh, (int)a.sq, (int)a.sk, (int)a.d, (int)a.dv, a.causal,
+      a.q_offset, a.window, a.kv_len, scale_log2, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,46 +434,47 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // past dv), or 128 for a qk width past 128 with dv <= 128 (MLA's 192 / 128).
 template <int DQ>
 int launch_dq(const void* q, const void* k, const void* v, void* o,
-              long long bh, long long s_len, long long d, long long dv,
-              int causal, float scale, cudaStream_t stream) {
+              const Args& a, cudaStream_t stream) {
   if constexpr (DQ > 128) {
-    if (dv <= 128)
-      return launch<DQ, 128>(q, k, v, o, bh, s_len, d, dv, causal, scale,
-                             stream);
+    if (a.dv <= 128) return launch<DQ, 128>(q, k, v, o, a, stream);
   }
-  return launch<DQ, DQ>(q, k, v, o, bh, s_len, d, dv, causal, scale, stream);
+  return launch<DQ, DQ>(q, k, v, o, a, stream);
 }
 
 }  // namespace
 
-// q, k: (bh, s_len, d), v, o: (bh, s_len, dv) bfloat16, contiguous; o is
-// written in full.  causal: 1 masks keys after each query.  scale: the
-// score scale, 1/sqrt(d) rounded once to float32.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for d
-// outside 1..192, dv outside 1..d or a grid the launch cannot hold.
+// q: (bh, sq, d), k: (bh, sk, d), v: (bh, sk, dv), o: (bh, sq, dv)
+// bfloat16, contiguous; o is written in full.  Key j is valid for query i
+// iff j < kv_len, j <= i + q_offset when causal is 1, and
+// j > i + q_offset - window when window > 0 (kv_len is clipped to
+// 0..sk).  A query with no valid key gets zeros.  scale: the score scale,
+// 1/sqrt(d) rounded once to float32.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for d outside 1..192, dv outside 1..d,
+// sk < 1, an sq, sk, |q_offset| or window past 2^28 (so that positions
+// and their sums stay in int), or a grid the launch cannot hold.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* o,
-                                           long long bh, long long s_len,
-                                           long long d, long long dv,
-                                           int causal, float scale,
-                                           void* stream) {
-  if (bh <= 0 || s_len <= 0) return 0;
-  if (d <= 0 || d > kMaxD || dv <= 0 || dv > d || s_len > 2147483647LL
-      || ((s_len + kRows - 1) / kRows) * bh > 2147483647LL)
+                                           long long bh, long long sq,
+                                           long long sk, long long d,
+                                           long long dv, int causal,
+                                           long long q_offset,
+                                           long long window, long long kv_len,
+                                           float scale, void* stream) {
+  if (bh <= 0 || sq <= 0) return 0;
+  if (d <= 0 || d > kMaxD || dv <= 0 || dv > d || sk <= 0
+      || sq > (1LL << 28) || sk > (1LL << 28) || q_offset > (1LL << 28)
+      || q_offset < -(1LL << 28) || window < 0 || window > (1LL << 28)
+      || ((sq + kRows - 1) / kRows) * bh > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{bh, sq, sk, d, dv, causal, (int)q_offset, (int)window,
+               (int)(kv_len < 0 ? 0 : kv_len > sk ? sk : kv_len), scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 31) / 32) {
-    case 1: return launch_dq<32>(q, k, v, o, bh, s_len, d, dv, causal,
-                                 scale, s);
-    case 2: return launch_dq<64>(q, k, v, o, bh, s_len, d, dv, causal,
-                                 scale, s);
-    case 3: return launch_dq<96>(q, k, v, o, bh, s_len, d, dv, causal,
-                                 scale, s);
-    case 4: return launch_dq<128>(q, k, v, o, bh, s_len, d, dv, causal,
-                                  scale, s);
-    case 5: return launch_dq<160>(q, k, v, o, bh, s_len, d, dv, causal,
-                                  scale, s);
-    default: return launch_dq<192>(q, k, v, o, bh, s_len, d, dv, causal,
-                                   scale, s);
+    case 1: return launch_dq<32>(q, k, v, o, a, s);
+    case 2: return launch_dq<64>(q, k, v, o, a, s);
+    case 3: return launch_dq<96>(q, k, v, o, a, s);
+    case 4: return launch_dq<128>(q, k, v, o, a, s);
+    case 5: return launch_dq<160>(q, k, v, o, a, s);
+    default: return launch_dq<192>(q, k, v, o, a, s);
   }
 }

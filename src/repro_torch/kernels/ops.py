@@ -18,7 +18,9 @@ included (the reference's ``resolve_backend`` reads an environment
 variable, which this policy forbids, so it has no counterpart);
 ``flash_attention_fused`` takes the signature of the
 reference's Pallas ``repro.kernels.flash_attention.flash_attention_fused``
-with ``backend=`` in place of ``interpret=``.  The device policy:
+with ``backend=`` in place of ``interpret=``; ``flash_attention_masked`` is
+the same kernel under the model attention's masks (window, query offset,
+key limit, Sq != Sk), which the reference computes in its chunked loop.  The device policy:
 
 * ``"auto"`` (default): the kernel on CUDA, the plain version on the CPU;
 * ``"xla"``: the reference's software-only baseline, asked for by name, in
@@ -198,3 +200,18 @@ def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
     return _route(backend, k7.flash_attention_fused,
                   k7.flash_attention_fused_plain)(q, k, v, causal, q_blk,
                                                   k_blk)
+
+
+def flash_attention_masked(q, k, v, causal: bool = True, window: int = 0,
+                           q_offset: int = 0, kv_len=None,
+                           backend: str = "auto"):
+    """K7 under the chunked attention's masks, on ``(BH, Sq, D)`` q,
+    ``(BH, Sk, D)`` k and ``(BH, Sk, Dv)`` v (Dv <= D), KV expanded to the
+    query heads: key j is valid for query i iff ``j < kv_len``, ``j <= i +
+    q_offset`` when causal and ``j > i + q_offset - window`` when ``window
+    > 0``; output ``(BH, Sq, Dv)`` in ``q``'s dtype.  It counts as a launch
+    of ``flash_attention_fused``, the one kernel it runs."""
+    from repro_torch.kernels import flash_attention as k7
+    return _route(backend, k7.flash_attention_masked,
+                  k7.flash_attention_masked_plain)(q, k, v, causal, window,
+                                                   q_offset, kv_len)

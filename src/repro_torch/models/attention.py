@@ -6,14 +6,17 @@ cache holds the latent ``(B, S_max, kv_lora)`` and the shared rope key
 ``(B, S_max, rope)``.
 
 ``flash_attention`` is the reference's online softmax over query and key
-chunks.  A call that lies inside the fused kernel's contract goes through
-``kernels.ops.flash_attention_fused`` (K7: the CUDA kernel on the card, its
-plain blockwise version on the CPU): no window, no query offset, no
-``kv_valid_len``, Sq == Sk, Dv <= D <= 192, no ``p_dtype``, and S at most
-128 or a multiple of 128.  MLA's expanded prefill (qk 192 = 128 + 64 rope
-lanes, v 128 at DeepSeek-V2-Lite's width) is such a call.  Every other
-call runs the chunked PyTorch code on the CPU; on the card it raises,
-since the port has no kernel for it.
+chunks.  A call inside the fused kernel's contract goes through
+``kernels.ops.flash_attention_masked`` (K7: the CUDA kernel on the card, its
+plain blockwise version on the CPU): Dv <= D <= 192, no ``p_dtype``, and
+every query with at least one valid key; any window, query offset,
+``kv_valid_len``, Sq and Sk.  So the causal self-attention of every model
+here, MLA's expanded prefill (qk 192 = 128 + 64 rope lanes, v 128), Zamba2's
+windowed shared block, Whisper's unmasked encoder over 1,500 frames and its
+cross-attention (448 queries against 1,500 keys) take K7.  Every other call
+runs the chunked PyTorch code (``flash_attention_chunked``, the reference's
+arithmetic) on the CPU; on the card it raises, since the port has no kernel
+for it.
 
 The K7 route scales scores by ``1/sqrt(D)`` rounded once from double, as
 the Pallas kernel does; the chunked code by ``1/sqrt(float32(D))``, as the
@@ -29,11 +32,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
+from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
+                                                 rows_without_keys)
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
-K7_MAX_BLOCK = 128  # the kernel contract's default q/k block
 
 
 def _mask_val(qpos, kpos, causal: bool, window: int):
@@ -44,31 +47,35 @@ def _mask_val(qpos, kpos, causal: bool, window: int):
 
 
 def on_k7_route(sq: int, sk: int, d: int, dv: int, window: int = 0,
-                q_offset: int = 0, kv_valid_len=None, p_dtype=None) -> bool:
+                q_offset: int = 0, kv_valid_len=None, p_dtype=None,
+                causal: bool = True) -> bool:
     """True when ``flash_attention`` with these arguments goes through the
-    fused kernel (K7)."""
-    return (window == 0 and q_offset == 0 and kv_valid_len is None
-            and sq == sk and dv <= d <= MAX_HEAD_DIM and p_dtype is None
-            and (sq <= K7_MAX_BLOCK or sq % K7_MAX_BLOCK == 0))
+    fused kernel (K7): Dv <= D <= 192, no ``p_dtype``, and no query without
+    a valid key."""
+    return (dv <= d <= MAX_HEAD_DIM and p_dtype is None
+            and not rows_without_keys(sq, sk, causal, window, q_offset,
+                                      kv_valid_len))
 
 
-def _fused(q, k, v, causal: bool):
+def _fused(q, k, v, causal: bool, window: int, q_offset: int, kv_len):
     """K7 on the ``(B*H, S, D)`` layout: heads next to the batch, KV
-    expanded to the query heads (head h reads kv head h // G); v keeps its
-    own width."""
-    b, s, h, _ = q.shape
+    expanded to the query heads (head h reads kv head h // G); q keeps its
+    length and v its width."""
+    b, sq, h, _ = q.shape
     g = h // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
 
     def heads_first(t):
-        return t.permute(0, 2, 1, 3).reshape(b * h, s, t.shape[3]) \
+        return t.permute(0, 2, 1, 3).reshape(b * h, t.shape[1], t.shape[3]) \
             .contiguous()
 
-    out = ops.flash_attention_fused(heads_first(q), heads_first(k),
-                                    heads_first(v), causal=causal)
-    return out.reshape(b, h, s, v.shape[3]).permute(0, 2, 1, 3)
+    out = ops.flash_attention_masked(heads_first(q), heads_first(k),
+                                     heads_first(v), causal=causal,
+                                     window=window, q_offset=q_offset,
+                                     kv_len=kv_len)
+    return out.reshape(b, h, sq, v.shape[3]).permute(0, 2, 1, 3)
 
 
 def flash_attention(
@@ -90,17 +97,34 @@ def flash_attention(
     Dv)`` in ``q``'s dtype.
     """
     b, sq, h, d = q.shape
+    sk, dv = k.shape[1], v.shape[3]
+    if on_k7_route(sq, sk, d, dv, window, q_offset, kv_valid_len, p_dtype,
+                   causal):
+        return _fused(q, k, v, causal, window, q_offset, kv_valid_len)
+    if q.device.type != "cpu":
+        empty = rows_without_keys(sq, sk, causal, window, q_offset,
+                                  kv_valid_len)
+        raise NotImplementedError(
+            f"flash_attention(p_dtype={p_dtype}, D={d}, Dv={dv}, a query "
+            f"without keys: {empty}) is outside the fused kernel's contract "
+            f"(Dv <= D <= {MAX_HEAD_DIM}, no p_dtype, every query with a "
+            f"valid key) and the port has no kernel for it on {q.device} "
+            f"(ROADMAP Queue C)")
+    return flash_attention_chunked(q, k, v, causal, window, q_offset,
+                                   q_chunk, k_chunk, kv_valid_len, p_dtype)
+
+
+def flash_attention_chunked(q, k, v, causal: bool = True, window: int = 0,
+                            q_offset: int = 0, q_chunk: int = 512,
+                            k_chunk: int = 1024, kv_valid_len=None,
+                            p_dtype: Optional[torch.dtype] = None):
+    """The reference's chunked online softmax, in plain PyTorch: query
+    chunks, and inside each the key chunks in ascending order (ragged
+    lengths padded to the chunk grid, padded keys masked).  The CPU runs it
+    for the calls outside K7's contract."""
+    b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     dv = v.shape[3]
-    if on_k7_route(sq, sk, d, dv, window, q_offset, kv_valid_len, p_dtype):
-        return _fused(q, k, v, causal)
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            f"flash_attention(window={window}, q_offset={q_offset}, "
-            f"kv_valid_len={'set' if kv_valid_len is not None else None}, "
-            f"Sq={sq}, Sk={sk}, D={d}, Dv={dv}, p_dtype={p_dtype}) is outside "
-            f"the fused kernel's contract and the port has no kernel for it "
-            f"on {q.device} (ROADMAP Queue A item 12)")
     g = h // kv
     scale = float(1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32)))
     q_chunk = min(q_chunk, sq)

@@ -8,17 +8,21 @@
   rounded to bfloat16 once, so a sum that lands near a rounding boundary
   may round the other way: within one bfloat16 step, 2**-7 relative.
 * The port's model attention (``models.attention.flash_attention``) against
-  the reference's, on the K7 route (the fused kernel's contract) and on the
-  chunked route (window, ``q_offset``, ``kv_valid_len``, ragged S, GQA,
-  ``p_dtype``, cross-attention).  The K7 route differs from the reference's
-  chunked loop in its blocks (so the order of sums) and in its scale
-  (``1/sqrt(D)`` rounded from double, one float32 ulp from
+  the reference's, on the K7 route (the fused kernel's contract, now with
+  windows, ``q_offset``, ``kv_valid_len``, Sq != Sk and ragged S: K7's
+  masked entry, ``flash_attention_masked``) and the port's chunked code
+  (``flash_attention_chunked``: window, ``q_offset``, ``kv_valid_len``,
+  ragged S, GQA, ``p_dtype``, cross-attention).  The K7 route differs from
+  the reference's chunked loop in its blocks (so the order of sums) and in
+  its scale (``1/sqrt(D)`` rounded from double, one float32 ulp from
   ``1/sqrt(float32(D))`` for some D): within rtol 2e-4 / atol 2e-5, the
   reference's own kernel-vs-model bar (``test_flash_fused_matches_model_
-  flash``).  The chunked route repeats the reference's arithmetic: within
+  flash``).  The chunked code repeats the reference's arithmetic: within
   1e-5 relative / 1e-6; with ``p_dtype=bfloat16`` the probabilities are
   rounded to bfloat16, so a probability near a rounding boundary may round
-  the other way: within 2**-8 relative / 1e-4.
+  the other way: within 2**-8 relative / 1e-4.  Only ``p_dtype``, D > 192,
+  Dv > D and a query without a valid key stay off K7's route, and raise
+  off the CPU.
 * ``ops`` routing: a CPU call launches nothing; the TPU backends raise.
 * The bf16 kernel's arithmetic (``csrc/flash_attention_wgmma.cu``),
   emulated here, with the tile and the term count read from its source:
@@ -123,17 +127,17 @@ def test_routes_by_dtype_to_built_entry_points():
 
 
 class Spy:
-    """Counts the model's calls of ``ops.flash_attention_fused``."""
+    """Counts the model's calls of K7 (``ops.flash_attention_masked``)."""
 
     def __init__(self, monkeypatch):
         self.calls = 0
-        real = ops.flash_attention_fused
+        real = ops.flash_attention_masked
 
         def spy(*args, **kwargs):
             self.calls += 1
             return real(*args, **kwargs)
 
-        monkeypatch.setattr(attention.ops, "flash_attention_fused", spy)
+        monkeypatch.setattr(attention.ops, "flash_attention_masked", spy)
 
 
 def qkv(rng, b, sq, sk, h, kv, d, dv=None):
@@ -190,8 +194,8 @@ def test_model_flash_chunked_route(monkeypatch, case):
     if "p_dtype" in kw_ref:
         kw_ref["p_dtype"], kw_port["p_dtype"] = kw_ref["p_dtype"]
     spy = Spy(monkeypatch)
-    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)),
-                                    **kw_port)
+    got = attention.flash_attention_chunked(*map(torch.from_numpy,
+                                                 (q, k, v)), **kw_port)
     assert spy.calls == 0
     want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)), **kw_ref)
     assert tuple(got.shape) == want.shape
@@ -203,12 +207,90 @@ def test_model_flash_chunked_route(monkeypatch, case):
                                    atol=1e-6)
 
 
+# K7's masked contract: (b, sq, sk, h, kv, d, kwargs); the model's route
+# takes each through flash_attention_masked (its plain version here)
+MASKED = {
+    "window": ((2, 64, 64, 4, 4, 16), dict(window=24)),
+    "window_1": ((1, 192, 192, 2, 2, 16), dict(window=1)),
+    "window_past_block": ((1, 300, 300, 2, 1, 16), dict(window=100)),
+    "window_noncausal": ((1, 64, 64, 2, 2, 16), dict(window=20,
+                                                      causal=False)),
+    "q_offset": ((1, 16, 64, 4, 2, 16), dict(q_offset=48)),
+    "q_offset_window": ((1, 40, 200, 2, 2, 16), dict(q_offset=160,
+                                                      window=64)),
+    "kv_valid_len": ((2, 32, 32, 4, 4, 16), dict(kv_valid_len=20,
+                                                 causal=False)),
+    "kv_len_q_offset": ((1, 24, 160, 2, 2, 16), dict(kv_valid_len=150,
+                                                      q_offset=120)),
+    "cross": ((2, 7, 150, 4, 4, 16), dict(causal=False)),
+    "cross_one_query": ((1, 1, 150, 2, 2, 16), dict(causal=False)),
+    "cross_long_queries": ((1, 45, 150, 2, 2, 16), dict(causal=False)),
+    "ragged": ((1, 150, 150, 4, 4, 16), {}),
+    "ragged_noncausal": ((1, 150, 150, 4, 2, 16), dict(causal=False)),
+    "one_token": ((2, 1, 1, 2, 2, 16), {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASKED))
+def test_model_flash_masked_k7_route(monkeypatch, case):
+    """Windows, a query offset, a key limit, Sq != Sk and ragged S go
+    through K7 (its masked plain version on the CPU), against the
+    reference's chunked attention with the same arguments."""
+    (b, sq, sk, h, kv, d), kw = MASKED[case]
+    q, k, v = qkv(np.random.default_rng(4), b, sq, sk, h, kv, d)
+    assert attention.on_k7_route(
+        sq, sk, d, d, kw.get("window", 0), kw.get("q_offset", 0),
+        kw.get("kv_valid_len"), None, kw.get("causal", True))
+    spy = Spy(monkeypatch)
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    assert spy.calls == 1
+    want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)), **kw)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(host(got), host(want), rtol=2e-4, atol=2e-5)
+
+
+# calls outside K7's route: (sq, sk, d, dv, window, q_offset, kv_len,
+# p_dtype, causal)
+REFUSED = {
+    "p_dtype": (16, 16, 8, 8, 0, 0, None, torch.bfloat16, True),
+    "d_past_192": (16, 16, 200, 200, 0, 0, None, None, True),
+    "dv_past_d": (16, 16, 8, 16, 0, 0, None, None, True),
+    "first_query_sees_nothing": (16, 16, 8, 8, 0, -1, None, None, True),
+    "no_keys": (16, 16, 8, 8, 0, 0, 0, None, False),
+    "window_past_the_keys": (8, 32, 8, 8, 4, 40, None, None, False),
+    "last_query_past_the_window": (64, 64, 8, 8, 4, 0, 20, None, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_calls_outside_the_k7_route_raise_off_the_cpu(case):
+    """Only p_dtype, D > 192, Dv > D and a query with no valid key stay
+    outside the route; each raises on a tensor off the CPU, and the masked
+    kernel entry refuses a query with no valid key itself."""
+    sq, sk, d, dv, window, q_offset, kv_len, p_dtype, causal = REFUSED[case]
+    assert not attention.on_k7_route(sq, sk, d, dv, window, q_offset,
+                                     kv_len, p_dtype, causal)
+    q = torch.zeros((1, sq, 2, d), device="meta")
+    k = torch.zeros((1, sk, 2, d), device="meta")
+    v = torch.zeros((1, sk, 2, dv), device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, kv_valid_len=kv_len,
+                                  p_dtype=p_dtype)
+    if dv <= d <= k7.MAX_HEAD_DIM and p_dtype is None:
+        x = torch.zeros((2, sq, d))
+        y = torch.zeros((2, sk, d))
+        with pytest.raises(ValueError, match="sees no key"):
+            ops.flash_attention_masked(x, y, y, causal, window, q_offset,
+                                       kv_len)
+
+
 def test_chunked_route_raises_off_the_cpu():
     """Outside K7's contract the port has no kernel: a tensor that is not on
     the CPU raises instead of running the chunked code there."""
     q = torch.zeros((1, 16, 2, 8), device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.flash_attention(q, q, q, window=4)
+        attention.flash_attention(q, q, q, p_dtype=torch.bfloat16)
 
 
 def test_fused_matches_model_chunked_in_the_port():
@@ -217,8 +299,9 @@ def test_fused_matches_model_chunked_in_the_port():
     b, s, h, d = 2, 64, 4, 32
     q, k, v = map(torch.from_numpy, qkv(np.random.default_rng(1), b, s, s,
                                         h, h, d))
-    chunked = attention.flash_attention(q, k, v, causal=True, q_chunk=32,
-                                        k_chunk=32, kv_valid_len=s)
+    chunked = attention.flash_attention_chunked(q, k, v, causal=True,
+                                                q_chunk=32, k_chunk=32,
+                                                kv_valid_len=s)
     fused = attention.flash_attention(q, k, v, causal=True)
     np.testing.assert_allclose(host(fused), host(chunked), rtol=2e-4,
                                atol=2e-5)
@@ -254,9 +337,11 @@ WGMMA = k7.wgmma_constants()  # the kernel's kv tile kBK, P's terms kPTerms
 WGMMA_KEYS = WGMMA["kBK"]
 
 
-def emulate_wgmma(q, k, v, causal: bool, terms: int):
+def emulate_wgmma(q, k, v, causal: bool, terms: int, window: int = 0):
     """The bf16 kernel's rounding, step by step, on the CPU (v may be
-    narrower than q and k)."""
+    narrower than q and k, and of another length Sk).  Every row runs every
+    kv tile: a tile the kernel skips for a row is wholly masked for it, and
+    its terms are wiped once a real score arrives."""
     bh, s, d = q.shape
     c = float(np.float32(np.float64(np.float32(1.0 / d ** 0.5))
                          * math.log2(math.e)))
@@ -264,12 +349,16 @@ def emulate_wgmma(q, k, v, causal: bool, terms: int):
     m = torch.full((bh, s, 1), k7.NEG_INF)
     l = torch.zeros((bh, s, 1))
     acc = torch.zeros((bh, s, v.shape[2]))
-    pos = torch.arange(s)
-    for k0 in range(0, s, WGMMA_KEYS):
+    pos = torch.arange(max(s, k.shape[1]))
+    for k0 in range(0, k.shape[1], WGMMA_KEYS):
         x = torch.matmul(qf, kf[:, k0:k0 + WGMMA_KEYS].transpose(1, 2)) * c
-        if causal:
-            x = torch.where(pos[None, k0:k0 + WGMMA_KEYS] <= pos[:, None], x,
-                            k7.NEG_INF)
+        kpos = pos[None, k0:min(k0 + WGMMA_KEYS, k.shape[1])]
+        ok = kpos <= pos[:s, None] if causal \
+            else torch.ones_like(kpos <= pos[:s, None])
+        if window:
+            ok = ok & (kpos > pos[:s, None] - window)
+        if causal or window:
+            x = torch.where(ok, x, k7.NEG_INF)
         m_new = torch.maximum(m, x.amax(-1, keepdim=True))
         p = torch.exp2(x - m_new)
         corr = torch.exp2(m - m_new)
@@ -321,6 +410,21 @@ def test_wgmma_arithmetic_meets_the_bf16_gate_at_mla_widths(causal):
     want = k7.flash_attention_fused_plain(q, k, v, causal)
     got = emulate_wgmma(q, k, v, causal, WGMMA["kPTerms"])
     assert got.shape == want.shape == (32, 256, 128)
+    assert gate_misses(got, want) == 0
+
+
+@pytest.mark.parametrize("causal,window,sk", [
+    (True, 1, 256), (True, 64, 256), (True, 100, 256), (False, 0, 75),
+    (False, 0, 300)])
+def test_wgmma_arithmetic_meets_the_bf16_gate_under_masks(causal, window,
+                                                          sk):
+    """Windows (window 1: each row's one key, its first tiles all masked)
+    and unequal lengths (Whisper's cross-attention at small size)."""
+    q = bf16_qkv(0, 16, 256, 64)[0]
+    k, v = bf16_qkv(1, 16, sk, 64)[:2]
+    want = k7.flash_attention_masked_plain(q, k, v, causal, window)
+    got = emulate_wgmma(q, k, v, causal, WGMMA["kPTerms"], window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert gate_misses(got, want) == 0
 
 

@@ -216,13 +216,13 @@ def test_forward_and_loss_match_reference(arch):
 def test_forward_runs_every_layer_through_k7_route(arch, monkeypatch):
     _, port_cfg, _, params = models(arch)
     calls = []
-    real = attention.ops.flash_attention_fused
+    real = attention.ops.flash_attention_masked
 
     def spy(q, *args, **kwargs):
         calls.append(tuple(q.shape))
         return real(q, *args, **kwargs)
 
-    monkeypatch.setattr(attention.ops, "flash_attention_fused", spy)
+    monkeypatch.setattr(attention.ops, "flash_attention_masked", spy)
     transformer.forward_hidden(port_cfg, params, t(tokens(port_cfg, 2, 256)))
     b_h = 2 * port_cfg.n_heads
     assert calls == [(b_h, 256, port_cfg.hd)] * port_cfg.n_layers
@@ -275,14 +275,6 @@ def test_init_transformer_shapes_match_reference():
     assert got == want
     w = params["layers"]["attn"].wq
     assert abs(float(w.std()) - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
-
-
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-1.6b",
-                                  "whisper-large-v3", "internvl2-76b"])
-def test_configs_outside_the_slice_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 12"):
-        transformer.init_transformer(configs.smoke_config(arch),
-                                     torch.Generator(), device="cpu")
 
 
 def test_launch_serve_lm_mode_on_cpu(capsys):
