@@ -96,6 +96,32 @@ products run in full float32 (TF32 off).  It
    512, 512 and 448 prompt tokens); then InternVL2-76B's vision stub
    (``INTERNVL``: full width on 2 of 80 layers, 1 x 4,096 tokens with 256
    patch embeddings, 2 K7 launches), the prefill only;
+5d. trains on the card (``train_phase``; sizes in ``TRAIN``): holds K7's
+   backward (``csrc/flash_attention_bwd.cu``, through the autograd
+   ``Function`` of ``ops.flash_attention_masked``: one forward and one
+   ``flash_attention_bwd`` count a call) against its plain version on
+   ``FLASH_BWD_CASES`` in both dtypes (dq, dk, dv; float32 within 1e-5 of
+   the call's largest |gradient|, bf16 one bf16 step more; the plain
+   backward takes the plain forward's ``lse``) and the forward's output
+   and ``lse`` against the plain forward's (``lse`` within 1e-5 of
+   max(1, its largest |value|)), one case twice bit for bit; times K7's forward with ``lse`` and its backward at
+   granite-3-2b's training shape (BH 64, S 2,048, D 64, bf16, causal)
+   beside their bounds, the plain backward and
+   ``F.scaled_dot_product_attention``'s forward + backward; holds the
+   loss and every gradient of granite at full width on 2 layers in
+   float32 (1 x 1,024 tokens) on the card against the CPU's plain path
+   (within 1e-4 of each leaf's largest |gradient|); runs granite at full
+   width and depth (40 layers, bf16, float32 AdamW moments) through
+   ``train.make_train_step`` on ``data.TokenPipeline`` batches of 2 x
+   2,048 tokens: a warm-up step, 5 timed steps with the counts from 0 (40
+   K7 forward and 40 backward launches a step), one profiled step, every
+   loss and grad norm finite, the peak memory; runs ``train.Trainer`` at
+   full width on 2 layers for 6 steps with a checkpoint every 3 into a
+   temporary directory and a RuntimeError injected at step 4: it restores
+   step_3 and replays step 3 bit for bit, ends bit for bit a clean run,
+   and its final checkpoint restores bit for bit (each write timed); and
+   runs ``python -m repro_torch.launch.train --arch granite-3-2b --smoke
+   --steps 3`` on the card;
 6. holds K1 and K2 against their plain PyTorch versions on the card, at
    the shapes the SpGEMM path gives them, for exact equality, and times both
    (CUDA events around the call, and the kernels' own device time from
@@ -2598,6 +2624,584 @@ def families_phase(log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: training on the card (K7's backward, the train step, the
+# trainer, checkpoints, the launcher)
+# ---------------------------------------------------------------------------
+
+# K7's backward held against its plain version, as (bh, sq, sk, d, dv,
+# causal, window, q_offset, kv_len): FLASH_MASK_CASES (windows, Sq != Sk, a
+# key limit, a query offset, ragged S, D 64 and 128), then D 96 (causal, and
+# with a key limit), MLA's widths (qk 192 / v 128, causal and windowed) and
+# a causal query offset with Sq < Sk
+FLASH_BWD_CASES = tuple((bh, sq, sk, d, d, c, w, off, kvl)
+                        for bh, sq, sk, d, c, w, off, kvl in FLASH_MASK_CASES) \
+    + ((2, 192, 192, 96, 96, True, 0, 0, None),
+       (2, 200, 200, 96, 96, False, 0, 0, 150),
+       (2, 192, 192, 192, 128, True, 0, 0, None),
+       (2, 256, 256, 192, 128, True, 64, 0, None),
+       (2, 64, 200, 64, 64, True, 0, 136, None))
+# dq, dk and dv against the plain backward on the same (q, k, v, o, lse,
+# do): float32 sums in another order, within 1e-5 of the largest |value| of
+# the call's three gradients (not of each: where a query sees one key, dq
+# and dk are sums of dS = P (dP - Delta) = 0 up to rounding, and their own
+# largest |value| is that rounding); a bf16 gradient is that float32 result
+# rounded once to bf16, so it may sit one bf16 step (2**-7 of the value)
+# from the plain version's rounding, plus the float32 gate
+FLASH_BWD_F32 = 1e-5
+FLASH_BWD_BF16_STEP = 2 ** -7
+# the forward's float32 row log-sum-exp against the plain forward's, in both
+# dtypes: scores summed in another order and the kernels' exp2/log2 (the bf16
+# kernel's scores are exact products of bf16 values, as the plain version's
+# are), within 1e-5 of max(1, the call's largest |lse|)
+FLASH_LSE_F32 = 1e-5
+# granite-3-2b (src/repro/configs/granite_3_2b.py): 40 layers, d_model
+# 2,048, 32 / 8 heads of 64, d_ff 8,192, vocab 49,155, bf16; the reference
+# launcher's optimizer (launch/train.py:56: AdamW, linear_warmup_cosine
+# (3e-4, 20, steps), clip 1.0); a TokenPipeline of 2 x 2,048 tokens
+TRAIN = {"arch": "granite-3-2b", "batch": 2, "seq": 2048, "lr": 3e-4,
+         "warmup": 20, "warm_steps": 1, "timed_steps": 5,
+         "grad_layers": 2, "grad_seq": 1024, "grad_rel": 1e-4,
+         "trainer_layers": 2, "trainer_steps": 6, "checkpoint_every": 3,
+         "fail_at": 4}
+
+
+def flash_bwd_check(got, want, case) -> float:
+    """dq, dk, dv within the backward's gate of the plain version's; the
+    max |error|."""
+    import torch
+
+    worst = 0.0
+    scale = max(float(w.double().abs().max()) for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"flash_attention_bwd {case} {name}: {g.dtype} "
+              f"{tuple(g.shape)}")
+        diff = (g.double() - w.double()).abs()
+        gate = FLASH_BWD_F32 * scale
+        if w.dtype == torch.bfloat16:
+            gate = gate + FLASH_BWD_BF16_STEP * w.double().abs()
+        check(bool((diff <= gate).all()),
+              f"flash_attention_bwd {case} {name}: max |error| "
+              f"{float(diff.max())} beyond its gate")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def flash_grad_call(q, k, v, do, causal, window, q_offset, kv_len):
+    """One K7 forward and backward through ``ops`` under autograd: (dq, dk,
+    dv), checked to add one launch of each."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = ops.launch_counts()
+    out = ops.flash_attention_masked(*leaves, causal, window, q_offset,
+                                     kv_len)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("flash_attention_fused", "flash_attention_bwd"):
+        check(after[name] == before[name] + 1,
+              f"{name}: one gradient call launched "
+              f"{after[name] - before[name]}")
+    return out.detach(), grads
+
+
+def flash_bwd_cases(log) -> dict:
+    """K7's backward against its plain version on FLASH_BWD_CASES in both
+    dtypes, each call one forward and one backward count, with the
+    forward's output and ``lse`` against the plain forward's; the causal
+    bf16 case at S 1,500 twice, bit for bit (no atomics)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k7
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    errs, lse_errs, repeat = {}, {}, None
+    for dt in (torch.float32, torch.bfloat16):
+        for bh, sq, sk, d, dv, causal, window, off, kvl in FLASH_BWD_CASES:
+            q, k = rand((bh, sq, d), dt), rand((bh, sk, d), dt)
+            v, do = rand((bh, sk, dv), dt), rand((bh, sq, dv), dt)
+            args = (causal, window, off, kvl)
+            out, got = flash_grad_call(q, k, v, do, *args)
+            kvn = sk if kvl is None else min(kvl, sk)
+            lse = k7._launch(q, k, v, causal, window, off, kvn,
+                             with_lse=True)[1]
+            case = (f"{dt}/{bh}x{sq}x{sk}x{d}/v{dv}/causal={causal}/window="
+                    f"{window}/q_offset={off}/kv_len={kvl}")
+            o_p, lse_p = k7.flash_attention_masked_plain(q, k, v, *args,
+                                                         with_lse=True)
+            flash_check(out, o_p, f"{case} with lse")
+            lse_errs[case] = float((lse - lse_p).abs().max())
+            lse_gate = FLASH_LSE_F32 * max(1.0, float(lse_p.abs().max()))
+            check(lse.dtype == torch.float32 and lse.shape == lse_p.shape
+                  and lse_errs[case] <= lse_gate,
+                  f"flash_attention_fused {case}: lse max |error| "
+                  f"{lse_errs[case]} beyond {lse_gate}")
+            # the plain backward from the plain forward's lse, so a wrong lse
+            # shows in the gradients too; and from the kernel's output, held
+            # above to the plain one: in bf16 the two outputs' roundings may
+            # differ by a step, which Delta = sum(dO O) would carry into
+            # every gradient of the row
+            want = k7.flash_attention_masked_bwd_plain(q, k, v, out, lse_p,
+                                                       do, *args)
+            errs[case] = flash_bwd_check(got, want, case)
+            if (repeat is None and dt == torch.bfloat16 and sq == sk == 1500
+                    and causal and not window):
+                again = flash_grad_call(q, k, v, do, *args)[1]
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"flash_attention_bwd {case}: a repeat differs")
+                repeat = case
+    rec = {"cases": len(errs), "max_abs_err": errs,
+           "lse_max_abs_err": lse_errs,
+           "gate": {"float32": f"{FLASH_BWD_F32} of the largest |value| "
+                               f"of dq, dk, dv",
+                    "bfloat16": f"{FLASH_BWD_BF16_STEP} of each |value| + "
+                                f"{FLASH_BWD_F32} of the largest",
+                    "lse": f"{FLASH_LSE_F32} of max(1, largest |lse|), both "
+                           f"dtypes",
+                    "out": "FLASH_TOL, the forward's"},
+           "repeat_bit_identical": repeat}
+    emit({"flash_bwd_cases": rec}, log)
+    return rec
+
+
+def flash_bwd_timed(log) -> dict:
+    """K7's forward (with ``lse``) and backward at granite's training shape
+    (BH 64 = 2 x 32 heads, S 2,048, D 64, bf16, causal), beside their
+    bounds at the bf16 tensor-core rate, the plain backward and
+    ``F.scaled_dot_product_attention``'s forward + backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k7
+
+    bh, s, d, heads = 2 * 32, TRAIN["seq"], 64, 32
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def fwd():
+        return k7._launch(q, k, v, True, 0, 0, s, with_lse=True)
+
+    o, lse = fwd()
+
+    def bwd():
+        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s)
+
+    def plain():
+        return k7.flash_attention_masked_bwd_plain(q, k, v, o, lse, do)
+
+    got = bwd()
+    err = flash_bwd_check(got, plain(), "granite training shape")
+    pairs = bh * valid_pairs(s, s, True, 0)
+    rec = {"name": "flash_attention_bwd", "route": k7.BWD_KERNEL[1],
+           "shape": {"bh": bh, "s": s, "d": d, "dtype": "bfloat16",
+                     "causal": True}, "pairs": pairs, "max_abs_err": err}
+    # CUDA events around one call, and around back-to-back calls; the
+    # profiler's device time a launch comes from the main path's own run
+    # (train_steps: a profiled full-depth step)
+    rec["fwd_ms"], rec["fwd_loop_ms"] = time_ms(fwd, reps=10), loop_ms(fwd)
+    rec["ms"], rec["loop_ms"] = time_ms(bwd, reps=5), loop_ms(bwd, reps=10)
+    rec["plain_ms"] = time_ms(plain, reps=2)
+    # forward 4 D FLOP a pair (Q.K^T, P.V), backward 10 D (S again, dV, dP,
+    # dQ, dK); each input read once, each output written once
+    esz = q.element_size()
+    rec["fwd_flops"], rec["flops"] = 4 * d * pairs, 10 * d * pairs
+    rec["fwd_bytes"] = bh * s * 4 * d * esz + bh * s * 4
+    rec["bytes"] = bh * s * 8 * d * esz + bh * s * 4
+    rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
+        rec["fwd_bytes"], rec["fwd_flops"], torch.bfloat16)
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
+                                             torch.bfloat16)
+    # the kernel's own work: float32 on the CUDA cores, S and dP recomputed
+    # in both passes (14 D a pair)
+    rec["cuda_core_bound_ms"] = bound(0, 14 * d * pairs, torch.float32)[0]
+    rec["tflops"] = rec["flops"] / rec["loop_ms"] / 1e9
+    q4, k4, v4, do4 = (x.view(bh // heads, heads, s, d).detach()
+                       .requires_grad_(x is not do) for x in (q, k, v, do))
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        return torch.autograd.grad(out, (q4, k4, v4), do4)
+
+    rec.update(library_call([(
+        f"F.scaled_dot_product_attention(is_causal=True) forward + backward "
+        f"on ({bh // heads}, {heads}, s, d)", sdpa)]))
+    rec["ptxas"] = {name: ptxas_report(kernel) for name, kernel in (
+        ("dkdv_bf16_d64", "dkdv_kernelI13__nv_bfloat16Li4ELi4EE"),
+        ("dq_bf16_d64", "dq_kernelI13__nv_bfloat16Li4ELi4EE"),
+        ("dkdv_f32_d64", "dkdv_kernelIfLi4ELi4EE"),
+        ("dq_f32_d64", "dq_kernelIfLi4ELi4EE"),
+        ("fwd_wgmma_d64", "flash_wgmma_kernelILi64ELi64E"),
+        ("fwd_wgmma_d96", "flash_wgmma_kernelILi96ELi96E"),
+        ("fwd_f32_d96", "flash_kernelILi6E"))}
+    emit({"flash_bwd_kernel": rec}, log)
+    return rec
+
+
+def grad_path_check(log) -> dict:
+    """Granite at full width on 2 layers in float32: the loss and every
+    gradient on the card (K7's float32 forward and backward) against the
+    CPU's plain versions from the same parameters, each leaf within
+    ``grad_rel`` of its largest |gradient|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=TRAIN["grad_layers"], dtype="float32")
+    params = transformer.init_transformer(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 1, TRAIN["grad_seq"])) \
+        .astype(np.int32)
+
+    def loss_and_grads(flat, device):
+        live = {k: p.detach().to(device).requires_grad_()
+                for k, p in flat.items()}
+        batch = {"tokens": torch.from_numpy(toks[0]).to(device),
+                 "labels": torch.from_numpy(toks[1]).to(device)}
+        loss = transformer.train_loss(
+            cfg, transformer.tree_params(cfg, live), batch)
+        keys = list(live)
+        grads = torch.autograd.grad(loss, [live[k] for k in keys])
+        return float(loss.detach()), dict(zip(keys, grads))
+
+    flat = transformer.flat_params(params)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(flat, "cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches["flash_attention_fused"] == cfg.n_layers
+          and launches["flash_attention_bwd"] == cfg.n_layers,
+          f"grad path: K7 launches {launches}")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grads(flat, "cpu")
+    cpu_s = time.perf_counter() - t0
+    rels = {}
+    for key, want in cpu_grads.items():
+        got = grads[key].cpu().double()
+        scale = float(want.double().abs().max())
+        rels[key] = float((got - want.double()).abs().max()) / max(scale,
+                                                                   1e-30)
+        check(rels[key] <= TRAIN["grad_rel"],
+              f"grad path {key}: {rels[key]} of its largest |gradient|")
+    check(abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss),
+          f"grad path: loss {loss} on the card, {cpu_loss} on the CPU")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+           "tokens": TRAIN["grad_seq"], "loss": loss, "cpu_loss": cpu_loss,
+           "launches": launches, "leaves": len(rels),
+           "max_rel_err": max(rels.values()), "rel_err_by_leaf": rels,
+           "gate": f"{TRAIN['grad_rel']} of each leaf's largest |gradient|",
+           "card_s": card_s, "cpu_s": cpu_s}
+    emit({"train_grad_path": rec}, log)
+    del params, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def batch_on_card(pipe, step: int) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in pipe.batch_at(step).items()}
+
+
+def train_steps(log) -> dict:
+    """Granite at full width and depth (40 layers, bf16, float32 AdamW
+    moments): one warm-up step, then ``timed_steps`` timed steps through
+    ``make_train_step`` with the counts from 0 (40 K7 forward and 40
+    backward launches a step), then one profiled step; every loss and grad
+    norm finite; peak memory."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN["arch"])
+    n_steps = TRAIN["warm_steps"] + TRAIN["timed_steps"] + 1
+    opt = adamw(linear_warmup_cosine(TRAIN["lr"], TRAIN["warmup"], n_steps))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), opt, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = make_train_step(cfg, opt, 1, 1.0)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                         global_batch=TRAIN["batch"], seed=0)
+    metrics, wall = [], []
+    i = 0
+    for _ in range(TRAIN["warm_steps"]):
+        state, m = step(state, batch_on_card(pipe, i))
+        metrics.append({k: float(x) for k, x in m.items()})
+        i += 1
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()  # the training path's count starts here
+    per_step = []
+    for _ in range(TRAIN["timed_steps"]):
+        batch = batch_on_card(pipe, i)
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(x) for k, x in m.items()})
+        after = ops.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after
+                         if after[k] != before[k]})
+        i += 1
+    launches, routes = ops.launch_counts(), ops.route_counts()
+    for n in per_step:
+        check(n == {"flash_attention_fused": cfg.n_layers,
+                    "flash_attention_bwd": cfg.n_layers},
+              f"train step launches {n}, {cfg.n_layers} + {cfg.n_layers} "
+              f"K7 wanted")
+    for m in metrics:
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"train step {m}")
+    batch = batch_on_card(pipe, i)
+    box = {}
+
+    def one():
+        box["state"], box["m"] = step(state, batch)
+
+    host_ms, dev_ms, events = profile(one, top_n=None)
+    metrics.append({k: float(x) for k, x in box["m"].items()})
+    del state
+    state = box.pop("state")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+
+    def k7_device(*kernels):
+        """K7's device ms in the profiled step, its launches of each of
+        ``kernels``, and its ms a call (None unless the profile holds all
+        ``n_layers`` launches of each)."""
+        ms = {k: sum(t for name, t, _ in events if f"::{k}<" in name)
+              for k in kernels}
+        n = {k: sum(c for name, _, c in events if f"::{k}<" in name)
+             for k in kernels}
+        whole = all(c == cfg.n_layers for c in n.values())
+        return {"ms": sum(ms.values()), "launches": n,
+                "ms_per_call": sum(ms.values()) / cfg.n_layers if whole
+                else None}
+
+    k7_fwd = k7_device("flash_wgmma_kernel")
+    k7_bwd = k7_device("delta_kernel", "dkdv_kernel", "dq_kernel")
+    # operations: 6 x parameters x tokens for the products, and K7's
+    # forward (4 D) and backward (10 D) over the causal pairs of every
+    # layer's heads
+    attn = cfg.n_layers * TRAIN["batch"] * cfg.n_heads \
+        * valid_pairs(TRAIN["seq"], TRAIN["seq"], True, 0) * 14 \
+        * cfg.head_dim
+    flops = 6 * cfg.n_params() * tokens + attn
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "params": cfg.n_params(), "batch": TRAIN["batch"],
+           "seq": TRAIN["seq"], "tokens_per_step": tokens,
+           "optimizer": f"adamw(linear_warmup_cosine({TRAIN['lr']}, "
+                        f"{TRAIN['warmup']}, {n_steps})), clip 1.0",
+           "init_s": init_s, "state_gb": state_gb,
+           "step_ms": wall, "median_step_ms": statistics.median(wall),
+           "tokens_per_s": tokens / (statistics.median(wall) / 1e3),
+           "launches": launches, "routes": routes,
+           "launches_per_step": per_step[0],
+           "losses": [m["loss"] for m in metrics],
+           "grad_norms": [m["grad_norm"] for m in metrics],
+           "peak_mem_gb": peak_gb, "flops_per_step": flops,
+           "bound_ms": bound(0, flops, torch.bfloat16)[0],
+           "profiled": {"host_ms": host_ms, "device_ms": dev_ms,
+                        "device_busy_share": None if dev_ms is None
+                        else dev_ms / host_ms, "k7_forward": k7_fwd,
+                        "k7_backward": k7_bwd, "top_kernels": events[:12]}}
+    emit({"train_steps": rec}, log)
+    del state, box
+    torch.cuda.empty_cache()
+    return rec
+
+
+def differing_leaves(a, b) -> list:
+    """The flattened positions where two trees' leaves differ."""
+    import torch
+
+    from repro_torch.checkpoint import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    check(len(la) == len(lb), f"trees of {len(la)} and {len(lb)} leaves")
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if not torch.equal(x, y)]
+
+
+def trainer_check(log) -> dict:
+    """The trainer at full width on 2 layers: 6 steps with a checkpoint
+    every 3 into a temporary directory, a RuntimeError injected at step 4;
+    the trainer restores step_3 and replays step 3, bit for bit the first
+    pass; its final state bit for bit a clean run's; the final checkpoint
+    restored bit for bit the live state; each write timed."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.train import (Trainer, TrainerConfig, init_train_state,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=TRAIN["trainer_layers"])
+    n = TRAIN["trainer_steps"]
+    opt = adamw(linear_warmup_cosine(TRAIN["lr"], TRAIN["warmup"], n))
+    state0 = init_train_state(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), opt, "cuda")
+    step = make_train_step(cfg, opt, 1, 1.0)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                         global_batch=TRAIN["batch"], seed=0)
+    # determinism of one step: the same state and batch twice
+    b0 = batch_on_card(pipe, 0)
+    s1, m1 = step(state0, b0)
+    s2, m2 = step(state0, b0)
+    differ = differing_leaves(s1, s2)
+    deterministic = not differ and all(torch.equal(m1[k], m2[k]) for k in m1)
+    del s1, s2
+    check(deterministic, f"trainer: one step twice differs at leaves "
+                         f"{differ} (a PyTorch op on the path is not "
+                         f"deterministic)")
+    clean, clean_m = state0, []
+    for i in range(n):
+        clean, m = step(clean, batch_on_card(pipe, i))
+        clean_m.append({k: float(x) for k, x in m.items()})
+    writes = []
+    real_save = ckpt_mod.save_checkpoint
+
+    def timed_save(directory, at, tree):
+        t0 = time.perf_counter()
+        path = real_save(directory, at, tree)
+        writes.append({"step": at, "seconds": time.perf_counter() - t0,
+                       "bytes": sum(f.stat().st_size for f in
+                                    pathlib.Path(path).iterdir())})
+        return path
+
+    killed = {"done": False}
+
+    def inject(at):
+        if at == TRAIN["fail_at"] and not killed["done"]:
+            killed["done"] = True
+            raise RuntimeError("injected device failure")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    ckpt_mod.save_checkpoint = timed_save
+    try:
+        tr = Trainer(TrainerConfig(total_steps=n,
+                                   checkpoint_every=TRAIN["checkpoint_every"],
+                                   checkpoint_dir=tmp, max_restarts=1),
+                     step, state0, pipe, failure_injector=inject)
+        t0 = time.perf_counter()
+        final = tr.run()
+        run_s = time.perf_counter() - t0
+        last = latest_step(tmp)
+        check(last == n, f"trainer: latest checkpoint {last}")
+        restored = restore_checkpoint(tmp, last, final)
+        check(not differing_leaves(restored, final),
+              "trainer: the final checkpoint differs from the live state")
+    finally:
+        ckpt_mod.save_checkpoint = real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+    restart = TRAIN["checkpoint_every"]
+    hist = [(m["loss"], m["grad_norm"]) for m in tr.history]
+    check(tr.restarts == 1 and [f[0] for f in tr.failures]
+          == [TRAIN["fail_at"]], f"trainer: failures {tr.failures}")
+    # history: steps 0 .. fail_at - 1, then restart .. n - 1 again
+    first = hist[:TRAIN["fail_at"]]
+    replay = hist[TRAIN["fail_at"]:]
+    check(replay[0] == first[restart],
+          f"trainer: replayed step {restart} {replay[0]}, first pass "
+          f"{first[restart]}")
+    check(first + replay[TRAIN["fail_at"] - restart:]
+          == [(m["loss"], m["grad_norm"]) for m in clean_m],
+          "trainer: its metrics differ from the clean run's")
+    differ = differing_leaves(final, clean)
+    check(not differ, f"trainer: final state differs from the clean run's "
+                      f"at leaves {differ}")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "steps": n,
+           "checkpoint_every": TRAIN["checkpoint_every"],
+           "failed_at": TRAIN["fail_at"], "restored_step": restart,
+           "restarts": tr.restarts, "failures": tr.failures,
+           "replay_bit_identical": True, "final_bit_identical": True,
+           "checkpoint_restore_bit_identical": True,
+           "one_step_deterministic": deterministic,
+           "losses": [h[0] for h in hist], "run_s": run_s,
+           "writes": writes}
+    emit({"train_trainer": rec}, log)
+    del state0, clean, final, restored, tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_cli(log) -> dict:
+    """``python -m repro_torch.launch.train --arch granite-3-2b --smoke
+    --steps 3`` on the card's default device (its checkpoints into a
+    temporary directory, deleted after)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "granite-3-2b", "--smoke", "--steps", "3", "--ckpt-dir", tmp]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+    check(run.returncode == 0 and "device=cuda" in run.stdout
+          and "[train] done: loss" in run.stdout,
+          f"launch.train: exit {run.returncode}\n{run.stdout}\n"
+          f"{run.stderr[-2000:]}")
+    rec = {"command": " ".join(cmd[1:-2]), "seconds": seconds,
+           "stdout": run.stdout.strip().splitlines()}
+    emit({"train_cli": rec}, log)
+    return rec
+
+
+def train_phase(log) -> dict:
+    """Training on the card: K7's backward against its plain version and
+    timed; the whole path's gradients against the CPU's; full-depth granite
+    steps; the trainer with a checkpoint, an injected failure and its
+    replay; the launcher."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"cases": flash_bwd_cases(log), "timed": flash_bwd_timed(log)}
+    torch.cuda.empty_cache()
+    out["grad_path"] = grad_path_check(log)
+    out["steps"] = train_steps(log)
+    out["trainer"] = trainer_check(log)
+    out["cli"] = train_cli(log)
+    emit({"train_phase_s": time.perf_counter() - t0}, log)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the paper's three applications at paper size
 # ---------------------------------------------------------------------------
 
@@ -4455,6 +5059,9 @@ def main(argv=None) -> int:
     prefill, _, _ = lm_phase(log)
     ds_prefill, _, _ = deepseek_phase(log)
     families = families_phase(log)
+    torch.cuda.empty_cache()
+    train = train_phase(log)
+    torch.cuda.empty_cache()
     mats = {name: table_ii_matrix(name, seed=0, n_override=n, device="cuda")
             for name, n in MATRICES.items()}
     k1, k2 = kernel_phase(mats, log)
@@ -4576,7 +5183,42 @@ def main(argv=None) -> int:
             for name, rec in flash_masked["timed"].items()},
         **{f"launches_per_{name}_prefill":
            rec["launches"]["flash_attention_fused"]
-           for name, rec in families.items()}})
+           for name, rec in families.items()},
+        # the training path: forward with lse and the backward kernel, a
+        # full-depth granite step each
+        "launches_per_train_step": {
+            "forward": train["steps"]["launches_per_step"]
+            ["flash_attention_fused"],
+            "backward": train["steps"]["launches_per_step"]
+            ["flash_attention_bwd"]},
+        "backward": {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "path": train["timed"]["route"],
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "none: the reference differentiates its chunked "
+                        "attention with XLA (src/repro/models/"
+                        "attention.py:32)",
+            "shape": train["timed"]["shape"],
+            "launches": train["steps"]["launches"]["flash_attention_bwd"],
+            "cases": train["cases"]["cases"],
+            "max_abs_err": train["timed"]["max_abs_err"],
+            "ms": train["timed"]["ms"],
+            # the profiled full-depth step's delta, dK/dV and dQ kernels,
+            # over its 40 calls
+            "device_ms": train["steps"]["profiled"]["k7_backward"]
+            ["ms_per_call"],
+            "loop_ms": train["timed"]["loop_ms"],
+            "plain_ms": train["timed"]["plain_ms"],
+            "bound_ms": train["timed"]["bound_ms"],
+            "bound_by": train["timed"]["bound_by"],
+            "library_ms": train["timed"]["library_ms"],
+            "library_call": train["timed"]["library_call"],
+            "forward_with_lse_ms": train["timed"]["fwd_ms"],
+            "forward_with_lse_loop_ms": train["timed"]["fwd_loop_ms"],
+            "forward_with_lse_device_ms": train["steps"]["profiled"]
+            ["k7_forward"]["ms_per_call"],
+            "forward_bound_ms": train["timed"]["fwd_bound_ms"],
+            "ptxas": train["timed"]["ptxas"]}})
     emit({"script_s": time.perf_counter() - t_script}, log)
     emit({"kernels": kernels}, log)
     if args.json:

@@ -57,12 +57,18 @@ SIGNATURES = {
     "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_block_topk_spmm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P],
-    # q, k, v, o, bh, sq, sk, d, dv, causal, q_offset, window, kv_len,
-    # scale, stream (float32; bfloat16 for the wgmma kernel)
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _I,
-                              _I, _I, _F, _P],
-    "repro_flash_attention_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B,
-                                    _I, _I, _I, _F, _P],
+    # q, k, v, o, lse (NULL: not written), bh, sq, sk, d, dv, causal,
+    # q_offset, window, kv_len, scale, stream (float32; bfloat16 for the
+    # wgmma kernel)
+    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B,
+                              _I, _I, _I, _F, _P],
+    "repro_flash_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _B, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse, do, dq, dk, dv, delta (scratch), bh, sq, sk, d, dv,
+    # causal, q_offset, window, kv_len, scale, bf16, stream
+    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _B, _I, _I, _I, _F,
+                                  _B, _P],
 }
 
 _LIB = None

@@ -101,9 +101,10 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 template <int NC>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int bh_count,
-             int sq, int sk, int d, int dv, int causal, int q_offset,
-             int window, int kv_len, float scale) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int bh_count, int sq, int sk, int d,
+             int dv, int causal, int q_offset, int window, int kv_len,
+             float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int dp = (d + 3) & ~3;  // D padded to whole float4s
@@ -233,6 +234,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[bh * sq + row] = m[i] + logf(l[i]);
     float* orow = o + base_o + (long long)row * dv;
 #pragma unroll
     for (int kk = 0; kk < NC; ++kk) {
@@ -251,7 +253,7 @@ struct Args {
 
 template <int NC>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const Args& a, cudaStream_t stream) {
+           void* lse, const Args& a, cudaStream_t stream) {
   const long long d = a.d;
   const long long dp = (d + 3) & ~3LL;
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * (dp + 4)
@@ -264,7 +266,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   const long long nq = (a.sq + kBQ - 1) / kBQ;
   flash_kernel<NC><<<(unsigned)(nq * a.bh), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), (int)a.bh,
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), (int)a.bh,
       (int)a.sq, (int)a.sk, (int)d, (int)a.dv, a.causal, a.q_offset,
       a.window, a.kv_len, a.scale);
   return static_cast<int>(cudaGetLastError());
@@ -272,10 +275,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 #define REPRO_FLASH_NC(n)                                                  \
   case n:                                                                 \
-    return launch<n>(q, k, v, o, a, s);
+    return launch<n>(q, k, v, o, lse, a, s);
 
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             const Args& a, cudaStream_t s) {
+             void* lse, const Args& a, cudaStream_t s) {
   switch ((a.dv + 15) / 16) {
     REPRO_FLASH_NC(1) REPRO_FLASH_NC(2) REPRO_FLASH_NC(3) REPRO_FLASH_NC(4)
     REPRO_FLASH_NC(5) REPRO_FLASH_NC(6) REPRO_FLASH_NC(7) REPRO_FLASH_NC(8)
@@ -290,8 +293,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q: (bh, sq, d), k: (bh, sk, d), v: (bh, sk, dv), o: (bh, sq, dv)
-// float32, contiguous; o is written in full.  Key j is valid for query i
-// iff j < kv_len, j <= i + q_offset when causal is 1, and
+// float32, contiguous; o is written in full, and lse, when it is not
+// NULL, gets the (bh, sq) float32 row log-sum-exp m + log(l) of the scaled
+// scores (the backward's input; an epilogue store only).  Key j is
+// valid for query i iff j < kv_len, j <= i + q_offset when causal is 1, and
 // j > i + q_offset - window when window > 0 (kv_len is clipped to
 // 0..sk).  A query with no valid key gets zeros.  scale: the score scale,
 // 1/sqrt(d) rounded once to float32.  Returns cudaGetLastError() after the
@@ -299,7 +304,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 // sk < 1, an sq, sk, |q_offset| or window past 2^28 (so that positions
 // and their sums stay in int), or a grid the launch cannot hold.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, long long bh,
+                                     const void* v, void* o, void* lse,
+                                     long long bh,
                                      long long sq, long long sk, long long d,
                                      long long dv, int causal,
                                      long long q_offset, long long window,
@@ -313,5 +319,5 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{bh, sq, sk, d, dv, causal, (int)q_offset, (int)window,
                (int)(kv_len < 0 ? 0 : kv_len > sk ? sk : kv_len), scale};
-  return dispatch(q, k, v, o, a, static_cast<cudaStream_t>(stream));
+  return dispatch(q, k, v, o, lse, a, static_cast<cudaStream_t>(stream));
 }

@@ -176,7 +176,8 @@ __global__ void __launch_bounds__(kThreads, DQ > 96 || DV > 96 ? 1 : 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int bh_count, int sq,
+                   __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int bh_count, int sq,
                    int sk, int d, int dv, int causal, int q_offset,
                    int window, int kv_len, float scale_log2, int vec) {
   constexpr int NQ = (DQ + 63) / 64;  // 64-column panels of Q and K
@@ -370,6 +371,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = row0 + 8 * h;
     if (row >= sq) continue;
     const float denom = fmaxf(l[h], 1e-30f);
+    // m is in the log2 domain: lse = ln 2 * (m + log2 l)
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[bh * sq + row] = (m[h] + log2f(l[h])) * 0.69314718055994531f;
     __nv_bfloat16* orow = o + base_o + (long long)row * dv;
 #pragma unroll
     for (int p = 0; p < NV; ++p)
@@ -408,7 +412,7 @@ struct Args {
 
 template <int DQ, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const Args& a, cudaStream_t stream) {
+           void* lse, const Args& a, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DQ, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_wgmma_kernel<DQ, DV>,
@@ -425,8 +429,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      (int)a.bh, (int)a.sq, (int)a.sk, (int)a.d, (int)a.dv, a.causal,
-      a.q_offset, a.window, a.kv_len, scale_log2, vec);
+      static_cast<float*>(lse), (int)a.bh, (int)a.sq, (int)a.sk, (int)a.d,
+      (int)a.dv, a.causal, a.q_offset, a.window, a.kv_len, scale_log2, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,18 +438,20 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // past dv), or 128 for a qk width past 128 with dv <= 128 (MLA's 192 / 128).
 template <int DQ>
 int launch_dq(const void* q, const void* k, const void* v, void* o,
-              const Args& a, cudaStream_t stream) {
+              void* lse, const Args& a, cudaStream_t stream) {
   if constexpr (DQ > 128) {
-    if (a.dv <= 128) return launch<DQ, 128>(q, k, v, o, a, stream);
+    if (a.dv <= 128) return launch<DQ, 128>(q, k, v, o, lse, a, stream);
   }
-  return launch<DQ, DQ>(q, k, v, o, a, stream);
+  return launch<DQ, DQ>(q, k, v, o, lse, a, stream);
 }
 
 }  // namespace
 
 // q: (bh, sq, d), k: (bh, sk, d), v: (bh, sk, dv), o: (bh, sq, dv)
-// bfloat16, contiguous; o is written in full.  Key j is valid for query i
-// iff j < kv_len, j <= i + q_offset when causal is 1, and
+// bfloat16, contiguous; o is written in full, and lse, when it is not
+// NULL, gets the (bh, sq) float32 row log-sum-exp m + log(l) of the scaled
+// scores (the backward's input; an epilogue store only).  Key j is
+// valid for query i iff j < kv_len, j <= i + q_offset when causal is 1, and
 // j > i + q_offset - window when window > 0 (kv_len is clipped to
 // 0..sk).  A query with no valid key gets zeros.  scale: the score scale,
 // 1/sqrt(d) rounded once to float32.  Returns cudaGetLastError() after the
@@ -454,7 +460,8 @@ int launch_dq(const void* q, const void* k, const void* v, void* o,
 // and their sums stay in int), or a grid the launch cannot hold.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* o,
-                                           long long bh, long long sq,
+                                           void* lse, long long bh,
+                                           long long sq,
                                            long long sk, long long d,
                                            long long dv, int causal,
                                            long long q_offset,
@@ -470,11 +477,11 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                (int)(kv_len < 0 ? 0 : kv_len > sk ? sk : kv_len), scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((d + 31) / 32) {
-    case 1: return launch_dq<32>(q, k, v, o, a, s);
-    case 2: return launch_dq<64>(q, k, v, o, a, s);
-    case 3: return launch_dq<96>(q, k, v, o, a, s);
-    case 4: return launch_dq<128>(q, k, v, o, a, s);
-    case 5: return launch_dq<160>(q, k, v, o, a, s);
-    default: return launch_dq<192>(q, k, v, o, a, s);
+    case 1: return launch_dq<32>(q, k, v, o, lse, a, s);
+    case 2: return launch_dq<64>(q, k, v, o, lse, a, s);
+    case 3: return launch_dq<96>(q, k, v, o, lse, a, s);
+    case 4: return launch_dq<128>(q, k, v, o, lse, a, s);
+    case 5: return launch_dq<160>(q, k, v, o, lse, a, s);
+    default: return launch_dq<192>(q, k, v, o, lse, a, s);
   }
 }

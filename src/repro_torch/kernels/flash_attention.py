@@ -24,8 +24,20 @@ it keeps float32 precision); float32 inputs to ``csrc/flash_attention.cu``,
 float32 on the CUDA cores.  Either is one launch per call, for D up to 192
 (``MAX_HEAD_DIM``); the bf16 kernel's qk and value widths are template
 parameters of their own, so MLA's 192 / 128 keeps the accumulator of a
-128-wide head.  Neither has a backward: on CUDA, a call whose inputs need
-a gradient raises rather than return an output without one.
+128-wide head.
+
+A call whose inputs need a gradient goes through ``_FlashAttention``, a
+``torch.autograd.Function``, on both devices.  Its forward also saves the
+float32 row log-sum-exp ``lse = m + log(l)`` of the scaled scores, ``(BH,
+Sq)`` (the kernels write it only when they are given a pointer for it, so a
+call without a gradient launches as before); its backward is
+``csrc/flash_attention_bwd.cu`` on CUDA (FlashAttention-2's schedule on the
+CUDA cores, in float32 for both dtypes: a Delta pre-pass, a dK/dV pass over
+key tiles, a dQ pass over query tiles, no atomics, so a gradient is the
+same bits run to run; counted as ``flash_attention_bwd``, one count a
+backward) and ``flash_attention_masked_bwd_plain`` on the CPU.  The
+reference has no Pallas backward: its training differentiates the chunked
+attention with XLA.
 
 ``flash_attention_masked`` is the same kernel under the masks of the
 model's chunked attention (``repro.models.attention``'s ``_mask_val`` and
@@ -52,6 +64,8 @@ MAX_HEAD_DIM = 192  # the qk width both kernels take (MLA: 128 + 64)
 # the kernel each dtype goes to on CUDA: (C entry point, route)
 KERNELS = {torch.bfloat16: ("repro_flash_attention_wgmma", "wgmma"),
            torch.float32: ("repro_flash_attention", "cuda_cores")}
+# the backward's entry point and route (both dtypes, CUDA cores)
+BWD_KERNEL = ("repro_flash_attention_bwd", "cuda_cores")
 
 
 def wgmma_constants() -> dict:
@@ -126,13 +140,34 @@ def _masked_shapes(q, k, v, causal, window, q_offset, kv_len) -> int:
     return sk if kv_len is None else min(int(kv_len), sk)
 
 
+def _key_blocks(sq, causal, window, q_offset, kvl, k_blk):
+    """The ``k_blk``-key blocks ``(k0, k1)`` the plain versions visit: from
+    the block of the first key any query may see to that of the last."""
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    hi = min(kvl, q_offset + sq) if causal else kvl
+    return [(k0, min(k0 + k_blk, kvl))
+            for k0 in range(lo - lo % k_blk, hi, k_blk)]
+
+
+def _valid(sq, k0, k1, causal, window, q_offset, device):
+    """The ``(Sq, k1 - k0)`` mask of valid (query, key) pairs."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    ok = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
+    if window > 0:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
 def flash_attention_masked_plain(q, k, v, causal: bool = True,
                                  window: int = 0, q_offset: int = 0,
-                                 kv_len=None, k_blk: int = 128):
+                                 kv_len=None, k_blk: int = 128,
+                                 with_lse: bool = False):
     """The plain PyTorch version of the masked kernel: the online-softmax
     loop over ``k_blk``-key blocks in ascending order, all queries at once,
     from the block of the first key any query may see to that of the
-    last."""
+    last.  ``with_lse`` also returns the float32 row log-sum-exp ``m +
+    log(l)``, ``(BH, Sq)``, as the kernels' forward saves it."""
     kvl = _masked_shapes(q, k, v, causal, window, q_offset, kv_len)
     bh, sq, d = q.shape
     scale = 1.0 / (d ** 0.5)
@@ -142,16 +177,9 @@ def flash_attention_masked_plain(q, k, v, causal: bool = True,
     l = torch.zeros((bh, sq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((bh, sq, v.shape[2]), dtype=torch.float32,
                       device=q.device)
-    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
-    lo = max(0, q_offset - window + 1) if window > 0 else 0
-    hi = min(kvl, q_offset + sq) if causal else kvl
-    for k0 in range(lo - lo % k_blk, hi, k_blk):
-        k1 = min(k0 + k_blk, kvl)
+    for k0, k1 in _key_blocks(sq, causal, window, q_offset, kvl, k_blk):
         sc = torch.matmul(qf, kf[:, k0:k1].transpose(1, 2)) * scale
-        kpos = torch.arange(k0, k1, device=q.device)[None, :]
-        ok = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
-        if window > 0:
-            ok = ok & (kpos > qpos - window)
+        ok = _valid(sq, k0, k1, causal, window, q_offset, q.device)
         sc = torch.where(ok, sc, NEG_INF)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         p = torch.exp(sc - m_new)
@@ -159,7 +187,41 @@ def flash_attention_masked_plain(q, k, v, causal: bool = True,
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + torch.matmul(p, vf[:, k0:k1])
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    if with_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
+
+
+def flash_attention_masked_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
+                                     window: int = 0, q_offset: int = 0,
+                                     kv_len=None, k_blk: int = 128):
+    """The plain PyTorch version of the backward kernel: ``(dq, dk, dv)`` in
+    ``q``'s dtype from the forward's output ``o`` and row log-sum-exp
+    ``lse`` and the output's gradient ``do``.  The same blockwise equations
+    in float32: ``Delta = sum(do * o)`` a row, then for each ``k_blk``-key
+    block the forward visits, ``P = exp(S * scale - lse)`` (0 on invalid
+    pairs), ``dV = P^T.dO``, ``dS = P * (dO.V^T - Delta)``, ``dQ += dS.K``
+    and ``dK = dS^T.Q``; dQ and dK are scaled once, at the end."""
+    kvl = _masked_shapes(q, k, v, causal, window, q_offset, kv_len)
+    sq, d = q.shape[1], q.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    lse = lse[..., None]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for k0, k1 in _key_blocks(sq, causal, window, q_offset, kvl, k_blk):
+        sc = torch.matmul(qf, kf[:, k0:k1].transpose(1, 2)) * scale
+        ok = _valid(sq, k0, k1, causal, window, q_offset, q.device)
+        p = torch.where(ok, torch.exp(sc - lse), 0.0)
+        dv[:, k0:k1] = torch.matmul(p.transpose(1, 2), dof)
+        ds = p * (torch.matmul(dof, vf[:, k0:k1].transpose(1, 2)) - delta)
+        dq = dq + torch.matmul(ds, kf[:, k0:k1])
+        dk[:, k0:k1] = torch.matmul(ds.transpose(1, 2), qf)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
+            dv.to(q.dtype))
 
 
 def flash_attention_fused_plain(q, k, v, causal: bool = True,
@@ -171,32 +233,101 @@ def flash_attention_fused_plain(q, k, v, causal: bool = True,
     return flash_attention_masked_plain(q, k, v, causal, k_blk=k_blk)
 
 
-def _launch(q, k, v, causal, window, q_offset, kv_len):
-    """One launch of the dtype's kernel; the output ``(BH, Sq, Dv)``."""
+def _check_operands(q, k, v):
     ops.expect_float(q, 3, "q")
     ops.expect(k, q.dtype, 3, "k")
     ops.expect(v, q.dtype, 3, "v")
     ops.same_device(("q", q), ("k", k), ("v", v))
+    if q.shape[2] > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[2]}: the kernel takes D <= "
+                         f"{MAX_HEAD_DIM}")
+
+
+def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False):
+    """One launch of the dtype's kernel; the output ``(BH, Sq, Dv)``, and
+    with ``with_lse`` the float32 row log-sum-exp ``(BH, Sq)`` too."""
+    _check_operands(q, k, v)
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d}: the kernel takes D <= {MAX_HEAD_DIM}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention kernel has no backward (ROADMAP Queue A "
-            "item 12: training with K7); call it under torch.no_grad()")
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    name, path = KERNELS[q.dtype]
-    kernel = getattr(library(), name)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel():
+        name, path = KERNELS[q.dtype]
+        kernel = getattr(library(), name)
+        with torch.cuda.device(q.device):
+            rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                        bh, sq, sk, d, dv, int(bool(causal)), q_offset,
+                        window, kv_len, 1.0 / (d ** 0.5),
+                        torch.cuda.current_stream().cuda_stream)
+        ops.check_launch("flash_attention_fused", rc, path)
+    return (out, lse) if with_lse else out
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len):
+    """One call of the backward kernel (its three launches); ``(dq, dk,
+    dv)``."""
+    _check_operands(q, k, v)
+    ops.expect(o, q.dtype, 3, "o")
+    ops.expect(do, q.dtype, 3, "do")
+    ops.expect(lse, torch.float32, 2, "lse")
+    ops.same_device(("q", q), ("o", o), ("do", do), ("lse", lse))
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[2]
+    if (o.shape != (bh, sq, dv) or do.shape != o.shape
+            or lse.shape != (bh, sq)):
+        raise ValueError(f"o and do of (BH, Sq, Dv) = {(bh, sq, dv)} and lse "
+                         f"of (BH, Sq) expected; got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    dq, dk, dvv = (torch.empty_like(q), torch.empty_like(k),
+                   torch.empty_like(v))
+    if q.numel() == 0:
+        return dq, dk, dvv
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    name, path = BWD_KERNEL
     with torch.cuda.device(q.device):
-        rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    bh, sq, sk, d, dv, int(bool(causal)), q_offset, window,
-                    kv_len, 1.0 / (d ** 0.5),
-                    torch.cuda.current_stream().cuda_stream)
-    ops.check_launch("flash_attention_fused", rc, path)
-    return out
+        rc = getattr(library(), name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dvv.data_ptr(), delta.data_ptr(), bh, sq, sk, d, dv,
+            int(bool(causal)), q_offset, window, kv_len, 1.0 / (d ** 0.5),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    ops.check_launch("flash_attention_bwd", rc, path)
+    return dq, dk, dvv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K7 with its backward: on CUDA the forward kernel with ``lse`` and the
+    backward kernel, on the CPU their plain versions.  ``kv_len`` is the
+    key limit already clipped to Sk (an int)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
+        if q.device.type == "cuda":
+            out, lse = _launch(q, k, v, causal, window, q_offset, kv_len,
+                               with_lse=True)
+        elif q.device.type == "cpu":
+            out, lse = flash_attention_masked_plain(
+                q, k, v, causal, window, q_offset, kv_len, with_lse=True)
+        else:
+            raise ValueError(f"no kernel for tensors on {q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (_launch_bwd if q.device.type == "cuda"
+               else flash_attention_masked_bwd_plain)
+        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), *ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _flash_attention_cuda(q, k, v, causal: bool = True, q_blk: int = 128,
@@ -205,13 +336,22 @@ def _flash_attention_cuda(q, k, v, causal: bool = True, q_blk: int = 128,
     return _launch(q, k, v, causal, 0, 0, q.shape[1])
 
 
+def _flash_attention_grad(q, k, v, causal: bool = True, q_blk: int = 128,
+                          k_blk: int = 128):
+    _blocks(q, k, v, q_blk, k_blk)
+    return _FlashAttention.apply(q, k, v, causal, 0, 0, q.shape[1])
+
+
 def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
                           k_blk: int = 128):
     """Flash attention on ``(BH, S, D)`` q and k and ``(BH, S, Dv)`` v: the
     plain version on the CPU, the dtype's kernel on CUDA (q, k and v
     float32 or bfloat16 of one dtype, Dv <= D <= 192).  ``q_blk`` and
     ``k_blk`` keep the reference's divisibility contract; the kernels' own
-    tiles are their choice."""
+    tiles are their choice.  Under autograd both devices go through
+    ``_FlashAttention`` (forward with ``lse``, then the backward)."""
+    if _needs_grad(q, k, v):
+        return _flash_attention_grad(q, k, v, causal, q_blk, k_blk)
     return ops.dispatch(flash_attention_fused_plain, _flash_attention_cuda,
                         q, k, v, causal, q_blk, k_blk)
 
@@ -229,7 +369,11 @@ def flash_attention_masked(q, k, v, causal: bool = True, window: int = 0,
     Sk, Dv)`` v under the chunked attention's masks (the module's
     docstring): the plain version on the CPU, the dtype's kernel on CUDA.
     ``kv_len`` (an int or a 0-d tensor, read once on the host) limits the
-    keys; a call in which some query sees no key raises ``ValueError``."""
+    keys; a call in which some query sees no key raises ``ValueError``.
+    Under autograd both devices go through ``_FlashAttention``."""
+    if _needs_grad(q, k, v):
+        kvl = _masked_shapes(q, k, v, causal, window, q_offset, kv_len)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset, kvl)
     return ops.dispatch(flash_attention_masked_plain,
                         _flash_attention_masked_cuda, q, k, v, causal,
                         window, q_offset, kv_len)

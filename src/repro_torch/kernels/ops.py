@@ -40,7 +40,7 @@ import torch
 LAUNCHES: Dict[str, int] = {
     "gather_rows": 0, "hash_accumulate": 0, "aia_ranged_gather": 0,
     "bsr_spmm": 0, "topk_spmm": 0, "block_topk_spmm": 0,
-    "flash_attention_fused": 0,
+    "flash_attention_fused": 0, "flash_attention_bwd": 0,
 }
 ROUTE_LAUNCHES: Dict[str, int] = {}
 
@@ -210,7 +210,8 @@ def flash_attention_masked(q, k, v, causal: bool = True, window: int = 0,
     query heads: key j is valid for query i iff ``j < kv_len``, ``j <= i +
     q_offset`` when causal and ``j > i + q_offset - window`` when ``window
     > 0``; output ``(BH, Sq, Dv)`` in ``q``'s dtype.  It counts as a launch
-    of ``flash_attention_fused``, the one kernel it runs."""
+    of ``flash_attention_fused``, the one kernel it runs; under autograd its
+    backward kernel counts once a backward, as ``flash_attention_bwd``."""
     from repro_torch.kernels import flash_attention as k7
     return _route(backend, k7.flash_attention_masked,
                   k7.flash_attention_masked_plain)(q, k, v, causal, window,

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -68,23 +69,35 @@ def cross_entropy_chunked(logits_fn: Callable, h: torch.Tensor,
     """Memory-safe LM loss: vocab logits one sequence chunk at a time.
 
     h: (B, S, D) final hidden; labels: (B, S) integer (-1 = masked);
-    w_out: (D, V).  The (B, S, V) logits are never all materialised.  The
-    chunks' sums are added in order, as the reference's scan does.
+    w_out: (D, V).  The (B, S, V) logits are never all materialised: under
+    autograd each chunk runs under ``torch.utils.checkpoint``, so its
+    float32 logits are freed after its forward and made again in its
+    backward, one chunk at a time (autograd would otherwise keep every
+    chunk's logits for ``logsumexp``'s backward).  The chunks' sums are
+    added in order, as the reference's scan does.
     """
     b, s, d = h.shape
     assert s % n_chunks == 0, (s, n_chunks)
     cs = s // n_chunks
+
+    def chunk_loss(hh, ll, w):
+        logits = logits_fn(hh, w).float()  # (B, cs, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            ll.clamp_min(0).long()[..., None])[..., 0]
+        return torch.sum((logz - gold) * (ll >= 0).float())
+
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     count = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
         hh, ll = h[:, i * cs:(i + 1) * cs], labels[:, i * cs:(i + 1) * cs]
-        logits = logits_fn(hh, w_out).float()  # (B, cs, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            ll.clamp_min(0).long()[..., None])[..., 0]
-        mask = (ll >= 0).float()
-        total = total + torch.sum((logz - gold) * mask)
-        count = count + torch.sum(mask)
+        if torch.is_grad_enabled() and (h.requires_grad
+                                        or w_out.requires_grad):
+            part = checkpoint(chunk_loss, hh, ll, w_out, use_reentrant=False)
+        else:
+            part = chunk_loss(hh, ll, w_out)
+        total = total + part
+        count = count + torch.sum((ll >= 0).float())
     return total / torch.clamp_min(count, 1.0)
 
 

@@ -268,9 +268,54 @@ def params_from_numpy(cfg: ArchConfig, flat: Mapping[str, np.ndarray],
     return _tree(cfg, lambda key: from_numpy(flat[key], device))
 
 
+def flat_params(params: Dict) -> Dict[str, torch.Tensor]:
+    """The parameter tree as ``{tree path: tensor}``, the paths of
+    ``param_keys`` (the tensors themselves, not copies)."""
+    flat: Dict[str, torch.Tensor] = {}
+
+    def walk(t, prefix):
+        if t is None:
+            return
+        if isinstance(t, dict):
+            items = t.items()
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            items = ((f, getattr(t, f)) for f in t._fields)
+        elif isinstance(t, list):
+            items = enumerate(t)
+        else:
+            flat[prefix] = t
+            return
+        for key, sub in items:
+            walk(sub, f"{prefix}/{key}" if prefix else str(key))
+
+    walk(params, "")
+    return flat
+
+
+def tree_params(cfg: ArchConfig, flat: Mapping[str, torch.Tensor]) -> Dict:
+    """The parameter tree of ``cfg`` from ``{tree path: tensor}``, the
+    inverse of ``flat_params``."""
+    return _tree(cfg, flat.__getitem__)
+
+
 def layer_params(params: Dict, i: int) -> Dict:
     """Layer ``i``'s parameters (views into the stacked tensors)."""
     return _map(params["layers"], lambda a: a[i])
+
+
+def unstack(tree) -> List[Dict]:
+    """Every layer's parameters of a stacked tree (views), through one
+    ``unbind`` a leaf.  Under autograd the gradient of an ``unbind`` is one
+    ``stack`` of the layers' gradients, where indexing each layer apart
+    (``layer_params``) would give each layer's gradient as a zero-filled
+    tensor of the whole stack, summed one by one."""
+    cols: List[tuple] = []
+    _map(tree, lambda a: cols.append(a.unbind(0)))
+    layers = []
+    for i in range(len(cols[0])):
+        it = iter(cols)
+        layers.append(_map(tree, lambda a: next(it)[i]))
+    return layers
 
 
 # ---------------------------------------------------------------------------
@@ -342,9 +387,8 @@ def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor):
     """Whisper's encoder over stub frame embeddings (B, T_enc, D): each
     layer's attention unmasked (through K7), then ``enc_norm``."""
     x = frames.to(cfg.activation_dtype)
-    for i in range(params["encoder"]["ln1"].shape[0]):
-        x, _ = _attn_block(cfg, _map(params["encoder"], lambda a: a[i]), x,
-                           causal=False)
+    for lp in unstack(params["encoder"]):
+        x, _ = _attn_block(cfg, lp, x, causal=False)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -370,16 +414,16 @@ def forward_hidden(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
         x, aux = _attn_block(cfg, lp, x, enc=enc, dense_ffn=True)
         aux_total = aux_total + aux
     kind = block_kind(cfg)
+    layers = unstack(params["layers"])
     if kind == "A":
         window = cfg.sliding_window if cfg.family == "hybrid" else 0
-        for i in range(params["layers"]["ln1"].shape[0]):
-            x, aux = _attn_block(cfg, layer_params(params, i), x,
-                                 window=window, enc=enc)
+        for lp in layers:
+            x, aux = _attn_block(cfg, lp, x, window=window, enc=enc)
             aux_total = aux_total + aux
     for seg in segments(cfg) if kind != "A" else ():
         for i in range(seg.start, seg.start + seg.length):
             block = _mamba_block if kind == "M" else _rwkv_block
-            x = block(cfg, layer_params(params, i), x)
+            x = block(cfg, layers[i], x)
         if seg.shared_after:
             x, aux = _attn_block(cfg, params["shared_attn"], x,
                                  window=cfg.sliding_window)
@@ -390,8 +434,8 @@ def forward_hidden(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
 def train_loss(cfg: ArchConfig, params: Dict, batch: Mapping) -> torch.Tensor:
     """batch: {"tokens": (B, S), "labels": (B, S)}, and the stub inputs
     ``"vision_embeds"`` and ``"frames"`` where the config has them -> mean
-    next-token loss plus 0.01 × the MoE aux loss.  On the card, call it
-    under ``torch.no_grad()``: the flash kernel has no backward yet."""
+    next-token loss plus 0.01 × the MoE aux loss.  Differentiable on both
+    devices: on the card its attention's gradient is K7's backward kernel."""
     h, aux = forward_hidden(cfg, params, batch["tokens"],
                             vision_embeds=batch.get("vision_embeds"),
                             frames=batch.get("frames"))

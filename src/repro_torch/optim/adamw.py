@@ -1,7 +1,7 @@
-"""AdamW with float32 moments, over dicts of tensors.
+"""AdamW with float32 moments, and SGD, over dicts of tensors.
 
-Counterpart of ``repro.optim.adamw`` (``adamw``, ``apply_updates``,
-``global_norm``, ``clip_by_global_norm``).  A parameter dict is walked in
+Counterpart of ``repro.optim.adamw`` (``adamw``, ``sgd``,
+``apply_updates``, ``global_norm``, ``clip_by_global_norm``).  A parameter dict is walked in
 sorted key order, the order ``jax.tree`` flattens a dict in, so sums over
 the leaves add in the reference's order.  Updates are plain tensor math,
 outside autograd.
@@ -69,6 +69,38 @@ def adamw(lr: Schedule, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             updates[key] = (-lr_t * u).to(p.dtype)
             mu[key], nu[key] = m, v
         return updates, AdamWState(step, mu, nu)
+
+    return Optimizer(init=init, update=update)
+
+
+class SGDState(NamedTuple):
+    step: torch.Tensor  # 0-d int32
+    momentum: Params    # {} without momentum
+
+
+def sgd(lr: Schedule, momentum: float = 0.0) -> Optimizer:
+    """SGD, with a float32 momentum buffer when ``momentum`` is not 0."""
+
+    def init(params: Params) -> SGDState:
+        dev = next(iter(params.values())).device if params else "cpu"
+        step = torch.zeros((), dtype=torch.int32, device=dev)
+        if momentum == 0.0:
+            return SGDState(step, {})
+        return SGDState(step, {k: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device)
+                               for k, p in params.items()})
+
+    @torch.no_grad()
+    def update(grads: Params, state: SGDState, params: Params):
+        step = state.step + 1
+        lr_t = _lr_at(lr, step)
+        if momentum == 0.0:
+            return ({k: (-lr_t * g).to(params[k].dtype)
+                     for k, g in grads.items()}, SGDState(step, {}))
+        m = {k: momentum * state.momentum[k] + g.to(torch.float32)
+             for k, g in grads.items()}
+        return ({k: (-lr_t * mm).to(params[k].dtype) for k, mm in m.items()},
+                SGDState(step, m))
 
     return Optimizer(init=init, update=update)
 

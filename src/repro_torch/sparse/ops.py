@@ -16,6 +16,7 @@ the CPU they add in index order, as the reference does.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.aia_gather import gather_rows
@@ -174,10 +175,17 @@ def csr_hadamard_power(a: CSR, r: float) -> CSR:
 
     The power is taken in float64 and rounded once to the data's dtype, so
     a float32 entry gets its correctly rounded power (``torch.pow`` in
-    float32 misses it by an ulp on many entries at ``r`` other than 2)."""
+    float32 misses it by an ulp on many entries at ``r`` other than 2).
+    On the CPU the float64 power is numpy's: ATen's takes ``r = 0.5`` to
+    MKL's vector ``sqrt``, whose first call in a process sometimes returns
+    one worker thread's share of the entries some 1e-11 off."""
     valid = a.valid_mask()
     d = torch.where(valid, a.data, 1.0).to(torch.float64)
-    p = torch.pow(d, float(r)).to(a.data.dtype)
+    if d.device.type == "cpu":
+        p = torch.from_numpy(np.power(d.numpy(), float(r)))
+    else:
+        p = torch.pow(d, float(r))
+    p = p.to(a.data.dtype)
     return _with_data(a, torch.where(valid, p, 0))
 
 

@@ -111,20 +111,28 @@ def test_hadamard_power_is_correctly_rounded(r):
     """On 200,000 float32 values in (0, 4): bit-equal to the float64 power
     rounded once to float32, and within one ulp of the reference's
     ``jnp.power`` (which misses the correctly rounded value on about 0.06%
-    of them, by one ulp)."""
+    of them, by one ulp).  Each assert names the entries it fails on."""
     rng = np.random.default_rng(int(r * 10))
     n = 200_000
     x = (rng.random(n) * 4).astype(np.float32)
     a = CSR(torch.tensor([0, n], dtype=torch.int32),
             torch.zeros(n, dtype=torch.int32), torch.from_numpy(x), (1, 1))
     got = ops.csr_hadamard_power(a, r).data.numpy()
-    np.testing.assert_array_equal(
-        got, np.power(x.astype(np.float64), r).astype(np.float32))
+    want = np.power(x.astype(np.float64), r).astype(np.float32)
+    off = np.flatnonzero(got != want)
+    assert off.size == 0, (
+        f"port: {off.size} entries off the correctly rounded power, first "
+        f"at {off[:4].tolist()}: x={x[off[:4]].tolist()} "
+        f"got={got[off[:4]].tolist()} want={want[off[:4]].tolist()}")
     ref = np.asarray(ref_ops.csr_hadamard_power(
         RefCSR(jnp.asarray([0, n], jnp.int32), jnp.zeros(n, jnp.int32),
                jnp.asarray(x), (1, 1)), r).data)
     ulps = np.abs(got.view(np.int32).astype(np.int64) - ref.view(np.int32))
-    assert ulps.max() <= 1
+    far = np.flatnonzero(ulps > 1)
+    assert far.size == 0, (
+        f"reference: {far.size} entries more than one ulp off, first at "
+        f"{far[:4].tolist()}: x={x[far[:4]].tolist()} "
+        f"ref={ref[far[:4]].tolist()} port={got[far[:4]].tolist()}")
 
 
 @pytest.mark.parametrize("theta,k", [(0.0, 2), (2.0, 3), (1.5, 1), (0.0, 99)])
