@@ -97,16 +97,22 @@ products run in full float32 (TF32 off).  It
    (``INTERNVL``: full width on 2 of 80 layers, 1 x 4,096 tokens with 256
    patch embeddings, 2 K7 launches), the prefill only;
 5d. trains on the card (``train_phase``; sizes in ``TRAIN``): holds K7's
-   backward (``csrc/flash_attention_bwd.cu``, through the autograd
-   ``Function`` of ``ops.flash_attention_masked``: one forward and one
-   ``flash_attention_bwd`` count a call) against its plain version on
-   ``FLASH_BWD_CASES`` in both dtypes (dq, dk, dv; float32 within 1e-5 of
-   the call's largest |gradient|, bf16 one bf16 step more; the plain
-   backward takes the plain forward's ``lse``) and the forward's output
-   and ``lse`` against the plain forward's (``lse`` within 1e-5 of
-   max(1, its largest |value|)), one case twice bit for bit; times K7's forward with ``lse`` and its backward at
-   granite-3-2b's training shape (BH 64, S 2,048, D 64, bf16, causal)
-   beside their bounds, the plain backward and
+   backward (through the autograd ``Function`` of
+   ``ops.flash_attention_masked``: one forward and one
+   ``flash_attention_bwd`` count a call, on the route ``bwd_route``
+   names: bf16 with D <= 128 on ``csrc/flash_attention_bwd_wgmma.cu``, the
+   tensor cores; float32 and wider bf16 heads on
+   ``csrc/flash_attention_bwd.cu``, the CUDA cores) against its plain
+   version on ``FLASH_BWD_CASES`` in both dtypes (dq, dk, dv; float32
+   within 1e-5 of the call's largest |gradient|, bf16 one bf16 step more;
+   the plain backward takes the plain forward's ``lse``) and the forward's
+   output and ``lse`` against the plain forward's (``lse`` within 1e-5 of
+   max(1, its largest |value|)), one case on the tensor cores twice bit
+   for bit; times K7's forward with ``lse`` and its backward at
+   granite-3-2b's training shape (BH 64, S 2,048, D 64, bf16, causal) and
+   at Phi-3's head (BH 64, S 4,096, D 96), the CUDA-core kernel on the
+   same bf16 inputs in turns, beside their bounds (10 D FLOP a pair, and
+   the tensor-core kernel's own 26 D), the plain backward and
    ``F.scaled_dot_product_attention``'s forward + backward; holds the
    loss and every gradient of granite at full width on 2 layers in
    float32 (1 x 1,024 tokens) on the card against the CPU's plain path
@@ -114,7 +120,8 @@ products run in full float32 (TF32 off).  It
    width and depth (40 layers, bf16, float32 AdamW moments) through
    ``train.make_train_step`` on ``data.TokenPipeline`` batches of 2 x
    2,048 tokens: a warm-up step, 5 timed steps with the counts from 0 (40
-   K7 forward and 40 backward launches a step), one profiled step, every
+   K7 forward and 40 backward launches a step, every backward on the
+   tensor cores), one profiled step, every
    loss and grad norm finite, the peak memory; runs ``train.Trainer`` at
    full width on 2 layers for 6 steps with a checkpoint every 3 into a
    temporary directory and a RuntimeError injected at step 4: it restores
@@ -247,7 +254,8 @@ products run in full float32 (TF32 off).  It
     ``on_budget="stream"``, each expansion held bit for bit against a
     monolithic ``spgemm`` of its iterate, each estimate beside the real
     peak;
-12. prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
+12. prints the kernels' JSON line (K1–K7, and K7's backward as a record
+    of its own), then ``{"ok": true, "device": ...}``
     last, and the whole script's time on a line before them.
 
 Every check raises on failure, so the script exits non-zero; it also exits
@@ -2689,13 +2697,15 @@ def flash_bwd_check(got, want, case) -> float:
 
 def flash_grad_call(q, k, v, do, causal, window, q_offset, kv_len):
     """One K7 forward and backward through ``ops`` under autograd: (dq, dk,
-    dv), checked to add one launch of each."""
+    dv), checked to add one launch of each, the backward's on the route
+    ``bwd_route`` names."""
     import torch
 
+    from repro_torch.kernels import flash_attention as k7
     from repro_torch.kernels import ops
 
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    before = ops.launch_counts()
+    before, routes = ops.launch_counts(), ops.route_counts()
     out = ops.flash_attention_masked(*leaves, causal, window, q_offset,
                                      kv_len)
     grads = torch.autograd.grad(out, leaves, do)
@@ -2705,14 +2715,20 @@ def flash_grad_call(q, k, v, do, causal, window, q_offset, kv_len):
         check(after[name] == before[name] + 1,
               f"{name}: one gradient call launched "
               f"{after[name] - before[name]}")
+    key = ("flash_attention_bwd/"
+           f"{k7.bwd_route(q.dtype, q.shape[2], v.shape[2])}")
+    check(ops.route_counts().get(key, 0) == routes.get(key, 0) + 1,
+          f"{key}: the backward took another route "
+          f"({ops.route_counts()})")
     return out.detach(), grads
 
 
 def flash_bwd_cases(log) -> dict:
     """K7's backward against its plain version on FLASH_BWD_CASES in both
-    dtypes, each call one forward and one backward count, with the
-    forward's output and ``lse`` against the plain forward's; the causal
-    bf16 case at S 1,500 twice, bit for bit (no atomics)."""
+    dtypes, each call one forward and one backward count, the backward on
+    the route ``bwd_route`` names, with the forward's output and ``lse``
+    against the plain forward's; the causal bf16 case at S 1,500 (the
+    tensor cores) twice, bit for bit (no atomics)."""
     import torch
 
     from repro_torch.kernels import flash_attention as k7
@@ -2722,7 +2738,7 @@ def flash_bwd_cases(log) -> dict:
     def rand(shape, dtype):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    errs, lse_errs, repeat = {}, {}, None
+    errs, lse_errs, routes, repeat = {}, {}, {}, None
     for dt in (torch.float32, torch.bfloat16):
         for bh, sq, sk, d, dv, causal, window, off, kvl in FLASH_BWD_CASES:
             q, k = rand((bh, sq, d), dt), rand((bh, sk, d), dt)
@@ -2734,6 +2750,7 @@ def flash_bwd_cases(log) -> dict:
                              with_lse=True)[1]
             case = (f"{dt}/{bh}x{sq}x{sk}x{d}/v{dv}/causal={causal}/window="
                     f"{window}/q_offset={off}/kv_len={kvl}")
+            routes[case] = k7.bwd_route(dt, d, dv)
             o_p, lse_p = k7.flash_attention_masked_plain(q, k, v, *args,
                                                          with_lse=True)
             flash_check(out, o_p, f"{case} with lse")
@@ -2752,13 +2769,14 @@ def flash_bwd_cases(log) -> dict:
                                                        do, *args)
             errs[case] = flash_bwd_check(got, want, case)
             if (repeat is None and dt == torch.bfloat16 and sq == sk == 1500
-                    and causal and not window):
+                    and causal and not window and routes[case] == "wgmma"):
                 again = flash_grad_call(q, k, v, do, *args)[1]
                 check(all(torch.equal(a, b) for a, b in zip(got, again)),
                       f"flash_attention_bwd {case}: a repeat differs")
                 repeat = case
+    check(repeat is not None, "flash_attention_bwd: no repeat on wgmma")
     rec = {"cases": len(errs), "max_abs_err": errs,
-           "lse_max_abs_err": lse_errs,
+           "lse_max_abs_err": lse_errs, "routes": routes,
            "gate": {"float32": f"{FLASH_BWD_F32} of the largest |value| "
                                f"of dq, dk, dv",
                     "bfloat16": f"{FLASH_BWD_BF16_STEP} of each |value| + "
@@ -2771,18 +2789,26 @@ def flash_bwd_cases(log) -> dict:
     return rec
 
 
-def flash_bwd_timed(log) -> dict:
-    """K7's forward (with ``lse``) and backward at granite's training shape
-    (BH 64 = 2 x 32 heads, S 2,048, D 64, bf16, causal), beside their
-    bounds at the bf16 tensor-core rate, the plain backward and
-    ``F.scaled_dot_product_attention``'s forward + backward."""
+# K7's backward timed, causal: (name, bh, s, d, heads): granite-3-2b's
+# training shape (2 x 32 heads of 64 over 2,048 tokens) and Phi-3's head
+# (D 96) at 2 x 32 heads over 4,096
+FLASH_BWD_TIMED = (("granite", 2 * 32, TRAIN["seq"], 64, 32),
+                   ("d96", 64, 4096, 96, 32))
+
+
+def flash_bwd_timed_shape(bh, s, d, heads, seed) -> dict:
+    """K7's forward (with ``lse``) and backward on causal bf16 (bh, s, d):
+    the backward on its route and, in turns (CUDA cores, route, route, CUDA
+    cores), the CUDA-core kernel on the same inputs, each against the plain
+    backward; the bounds at the bf16 tensor-core rate of 10 D FLOP a pair
+    and of the tensor-core kernel's own 26 D; the forward and backward
+    back to back beside ``F.scaled_dot_product_attention``'s."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k7
 
-    bh, s, d, heads = 2 * 32, TRAIN["seq"], 64, 32
-    g = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
 
@@ -2790,24 +2816,35 @@ def flash_bwd_timed(log) -> dict:
         return k7._launch(q, k, v, True, 0, 0, s, with_lse=True)
 
     o, lse = fwd()
+    route = k7.bwd_route(q.dtype, d, d)
+    check(route == "wgmma", f"flash_attention_bwd at D {d}: route {route}")
 
-    def bwd():
-        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s)
+    def bwd(path=route):
+        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s, path)
 
     def plain():
         return k7.flash_attention_masked_bwd_plain(q, k, v, o, lse, do)
 
-    got = bwd()
-    err = flash_bwd_check(got, plain(), "granite training shape")
+    want = plain()
     pairs = bh * valid_pairs(s, s, True, 0)
-    rec = {"name": "flash_attention_bwd", "route": k7.BWD_KERNEL[1],
+    rec = {"name": "flash_attention_bwd", "route": route,
            "shape": {"bh": bh, "s": s, "d": d, "dtype": "bfloat16",
-                     "causal": True}, "pairs": pairs, "max_abs_err": err}
-    # CUDA events around one call, and around back-to-back calls; the
-    # profiler's device time a launch comes from the main path's own run
-    # (train_steps: a profiled full-depth step)
+                     "causal": True}, "pairs": pairs,
+           "max_abs_err": flash_bwd_check(bwd(), want, f"{bh}x{s}x{d}"),
+           "cuda_cores_max_abs_err": flash_bwd_check(
+               bwd("cuda_cores"), want, f"{bh}x{s}x{d} cuda_cores")}
+    # CUDA events around one call, and around back-to-back calls, in turns
+    turns = []
+    for path in ("cuda_cores", route, route, "cuda_cores"):
+        turns.append({"route": path,
+                      "ms": time_ms(lambda: bwd(path), reps=5),
+                      "loop_ms": loop_ms(lambda: bwd(path), reps=10)})
+    for key, path in (("", route), ("cuda_cores_", "cuda_cores")):
+        mine = [t for t in turns if t["route"] == path]
+        rec[f"{key}ms"] = statistics.mean(t["ms"] for t in mine)
+        rec[f"{key}loop_ms"] = statistics.mean(t["loop_ms"] for t in mine)
+    rec["turns"] = turns
     rec["fwd_ms"], rec["fwd_loop_ms"] = time_ms(fwd, reps=10), loop_ms(fwd)
-    rec["ms"], rec["loop_ms"] = time_ms(bwd, reps=5), loop_ms(bwd, reps=10)
     rec["plain_ms"] = time_ms(plain, reps=2)
     # forward 4 D FLOP a pair (Q.K^T, P.V), backward 10 D (S again, dV, dP,
     # dQ, dK); each input read once, each output written once
@@ -2819,10 +2856,16 @@ def flash_bwd_timed(log) -> dict:
         rec["fwd_bytes"], rec["fwd_flops"], torch.bfloat16)
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
                                              torch.bfloat16)
-    # the kernel's own work: float32 on the CUDA cores, S and dP recomputed
-    # in both passes (14 D a pair)
-    rec["cuda_core_bound_ms"] = bound(0, 14 * d * pairs, torch.float32)[0]
+    # the tensor-core kernel's own work: S and dP in both passes, dV, dK
+    # and dQ with three-term A operands (26 D a pair)
+    rec["own_work_bound_ms"] = bound(0, 26 * d * pairs, torch.bfloat16)[0]
     rec["tflops"] = rec["flops"] / rec["loop_ms"] / 1e9
+
+    def fwd_bwd():
+        o2, lse2 = fwd()
+        return k7._launch_bwd(q, k, v, o2, lse2, do, True, 0, 0, s)
+
+    rec["fwd_bwd_loop_ms"] = loop_ms(fwd_bwd, reps=10)
     q4, k4, v4, do4 = (x.view(bh // heads, heads, s, d).detach()
                        .requires_grad_(x is not do) for x in (q, k, v, do))
 
@@ -2833,7 +2876,30 @@ def flash_bwd_timed(log) -> dict:
     rec.update(library_call([(
         f"F.scaled_dot_product_attention(is_causal=True) forward + backward "
         f"on ({bh // heads}, {heads}, s, d)", sdpa)]))
+    if rec["library_ms"] is not None:
+        rec["library_loop_ms"] = loop_ms(sdpa, reps=10)
+    return rec
+
+
+def flash_bwd_timed(log) -> dict:
+    """K7's forward and backward timed on FLASH_BWD_TIMED: granite's
+    record, with the D 96 shape's under ``"d96"``, and the kernels'
+    ``ptxas`` registers and spills."""
+    import torch
+
+    recs = {}
+    for seed, (name, bh, s, d, heads) in enumerate(FLASH_BWD_TIMED):
+        recs[name] = flash_bwd_timed_shape(bh, s, d, heads, 4 + seed)
+        torch.cuda.empty_cache()
+    rec = recs.pop("granite")
+    rec.update(recs)
     rec["ptxas"] = {name: ptxas_report(kernel) for name, kernel in (
+        ("dkdv_wgmma_d64", "dkdv_kernelILi64ELi64E"),
+        ("dq_wgmma_d64", "dq_kernelILi64ELi64E"),
+        ("dkdv_wgmma_d96", "dkdv_kernelILi96ELi96E"),
+        ("dq_wgmma_d96", "dq_kernelILi96ELi96E"),
+        ("dkdv_wgmma_d128", "dkdv_kernelILi128ELi128E"),
+        ("dq_wgmma_d128", "dq_kernelILi128ELi128E"),
         ("dkdv_bf16_d64", "dkdv_kernelI13__nv_bfloat16Li4ELi4EE"),
         ("dq_bf16_d64", "dq_kernelI13__nv_bfloat16Li4ELi4EE"),
         ("dkdv_f32_d64", "dkdv_kernelIfLi4ELi4EE"),
@@ -2974,6 +3040,8 @@ def train_steps(log) -> dict:
                     "flash_attention_bwd": cfg.n_layers},
               f"train step launches {n}, {cfg.n_layers} + {cfg.n_layers} "
               f"K7 wanted")
+    check(routes.get("flash_attention_bwd/wgmma") == launches[
+        "flash_attention_bwd"], f"train step backward routes {routes}")
     for m in metrics:
         check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
               f"train step {m}")
@@ -2992,19 +3060,23 @@ def train_steps(log) -> dict:
 
     def k7_device(*kernels):
         """K7's device ms in the profiled step, its launches of each of
-        ``kernels``, and its ms a call (None unless the profile holds all
+        ``kernels`` (the start of a kernel's name, template arguments
+        included), and its ms a call (None unless the profile holds all
         ``n_layers`` launches of each)."""
-        ms = {k: sum(t for name, t, _ in events if f"::{k}<" in name)
+        ms = {k: sum(t for name, t, _ in events if f"::{k}" in name)
               for k in kernels}
-        n = {k: sum(c for name, _, c in events if f"::{k}<" in name)
+        n = {k: sum(c for name, _, c in events if f"::{k}" in name)
              for k in kernels}
         whole = all(c == cfg.n_layers for c in n.values())
         return {"ms": sum(ms.values()), "launches": n,
                 "ms_per_call": sum(ms.values()) / cfg.n_layers if whole
                 else None}
 
-    k7_fwd = k7_device("flash_wgmma_kernel")
-    k7_bwd = k7_device("delta_kernel", "dkdv_kernel", "dq_kernel")
+    k7_fwd = k7_device("flash_wgmma_kernel<")
+    # the tensor-core backward at D 64: its Delta pre-pass (not a template)
+    # and its two passes
+    k7_bwd = k7_device("delta_kernel(", "dkdv_kernel<64, 64>",
+                       "dq_kernel<64, 64>")
     # operations: 6 x parameters x tokens for the products, and K7's
     # forward (4 D) and backward (10 D) over the causal pairs of every
     # layer's heads
@@ -5190,35 +5262,47 @@ def main(argv=None) -> int:
             "forward": train["steps"]["launches_per_step"]
             ["flash_attention_fused"],
             "backward": train["steps"]["launches_per_step"]
-            ["flash_attention_bwd"]},
-        "backward": {
-            "name": "flash_attention_bwd", "route": "cuda",
-            "path": train["timed"]["route"],
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "none: the reference differentiates its chunked "
-                        "attention with XLA (src/repro/models/"
-                        "attention.py:32)",
-            "shape": train["timed"]["shape"],
-            "launches": train["steps"]["launches"]["flash_attention_bwd"],
-            "cases": train["cases"]["cases"],
-            "max_abs_err": train["timed"]["max_abs_err"],
-            "ms": train["timed"]["ms"],
-            # the profiled full-depth step's delta, dK/dV and dQ kernels,
-            # over its 40 calls
-            "device_ms": train["steps"]["profiled"]["k7_backward"]
-            ["ms_per_call"],
-            "loop_ms": train["timed"]["loop_ms"],
-            "plain_ms": train["timed"]["plain_ms"],
-            "bound_ms": train["timed"]["bound_ms"],
-            "bound_by": train["timed"]["bound_by"],
-            "library_ms": train["timed"]["library_ms"],
-            "library_call": train["timed"]["library_call"],
-            "forward_with_lse_ms": train["timed"]["fwd_ms"],
-            "forward_with_lse_loop_ms": train["timed"]["fwd_loop_ms"],
-            "forward_with_lse_device_ms": train["steps"]["profiled"]
-            ["k7_forward"]["ms_per_call"],
-            "forward_bound_ms": train["timed"]["fwd_bound_ms"],
-            "ptxas": train["timed"]["ptxas"]}})
+            ["flash_attention_bwd"]}})
+    timed = train["timed"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "path": timed["route"],
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        "cuda_cores_source":
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "none: the reference differentiates its chunked "
+                    "attention with XLA (src/repro/models/attention.py:32)",
+        "shape": timed["shape"],
+        "launches": train["steps"]["launches"]["flash_attention_bwd"],
+        "routes": {k: n for k, n in train["steps"]["routes"].items()
+                   if k.startswith("flash_attention_bwd/")},
+        "cases": train["cases"]["cases"],
+        "max_abs_err": timed["max_abs_err"], "ms": timed["ms"],
+        # the profiled full-depth step's Delta, dK/dV and dQ kernels, over
+        # its 40 calls
+        "device_ms": train["steps"]["profiled"]["k7_backward"]
+        ["ms_per_call"],
+        "loop_ms": timed["loop_ms"], "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+        "own_work_bound_ms": timed["own_work_bound_ms"],
+        "library_ms": timed["library_ms"],
+        "library_call": timed["library_call"],
+        "library_loop_ms": timed.get("library_loop_ms"),
+        # the CUDA-core kernel on the same bf16 inputs, in turns
+        "cuda_cores_ms": timed["cuda_cores_ms"],
+        "cuda_cores_loop_ms": timed["cuda_cores_loop_ms"],
+        "forward_with_lse_ms": timed["fwd_ms"],
+        "forward_with_lse_loop_ms": timed["fwd_loop_ms"],
+        "forward_with_lse_device_ms": train["steps"]["profiled"]
+        ["k7_forward"]["ms_per_call"],
+        "forward_bound_ms": timed["fwd_bound_ms"],
+        "forward_backward_loop_ms": timed["fwd_bwd_loop_ms"],
+        "d96": {k: timed["d96"].get(k) for k in (
+            "route", "shape", "max_abs_err", "ms", "loop_ms",
+            "cuda_cores_ms", "cuda_cores_loop_ms", "plain_ms", "bound_ms",
+            "own_work_bound_ms", "fwd_loop_ms", "fwd_bwd_loop_ms",
+            "library_ms", "library_loop_ms", "library_call")},
+        "ptxas": timed["ptxas"]})
     emit({"script_s": time.perf_counter() - t_script}, log)
     emit({"kernels": kernels}, log)
     if args.json:

@@ -69,6 +69,10 @@ SIGNATURES = {
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _B, _I, _I, _I, _F,
                                   _B, _P],
+    # the same less the dtype flag (bfloat16 only; the wgmma kernels)
+    "repro_flash_attention_bwd_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _I, _I, _I, _I, _I, _B, _I, _I,
+                                        _I, _F, _P],
 }
 
 _LIB = None

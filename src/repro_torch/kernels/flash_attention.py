@@ -30,14 +30,18 @@ A call whose inputs need a gradient goes through ``_FlashAttention``, a
 ``torch.autograd.Function``, on both devices.  Its forward also saves the
 float32 row log-sum-exp ``lse = m + log(l)`` of the scaled scores, ``(BH,
 Sq)`` (the kernels write it only when they are given a pointer for it, so a
-call without a gradient launches as before); its backward is
-``csrc/flash_attention_bwd.cu`` on CUDA (FlashAttention-2's schedule on the
-CUDA cores, in float32 for both dtypes: a Delta pre-pass, a dK/dV pass over
-key tiles, a dQ pass over query tiles, no atomics, so a gradient is the
+call without a gradient launches as before); its backward is a kernel on
+CUDA and ``flash_attention_masked_bwd_plain`` on the CPU.  On CUDA the
+dtype and width choose the backward kernel (``bwd_route``): bfloat16 with
+D up to the source's ``kMaxD`` (128) goes to
+``csrc/flash_attention_bwd_wgmma.cu`` (every product on the tensor cores,
+P and dS carried in three bfloat16 terms); float32, and wider bfloat16
+heads, to ``csrc/flash_attention_bwd.cu`` (float32 on the CUDA cores).
+Both are FlashAttention-2's schedule: a Delta pre-pass, a dK/dV pass over
+key blocks, a dQ pass over query blocks, no atomics, so a gradient is the
 same bits run to run; counted as ``flash_attention_bwd``, one count a
-backward) and ``flash_attention_masked_bwd_plain`` on the CPU.  The
-reference has no Pallas backward: its training differentiates the chunked
-attention with XLA.
+backward, with its route.  The reference has no Pallas backward: its
+training differentiates the chunked attention with XLA.
 
 ``flash_attention_masked`` is the same kernel under the masks of the
 model's chunked attention (``repro.models.attention``'s ``_mask_val`` and
@@ -64,8 +68,9 @@ MAX_HEAD_DIM = 192  # the qk width both kernels take (MLA: 128 + 64)
 # the kernel each dtype goes to on CUDA: (C entry point, route)
 KERNELS = {torch.bfloat16: ("repro_flash_attention_wgmma", "wgmma"),
            torch.float32: ("repro_flash_attention", "cuda_cores")}
-# the backward's entry point and route (both dtypes, CUDA cores)
-BWD_KERNEL = ("repro_flash_attention_bwd", "cuda_cores")
+# the backward's C entry point on each route
+BWD_KERNELS = {"wgmma": "repro_flash_attention_bwd_wgmma",
+               "cuda_cores": "repro_flash_attention_bwd"}
 
 
 def wgmma_constants() -> dict:
@@ -74,6 +79,26 @@ def wgmma_constants() -> dict:
     in (p1 = bf16(p), p2 = bf16(p - p1), ...), ``kWG``, ``kBK``,
     ``kStages``."""
     return source_constants("flash_attention_wgmma.cu")
+
+
+def bwd_constants() -> dict:
+    """The bf16 backward kernel's integer constants, read from its source:
+    ``kTerms``, the bf16 terms P and dS are carried in; ``kRows``, the keys
+    (dK/dV pass) or queries (dQ pass) of a block, 64 a warpgroup; ``kBT``,
+    the queries or keys of a streamed tile; ``kMaxD``, its widest head."""
+    return source_constants("flash_attention_bwd_wgmma.cu")
+
+
+def bwd_route(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The backward kernel a CUDA call with ``dtype`` operands, qk width
+    ``d`` and value width ``dv <= d`` launches: ``"wgmma"`` (bfloat16 with
+    ``d`` up to ``kMaxD``, tensor cores) or ``"cuda_cores"`` (float32, and
+    wider bfloat16 heads, MLA's 192 / 128 among them: their dK/dV pass
+    would spill past 255 registers a thread)."""
+    del dv  # at most d: the qk width decides
+    if dtype == torch.bfloat16 and d <= bwd_constants()["kMaxD"]:
+        return "wgmma"
+    return "cuda_cores"
 
 
 def route(dtype: torch.dtype) -> str:
@@ -265,9 +290,12 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False):
     return (out, lse) if with_lse else out
 
 
-def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len):
+def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
+                route=None):
     """One call of the backward kernel (its three launches); ``(dq, dk,
-    dv)``."""
+    dv)``.  ``route`` (default ``bwd_route``'s) names the kernel: the
+    CUDA-core kernel takes every call, the tensor-core one bf16 up to
+    ``kMaxD``."""
     _check_operands(q, k, v)
     ops.expect(o, q.dtype, 3, "o")
     ops.expect(do, q.dtype, 3, "do")
@@ -285,15 +313,19 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len):
     if q.numel() == 0:
         return dq, dk, dvv
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    name, path = BWD_KERNEL
+    path = route or bwd_route(q.dtype, d, dv)
+    if path == "wgmma" and bwd_route(q.dtype, d, dv) != "wgmma":
+        raise ValueError(f"the wgmma backward takes bf16 with D <= "
+                         f"{bwd_constants()['kMaxD']}; got {q.dtype}, D {d}")
+    # the CUDA-core kernel takes both dtypes and a flag for them
+    flag = [int(q.dtype == torch.bfloat16)] if path == "cuda_cores" else []
     with torch.cuda.device(q.device):
-        rc = getattr(library(), name)(
+        rc = getattr(library(), BWD_KERNELS[path])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dvv.data_ptr(), delta.data_ptr(), bh, sq, sk, d, dv,
             int(bool(causal)), q_offset, window, kv_len, 1.0 / (d ** 0.5),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            *flag, torch.cuda.current_stream().cuda_stream)
     ops.check_launch("flash_attention_bwd", rc, path)
     return dq, dk, dvv
 
