@@ -129,6 +129,33 @@ products run in full float32 (TF32 off).  It
    and its final checkpoint restores bit for bit (each write timed); and
    runs ``python -m repro_torch.launch.train --arch granite-3-2b --smoke
    --steps 3`` on the card;
+5e. runs the distributed LM substrate on the card (``dist_phase``; sizes
+   in ``DIST``): an NCCL process group of world size 1 (NCCL refuses two
+   ranks on one card) and a (1, 1) ``("data", "model")`` DeviceMesh; one
+   granite-3-2b AdamW step at full width and depth (40 layers, 2 x 2,048
+   tokens) with the parameters placed by ``param_specs`` (the production
+   layout, model 16: every split dim of the mesh has size 1, so each
+   DTensor shares the plain state's memory), the moments by
+   ``zero1_state_specs`` and the batch on ``data``, from the state the
+   plain step starts from, held to the plain step on the loss, the grad
+   norm and every new leaf's float64 sum (``DIST["rel"]``), with 40 K7
+   forward and 40 backward launches on ``wgmma`` through ``local_map``,
+   timed (first and profiled second call) with the peak memory;
+   DeepSeek-V2-Lite at full width (the dense prefix layer and 3 MoE
+   layers, capacity n_experts / top_k, so no token drops) with
+   ``moe.impl="shard_map"``: ``forward_hidden`` bit for bit the
+   ``moe_ffn`` path; ``optim.compressed_psum`` over NCCL on a tensor of
+   granite's largest gradient leaf's shape, bit for bit the plain
+   quantise, sum and dequantise, timed; ``launch.pipeline.pipeline_apply``
+   on a ``pipe`` dim of 1 with 4 microbatches through one full-width
+   granite block, bit for bit the block applied to each; and
+   ``python -m repro_torch.launch.dryrun --arch granite-3-2b --shape
+   decode_32k`` and ``train_4k`` on both production meshes, in two
+   subprocesses started right after the build (a fake process group
+   cannot share a process with the NCCL one; at a lower priority, on one
+   thread, so they run on the host beside the card's phases), each record
+   with ``flops_per_device > 0`` and CUDA never initialised; every
+   record's key and time since the start also go to stderr;
 6. holds K1 and K2 against their plain PyTorch versions on the card, at
    the shapes the SpGEMM path gives them, for exact equality, and times both
    (CUDA events around the call, and the kernels' own device time from
@@ -202,8 +229,9 @@ products run in full float32 (TF32 off).  It
    products; Markov clustering (``apps.mcl``, bench_mcl's parameters, 2
    iterations) on Economics on both lanes, every expansion and iterate
    recorded inside ``mcl`` and held, iteration by iteration, against a
-   scipy/numpy float64 step from the port's previous iterate (the first
-   from the same input): the expansion's structure equal to the pattern
+   float64 step on the card (``torch.sparse.mm``, cuSPARSE) from the
+   port's previous iterate (the first from the same input, itself held
+   against scipy's): the expansion's structure equal to the pattern
    product with explicit zeros kept, values within rtol 1e-4 / atol 1e-6,
    every prune decision the reference's unless within 1e-4 (relative) of
    theta or of its column's k-th value (those counted), nonzero columns
@@ -232,7 +260,7 @@ products run in full float32 (TF32 off).  It
     on one sampled chain against a float64 numpy forward and its step-1
     gradients against a float64 CPU autograd run, within 1e-4; then
     ``train_gnn_minibatch`` (sage, ``fused_hash``, fanout 10, 2 epochs, at
-    batches of 16,384, a cut the time limit forces) with every loss finite
+    batches of 32,768, a cut the time limit forces) with every loss finite
     and every SpGEMM of epoch 2 a ``PlanCache`` hit, the ms a step split
     into host sampling, the six SpGEMMs and forward + backward + AdamW, the
     launches a step and one step profiled;
@@ -267,12 +295,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from typing import Any, NamedTuple
 
 import numpy as np
 
@@ -294,9 +324,16 @@ FFN = {"d_model": 3072, "d_ff": 8192, "tokens": 2048, "k": 1024,
 FFN_REL = 1e-5  # float32 sums in another order, bf16 products exact
 
 
+_T0 = time.perf_counter()
+
+
 def emit(record: dict, log: list) -> None:
+    """Print a record on stdout (and keep it); its key and the seconds
+    since the script started go to stderr."""
     log.append(record)
     print(json.dumps(record), flush=True)
+    print(f"[{time.perf_counter() - _T0:8.1f} s] {', '.join(record)}",
+          file=sys.stderr, flush=True)
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -317,9 +354,18 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def _self_device_us(event) -> float:
-    return getattr(event, "self_device_time_total", None) \
-        or getattr(event, "self_cuda_time_total", 0.0)
+def device_activities(prof) -> list:
+    """(name, device µs) of every kernel, copy and fill in the profiler's
+    raw results: the events on the device that are no range of
+    ``record_function``.  No event tree is built: for a call of many
+    thousand launches, building it takes several times as long as the
+    call."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", lambda: False)()]
 
 
 def profile(fn, top_n: int = 6):
@@ -336,15 +382,16 @@ def profile(fn, top_n: int = 6):
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    # device events only: their self time is the kernels' and copies' own
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and "CUDA" in str(e.device_type) and _self_device_us(e) > 0]
-    device_us = sum(_self_device_us(e) for e in events) \
-        or _trace_device_us(prof)
-    top = sorted(events, key=_self_device_us, reverse=True)[:top_n]
+    by_name: dict = {}
+    for name, us in device_activities(prof):
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += us
+        tot[1] += 1
+    device_us = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0],
+                 reverse=True)[:top_n]
     return host_ms, (device_us / 1e3 if device_us else None), \
-        [(e.key[:80], _self_device_us(e) / 1e3, e.count) for e in top]
+        [(name[:80], t / 1e3, n) for name, (t, n) in top]
 
 
 def _trace_events(prof) -> list:
@@ -355,14 +402,6 @@ def _trace_events(prof) -> list:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         return json.loads(path.read_text()).get("traceEvents", [])
-
-
-def _trace_device_us(prof) -> float:
-    """The summed durations of the kernels, copies and fills in the
-    profiler's trace: the device time where ``key_averages`` attributes
-    none to a device event."""
-    return sum(ev.get("dur", 0) for ev in _trace_events(prof)
-               if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
 
 
 def device_ms(fn, reps: int = 10):
@@ -3274,6 +3313,372 @@ def train_phase(log) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8b: the distributed LM substrate on one card
+# ---------------------------------------------------------------------------
+
+# granite's step at TRAIN's shape; DeepSeek-V2-Lite at the depth of its
+# float32 decode check (the dense prefix layer + 3 MoE layers); the int8
+# all-reduce on granite's largest gradient leaf (lm_head / embed, 49,155 x
+# 2,048 in bf16); one granite block as the pipeline's stage
+DIST = {"arch": "granite-3-2b", "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "lr": TRAIN["lr"], "model_size": 16,
+        "rel": 1e-5, "ds_layers": 4, "ds_batch": 2, "ds_seq": 1024,
+        "psum_shape": (49155, 2048), "psum_reps": 10, "pipe_micro": 4,
+        "pipe_seq": 1024, "dryrun_shapes": ("decode_32k", "train_4k"),
+        "dryrun_timeout": 900}
+
+
+def dryrun_start() -> dict:
+    """``launch.dryrun`` of each of ``DIST["dryrun_shapes"]`` on both
+    production meshes, each in a subprocess (its fake process group cannot
+    share a process with NCCL's), at a lower priority and on one thread,
+    so that it runs beside the card's phases without slowing their host
+    work.  Returns ``{shape: (process, its JSON path)}``."""
+    import tempfile
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for shape in DIST["dryrun_shapes"]:
+        out = tmp / f"{shape}.json"
+        procs[shape] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DIST["arch"], "--shape", shape, "--multi-pod", "--json",
+             str(out)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            preexec_fn=lambda: os.nice(10)), out)
+    return procs
+
+
+def stop(procs: dict) -> None:
+    """Kill the dry runs still running (after a failure elsewhere)."""
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def leaf_sums(state) -> dict:
+    """Every parameter's and moment's float64 sum and |sum|, by path."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.transformer import flat_params
+
+    def full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    out = {}
+    for name, tree in (("params", flat_params(state.params)),
+                       ("mu", state.opt.mu), ("nu", state.opt.nu)):
+        for k, t in tree.items():
+            x = full(t).double()
+            out[f"{name}/{k}"] = (float(x.sum()), float(x.abs().sum()))
+            del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_granite_step(mesh, log) -> dict:
+    """One full-depth granite step placed on ``mesh`` against the plain
+    step from the same state."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.launch.sharding import (NamedSharding, P, distribute,
+                                             make_shardings)
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim import adamw
+    from repro_torch.optim.zero import zero1_state_specs
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import shard_train_state
+
+    cfg = get_config(DIST["arch"])
+    opt = adamw(DIST["lr"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), opt, "cuda")
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=DIST["seq"],
+                         global_batch=DIST["batch"], seed=0)
+    batch = batch_on_card(pipe, 0)
+    step = make_train_step(cfg, opt, 1, 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, m = step(state, batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    want = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    want_sums = leaf_sums(new)
+    del new, m
+    torch.cuda.empty_cache()
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    torch.cuda.reset_peak_memory_stats()
+    specs = param_specs(cfg, state.params, model_size=DIST["model_size"])
+    zspecs = zero1_state_specs(specs, state.params)
+    placed = shard_train_state(cfg, state, mesh, specs, zspecs)
+    placed_gb = torch.cuda.memory_allocated() / 1e9
+    on_data = {k: distribute(v, NamedSharding(mesh, P("data", None)))
+               for k, v in batch.items()}
+    sstep = make_train_step(cfg, opt, 1, 1.0, sh=make_shardings(mesh))
+    with use_mesh(mesh):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()  # the sharded step's count starts here
+        t0 = time.perf_counter()
+        new, m = sstep(placed, on_data)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launches, routes = ops.launch_counts(), ops.route_counts()
+    got = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    got_sums = leaf_sums(new)
+    del new, m
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    check(launches["flash_attention_fused"] == n
+          and launches["flash_attention_bwd"] == n,
+          f"sharded step launches {launches}, {n} + {n} K7 wanted")
+    check(routes.get("flash_attention_fused/wgmma") == n
+          and routes.get("flash_attention_bwd/wgmma") == n,
+          f"sharded step routes {routes}")
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+    for k, r in rel.items():
+        check(np.isfinite(got[k]) and r <= DIST["rel"],
+              f"sharded step {k} {got[k]} vs {want[k]}: {r} > {DIST['rel']}")
+    check(set(got_sums) == set(want_sums), "sharded step leaves")
+    worst = max(abs(got_sums[k][0] - want_sums[k][0])
+                / max(want_sums[k][1], 1e-30) for k in want_sums)
+    check(worst <= DIST["rel"],
+          f"sharded step leaf sums: {worst} of |sum| > {DIST['rel']}")
+    box = {}
+
+    def one():
+        box["r"] = sstep(placed, on_data)
+
+    with use_mesh(mesh):
+        host_ms, dev_ms, events = profile(one, top_n=8)
+    del box
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"arch": cfg.name, "layers": n, "dtype": cfg.dtype,
+           "batch": DIST["batch"], "seq": DIST["seq"],
+           "mesh": {"data": 1, "model": 1}, "world_size": 1,
+           "placement": f"param_specs(model_size={DIST['model_size']}), "
+                        f"zero1_state_specs, batch on data",
+           "state_gb": state_gb, "placed_state_gb": placed_gb,
+           "loss": got, "plain": want, "rel": rel,
+           "leaf_sum_rel_worst": worst, "tolerance": DIST["rel"],
+           "bit_for_bit": got == want and got_sums == want_sums,
+           "launches": launches, "routes": routes,
+           "plain_step_ms": plain_ms, "first_step_ms": first_ms,
+           "step_host_ms": host_ms, "step_device_ms": dev_ms,
+           "device_busy_share": None if dev_ms is None else dev_ms / host_ms,
+           "peak_mem_gb": peak_gb, "plain_peak_mem_gb": plain_peak_gb,
+           "top_kernels": events}
+    emit({"dist_train_step": rec}, log)
+    del placed, on_data, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_deepseek(mesh, log) -> dict:
+    """DeepSeek-V2-Lite's forward with the expert-parallel MoE on ``mesh``
+    against the plain ``moe_ffn`` path, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.launch.sharding import (NamedSharding, P, distribute,
+                                             make_shardings, tree_map)
+    from repro_torch.models.transformer import (forward_hidden,
+                                                init_transformer,
+                                                param_specs)
+
+    base = get_config(DS["arch"])
+    moe = dataclasses.replace(base.moe, capacity_factor=base.moe.n_experts
+                              / base.moe.top_k)
+    cfg = dataclasses.replace(base, n_layers=DIST["ds_layers"], moe=moe)
+    cfg_s = dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, impl="shard_map"))
+    params = init_transformer(cfg, torch.Generator(device="cuda")
+                              .manual_seed(2), device="cuda")
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (DIST["ds_batch"], DIST["ds_seq"]))
+        .astype(np.int32)).cuda()
+    specs = param_specs(cfg, params, model_size=DIST["model_size"])
+    placed = tree_map(lambda x, sp: distribute(x, NamedSharding(mesh, sp)),
+                      params, specs)
+    with torch.no_grad():
+        want, want_aux = forward_hidden(cfg, params, tokens)
+        with use_mesh(mesh):
+            ops.reset_launch_counts()
+            got, got_aux = forward_hidden(
+                cfg_s, placed, distribute(tokens, NamedSharding(
+                    mesh, P("data", None))), make_shardings(mesh))
+            launches, routes = ops.launch_counts(), ops.route_counts()
+            got, got_aux = got.full_tensor(), got_aux.full_tensor()
+    k7 = cfg.n_layers
+    check(launches["flash_attention_fused"] == k7
+          and routes.get("flash_attention_fused/wgmma") == k7,
+          f"deepseek shard_map launches {launches} {routes}")
+    check(torch.equal(got, want), "deepseek shard_map forward_hidden: "
+          f"{float((got.float() - want.float()).abs().max())} off moe_ffn's")
+    check(torch.equal(got_aux, want_aux), "deepseek shard_map aux")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "reduced": {"layers": f"{cfg.n_layers} of {base.n_layers}",
+                       "capacity_factor": f"{moe.capacity_factor} (no drop)"
+                                          f" for {base.moe.capacity_factor}"},
+           "tokens": list(tokens.shape), "moe_impl": "shard_map",
+           "bit_for_bit": True, "launches": launches, "routes": routes}
+    emit({"dist_deepseek_shard_map": rec}, log)
+    del params, placed, want, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_psum(mesh, log) -> dict:
+    """``compressed_psum`` over NCCL against the plain quantise, sum and
+    dequantise, bit for bit, and timed beside it."""
+    import torch
+
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.optim import compressed_psum
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = (torch.randn(DIST["psum_shape"], generator=g, device="cuda")
+         * 1e-3).to(torch.bfloat16)
+
+    def plain():
+        x32 = x.float()
+        amax = x32.abs().max()
+        scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        q = torch.clamp(torch.round(x32 / scale), -127, 127) \
+            .to(torch.int32)
+        return (q.float() * scale).to(x.dtype)
+
+    with use_mesh(mesh):
+        got = compressed_psum(x, "data")
+        check(torch.equal(got, plain()), "compressed_psum off the plain "
+              "quantise / sum / dequantise")
+        psum_ms = time_ms(lambda: compressed_psum(x, "data"),
+                          DIST["psum_reps"])
+    plain_ms = time_ms(plain, DIST["psum_reps"])
+    rec = {"shape": list(x.shape), "dtype": str(x.dtype), "world_size": 1,
+           "bit_for_bit": True, "ms": psum_ms, "plain_ms": plain_ms,
+           "bytes": x.numel() * x.element_size()}
+    emit({"dist_compressed_psum": rec}, log)
+    del x, got
+    return rec
+
+
+def dist_pipeline(log) -> dict:
+    """``pipeline_apply`` over a pipe dim of 1 with one granite block as
+    the stage, against the block applied to each microbatch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.pipeline import pipeline_apply
+    from repro_torch.launch.sharding import tree_map
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config(DIST["arch"]), n_layers=1)
+    params = tf.init_transformer(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(3), device="cuda")
+    lp = tf.layer_params(params, 0)
+    stage_weights = tree_map(lambda a: a[None], lp)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((DIST["pipe_micro"], 1, DIST["pipe_seq"], cfg.d_model),
+                    generator=g, device="cuda").to(cfg.activation_dtype)
+
+    def stage_fn(w, h):
+        return tf._attn_block(cfg, w, h)[0]
+
+    mesh = make_test_mesh((1,), ("pipe",))
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out = pipeline_apply(mesh, stage_weights, x, stage_fn,
+                             DIST["pipe_micro"])
+        launches = ops.launch_counts()
+        seq = torch.stack([stage_fn(lp, x[i])
+                           for i in range(DIST["pipe_micro"])])
+    check(launches["flash_attention_fused"] == DIST["pipe_micro"],
+          f"pipeline launches {launches}")
+    check(torch.equal(out, seq), "pipeline_apply off sequential")
+    rec = {"stages": 1, "microbatches": DIST["pipe_micro"],
+           "microbatch": list(x.shape[1:]), "stage": "one granite block",
+           "bit_for_bit": True, "launches": launches}
+    emit({"dist_pipeline": rec}, log)
+    del params, x, out, seq
+    return rec
+
+
+def dryrun_finish(procs: dict, log) -> dict:
+    """Wait for the dry-run subprocesses; every record holds flops > 0 and
+    the trace never initialised CUDA."""
+    out = {}
+    for shape, (proc, path) in procs.items():
+        text, _ = proc.communicate(timeout=DIST["dryrun_timeout"])
+        check(proc.returncode == 0,
+              f"dryrun {shape}: exit {proc.returncode}\n{text[-3000:]}")
+        recs = json.loads(path.read_text())
+        check(len(recs) == 2, f"dryrun {shape}: {len(recs)} records")
+        for r in recs:
+            check(r["flops_per_device"] > 0 and not r["cuda_initialized"],
+                  f"dryrun {shape} {r['mesh']}: {r['flops_per_device']} "
+                  f"flops, cuda {r['cuda_initialized']}")
+        out[shape] = [{k: r[k] for k in (
+            "mesh", "trace_s", "flops_per_device",
+            "bytes_accessed_per_device", "collective_bytes", "memory")}
+            for r in recs]
+    emit({"dist_dryrun": out}, log)
+    return out
+
+
+def dist_phase(log, procs=None) -> dict:
+    """The distributed LM substrate on one card: an NCCL group of world
+    size 1, a (1, 1) mesh; then the dry runs' results (``procs`` from
+    ``dryrun_start``, which ``main`` calls at the script's start so that
+    they run beside the earlier phases; started here when None)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    procs = dryrun_start() if procs is None else procs
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh((1, 1))
+        out = {"step": dist_granite_step(mesh, log),
+               "deepseek": dist_deepseek(mesh, log),
+               "psum": dist_psum(mesh, log),
+               "pipeline": dist_pipeline(log)}
+        before = torch.cuda.memory_allocated()
+        out["dryrun"] = dryrun_finish(procs, log)
+        check(torch.cuda.memory_allocated() == before,
+              "the dry run changed the card's allocated memory")
+    finally:
+        dist.destroy_process_group()
+        stop(procs)
+    torch.cuda.empty_cache()
+    emit({"dist_phase_s": time.perf_counter() - t0}, log)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: the paper's three applications at paper size
 # ---------------------------------------------------------------------------
 
@@ -3453,17 +3858,6 @@ def recording_mcl():
         mc.spgemm, mc.csr_column_normalize = spgemm, normalize
 
 
-def nonzero_part(c):
-    """The entries of scipy CSR ``c`` whose value is not 0, and the mask of
-    them over ``c``'s entries."""
-    import scipy.sparse as sp
-
-    mask = c.data != 0
-    cm = np.concatenate([[0], np.cumsum(mask)])
-    return sp.csr_matrix((c.data[mask], c.indices[mask], cm[c.indptr]),
-                         shape=c.shape), mask
-
-
 def column_normalized(c):
     """scipy CSR ``c`` with each column divided by its sum (as
     Algorithm 6's ColumnNormalize, an empty column stays empty)."""
@@ -3474,8 +3868,81 @@ def column_normalized(c):
     return out
 
 
-def prune_reference(v, theta, k):
-    """Algorithm 6's prune of float64 CSR ``v`` (entries not 0): the kept
+class Csr(NamedTuple):
+    """A CSR on one device for MCL's float64 checks: int32 ``indptr`` and
+    ``indices`` (sorted in each row), ``data`` of any dtype."""
+    indptr: Any
+    indices: Any
+    data: Any
+    shape: tuple
+
+    def same_structure(self, other) -> bool:
+        import torch
+
+        return torch.equal(self.indptr, other.indptr) \
+            and torch.equal(self.indices, other.indices)
+
+
+def card_csr(c, dtype) -> Csr:
+    """A port CSR's occupied slots as a ``Csr`` on its device, the values
+    in ``dtype`` (explicit zeros kept)."""
+    nnz = int(c.indptr[-1])
+    return Csr(c.indptr.int(), c.indices[:nnz].int(), c.data[:nnz].to(dtype),
+               tuple(c.shape))
+
+
+def row_ids(c: Csr):
+    import torch
+
+    return torch.repeat_interleave(
+        torch.arange(c.shape[0], device=c.data.device),
+        (c.indptr[1:] - c.indptr[:-1]).long())
+
+
+def nonzero_part(c: Csr):
+    """The entries of ``c`` whose value is not 0, and the mask of them
+    over ``c``'s entries."""
+    import torch
+
+    mask = c.data != 0
+    cm = torch.cat([mask.new_zeros(1, dtype=torch.int64),
+                    torch.cumsum(mask, 0)])
+    return Csr(cm[c.indptr.long()].int(), c.indices[mask], c.data[mask],
+               c.shape), mask
+
+
+def column_sums(c: Csr):
+    import torch
+
+    return torch.zeros(c.shape[1], dtype=c.data.dtype,
+                       device=c.data.device).index_add_(
+                           0, c.indices.long(), c.data)
+
+
+def sparse_product(a: Csr, b: Csr) -> Csr:
+    """``a @ b`` by ``torch.sparse.mm`` (cuSPARSE on the card), every
+    product's entry kept, the columns sorted in each row."""
+    import torch
+
+    def tensor(c):
+        return torch.sparse_csr_tensor(c.indptr, c.indices, c.data,
+                                       size=c.shape, check_invariants=False)
+
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore")
+        t = torch.sparse.mm(tensor(a), tensor(b))
+    c = Csr(t.crow_indices().int(), t.col_indices().int(), t.values(),
+            (a.shape[0], b.shape[1]))
+    del t
+    rows, cols = row_ids(c), c.indices.long()
+    if bool(((cols[1:] > cols[:-1]) | (rows[1:] != rows[:-1])).all()):
+        return c
+    order = torch.argsort(rows * c.shape[1] + cols)
+    return Csr(c.indptr, c.indices[order], c.data[order], c.shape)
+
+
+def prune_reference(v: Csr, theta, k):
+    """Algorithm 6's prune of float64 ``v`` (entries not 0): the kept
     mask over its entries, the mask of near decisions, and each column's
     k-th value.  A decision is near where its value lies within NEAR of
     theta, or within NEAR of its column's k-th value in a column whose
@@ -3483,113 +3950,120 @@ def prune_reference(v, theta, k):
     and dropped is then a near tie).  Within a column, entries rank by
     value descending, then by row, as the port ranks equal values by
     slot."""
-    vals, cols = v.data, v.indices
-    ok = np.nonzero(vals >= theta)[0]
+    import torch
+
+    vals, cols = v.data, v.indices.long()
+    dev = vals.device
+    ok = torch.nonzero(vals >= theta).squeeze(1)
     # one stable sort of col*2 + (1 - value) (values lie in (0, 1]): column,
     # then value descending, then CSR order (row); keys closer than ~6e-11
     # may misorder, far inside the NEAR band
-    order = ok[np.argsort(cols[ok] * 2.0 + (1.0 - vals[ok]), kind="stable")]
+    order = ok[torch.sort(cols[ok] * 2.0 + (1.0 - vals[ok]),
+                          stable=True).indices]
     sc = cols[order]
-    pos = np.arange(len(order))
-    start = np.maximum.accumulate(np.where(
-        np.concatenate([[True], sc[1:] != sc[:-1]]), pos, 0))
-    rank = pos - start
-    kept = np.zeros(len(vals), bool)
+    pos = torch.arange(len(order), device=dev)
+    first = torch.ones(len(order), dtype=torch.bool, device=dev)
+    first[1:] = sc[1:] != sc[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    kept = torch.zeros(len(vals), dtype=torch.bool, device=dev)
     kept[order[rank < k]] = True
-    kth = np.full(v.shape[1], np.nan)
+    kth = torch.full((v.shape[1],), float("nan"), dtype=vals.dtype,
+                     device=dev)
     kth[sc[rank == k - 1]] = vals[order[rank == k - 1]]
-    next_ = np.full(v.shape[1], np.nan)
+    next_ = torch.full_like(kth, float("nan"))
     next_[sc[rank == k]] = vals[order[rank == k]]
     tie = kth - next_ <= NEAR * kth  # False where a column has <= k
-    near = (np.abs(vals - theta) <= NEAR * theta) | (
+    near = ((vals - theta).abs() <= NEAR * theta) | (
         tie[cols] & (vals >= theta)
-        & (np.abs(vals - kth[cols]) <= NEAR * kth[cols]))
+        & ((vals - kth[cols]).abs() <= NEAR * kth[cols]))
     return kept, near, kth
 
 
-def pattern_product(x, cache):
-    """The structure of ``x @ x`` with explicit zeros kept (scipy drops a
-    product's zeros, so on a pattern of ones); ``cache`` keeps the last
-    one, for another lane's ``x`` of the same structure."""
+def pattern_product(x: Csr, cache) -> Csr:
+    """The structure of ``x @ x`` (every product's entry, on a pattern of
+    ones); ``cache`` keeps the last one, for another lane's ``x`` of the
+    same structure."""
+    import torch
+
     hit = cache.get("x")
-    if hit is not None and np.array_equal(hit.indptr, x.indptr) \
-            and np.array_equal(hit.indices, x.indices):
+    if hit is not None and hit.same_structure(x):
         return cache["p"]
-    pattern = x.copy()
-    pattern.data = np.ones(len(x.data), np.float32)
-    p = (pattern @ pattern).tocsr()
-    p.sort_indices()
+    pattern = x._replace(data=torch.ones_like(x.data, dtype=torch.float32))
+    p = sparse_product(pattern, pattern)
     cache.update(x=pattern, p=p)
     return p
 
 
 def mcl_iteration_check(i, x, e_port, m_port, theta, k, r, cache):
-    """Iteration ``i`` of Algorithm 6 in float64 with scipy, from the
-    port's iterate ``x`` (host CSR with its explicit zeros), against the
-    port's expansion ``e_port`` and iterate ``m_port`` (host CSRs).
+    """Iteration ``i`` of Algorithm 6 in float64 with ``torch.sparse.mm``
+    on the card, from the port's iterate ``x`` (a ``Csr`` with its
+    explicit zeros), against the port's expansion ``e_port`` and iterate
+    ``m_port`` (float64 ``Csr``s).
 
     The expansion's structure must equal the pattern product (explicit
     zeros kept) and its values the float64 product; every prune decision
     of the port must match the reference's unless it is near; columns with
     a differing decision are left out of the value check and counted."""
+    import torch
+
     p = pattern_product(x, cache.setdefault(i, {}))
-    check(np.array_equal(e_port.indptr, p.indptr)
-          and np.array_equal(e_port.indices, p.indices),
+    check(e_port.same_structure(p),
           f"MCL iteration {i}: the expansion's structure is not the pattern "
           f"product")
-    xn, _ = nonzero_part(x)
-    v = (xn @ xn).tocsr()
-    v.sort_indices()
+    xn, _ = nonzero_part(x._replace(data=x.data.double()))
+    v = sparse_product(xn, xn)
+    del xn
     e_nz, e_mask = nonzero_part(e_port)
-    check(np.array_equal(e_nz.indptr, v.indptr)
-          and np.array_equal(e_nz.indices, v.indices),
+    check(e_nz.same_structure(v),
           f"MCL iteration {i}: the expansion's nonzero entries differ")
-    check(np.allclose(e_nz.data, v.data, rtol=RTOL, atol=ATOL),
+    check(torch.allclose(e_nz.data, v.data, rtol=RTOL, atol=ATOL),
           f"MCL iteration {i}: expansion values beyond rtol {RTOL} / atol "
           f"{ATOL}")
-    check(np.array_equal(m_port.indptr, p.indptr)
-          and np.array_equal(m_port.indices, p.indices),
+    check(m_port.same_structure(p),
           f"MCL iteration {i}: the iterate lost the expansion's structure")
     kept_ref, near, kth = prune_reference(v, theta, k)
     m_vals = m_port.data[e_mask]  # over v's entries
-    check(not m_port.data[~e_mask].any(),
+    check(not bool(m_port.data[~e_mask].any()),
           f"MCL iteration {i}: an entry zero after expansion came back")
     differ = (m_vals != 0) != kept_ref
-    far = np.nonzero(differ & ~near)[0]
+    far = torch.nonzero(differ & ~near).squeeze(1)
     if len(far):
-        cols = v.indices[far[:5]]
+        f5 = far[:5]
+        cols = v.indices[f5].long()
         print(json.dumps({"mcl_far_decisions": {
             "iteration": i, "count": len(far),
-            "value": v.data[far[:5]].tolist(),
-            "port_value": e_nz.data[far[:5]].tolist(),
-            "kept_ref": kept_ref[far[:5]].tolist(),
+            "value": v.data[f5].tolist(),
+            "port_value": e_nz.data[f5].tolist(),
+            "kept_ref": kept_ref[f5].tolist(),
             "column": cols.tolist(), "kth": kth[cols].tolist()}}),
               flush=True)
     check(not len(far),
           f"MCL iteration {i}: {len(far)} prune decisions differ from the "
           f"reference away from their thresholds")
-    want = v.copy()
-    want.data = np.where(kept_ref, v.data, 0.0) ** r
-    want = column_normalized(want)
-    tainted = np.zeros(v.shape[1], bool)
-    tainted[v.indices[differ]] = True
-    cols_ok = ~tainted[v.indices]
-    check(np.allclose(m_vals[cols_ok], want.data[cols_ok], rtol=RTOL,
-                      atol=ATOL),
+    want = v._replace(data=torch.where(kept_ref, v.data, 0.0) ** r)
+    s = column_sums(want)
+    inv = torch.where(s > 1e-12, 1.0 / s.clamp(min=1e-12), 0.0)
+    want = want._replace(data=want.data * inv[want.indices.long()])
+    tainted = torch.zeros(v.shape[1], dtype=torch.bool,
+                          device=v.data.device)
+    tainted[v.indices[differ].long()] = True
+    cols_ok = ~tainted[v.indices.long()]
+    got, ref = m_vals[cols_ok], want.data[cols_ok]
+    check(torch.allclose(got, ref, rtol=RTOL, atol=ATOL),
           f"MCL iteration {i}: iterate values beyond rtol {RTOL} / atol "
           f"{ATOL}")
-    sums = np.bincount(m_port.indices, weights=m_port.data,
-                       minlength=m_port.shape[1])
-    check(np.all(np.abs(sums[sums > 0] - 1.0) <= 1e-5),
+    sums = column_sums(m_port)
+    check(bool(((sums[sums > 0] - 1.0).abs() <= 1e-5).all()),
           f"MCL iteration {i}: a nonzero column does not sum to 1")
-    return {"iteration": i, "nnz_in": x.nnz, "expansion_nnz": p.nnz,
-            "expansion_nonzero": v.nnz, "kept": int((m_vals != 0).sum()),
+    return {"iteration": i, "nnz_in": len(x.indices),
+            "expansion_nnz": len(p.indices),
+            "expansion_nonzero": len(v.indices),
+            "kept": int((m_vals != 0).sum()),
             "near_decisions": int(near.sum()),
             "differing_decisions": int(differ.sum()),
             "columns_left_out": int(tainted.sum()),
-            "max_abs_err": float(np.abs(m_vals[cols_ok]
-                                        - want.data[cols_ok]).max(
-                                            initial=0.0))}, want
+            "max_abs_err": float((got - ref).abs().max())
+            if len(got) else 0.0}, want
 
 
 def same_partition(a, b) -> bool:
@@ -3597,23 +4071,28 @@ def same_partition(a, b) -> bool:
     return pairs == len(np.unique(a)) == len(np.unique(b))
 
 
-def weak_components(c, dtype=np.float64):
-    """Component labels of the support above 1e-6 of host CSR ``c``, the
-    values and the cut compared in ``dtype`` (the port's: float32)."""
+def weak_components(c: Csr, dtype=None):
+    """Component labels of the support above 1e-6 of ``c``, the values and
+    the cut compared in ``dtype`` (the port's: float32; by default
+    ``c``'s)."""
     import scipy.sparse as sp
+    import torch
     from scipy.sparse.csgraph import connected_components
 
-    support = c.copy()
-    support.data = (support.data.astype(dtype) > dtype(1e-6)).astype(np.int8)
-    support.eliminate_zeros()
-    return connected_components(sp.csr_matrix(support), directed=True,
-                                connection="weak")[1]
+    dtype = dtype or c.data.dtype
+    support, _ = nonzero_part(c._replace(data=(
+        c.data.to(dtype) > torch.tensor(1e-6, dtype=dtype)).to(torch.int8)))
+    host = sp.csr_matrix((support.data.cpu().numpy(),
+                          support.indices.cpu().numpy(),
+                          support.indptr.cpu().numpy()), shape=c.shape)
+    return connected_components(host, directed=True, connection="weak")[1]
 
 
 def mcl_phase(log):
     """Algorithm 6 on Economics at paper size, on both lanes: each
-    iteration held against scipy from the port's previous iterate (the
-    first from the same input), the clusters against the reference's
+    iteration held against float64 products by ``torch.sparse.mm`` from
+    the port's previous iterate (the first input against scipy's), the
+    clusters against the reference's
     partition; per-iteration times and cuSPARSE's expansions beside
     them."""
     import scipy.sparse as sp
@@ -3646,10 +4125,11 @@ def mcl_phase(log):
               and np.array_equal(x.indices, a0.indices)
               and np.allclose(x.data, a0.data, rtol=RTOL, atol=ATOL),
               f"{what}: the normalized input differs from scipy's")
+        x = card_csr(rec["iterates"][0], torch.float32)
         iters = []
         for i in range(1, MCL_ARGS["max_iters"] + 1):
-            e_port = host_csr(rec["expansions"][i - 1])
-            m_port = host_csr(rec["iterates"][i])
+            e_port = card_csr(rec["expansions"][i - 1], torch.float64)
+            m_port = card_csr(rec["iterates"][i], torch.float64)
             t0 = time.perf_counter()
             rec_i, want = mcl_iteration_check(i, x, e_port, m_port,
                                               args["theta"], args["k"],
@@ -3662,14 +4142,14 @@ def mcl_phase(log):
             cusparse_in = [rec["iterates"][0], rec["iterates"][1]]
         ref_clusters = weak_components(want)
         check(same_partition(res.clusters,
-                             weak_components(m_port, np.float32)),
+                             weak_components(m_port, torch.float32)),
               f"{what}: clusters are not the components of the port's "
               f"iterate")
-        near_support = int((np.abs(want.data - 1e-6) <= NEAR * 1e-6).sum())
+        near_support = int(((want.data - 1e-6).abs() <= NEAR * 1e-6).sum())
         same = same_partition(res.clusters, ref_clusters)
         check(same or near_support or iters[-1]["columns_left_out"],
               f"{what}: the clusters differ from the reference's partition")
-        del rec
+        del rec, x, e_port, m_port, want
         torch.cuda.empty_cache()
         _, ms, _, _, _ = counted_call(lambda: mcl(g, **args, **kwargs))
         per_lane[f"mcl/{name}/{lane}"] = launches
@@ -3948,10 +4428,10 @@ DEVICE = "cuda"  # the device of the mini-batch and stream phases
 # train_gnn_minibatch's order at 1,024 vertices, fanout 10 (GraphSAGE's
 # per-layer fanout), each with its per-batch seed; the ensemble: 4 DropEdge
 # reweightings keeping an edge with probability 0.9; training: sage on
-# fused_hash, 2 epochs, at batches of 16,384 (a cut forced by the time
+# fused_hash, 2 epochs, at batches of 32,768 (a cut forced by the time
 # limit: each step draws every frontier row on the host).
 MB = {"batch": 1024, "fanout": 10, "sample_batches": 4, "members": 4,
-      "keep": 0.9, "train_batch": 16_384, "epochs": 2}
+      "keep": 0.9, "train_batch": 32_768, "epochs": 2}
 MB_LANES = (("default", {}), ("fused_hash", {"engine": "fused_hash"}))
 MB_KERNELS = {"default": {"gather_rows"},
               "fused_hash": {"gather_rows", "hash_accumulate"}}
@@ -4367,8 +4847,9 @@ def train_check(a, x_np, labels_np, log):
         "dataset": GNN["dataset"], "arch": "sage", "engine": "fused_hash",
         "batch_size": MB["train_batch"], "batches_an_epoch": n_batches,
         "epochs": MB["epochs"], "fanout": MB["fanout"],
-        "reduced": {"batch_size": f"{MB['train_batch']}: the largest that "
-                    "kept the phase inside the script's time limit"},
+        "reduced": {"batch_size": f"{MB['train_batch']}: a cut for the "
+                    "script's time limit (the host's draws cost about the "
+                    "same a step, so fewer steps an epoch)"},
         "loss": hist, "ms": ms, "ms_a_step": split,
         "plan_cache": stats, "epoch2_plan_hits": end["plan_hits"] - hits0,
         "launches": launches, "launches_a_step": per_step,
@@ -5103,7 +5584,6 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.apps.graphs import table_ii_matrix
     from repro_torch.kernels import _build
 
     log: list = []
@@ -5120,6 +5600,18 @@ def main(argv=None) -> int:
              .read_text().splitlines() if "ptxas info" in ln]
     emit({"build": {"seconds": build_s, "library": str(lib_path),
                     "ptxas": ptxas}}, log)
+    dryruns = dryrun_start()  # CPU only, beside the card's phases
+    try:
+        return run_phases(args, log, smi, dryruns, t_script)
+    finally:
+        stop(dryruns)
+
+
+def run_phases(args, log, smi, dryruns, t_script) -> int:
+    """Every phase in order, then the kernels' line and the last line."""
+    import torch
+
+    from repro_torch.apps.graphs import table_ii_matrix
 
     # the sparse-activation path first, so its profiles do not follow the
     # SpGEMM calls' traces of many thousand launches
@@ -5133,6 +5625,8 @@ def main(argv=None) -> int:
     families = families_phase(log)
     torch.cuda.empty_cache()
     train = train_phase(log)
+    torch.cuda.empty_cache()
+    dist_run = dist_phase(log, dryruns)
     torch.cuda.empty_cache()
     mats = {name: table_ii_matrix(name, seed=0, n_override=n, device="cuda")
             for name, n in MATRICES.items()}
@@ -5262,7 +5756,14 @@ def main(argv=None) -> int:
             "forward": train["steps"]["launches_per_step"]
             ["flash_attention_fused"],
             "backward": train["steps"]["launches_per_step"]
-            ["flash_attention_bwd"]}})
+            ["flash_attention_bwd"]},
+        # the same step placed on a (1, 1) mesh, K7 through local_map; and
+        # DeepSeek-V2-Lite's forward with the expert-parallel MoE
+        "launches_per_sharded_train_step": {
+            "forward": dist_run["step"]["launches"]["flash_attention_fused"],
+            "backward": dist_run["step"]["launches"]["flash_attention_bwd"]},
+        "launches_per_deepseek_shard_map_forward":
+            dist_run["deepseek"]["launches"]["flash_attention_fused"]})
     timed = train["timed"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
@@ -5274,6 +5775,8 @@ def main(argv=None) -> int:
                     "attention with XLA (src/repro/models/attention.py:32)",
         "shape": timed["shape"],
         "launches": train["steps"]["launches"]["flash_attention_bwd"],
+        "launches_per_sharded_train_step":
+            dist_run["step"]["launches"]["flash_attention_bwd"],
         "routes": {k: n for k, n in train["steps"]["routes"].items()
                    if k.startswith("flash_attention_bwd/")},
         "cases": train["cases"]["cases"],

@@ -15,9 +15,11 @@ bfloat16 leaf, which numpy has no dtype for, is stored as its uint16 bits
 with ``"bfloat16"`` in the manifest.  A round trip is bit for bit.
 
 * **Device-independent**: leaves are written as whole host arrays, so a
-  checkpoint saved from one device restores onto any other
-  (``restore_checkpoint(device=)``, in place of the reference's
-  ``shardings=``).
+  checkpoint saved from one device, or from DTensors on a mesh (gathered,
+  written by rank 0), restores onto any other device
+  (``restore_checkpoint(device=)``) or any other placement
+  (``restore_checkpoint(shardings=)``: a mesh of another size, other
+  specs).
 * **Integrity**: crc32 a leaf file, and an atomic rename of the step
   directory, so a partial save is never taken for a complete one.
 * **Async**: ``AsyncCheckpointer`` copies the tree to host memory at once
@@ -35,6 +37,8 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 MANIFEST = "manifest.json"
 
@@ -90,9 +94,12 @@ class _Host:
 
 def _to_host(leaf) -> _Host:
     """A copy of a leaf in host memory: a bfloat16 tensor as its uint16
-    bits."""
+    bits, a DTensor as its full value (a collective: every rank of its
+    mesh calls this)."""
     if isinstance(leaf, _Host):
         return leaf
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -105,17 +112,34 @@ def _to_host(leaf) -> _Host:
 
 
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Synchronous atomic save; returns the final path."""
+    """Synchronous atomic save; returns the final path.  A tree that holds
+    DTensors is saved collectively: every rank calls this, each DTensor is
+    gathered, rank 0 writes, and the ranks meet at a barrier after the
+    write."""
+    leaves = tree_leaves(tree)
+    sharded = any(isinstance(x, DTensor) for x in leaves)
+    # one leaf in host memory at a time, unless every rank must gather
+    hosts = [_to_host(x) for x in leaves] if sharded else map(_to_host,
+                                                              leaves)
+    final = os.path.join(directory, f"step_{step}")
+    if sharded and dist.get_rank() != 0:
+        dist.barrier()
+        return final
+    _write(directory, step, tree, hosts)
+    if sharded:
+        dist.barrier()
+    return final
+
+
+def _write(directory: str, step: int, tree: Any, hosts) -> None:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".tmp_step_{step}")
     final = os.path.join(directory, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    leaves = tree_leaves(tree)
     meta = []
-    for i, leaf in enumerate(leaves):
-        host = _to_host(leaf)
+    for i, host in enumerate(hosts):
         arr, dtype = host.arr, host.dtype
         fname = f"leaf_{i}.npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -124,14 +148,13 @@ def save_checkpoint(directory: str, step: int, tree: Any) -> str:
         meta.append({"file": fname, "shape": list(arr.shape),
                      "dtype": dtype, "crc32": crc})
     manifest = {"step": step, "treedef": _structure(tree),
-                "n_leaves": len(leaves), "leaves": meta,
+                "n_leaves": len(meta), "leaves": meta,
                 "format_version": 1}
     with open(os.path.join(tmp, MANIFEST), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic publish
-    return final
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -150,12 +173,32 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _paired(target, shardings) -> List[Any]:
+    """The leaves of ``shardings`` at the places of ``target``'s leaves
+    (None where ``shardings`` is None above them)."""
+    if target is None:
+        return []
+    if isinstance(target, dict):
+        return [x for key in sorted(target) for x in _paired(
+            target[key], None if shardings is None else shardings[key])]
+    if isinstance(target, (list, tuple)):
+        return [x for i, item in enumerate(target) for x in _paired(
+            item, None if shardings is None else shardings[i])]
+    return [shardings]
+
+
 def restore_checkpoint(directory: str, step: int, target: Any,
-                       device=None) -> Any:
+                       device=None, shardings=None) -> Any:
     """Restore ``step_<step>`` into the structure of ``target``.  Each leaf
     becomes a tensor on ``device``, or, when ``device`` is None, on the
     device of ``target``'s leaf (the CPU for a leaf that is not a tensor).
-    A leaf whose crc32 or shape disagrees raises."""
+    ``shardings``, a tree like ``target`` whose leaves are None or a
+    ``launch.sharding.NamedSharding`` (or a ``(mesh, P)`` pair), places
+    those leaves as DTensors on their mesh instead (every rank of the mesh
+    calls this; each keeps its shard).  A leaf whose crc32 or shape
+    disagrees raises."""
+    from repro_torch.launch.sharding import NamedSharding, distribute
+
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
@@ -163,8 +206,10 @@ def restore_checkpoint(directory: str, step: int, target: Any,
     if manifest["n_leaves"] != len(flat_t):
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"target {len(flat_t)}")
+    flat_s = _paired(target, shardings)
     out = []
-    for i, (meta, tgt) in enumerate(zip(manifest["leaves"], flat_t)):
+    for i, (meta, tgt, sh) in enumerate(zip(manifest["leaves"], flat_t,
+                                             flat_s)):
         fpath = os.path.join(path, meta["file"])
         with open(fpath, "rb") as f:
             crc = zlib.crc32(f.read())
@@ -174,6 +219,11 @@ def restore_checkpoint(directory: str, step: int, target: Any,
         if list(arr.shape) != list(np.shape(tgt)):
             raise ValueError(f"leaf {i}: checkpoint {arr.shape} vs target "
                              f"{tuple(np.shape(tgt))}")
+        if sh is not None:
+            sh = sh if isinstance(sh, NamedSharding) else NamedSharding(*sh)
+            out.append(distribute(_from_host(arr, meta["dtype"]).to(
+                sh.mesh.device_type), sh))
+            continue
         dev = device if device is not None else (
             tgt.device if isinstance(tgt, torch.Tensor) else "cpu")
         out.append(_from_host(arr, meta["dtype"]).to(dev))

@@ -84,7 +84,8 @@ from repro_torch.core import faults, phases
 from repro_torch.core.grouping import GroupPlan, group_rows, support_footprint
 from repro_torch.kernels.aia_gather import gather_planes
 from repro_torch.launch.sharding import (
-    merge_device, place_operand_block, replicate_to, shard_devices)
+    SHARDING_STATS, merge_device, place_operand_block, replicate_to,
+    shard_devices)
 from repro_torch.sparse.formats import (
     CSR, ELL, csr_to_ell, ell_values_folded)
 
@@ -268,6 +269,30 @@ def _gather_b_aia(b_idx, b_val, cols_a):
 
 
 GATHERS: Dict[str, Callable] = {"xla": _gather_b_xla, "aia": _gather_b_aia}
+
+
+def _gather_b_xla_batched(b_idx, b_val_b, cols_a):
+    """One structural gather, the value sets ``b_val_b`` (B, n_b, kb)
+    gathered alike: (bi (R, a_cap, kb), bv (B, R, a_cap, kb))."""
+    safe = cols_a.clamp(0, b_idx.shape[0] - 1).long()
+    return b_idx[safe], b_val_b[:, safe]
+
+
+def _gather_b_aia_batched(b_idx, b_val_b, cols_a):
+    """The batched AIA gather: the batch folds into the row payload
+    (``(n_b, B * kb)``), so one row-gather launch serves every member."""
+    batch, nb, kb = b_val_b.shape
+    folded = b_val_b.permute(1, 0, 2).reshape(nb, batch * kb)
+    bi, bv = _gather_b_aia(b_idx, folded.contiguous(), cols_a)
+    r, a_cap = cols_a.shape
+    return bi, bv.reshape(r, a_cap, batch, kb).permute(2, 0, 1, 3)
+
+
+# the reference's batched gathers by name, value sets on a leading axis (the
+# port's batched lane calls ``GATHERS`` on the folded plane itself)
+BATCHED_GATHERS: Dict[str, Callable] = {
+    "xla": _gather_b_xla_batched, "aia": _gather_b_aia_batched,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -500,10 +525,12 @@ def cache_stats() -> Dict[str, int]:
     ``prefetch_overlap_hits`` (the streamed lane; the last is the
     reference's count of tiles staged while an earlier tile was
     dispatched, 0 at ``prefetch=1``) and ``capacity_retries``/
-    ``budget_degradations`` (recovery events).  Every cache instance folds
-    into these."""
+    ``budget_degradations`` (recovery events), and
+    ``sharding_fallbacks`` (``launch.sharding.constrain`` calls on a plain
+    tensor outside a mesh).  Every cache instance folds into these."""
     return {**_PLAN_STATS, **_SYNC_STATS, **_OPERAND_STATS,
-            **_AUTOTUNE_STATS, **_STREAM_STATS, **_RESILIENCE_STATS}
+            **_AUTOTUNE_STATS, **_STREAM_STATS, **_RESILIENCE_STATS,
+            **SHARDING_STATS}
 
 
 def clear_program_cache() -> None:
@@ -514,7 +541,7 @@ def clear_program_cache() -> None:
     _OPERAND_CACHE.clear()
     _AUTOTUNE_CACHE.clear()
     for stats in (_PLAN_STATS, _SYNC_STATS, _OPERAND_STATS, _AUTOTUNE_STATS,
-                  _STREAM_STATS, _RESILIENCE_STATS):
+                  _STREAM_STATS, _RESILIENCE_STATS, SHARDING_STATS):
         for k in stats:
             stats[k] = 0
 

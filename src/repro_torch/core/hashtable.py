@@ -14,6 +14,8 @@ has little uint32 arithmetic, so the hash is taken in int64 and masked to
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 MULTIPLIER = 2654435761
@@ -23,6 +25,53 @@ INT_MAX = 2**31 - 1
 # is read at once and the first hit-or-empty slot in it is taken, which is
 # the slot a one-at-a-time probe would stop at.
 PROBE_WINDOW = 32
+
+
+class HashTable(NamedTuple):
+    """One row's table: keys (cap,) int32 (``EMPTY`` where unused), vals
+    (cap,) and count, a 0-d int32 (Algorithms 2/3's uniqueCount)."""
+    keys: torch.Tensor
+    vals: torch.Tensor
+    count: torch.Tensor
+
+
+def make_table(capacity: int, dtype=torch.float32,
+               device="cuda") -> HashTable:
+    """An empty table of ``capacity`` slots on ``device``."""
+    return HashTable(
+        torch.full((capacity,), EMPTY, dtype=torch.int32, device=device),
+        torch.zeros((capacity,), dtype=dtype, device=device),
+        torch.zeros((), dtype=torch.int32, device=device))
+
+
+def insert(table: HashTable, key, val, accumulate: bool = True
+           ) -> HashTable:
+    """One Algorithm-4 insert (linear probing) into ``table``, returning
+    the new table (``table`` is left as it was).  ``key`` < 0 is a padding
+    no-op.  ``accumulate`` adds ``val`` to the key's slot; without it only
+    the key is placed.  A key that finds no hit or empty slot within
+    ``capacity`` probes is dropped, as in the reference.  The probe
+    sequence is read at once and the first hit-or-empty slot taken, so
+    nothing is read back to the host."""
+    cap = table.keys.shape[0]
+    dev = table.keys.device
+    key = torch.as_tensor(key, dtype=torch.int32, device=dev)
+    val = torch.as_tensor(val, dtype=table.vals.dtype, device=dev)
+    probe = (hash_slot(key.clamp(min=0), cap)
+             + torch.arange(cap, device=dev)) % cap
+    slots = table.keys[probe]
+    stop = (slots == key) | (slots == EMPTY)
+    first = stop.to(torch.int8).argmax()
+    found = (key >= 0) & stop[first]
+    at = probe[first]
+    claim = found & (slots[first] == EMPTY)
+    keys = table.keys.clone()
+    keys[at] = torch.where(claim, key, keys[at])
+    vals = table.vals
+    if accumulate:
+        vals = vals.clone()
+        vals[at] = torch.where(found, vals[at] + val, vals[at])
+    return HashTable(keys, vals, table.count + claim.to(torch.int32))
 
 
 def hash_slot(keys: torch.Tensor, capacity: int) -> torch.Tensor:

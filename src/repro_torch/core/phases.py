@@ -263,3 +263,28 @@ def merge_segments_host(idx_buf, dat_buf, seg_idx, seg_dat, dest):
     idx_buf[dest[keep]] = seg_idx[keep]
     dat_buf[dest[keep]] = seg_dat[keep]
     return idx_buf, dat_buf
+
+
+# The reference's batched names: the functions above take a leading batch
+# axis of value sets on one structure themselves (one structural gather,
+# one key tensor, one scatter position for every member).
+
+def gather_group_rows_batched(indptr, indices, data_b, rows, a_cap: int):
+    """``gather_group_rows`` with ``data_b`` (B, cap): (cols (R, a_cap),
+    vals (B, R, a_cap))."""
+    return gather_group_rows(indptr, indices, data_b, rows, a_cap)
+
+
+def combine_products_batched(cols_a, vals_a_b, bi, bv_b):
+    """``combine_products`` with ``vals_a_b`` (B, R, a_cap) and ``bv_b``
+    (B, R, a_cap, kb): keys (R, a_cap*kb), vals (B, R, a_cap*kb)."""
+    return combine_products(cols_a, vals_a_b, bi, bv_b)
+
+
+def reassemble_device_batched(idx_buf, dat_buf_b, cols, vals_b, counts,
+                              starts):
+    """``reassemble_device`` with ``dat_buf_b`` (B, cap + 1) and ``vals_b``
+    (B, R_pad, out_cap): the port's buffers keep their trailing sink slot,
+    where the reference drops an out-of-range write."""
+    return reassemble_device(idx_buf, dat_buf_b, cols, vals_b, counts,
+                             starts)

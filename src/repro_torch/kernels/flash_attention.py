@@ -337,14 +337,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
-        if q.device.type == "cuda":
-            out, lse = _launch(q, k, v, causal, window, q_offset, kv_len,
-                               with_lse=True)
-        elif q.device.type == "cpu":
+        if ops.on_plain_device(q, k, v):
             out, lse = flash_attention_masked_plain(
                 q, k, v, causal, window, q_offset, kv_len, with_lse=True)
         else:
-            raise ValueError(f"no kernel for tensors on {q.device}")
+            out, lse = _launch(q, k, v, causal, window, q_offset, kv_len,
+                               with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset, kv_len)
         return out
@@ -352,8 +350,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = (_launch_bwd if q.device.type == "cuda"
-               else flash_attention_masked_bwd_plain)
+        bwd = (flash_attention_masked_bwd_plain if ops.on_plain_device(q)
+               else _launch_bwd)
         dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), *ctx.mask)
         return dq, dk, dv, None, None, None, None
 

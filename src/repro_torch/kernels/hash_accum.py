@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import hashtable
+from repro_torch.core.hashtable import EMPTY, MULTIPLIER  # noqa: F401
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import library, source_constants
 

@@ -1,8 +1,9 @@
 """Device dispatch, launch counters and the public kernel entry points.
 
 A kernel wrapper runs its plain PyTorch version for a tensor on the CPU and
-launches its CUDA kernel for a tensor on a CUDA device; any other device
-raises.  There is no fallback from the card to the plain version.  Each
+launches its CUDA kernel for a tensor on a CUDA device; a DTensor and any
+other device raise (a meta tensor takes the plain version only inside
+``shape_trace``, the dry run's trace of shapes, where nothing runs).  There is no fallback from the card to the plain version.  Each
 launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
 that its path went through the kernels.  The row gather (by its copy
 unit), the ranged gather (by the range's alignment), the BSR and block
@@ -33,9 +34,11 @@ No environment variable and no ``try`` moves a CUDA call off its kernel.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 LAUNCHES: Dict[str, int] = {
     "gather_rows": 0, "hash_accumulate": 0, "aia_ranged_gather": 0,
@@ -63,13 +66,48 @@ def route_counts() -> Dict[str, int]:
     return dict(ROUTE_LAUNCHES)
 
 
+_SHAPE_TRACE = [0]
+
+
+@contextlib.contextmanager
+def shape_trace():
+    """Inside the block a meta tensor takes a wrapper's plain version: a
+    trace of shapes and operation counts (``launch.dryrun``), where
+    nothing runs.  Outside it a meta tensor raises, as any device without
+    a kernel does."""
+    _SHAPE_TRACE[0] += 1
+    try:
+        yield
+    finally:
+        _SHAPE_TRACE[0] -= 1
+
+
+def on_plain_device(*tensors: torch.Tensor) -> bool:
+    """True when a wrapper runs its plain version: tensors on the CPU (or
+    on meta inside ``shape_trace``); False on CUDA; any other device
+    raises.  A DTensor raises: a kernel takes each rank's local tensors,
+    through ``local_map`` (``models.attention``), and a wrapper never
+    gathers or unwraps one itself."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError("a DTensor reached a kernel wrapper; call the "
+                            "kernel on each rank's local tensors "
+                            "(torch.distributed.tensor.experimental."
+                            "local_map)")
+    dev = tensors[0].device
+    if dev.type == "cpu" or (dev.type == "meta" and _SHAPE_TRACE[0]):
+        return True
+    if dev.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for tensors on {dev}")
+
+
 def dispatch(plain: Callable, kernel: Callable, x: torch.Tensor, *args):
-    """``plain(x, *args)`` on the CPU, ``kernel(x, *args)`` on CUDA."""
-    if x.device.type == "cpu":
+    """``plain(x, *args)`` on the CPU, ``kernel(x, *args)`` on CUDA; a
+    DTensor among the tensors raises (``on_plain_device``)."""
+    if on_plain_device(x, *(a for a in args if isinstance(a, torch.Tensor))):
         return plain(x, *args)
-    if x.device.type == "cuda":
-        return kernel(x, *args)
-    raise ValueError(f"no kernel for tensors on {x.device}")
+    return kernel(x, *args)
 
 
 def launch_on(device: torch.device, fn: Callable, *args) -> int:

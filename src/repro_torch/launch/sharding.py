@@ -1,19 +1,227 @@
-"""Shard placement for the sharded SpGEMM executor and the streamed lane.
+"""Sharding: the LM substrate's named-dim rules, and shard placement for
+the sharded SpGEMM executor and the streamed lane.
 
-Counterpart of the executor half of ``repro.launch.sharding``.  In the port
-a *mesh* is a sequence of ``torch.device``s: shard ``s`` runs on
-``mesh[s]``, and a device may repeat (several logical shards on one card,
-or on the CPU).  ``launch.mesh.make_spgemm_mesh`` gives the first ``n``
-visible CUDA devices; a caller who wants logical shards passes a list such
-as ``[torch.device("cuda:0")] * 4``.  The first shard's device is the merge
+Counterpart of ``repro.launch.sharding``.  Its first half is the LM's:
+``Shardings`` turns logical placements ("activation batch", "heads", "ffn
+hidden", ...) into specs ``P`` on a single-pod ``("data", "model")`` or a
+multi-pod ``("pod", "data", "model")`` mesh, and ``constrain`` applies
+one: a DTensor is redistributed to the spec's placements
+(``torch.distributed.tensor``; the reference's GSPMD constraint), a plain
+tensor outside a mesh passes unchanged and counts in
+``SHARDING_STATS["sharding_fallbacks"]``, so the same model code runs on
+one device and on a mesh.
+
+Its second half is the executor's.  There a *mesh* is a sequence of
+``torch.device``s: shard ``s`` runs on ``mesh[s]``, and a device may
+repeat (several logical shards on one card, or on the CPU).
+``launch.mesh.make_spgemm_mesh`` gives the first ``n`` visible CUDA
+devices; a caller who wants logical shards passes a list such as
+``[torch.device("cuda:0")] * 4``.  The first shard's device is the merge
 device: the operands live there and the result is assembled there.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.launch.mesh import current_mesh
+
+
+class P(tuple):
+    """A partition spec (the counterpart of ``jax.sharding.PartitionSpec``):
+    one entry a tensor dim, each a mesh-dim name, a tuple of names (the dim
+    split over them, major first) or None (not split); dims past the
+    spec's length are not split.  A tuple of one name reads as that name,
+    as jax's does.  It is a tuple, equal to the tuple of its entries."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, tuple(
+            p[0] if isinstance(p, tuple) and len(p) == 1 else p
+            for p in parts))
+
+    def __repr__(self):
+        return "P(" + ", ".join(map(repr, self)) + ")"
+
+
+def placements(spec, mesh, ndim: Optional[int] = None) -> tuple:
+    """The DTensor placements of ``spec`` on ``mesh``: ``Shard(i)`` on the
+    mesh dims that tensor dim i is split over, ``Replicate()`` on the
+    others.  A name that is not a dim of the mesh raises."""
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        if ndim is not None and i >= ndim and entry is not None:
+            raise ValueError(f"spec {spec} splits dim {i} of a {ndim}-d "
+                             f"tensor")
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is None:
+                continue
+            if name not in names:
+                raise ValueError(f"spec {spec} names {name!r}, not a dim of "
+                                 f"the mesh {names}")
+            out[names.index(name)] = Shard(i)
+    return tuple(out)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a tree of dicts, lists and NamedTuples
+    (a ``P``, a plain tuple, a tensor or a record is a leaf; None stays
+    None), with the trees ``rest`` walked alongside: ``fn(leaf, *their
+    subtrees at that place)``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    return fn(tree, *rest)
+
+
+def unsplit(x: torch.Tensor, dim: int, n: Optional[int] = None):
+    """``x`` with its tensor dim ``dim`` no longer split: a DTensor is
+    gathered over the mesh dims that split ``dim`` (with ``n``, only those
+    whose size does not divide ``n``, what a view splitting ``dim`` into
+    ``n`` parts needs); a plain tensor is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim
+               and (n is None or n % mesh.size(i)) else p
+               for i, p in enumerate(x.placements))
+    return x if pl == tuple(x.placements) else x.redistribute(mesh, pl)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec: where ``distribute`` puts a tensor."""
+    mesh: object
+    spec: P
+
+
+def distribute(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
+    """``x`` (the same full value on every rank) as a DTensor placed by
+    ``sharding``; each rank keeps its shard.  Where every mesh dim that
+    splits ``x`` has size 1, each rank's shard is ``x`` itself, and the
+    DTensor shares its memory (no copy)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = sharding.mesh
+    pl = placements(sharding.spec, mesh, x.dim())
+    if all(not isinstance(p, Shard) or mesh.size(i) == 1
+           for i, p in enumerate(pl)):
+        return DTensor.from_local(x, mesh, pl, run_check=False)
+    return distribute_tensor(x, mesh, pl)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shardings:
+    """Logical -> physical dim rules.
+
+    batch_axes: the mesh dims that carry data parallelism (("pod", "data"),
+    ("data",), or () for the unsharded model).  model_axis: the tensor /
+    expert / sequence-parallel dim (None: none).  sequence_parallel: split
+    the activations' sequence dim over ``model`` between blocks.  mesh: the
+    ``DeviceMesh`` (needed by the explicit-collective layers: the
+    expert-parallel MoE).
+    """
+
+    batch_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = None
+    sequence_parallel: bool = False
+    mesh: object = None
+
+    @property
+    def batch(self):
+        return tuple(self.batch_axes) if self.batch_axes else None
+
+    def spec(self, *names) -> P:
+        """names use tokens: 'b' = batch, 'm' = model, '-' = not split."""
+        return P(*(self.batch if n == "b" else self.model_axis if n == "m"
+                   else None for n in names))
+
+    def act_btd(self, x):  # (batch, seq, d_model)
+        if self.sequence_parallel and self.model_axis:
+            return constrain(x, self.spec("b", "m", "-"))
+        return constrain(x, self.spec("b", "-", "-"))
+
+    def act_bthd(self, x):  # (batch, seq, heads, head_dim): heads on model
+        return constrain(x, self.spec("b", "-", "m", "-"))
+
+    def act_btf(self, x):  # (batch, seq, d_ff): hidden on model
+        return constrain(x, self.spec("b", "-", "m"))
+
+    def act_btv(self, x):  # logits (batch, seq, vocab): vocab on model
+        return constrain(x, self.spec("b", "-", "m"))
+
+    def act_ecd(self, x):  # MoE dispatch (experts, cap, d): experts on
+        # model, capacity rows on the batch dims
+        return constrain(x, self.spec("m", "b", "-"))
+
+
+# ``constrain``'s no-ops on a plain tensor outside a mesh, counted so that a
+# silent degradation stays observable
+SHARDING_STATS = {"sharding_fallbacks": 0}
+
+
+def constrain(x, spec):
+    """``x`` redistributed to ``spec``'s placements on its mesh (the
+    ambient mesh of ``launch.mesh.use_mesh``, when one is set, must be that
+    mesh).  A plain tensor outside a mesh is returned unchanged and counted
+    in ``SHARDING_STATS["sharding_fallbacks"]``; a plain tensor under a mesh
+    raises, since its placement is unknown."""
+    mesh = current_mesh()
+    if isinstance(x, DTensor):
+        if mesh is not None and mesh != x.device_mesh:
+            raise ValueError("constrain: the tensor lies on another mesh "
+                             "than the ambient one")
+        target = placements(spec, x.device_mesh, x.dim())
+        if tuple(x.placements) == target:
+            return x
+        return x.redistribute(x.device_mesh, target)
+    if mesh is None:
+        SHARDING_STATS["sharding_fallbacks"] += 1
+        return x
+    raise TypeError("constrain: a plain tensor under a mesh; place it with "
+                    "launch.sharding.distribute first")
+
+
+UNSHARDED = Shardings()
+
+
+def replicating(sh: Shardings):
+    """The context in which a model step under ``sh`` runs: under a mesh,
+    DTensor's implicit replication, so a plain tensor made inside the step
+    (positions, masks, zeros) meets the DTensors as a replicated one; a
+    no-op context otherwise."""
+    if sh.mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def make_shardings(mesh, sequence_parallel: bool = False) -> Shardings:
+    """The rules of ``mesh``: its ``pod`` and ``data`` dims carry the
+    batch, its ``model`` dim the tensor parallelism."""
+    names = tuple(mesh.mesh_dim_names)
+    return Shardings(batch_axes=tuple(n for n in ("pod", "data")
+                                      if n in names),
+                     model_axis="model" if "model" in names else None,
+                     sequence_parallel=sequence_parallel, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# SpGEMM executor shard placement
+# ---------------------------------------------------------------------------
 
 MESH_HELP = ("a mesh is a non-empty sequence of torch.device (or device "
              "strings) of one device type, e.g. [torch.device('cuda:0')] * 4 "

@@ -4,11 +4,11 @@ their full-sequence path (``attention``), the dense, TopK and MoE FFNs
 (``ffn``), the Mamba2 and RWKV6 blocks (``mamba2``, ``rwkv6``) and the
 shared substrate (``common``)."""
 from repro_torch.models.transformer import (
-    decode_step, forward_hidden, init_decode_cache, init_transformer,
-    params_from_numpy, train_loss,
+    Transformer, decode_step, forward_hidden, init_decode_cache,
+    init_transformer, param_specs, params_from_numpy, train_loss,
 )
 
 __all__ = [
-    "decode_step", "forward_hidden", "init_decode_cache", "init_transformer",
-    "params_from_numpy", "train_loss",
+    "Transformer", "decode_step", "forward_hidden", "init_decode_cache",
+    "init_transformer", "param_specs", "params_from_numpy", "train_loss",
 ]

@@ -9,7 +9,10 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch.sharding import unsplit
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -17,6 +20,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``, the residual stream's add.  For DTensors ``y`` (a
+    row-parallel product's partial sums) is first placed as ``x``, so the
+    stream keeps its placement between the reference's constraints
+    (DTensor would otherwise pick a cheaper reduce-scatter and split the
+    stream's sequence dim)."""
+    if isinstance(x, DTensor) and isinstance(y, DTensor) \
+            and tuple(y.placements) != tuple(x.placements):
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -41,6 +56,17 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     return (w * s).to(dtype)
 
 
+def replicated_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``t`` as a DTensor replicated on ``x``'s mesh when ``x`` is a
+    DTensor and ``t`` is not (a constant that meets ``x`` in an op whose
+    backward reads it); ``t`` otherwise."""
+    if isinstance(x, DTensor) and not isinstance(t, DTensor):
+        return DTensor.from_local(t, x.device_mesh,
+                                  [Replicate()] * x.device_mesh.ndim,
+                                  run_check=False)
+    return t
+
+
 def rope_frequencies(head_dim: int, theta: float = 10000.0,
                      device="cuda") -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -56,8 +82,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, device=x.device)  # (hd/2,)
     angles = positions[..., :, None].float() * freqs  # (..., seq, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
+    cos = replicated_like(torch.cos(angles)[..., :, None, :], x)
+    sin = replicated_like(torch.sin(angles)[..., :, None, :], x)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -74,7 +100,8 @@ def cross_entropy_chunked(logits_fn: Callable, h: torch.Tensor,
     float32 logits are freed after its forward and made again in its
     backward, one chunk at a time (autograd would otherwise keep every
     chunk's logits for ``logsumexp``'s backward).  The chunks' sums are
-    added in order, as the reference's scan does.
+    added in order, as the reference's scan does.  DTensor logits split
+    over the vocab are gathered a chunk at a time.
     """
     b, s, d = h.shape
     assert s % n_chunks == 0, (s, n_chunks)
@@ -82,6 +109,7 @@ def cross_entropy_chunked(logits_fn: Callable, h: torch.Tensor,
 
     def chunk_loss(hh, ll, w):
         logits = logits_fn(hh, w).float()  # (B, cs, V)
+        logits = unsplit(logits, 2)  # the gold logit needs a whole row
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             ll.clamp_min(0).long()[..., None])[..., 0]

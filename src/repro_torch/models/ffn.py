@@ -1,8 +1,6 @@
 """FFNs: dense SwiGLU, the paper's TopK-SpGEMM FFN (Eq. 1–3), and MoE.
 
-Counterpart of ``repro.models.ffn`` (``moe_ffn_shard_map``, a collective,
-waits for the multi-device pieces of ROADMAP Queue A item 12).
-``ffn_mode``:
+Counterpart of ``repro.models.ffn``.  ``ffn_mode``:
 
 * "dense"      — published architecture;
 * "topk"       — Eq. (1): h is TopK-masked (``sparse.topk.topk_rows_st``,
@@ -21,7 +19,9 @@ sort-based dispatch, its grouped expert products as batched matmuls over
 the stacked expert weights (the reference leaves them to XLA), and a
 combine that adds each token's k contributions in the dispatch stream's
 order (ascending expert id) without atomics, so a call gives the same bits
-every run on the card.
+every run on the card.  ``moe_ffn_shard_map`` is its expert-parallel form
+under a mesh: each ``model`` rank runs its own experts on its batch
+shard's tokens, and one all-reduce over ``model`` combines them.
 """
 from __future__ import annotations
 
@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.common import dense_init
 from repro_torch.sparse.topk import topk_rows, topk_rows_st
@@ -55,13 +57,19 @@ def _hidden(p: FFNParams, x):
     return F.silu(x @ p.w1) * (x @ p.w3)
 
 
-def swiglu(p: FFNParams, x):
-    return _hidden(p, x) @ p.w2
+def _act_btf(h, sh):
+    return h if sh is None else sh.act_btf(h)
 
 
-def topk_ffn(p: FFNParams, x, k: int):
+def swiglu(p: FFNParams, x, sh=None):
+    """SwiGLU; ``sh`` constrains the hidden activation to d_ff on
+    ``model``."""
+    return _act_btf(_hidden(p, x), sh) @ p.w2
+
+
+def topk_ffn(p: FFNParams, x, k: int, sh=None):
     """Eq. (1): y = TopK(act(xW1)⊙(xW3)) @ W2 with Eq. (3) backward."""
-    h = _hidden(p, x)
+    h = _act_btf(_hidden(p, x), sh)
     b, s, f = h.shape
     hs = topk_rows_st(h.reshape(b * s, f), k).reshape(b, s, f)
     return hs @ p.w2
@@ -82,10 +90,10 @@ def tile_block_select(h: torch.Tensor, kb: int, block: int, tile: int):
 
 
 def block_topk_ffn(p: FFNParams, x, k: int, block: int = 128,
-                   tile: int = 8):
+                   tile: int = 8, sh=None):
     """Tile-shared block TopK + W2 block gather: the second product's
     operations drop from S·F·D to S·k·D."""
-    h = _hidden(p, x)
+    h = _act_btf(_hidden(p, x), sh)
     b, s, f = h.shape
     assert s % tile == 0, (s, tile)
     h_kept, bidx = tile_block_select(h.reshape(b * s, f), max(k // block, 1),
@@ -166,7 +174,114 @@ def moe_route(p: MoEParams, xt: torch.Tensor, cfg):
     return logits, expert_idx, torch.softmax(gate_logits, dim=-1)
 
 
-def moe_ffn(p: MoEParams, x, cfg):
+def _combine(contrib, order, t: int, k: int, stream, model_group=None):
+    """Each token's k gate-weighted contributions (rows of ``contrib`` in
+    stream order) added in the stream's order.  With ``model_group`` the
+    (T, k, D) stack is summed over the group first: each (token, pick) is
+    one rank's and 0 on the others, so the sum is exact and the adds keep
+    the unsharded order."""
+    at = torch.empty_like(order)
+    at[order] = stream  # the stream position of each (token, slot) pair
+    parts = contrib[at.reshape(t, k).sort(dim=1).values]
+    if model_group is not None:
+        from torch.distributed.nn.functional import all_reduce
+        parts = all_reduce(parts, group=model_group)
+    out = parts[:, 0]
+    for j in range(1, k):
+        out = out + parts[:, j]
+    return out
+
+
+def _aux_loss(logits, counts, e: int):
+    """Switch-style load balance: E * sum(mean softmax * dispatch share)."""
+    me = torch.softmax(logits, dim=-1).mean(dim=0)
+    ce = counts.float() / torch.clamp_min(counts.sum(), 1)
+    return e * torch.sum(me * ce)
+
+
+def moe_ffn_shard_map(p: MoEParams, x, cfg, sh):
+    """Expert-parallel MoE with explicit collectives (the reference's
+    ``shard_map`` form): x (B, S, D) a DTensor split over the batch dims
+    and replicated over ``model``, the experts split over ``model``.
+
+    Each ``model`` rank routes its batch shard's tokens (capacity from the
+    shard's token count) to its own ``E / |model|`` experts only: no
+    dispatch traffic, since x is replicated over ``model``.  It runs them
+    with ``moe_ffn``'s batched products, and one all-reduce over ``model``
+    of the (T_local, k, D) contributions combines them in ``moe_ffn``'s
+    stream order (the reference reduces (T_local, D) partial sums, which
+    reorders the k adds; the port keeps them bit for bit ``moe_ffn``'s when
+    no token drops).  aux is each shard's estimate, averaged over the batch
+    dims.  Then the shared experts' SwiGLU, as in ``moe_ffn``.  Returns
+    (y, aux), DTensors.
+    """
+    from repro_torch.launch.mesh import mesh_sizes
+    from repro_torch.launch.sharding import P, placements
+
+    mesh = sh.mesh
+    sizes = mesh_sizes(mesh)
+    model_size = sizes.get("model", 1)
+    e, k = cfg.n_experts, cfg.top_k
+    if e % model_size:
+        raise ValueError(f"{e} experts do not split over model={model_size}")
+    e_loc = e // model_size
+    _, s, d = x.shape
+    xpl = placements(sh.spec("b", "-", "-"), mesh, 3)
+    espl = placements(P("model" if model_size > 1 else None, None, None),
+                      mesh, 3)
+    rpl = placements(P(None, None), mesh, 2)
+    scalar = tuple(Replicate() for _ in xpl)
+    model_group = mesh.get_group("model") if model_size > 1 else None
+    batch_groups = [mesh.get_group(a) for a in sh.batch_axes
+                    if sizes[a] > 1]
+
+    def local(router, w1, w3, w2, xl):
+        from torch.distributed.nn.functional import all_reduce
+
+        j = mesh.get_local_rank("model") if model_size > 1 else 0
+        bl = xl.shape[0]
+        t = bl * s
+        xt = xl.reshape(t, d)
+        cap = moe_capacity(t, cfg)
+        logits, expert_idx, gates = moe_route(
+            MoEParams(router, w1, w3, w2, None), xt, cfg)
+        flat_e = expert_idx.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        e_sorted = flat_e[order]
+        g_sorted = gates.reshape(-1)[order]
+        counts = torch.bincount(e_sorted, minlength=e)
+        starts = torch.cumsum(counts, 0) - counts
+        stream = torch.arange(t * k, device=xl.device)
+        pos_in_e = stream - starts[e_sorted]
+        e_local = e_sorted - j * e_loc
+        mine = (e_local >= 0) & (e_local < e_loc) & (pos_in_e < cap)
+        slot = torch.where(mine, e_local * cap + pos_in_e, e_loc * cap)
+        buf = xl.new_zeros((e_loc * cap + 1, d))
+        buf[slot] = xt[order // k]
+        buf = buf[:-1].reshape(e_loc, cap, d)
+        h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+        y = torch.bmm(h, w2).reshape(e_loc * cap, d)
+        y_slot = torch.cat([y, y.new_zeros((1, d))])[slot]
+        contrib = y_slot * g_sorted[:, None].to(y.dtype)
+        out = _combine(contrib, order, t, k, stream, model_group)
+        aux = _aux_loss(logits, counts, e)
+        for g in batch_groups:
+            aux = all_reduce(aux, group=g)
+        n_batch = 1
+        for a in sh.batch_axes:
+            n_batch *= sizes[a]
+        return out.reshape(bl, s, d), aux / n_batch
+
+    out, aux = local_map(
+        local, out_placements=(xpl, scalar),
+        in_placements=(rpl, espl, espl, espl, xpl), device_mesh=mesh,
+        redistribute_inputs=True)(p.router, p.w1, p.w3, p.w2, x)
+    if p.shared is not None:
+        out = out + swiglu(p.shared, x, sh=sh)
+    return out, aux
+
+
+def moe_ffn(p: MoEParams, x, cfg, sh=None):
     """Token-choice top-k with capacity; sort-based dispatch (static
     shapes).  x (B, S, D) -> (y (B, S, D), the Switch-style aux loss).
 
@@ -199,26 +314,20 @@ def moe_ffn(p: MoEParams, x, cfg):
     buf = x.new_zeros((e * cap + 1, d))
     buf[slot] = xt[t_sorted]
     buf = buf[:-1].reshape(e, cap, d)
+    if sh is not None:
+        buf = sh.act_ecd(buf)  # experts on the model dim
 
     # the grouped expert products over the stacked weights
     h = F.silu(torch.bmm(buf, p.w1)) * torch.bmm(buf, p.w3)
-    y = torch.bmm(h, p.w2).reshape(e * cap, d)
+    y = torch.bmm(h, p.w2)
+    if sh is not None:
+        y = sh.act_ecd(y)
+    y = y.reshape(e * cap, d)
 
     # combine: each kept pair's expert output, weighted by its gate
     y_slot = torch.cat([y, y.new_zeros((1, d))])[slot]
     contrib = y_slot * g_sorted[:, None].to(y.dtype)
-    at = torch.empty_like(order)
-    at[order] = stream  # the stream position of each (token, slot) pair
-    at = at.reshape(t, k).sort(dim=1).values
-    out = contrib[at[:, 0]]
-    for j in range(1, k):
-        out = out + contrib[at[:, j]]
-    out = out.reshape(b, s, d)
+    out = _combine(contrib, order, t, k, stream).reshape(b, s, d)
     if p.shared is not None:
-        out = out + swiglu(p.shared, x)
-
-    # load-balance auxiliary loss (Switch style)
-    me = torch.softmax(logits, dim=-1).mean(dim=0)
-    ce = counts.float() / torch.clamp_min(counts.sum(), 1)
-    aux = e * torch.sum(me * ce)
-    return out, aux
+        out = out + swiglu(p.shared, x, sh=sh)
+    return out, _aux_loss(logits, counts, e)

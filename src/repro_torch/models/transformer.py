@@ -18,25 +18,39 @@ expanded prefill, the shared block's window, the encoder's unmasked
 attention and the decoder's cross-attention.  The Mamba2 SSD and the RWKV6
 WKV are plain PyTorch, as the reference leaves them to XLA.
 
-``param_specs`` (sharding) and ``moe_ffn_shard_map`` wait for the
-multi-device pieces.
+Under a mesh the parameters are DTensors placed by ``param_specs``
+(Megatron-style tensor parallelism over ``model``, experts over ``model``)
+and ``sh`` (``launch.sharding.Shardings``) constrains the activations at
+the reference's points; ``UNSHARDED`` makes every constraint a counted
+no-op.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping
+import functools
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import (P, Shardings, UNSHARDED,
+                                         replicating, unsplit)
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import rwkv6 as rk
 from repro_torch.models.common import (cross_entropy_chunked, dense_init,
-                                       rms_norm)
+                                       residual, rms_norm)
 from repro_torch.sparse.formats import from_numpy
+
+
+class Transformer(NamedTuple):
+    """A config and its parameter tree."""
+    cfg: ArchConfig
+    params: Dict[str, Any]
 
 
 def block_kind(cfg: ArchConfig) -> str:
@@ -298,6 +312,81 @@ def tree_params(cfg: ArchConfig, flat: Mapping[str, torch.Tensor]) -> Dict:
     return _tree(cfg, flat.__getitem__)
 
 
+@functools.lru_cache(maxsize=None)
+def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                   torch.dtype]]:
+    """``{tree path: (shape, dtype)}`` of ``cfg``'s parameters, from
+    ``init_transformer`` traced under ``FakeTensorMode``: nothing is
+    allocated and no number is drawn."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_transformer(cfg, torch.Generator(device="cpu"), "cpu")
+        return {k: (tuple(t.shape), t.dtype)
+                for k, t in flat_params(fake).items()}
+
+
+_COL = {"wq", "wk", "wv", "w1", "w3", "ck", "w_uk", "w_uv", "in_proj",
+        "lm_head", "wr", "wk2", "wg", "router"}
+_ROW = {"wo", "w2", "cv", "out_proj", "cr"}
+
+
+def _spec_for(path: str, shape: Tuple[int, ...], model_size: int) -> P:
+    """Tensor-parallel rules by parameter name: column-parallel weights
+    split their output dim over ``model``, row-parallel ones (down and out
+    projections) their input dim; only dims that ``model_size`` divides."""
+    def ok(dim):
+        return dim % model_size == 0 if model_size > 1 else False
+
+    last = path.split("/")[-1]
+    if last == "embed":
+        return P("model" if ok(shape[0]) else None, None)
+    if last in _COL:
+        return P(*([None] * (len(shape) - 1)),
+                 "model" if ok(shape[-1]) else None)
+    if last in _ROW:
+        spec = [None] * len(shape)
+        if ok(shape[-2] if len(shape) >= 2 else shape[0]):
+            spec[-2] = "model"
+        return P(*spec)
+    return P(*([None] * len(shape)))
+
+
+def _moe_spec(path: str, shape, model_size):
+    """Experts (the dim after the layer axis) on ``model``: expert
+    parallelism; None when ``model_size`` does not divide them."""
+    if path.split("/")[-1] in ("w1", "w3", "w2") and len(shape) >= 3:
+        e_dim = len(shape) - 3
+        if shape[e_dim] % model_size == 0 and shape[e_dim] >= model_size:
+            spec = [None] * len(shape)
+            spec[e_dim] = "model"
+            return P(*spec)
+    return None
+
+
+def param_specs(cfg: ArchConfig, params, model_size: int = 16) -> Dict:
+    """The spec of every parameter, in the tree of ``params`` (any tree of
+    ``cfg``'s parameters whose leaves have ``.shape``: tensors, meta
+    tensors, ``launch.specs.ShapeDtypeStruct``s)."""
+    moe = is_moe(cfg)
+
+    def one(path):
+        shape = tuple(lookup[path].shape)
+        if moe and "layers" in path and "ffn" in path \
+                and "shared" not in path:
+            s = _moe_spec(path, shape, model_size)
+            if s is not None:
+                return s
+        base = _spec_for(path, shape, model_size)
+        # stacked layers: the layer axis is never split
+        if path.startswith(("layers", "encoder")) and len(base) < len(shape):
+            return P(*([None] * (len(shape) - len(base))), *base)
+        return base
+
+    lookup = flat_params(params)
+    return _tree(cfg, one)
+
+
 def layer_params(params: Dict, i: int) -> Dict:
     """Layer ``i``'s parameters (views into the stacked tensors)."""
     return _map(params["layers"], lambda a: a[i])
@@ -322,20 +411,39 @@ def unstack(tree) -> List[Dict]:
 # Blocks (train/prefill)
 # ---------------------------------------------------------------------------
 
-def _ffn_apply(cfg: ArchConfig, lp, x):
-    """The layer's FFN: (y, aux), aux the MoE's load-balance loss or 0."""
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` (V, D) at ``tokens``.  A DTensor table split
+    over its vocab is gathered first: DTensor's vocab-parallel lookup has
+    no backward between its two kinds of partial sums, and its indexing
+    backward (``index_put``) loses its placement on some torch versions,
+    so the lookup is ``F.embedding`` on a table whole on every rank."""
+    return F.embedding(tokens.long(), unsplit(table, 0))
+
+
+def _ffn_apply(cfg: ArchConfig, lp, x, sh: Shardings = UNSHARDED):
+    """The layer's FFN: (y, aux), aux the MoE's load-balance loss or 0.
+    Under a mesh a MoE layer takes ``moe_ffn_shard_map`` (with
+    ``moe.impl="shard_map"``); the port has no GSPMD to split ``moe_ffn``'s
+    data-dependent dispatch, so a DTensor reaching it raises."""
     if isinstance(lp["ffn"], ffn_mod.MoEParams):
-        return ffn_mod.moe_ffn(lp["ffn"], x, cfg.moe)
+        if cfg.moe.impl == "shard_map" and sh.mesh is not None:
+            return ffn_mod.moe_ffn_shard_map(lp["ffn"], x, cfg.moe, sh)
+        if isinstance(x, DTensor):
+            raise NotImplementedError(
+                f"{cfg.name}: a MoE layer under a mesh runs "
+                f"moe.impl='shard_map' (got {cfg.moe.impl!r})")
+        return ffn_mod.moe_ffn(lp["ffn"], x, cfg.moe, sh=sh)
     if cfg.ffn_mode == "topk" and cfg.topk_k:
-        return ffn_mod.topk_ffn(lp["ffn"], x, cfg.topk_k), 0.0
+        return ffn_mod.topk_ffn(lp["ffn"], x, cfg.topk_k, sh=sh), 0.0
     if cfg.ffn_mode == "block_topk" and cfg.topk_k:
         return ffn_mod.block_topk_ffn(lp["ffn"], x, cfg.topk_k,
-                                      block=cfg.topk_block), 0.0
-    return ffn_mod.swiglu(lp["ffn"], x), 0.0
+                                      block=cfg.topk_block, sh=sh), 0.0
+    return ffn_mod.swiglu(lp["ffn"], x, sh=sh), 0.0
 
 
-def _attn_block(cfg: ArchConfig, lp, x, *, causal: bool = True,
-                window: int = 0, enc=None, dense_ffn: bool = False):
+def _attn_block(cfg: ArchConfig, lp, x, sh: Shardings = UNSHARDED, *,
+                causal: bool = True, window: int = 0, enc=None,
+                dense_ffn: bool = False):
     """Attention + FFN: (x, aux).  ``window`` is the hybrid's sliding window
     (the reference passes ``sliding_window`` only to hybrids); with the
     encoder's output ``enc`` a layer that has ``cross`` attends to it after
@@ -344,56 +452,59 @@ def _attn_block(cfg: ArchConfig, lp, x, *, causal: bool = True,
     p_dtype = torch.bfloat16 if cfg.attn_p_dtype == "bfloat16" else None
     if cfg.attention == "mla":
         a = attn.mla_forward(lp["attn"], h, n_heads=cfg.n_heads, mla=cfg.mla,
-                             rope_theta=cfg.rope_theta,
+                             rope_theta=cfg.rope_theta, sh=sh,
                              attn_chunk=cfg.attn_chunk, p_dtype=p_dtype)
     else:
         a = attn.gqa_forward(
             lp["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
             hd=cfg.hd, rope_theta=cfg.rope_theta, causal=causal,
-            window=window, attn_chunk=cfg.attn_chunk, p_dtype=p_dtype)
-    x = x + a
+            window=window, sh=sh, attn_chunk=cfg.attn_chunk,
+            p_dtype=p_dtype)
+    x = residual(x, a)
     if enc is not None and "cross" in lp:
         h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
         kv = attn.gqa_cross_kv(lp["cross"], enc, cfg.n_kv_heads, cfg.hd)
-        x = x + attn.gqa_forward(
+        x = residual(x, attn.gqa_forward(
             lp["cross"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            hd=cfg.hd, rope_theta=cfg.rope_theta, cross_kv=kv,
-            attn_chunk=cfg.attn_chunk, p_dtype=p_dtype)
+            hd=cfg.hd, rope_theta=cfg.rope_theta, sh=sh, cross_kv=kv,
+            attn_chunk=cfg.attn_chunk, p_dtype=p_dtype))
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if dense_ffn:
-        return x + ffn_mod.swiglu(lp["ffn"], h), 0.0
-    y, aux = _ffn_apply(cfg, lp, h)
-    return x + y, aux
+        return residual(x, ffn_mod.swiglu(lp["ffn"], h, sh=sh)), 0.0
+    y, aux = _ffn_apply(cfg, lp, h, sh)
+    return residual(x, y), aux
 
 
 def _mamba_block(cfg: ArchConfig, lp, x):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    return x + m2.mamba2_forward(
+    return residual(x, m2.mamba2_forward(
         lp["mamba"], h, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
-        state=cfg.ssm_state, conv=cfg.ssm_conv)
+        state=cfg.ssm_state, conv=cfg.ssm_conv))
 
 
 def _rwkv_block(cfg: ArchConfig, lp, x):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     y, _, _ = rk.rwkv6_time_mix(lp["rwkv"], h, n_heads=cfg.n_heads,
                                 chunk=cfg.rwkv_chunk)
-    x = x + y
+    x = residual(x, y)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     y, _ = rk.rwkv6_channel_mix(lp["rwkv"], h)
-    return x + y
+    return residual(x, y)
 
 
-def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor):
+def encode(cfg: ArchConfig, params: Dict, frames: torch.Tensor,
+           sh: Shardings = UNSHARDED):
     """Whisper's encoder over stub frame embeddings (B, T_enc, D): each
     layer's attention unmasked (through K7), then ``enc_norm``."""
     x = frames.to(cfg.activation_dtype)
     for lp in unstack(params["encoder"]):
-        x, _ = _attn_block(cfg, lp, x, causal=False)
+        x, _ = _attn_block(cfg, lp, x, sh, causal=False)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def forward_hidden(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
-                   vision_embeds=None, frames=None):
+                   sh: Shardings = UNSHARDED, vision_embeds=None,
+                   frames=None):
     """tokens (B, S) -> (final hidden (B, S, D), aux loss).
 
     The vision stub writes ``vision_embeds`` (B, P, D) over the first P
@@ -401,47 +512,57 @@ def forward_hidden(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     call without frames skips cross-attention, as the reference's does).
     Then the prefix layers with their dense FFN, and the stack: for Mamba2
     its segments with the shared block after each full one.  aux sums the
-    MoE layers' load-balance losses in layer order (0 without MoE)."""
+    MoE layers' load-balance losses in layer order (0 without MoE).
+    ``sh`` constrains the activations between blocks (the reference's
+    scan body) and inside them; under a mesh the parameters and ``tokens``
+    are DTensors."""
     check_supported(cfg)
-    x = params["embed"][tokens.long()]
-    if cfg.frontend == "vision_stub" and vision_embeds is not None:
-        x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
-    enc = None
-    if cfg.encoder_layers and frames is not None:
-        enc = encode(cfg, params, frames)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params.get("prefix_layers", []):
-        x, aux = _attn_block(cfg, lp, x, enc=enc, dense_ffn=True)
-        aux_total = aux_total + aux
-    kind = block_kind(cfg)
-    layers = unstack(params["layers"])
-    if kind == "A":
-        window = cfg.sliding_window if cfg.family == "hybrid" else 0
-        for lp in layers:
-            x, aux = _attn_block(cfg, lp, x, window=window, enc=enc)
+    with replicating(sh):
+        x = embed_tokens(params["embed"], tokens)
+        if cfg.frontend == "vision_stub" and vision_embeds is not None:
+            x[:, :vision_embeds.shape[1]] = vision_embeds.to(x.dtype)
+        enc = None
+        if cfg.encoder_layers and frames is not None:
+            enc = encode(cfg, params, frames, sh)
+        x = sh.act_btd(x)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in params.get("prefix_layers", []):
+            x, aux = _attn_block(cfg, lp, x, sh, enc=enc, dense_ffn=True)
             aux_total = aux_total + aux
-    for seg in segments(cfg) if kind != "A" else ():
-        for i in range(seg.start, seg.start + seg.length):
-            block = _mamba_block if kind == "M" else _rwkv_block
-            x = block(cfg, layers[i], x)
-        if seg.shared_after:
-            x, aux = _attn_block(cfg, params["shared_attn"], x,
-                                 window=cfg.sliding_window)
-            aux_total = aux_total + aux
-    return rms_norm(x, params["out_norm"], cfg.norm_eps), aux_total
+        kind = block_kind(cfg)
+        layers = unstack(params["layers"])
+        if kind == "A":
+            window = cfg.sliding_window if cfg.family == "hybrid" else 0
+            for lp in layers:
+                x, aux = _attn_block(cfg, lp, sh.act_btd(x), sh,
+                                     window=window, enc=enc)
+                aux_total = aux_total + aux
+        for seg in segments(cfg) if kind != "A" else ():
+            for i in range(seg.start, seg.start + seg.length):
+                block = _mamba_block if kind == "M" else _rwkv_block
+                x = block(cfg, layers[i], sh.act_btd(x))
+            if seg.shared_after:
+                x, aux = _attn_block(cfg, params["shared_attn"], x, sh,
+                                     window=cfg.sliding_window)
+                aux_total = aux_total + aux
+        return rms_norm(x, params["out_norm"], cfg.norm_eps), aux_total
 
 
-def train_loss(cfg: ArchConfig, params: Dict, batch: Mapping) -> torch.Tensor:
+def train_loss(cfg: ArchConfig, params: Dict, batch: Mapping,
+               sh: Shardings = UNSHARDED) -> torch.Tensor:
     """batch: {"tokens": (B, S), "labels": (B, S)}, and the stub inputs
     ``"vision_embeds"`` and ``"frames"`` where the config has them -> mean
     next-token loss plus 0.01 × the MoE aux loss.  Differentiable on both
-    devices: on the card its attention's gradient is K7's backward kernel."""
-    h, aux = forward_hidden(cfg, params, batch["tokens"],
+    devices: on the card its attention's gradient is K7's backward kernel.
+    Under a mesh (``sh``) the loss is a replicated DTensor."""
+    h, aux = forward_hidden(cfg, params, batch["tokens"], sh,
                             vision_embeds=batch.get("vision_embeds"),
                             frames=batch.get("frames"))
-    loss = cross_entropy_chunked(lambda hh, w: hh @ w, h, batch["labels"],
-                                 params["lm_head"], cfg.loss_chunks)
-    return loss + 0.01 * aux
+    with replicating(sh):
+        loss = cross_entropy_chunked(lambda hh, w: sh.act_btv(hh @ w), h,
+                                     batch["labels"], params["lm_head"],
+                                     cfg.loss_chunks)
+        return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +637,7 @@ def _decode_attn(cfg: ArchConfig, lp, x, caches, i: int, pos, window=0):
             lp["attn"], hh, kc[i], vc[i], pos, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, hd=cfg.hd, rope_theta=cfg.rope_theta,
             window=window)
-    return x + a
+    return residual(x, a)
 
 
 def _decode_cross(cfg: ArchConfig, lp, x, ck, cv):
@@ -529,16 +650,17 @@ def _decode_cross(cfg: ArchConfig, lp, x, ck, cv):
     return x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["cross"].wo
 
 
-def _decode_ffn(cfg: ArchConfig, lp, x, dense_ffn: bool = False):
+def _decode_ffn(cfg: ArchConfig, lp, x, sh: Shardings = UNSHARDED,
+                dense_ffn: bool = False):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if dense_ffn:
-        return x + ffn_mod.swiglu(lp["ffn"], h)
-    y, _ = _ffn_apply(cfg, lp, h)
-    return x + y
+        return residual(x, ffn_mod.swiglu(lp["ffn"], h, sh=sh))
+    y, _ = _ffn_apply(cfg, lp, h, sh)
+    return residual(x, y)
 
 
 def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, sh: Shardings = UNSHARDED):
     """One serve step: tokens (B, 1) -> (logits (B, 1, V), cache).
 
     The prefix layers (dense FFN), then the stack: attention layers (with
@@ -549,12 +671,17 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
     advanced by one.
     """
     check_supported(cfg)
+    with replicating(sh):
+        return _decode_step(cfg, params, cache, tokens, sh)
+
+
+def _decode_step(cfg: ArchConfig, params: Dict, cache: Dict, tokens, sh):
     pos = cache["pos"]
-    x = params["embed"][tokens.long()]
+    x = sh.act_btd(embed_tokens(params["embed"], tokens))
     for i, lp in enumerate(params.get("prefix_layers", [])):
         x = _decode_attn(cfg, lp, x, (cache["p_latent"], cache["p_krope"]),
                          i, pos)
-        x = _decode_ffn(cfg, lp, x, dense_ffn=True)
+        x = _decode_ffn(cfg, lp, x, sh, dense_ffn=True)
     kind = block_kind(cfg)
     if kind == "A":
         caches = (cache["latent"], cache["krope"]) \
@@ -565,7 +692,7 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
             if "cross_k" in cache:
                 x = _decode_cross(cfg, lp, x, cache["cross_k"][i],
                                   cache["cross_v"][i])
-            x = _decode_ffn(cfg, lp, x)
+            x = _decode_ffn(cfg, lp, x, sh)
     elif kind == "M":
         app = 0
         for seg in segments(cfg):
@@ -584,7 +711,7 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
                 x = _decode_attn(cfg, lp, x,
                                  (cache["shared_k"], cache["shared_v"]), app,
                                  pos, window=cfg.sliding_window)
-                x = _decode_ffn(cfg, lp, x)
+                x = _decode_ffn(cfg, lp, x, sh)
                 app += 1
     else:
         for i in range(cache["wkv"].shape[0]):
@@ -602,5 +729,5 @@ def decode_step(cfg: ArchConfig, params: Dict, cache: Dict,
             cache["shift1"][i].copy_(last1)
             cache["shift2"][i].copy_(last2)
     h = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    logits = h @ params["lm_head"]
+    logits = sh.act_btv(h @ params["lm_head"])
     return logits, {**cache, "pos": pos + 1}

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.sharding import Shardings, UNSHARDED
 from repro_torch.models.transformer import decode_step, init_decode_cache
 
 
@@ -32,9 +33,10 @@ class ServeEngine:
     """Fixed-slot LM decode engine over ``decode_step``."""
 
     def __init__(self, cfg: ArchConfig, params: Dict, batch_slots: int,
-                 max_seq: int):
+                 max_seq: int, sh: Shardings = UNSHARDED):
         self.cfg = cfg
         self.params = params
+        self.sh = sh
         self.slots = batch_slots
         self.max_seq = max_seq
         self.device = params["embed"].device
@@ -58,7 +60,7 @@ class ServeEngine:
         """One decode step over all slots; the greedy next token of each."""
         logits, self.cache = decode_step(
             self.cfg, self.params, self.cache,
-            torch.as_tensor(toks, device=self.device))
+            torch.as_tensor(toks, device=self.device), self.sh)
         self.steps += 1
         return logits[:, 0].argmax(-1).cpu().numpy()
 
