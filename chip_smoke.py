@@ -2678,14 +2678,17 @@ def families_phase(log) -> dict:
 # K7's backward held against its plain version, as (bh, sq, sk, d, dv,
 # causal, window, q_offset, kv_len): FLASH_MASK_CASES (windows, Sq != Sk, a
 # key limit, a query offset, ragged S, D 64 and 128), then D 96 (causal, and
-# with a key limit), MLA's widths (qk 192 / v 128, causal and windowed) and
-# a causal query offset with Sq < Sk
+# with a key limit), MLA's widths (qk 192 / v 128: causal, windowed, a key
+# limit, and a causal query offset with Sq < Sk) and a causal query offset
+# with Sq < Sk at D 64
 FLASH_BWD_CASES = tuple((bh, sq, sk, d, d, c, w, off, kvl)
                         for bh, sq, sk, d, c, w, off, kvl in FLASH_MASK_CASES) \
     + ((2, 192, 192, 96, 96, True, 0, 0, None),
        (2, 200, 200, 96, 96, False, 0, 0, 150),
        (2, 192, 192, 192, 128, True, 0, 0, None),
        (2, 256, 256, 192, 128, True, 64, 0, None),
+       (2, 300, 300, 192, 128, False, 0, 0, 200),
+       (2, 100, 356, 192, 128, True, 0, 256, None),
        (2, 64, 200, 64, 64, True, 0, 136, None))
 # dq, dk and dv against the plain backward on the same (q, k, v, o, lse,
 # do): float32 sums in another order, within 1e-5 of the largest |value| of
@@ -2710,6 +2713,20 @@ TRAIN = {"arch": "granite-3-2b", "batch": 2, "seq": 2048, "lr": 3e-4,
          "grad_layers": 2, "grad_seq": 1024, "grad_rel": 1e-4,
          "trainer_layers": 2, "trainer_steps": 6, "checkpoint_every": 3,
          "fail_at": 4}
+# DeepSeek-V2-Lite (src/repro/configs/deepseek_v2_lite_16b.py: MLA's qk 192
+# / v 128, 64 routed experts top-6 + 2 shared, the first layer dense) at
+# full width on 4 of its 27 layers, the dense layer and 3 MoE layers: the
+# 27 layers hold 15.7 B parameters, 157 GB of bf16 weights and float32
+# AdamW moments, twice the card's 80 GB; the 4 hold 2.25 B.  TRAIN's
+# optimizer, batch and steps; the float32 gradient check on 2 layers (the
+# dense layer and 1 MoE layer), the CPU routed to the card's experts
+DS_TRAIN = {"arch": "deepseek-v2-lite-16b", "layers": 4,
+            "reduced": {"layers": "4 of 27: the 27 layers' bf16 weights and "
+                                  "float32 AdamW moments take 157 GB"},
+            **{k: TRAIN[k] for k in ("batch", "seq", "lr", "warmup",
+                                     "warm_steps", "timed_steps",
+                                     "grad_seq", "grad_rel")},
+            "grad_layers": 2}
 
 
 def flash_bwd_check(got, want, case) -> float:
@@ -2828,35 +2845,51 @@ def flash_bwd_cases(log) -> dict:
     return rec
 
 
-# K7's backward timed, causal: (name, bh, s, d, heads): granite-3-2b's
-# training shape (2 x 32 heads of 64 over 2,048 tokens) and Phi-3's head
-# (D 96) at 2 x 32 heads over 4,096
-FLASH_BWD_TIMED = (("granite", 2 * 32, TRAIN["seq"], 64, 32),
-                   ("d96", 64, 4096, 96, 32))
+# K7's backward timed, causal: (name, bh, s, d, dv, heads): granite-3-2b's
+# training shape (2 x 32 heads of 64 over 2,048 tokens), Phi-3's head (D 96)
+# at 2 x 32 heads over 4,096, and DeepSeek-V2-Lite's (MLA's qk 192 / v 128,
+# 2 x 16 heads over 2,048: its training shape)
+FLASH_BWD_TIMED = (("granite", 2 * 32, TRAIN["seq"], 64, 64, 32),
+                   ("d96", 64, 4096, 96, 96, 32),
+                   ("mla", 2 * 16, TRAIN["seq"], 192, 128, 16))
 
 
-def flash_bwd_timed_shape(bh, s, d, heads, seed) -> dict:
-    """K7's forward (with ``lse``) and backward on causal bf16 (bh, s, d):
-    the backward on its route and, in turns (CUDA cores, route, route, CUDA
-    cores), the CUDA-core kernel on the same inputs, each against the plain
-    backward; the bounds at the bf16 tensor-core rate of 10 D FLOP a pair
-    and of the tensor-core kernel's own 26 D; the forward and backward
-    back to back beside ``F.scaled_dot_product_attention``'s."""
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``F.scaled_dot_product_attention(q, k, v,
+    is_causal=True)`` dispatches to (``FLASH_ATTENTION``,
+    ``EFFICIENT_ATTENTION``, ``CUDNN_ATTENTION`` or ``MATH``), as PyTorch's
+    own selection reports it, without running the call."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+
+
+def flash_bwd_timed_shape(bh, s, d, dv, heads, seed) -> dict:
+    """K7's forward (with ``lse``) and backward on causal bf16 q, k of
+    (bh, s, d) and v of (bh, s, dv): the backward on its route and, in turns
+    (CUDA cores, route, route, CUDA cores), the CUDA-core kernel on the
+    same inputs, each against the plain backward; the bounds at the bf16
+    tensor-core rate of the least work, 6 d + 4 dv FLOP a pair (S, dQ, dK
+    over d; dP, dV over dv), and of the tensor-core kernel's own 16 d +
+    10 dv; the forward and backward back to back beside
+    ``F.scaled_dot_product_attention``'s, with the backend it takes."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k7
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn((bh, s, w), generator=g, device="cuda")
+                   .to(torch.bfloat16) for w in (d, d, dv, dv))
 
     def fwd():
         return k7._launch(q, k, v, True, 0, 0, s, with_lse=True)
 
     o, lse = fwd()
-    route = k7.bwd_route(q.dtype, d, d)
-    check(route == "wgmma", f"flash_attention_bwd at D {d}: route {route}")
+    route = k7.bwd_route(q.dtype, d, dv)
+    check(route == "wgmma", f"flash_attention_bwd at ({d}, {dv}): route "
+                            f"{route}")
 
     def bwd(path=route):
         return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s, path)
@@ -2867,11 +2900,11 @@ def flash_bwd_timed_shape(bh, s, d, heads, seed) -> dict:
     want = plain()
     pairs = bh * valid_pairs(s, s, True, 0)
     rec = {"name": "flash_attention_bwd", "route": route,
-           "shape": {"bh": bh, "s": s, "d": d, "dtype": "bfloat16",
+           "shape": {"bh": bh, "s": s, "d": d, "dv": dv, "dtype": "bfloat16",
                      "causal": True}, "pairs": pairs,
-           "max_abs_err": flash_bwd_check(bwd(), want, f"{bh}x{s}x{d}"),
+           "max_abs_err": flash_bwd_check(bwd(), want, f"{bh}x{s}x{d}/{dv}"),
            "cuda_cores_max_abs_err": flash_bwd_check(
-               bwd("cuda_cores"), want, f"{bh}x{s}x{d} cuda_cores")}
+               bwd("cuda_cores"), want, f"{bh}x{s}x{d}/{dv} cuda_cores")}
     # CUDA events around one call, and around back-to-back calls, in turns
     turns = []
     for path in ("cuda_cores", route, route, "cuda_cores"):
@@ -2885,19 +2918,22 @@ def flash_bwd_timed_shape(bh, s, d, heads, seed) -> dict:
     rec["turns"] = turns
     rec["fwd_ms"], rec["fwd_loop_ms"] = time_ms(fwd, reps=10), loop_ms(fwd)
     rec["plain_ms"] = time_ms(plain, reps=2)
-    # forward 4 D FLOP a pair (Q.K^T, P.V), backward 10 D (S again, dV, dP,
-    # dQ, dK); each input read once, each output written once
+    # forward 2 d + 2 dv FLOP a pair (Q.K^T, P.V), backward 6 d + 4 dv (S
+    # again, dQ and dK over d; dP and dV over dv); each input read once,
+    # each output written once (q, k, dq, dk of width d; v, o, do, dv of dv)
     esz = q.element_size()
-    rec["fwd_flops"], rec["flops"] = 4 * d * pairs, 10 * d * pairs
-    rec["fwd_bytes"] = bh * s * 4 * d * esz + bh * s * 4
-    rec["bytes"] = bh * s * 8 * d * esz + bh * s * 4
+    rec["fwd_flops"] = (2 * d + 2 * dv) * pairs
+    rec["flops"] = (6 * d + 4 * dv) * pairs
+    rec["fwd_bytes"] = bh * s * (2 * d + 2 * dv) * esz + bh * s * 4
+    rec["bytes"] = bh * s * (4 * d + 4 * dv) * esz + bh * s * 4
     rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
         rec["fwd_bytes"], rec["fwd_flops"], torch.bfloat16)
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
                                              torch.bfloat16)
-    # the tensor-core kernel's own work: S and dP in both passes, dV, dK
-    # and dQ with three-term A operands (26 D a pair)
-    rec["own_work_bound_ms"] = bound(0, 26 * d * pairs, torch.bfloat16)[0]
+    # the tensor-core kernel's own work: S and dP in both passes (4 d +
+    # 4 dv), dV, dK and dQ with three-term A operands (6 dv + 12 d)
+    rec["own_work_bound_ms"] = bound(0, (16 * d + 10 * dv) * pairs,
+                                     torch.bfloat16)[0]
     rec["tflops"] = rec["flops"] / rec["loop_ms"] / 1e9
 
     def fwd_bwd():
@@ -2905,16 +2941,18 @@ def flash_bwd_timed_shape(bh, s, d, heads, seed) -> dict:
         return k7._launch_bwd(q, k, v, o2, lse2, do, True, 0, 0, s)
 
     rec["fwd_bwd_loop_ms"] = loop_ms(fwd_bwd, reps=10)
-    q4, k4, v4, do4 = (x.view(bh // heads, heads, s, d).detach()
+    q4, k4, v4, do4 = (x.view(bh // heads, heads, s, x.shape[2]).detach()
                        .requires_grad_(x is not do) for x in (q, k, v, do))
 
     def sdpa():
         out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
         return torch.autograd.grad(out, (q4, k4, v4), do4)
 
+    rec["sdpa_backend"] = sdpa_backend(q4, k4, v4)
     rec.update(library_call([(
         f"F.scaled_dot_product_attention(is_causal=True) forward + backward "
-        f"on ({bh // heads}, {heads}, s, d)", sdpa)]))
+        f"on ({bh // heads}, {heads}, s, d|dv), backend "
+        f"{rec['sdpa_backend']}", sdpa)]))
     if rec["library_ms"] is not None:
         rec["library_loop_ms"] = loop_ms(sdpa, reps=10)
     return rec
@@ -2922,23 +2960,28 @@ def flash_bwd_timed_shape(bh, s, d, heads, seed) -> dict:
 
 def flash_bwd_timed(log) -> dict:
     """K7's forward and backward timed on FLASH_BWD_TIMED: granite's
-    record, with the D 96 shape's under ``"d96"``, and the kernels'
-    ``ptxas`` registers and spills."""
+    record, with the D 96 shape's under ``"d96"`` and MLA's under
+    ``"mla"``, and the kernels' ``ptxas`` registers and spills."""
     import torch
 
     recs = {}
-    for seed, (name, bh, s, d, heads) in enumerate(FLASH_BWD_TIMED):
-        recs[name] = flash_bwd_timed_shape(bh, s, d, heads, 4 + seed)
+    for seed, (name, *shape) in enumerate(FLASH_BWD_TIMED):
+        recs[name] = flash_bwd_timed_shape(*shape, 4 + seed)
         torch.cuda.empty_cache()
     rec = recs.pop("granite")
     rec.update(recs)
     rec["ptxas"] = {name: ptxas_report(kernel) for name, kernel in (
-        ("dkdv_wgmma_d64", "dkdv_kernelILi64ELi64E"),
+        ("dkdv_wgmma_d32", "dkdv_kernelILi32ELi32ELi64E"),
+        ("dq_wgmma_d32", "dq_kernelILi32ELi32E"),
+        ("dkdv_wgmma_d64", "dkdv_kernelILi64ELi64ELi64E"),
         ("dq_wgmma_d64", "dq_kernelILi64ELi64E"),
-        ("dkdv_wgmma_d96", "dkdv_kernelILi96ELi96E"),
+        ("dkdv_wgmma_d96", "dkdv_kernelILi96ELi96ELi64E"),
         ("dq_wgmma_d96", "dq_kernelILi96ELi96E"),
-        ("dkdv_wgmma_d128", "dkdv_kernelILi128ELi128E"),
+        ("dkdv_wgmma_d128", "dkdv_kernelILi128ELi128ELi64E"),
         ("dq_wgmma_d128", "dq_kernelILi128ELi128E"),
+        ("dkdv_wgmma_mla", "dkdv_kernelILi192ELi128ELi32E"),
+        ("dq_wgmma_mla", "dq_kernelILi192ELi128E"),
+        ("delta_wgmma", "12delta_kernelEPK"),
         ("dkdv_bf16_d64", "dkdv_kernelI13__nv_bfloat16Li4ELi4EE"),
         ("dq_bf16_d64", "dq_kernelI13__nv_bfloat16Li4ELi4EE"),
         ("dkdv_f32_d64", "dkdv_kernelIfLi4ELi4EE"),
@@ -2950,11 +2993,15 @@ def flash_bwd_timed(log) -> dict:
     return rec
 
 
-def grad_path_check(log) -> dict:
-    """Granite at full width on 2 layers in float32: the loss and every
-    gradient on the card (K7's float32 forward and backward) against the
-    CPU's plain versions from the same parameters, each leaf within
-    ``grad_rel`` of its largest |gradient|."""
+def grad_path_check(log, spec=TRAIN, key="train_grad_path") -> dict:
+    """``spec``'s model at full width on ``grad_layers`` layers in float32:
+    the loss and every gradient on the card (K7's float32 forward and
+    backward) against the CPU's plain versions from the same parameters,
+    each leaf within ``grad_rel`` of its largest |gradient|.  A MoE layer
+    routes on the CPU to the experts the card chose (``routed``): a router
+    near-tie may go the other way on the other device, and then the two
+    are different computations; each forced expert must lie within
+    NEAR_TIE of the CPU's own top k, and the gaps are recorded."""
     import dataclasses
 
     import torch
@@ -2963,55 +3010,68 @@ def grad_path_check(log) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import transformer
 
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
-                              n_layers=TRAIN["grad_layers"], dtype="float32")
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["grad_layers"], dtype="float32")
     params = transformer.init_transformer(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab, (2, 1, TRAIN["grad_seq"])) \
+    toks = rng.integers(0, cfg.vocab, (2, 1, spec["grad_seq"])) \
         .astype(np.int32)
 
-    def loss_and_grads(flat, device):
+    def loss_and_grads(flat, device, forced=None):
         live = {k: p.detach().to(device).requires_grad_()
                 for k, p in flat.items()}
         batch = {"tokens": torch.from_numpy(toks[0]).to(device),
                  "labels": torch.from_numpy(toks[1]).to(device)}
-        loss = transformer.train_loss(
-            cfg, transformer.tree_params(cfg, live), batch)
+        with routed(forced) as calls:
+            loss = transformer.train_loss(
+                cfg, transformer.tree_params(cfg, live), batch)
         keys = list(live)
         grads = torch.autograd.grad(loss, [live[k] for k in keys])
-        return float(loss.detach()), dict(zip(keys, grads))
+        return float(loss.detach()), dict(zip(keys, grads)), \
+            [(idx, logits.detach()) for idx, logits in calls]
 
     flat = transformer.flat_params(params)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    loss, grads = loss_and_grads(flat, "cuda")
+    loss, grads, calls = loss_and_grads(flat, "cuda")
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     check(launches["flash_attention_fused"] == cfg.n_layers
           and launches["flash_attention_bwd"] == cfg.n_layers,
-          f"grad path: K7 launches {launches}")
+          f"{key}: K7 launches {launches}")
+    forced = [idx.cpu() for idx, _ in calls] or None
     t0 = time.perf_counter()
-    cpu_loss, cpu_grads = loss_and_grads(flat, "cpu")
+    cpu_loss, cpu_grads, cpu_calls = loss_and_grads(flat, "cpu", forced)
     cpu_s = time.perf_counter() - t0
+    gaps = {f"moe layer {i}": route_gaps(logits, forced[i])
+            for i, (_, logits) in enumerate(cpu_calls)}
+    worst = max((g for gap in gaps.values() for g in gap.values()),
+                default=0.0)
+    check(worst <= NEAR_TIE,
+          f"{key}: the card's experts are {worst} from the CPU's top k "
+          f"(> NEAR_TIE {NEAR_TIE})")
     rels = {}
-    for key, want in cpu_grads.items():
-        got = grads[key].cpu().double()
+    for name, want in cpu_grads.items():
+        got = grads[name].cpu().double()
         scale = float(want.double().abs().max())
-        rels[key] = float((got - want.double()).abs().max()) / max(scale,
-                                                                   1e-30)
-        check(rels[key] <= TRAIN["grad_rel"],
-              f"grad path {key}: {rels[key]} of its largest |gradient|")
+        rels[name] = float((got - want.double()).abs().max()) / max(scale,
+                                                                    1e-30)
+        check(rels[name] <= spec["grad_rel"],
+              f"{key} {name}: {rels[name]} of its largest |gradient|")
     check(abs(loss - cpu_loss) <= 1e-5 * abs(cpu_loss),
-          f"grad path: loss {loss} on the card, {cpu_loss} on the CPU")
+          f"{key}: loss {loss} on the card, {cpu_loss} on the CPU")
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
-           "tokens": TRAIN["grad_seq"], "loss": loss, "cpu_loss": cpu_loss,
+           "tokens": spec["grad_seq"], "loss": loss, "cpu_loss": cpu_loss,
            "launches": launches, "leaves": len(rels),
            "max_rel_err": max(rels.values()), "rel_err_by_leaf": rels,
-           "gate": f"{TRAIN['grad_rel']} of each leaf's largest |gradient|",
+           "gate": f"{spec['grad_rel']} of each leaf's largest |gradient|",
            "card_s": card_s, "cpu_s": cpu_s}
-    emit({"train_grad_path": rec}, log)
+    if calls:
+        rec["moe_calls"] = len(calls)
+        rec["cpu_route_gaps"] = {k: g for k, g in gaps.items() if g}
+    emit({key: rec}, log)
     del params, grads
     torch.cuda.empty_cache()
     return rec
@@ -3023,23 +3083,68 @@ def batch_on_card(pipe, step: int) -> dict:
             for k, v in pipe.batch_at(step).items()}
 
 
-def train_steps(log) -> dict:
-    """Granite at full width and depth (40 layers, bf16, float32 AdamW
-    moments): one warm-up step, then ``timed_steps`` timed steps through
-    ``make_train_step`` with the counts from 0 (40 K7 forward and 40
-    backward launches a step), then one profiled step; every loss and grad
-    norm finite; peak memory."""
-    import torch
+def train_setup(spec) -> tuple:
+    """(cfg, its optimizer, the steps it is scheduled for, ``make_train_step``'s
+    step, the token pipeline) of ``spec``: its arch at ``spec["layers"]``
+    layers where given, AdamW on the reference launcher's schedule over the
+    warm-up, timed and profiled steps, ``batch`` x ``seq`` tokens."""
+    import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import ops
     from repro_torch.optim import adamw, linear_warmup_cosine
-    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train import make_train_step
 
-    cfg = get_config(TRAIN["arch"])
-    n_steps = TRAIN["warm_steps"] + TRAIN["timed_steps"] + 1
-    opt = adamw(linear_warmup_cosine(TRAIN["lr"], TRAIN["warmup"], n_steps))
+    cfg = get_config(spec["arch"])
+    if "layers" in spec:
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    n_steps = spec["warm_steps"] + spec["timed_steps"] + 1
+    opt = adamw(linear_warmup_cosine(spec["lr"], spec["warmup"], n_steps))
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=spec["seq"],
+                         global_batch=spec["batch"], seed=0)
+    return cfg, opt, n_steps, make_train_step(cfg, opt, 1, 1.0), pipe
+
+
+def attn_widths(cfg) -> tuple:
+    """K7's (qk, value) widths in ``cfg``'s attention: MLA's nope + rope and
+    v_head_dim, else the head width twice."""
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    return cfg.hd, cfg.hd
+
+
+def step_product_flops(cfg, flat, tokens: int) -> float:
+    """6 x tokens x the parameters, as 6 N D counts a step's products; a
+    MoE stack's routed experts counted at the E x cap slot rows their
+    grouped products run over, 6 x cap x their parameters (capacity
+    padding included, top-k's unused experts excluded)."""
+    from repro_torch.models.ffn import moe_capacity
+    from repro_torch.models.transformer import is_moe
+
+    if not is_moe(cfg):
+        return 6 * cfg.n_params() * tokens
+    experts = sum(flat[f"layers/ffn/{w}"].numel() for w in ("w1", "w3", "w2"))
+    rest = sum(t.numel() for t in flat.values()) - experts
+    return 6 * rest * tokens + 6 * moe_capacity(tokens, cfg.moe) * experts
+
+
+def train_steps(log, spec=TRAIN, key="train_steps") -> dict:
+    """``spec``'s model at full width (granite at its full depth of 40
+    layers; DeepSeek-V2-Lite at DS_TRAIN's 4), bf16 with float32 AdamW
+    moments: one warm-up step, then ``timed_steps`` timed steps through
+    ``make_train_step`` with the counts from 0 (one K7 forward and one
+    backward launch a layer a step, every backward on the tensor cores),
+    then one profiled step; every loss and grad norm finite; peak
+    memory."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import flat_params
+    from repro_torch.train import init_train_state
+
+    cfg, opt, n_steps, step, pipe = train_setup(spec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3048,19 +3153,19 @@ def train_steps(log) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     state_gb = torch.cuda.memory_allocated() / 1e9
-    step = make_train_step(cfg, opt, 1, 1.0)
-    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN["seq"],
-                         global_batch=TRAIN["batch"], seed=0)
+    n_params = sum(t.numel() for t in flat_params(state.params).values())
+    flops = step_product_flops(cfg, flat_params(state.params),
+                               spec["batch"] * spec["seq"])
     metrics, wall = [], []
     i = 0
-    for _ in range(TRAIN["warm_steps"]):
+    for _ in range(spec["warm_steps"]):
         state, m = step(state, batch_on_card(pipe, i))
         metrics.append({k: float(x) for k, x in m.items()})
         i += 1
     torch.cuda.synchronize()
     ops.reset_launch_counts()  # the training path's count starts here
     per_step = []
-    for _ in range(TRAIN["timed_steps"]):
+    for _ in range(spec["timed_steps"]):
         batch = batch_on_card(pipe, i)
         before = ops.launch_counts()
         torch.cuda.synchronize()
@@ -3077,13 +3182,13 @@ def train_steps(log) -> dict:
     for n in per_step:
         check(n == {"flash_attention_fused": cfg.n_layers,
                     "flash_attention_bwd": cfg.n_layers},
-              f"train step launches {n}, {cfg.n_layers} + {cfg.n_layers} "
-              f"K7 wanted")
+              f"{key}: launches {n}, {cfg.n_layers} + {cfg.n_layers} K7 "
+              f"wanted")
     check(routes.get("flash_attention_bwd/wgmma") == launches[
-        "flash_attention_bwd"], f"train step backward routes {routes}")
+        "flash_attention_bwd"], f"{key}: backward routes {routes}")
     for m in metrics:
         check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
-              f"train step {m}")
+              f"{key}: {m}")
     batch = batch_on_card(pipe, i)
     box = {}
 
@@ -3095,7 +3200,7 @@ def train_steps(log) -> dict:
     del state
     state = box.pop("state")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    tokens = spec["batch"] * spec["seq"]
 
     def k7_device(*kernels):
         """K7's device ms in the profiled step, its launches of each of
@@ -3112,22 +3217,24 @@ def train_steps(log) -> dict:
                 else None}
 
     k7_fwd = k7_device("flash_wgmma_kernel<")
-    # the tensor-core backward at D 64: its Delta pre-pass (not a template)
-    # and its two passes
-    k7_bwd = k7_device("delta_kernel(", "dkdv_kernel<64, 64>",
-                       "dq_kernel<64, 64>")
-    # operations: 6 x parameters x tokens for the products, and K7's
-    # forward (4 D) and backward (10 D) over the causal pairs of every
+    # the tensor-core backward of the model's widths: its Delta pre-pass
+    # (not a template) and its two passes
+    d, dv = attn_widths(cfg)
+    wq, wv, bt = k7.bwd_widths(d, dv)
+    k7_bwd = k7_device("delta_kernel(", f"dkdv_kernel<{wq}, {wv}, {bt}>",
+                       f"dq_kernel<{wq}, {wv}>")
+    # operations: the products (step_product_flops), and K7's forward (2 d
+    # + 2 dv) and backward (6 d + 4 dv) over the causal pairs of every
     # layer's heads
-    attn = cfg.n_layers * TRAIN["batch"] * cfg.n_heads \
-        * valid_pairs(TRAIN["seq"], TRAIN["seq"], True, 0) * 14 \
-        * cfg.head_dim
-    flops = 6 * cfg.n_params() * tokens + attn
+    attn = cfg.n_layers * spec["batch"] * cfg.n_heads \
+        * valid_pairs(spec["seq"], spec["seq"], True, 0) * (8 * d + 6 * dv)
+    flops += attn
     rec = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-           "params": cfg.n_params(), "batch": TRAIN["batch"],
-           "seq": TRAIN["seq"], "tokens_per_step": tokens,
-           "optimizer": f"adamw(linear_warmup_cosine({TRAIN['lr']}, "
-                        f"{TRAIN['warmup']}, {n_steps})), clip 1.0",
+           "params": n_params, "config_n_params": cfg.n_params(),
+           "reduced": spec.get("reduced"), "batch": spec["batch"],
+           "seq": spec["seq"], "tokens_per_step": tokens,
+           "optimizer": f"adamw(linear_warmup_cosine({spec['lr']}, "
+                        f"{spec['warmup']}, {n_steps})), clip 1.0",
            "init_s": init_s, "state_gb": state_gb,
            "step_ms": wall, "median_step_ms": statistics.median(wall),
            "tokens_per_s": tokens / (statistics.median(wall) / 1e3),
@@ -3141,10 +3248,53 @@ def train_steps(log) -> dict:
                         "device_busy_share": None if dev_ms is None
                         else dev_ms / host_ms, "k7_forward": k7_fwd,
                         "k7_backward": k7_bwd, "top_kernels": events[:12]}}
-    emit({"train_steps": rec}, log)
+    emit({key: rec}, log)
     del state, box
     torch.cuda.empty_cache()
     return rec
+
+
+def train_repeat(log, spec=DS_TRAIN, key="deepseek_train_repeat") -> dict:
+    """The first step from ``init_train_state`` seed 0, twice, each from a
+    fresh init: the same bits in the loss, the grad norm and every
+    parameter's and moment's float64 sum and |sum| (``leaf_sums``), so the
+    whole step (the MoE's dispatch and combine and their backward
+    included) is the same run to run."""
+    import torch
+
+    from repro_torch.train import init_train_state
+
+    cfg, opt, _, step, pipe = train_setup(spec)
+    runs = []
+    for _ in range(2):
+        state = init_train_state(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(0), opt, "cuda")
+        state, m = step(state, batch_on_card(pipe, 0))
+        runs.append(({k: float(x) for k, x in m.items()}, leaf_sums(state)))
+        del state
+        torch.cuda.empty_cache()
+    (m1, s1), (m2, s2) = runs
+    differ = sorted(k for k in s1 if s1[k] != s2[k])
+    check(m1 == m2 and not differ,
+          f"{key}: the first step twice differs: metrics {m1} / {m2}, "
+          f"leaves {differ}")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "metrics": m1,
+           "leaves": len(s1), "bit_identical": True}
+    emit({key: rec}, log)
+    return rec
+
+
+def deepseek_train(log) -> dict:
+    """DeepSeek-V2-Lite's training on the card at DS_TRAIN: the timed
+    steps (MLA's K7 backward on the tensor cores at qk 192 / v 128, the
+    MoE's dispatch and combine backward), the first step twice bit for
+    bit, and the float32 gradients of the dense and one MoE layer against
+    the CPU's."""
+    out = {"steps": train_steps(log, DS_TRAIN, "deepseek_train_steps")}
+    out["repeat"] = train_repeat(log, DS_TRAIN, "deepseek_train_repeat")
+    out["grad_path"] = grad_path_check(log, DS_TRAIN,
+                                       "deepseek_train_grad_path")
+    return out
 
 
 def differing_leaves(a, b) -> list:
@@ -3298,7 +3448,8 @@ def train_phase(log) -> dict:
     """Training on the card: K7's backward against its plain version and
     timed; the whole path's gradients against the CPU's; full-depth granite
     steps; the trainer with a checkpoint, an injected failure and its
-    replay; the launcher."""
+    replay; the launcher; DeepSeek-V2-Lite's steps, repeat and
+    gradients."""
     import torch
 
     t0 = time.perf_counter()
@@ -3308,6 +3459,8 @@ def train_phase(log) -> dict:
     out["steps"] = train_steps(log)
     out["trainer"] = trainer_check(log)
     out["cli"] = train_cli(log)
+    torch.cuda.empty_cache()
+    out["deepseek"] = deepseek_train(log)
     emit({"train_phase_s": time.perf_counter() - t0}, log)
     return out
 
@@ -5644,6 +5797,7 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
     torch.cuda.empty_cache()
     per_stream = stream_phase(log)
 
+    ds_train = train["deepseek"]
     kernels = [
         {"name": "aia_gather_rows", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/aia_gather.cu",
@@ -5763,7 +5917,10 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
             "forward": dist_run["step"]["launches"]["flash_attention_fused"],
             "backward": dist_run["step"]["launches"]["flash_attention_bwd"]},
         "launches_per_deepseek_shard_map_forward":
-            dist_run["deepseek"]["launches"]["flash_attention_fused"]})
+            dist_run["deepseek"]["launches"]["flash_attention_fused"],
+        # DeepSeek-V2-Lite's train step at 4 layers: MLA's forward with lse
+        "launches_per_deepseek_train_step":
+            ds_train["steps"]["launches_per_step"]["flash_attention_fused"]})
     timed = train["timed"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
@@ -5805,6 +5962,24 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
             "cuda_cores_ms", "cuda_cores_loop_ms", "plain_ms", "bound_ms",
             "own_work_bound_ms", "fwd_loop_ms", "fwd_bwd_loop_ms",
             "library_ms", "library_loop_ms", "library_call")},
+        # MLA's qk 192 / v 128 at DeepSeek-V2-Lite's training shape, on the
+        # tensor-core build with the 32-query dK/dV tile
+        "mla": {k: timed["mla"].get(k) for k in (
+            "route", "shape", "max_abs_err", "ms", "loop_ms",
+            "cuda_cores_max_abs_err", "cuda_cores_ms", "cuda_cores_loop_ms",
+            "plain_ms", "bound_ms", "bound_by", "own_work_bound_ms",
+            "tflops", "fwd_ms", "fwd_loop_ms", "fwd_bound_ms",
+            "fwd_bwd_loop_ms", "library_ms", "library_loop_ms",
+            "library_call", "sdpa_backend")},
+        # DeepSeek-V2-Lite's train step at 4 layers: one backward a layer,
+        # on the route of MLA's build
+        "deepseek_train_routes": {
+            k: n for k, n in ds_train["steps"]["routes"].items()
+            if k.startswith("flash_attention_bwd/")},
+        "launches_per_deepseek_train_step":
+            ds_train["steps"]["launches_per_step"]["flash_attention_bwd"],
+        "deepseek_train_device_ms": ds_train["steps"]["profiled"]
+        ["k7_backward"]["ms_per_call"],
         "ptxas": timed["ptxas"]})
     emit({"script_s": time.perf_counter() - t_script}, log)
     emit({"kernels": kernels}, log)

@@ -1,11 +1,13 @@
 // The backward of the fused flash attention (K7) for bf16 operands, on the
 // tensor cores of a Hopper GPU (sm_90a): dq, dk and dv of
 // o = softmax(q.k^T * scale, masked) . v for q of (BH, Sq, D), k of
-// (BH, Sk, D), v of (BH, Sk, Dv), Dv <= D <= kMaxD, under the forward's
-// masks: key j is valid for query i iff j < kv_len, j <= i + q_offset when
-// causal, and j > i + q_offset - window when window > 0.  The bf16 route of
-// K7's gradient (kernels/flash_attention.py, bwd_route); float32 operands
-// and wider heads go to flash_attention_bwd.cu, on the CUDA cores.
+// (BH, Sk, D), v of (BH, Sk, Dv), Dv <= D, with D <= kMaxD or (MLA's
+// build) D <= kWideD and Dv <= kWideDV, under the forward's masks: key j
+// is valid for query i iff j < kv_len, j <= i + q_offset when causal, and
+// j > i + q_offset - window when window > 0.  The bf16 route of K7's
+// gradient (kernels/flash_attention.py, bwd_route); float32 operands and
+// the other heads past 128 go to flash_attention_bwd.cu, on the CUDA
+// cores.
 //
 // Replaces no Pallas kernel: the reference's training differentiates its
 // chunked attention (repro/models/attention.py:32) with XLA's autodiff and
@@ -15,13 +17,17 @@
 // dS = P * (dO.V^T - Delta), dQ = dS.K * scale, dK = dS^T.Q * scale, in
 // float32 from the bf16 operands, each gradient rounded once to bf16.
 //
-// What bounds it on an H100: operations.  At granite-3-2b's training shape
-// (BH 64 = 2 x 32 heads, S 2,048, D 64, causal) the 1.343e8 valid pairs
-// need 10 * D FLOP a pair (S, dP, dV, dQ, dK): 8.6e10 FLOP, 0.087 ms at the
-// 989 TFLOP/s bf16 tensor-core rate, against 134 MB of operands and
-// gradients (0.04 ms at 3.35 TB/s).  This kernel's own work is 26 * D a
-// pair: S and dP in both passes (8 D), and dV, dK and dQ each with a
-// three-term A operand (18 D): 2.24e11 FLOP, 0.226 ms at that rate.
+// What bounds it on an H100: operations.  A valid pair needs 6 D + 4 Dv
+// FLOP (S, dQ and dK over D; dP and dV over Dv); this kernel's own work is
+// 16 D + 10 Dv: S and dP in both passes (4 D + 4 Dv), and dV, dK and dQ
+// each with a three-term A operand (6 Dv + 12 D).  At granite-3-2b's
+// training shape (BH 64 = 2 x 32 heads, S 2,048, D 64, causal) the
+// 1.343e8 valid pairs need 8.6e10 FLOP, 0.087 ms at the 989 TFLOP/s bf16
+// tensor-core rate, against 134 MB of operands and gradients (0.04 ms at
+// 3.35 TB/s); its own work is 2.24e11 FLOP, 0.226 ms.  At
+// DeepSeek-V2-Lite's (BH 32 = 2 x 16 heads, S 2,048, MLA's D 192 / Dv
+// 128) the 6.71e7 pairs need 1,664 FLOP each, 1.12e11, 0.113 ms; its own
+// 4,352 a pair, 2.92e11, 0.295 ms.
 //
 // Design (what it does about that bound): every product on the tensor
 // cores with wgmma, bf16 operands and float32 accumulators.
@@ -29,10 +35,11 @@
 //      row, a butterfly sum in one order (as in flash_attention_bwd.cu).
 //   2. dkdv_kernel: one block of two warpgroups per (bh, kRows keys), each
 //      warpgroup owning 64 keys; the heaviest key blocks first.  K and V
-//      are staged once; the loop runs over the kBT-query tiles that may
-//      see a key of the block (from the causal diagonal to the window's
-//      far edge), in ascending order.  Per tile, S^T = K.Q^T and
-//      dP^T = V.dO^T (wgmma m64n64k16, both operands K-major from SW128
+//      are staged once; the loop runs over the kBT-query tiles (kWideBT
+//      in MLA's build) that may see a key of the block (from the causal
+//      diagonal to the window's far edge), in ascending order.  Per tile,
+//      S^T = K.Q^T and dP^T = V.dO^T (wgmma m64n64k16, m64n32k16 in MLA's
+//      build, both operands K-major from SW128
 //      panels; bf16 products are exact in float32; two commit groups, so
 //      that P^T is computed while dP^T runs), then on the accumulator
 //      fragments P^T = 2^(S^T * scale * log2 e - lse * log2 e)
@@ -64,16 +71,22 @@
 //   Determinism: each of dq, dk and dv is written by one warpgroup after a
 //   loop in a fixed order; no atomics, no sums across blocks, so a
 //   gradient is the same bits run to run.
-//   Widths: the qk width is padded with zeros to DQ, a multiple of 32, the
-//   value width to DV = DQ (V and dO zero-filled past Dv); kMaxD is the
-//   widest head this kernel takes.  Registers bound the width: in the
-//   dK/dV pass dK, dV, S^T and dP^T hold 32 floats a thread each at D = 64
-//   (64 each of dK and dV at D = 128), and each 16-query step's bf16 terms
-//   of P^T and dS^T 24 more while its products run.  ptxas: 211 registers
-//   a thread at D = 64, 242 at 96, 255 at 128, no spill; MLA's qk 192 / v
-//   128 would spill, so it and every head past 128 run on the CUDA cores.
-//   One block an SM (256 threads; 66 KB of shared memory at D = 64, 130 KB
-//   at 96 and 128).
+//   Widths: the square builds pad the qk width with zeros to DQ, a
+//   multiple of 32 up to kMaxD, and the value width to DV = DQ (V and dO
+//   zero-filled past Dv).  Registers bound the width: in the dK/dV pass
+//   dK, dV, S^T and dP^T hold 32 floats a thread each at D = 64 (64 each
+//   of dK and dV at D = 128), and each 16-query step's bf16 terms of P^T
+//   and dS^T 24 more while its products run.  ptxas: 211 registers a
+//   thread at D = 64, 242 at 96, 255 at 128, no spill.  MLA's build
+//   (kWideD 192 / kWideDV 128, for any D in 129..192 with Dv <= 128) holds
+//   dK's 96 floats and dV's 64: its dK/dV pass streams kWideBT = 32-query
+//   tiles, so that S^T and dP^T are m64n32, 16 floats each, and splits a
+//   step's terms only once the step before it is done (one step's 24
+//   live); 255 registers, no spill.  Its dQ pass keeps the 64-key tiles
+//   (dQ 96 floats, S and dP 32 each: 219 registers).  Every other head
+//   past 128 runs on the CUDA cores.  One block an SM (256 threads; 66 KB
+//   of shared memory at D = 64, 130 KB at 96 and 128; 122 KB in MLA's
+//   dK/dV pass, 161 KB in its dQ pass).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,7 +104,10 @@ constexpr int kRows = 128;      // keys (dK/dV pass) or queries (dQ pass) a bloc
 constexpr int kBT = 64;         // queries (dK/dV pass) or keys (dQ pass) a tile
 constexpr int kStages = 2;      // ring depth of the streamed tiles
 constexpr int kTerms = 3;       // bf16 terms of P and dS
-constexpr int kMaxD = 128;      // the widest qk width taken
+constexpr int kMaxD = 128;      // the widest qk width of the square builds
+constexpr int kWideD = 192;     // the qk width of MLA's build
+constexpr int kWideDV = 128;    //   its value width
+constexpr int kWideBT = 32;     //   the queries of its dK/dV pass's tile
 constexpr uint32_t kTile = kBT * 128;     // a 64-column panel of a streamed tile
 constexpr uint32_t kPanel = kRows * 128;  // a 64-column panel of a block's rows
 constexpr float kLog2e = 1.4426950408889634f;
@@ -149,24 +165,27 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
   }
 }
 
-// lse and Delta of the queries [q0, q0 + kBT) into 2 * kBT floats at shared
+// lse and Delta of the queries [q0, q0 + BT) into 2 * BT floats at shared
 // address `dst` (lse first), zeros past sq.
+template <int BT>
 __device__ __forceinline__ void load_stats(uint32_t dst,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ delta,
                                            int q0, int sq) {
   const int t = threadIdx.x;
-  if (t < 2 * kBT) {
-    const int r = t & (kBT - 1);
+  if (t < 2 * BT) {
+    const int r = t & (BT - 1);
     const bool ok = q0 + r < sq;
-    const float* src = (t < kBT ? lse : delta) + q0 + r;
+    const float* src = (t < BT ? lse : delta) + q0 + r;
     hopper::cp_async_4(dst + 4 * t, ok ? src : lse, ok ? 4 : 0);
   }
 }
 
-// The A fragments of 16 columns (kk) of an m64n64 accumulator x as kTerms
-// bf16 terms: values 8 kk .. 8 kk + 7, pairwise (rows r, r + 8, r, r + 8).
-__device__ __forceinline__ void split_terms(const float (&x)[32], int kk,
+// The A fragments of 16 columns (kk) of an m64n(2 N) accumulator x as
+// kTerms bf16 terms: values 8 kk .. 8 kk + 7, pairwise (rows r, r + 8, r,
+// r + 8).
+template <int N>
+__device__ __forceinline__ void split_terms(const float (&x)[N], int kk,
                                             uint32_t (&a)[kTerms][4]) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -183,15 +202,17 @@ __device__ __forceinline__ void split_terms(const float (&x)[32], int kk,
 }
 
 // acc[p] += A . B for each 64-column panel p of a DP-wide B operand read
-// MN-major (transpose bit) from the SW128 tile at `b` (panels kTile bytes
-// apart), rows 16 kk .. 16 kk + 15; A in kTerms register terms.
-template <int DP, int NP>
+// MN-major (transpose bit) from the BT-row SW128 tile at `b` (panels
+// BT * 128 bytes apart), rows 16 kk .. 16 kk + 15; A in kTerms register
+// terms.
+template <int DP, int NP, int BT = kBT>
 __device__ __forceinline__ void mma_terms(float (&acc)[NP][32],
                                           const uint32_t (&a)[kTerms][4],
                                           uint32_t b, int kk) {
+  constexpr uint32_t tile = BT * 128;
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
-    const uint64_t desc = sw128_desc(b + p * kTile + kk * 2048, kTile, 1024);
+    const uint64_t desc = sw128_desc(b + p * tile + kk * 2048, tile, 1024);
 #pragma unroll
     for (int term = 0; term < kTerms; ++term) {
       if (panel_cols<DP>(p) == 64)
@@ -203,17 +224,21 @@ __device__ __forceinline__ void mma_terms(float (&acc)[NP][32],
 }
 
 // s (+)= A . B^T over DP columns in steps of 16: A the 64 rows at `a`
-// (panels pa bytes apart), B the kBT rows at `b` (panels kTile apart), both
-// K-major SW128.
-template <int DP>
-__device__ __forceinline__ void mma_kmajor(float (&s)[32], uint32_t a,
+// (panels pa bytes apart), B the BT rows at `b` (panels BT * 128 bytes
+// apart), both K-major SW128; s the m64n(BT) accumulator.
+template <int DP, int BT = kBT>
+__device__ __forceinline__ void mma_kmajor(float (&s)[BT / 2], uint32_t a,
                                            uint32_t pa, uint32_t b) {
+  constexpr uint32_t tile = BT * 128;
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk & 3) * 32;
-    hopper::wgmma_ss_m64n64k16(s, sw128_desc(a + (kk >> 2) * pa + off, 16, 1024),
-                               sw128_desc(b + (kk >> 2) * kTile + off, 16, 1024),
-                               kk > 0);
+    const uint64_t da = sw128_desc(a + (kk >> 2) * pa + off, 16, 1024);
+    const uint64_t db = sw128_desc(b + (kk >> 2) * tile + off, 16, 1024);
+    if constexpr (BT == 64)
+      hopper::wgmma_ss_m64n64k16(s, da, db, kk > 0);
+    else
+      hopper::wgmma_ss_m64n32k16(s, da, db, kk > 0);
   }
 }
 
@@ -292,15 +317,19 @@ constexpr int dq_smem() {
                     * ((int)kPanel + kStages * (int)kTile);
 }
 
-// Shared memory of the dK/dV pass: K and V of the block, the Q / dO ring
-// (the same bytes as the dQ pass's), and lse and Delta of each stage.
-template <int DQ, int DV>
+// Shared memory of the dK/dV pass: K and V of the block, the ring of
+// BT-query Q / dO tiles (at BT = kBT the same bytes as the dQ pass's), and
+// lse and Delta of each stage.
+template <int DQ, int DV, int BT>
 constexpr int dkdv_smem() {
-  return dq_smem<DQ, DV>() + kStages * 2 * kBT * 4;
+  return 1024 + ((DQ + 63) / 64 + (DV + 63) / 64)
+                    * ((int)kPanel + kStages * BT * 128)
+         + kStages * 2 * BT * 4;
 }
 
-// One block per (bh, kRows keys): dK and dV of its keys.
-template <int DQ, int DV>
+// One block per (bh, kRows keys): dK and dV of its keys, over BT-query
+// tiles.
+template <int DQ, int DV, int BT>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const __nv_bfloat16* __restrict__ q,
             const __nv_bfloat16* __restrict__ k,
@@ -312,15 +341,16 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
             float scale_log2, int vec) {
   constexpr int NQ = (DQ + 63) / 64;  // 64-column panels of Q, K and dK
   constexpr int NV = (DV + 63) / 64;  // of V, dO and dV
+  constexpr uint32_t tile = BT * 128;  // a 64-column panel of a Q / dO tile
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = hopper::smem_addr(smem_raw);
   const uint32_t ks = (base + 1023) & ~1023u;  // K: NQ panels of kRows rows
   const uint32_t vs = ks + NQ * kPanel;        // V: NV panels
-  // stage st: Q panels at qs(st), dO panels NQ * kTile after
+  // stage st: Q panels at qs(st), dO panels NQ * tile after
   const uint32_t ring = vs + NV * kPanel;
-  auto qs = [&](int st) { return ring + st * (NQ + NV) * kTile; };
-  // stage st's lse and Delta: 2 * kBT floats
-  const uint32_t stats = ring + kStages * (NQ + NV) * kTile;
+  auto qs = [&](int st) { return ring + st * (NQ + NV) * tile; };
+  // stage st's lse and Delta: 2 * BT floats
+  const uint32_t stats = ring + kStages * (NQ + NV) * tile;
   const float* stats_f =
       reinterpret_cast<const float*>(smem_raw + (stats - base));
 
@@ -345,13 +375,13 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   if (mask.causal) i_lo = max(0, k0 - mask.q_offset);
   if (mask.window > 0) i_hi = min(sq, k1 - 1 + mask.window - mask.q_offset);
   if (k0 >= mask.kv_len) i_hi = i_lo;
-  const int t_lo = i_lo / kBT;
-  const int t_hi = i_hi > i_lo ? (i_hi + kBT - 1) / kBT : t_lo;
+  const int t_lo = i_lo / BT;
+  const int t_hi = i_hi > i_lo ? (i_hi + BT - 1) / BT : t_lo;
 
   auto load_q = [&](int st, int t) {
-    load_tile<DQ>(qs(st), qb, t * kBT, kBT, sq, d, vec);
-    load_tile<DV>(qs(st) + NQ * kTile, dob, t * kBT, kBT, sq, dv, vec);
-    load_stats(stats + st * 2 * kBT * 4, lb, db, t * kBT, sq);
+    load_tile<DQ>(qs(st), qb, t * BT, BT, sq, d, vec);
+    load_tile<DV>(qs(st) + NQ * tile, dob, t * BT, BT, sq, dv, vec);
+    load_stats<BT>(stats + st * 2 * BT * 4, lb, db, t * BT, sq);
   };
   if (t_lo < t_hi) {
     load_tile<DQ>(ks, kb, k0, kRows, mask.kv_len, d, vec);
@@ -370,10 +400,10 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t k_wg = ks + wg * 64 * 128;
   const uint32_t v_wg = vs + wg * 64 * 128;
 
-  float s[32], dp[32];
+  float s[BT / 2], dp[BT / 2];
   float dk_acc[NQ][32], dv_acc[NV][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+  for (int i = 0; i < BT / 2; ++i) s[i] = dp[i] = 0.0f;
 #pragma unroll
   for (int p = 0; p < NQ; ++p)
 #pragma unroll
@@ -391,19 +421,19 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     hopper::fence_proxy_async();
     __syncthreads();
 
-    const int q0 = t * kBT;
-    const int q_last = min(q0 + kBT, sq) - 1;
+    const int q0 = t * BT;
+    const int q_last = min(q0 + BT, sq) - 1;
     // some query of the tile sees a key of this warpgroup
     if (kw0 < mask.key_hi(q_last + mask.q_offset)
         && kw0 + 64 > mask.key_lo(q0 + mask.q_offset)) {
       const uint32_t qt = qs(st);
-      const uint32_t dot = qt + NQ * kTile;
+      const uint32_t dot = qt + NQ * tile;
       hopper::fence_regs(s);
       hopper::fence_regs(dp);
       hopper::wgmma_fence();
-      mma_kmajor<DQ>(s, k_wg, kPanel, qt);    // S^T = K.Q^T
+      mma_kmajor<DQ, BT>(s, k_wg, kPanel, qt);    // S^T = K.Q^T
       hopper::wgmma_commit();
-      mma_kmajor<DV>(dp, v_wg, kPanel, dot);  // dP^T = V.dO^T
+      mma_kmajor<DV, BT>(dp, v_wg, kPanel, dot);  // dP^T = V.dO^T
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // S^T is done, dP^T may still run
       hopper::fence_regs(s);
@@ -411,13 +441,13 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
       // P^T and dS^T; every pair of the tile is valid unless it reaches
       // past Sq, or some key of the warpgroup lies outside some query's
       // range
-      const bool edge = q0 + kBT > sq
-          || kw0 < mask.key_lo(q0 + kBT - 1 + mask.q_offset)
+      const bool edge = q0 + BT > sq
+          || kw0 < mask.key_lo(q0 + BT - 1 + mask.q_offset)
           || kw0 + 64 > mask.key_hi(q0 + mask.q_offset);
-      const float* lse_t = stats_f + st * 2 * kBT;
-      const float* del_t = lse_t + kBT;
+      const float* lse_t = stats_f + st * 2 * BT;
+      const float* del_t = lse_t + BT;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < BT / 8; ++j) {
         const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * j + col0);
 #pragma unroll
         for (int h = 0; h < 2; ++h)
@@ -434,28 +464,32 @@ dkdv_kernel(const __nv_bfloat16* __restrict__ q,
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < BT / 8; ++j) {
         const float2 dl = *reinterpret_cast<const float2*>(del_t + 8 * j + col0);
 #pragma unroll
         for (int i = 4 * j; i < 4 * j + 4; ++i)
           dp[i] = s[i] * (dp[i] - (i & 1 ? dl.y : dl.x));
       }
 
-      // dV += P^T.dO and dK += dS^T.Q in four steps of 16 queries, a
+      // dV += P^T.dO and dK += dS^T.Q in BT / 16 steps of 16 queries, a
       // commit group each: a step's terms are computed while the tensor
       // cores run the step before it, and once that step's group is done
       // its terms' registers are free again (at D = 128 the dK/dV pass
-      // then fits 255 registers a thread without a spill)
-      uint32_t pa[4][kTerms][4], da[4][kTerms][4];
+      // then fits 255 registers a thread without a spill).  MLA's build
+      // (BT < kBT) holds dK's 96 floats a thread: it waits for a step's
+      // products before it splits the next step's terms, so that only one
+      // step's terms are live
+      uint32_t pa[BT / 16][kTerms][4], da[BT / 16][kTerms][4];
       fence_acc<DV>(dv_acc);
       fence_acc<DQ>(dk_acc);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        if (BT < kBT && kk > 0) hopper::wgmma_wait<0>();
         split_terms(s, kk, pa[kk]);
         split_terms(dp, kk, da[kk]);
         hopper::wgmma_fence();
-        mma_terms<DV>(dv_acc, pa[kk], dot, kk);
-        mma_terms<DQ>(dk_acc, da[kk], qt, kk);
+        mma_terms<DV, NV, BT>(dv_acc, pa[kk], dot, kk);
+        mma_terms<DQ, NQ, BT>(dk_acc, da[kk], qt, kk);
         hopper::wgmma_commit();
         if (kk > 0) hopper::wgmma_wait<1>();  // step kk - 1 is done
       }
@@ -629,11 +663,13 @@ struct Args {
   float scale;
 };
 
-template <int DQ, int DV>
+// The three launches at tile widths (DQ, DV), the dK/dV pass over BT-query
+// tiles.
+template <int DQ, int DV, int BT = kBT>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr int smem_kv = dkdv_smem<DQ, DV>(), smem_q = dq_smem<DQ, DV>();
+  constexpr int smem_kv = dkdv_smem<DQ, DV, BT>(), smem_q = dq_smem<DQ, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<DQ, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel<DQ, DV, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_kv);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(dq_kernel<DQ, DV>,
@@ -661,7 +697,8 @@ int launch(const Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nk = (a.sk + kRows - 1) / kRows;
-  dkdv_kernel<DQ, DV><<<(unsigned)(nk * a.bh), kThreads, smem_kv, stream>>>(
+  dkdv_kernel<DQ, DV, BT><<<(unsigned)(nk * a.bh), kThreads, smem_kv,
+                             stream>>>(
       q, k, v, dout, lse, delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), (int)a.bh, (int)a.sk, (int)a.d, (int)a.dv_w,
       a.mask, a.scale, scale_log2, vec);
@@ -682,9 +719,10 @@ int launch(const Args& a, cudaStream_t stream) {
 // are written in full (keys at or past kv_len get zeros).  The mask and
 // scale are the forward's.  Three launches on `stream`: the Delta
 // pre-pass, the dK/dV pass and the dQ pass.  Returns cudaGetLastError()
-// after them, or cudaErrorInvalidValue for d outside 1..kMaxD, dv_w
-// outside 1..d, sk < 1, an sq, sk, |q_offset| or window past 2^28, or a
-// grid the launch cannot hold.
+// after them, or cudaErrorInvalidValue for d < 1, dv_w outside 1..d, a
+// head no build takes (d past kMaxD unless d <= kWideD and dv_w <=
+// kWideDV: MLA's build), sk < 1, an sq, sk, |q_offset| or window past
+// 2^28, or a grid the launch cannot hold.
 extern "C" int repro_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
@@ -692,7 +730,8 @@ extern "C" int repro_flash_attention_bwd_wgmma(
     long long dv_w, int causal, long long q_offset, long long window,
     long long kv_len, float scale, void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
-  if (d <= 0 || d > kMaxD || dv_w <= 0 || dv_w > d || sk <= 0
+  if (d <= 0 || dv_w <= 0 || dv_w > d || sk <= 0
+      || (d > kMaxD && (d > kWideD || dv_w > kWideDV))
       || sq > (1LL << 28) || sk > (1LL << 28) || q_offset > (1LL << 28)
       || q_offset < -(1LL << 28) || window < 0 || window > (1LL << 28)
       || ((sq + kRows - 1) / kRows) * bh > 2147483647LL
@@ -704,6 +743,7 @@ extern "C" int repro_flash_attention_bwd_wgmma(
   const Args a{q, k, v, o, lse, dout, dq, dk, dv, delta, bh, sq, sk, d,
                dv_w, mask, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > kMaxD) return launch<kWideD, kWideDV, kWideBT>(a, s);
   switch ((d + 31) / 32) {
     case 1: return launch<32, 32>(a, s);
     case 2: return launch<64, 64>(a, s);

@@ -32,11 +32,14 @@ float32 row log-sum-exp ``lse = m + log(l)`` of the scaled scores, ``(BH,
 Sq)`` (the kernels write it only when they are given a pointer for it, so a
 call without a gradient launches as before); its backward is a kernel on
 CUDA and ``flash_attention_masked_bwd_plain`` on the CPU.  On CUDA the
-dtype and width choose the backward kernel (``bwd_route``): bfloat16 with
-D up to the source's ``kMaxD`` (128) goes to
+dtype and widths choose the backward kernel (``bwd_route``): bfloat16 with
+D up to the source's ``kMaxD`` (128), or with D up to ``kWideD`` (192) and
+Dv up to ``kWideDV`` (128), MLA's qk 192 / v 128, goes to
 ``csrc/flash_attention_bwd_wgmma.cu`` (every product on the tensor cores,
-P and dS carried in three bfloat16 terms); float32, and wider bfloat16
-heads, to ``csrc/flash_attention_bwd.cu`` (float32 on the CUDA cores).
+P and dS carried in three bfloat16 terms; MLA's build streams 32-query
+tiles through its dK/dV pass, ``kWideBT``, so that dK's 192 columns fit
+the registers); float32, and the other bfloat16 heads past 128, to
+``csrc/flash_attention_bwd.cu`` (float32 on the CUDA cores).
 Both are FlashAttention-2's schedule: a Delta pre-pass, a dK/dV pass over
 key blocks, a dQ pass over query blocks, no atomics, so a gradient is the
 same bits run to run; counted as ``flash_attention_bwd``, one count a
@@ -85,18 +88,22 @@ def bwd_constants() -> dict:
     """The bf16 backward kernel's integer constants, read from its source:
     ``kTerms``, the bf16 terms P and dS are carried in; ``kRows``, the keys
     (dK/dV pass) or queries (dQ pass) of a block, 64 a warpgroup; ``kBT``,
-    the queries or keys of a streamed tile; ``kMaxD``, its widest head."""
+    the queries or keys of a streamed tile; ``kMaxD``, the widest head of
+    its square builds; ``kWideD`` and ``kWideDV``, the qk and value widths
+    of MLA's build, whose dK/dV pass streams ``kWideBT``-query tiles."""
     return source_constants("flash_attention_bwd_wgmma.cu")
 
 
 def bwd_route(dtype: torch.dtype, d: int, dv: int) -> str:
     """The backward kernel a CUDA call with ``dtype`` operands, qk width
     ``d`` and value width ``dv <= d`` launches: ``"wgmma"`` (bfloat16 with
-    ``d`` up to ``kMaxD``, tensor cores) or ``"cuda_cores"`` (float32, and
-    wider bfloat16 heads, MLA's 192 / 128 among them: their dK/dV pass
-    would spill past 255 registers a thread)."""
-    del dv  # at most d: the qk width decides
-    if dtype == torch.bfloat16 and d <= bwd_constants()["kMaxD"]:
+    ``d`` up to ``kMaxD``, or with ``d`` up to ``kWideD`` and ``dv`` up to
+    ``kWideDV``: MLA's 192 / 128; tensor cores) or ``"cuda_cores"``
+    (float32, and the other bfloat16 heads past ``kMaxD``: their dK/dV
+    pass would spill past 255 registers a thread)."""
+    c = bwd_constants()
+    if dtype == torch.bfloat16 and (
+            d <= c["kMaxD"] or (d <= c["kWideD"] and dv <= c["kWideDV"])):
         return "wgmma"
     return "cuda_cores"
 
@@ -114,6 +121,19 @@ def wgmma_widths(d: int, dv: int) -> tuple:
     192 / 128), else the qk width (V zero-filled past ``dv``)."""
     dq = -(-d // 32) * 32
     return dq, 128 if dq > 128 and dv <= 128 else dq
+
+
+def bwd_widths(d: int, dv: int) -> tuple:
+    """The template arguments (qk width, value width, the dK/dV pass's query
+    tile) of the bf16 backward build a call with qk width ``d`` and value
+    width ``dv`` launches: MLA's ``(kWideD, kWideDV, kWideBT)`` past
+    ``kMaxD``, else D rounded up to a multiple of 32 for both widths (V
+    zero-filled past ``dv``) and ``kBT``."""
+    c = bwd_constants()
+    if d > c["kMaxD"]:
+        return c["kWideD"], c["kWideDV"], c["kWideBT"]
+    dq = -(-d // 32) * 32
+    return dq, dq, c["kBT"]
 
 
 def rows_without_keys(sq: int, sk: int, causal: bool = True,
@@ -294,8 +314,8 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
                 route=None):
     """One call of the backward kernel (its three launches); ``(dq, dk,
     dv)``.  ``route`` (default ``bwd_route``'s) names the kernel: the
-    CUDA-core kernel takes every call, the tensor-core one bf16 up to
-    ``kMaxD``."""
+    CUDA-core kernel takes every call, the tensor-core one the bf16 calls
+    ``bwd_route`` sends it."""
     _check_operands(q, k, v)
     ops.expect(o, q.dtype, 3, "o")
     ops.expect(do, q.dtype, 3, "do")
@@ -315,8 +335,10 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     path = route or bwd_route(q.dtype, d, dv)
     if path == "wgmma" and bwd_route(q.dtype, d, dv) != "wgmma":
+        c = bwd_constants()
         raise ValueError(f"the wgmma backward takes bf16 with D <= "
-                         f"{bwd_constants()['kMaxD']}; got {q.dtype}, D {d}")
+                         f"{c['kMaxD']}, or D <= {c['kWideD']} and Dv <= "
+                         f"{c['kWideDV']}; got {q.dtype}, D {d}, Dv {dv}")
     # the CUDA-core kernel takes both dtypes and a flag for them
     flag = [int(q.dtype == torch.bfloat16)] if path == "cuda_cores" else []
     with torch.cuda.device(q.device):

@@ -20,23 +20,25 @@
   evaluations of the same equations).
 * The CUDA kernels' loop bounds (``csrc/flash_attention_bwd.cu``, 64-key
   and 64-query blocks; ``csrc/flash_attention_bwd_wgmma.cu``, 128-key and
-  128-query blocks of two 64-row warpgroups over 64-row tiles, each
-  warpgroup skipping the tiles none of its pairs is valid in): the dK/dV
-  pass visits, for each key block, the query tiles from the causal
-  diagonal to the window's far edge; the dQ pass the key tiles the forward
-  visits.  Emulated here over a grid of masks, every valid (query, key)
-  pair must fall in a visited tile of both passes, and every tile the
-  tensor-core kernel leaves unmasked must hold valid pairs only.
+  128-query blocks of two 64-row warpgroups over 64-row tiles, or, in MLA's
+  build, 32-query tiles in the dK/dV pass, each warpgroup skipping the
+  tiles none of its pairs is valid in): the dK/dV pass visits, for each
+  key block, the query tiles from the causal diagonal to the window's far
+  edge; the dQ pass the key tiles the forward visits.  Emulated here over
+  a grid of masks, every valid (query, key) pair must fall in a visited
+  tile of both passes, and every tile the tensor-core kernel leaves
+  unmasked must hold valid pairs only.
 * The tensor-core kernel's arithmetic (bf16 products exact in float32,
   ``exp2`` with the scale folded with log2(e), P and dS split into the
-  source's ``kTerms`` bf16 terms, tiles summed in the passes' order),
-  emulated on the CPU and held to ``chip_smoke.py``'s backward gate
-  against the plain backward: ``FLASH_BWD_F32`` of the call's largest
-  |gradient| plus ``FLASH_BWD_BF16_STEP`` of each value.  One term misses
-  that gate; two meet it.
-* ``bwd_route``: bf16 up to the source's ``kMaxD`` on the tensor cores,
-  float32 and wider heads on the CUDA cores, each an entry point the build
-  binds.
+  source's ``kTerms`` bf16 terms, tiles summed in the passes' order, MLA's
+  dK/dV pass over ``kWideBT``-query tiles), emulated on the CPU and held
+  to ``chip_smoke.py``'s backward gate against the plain backward:
+  ``FLASH_BWD_F32`` of the call's largest |gradient| plus
+  ``FLASH_BWD_BF16_STEP`` of each value.  One term misses that gate; two
+  meet it.
+* ``bwd_route``: bf16 up to the source's ``kMaxD``, and MLA's qk 192 / v
+  128, on the tensor cores; float32 and the other heads past 128 on the
+  CUDA cores, each an entry point the build binds.
 The CUDA kernels themselves are held against the plain version on the card
 by ``chip_smoke.py`` (``train_phase``).
 """
@@ -201,19 +203,21 @@ def _chip_smoke():
 
 
 CHIP = _chip_smoke()
-BWD = k7.bwd_constants()  # kTerms, kRows, kBT, kMaxD of the wgmma kernel
-# (key block, query tile, warpgroup rows) of each kernel's dK/dV pass, and
-# (query block, key tile, warpgroup rows) of its dQ pass; warpgroup rows
-# None: the block never skips a tile
-TILINGS = {"cuda_cores": (64, 64, None),
-           "wgmma": (BWD["kRows"], BWD["kBT"], BWD["kRows"] // BWD["kWG"])}
+BWD = k7.bwd_constants()  # kTerms, kRows, kBT, kMaxD, ... of the wgmma kernel
+# (block rows, the dK/dV pass's query tile, the dQ pass's key tile,
+# warpgroup rows) of each kernel: key blocks in the dK/dV pass, query blocks
+# in the dQ pass; warpgroup rows None: the block never skips a tile
+WG_ROWS = BWD["kRows"] // BWD["kWG"]
+TILINGS = {"cuda_cores": (64, 64, 64, None),
+           "wgmma": (BWD["kRows"], BWD["kBT"], BWD["kBT"], WG_ROWS),
+           "wgmma_mla": (BWD["kRows"], BWD["kWideBT"], BWD["kBT"], WG_ROWS)}
 
 
 def _bwd_tiles_cover(sq, sk, causal, window, q_offset, kv_len, tiling):
     """The kernel's loop bounds, as in its source, and whether they cover
     every valid pair; with warpgroups, also whether every tile they leave
     unmasked holds valid pairs only."""
-    rows, tile, wg_rows = TILINGS[tiling]
+    rows, tile, k_tile, wg_rows = TILINGS[tiling]
     kvl = min(kv_len, sk)
     qi = np.arange(sq)[:, None]
     kj = np.arange(sk)[None, :]
@@ -261,22 +265,22 @@ def _bwd_tiles_cover(sq, sk, causal, window, q_offset, kv_len, tiling):
         last_q = min(q0 + rows, sq) - 1
         hi = min(kvl, last_q + q_offset + 1) if causal else kvl
         lo = max(0, q0 + q_offset - window + 1) if window > 0 else 0
-        t_lo = lo // tile
-        t_hi = (hi + tile - 1) // tile if hi > lo else t_lo
-        for k0 in range(t_lo * tile, t_hi * tile, tile):
+        t_lo = lo // k_tile
+        t_hi = (hi + k_tile - 1) // k_tile if hi > lo else t_lo
+        for k0 in range(t_lo * k_tile, t_hi * k_tile, k_tile):
             for w0, w1 in wgs:
                 if wg_rows is not None:
                     p0 = q0 + w0 + q_offset
-                    if not (k0 + tile > key_lo(p0)
+                    if not (k0 + k_tile > key_lo(p0)
                             and k0 < key_hi(p0 + wg_rows - 1)):
                         continue
                     edge = (k0 < key_lo(p0 + wg_rows - 1)
-                            or k0 + tile > key_hi(p0))
+                            or k0 + k_tile > key_hi(p0))
                     # rows past Sq are not stored: only rows below it count
                     if not edge and not unmasked_ok(
-                            q0 + w0, min(q0 + w1, sq), k0, k0 + tile):
+                            q0 + w0, min(q0 + w1, sq), k0, k0 + k_tile):
                         return False
-                seen_q[q0 + w0:q0 + w1, k0:k0 + tile] = True
+                seen_q[q0 + w0:q0 + w1, k0:k0 + k_tile] = True
     return bool(np.all(seen_kv[valid])) and bool(np.all(seen_q[valid]))
 
 
@@ -306,10 +310,12 @@ def emulate_bwd_wgmma(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
     float32; P = 2^(S * c - lse * log2 e), c the scale and log2(e) in one
     float32; dS = P (dP - Delta); P and dS split into ``terms`` bf16 terms,
     each multiplied into float32 sums over the passes' tiles in ascending
-    order (dK/dV over kBT-query tiles, dQ over kBT-key tiles); dK and dQ
-    scaled at the end, every gradient rounded once to bf16."""
+    order (dK/dV over kBT-query tiles, kWideBT in MLA's build past kMaxD;
+    dQ over kBT-key tiles); dK and dQ scaled at the end, every gradient
+    rounded once to bf16."""
     bt = BWD["kBT"]
     sq, d, sk = q.shape[1], q.shape[2], k.shape[1]
+    bt_kv = BWD["kWideBT"] if d > BWD["kMaxD"] else bt
     kvl = sk if kv_len is None else min(kv_len, sk)
     scale = float(np.float32(1.0 / d ** 0.5))
     c = float(np.float32(np.float64(scale) * math.log2(math.e)))
@@ -323,8 +329,8 @@ def emulate_bwd_wgmma(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
     ds = p * (torch.matmul(dof, vf.transpose(1, 2)) - delta)
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), \
         torch.zeros_like(vf)
-    for t0 in range(0, sq, bt):
-        sl = slice(t0, t0 + bt)
+    for t0 in range(0, sq, bt_kv):
+        sl = slice(t0, t0 + bt_kv)
         for tp, td in zip(_split(p[:, sl], terms), _split(ds[:, sl], terms)):
             dv += torch.matmul(tp.transpose(1, 2), dof[:, sl])
             dk += torch.matmul(td.transpose(1, 2), qf[:, sl])
@@ -363,7 +369,8 @@ def _bf16_case(bh, sq, sk, d, dv, causal, window, q_offset, kv_len, seed=0):
 
 # (bh, sq, sk, d, dv, causal, window, q_offset, kv_len) on the tensor-core
 # route: granite's head at small S across 64 heads, Phi-3's, a window, a
-# query offset with Sq < Sk, a key limit, cross-attention's unequal lengths
+# query offset with Sq < Sk, a key limit, cross-attention's unequal lengths,
+# and MLA's qk 192 / v 128 (causal, and with a key limit and Sq != Sk)
 BWD_WGMMA_CASES = {
     "d64_causal_64_heads": (64, 256, 256, 64, 64, True, 0, 0, None),
     "d96_causal": (8, 192, 192, 96, 96, True, 0, 0, None),
@@ -373,6 +380,8 @@ BWD_WGMMA_CASES = {
     "key_limit_d96": (8, 200, 200, 96, 96, False, 0, 0, 150),
     "sq_ne_sk": (8, 100, 300, 64, 64, False, 0, 0, None),
     "d128_window": (4, 200, 200, 128, 128, True, 100, 0, None),
+    "mla_192_128": (8, 256, 256, 192, 128, True, 0, 0, None),
+    "mla_key_limit_sq_ne_sk": (4, 100, 230, 192, 128, False, 0, 0, 170),
 }
 
 
@@ -397,17 +406,33 @@ def test_bwd_term_count_against_the_bf16_gate(terms, misses):
 
 
 def test_bwd_routes_by_dtype_and_width_to_built_entry_points():
-    """bf16 up to kMaxD (granite's 64, Phi-3's 96, 128) on the tensor
-    cores; float32, and wider bf16 heads (MLA's 192 / 128), on the CUDA
-    cores; each route names a C entry point the build binds."""
+    """bf16 up to kMaxD (granite's 64, Phi-3's 96, 128) and MLA's 192 /
+    128 on the tensor cores; float32, and the other bf16 heads past 128,
+    on the CUDA cores; each route names a C entry point the build binds."""
     from repro_torch.kernels._build import SIGNATURES
 
     assert BWD["kMaxD"] == 128
+    assert (BWD["kWideD"], BWD["kWideDV"], BWD["kWideBT"]) == (192, 128, 32)
     for d in (7, 32, 64, 96, 128):
         assert k7.bwd_route(torch.bfloat16, d, d) == "wgmma"
         assert k7.bwd_route(torch.float32, d, d) == "cuda_cores"
     assert k7.bwd_route(torch.bfloat16, 96, 80) == "wgmma"
-    for d, dv in ((129, 129), (160, 160), (192, 128)):
+    assert k7.bwd_route(torch.bfloat16, 192, 128) == "wgmma"
+    assert k7.bwd_route(torch.float32, 192, 128) == "cuda_cores"
+    for d, dv in ((129, 129), (160, 160), (192, 192)):
         assert k7.bwd_route(torch.bfloat16, d, dv) == "cuda_cores"
     assert set(k7.BWD_KERNELS) == {"wgmma", "cuda_cores"}
     assert all(name in SIGNATURES for name in k7.BWD_KERNELS.values())
+
+
+@pytest.mark.parametrize("d,dv,want", [
+    (7, 7, (32, 32, 64)), (64, 64, (64, 64, 64)), (96, 80, (96, 96, 64)),
+    (128, 128, (128, 128, 64)), (192, 128, (192, 128, 32)),
+    (160, 128, (192, 128, 32))])
+def test_bwd_widths_name_the_build_each_wgmma_call_launches(d, dv, want):
+    """The template arguments (qk, value, dK/dV query tile) of the
+    tensor-core build a call takes, as the source's entry point switches:
+    the square builds pad D to a multiple of 32 with kBT-query tiles, and
+    every head past kMaxD that the route sends there takes MLA's build."""
+    assert k7.bwd_route(torch.bfloat16, d, dv) == "wgmma"
+    assert k7.bwd_widths(d, dv) == want

@@ -9,7 +9,9 @@ Run from the root of a checkout.  ``shipped`` is
 tensor cores) as it is, ``cuda_cores`` is ``flash_attention_bwd.cu`` (the
 CUDA cores) called with bf16 operands; ``--variant NAME=PATH`` adds another
 source with the shipped entry point's arguments.  A build takes the heads up
-to its source's ``kMaxD`` (the CUDA-core kernel every head).  Each source is
+to its source's ``kMaxD``, and MLA's qk 192 / v 128 where its source has a
+build for ``kWideD`` / ``kWideDV`` (the CUDA-core kernel every head).  Each
+source is
 compiled by its own ``nvcc`` (all started together) into
 ``build/k7_bwd_variants/``, with its entry point renamed, and called through
 ctypes on the same bf16 inputs (the forward's output and ``lse`` from the
@@ -17,7 +19,9 @@ repository's own K7 forward), causal:
 
 * ``granite``: BH 64, S 2,048, D 64 (granite-3-2b's training shape);
 * ``phi3``: BH 64, S 4,096, D 96;
-* ``d128``: BH 32, S 4,096, D 128.
+* ``d128``: BH 32, S 4,096, D 128;
+* ``mla``: BH 32, S 2,048, qk 192 / v 128 (DeepSeek-V2-Lite's training
+  shape: 2 x 16 heads).
 
 Each (shape, build) is timed by CUDA events around 10 back-to-back calls
 (Delta pre-pass, dK/dV pass and dQ pass), in the order listed and then
@@ -48,9 +52,17 @@ _P, _I, _B, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
 # q_offset, window, kv_len, scale[, bf16], stream
 WGMMA = [_P] * 10 + [_I] * 5 + [_B, _I, _I, _I, _F, _P]
 CUDA_CORES = [_P] * 10 + [_I] * 5 + [_B, _I, _I, _I, _F, _B, _P]
-# (name, bh, s, d)
-SHAPES = (("granite", 64, 2048, 64), ("phi3", 64, 4096, 96),
-          ("d128", 32, 4096, 128))
+# (name, bh, s, d, dv)
+SHAPES = (("granite", 64, 2048, 64, 64), ("phi3", 64, 4096, 96, 96),
+          ("d128", 32, 4096, 128, 128), ("mla", 32, 2048, 192, 128))
+
+
+def takes(text: str, d: int, dv: int) -> bool:
+    """Whether the tensor-core source ``text`` has a build for (d, dv)."""
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    return d <= consts["kMaxD"] or (
+        d <= consts.get("kWideD", 0) and dv <= consts.get("kWideDV", 0))
 
 
 def sources(args) -> dict:
@@ -68,7 +80,7 @@ def sources(args) -> dict:
 
 def build(srcs: dict) -> dict:
     """Compile every source (one nvcc each, all at once); return its loaded
-    entry point, its widest head and ptxas's report by kernel."""
+    entry point, its source text and ptxas's report by kernel."""
     from repro_torch.kernels._build import FLAGS, _nvcc
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -91,7 +103,6 @@ def build(srcs: dict) -> dict:
                      f"{entry}_{name}")
         fn.argtypes, fn.restype = (WGMMA if kind == "wgmma"
                                    else CUDA_CORES), _B
-        max_d = re.search(r"constexpr int kMaxD = (\d+);", path.read_text())
         report = {}
         for block in out.split("Compiling entry function '")[1:]:
             kernel = re.search(
@@ -102,7 +113,7 @@ def build(srcs: dict) -> dict:
             report[kernel.group(0) if kernel else "?"] = (
                 int(regs.group(1)) if regs else None,
                 int(spill.group(1)) if spill else 0)
-        built[name] = (fn, kind, int(max_d.group(1)), report)
+        built[name] = (fn, kind, path.read_text(), report)
     return built
 
 
@@ -131,19 +142,18 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     srcs = sources(args)
     built = build(srcs)
-    for name, (_, _, max_d, report) in built.items():
-        print(json.dumps({"ptxas": name, "max_d": max_d, "kernels": report}),
-              flush=True)
+    for name, (_, _, _, report) in built.items():
+        print(json.dumps({"ptxas": name, "kernels": report}), flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     result = {"card": smi, "ms": {}, "max_abs_err": {}, "ptxas": {
         name: report for name, (_, _, _, report) in built.items()}}
-    for shape, bh, s, d in SHAPES:
-        q, k, v, do = (torch.randn((bh, s, d), generator=g, device="cuda")
-                       .bfloat16() for _ in range(4))
+    for shape, bh, s, d, dv in SHAPES:
+        q, k, v, do = (torch.randn((bh, s, w), generator=g, device="cuda")
+                       .bfloat16() for w in (d, d, dv, dv))
         o, lse = k7._launch(q, k, v, True, 0, 0, s, with_lse=True)
         names = [n for n in built if built[n][1] == "cuda_cores"
-                 or d <= built[n][2]]
+                 or takes(built[n][2], d, dv)]
         grads = {n: [torch.empty_like(x) for x in (q, k, v)] for n in names}
         delta = torch.empty((bh, s), dtype=torch.float32, device="cuda")
 
@@ -152,7 +162,7 @@ def main(argv=None) -> int:
             ptrs = [x.data_ptr() for x in (q, k, v, o, lse, do, *grads[n],
                                           delta)]
             flag = [1] if kind == "cuda_cores" else []
-            rc = fn(*ptrs, bh, s, s, d, d, 1, 0, 0, s, 1.0 / d ** 0.5,
+            rc = fn(*ptrs, bh, s, s, d, dv, 1, 0, 0, s, 1.0 / d ** 0.5,
                     *flag, stream)
             if rc:
                 raise RuntimeError(f"{n} at {shape}: error {rc}")
