@@ -171,6 +171,24 @@ products run in full float32 (TF32 off).  It
    one PyTorch call that sums duplicate keys the same way (the chunk's
    products as a COO tensor, ``coalesce()``); each kernel's bound counts
    the bytes this run's data needs (distinct source rows, real products);
+6b. holds the sorted segment sum (``kernels.segment_sum``,
+   ``csrc/segment_sum.cu``: each output's terms added in the reference's
+   order, no atomics) bit for bit against its plain version run on the
+   CPU, on calls recorded at their sites: the sort engine on RoadTX's
+   group-0 chunk and p2p-Gnutella04's group-2 chunk (976 x 131,793
+   slots), ``csr_spmm`` on ogbn-arxiv's Â forward and X's gradient (the
+   stable-sort route), ``csr_column_sums`` on Economics with its self
+   loops; times each (CUDA events, device time) beside its bound (bytes)
+   and its plain version on the card (``index_add_``, with atomics), the
+   site's call before this kernel, ``scatter_add_``,
+   ``torch.segment_reduce`` and ``index_put_(accumulate=True)``, with
+   whether each gives the kernel's bits; then on ``SEGSUM_EDGES`` (one
+   column, wide rows on 1-4 columns a lane, runs past the kernel's batch
+   of loads, a batch, the permuted route, skipped segments, float64, no
+   entry); and holds the dense conversions that add repeated entries
+   (``TopKRows.to_dense``, ``bsr_to_dense``, ``csr_to_dense``,
+   ``ell_to_dense``, each through the segment sum) on the card against
+   the CPU, short and long runs of repeats, bit for bit;
 7. runs the self-products of RoadTX (1,393,383 rows) and p2p-Gnutella04
    (10,876 rows), seed 0, through ``spgemm(a, a)`` (sort engine, AIA
    gather, measured sizing), ``spgemm(a, a, engine="fused_hash")`` (AIA
@@ -178,8 +196,11 @@ products run in full float32 (TF32 off).  It
    ``engine="hash", gather="xla"``; checks each product against
    ``scipy.sparse`` (structure exact, values within rtol 1e-4 / atol 1e-6:
    float32 sums in another order than scipy's float64), the hash path
-   bit-identical to hash/xla, zero pipeline syncs on the planned call and
-   the kernels' launch counts (one K1 launch a chunk); profiles one more
+   bit-identical to hash/xla, each call run a second time bit for bit,
+   the default lane on p2p-Gnutella04 bit for bit the CPU port's product,
+   zero pipeline syncs on the planned call and the kernels' launch counts
+   (one K1 launch a chunk, one segment sum a chunk on the default lane);
+   profiles one more
    run of each call (device time, busy share, top kernels); and times
    ``torch.sparse.mm`` (cuSPARSE) on the same CSR as a yardstick the port
    never calls;
@@ -191,10 +212,10 @@ products run in full float32 (TF32 off).  It
    batch's reckoned memory passes 60 GB), one flush at the end; every
    dispatch recorded with its launch and sync counts from 0: one K1 launch
    a chunk, K2 batch x chunks on ``fused_hash`` and none on the default
-   lane, no pipeline sync on the planned lane, the OperandCache's hits as
-   its lead tenants predict; every request against its solo ``spgemm``
-   with the same knobs (structure exact; values bit for bit on
-   ``fused_hash``, within rtol 1e-4 / atol 1e-6 on the sort lane), one
+   lane, one segment sum a chunk on the default lane, no pipeline sync on
+   the planned lane, the OperandCache's hits as its lead tenants predict;
+   every request against its solo ``spgemm`` with the same knobs
+   (structure exact, values bit for bit on both lanes), one
    per (pattern, lane) against scipy's float64 product; requests/s,
    p50/p99 latency, dispatches and coalescing ratio; the first batched
    dispatch of each (pattern, lane) profiled beside the same members as a
@@ -207,8 +228,8 @@ products run in full float32 (TF32 off).  It
    logical shards of the one card, each call with its launch and sync
    counts from 0: the RoadTX and p2p-Gnutella04 self-products under
    ``make_spgemm_mesh()``, ``[cuda:0] * 2`` and ``[cuda:0] * 4`` on the
-   default lane (structure equal to ``mesh=None``, values within rtol 1e-4
-   / atol 1e-6 of scipy, one pipeline sync) and ``fused_hash`` (bit for
+   default lane (bit for bit ``mesh=None``, values within rtol 1e-4 /
+   atol 1e-6 of scipy, one pipeline sync) and ``fused_hash`` (bit for
    bit ``mesh=None``, no sync), K1 and K2 once a chunk of the mesh's
    partition; on p2p ``operands`` auto, footprint and replicate, bit for
    bit each; wall, device and busy (one profiled call), peak, B rows and
@@ -218,7 +239,7 @@ products run in full float32 (TF32 off).  It
    one gcn/topk ``train_gnn`` step on ogbn-arxiv under 4 shards, step 1
    within 1e-4 of float64; MCL on Economics under 4 shards, each expansion
    bit for bit the ``mesh=None`` product of its inputs and each iterate
-   within rtol 1e-4 / atol 1e-6 of that iteration finished from it.  The
+   bit for bit that iteration finished from it.  The
    copy between cards is the identity on one card and is not measured;
 9. runs the paper's three applications at paper size, each lane with the
    launch counts and the pipeline's sync count from 0: graph contraction
@@ -235,14 +256,19 @@ products run in full float32 (TF32 off).  It
    product with explicit zeros kept, values within rtol 1e-4 / atol 1e-6,
    every prune decision the reference's unless within 1e-4 (relative) of
    theta or of its column's k-th value (those counted), nonzero columns
-   summing to 1, the clusters the reference's partition; beside cuSPARSE's
-   expansions; full-batch GNN training (``apps.train_gnn``) on ogbn-arxiv
+   summing to 1, the clusters the reference's partition, a second run bit
+   for bit the first; beside cuSPARSE's expansions; MCL on Economics cut
+   to ``MCL_CPU_ROWS`` rows on the default lane, bit for bit the CPU
+   port's run; full-batch GNN training (``apps.train_gnn``) on ogbn-arxiv
    (169,343 nodes, R-MAT, 64 features, 40 classes, TopK 16, 2 layers, 5
    steps) for GCN, GIN and SAGE in both modes: step 1's logits within 1e-4
    of the largest |logit| of a float64 numpy forward (rows fed by a TopK
    near-tie counted and left out), its gradients within 1e-4 of a float64
    CPU autograd run of the port's plain path, every loss finite, one K1
-   launch per aggregation; and K1 on ``csr_spmm``'s one-plane shape (Â's
+   launch per aggregation, and gcn/topk trained a second time, whether
+   its losses and parameters are the first run's bits (a finding, with
+   the accumulating kernels of one profiled step); and K1 on
+   ``csr_spmm``'s one-plane shape (Â's
    ids, 256-byte rows of X) bit for bit, on a transposed X through
    ``csr_spmm``'s take too, timed beside ``index_select`` and its bound;
    one aggregation beside cuSPARSE SpMM;
@@ -266,10 +292,9 @@ products run in full float32 (TF32 off).  It
     launches a step and one step profiled;
 11. runs the out-of-core lane and its resilience layer (``stream_phase``;
     sizes in ``STREAM``): ``spgemm_streamed`` of the p2p-Gnutella04
-    self-product in 6 tiles at prefetch 1, 2 and 3 on both lanes
-    (``fused_hash`` bit for bit the monolithic product, the sort lane's
-    structure equal and values within rtol 1e-4 / atol 1e-6; both against
-    scipy; 6 tiles, the reference's overlap count), one profiled call's
+    self-product in 6 tiles at prefetch 1, 2 and 3 on both lanes (bit
+    for bit the monolithic product; both against scipy; 6 tiles, the
+    reference's overlap count), one profiled call's
     side-stream copies and the ms of them that overlap a kernel; a device
     budget of half the monolithic estimate (``on_budget="error"`` raises
     before any allocation, ``"stream"`` degrades bit for bit with the
@@ -282,8 +307,8 @@ products run in full float32 (TF32 off).  It
     ``on_budget="stream"``, each expansion held bit for bit against a
     monolithic ``spgemm`` of its iterate, each estimate beside the real
     peak;
-12. prints the kernels' JSON line (K1–K7, and K7's backward as a record
-    of its own), then ``{"ok": true, "device": ...}``
+12. prints the kernels' JSON line (K1–K7, K7's backward and the segment
+    sum as records of their own), then ``{"ok": true, "device": ...}``
     last, and the whole script's time on a line before them.
 
 Every check raises on failure, so the script exits non-zero; it also exits
@@ -294,6 +319,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import pathlib
@@ -730,12 +756,312 @@ def hash_check(name, g, keys, vals, table_cap, hash_accum, log):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: the sorted segment sum at the main paths' shapes
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_sums(*modules):
+    """Inside the block, each call of ``segment_sum`` through the global of
+    one of ``modules`` is recorded as (ids, values, n_out, order, skip) and
+    passed on."""
+    from repro_torch.kernels import segment_sum as ss
+
+    calls, real = [], ss.segment_sum
+
+    def rec(ids, values, n_out, order=None, skip=0):
+        calls.append((ids, values.detach(), n_out, order, skip))
+        return real(ids, values, n_out, order, skip)
+
+    saved = [(m, m.segment_sum) for m in modules]
+    for m, _ in saved:
+        m.segment_sum = rec
+    try:
+        yield calls
+    finally:
+        for m, fn in saved:
+            m.segment_sum = fn
+
+
+def segment_sum_check(what, call, log) -> dict:
+    """Hold the kernel bit for bit against its plain version run on the CPU
+    on one recorded call's inputs (one launch), then time it beside its
+    plain version on the card (``index_add_``, with atomics), the call the
+    site made before (``index_add_`` in stream order for a permuted
+    route), ``scatter_add_`` (one column), ``torch.segment_reduce`` and
+    ``index_put_(accumulate=True)`` on the values in run order, each with
+    whether its bits are the kernel's."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as ss
+
+    ids, values, n_out, order, skip = call
+    values = values.contiguous()
+
+    def kernel():
+        return ss.segment_sum(ids, values, n_out, order, skip)
+
+    before = ops.launch_counts()["segment_sum"]
+    got = kernel()
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["segment_sum"] == before + 1,
+          f"segment_sum {what}: one call launched "
+          f"{ops.launch_counts()['segment_sum'] - before} times")
+    t0 = time.perf_counter()
+    want = ss.segment_sum_plain(ids.cpu(), values.cpu(), n_out,
+                                None if order is None else order.cpu(), skip)
+    plain_cpu_s = time.perf_counter() - t0
+    got_h = got.cpu()
+    check(torch.equal(got_h, want), f"segment_sum {what}: differs from its "
+          f"plain version on the CPU ({int((got_h != want).sum())} values)")
+    del want
+    ordered = values if order is None else values.index_select(-2, order)
+    width = values.shape[-1]
+    lengths = torch.bincount(ids, minlength=n_out)
+
+    def plain():
+        return ss.segment_sum_plain(ids, values, n_out, order, skip)
+
+    def kept(out):  # the library calls sum the skipped segments too
+        if skip:
+            out[..., skip - 1::skip, :] = 0
+        return out
+
+    calls = {"plain": plain,
+             "segment_reduce": lambda: kept(torch.segment_reduce(
+                 ordered, "sum", lengths=lengths, axis=0)),
+             "index_put": lambda: kept(torch.zeros_like(got).index_put_(
+                 (ids,), ordered, accumulate=True))}
+    if order is not None:  # the site's call before: stream order
+        stream_ids = torch.empty_like(ids).index_copy_(0, order, ids)
+        calls["before"] = lambda: torch.zeros_like(got).index_add_(
+            0, stream_ids, values)
+        calls["route"] = lambda: ss.index_sum_sorted(stream_ids, values,
+                                                     n_out)
+    if width == 1:  # the sort engine's call before this kernel
+        calls["scatter_add"] = lambda: kept(torch.zeros_like(got[:, 0])
+                                            .scatter_add_(0, ids,
+                                                          ordered[:, 0])
+                                            [:, None])
+    # every id read once; the order entry and the values of an entry only
+    # where its segment is summed (the sort engine's overflow segments and
+    # the padding past n_out are not read); every output written once
+    summed = ids < n_out
+    if skip:
+        summed &= ids % skip != skip - 1
+    n_kept = int(summed.sum())
+    nbytes = ids.numel() * 8 + (0 if order is None else n_kept * 8) \
+        + (n_kept * values.numel() // max(ids.numel(), 1) + got.numel()) \
+        * values.element_size()
+    rec = {"shape": what, "n": ids.numel(), "n_out": n_out, "width": width,
+           "dtype": str(values.dtype), "order": order is not None,
+           "skip": skip, "summed": n_kept,
+           "max_abs_err": 0.0, "plain_cpu_s": plain_cpu_s,
+           "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+           "ms": time_ms(kernel, reps=10), "device_ms": device_ms(kernel, 5),
+           "loop_ms": loop_ms(kernel, reps=10)}
+    for label, fn in calls.items():
+        out = fn()
+        torch.cuda.synchronize()
+        rec[f"{label}_equal"] = bool(torch.equal(out, got))
+        rec[f"{label}_ms"] = time_ms(fn, reps=10)
+        rec[f"{label}_device_ms"] = device_ms(fn, 5)
+        del out
+    rec["library_call"] = "torch.segment_reduce(values, 'sum', lengths)"
+    rec["library_ms"] = rec["segment_reduce_ms"]
+    emit({"segment_sum_shape": rec}, log)
+    del got, got_h, ordered
+    torch.cuda.empty_cache()
+    return rec
+
+
+# (width, value sets, order, dtype, entries, segments, skip): one column,
+# wide rows on 1-4 columns a lane and past one slab, runs shorter and
+# longer than the kernel's batch of 16 loads, a batch, the permuted route,
+# skipped segments, float64, one segment, no entry.
+SEGSUM_EDGES = (
+    (1, 1, False, "float32", 5000, 700, 0),
+    (1, 3, True, "float32", 5000, 700, 0),
+    (1, 1, True, "float64", 5000, 1, 0),
+    (1, 1, False, "float32", 20000, 9, 0),
+    (1, 2, False, "float32", 20000, 700, 7),
+    (3, 1, False, "float32", 3000, 90, 0),
+    (64, 2, True, "float32", 3000, 90, 0),
+    (96, 1, True, "float32", 3000, 7, 3),
+    (130, 1, False, "float64", 2000, 9, 0),
+    (1, 1, False, "float32", 0, 40, 0),
+    (64, 1, True, "float32", 0, 40, 0),
+)
+
+
+def segment_sum_edges(log):
+    """The kernel on SEGSUM_EDGES (values of mixed magnitude, ids with
+    empty segments), each call one launch and bit for bit its plain version
+    on the CPU."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as ss
+
+    rng = np.random.default_rng(3)
+    for width, batch, ordered, dt, n, n_out, skip in SEGSUM_EDGES:
+        case = (width, batch, ordered, dt, n, n_out, skip)
+        shape = (batch, n, width) if batch > 1 else (n, width)
+        vals = np.where(rng.random(shape) < 0.3,
+                        np.where(rng.random(shape) < 0.5, -1e8, 1e8),
+                        rng.random(shape) + 0.5).astype(dt)
+        ids = np.sort(rng.integers(0, n_out, n) // 2 * 2 % n_out)
+        order = rng.permutation(n) if ordered else None
+        host = (torch.from_numpy(ids), torch.from_numpy(vals),
+                None if order is None else torch.from_numpy(order))
+        dev = tuple(None if h is None else h.cuda() for h in host)
+        before = ops.launch_counts()["segment_sum"]
+        got = ss.segment_sum(dev[0], dev[1], n_out, dev[2], skip).cpu()
+        check(ops.launch_counts()["segment_sum"] == before + 1,
+              f"segment_sum edge {case}: launches")
+        want = ss.segment_sum_plain(host[0], host[1], n_out, host[2], skip)
+        check(torch.equal(got, want), f"segment_sum edge {case} differs")
+    emit({"segment_sum_edges": {"cases": len(SEGSUM_EDGES), "ok": True}},
+         log)
+
+
+def formats_check(log) -> dict:
+    """The dense conversions that add repeated entries, on the card against
+    the CPU on the same inputs (float32 of mixed magnitude):
+    ``TopKRows.to_dense``, ``bsr_to_dense``, ``csr_to_dense`` and
+    ``ell_to_dense`` (each through the segment sum), each with short runs
+    of repeats (2,000 rows, up to ~10 a slot) and long ones (4 rows,
+    ~30,000 a slot); each must equal the CPU's bits."""
+    import torch
+
+    from repro_torch.sparse import formats as f
+
+    rng = np.random.default_rng(7)
+
+    def vals(*shape):
+        big = rng.random(shape) < 0.3
+        return torch.from_numpy(np.where(
+            big, np.where(rng.random(shape) < 0.5, -1e8, 1e8),
+            rng.random(shape) + 0.5).astype(np.float32))
+
+    def ints(lo, hi, *shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32))
+
+    def to(x, dev):
+        return dataclasses.replace(x, **{
+            fl.name: getattr(x, fl.name).to(dev)
+            for fl in dataclasses.fields(x)
+            if isinstance(getattr(x, fl.name), torch.Tensor)})
+
+    rec = {}
+    for runs, n, reps, cols in (("short", 2000, 24, 3), ("long", 4, 60000, 2)):
+        bs, nb = 8, n * reps // 64
+        cases = (
+            ("TopKRows.to_dense", f.TopKRows(vals(n, reps),
+                                             ints(0, cols, n, reps),
+                                             (n, 64)),
+             lambda y: y.to_dense()),
+            ("bsr_to_dense", f.BSR(
+                torch.tensor([0, nb], dtype=torch.int32), ints(0, cols, nb),
+                vals(nb, bs, bs), (bs, cols * bs)), f.bsr_to_dense),
+            ("csr_to_dense", f.CSR(
+                torch.arange(0, n * reps + 1, reps, dtype=torch.int32),
+                ints(0, cols, n * reps), vals(n * reps), (n, 64)),
+             f.csr_to_dense),
+            ("ell_to_dense", f.ELL(ints(-1, cols, n, reps), vals(n, reps),
+                                   (n, 64)), f.ell_to_dense))
+        for label, x, fn in cases:
+            want = fn(x)
+            got = fn(to(x, "cuda")).cpu()
+            off = int((got != want).sum())
+            check(off == 0, f"{label} ({runs} runs): {off} values differ "
+                            f"from the CPU's")
+            rec[f"{label}/{runs}"] = {"equal_to_cpu": True, "values_off": 0}
+    emit({"formats_on_card": rec}, log)
+    return rec
+
+
+def segment_sum_phase(mats, log) -> dict:
+    """The sorted segment sum at the main paths' shapes, each call recorded
+    at its site and held bit for bit against the plain version on the CPU:
+    the sort engine on RoadTX's group-0 chunk and p2p-Gnutella04's group-2
+    chunk (976 x 131,793 slots), ``csr_spmm`` on ogbn-arxiv's Â (GNN)
+    forward and X's gradient, ``csr_column_sums`` on Economics with its
+    self loops (MCL's input); then the dense conversions
+    (``formats_check``)."""
+    import torch
+
+    from repro_torch.apps import gnn
+    from repro_torch.apps import markov_clustering as mc
+    from repro_torch.apps.graphs import rmat_graph, table_ii_matrix
+    from repro_torch.core import phases
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.sparse import ops as sparse_ops
+
+    t0 = time.perf_counter()
+    recs = {}
+    for name, group in (("RoadTX", 0), ("p2p-Gnutella04", 2)):
+        a = mats[name]
+        ell, firsts = chunk_operands(a)
+        item, rows = firsts[group]
+        cols_a, vals_a = phases.gather_group_rows(
+            a.indptr, a.indices, a.data, rows, item.a_cap)
+        keys, vals = phases.enumerate_products(cols_a, vals_a, ell.indices,
+                                               ell.data)
+        out_cap = int(phases.allocate_sort(keys).max())
+        with recorded_sums(phases) as calls:
+            phases.sort_unique(keys, vals, out_cap)
+        check(len(calls) == 1, f"sort_unique made {len(calls)} segment sums")
+        recs[f"sort_unique/{name}/group {group}"] = segment_sum_check(
+            f"sort_unique {name} group {group} ({keys.shape[0]} x "
+            f"{keys.shape[1]} slots, out_cap {out_cap})", calls[0], log)
+        del ell, firsts, cols_a, vals_a, keys, vals, calls
+        torch.cuda.empty_cache()
+    g = rmat_graph(GNN["nodes"], GNN["avg_deg"], seed=0, device="cuda")
+    a = gnn.normalize_adjacency(g)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (GNN["nodes"], GNN["d"])).astype(np.float32)).cuda().requires_grad_()
+    ct = torch.from_numpy(rng.standard_normal(
+        (GNN["nodes"], GNN["d"])).astype(np.float32)).cuda()
+    with recorded_sums(sparse_ops, ss) as calls:
+        sparse_ops.csr_spmm(a, x, gather="aia").backward(ct)
+    check(len(calls) == 2 and calls[1][3] is not None,
+          f"csr_spmm and its backward made {len(calls)} segment sums")
+    recs["csr_spmm/ogbn-arxiv"] = segment_sum_check(
+        f"csr_spmm ogbn-arxiv forward ({int(a.nnz)} slots x {GNN['d']})",
+        calls[0], log)
+    recs["csr_spmm/ogbn-arxiv/dX"] = segment_sum_check(
+        "csr_spmm ogbn-arxiv X's gradient (stable-sort order)", calls[1],
+        log)
+    del g, a, x, ct, calls
+    torch.cuda.empty_cache()
+    name, n = MCL_MATRIX
+    g = mc.add_self_loops(table_ii_matrix(name, seed=0, n_override=n,
+                                          device="cuda"))
+    with recorded_sums(ss) as calls:
+        sparse_ops.csr_column_sums(g)
+    check(len(calls) == 1, f"csr_column_sums made {len(calls)} sums")
+    recs[f"csr_column_sums/{name}"] = segment_sum_check(
+        f"csr_column_sums {name} with self loops ({int(g.nnz)} slots)",
+        calls[0], log)
+    del g, calls
+    torch.cuda.empty_cache()
+    segment_sum_edges(log)
+    fmt = formats_check(log)
+    emit({"segment_sum_phase_s": time.perf_counter() - t0}, log)
+    return {"shapes": recs, "formats": fmt}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the SpGEMM path end to end
 # ---------------------------------------------------------------------------
 
 SPGEMM_KERNELS = ("gather_rows", "hash_accumulate")
+CPU_PRODUCT = ("p2p-Gnutella04",)  # default lane held against the CPU port
+SEGSUM_HEAD = "sort_unique/p2p-Gnutella04/group 2"  # the kernels line's shape
 CALLS = (
-    ("default", {}, {"gather_rows"}, 1),
+    ("default", {}, {"gather_rows", "segment_sum"}, 1),
     ("fused_hash", {"engine": "fused_hash"},
      {"gather_rows", "hash_accumulate"}, 0),
     ("hash_xla", {"engine": "hash", "gather": "xla"}, {"hash_accumulate"}, 1),
@@ -837,7 +1163,11 @@ def end_to_end_phase(mats, log):
             for k, n in launches.items():
                 check((n > 0) == (k in kernels),
                       f"{name}/{label}: {k} launched {n} times")
-            _, ms, _, _, _, _ = run_call(a, kwargs)
+            again, ms, _, _, _, _ = run_call(a, kwargs)
+            # every lane adds in a fixed order: a second run, bit for bit
+            check(same_csr(again.c, res.c),
+                  f"{name}/{label}: a second run differs")
+            del again
             results[label] = res
             per_call[f"{name}/{label}"] = launches
             rec = {"matrix": name, "call": label, "rows": a.n_rows,
@@ -862,13 +1192,31 @@ def end_to_end_phase(mats, log):
               and torch.equal(fu.indices[:nnz], hx.indices[:nnz])
               and torch.equal(fu.data[:nnz], hx.data[:nnz]),
               f"{name}: fused_hash/aia is not bit-identical to hash/xla")
+        if name in CPU_PRODUCT:
+            # the CPU port's product (the plain versions, index_add_ in
+            # index order): the default lane's bits, as the reference's
+            t0 = time.perf_counter()
+            cpu = spgemm(on_cpu(a), on_cpu(a)).c
+            cpu_s = time.perf_counter() - t0
+            check(same_csr(cpu, on_cpu(results["default"].c)),
+                  f"{name}/default: differs from the CPU port's product")
+            emit({"e2e_vs_cpu_port": {"matrix": name, "lane": "default",
+                                      "bit_identical": True,
+                                      "cpu_s": cpu_s}}, log)
+            del cpu
         ms, dev_ms = cusparse_ms(a)
         emit({"cusparse": {"matrix": name, "ms": ms, "device_ms": dev_ms}},
              log)
     totals = ops.launch_counts()
-    for k in SPGEMM_KERNELS:
+    for k in (*SPGEMM_KERNELS, "segment_sum"):
         check(totals[k] > 0, f"kernel {k} was never launched on the main path")
     return totals, per_call
+
+
+def on_cpu(c):
+    """A port CSR's tensors copied to the host."""
+    return dataclasses.replace(c, indptr=c.indptr.cpu(),
+                               indices=c.indices.cpu(), data=c.data.cpu())
 
 
 # ---------------------------------------------------------------------------
@@ -1027,7 +1375,8 @@ def serve_traffic(patterns, caps, log):
 
 def check_dispatches(records, chunks):
     """Per dispatch: one K1 launch a chunk; on fused_hash K2 batch x chunks
-    and no pipeline sync; on the default lane no K2 and one sync."""
+    and no pipeline sync; on the default lane no K2, one segment sum a
+    chunk and one sync."""
     for r in records:
         n = chunks[r["pattern"]]
         what = f"serve {r['pattern']}/{r['lane']} {r['kind']} x{r['batch']}"
@@ -1038,15 +1387,17 @@ def check_dispatches(records, chunks):
         check(r["launches"]["hash_accumulate"]
               == (r["batch"] * n if fused else 0),
               f"{what}: {r['launches']['hash_accumulate']} K2 launches")
+        # the sort engine sums a chunk's members in one launch
+        check(r["launches"]["segment_sum"] == (0 if fused else n),
+              f"{what}: {r['launches']['segment_sum']} segment sums")
         check(r["syncs"] == (0 if fused else 1),
               f"{what}: {r['syncs']} pipeline syncs")
 
 
 def check_members(tickets, patterns, log):
     """Every request against its solo ``spgemm`` on the card with the same
-    knobs (structure exact; values bit for bit on fused_hash, within
-    RTOL/ATOL on the sort lane), and one request per (pattern, lane)
-    against scipy's float64 product."""
+    knobs (structure exact, values bit for bit on both lanes), and one
+    request per (pattern, lane) against scipy's float64 product."""
     import torch
 
     from repro_torch.core.spgemm import spgemm
@@ -1066,13 +1417,8 @@ def check_members(tickets, patterns, log):
               and torch.equal(c.indices[:nnz], solo.c.indices[:nnz]),
               f"{what}: structure differs from the solo product")
         got, want = c.data[:nnz], solo.c.data[:nnz]
-        if lane == "fused_hash":
-            check(torch.equal(got, want), f"{what}: not bit-identical to "
-                                          f"the solo product")
-        else:
-            check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
-                  f"{what}: beyond rtol {RTOL} atol {ATOL} of the solo "
-                  f"product")
+        check(torch.equal(got, want), f"{what}: not bit-identical to the "
+                                      f"solo product")
         key = f"{name}/{lane}"
         worst[key] = max(worst.get(key, 0.0),
                          float((got.double() - want.double()).abs().max()
@@ -1228,7 +1574,8 @@ def serve_dispatch_fail(patterns, log):
 
 def serve_phase(mats, log):
     """SpGEMM serving through ``SpGEMMService`` on RoadTX, p2p-Gnutella04
-    and Economics at paper size; returns K1/K2 launches per pattern/lane."""
+    and Economics at paper size; returns K1's, K2's and the segment sum's
+    launches per pattern/lane."""
     import torch
 
     from repro_torch.apps.graphs import table_ii_matrix
@@ -1268,7 +1615,8 @@ def serve_phase(mats, log):
     for r in records:
         key = f"{r['pattern']}/{r['lane']}"
         tot = per_serve.setdefault(key, {"gather_rows": 0,
-                                         "hash_accumulate": 0})
+                                         "hash_accumulate": 0,
+                                         "segment_sum": 0})
         for k in tot:
             tot[k] += r["launches"][k]
     folded = {}
@@ -3854,12 +4202,14 @@ MCL_MATRIX = ("Economics", 206_500)
 MCL_ARGS = {"e": 2, "r": 2.0, "theta": 1e-4, "k": 32, "tol": 0.0,
             "max_iters": 2}
 NEAR = 1e-4  # a decision this close (relative) to its threshold is "near"
+MCL_CPU_ROWS = 2_048  # MCL on the card against the CPU port, bit for bit
 # ogbn-arxiv at paper size (Table III: 169,343 nodes, average degree 15.8,
 # 40 classes, R-MAT as TABLE_III_SCALED has it) with bench_gnn.bench_one's
 # settings: 64 input and hidden features, TopK 16, 2 layers, 5 steps.
 GNN = {"dataset": "ogbn-arxiv", "nodes": 169_343, "avg_deg": 15.8,
        "n_classes": 40, "d": 64, "topk": 16, "n_layers": 2, "steps": 5}
 GNN_REL = 1e-4  # logits and step-1 gradients, of the largest |value|
+GNN_REPEAT = ("gcn", "topk")  # trained twice: are the bits the same?
 
 
 def host_csr(c, dtype=np.float64):
@@ -4304,7 +4654,12 @@ def mcl_phase(log):
               f"{what}: the clusters differ from the reference's partition")
         del rec, x, e_port, m_port, want
         torch.cuda.empty_cache()
-        _, ms, _, _, _ = counted_call(lambda: mcl(g, **args, **kwargs))
+        again, ms, _, _, _ = counted_call(lambda: mcl(g, **args, **kwargs))
+        # every sum adds in a fixed order: a second run, bit for bit
+        check(same_csr(again.matrix, res.matrix)
+              and np.array_equal(again.clusters, res.clusters),
+              f"{what}: a second run differs")
+        del again
         per_lane[f"mcl/{name}/{lane}"] = launches
         emit({"mcl": {
             "matrix": name, "lane": lane, "rows": n, "args": MCL_ARGS,
@@ -4312,6 +4667,7 @@ def mcl_phase(log):
                         "keeps pruned entries, so a third expansion forms "
                         "~6e11 products"},
             "ms": ms, "recorded_ms": cold_ms, "iterations": iters,
+            "second_run_bit_identical": True,
             "intermediate_products": [i["intermediate_products"]
                                       for i in res.spgemm_info],
             "nnz_c": [i["nnz_c"] for i in res.spgemm_info],
@@ -4336,7 +4692,36 @@ def mcl_phase(log):
         torch.cuda.empty_cache()
     emit({"cusparse_mcl_expansions": {"matrix": name, "expansions": exp}},
          log)
+    mcl_cpu_check(log)
     return per_lane
+
+
+def mcl_cpu_check(log):
+    """MCL (MCL_ARGS) on Economics cut to MCL_CPU_ROWS rows on the default
+    lane, on the card and on the CPU (the port's plain versions): the same
+    matrix and clusters, bit for bit."""
+    from repro_torch.apps.graphs import table_ii_matrix
+    from repro_torch.apps.markov_clustering import mcl
+
+    name = MCL_MATRIX[0]
+    g = table_ii_matrix(name, seed=0, n_override=MCL_CPU_ROWS, device="cpu")
+    t0 = time.perf_counter()
+    cpu = mcl(g, **MCL_ARGS)
+    cpu_s = time.perf_counter() - t0
+    card, ms, launches, _, _ = counted_call(
+        lambda: mcl(dataclasses.replace(
+            g, indptr=g.indptr.cuda(), indices=g.indices.cuda(),
+            data=g.data.cuda()), **MCL_ARGS))
+    check(same_csr(on_cpu(card.matrix), cpu.matrix)
+          and np.array_equal(card.clusters, cpu.clusters),
+          f"MCL {name} at {MCL_CPU_ROWS} rows: the card's run differs from "
+          f"the CPU port's")
+    check(launches["segment_sum"] > 0, f"MCL on the card: launches {launches}")
+    emit({"mcl_vs_cpu_port": {"matrix": name, "rows": MCL_CPU_ROWS,
+                              "lane": "default", "args": MCL_ARGS,
+                              "nnz": int(cpu.matrix.nnz), "ms": ms,
+                              "cpu_s": cpu_s, "launches": launches,
+                              "bit_identical": True}}, log)
 
 
 def gnn_reference_forward(cfg, params, a, x):
@@ -4499,6 +4884,32 @@ def gnn_step1_check(what, cfg, params, d, mesh=None) -> dict:
             "grad_rel_err": grad_err, "loss_step1": float(loss64.detach())}
 
 
+def gnn_repeat(cfg, d, trained, hist) -> dict:
+    """A finding, not a gate: ``train_gnn`` run again from the same seed,
+    and whether its losses and trained parameters are the first run's bit
+    for bit; with the kernels of one profiled step that accumulate (their
+    names), where an order of adds could still move."""
+    import torch
+
+    from repro_torch.apps import gnn
+
+    again, hist2 = gnn.train_gnn(cfg, d["a"], d["x"], d["labels"],
+                                 n_steps=GNN["steps"], seed=0)
+    _, _, top = profile(lambda: gnn.train_gnn(cfg, d["a"], d["x"],
+                                              d["labels"], n_steps=1,
+                                              seed=0), top_n=60)
+    words = ("scatter", "index", "atomic", "reduce", "segment", "put")
+    return {"losses_bit_identical": list(hist) == list(hist2),
+            "params_bit_identical": all(torch.equal(trained[k], again[k])
+                                        for k in trained),
+            "param_sums": {k: [float(trained[k].double().sum()),
+                               float(again[k].double().sum())]
+                           for k in trained},
+            "accumulating_kernels": sorted({name for name, _, _ in top
+                                            if any(w in name.lower()
+                                                   for w in words)})}
+
+
 def gnn_phase(log):
     """Full-batch GNN training on ogbn-arxiv at paper size, 3 archs x 2
     modes: step 1 held by ``gnn_step1_check``, then ``train_gnn`` with one
@@ -4522,10 +4933,12 @@ def gnn_phase(log):
             params = gnn.init_gnn(cfg, torch.Generator().manual_seed(0),
                                   device="cuda")
             step1 = gnn_step1_check(what, cfg, params, d)
-            (_, hist), ms, launches, _, peak = counted_call(
+            (trained, hist), ms, launches, _, peak = counted_call(
                 lambda: gnn.train_gnn(cfg, a, x, labels,
                                       n_steps=GNN["steps"], seed=0))
             check(all(np.isfinite(hist)), f"{what}: loss {hist}")
+            if (arch, mode) == GNN_REPEAT:
+                step1["repeat"] = gnn_repeat(cfg, d, trained, hist)
             check(launches["gather_rows"] == GNN["steps"] * cfg.n_layers
                   and launches["hash_accumulate"] == 0,
                   f"{what}: launches {launches}, expected one K1 launch per "
@@ -5105,7 +5518,7 @@ def traced(fn) -> list:
 
 def stream_p2p(a, log):
     """(a) ``spgemm_streamed`` of the p2p self-product at prefetch 1-3 on
-    both lanes against the monolithic call and scipy."""
+    both lanes against the monolithic call (bit for bit) and scipy."""
     from repro_torch.core import executor
     from repro_torch.core.spgemm import spgemm, spgemm_streamed
 
@@ -5131,16 +5544,8 @@ def stream_p2p(a, log):
                   == (0 if prefetch == 1 else n_tiles - 1),
                   f"{what}: {st['prefetch_overlap_hits']} overlap hits")
             nnz = int(res.info["nnz_c"])
-            if lane == "fused_hash":
-                check(same_csr(res.c, mono.c),
-                      f"{what}: not the monolithic product bit for bit")
-            else:
-                m = host_csr(mono.c)
-                h = host_csr(res.c)
-                check(np.array_equal(h.indptr, m.indptr)
-                      and np.array_equal(h.indices, m.indices)
-                      and np.allclose(h.data, m.data, rtol=RTOL, atol=ATOL),
-                      f"{what}: differs from the monolithic product")
+            check(same_csr(res.c, mono.c),
+                  f"{what}: not the monolithic product bit for bit")
             err = check_against_scipy(name, f"streamed/{lane}", res.c, nnz,
                                       want)
             if prefetch == 2:
@@ -5446,9 +5851,9 @@ def operand_counters() -> dict:
 
 
 def mesh_products(mats, log):
-    """The Table-II self-products under each mesh on both lanes, against
-    the ``mesh=None`` product (``fused_hash`` bit for bit; the default
-    lane's structure equal and its values within RTOL/ATOL of scipy), with
+    """The Table-II self-products under each mesh on both lanes, bit for
+    bit the ``mesh=None`` product (the default lane's values also within
+    RTOL/ATOL of scipy), with
     the pipeline's syncs and K1/K2 launches per chunk; on p2p the three
     ``operands`` placements, bit for bit."""
     from repro_torch.core.spgemm import spgemm
@@ -5480,14 +5885,10 @@ def mesh_products(mats, log):
                           (chunks if lane == "fused_hash" else 0),
                           f"{what}: {launches['hash_accumulate']} K2 "
                           f"launches for {chunks} chunks")
-                    if lane == "fused_hash":
-                        check(same_csr(c, base[lane]),
-                              f"{what}: not bit-identical to mesh=None")
-                        err = 0.0
-                    else:
-                        check(torch_equal_structure(c, base[lane]),
-                              f"{what}: structure differs from mesh=None")
-                        err = check_against_scipy(name, what, c, nnz, want)
+                    check(same_csr(c, base[lane]),
+                          f"{what}: not bit-identical to mesh=None")
+                    err = 0.0 if lane == "fused_hash" else \
+                        check_against_scipy(name, what, c, nnz, want)
                     per_call[f"{name}/{label}/{lane}/{placement}"] = launches
                     emit({"mesh_spgemm": {
                         "matrix": name, "mesh": label, "shards": len(mesh),
@@ -5495,7 +5896,7 @@ def mesh_products(mats, log):
                         "nnz_c": nnz, "chunks": chunks, "ms": ms,
                         "host_sync_count": syncs, "launches": launches,
                         "peak_mem_gb": peak,
-                        "bit_identical_to_mesh_none": lane == "fused_hash",
+                        "bit_identical_to_mesh_none": True,
                         "max_abs_err_vs_scipy": err,
                         "operand_rows_share":
                             placed["operand_rows_footprint"]
@@ -5507,14 +5908,6 @@ def mesh_products(mats, log):
                     del res, c
         del base
     return per_call
-
-
-def torch_equal_structure(x, y) -> bool:
-    import torch
-
-    nnz = int(x.nnz)
-    return x.shape == y.shape and torch.equal(x.indptr, y.indptr) and \
-        torch.equal(x.indices[:nnz], y.indices[:nnz])
 
 
 def mesh_batched_and_streamed(a, log):
@@ -5627,10 +6020,9 @@ def mesh_mcl(log):
     run each expansion is held bit for bit against the ``mesh=None``
     product of its own inputs, and the iteration is finished from that
     product (prune, inflation, normalisation) as ``mcl`` does: each
-    iterate of the run has that one's structure and values within RTOL of
-    the largest |value| plus ATOL (column sums add with atomics on the
-    card, so two runs differ in the last bits).  The checks' time (the
-    iterates' host copies too) and launches are left out of the run's."""
+    iterate of the run is that one bit for bit (the column sums add in
+    slot order on the card too).  The checks' time (the iterates' host
+    copies too) and launches are left out of the run's."""
     import torch
 
     from repro_torch.apps import markov_clustering as mc
@@ -5688,7 +6080,7 @@ def mesh_mcl(log):
               f"mesh MCL: iterate {i}'s structure differs")
         err = float(np.abs(x.data - y.data).max(initial=0.0))
         scale = float(np.abs(y.data).max(initial=0.0))
-        check(err <= RTOL * scale + ATOL,
+        check(np.array_equal(x.data, y.data),
               f"mesh MCL: iterate {i} differs by {err} (scale {scale})")
         errs.append({"iterate": i, "max_abs_diff": err, "scale": scale,
                      "nnz": int(x.nnz)})
@@ -5784,6 +6176,7 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
     mats = {name: table_ii_matrix(name, seed=0, n_override=n, device="cuda")
             for name, n in MATRICES.items()}
     k1, k2 = kernel_phase(mats, log)
+    segsum = segment_sum_phase(mats, log)
     totals, per_call = end_to_end_phase(mats, log)
     per_serve = serve_phase(mats, log)
     torch.cuda.empty_cache()
@@ -5851,6 +6244,38 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
                                for c, n in per_mesh.items()},
          "path": k2["route"], "chunks": k2["chunks"]},
     ]
+    head = segsum["shapes"][SEGSUM_HEAD]
+    kernels.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+        "replaces": "none: the reference's sums are XLA's .at[].add "
+                    "(src/repro/core/phases.py:356; src/repro/sparse/"
+                    "ops.py:45, :83, :103, :133)",
+        "shape": head["shape"],
+        "launches": totals["segment_sum"],
+        "launches_per_spgemm": {c: n["segment_sum"]
+                                for c, n in per_call.items()},
+        "launches_per_app": {c: n["segment_sum"]
+                             for c, n in per_app.items()},
+        "launches_per_serve": {c: n["segment_sum"]
+                               for c, n in per_serve.items()},
+        "launches_per_minibatch_step": per_step["segment_sum"],
+        "launches_per_stream": {c: n["segment_sum"]
+                                for c, n in per_stream.items()},
+        "launches_per_mesh": {c: n["segment_sum"]
+                              for c, n in per_mesh.items()},
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "kernel_ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes", "library_ms": head["library_ms"],
+        "library_call": head["library_call"],
+        "shapes": {k: {f: r[f] for f in (
+            "shape", "ms", "device_ms", "loop_ms", "plain_ms",
+            "plain_device_ms", "plain_equal", "bound_ms", "library_ms",
+            "segment_reduce_device_ms", "segment_reduce_equal",
+            "index_put_ms", "index_put_device_ms", "index_put_equal")}
+            for k, r in segsum["shapes"].items()},
+        "formats_on_card": segsum["formats"]})
     for name, src, tpu in FFN_SOURCES:
         rec = ffn[name]
         kernels.append({

@@ -7,7 +7,9 @@ helpers compute the reference's results another way, so that they scale
 to paper-size graphs: ``_change`` takes the largest entry difference over
 the union of both structures without densifying, and
 ``interpret_clusters`` finds the connected components with scipy in place
-of ``networkx``.
+of ``networkx``.  Repeated entries are summed in the reference's order
+(``kernels.segment_sum``), so an iteration gives the same bits on the CPU
+and on the card.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.core import executor
 from repro_torch.core.spgemm import PlanCache, spgemm, spgemm_streamed
+from repro_torch.kernels.segment_sum import index_sum, segment_sum
 from repro_torch.sparse.formats import CSR
 from repro_torch.sparse.ops import (
     csr_column_normalize,
@@ -59,8 +62,7 @@ def add_self_loops(g: CSR, weight: float = 1.0) -> CSR:
                                        device=dev)])
     skey, order = torch.sort(key, stable=True)
     uniq, inv = torch.unique_consecutive(skey, return_inverse=True)
-    data = torch.zeros(uniq.shape[0], dtype=vals.dtype, device=dev)
-    data.index_add_(0, inv, vals[order])
+    data = segment_sum(inv, vals[:, None], uniq.shape[0], order)[:, 0]
     rows = uniq // g.n_cols
     indptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
     indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0,
@@ -77,10 +79,9 @@ def _change(a: CSR, b: CSR) -> float:
     if ka.numel() + kb.numel() == 0:
         return 0.0
     uniq, inv = torch.unique(torch.cat([ka, kb]), return_inverse=True)
-    sa = torch.zeros(uniq.shape[0], dtype=va.dtype, device=va.device)
-    sb = torch.zeros(uniq.shape[0], dtype=vb.dtype, device=vb.device)
-    sa.index_add_(0, inv[: ka.numel()], va)
-    sb.index_add_(0, inv[ka.numel():], vb)
+    n = uniq.shape[0]
+    sa = index_sum(inv[: ka.numel()], va[:, None], n)[:, 0]
+    sb = index_sum(inv[ka.numel():], vb[:, None], n)[:, 0]
     return float((sa.double() - sb.double()).abs().max())
 
 

@@ -7,9 +7,11 @@ Each engine consumes one group-chunk of rows with static shapes: ``a_cap``
 * ``*_hash`` — Algorithm 4's linear-probing table per row, filled in
   stream order (``kernels.hash_accum``: the CUDA kernel on a CUDA tensor,
   the lockstep plain version on the CPU).
-* ``*_sort`` — the vectorised sort + segment-sum engine: the same columns
-  and counts; the same sums on the CPU, where ``scatter_add_`` adds in
-  index order, and sums in another order on CUDA, where it uses atomics.
+* ``*_sort`` — the vectorised sort + segment-sum engine: the same columns,
+  counts and sums, bit for bit: each row's runs are added in stream order
+  by ``kernels.segment_sum`` (``index_add_`` on the CPU, the sorted
+  segment-sum kernel on CUDA, where ``scatter_add_`` would add with
+  atomics in no fixed order).
 
 Every function keeps its operands' device and reads nothing back to the
 host, so a chunk is dispatched without a sync.  The value streams may carry
@@ -23,6 +25,7 @@ import torch
 # the module, not its names: kernels.hash_accum imports core.hashtable, so
 # importing it first runs this module while it is still loading
 from repro_torch.kernels import hash_accum
+from repro_torch.kernels.segment_sum import segment_sum
 
 INT_MAX = 2**31 - 1
 
@@ -145,11 +148,15 @@ def sort_unique(keys, vals, out_cap: int):
     sv = torch.gather(vals, -1, order.expand(*lead, -1, -1))
     ur = torch.cumsum(is_start, dim=1, dtype=torch.int32) - 1  # unique rank
     counts = torch.where(valid, ur + 1, 0).amax(dim=1).to(torch.int32)
-    tgt = torch.where(valid & (ur < out_cap), ur, out_cap).long()
-    out_vals = torch.zeros((*lead, r, out_cap + 1), dtype=vals.dtype,
-                           device=vals.device)
-    out_vals.scatter_add_(-1, tgt.expand(*lead, -1, -1),
-                          torch.where(valid, sv, 0))
+    # each slot's segment, row-major over (R, out_cap + 1): non-decreasing,
+    # since a row's slots are sorted and its invalid and truncated ones go
+    # to its last segment, out_cap, which is dropped (and not summed)
+    seg = torch.where(valid & (ur < out_cap), ur, out_cap).long()
+    seg += torch.arange(0, r * (out_cap + 1), out_cap + 1,
+                        device=keys.device)[:, None]
+    out_vals = segment_sum(
+        seg.view(-1), torch.where(valid, sv, 0).reshape(*lead, -1, 1),
+        r * (out_cap + 1), skip=out_cap + 1).view(*lead, r, out_cap + 1)
     start_tgt = torch.where(is_start & (ur < out_cap), ur, out_cap).long()
     out_cols = torch.full((r, out_cap + 1), -1, dtype=torch.int32,
                           device=keys.device)

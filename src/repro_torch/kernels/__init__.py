@@ -14,6 +14,9 @@
   (replaces the Pallas ``repro.kernels.flash_attention.
   flash_attention_fused``), and the same kernel under the model attention's
   masks (window, query offset, key limit, Sq != Sk).
+* ``segment_sum`` — segment sums in the reference's order of adds (no
+  atomics), for the sort engine, the CSR primitives and MCL (replaces no
+  Pallas kernel: the reference's sums are XLA's ``.at[].add``).
 
 ``ops`` holds the device dispatch, the launch counters and the public
 entry points with the reference's signatures; ``_build`` builds the CUDA

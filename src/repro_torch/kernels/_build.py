@@ -73,6 +73,9 @@ SIGNATURES = {
     "repro_flash_attention_bwd_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _I, _I, _B, _I, _I,
                                         _I, _F, _P],
+    # ids, vals, order (NULL: none), out, n, n_out, width, skip, batch,
+    # float64, stream
+    "repro_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _P],
 }
 
 _LIB = None

@@ -43,7 +43,7 @@ from torch.distributed.tensor import DTensor
 LAUNCHES: Dict[str, int] = {
     "gather_rows": 0, "hash_accumulate": 0, "aia_ranged_gather": 0,
     "bsr_spmm": 0, "topk_spmm": 0, "block_topk_spmm": 0,
-    "flash_attention_fused": 0, "flash_attention_bwd": 0,
+    "flash_attention_fused": 0, "flash_attention_bwd": 0, "segment_sum": 0,
 }
 ROUTE_LAUNCHES: Dict[str, int] = {}
 

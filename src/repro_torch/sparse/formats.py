@@ -32,6 +32,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.segment_sum import index_sum
+
 
 @dataclasses.dataclass(frozen=True)
 class CSR:
@@ -148,14 +150,33 @@ class TopKRows:
 
     def to_dense(self) -> torch.Tensor:
         """(n, d_full) with each kept value added at its index (a repeated
-        index accumulates, as the reference's ``.at[].add``)."""
+        index accumulates in slot order, as the reference's
+        ``.at[].add``)."""
         n, d = self.shape
-        out = torch.zeros((n, d), dtype=self.values.dtype,
-                          device=self.values.device)
-        rows = torch.arange(n, device=out.device)[:, None].expand_as(
-            self.indices)
-        return out.index_put_((rows, self.indices.long()), self.values,
-                              accumulate=True)
+        slot = self.indices.long() + torch.arange(
+            0, n * d, d, device=self.indices.device)[:, None]
+        return _add_at(n * d, slot.view(-1), self.values.reshape(-1)) \
+            .view(n, d)
+
+
+def _add_at(n_out: int, ids: torch.Tensor, values: torch.Tensor):
+    """``zeros(n_out, *values.shape[1:])`` with ``values[i]`` added at
+    ``ids[i]`` in stream order, as the reference's ``.at[ids].add`` (ids
+    >= ``n_out``, the padding's, left out):
+    float32 and float64 through ``kernels.segment_sum.index_sum`` (CUDA's
+    ``index_add_`` and ``index_put_(accumulate=True)`` add in no fixed
+    order, and so does the CPU's ``index_put_`` on long runs of one
+    index); other dtypes, which the kernel does not take, by
+    ``index_put_(accumulate=True)``."""
+    w = values.reshape(values.shape[0], -1)
+    if w.dtype in (torch.float32, torch.float64):
+        out = index_sum(ids, w, n_out)
+    else:
+        out = torch.zeros((n_out + 1, w.shape[1]), dtype=w.dtype,
+                          device=w.device).index_put_(
+                              (ids.clamp(max=n_out),), w,
+                              accumulate=True)[:n_out]
+    return out.view(n_out, *values.shape[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -320,24 +341,21 @@ def bsr_to_dense(a: BSR) -> torch.Tensor:
     p = torch.arange(cap, dtype=torch.int32, device=a.device)
     rid = torch.searchsorted(a.indptr, p, right=True, out_int32=True) - 1
     valid = p < a.nnzb
-    rid = torch.where(valid, rid, nbr)
-    out = torch.zeros((nbr + 1, nbc, br, bc), dtype=a.blocks.dtype,
-                      device=a.device)
-    out.index_put_((rid.long(), a.indices.long()),
-                   torch.where(valid[:, None, None], a.blocks, 0),
-                   accumulate=True)
-    return out[:nbr].permute(0, 2, 1, 3).reshape(a.shape)
+    rid = torch.where(valid, rid, nbr)  # padding: past the last block
+    out = _add_at(nbr * nbc, rid.long() * nbc + a.indices.long(),
+                  torch.where(valid[:, None, None], a.blocks, 0))
+    return out.view(nbr, nbc, br, bc).permute(0, 2, 1, 3).reshape(a.shape)
 
 
 def csr_to_dense(a: CSR) -> torch.Tensor:
-    """CSR -> dense (n, m) on the CSR's device."""
-    out = torch.zeros((a.n_rows + 1, a.n_cols), dtype=a.data.dtype,
-                      device=a.device)
+    """CSR -> dense (n, m) on the CSR's device (repeated entries add in
+    slot order)."""
+    n, m = a.shape
     valid = a.valid_mask()
-    # padding slots have rid == n_rows -> added into a dropped row
-    out.index_put_((a.row_ids().long(), a.indices.long()),
-                   torch.where(valid, a.data, 0), accumulate=True)
-    return out[: a.n_rows]
+    # padding slots have rid == n_rows: past the last entry, left out
+    out = _add_at(n * m, a.row_ids().long() * m + a.indices.long(),
+                  torch.where(valid, a.data, 0))
+    return out.view(n, m)
 
 
 def ell_from_dense(x, k_cap: int | None = None, device="cuda") -> ELL:
@@ -362,14 +380,15 @@ def ell_from_dense(x, k_cap: int | None = None, device="cuda") -> ELL:
 
 def ell_to_dense(a: ELL) -> torch.Tensor:
     """ELL -> dense (n, m) on the ELL's device (entries of one column in a
-    row add up)."""
+    row add up in slot order)."""
     n, m = a.shape
     mask = a.valid_mask()
-    out = torch.zeros((n, m + 1), dtype=a.data.dtype,
-                      device=a.indices.device)
-    col = torch.where(mask, a.indices, m).long()  # padding to a dropped col
-    out.scatter_add_(1, col, torch.where(mask, a.data, 0))
-    return out[:, :m]
+    slot = a.indices.long() + torch.arange(0, n * m, m,
+                                           device=mask.device)[:, None]
+    slot = torch.where(mask, slot, n * m)  # padding: past the end, left out
+    out = _add_at(n * m, slot.view(-1),
+                  torch.where(mask, a.data, 0).reshape(-1))
+    return out.view(n, m)
 
 
 def _ell_slots(a: CSR, k_cap: int):

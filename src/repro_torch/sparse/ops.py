@@ -8,11 +8,14 @@ its inputs and reads nothing back to the host.
 
 ``csr_spmm`` serves its row gather ``X[indices]`` through ``_TakeRows``:
 the AIA row-gather kernel (``kernels.aia_gather.gather_rows``) for
-``gather="aia"``, a clipped take for ``"xla"``; its backward is an
-``index_add`` of the cotangent at the clipped ids either way.  On CUDA the
-segment sums (``index_add``) use atomics, so ``csr_spmv``, ``csr_spmm``
-and ``csr_column_sums`` sum in another order than the reference there; on
-the CPU they add in index order, as the reference does.
+``gather="aia"``, a clipped take for ``"xla"``; its backward adds the
+cotangent into zeros at the clipped ids either way.  Every floating-point
+segment sum (``csr_spmv``, ``csr_spmm`` and its gradients,
+``_TakeRows``' backward, ``csr_column_sums``) goes through
+``kernels.segment_sum``, which adds each output's terms in the
+reference's order: ``index_add_`` on the CPU, the sorted segment-sum
+kernel on CUDA (no atomics), so the results are the reference's bits on
+both devices.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.aia_gather import gather_rows
+from repro_torch.kernels.segment_sum import index_sum, segment_sum
 from repro_torch.sparse.formats import CSR
 
 
@@ -29,7 +33,8 @@ def csr_row_nnz(a: CSR) -> torch.Tensor:
 
 class _TakeRows(torch.autograd.Function):
     """``x[clip(idx)]`` with a pluggable gather; the backward adds the
-    cotangent into zeros at the clipped ids.  The kernel reads rows of a
+    cotangent into zeros at the clipped ids, in stream order
+    (``index_sum``).  The kernel reads rows of a
     contiguous ``x``, so a strided ``x`` (a transpose, a column slice) is
     copied to a contiguous one first."""
 
@@ -46,8 +51,7 @@ class _TakeRows(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         n = ctx.n_rows
         safe = idx.clamp(0, max(n - 1, 0)).long()
-        dx = torch.zeros((n, ct.shape[1]), dtype=ct.dtype, device=ct.device)
-        return dx.index_add_(0, safe, ct), None, None
+        return index_sum(safe, ct, n), None, None
 
 
 def csr_transpose(a: CSR, capacity: int | None = None) -> CSR:
@@ -80,11 +84,13 @@ def csr_transpose(a: CSR, capacity: int | None = None) -> CSR:
 
 def _segment_sum(rid: torch.Tensor, contrib: torch.Tensor,
                  n_rows: int) -> torch.Tensor:
-    """Sum ``contrib`` by row id into ``n_rows`` rows (ids of ``n_rows``,
-    the padding slots', land in a dropped extra row)."""
-    out = torch.zeros((n_rows + 1,) + contrib.shape[1:], dtype=contrib.dtype,
-                      device=contrib.device)
-    return out.index_add(0, rid.long(), contrib)[:n_rows]
+    """Sum ``contrib`` (cap,) or (cap, d) by row id into ``n_rows`` rows in
+    slot order (the padding slots' id, ``n_rows``, is left out);
+    ``row_ids()`` are sorted, so the runs need no sort."""
+    wide = contrib.dim() == 2
+    out = segment_sum(rid.long(), contrib if wide else contrib[:, None],
+                      n_rows)
+    return out if wide else out[:, 0]
 
 
 def csr_spmv(a: CSR, x: torch.Tensor) -> torch.Tensor:
@@ -190,9 +196,13 @@ def csr_hadamard_power(a: CSR, r: float) -> CSR:
 
 
 def csr_column_sums(a: CSR) -> torch.Tensor:
-    out = torch.zeros(a.n_cols, dtype=a.data.dtype, device=a.device)
-    return out.index_add(0, a.indices.long(),
-                         torch.where(a.valid_mask(), a.data, 0))
+    """Each column's sum of the stored values, added in slot order (the
+    padding slots, which the reference adds as zeros, are left out: the
+    bits are the same)."""
+    valid = a.valid_mask()
+    col = torch.where(valid, a.indices, a.n_cols)
+    vals = torch.where(valid, a.data, 0)[:, None]
+    return index_sum(col, vals, a.n_cols)[:, 0]
 
 
 def csr_column_normalize(a: CSR, eps: float = 1e-12) -> CSR:

@@ -1,0 +1,421 @@
+"""The sorted segment sum (``repro_torch.kernels.segment_sum``) against the
+reference's ``.at[ids].add``, on the CPU.
+
+Inputs are built in numpy from a seed.  Every comparison is bit for bit:
+the reference's scatter-add adds each output's updates one at a time in
+update order, and so do the plain version (``index_add_`` on the CPU) and
+the CUDA kernel.  The kernel cannot run here, so ``emulate`` repeats its
+indexing in numpy (each segment's range by a lower bound on the sorted
+ids or, for one column, a run found at its first entry and ended by
+galloping, reads through ``order``, skipped segments, adds left to right
+in the value's own dtype, the wide kernel's lane-to-column map) and is held against the plain version and, patched in
+as the plain version, through the port's call sites against the
+reference.  Float32 inputs mix magnitudes (1e8 and 1) over many
+duplicates, so another order of adds gives other bits; the tests check
+that it does.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.apps import markov_clustering as ref_mcl
+from repro.apps.graphs import rmat_graph as ref_rmat
+from repro.core import phases as ref_phases
+from repro.sparse import ops as ref_ops
+from repro.sparse.formats import csr_from_dense as ref_csr_from_dense
+from repro_torch.apps import markov_clustering
+from repro_torch.apps.graphs import rmat_graph
+from repro_torch.core import phases
+from repro_torch.kernels import ops
+from repro_torch.kernels import segment_sum as ss
+from repro_torch.sparse import ops as sparse_ops
+from repro_torch.sparse.formats import csr_from_arrays
+
+MAX_COLS = 4  # csrc/segment_sum.cu's kMaxCols: columns a lane holds
+
+
+def mixed(rng, shape, dtype=np.float32):
+    """Values of mixed magnitude: each 1e8 (either sign) or about 1, so a
+    run's sum depends on the order of its adds."""
+    big = rng.random(shape) < 0.3
+    sign = np.where(rng.random(shape) < 0.5, -1.0, 1.0)
+    return np.where(big, sign * 1e8, rng.random(shape) + 0.5).astype(dtype)
+
+
+def sorted_ids(rng, n, n_out, empty=()):
+    """``n`` non-decreasing ids in ``[0, n_out)`` with many repeats, none
+    in ``empty``."""
+    pool = np.setdiff1d(np.arange(n_out), np.asarray(empty, np.int64))
+    return np.sort(rng.choice(pool, n)).astype(np.int64)
+
+
+def ref_scatter(ids, vals, n_out):
+    """The reference's sum: ``zeros(...).at[ids].add(vals)`` on the update
+    axis (-2)."""
+    vals = jnp.asarray(vals)
+    out = jnp.zeros(vals.shape[:-2] + (n_out, vals.shape[-1]), vals.dtype)
+    return np.asarray(out.at[..., jnp.asarray(ids), :].add(vals))
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def lane_columns(width):
+    """The wide kernel's columns of lane l: ``w0 + l + 32 k`` for k < KC
+    over slabs of 32 KC columns, KC the fewest of 1-4 that cover the
+    row."""
+    kc = min(MAX_COLS, -(-width // 32))
+    return [[w0 + lane + 32 * k for w0 in range(0, width, 32 * kc)
+             for k in range(kc) if w0 + lane + 32 * k < width]
+            for lane in range(32)]
+
+
+def run_end(ids, i):
+    """The narrow kernel's ``run_end``: galloping from run start i, then a
+    binary search, for the first j > i with ids[j] != ids[i]."""
+    n, s = len(ids), ids[i]
+    lo, step = i + 1, 1
+    while True:
+        probe = i + step
+        if probe >= n or ids[probe] != s:
+            hi = min(probe, n)
+            break
+        lo, step = probe + 1, step * 2
+    while lo < hi:
+        mid = lo + (hi - lo) // 2
+        lo, hi = (mid + 1, hi) if ids[mid] == s else (lo, mid)
+    return lo
+
+
+def emulate(ids, values, n_out, order=None, skip=0):
+    """The CUDA kernel's arithmetic in numpy, on torch tensors: the ids must
+    be sorted and >= 0 (those >= n_out left out); segment s sums its run
+    [lo, hi) of its value set, read through ``order``, left to right from
+    +0.0 (a skipped segment: none, and 0).  W == 1: a run is found at its first entry and
+    ended by ``run_end``; W > 1: a segment's run by two lower bounds, its
+    columns spread over the lanes as ``lane_columns`` says."""
+    ids_np = ids.numpy()
+    assert ids.dtype == torch.int64 and ids.dim() == 1
+    assert np.all(np.diff(ids_np) >= 0), "the kernel needs sorted ids"
+    assert ids_np.size == 0 or ids_np[0] >= 0
+    v = values.detach().numpy()
+    n, width = v.shape[-2:]
+    v3 = v.reshape(-1, n, width)
+    src = np.arange(n) if order is None else order.numpy()
+    if width == 1:
+        lo = np.flatnonzero(np.r_[n > 0, ids_np[1:] != ids_np[:-1]][:n])
+        hi = np.array([run_end(ids_np, i) for i in lo], np.int64)
+        seg = ids_np[lo]
+    else:
+        cols = sorted(c for lane in lane_columns(width) for c in lane)
+        assert cols == list(range(width)), "lanes must cover every column"
+        seg = np.arange(n_out)
+        lo = np.searchsorted(ids_np, seg, side="left")
+        hi = np.searchsorted(ids_np, seg + 1, side="left")
+    keep = (seg < n_out) & ((seg % skip != skip - 1) if skip else True)
+    seg, lo, hi = seg[keep], lo[keep], hi[keep]
+    out = np.zeros((v3.shape[0], n_out, width), v.dtype)
+    length = hi - lo
+    for step in range(int(length.max(initial=0))):
+        m = length > step
+        out[:, seg[m], :] = out[:, seg[m], :] + v3[:, src[lo[m] + step], :]
+    return torch.from_numpy(out.reshape(v.shape[:-2] + (n_out, width)))
+
+
+# ---------------------------------------------------------------------------
+# The plain version and the kernel's emulation against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("width", [1, 3, 64])
+def test_plain_matches_reference_and_sees_order(width):
+    rng = np.random.default_rng(0)
+    n_out = 40
+    ids = sorted_ids(rng, 600, n_out)
+    vals = mixed(rng, (600, width))
+    want = ref_scatter(ids, vals, n_out)
+    got = ss.segment_sum(t(ids), t(vals), n_out)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the same terms in reverse give other bits: the test can see order
+    rev = ss.segment_sum_plain(t(ids[::-1].copy()), t(vals[::-1].copy()),
+                               n_out)
+    assert not np.array_equal(rev.numpy(), want)
+
+
+@pytest.mark.parametrize("width", [1, 5])
+def test_order_route_matches_stream_order_scatter(width):
+    """Unsorted ids: a stable sort, then the runs read through its
+    permutation, add each output's terms in stream order."""
+    rng = np.random.default_rng(1)
+    n_out = 30
+    idx = rng.integers(0, n_out, 500).astype(np.int64)
+    vals = mixed(rng, (500, width))
+    want = ref_scatter(idx, vals, n_out)
+    np.testing.assert_array_equal(
+        ss.index_sum(t(idx), t(vals), n_out).numpy(), want)
+    np.testing.assert_array_equal(
+        ss.index_sum_sorted(t(idx), t(vals), n_out).numpy(), want)
+    ids, order = torch.sort(t(idx), stable=True)
+    np.testing.assert_array_equal(
+        emulate(ids, t(vals), n_out, order).numpy(), want)
+    np.testing.assert_array_equal(  # int32 ids sort in their own dtype
+        ss.index_sum_sorted(t(idx.astype(np.int32)), t(vals), n_out).numpy(),
+        want)
+
+
+def test_empty_segments_padding_row_batch_and_float64():
+    rng = np.random.default_rng(2)
+    n_out = 50
+    empty = [0, 7, 8, 9, 49]
+    ids = sorted_ids(rng, 400, n_out, empty)
+    vals = mixed(rng, (3, 400, 2))
+    got = ss.segment_sum(t(ids), t(vals), n_out)
+    want = ref_scatter(ids, vals, n_out)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not got[:, empty].any()
+    for b in range(3):  # a leading batch axis: each member on its own
+        np.testing.assert_array_equal(
+            got[b].numpy(), ss.segment_sum(t(ids), t(vals[b]), n_out).numpy())
+    # the padding: ids past n_out are left out, here and in the kernel
+    rid = np.concatenate([ids, np.full(20, n_out, np.int64),
+                          np.full(5, n_out + 3, np.int64)])
+    padded = np.concatenate([vals[0], mixed(rng, (25, 2))])
+    np.testing.assert_array_equal(
+        ss.segment_sum(t(rid), t(padded), n_out).numpy(), want[0])
+    np.testing.assert_array_equal(
+        emulate(t(rid), t(padded), n_out).numpy(), want[0])
+    np.testing.assert_array_equal(
+        emulate(t(rid), t(padded[:, :1].copy()), n_out).numpy(),
+        want[0][:, :1])
+    np.testing.assert_array_equal(
+        ss.index_sum(t(rid[::-1].copy()), t(padded[::-1].copy()),
+                     n_out).numpy(),
+        ref_scatter(ids[::-1], vals[0][::-1], n_out))
+    # float64 against numpy's unbuffered ``add.at`` (adds in index order)
+    v64 = mixed(rng, (400, 1), np.float64) * np.float64(1 + 1e-9)
+    want64 = np.zeros((n_out, 1))
+    np.add.at(want64, ids, v64)
+    got64 = ss.segment_sum(t(ids), t(v64), n_out)
+    assert got64.dtype == torch.float64
+    np.testing.assert_array_equal(got64.numpy(), want64)
+    np.testing.assert_array_equal(emulate(t(ids), t(v64), n_out).numpy(),
+                                  want64)
+    # no entry at all, and no segment
+    assert not ss.segment_sum(t(ids[:0]), t(vals[0][:0]), 4).any()
+    assert ss.segment_sum(t(ids[:0]), t(vals[0][:0]), 0).shape == (0, 2)
+
+
+@pytest.mark.parametrize("width,batch,with_order,n_out,skip", [
+    (1, 1, False, 300, 0), (1, 2, True, 700, 0), (1, 1, True, 2, 0),
+    (1, 1, False, 300, 7), (3, 1, False, 45, 0), (64, 2, True, 45, 5),
+    (96, 1, True, 30, 0), (130, 1, False, 12, 0),
+])
+def test_kernel_emulation_matches_plain(width, batch, with_order, n_out,
+                                        skip):
+    """The kernel's indexing: runs of one and of hundreds (the galloping
+    end), empty segments, wide rows on 1-4 columns a lane and past one
+    slab, a batch, the order route, skipped segments."""
+    rng = np.random.default_rng(3 + width)
+    n = 2000
+    ids = t(sorted_ids(rng, n, n_out, empty=[n_out // 2]))
+    vals = t(mixed(rng, (batch, n, width) if batch > 1 else (n, width)))
+    order = t(rng.permutation(n).astype(np.int64)) if with_order else None
+    want = ss.segment_sum_plain(ids, vals, n_out, order, skip)
+    if skip:  # the kept segments are the full sums, the skipped ones 0
+        full = ss.segment_sum_plain(ids, vals, n_out, order)
+        full[..., skip - 1::skip, :] = 0
+        np.testing.assert_array_equal(want.numpy(), full.numpy())
+    np.testing.assert_array_equal(
+        emulate(ids, vals, n_out, order, skip).numpy(), want.numpy())
+
+
+def test_backward_matches_reference_gradient():
+    """d/dvalues of ``<ct, segment sums>``: the cotangent gathered at ids,
+    and through ``order`` back to each value's place."""
+    rng = np.random.default_rng(4)
+    n_out, n = 25, 300
+    idx = rng.integers(0, n_out, n).astype(np.int64)
+    vals = mixed(rng, (n, 4))
+    ct = mixed(rng, (n_out, 4))
+
+    def ref(v, ids):
+        return jnp.zeros((n_out, 4), v.dtype).at[ids].add(v)
+
+    _, vjp = jax.vjp(lambda v: ref(v, jnp.asarray(idx)), jnp.asarray(vals))
+    want = np.asarray(vjp(jnp.asarray(ct))[0])
+    for route in (ss.index_sum_sorted, ss.index_sum):
+        v = t(vals).requires_grad_()
+        route(t(idx), v, n_out).backward(t(ct))
+        np.testing.assert_array_equal(v.grad.numpy(), want)
+    ids = np.sort(idx)
+    _, vjp = jax.vjp(lambda v: ref(v, jnp.asarray(ids)), jnp.asarray(vals))
+    v = t(vals).requires_grad_()
+    ss.segment_sum(t(ids), v, n_out).backward(t(ct))
+    np.testing.assert_array_equal(v.grad.numpy(),
+                                  np.asarray(vjp(jnp.asarray(ct))[0]))
+    # values left out (skipped segments, ids past the end) move nothing
+    ids = np.sort(rng.integers(0, n_out + 3, n))
+    v = t(vals).requires_grad_()
+    ss.segment_sum(t(ids), v, n_out, skip=5).backward(t(ct))
+    out = (ids >= n_out) | (ids % 5 == 4)
+    np.testing.assert_array_equal(
+        v.grad.numpy(),
+        np.where(out[:, None], 0, ct[np.minimum(ids, n_out - 1)]))
+
+
+def test_cuda_wrapper_refuses_before_launch():
+    """What the kernel cannot take raises before the library is loaded."""
+    ids = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="int64"):
+        ss._segment_sum_cuda(ids.int(), torch.zeros(4, 1), 2, None)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ss._segment_sum_cuda(ids, torch.zeros(4, 1, dtype=torch.float16), 2,
+                             None)
+    with pytest.raises(ValueError, match="value sets"):
+        ss._segment_sum_cuda(ids, torch.zeros(ss.MAX_BATCH + 1, 4, 1), 2,
+                             None)
+    with pytest.raises(ValueError, match=r"ids \(N,\)"):
+        ss._segment_sum_cuda(ids, torch.zeros(5, 1), 2, None)
+    with pytest.raises(ValueError, match="order"):
+        ss._segment_sum_cuda(ids, torch.zeros(4, 1), 2, ids[:3])
+    with pytest.raises(ValueError, match="skip"):
+        ss._segment_sum_cuda(ids, torch.zeros(4, 1), 2, None, -1)
+
+
+# ---------------------------------------------------------------------------
+# The call sites on the kernel's route (emulated) against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """The CUDA routes on the CPU: ``segment_sum`` runs ``emulate`` and
+    every ``index_sum`` call site takes the sorted route."""
+    monkeypatch.setattr(ss, "segment_sum_plain", emulate)
+    for mod in (sparse_ops, markov_clustering):
+        monkeypatch.setattr(mod, "index_sum", ss.index_sum_sorted)
+    before = ops.launch_counts()
+    yield
+    assert ops.launch_counts() == before  # nothing launched on the CPU
+
+
+def test_sort_engine_on_the_kernel_route(kernel_route):
+    """The sort engine's flattened segment ids, a batch of value sets."""
+    rng = np.random.default_rng(5)
+    r, ip_cap = 7, 60
+    keys = rng.integers(-1, 12, (r, ip_cap)).astype(np.int32)
+    vals = mixed(rng, (2, r, ip_cap))
+    for out_cap in (4, 13):
+        for b in range(2):
+            want = ref_phases.sort_unique(jnp.asarray(keys),
+                                          jnp.asarray(vals[b]), out_cap)
+            got = phases.sort_unique(t(keys), t(vals[b]), out_cap)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            np.testing.assert_array_equal(
+                phases.sort_unique(t(keys), t(vals), out_cap)[1][b].numpy(),
+                np.asarray(want[1]))
+
+
+def sparse_pair(rng, n, m, spare=6):
+    x = np.where(rng.random((n, m)) < 0.35, mixed(rng, (n, m)), 0)
+    x = x.astype(np.float32)
+    ref = ref_csr_from_dense(x, capacity=int(np.count_nonzero(x)) + spare)
+    return csr_from_arrays(np.asarray(ref.indptr), np.asarray(ref.indices),
+                           np.asarray(ref.data), ref.shape,
+                           device="cpu"), ref
+
+
+def test_csr_primitives_on_the_kernel_route(kernel_route):
+    """``csr_spmv``, ``csr_spmm`` with its gradients, ``csr_column_sums``."""
+    rng = np.random.default_rng(6)
+    a, ra = sparse_pair(rng, 30, 20)
+    xv = mixed(rng, (20,))
+    np.testing.assert_array_equal(
+        sparse_ops.csr_spmv(a, t(xv)).numpy(),
+        np.asarray(ref_ops.csr_spmv(ra, jnp.asarray(xv))))
+    np.testing.assert_array_equal(
+        sparse_ops.csr_column_sums(a).numpy(),
+        np.asarray(ref_ops.csr_column_sums(ra)))
+    x = mixed(rng, (20, 8))
+    ct = mixed(rng, (30, 8))
+
+    def ref_loss(data, x):
+        b = type(ra)(ra.indptr, ra.indices, data, ra.shape)
+        return jnp.sum(ref_ops.csr_spmm(b, x) * jnp.asarray(ct))
+
+    want_y = np.asarray(ref_ops.csr_spmm(ra, jnp.asarray(x)))
+    want_dd, want_dx = jax.grad(ref_loss, argnums=(0, 1))(ra.data,
+                                                          jnp.asarray(x))
+    for gather in ("xla", "aia"):
+        xt = t(x).requires_grad_()
+        data = a.data.clone().requires_grad_()
+        b = type(a)(a.indptr, a.indices, data, a.shape)
+        y = sparse_ops.csr_spmm(b, xt, gather=gather)
+        np.testing.assert_array_equal(y.detach().numpy(), want_y)
+        y.backward(t(ct))
+        np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(want_dx))
+        np.testing.assert_array_equal(data.grad.numpy(), np.asarray(want_dd))
+
+
+def test_mcl_on_the_kernel_route(kernel_route):
+    """MCL's iterations (the sort engine, the column sums, the self loops
+    and ``_change``) bit for bit the reference's."""
+    g, rg = rmat_graph(32, 3.0, seed=5, device="cpu"), ref_rmat(32, 3.0,
+                                                                seed=5)
+    kwargs = dict(e=2, r=2.0, k=16, max_iters=2, tol=0.0)
+    got = markov_clustering.mcl(g, method="sort", **kwargs)
+    want = ref_mcl.mcl(rg, method="sort", **kwargs)
+    nnz = int(want.matrix.indptr[-1])
+    np.testing.assert_array_equal(got.matrix.indptr.numpy(),
+                                  np.asarray(want.matrix.indptr))
+    np.testing.assert_array_equal(got.matrix.indices[:nnz].numpy(),
+                                  np.asarray(want.matrix.indices)[:nnz])
+    np.testing.assert_array_equal(got.matrix.data[:nnz].numpy(),
+                                  np.asarray(want.matrix.data)[:nnz])
+    np.testing.assert_array_equal(got.clusters, want.clusters)
+    sl = markov_clustering.add_self_loops(g, weight=0.75)
+    rsl = ref_mcl.add_self_loops(rg, weight=0.75)
+    np.testing.assert_array_equal(sl.data.numpy(), np.asarray(rsl.data))
+    assert markov_clustering._change(sl, g) == ref_mcl._change(rsl, rg)
+
+
+
+@pytest.mark.parametrize("rows,reps,cols", [(300, 24, 3), (4, 60000, 2)])
+def test_dense_conversions_add_repeats_in_slot_order(rows, reps, cols):
+    """``TopKRows.to_dense``, ``csr_to_dense``, ``ell_to_dense`` and
+    ``bsr_to_dense`` with repeated indices (long runs of one index too,
+    where the CPU's ``index_put_(accumulate=True)`` adds in no fixed
+    order) against the reference's ``.at[].add``, bit for bit."""
+    from repro.sparse import formats as rf
+    from repro_torch.sparse import formats as f
+
+    rng = np.random.default_rng(8)
+    idx = rng.integers(0, cols, (rows, reps)).astype(np.int32)
+    vals = mixed(rng, (rows, reps))
+    ptr = np.arange(0, rows * reps + 1, reps, dtype=np.int32)
+    ell_idx = rng.integers(-1, cols, (rows, reps)).astype(np.int32)
+    nb, bs = rows * reps // 64, 8
+    bidx = rng.integers(0, cols, nb).astype(np.int32)
+    blocks = mixed(rng, (nb, bs, bs))
+    bptr = np.array([0, nb], np.int32)
+    pairs = (
+        (f.TopKRows(t(vals), t(idx), (rows, 16)).to_dense(),
+         rf.TopKRows(jnp.asarray(vals), jnp.asarray(idx), (rows, 16))
+         .to_dense()),
+        (f.csr_to_dense(f.CSR(t(ptr), t(idx.reshape(-1)),
+                              t(vals.reshape(-1)), (rows, 16))),
+         rf.csr_to_dense(rf.CSR(jnp.asarray(ptr),
+                                jnp.asarray(idx.reshape(-1)),
+                                jnp.asarray(vals.reshape(-1)), (rows, 16)))),
+        (f.ell_to_dense(f.ELL(t(ell_idx), t(vals), (rows, 16))),
+         rf.ell_to_dense(rf.ELL(jnp.asarray(ell_idx), jnp.asarray(vals),
+                                (rows, 16)))),
+        (f.bsr_to_dense(f.BSR(t(bptr), t(bidx), t(blocks),
+                              (bs, cols * bs))),
+         rf.bsr_to_dense(rf.BSR(jnp.asarray(bptr), jnp.asarray(bidx),
+                                jnp.asarray(blocks), (bs, cols * bs)))),
+    )
+    for got, want in pairs:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
