@@ -189,6 +189,25 @@ products run in full float32 (TF32 off).  It
    (``TopKRows.to_dense``, ``bsr_to_dense``, ``csr_to_dense``,
    ``ell_to_dense``, each through the segment sum) on the card against
    the CPU, short and long runs of repeats, bit for bit;
+6c. drives the calls the port once refused (``refused_calls_phase``, and
+   ``new_routes_phase`` right after K7's phase, while the profiler still
+   reads device time): the RoadTX and p2p-Gnutella04 self-products with
+   bf16 values on the three lanes (p2p bit for bit the CPU port's bf16
+   product, RoadTX with its float32 structure); the segment sum and K2 in
+   bf16 and float16 at 6b's shapes, bit for bit their plain versions on
+   the CPU, bf16 timed; K7 on the seven calls it once refused
+   (``K7_REFUSED``) in three dtypes, forward and backward, at D 256 and
+   320 and qk 64 / v 128 (``K7_WIDE``), in float16 and with ``p_dtype``
+   at Phi-3-mini's prefill shape, its backward in slabs
+   (``K7_BWD_SLABS``) and with ``p_dtype`` at granite's training shape,
+   and its keyless pass, each beside its bound and SDPA; K3-K6 in float16
+   at the FFN shape, K3's ``"u16"``, ``"bytes"`` and strided copies and
+   K6 past the tensor-core kernel's limits (``K6_WIDE``); then
+   ``refusals_phase``: every call the port once refused, made once on the
+   card, each launching its kernel and matching its plain version, the
+   calls that raise printed as ``refused: [...]`` (the phase fails unless
+   the list is empty); Phi-3-mini's prefill (5) runs again with
+   ``attn_p_dtype="bfloat16"``, 32 K7 launches on ``wgmma_p1``;
 7. runs the self-products of RoadTX (1,393,383 rows) and p2p-Gnutella04
    (10,876 rows), seed 0, through ``spgemm(a, a)`` (sort engine, AIA
    gather, measured sizing), ``spgemm(a, a, engine="fused_hash")`` (AIA
@@ -307,8 +326,9 @@ products run in full float32 (TF32 off).  It
     ``on_budget="stream"``, each expansion held bit for bit against a
     monolithic ``spgemm`` of its iterate, each estimate beside the real
     peak;
-12. prints the kernels' JSON line (K1–K7, K7's backward and the segment
-    sum as records of their own), then ``{"ok": true, "device": ...}``
+12. prints the kernels' JSON line (K1–K7, K7's backward, the segment sum
+    and K7's keyless pass as records of their own; each new route of 6c
+    under its kernel's ``new_routes``), then ``{"ok": true, "device": ...}``
     last, and the whole script's time on a line before them.
 
 Every check raises on failure, so the script exits non-zero; it also exits
@@ -339,7 +359,8 @@ K2_MAX_STREAM = 16_384  # the lockstep plain version is too slow beyond this
 RTOL, ATOL = 1e-4, 1e-6
 # Peak dense rates of one H100 SXM by operand type (NVIDIA's data sheet):
 # bf16 on the tensor cores, float32 on the CUDA cores.
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,
+              "torch.float32": 67e12}
 # Phi-3-mini's FFN (src/repro/configs/phi3_mini_3_8b.py, bf16 per
 # configs/base.py): 2,048 tokens = batch 8 x seq 256 (launch/train.py:4),
 # k = d_ff // 8 (launch/train.py:44), blocks of 128 lanes
@@ -1828,6 +1849,9 @@ RANGED_ROUTES = (
     ("bfloat16", 6, 7, 3000, 5, 0, "v16"), ("float32", 3, 5, 8200, 4, 0, "v16"),
     ("bfloat16", 8, 1, 6, 9, 0, "words"), ("float32", 8, 1, 3, 9, 0, "words"),
     ("float32", 8, 2, 128, 7, 1, "words"),
+    # a bf16 range of odd R * d (3 x 7: 42 bytes) and an x 2 bytes past a
+    # 4-byte boundary take the 2-byte copy
+    ("bfloat16", 8, 3, 7, 9, 0, "u16"), ("bfloat16", 8, 1, 8, 9, 1, "u16"),
 )
 # K4's bf16 kernel (csrc/bsr_spmm_wgmma.cu): block sizes around its
 # 128-row tiles and 64-deep stages at d 40, widths around its 128-column
@@ -1898,7 +1922,7 @@ def ffn_shape_sweep(log):
                              dtype=torch.int32)
 
     cases = 0
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         for nb, r, d, n in ((8, 1, 128, 16), (8, 2, 128, 5), (16, 4, 256, 32),
                             (4, 8, 8, 3)):
             x, idx = randn(nb * r, d, dtype=dt), randint(nb + 2, n, lo=-2)
@@ -1958,7 +1982,7 @@ def ffn_shape_sweep(log):
             case = f"sweep: topk_spmm {dt} {(n, k, dff, d)} {ids}"
             got, _ = routed_call("topk_spmm",
                                  lambda: topk_spmm.topk_spmm(v, idx, w2),
-                                 topk_spmm.topk_spmm_route(dff))
+                                 topk_spmm.topk_spmm_route(dff, dt))
             check(torch.equal(got, topk_spmm.topk_spmm_plain(v, idx, w2)),
                   case)
             cases += 1
@@ -1970,7 +1994,7 @@ def ffn_shape_sweep(log):
             got, _ = routed_call(
                 "block_topk_spmm",
                 lambda: topk_spmm.block_topk_spmm(h, bidx, w2, block),
-                topk_spmm.route(dt))
+                topk_spmm.route(dt, block, kb + 2))
             e = rel_err(got, topk_spmm.block_topk_spmm_plain(h, bidx, w2,
                                                              block))
             check(e <= FFN_REL, f"{case}: {e}")
@@ -2031,6 +2055,9 @@ K6_EDGES = (
     (5, 3, 8, 16, 40, "repeat"), (6, 4, 1, 16, 40, "clipped"),
     (4, 3, 5, 12, 33, "unpicked"), (300, 2, 8, 16, 64, "every"),
     (4, 3, 8, 128, 7, "clipped"), (4, 3, 8, 128, 2050, "repeat"),
+    # past the bf16 kernel's kMaxBlock (256), and past the CUDA-core
+    # kernel's one panel of 1,536 lanes
+    (3, 2, 8, 512, 64, "clipped"), (2, 2, 8, 2048, 40, "repeat"),
 )
 
 
@@ -2307,7 +2334,8 @@ FLASH_MLA = (32, 4096, 192, 128, 128, 128)
 # (rtol, atol) against the plain version: float32 sums in another order;
 # a bf16 output is rounded once, so a sum near a rounding boundary may round
 # the other way, one bf16 step (2**-7 of the value)
-FLASH_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2 ** -7, 1e-6)}
+FLASH_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2 ** -7, 1e-6),
+             "torch.float16": (2 ** -10, 1e-6)}
 # K7's masked contract (ops.flash_attention_masked), as (bh, sq, sk, d,
 # causal, window, q_offset, kv_len): windows of 1, 64, 100 and 4,096 at S
 # 192 and 8,192, causal (window 1: each query's one key, its first tiles
@@ -2439,8 +2467,8 @@ def flash_timed(q, k, v, heads: int, qb: int, kb: int) -> dict:
     consts = k7.wgmma_constants()
     rec["tensor_flops"] = 2 * pairs * (d + consts["kPTerms"] * dv)
     rec["tensor_bound_ms"] = bound(0, rec["tensor_flops"], q.dtype)[0]
-    rec["ptxas"] = ptxas_report(
-        "flash_wgmma_kernelILi{}ELi{}E".format(*k7.wgmma_widths(d, dv)))
+    rec["ptxas"] = ptxas_report("flash_wgmma_kernelILi{}ELi{}ELi{}E".format(
+        *k7.wgmma_widths(d, dv), consts["kPTerms"]))
     rec["launch"] = launch_config(kernel, "flash_wgmma_kernel")
     rec.update(library_call([(
         f"F.scaled_dot_product_attention(is_causal=True) on "
@@ -2533,7 +2561,7 @@ def flash_phase(log):
                 for _ in range(n)]
 
     errs = {}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         for causal in (True, False):
             cases = FLASH_CASES + (FLASH_EDGES if dt == torch.bfloat16
                                    else FLASH_F32)
@@ -2573,7 +2601,7 @@ def flash_phase(log):
            "ms": time_ms(kernel, reps=3)}
     _, _, top = profile(lambda: [kernel() for _ in range(3)])
     f32["device_ms"] = top[0][1] / top[0][2] if top else None
-    f32["ptxas"] = ptxas_report(f"flash_kernelILi{(d + 15) // 16}E")
+    f32["ptxas"] = ptxas_report(f"flash_kernelIfLi{(d + 15) // 16}EE")
     emit({"flash_kernel_f32": f32}, log)
     del q, k, v
 
@@ -2623,6 +2651,7 @@ def ptxas_report(kernel: str) -> dict:
 # the decode check at full width, 4 layers, float32, on a 512-token prompt;
 # the server: 4 requests of 4-6 prompt tokens x 8 new tokens
 LM = {"arch": "phi3-mini-3.8b", "batch": 2, "seq": 4096,
+      "p_dtype_prefill": True,
       "decode_layers": 4, "decode_prompt": 512,
       "requests": 4, "new_tokens": 8, "slots": 4, "max_seq": 64}
 # DeepSeek-V2-Lite (src/repro/configs/deepseek_v2_lite_16b.py: 27 layers,
@@ -2735,7 +2764,9 @@ def lm_prefill(cfg, params, log, spec=LM, key="lm_prefill"):
     check(np.isfinite(loss), f"{key}: loss {loss}")
     check(lnv + LM_LOSS_BAND[0] <= loss <= lnv + LM_LOSS_BAND[1],
           f"{key}: loss {loss} outside ln(vocab) {lnv} {LM_LOSS_BAND}")
-    path = f"flash_attention_fused/{k7.route(cfg.activation_dtype)}"
+    p_dtype = torch.bfloat16 if cfg.attn_p_dtype == "bfloat16" else None
+    path = ("flash_attention_fused/"
+            f"{k7.route(cfg.activation_dtype, p_dtype=p_dtype)}")
     check(launches["flash_attention_fused"] == k7_want
           and routes.get(path, 0) == k7_want,
           f"{key}: {launches['flash_attention_fused']} K7 launches "
@@ -2987,6 +3018,9 @@ def lm_phase(log, spec=LM, prefix="lm"):
                              "param_gb": (torch.cuda.memory_allocated()
                                           - before) / 1e9}}, log)
     prefill = lm_prefill(cfg, params, log, spec, f"{prefix}_prefill")
+    if spec.get("p_dtype_prefill"):  # the config's attn_p_dtype knob set
+        lm_prefill(dataclasses.replace(cfg, attn_p_dtype="bfloat16"), params,
+                   log, spec, f"{prefix}_prefill_p_dtype")
     serve = lm_serve(cfg, params, log, spec, f"{prefix}_serve") \
         if spec.get("serve", True) else None
     del params
@@ -3047,6 +3081,8 @@ FLASH_BWD_CASES = tuple((bh, sq, sk, d, d, c, w, off, kvl)
 # from the plain version's rounding, plus the float32 gate
 FLASH_BWD_F32 = 1e-5
 FLASH_BWD_BF16_STEP = 2 ** -7
+# one rounding step of each 16-bit type, of the value
+LOWP_STEP = {"torch.bfloat16": FLASH_BWD_BF16_STEP, "torch.float16": 2 ** -10}
 # the forward's float32 row log-sum-exp against the plain forward's, in both
 # dtypes: scores summed in another order and the kernels' exp2/log2 (the bf16
 # kernel's scores are exact products of bf16 values, as the plain version's
@@ -3077,21 +3113,23 @@ DS_TRAIN = {"arch": "deepseek-v2-lite-16b", "layers": 4,
             "grad_layers": 2}
 
 
-def flash_bwd_check(got, want, case) -> float:
-    """dq, dk, dv within the backward's gate of the plain version's; the
-    max |error|."""
+def flash_bwd_check(got, want, case, scale=None) -> float:
+    """dq, dk, dv (or the first of them) within the backward's gate of the
+    plain version's, its absolute part relative to ``scale`` (default the
+    largest |value| of ``want``); the max |error|."""
     import torch
 
     worst = 0.0
-    scale = max(float(w.double().abs().max()) for w in want)
+    if scale is None:
+        scale = max(float(w.double().abs().max()) for w in want)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check(g.dtype == w.dtype and g.shape == w.shape,
               f"flash_attention_bwd {case} {name}: {g.dtype} "
               f"{tuple(g.shape)}")
         diff = (g.double() - w.double()).abs()
         gate = FLASH_BWD_F32 * scale
-        if w.dtype == torch.bfloat16:
-            gate = gate + FLASH_BWD_BF16_STEP * w.double().abs()
+        if str(w.dtype) in LOWP_STEP:
+            gate = gate + LOWP_STEP[str(w.dtype)] * w.double().abs()
         check(bool((diff <= gate).all()),
               f"flash_attention_bwd {case} {name}: max |error| "
               f"{float(diff.max())} beyond its gate")
@@ -3240,7 +3278,7 @@ def flash_bwd_timed_shape(bh, s, d, dv, heads, seed) -> dict:
                             f"{route}")
 
     def bwd(path=route):
-        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s, path)
+        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s, route=path)
 
     def plain():
         return k7.flash_attention_masked_bwd_plain(q, k, v, o, lse, do)
@@ -4780,6 +4818,22 @@ def k1_spmm_shape(a, x, log):
                            lambda: _TakeRows.apply(xt, idx, "aia"))
     check(torch.equal(got_t, aia_gather.gather_rows_plain(xt, idx)),
           "K1 through csr_spmm's take differs on a transposed X")
+    # a column slice of a wider X: rows a pitch apart, gathered in place
+    wide = torch.cat([x, -x], 1)
+    xs = wide[:, :x.shape[1]]
+    check(xs.stride(1) == 1 and not xs.is_contiguous(),
+          "the column slice is contiguous")
+
+    def sliced():
+        return aia_gather.gather_rows(xs, idx)
+
+    got_s, route_s = routed_call("gather_rows", sliced)
+    check(torch.equal(got_s, want), "K1 on a column slice of X differs")
+    got_s, _ = routed_call("gather_rows",
+                           lambda: _TakeRows.apply(xs, idx, "aia"))
+    check(torch.equal(got_s, want),
+          "K1 through csr_spmm's take differs on a column slice of X")
+    del got_s
     safe = idx.clamp(0, x.shape[0] - 1).long()
     n = idx.shape[0]
     row_bytes = x.shape[1] * x.element_size()
@@ -4805,6 +4859,16 @@ def k1_spmm_shape(a, x, log):
            "library_device_ms": device_ms(library),
            "library_loop_ms": loop_ms(library),
            "bound_ms": bound_ms((distinct + n) * row_bytes + n * 4)}
+    rec["column_slice"] = {
+        "pitch_bytes": xs.stride(0) * x.element_size(), "route": route_s,
+        "max_abs_err": 0.0, "ms": time_ms(sliced, reps=20),
+        "device_ms": device_ms(sliced), "loop_ms": loop_ms(sliced),
+        "plain_ms": time_ms(lambda: aia_gather.gather_rows_plain(xs, idx),
+                            reps=5),
+        "library_ms": time_ms(lambda: torch.index_select(xs, 0, safe),
+                              reps=20),
+        "bound_ms": rec["bound_ms"]}
+    del wide, xs
     emit({"k1_csr_spmm": rec}, log)
     return rec
 
@@ -6115,6 +6179,1131 @@ def mesh_phase(mats, log):
     return per_call
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the calls the port once refused on the card
+# ---------------------------------------------------------------------------
+
+LOWP_DTYPES = ("bfloat16", "float16")
+# the bf16 self-products held bit for bit against the CPU port's (every
+# lane); RoadTX's bf16 products against its float32 structure
+LOWP_CPU_PRODUCT = ("p2p-Gnutella04",)
+# the calls K7 once refused (tests/test_torch_flash.py's REFUSED), as
+# (sq, sk, d, dv, window, q_offset, kv_len, p_dtype, causal), at BH 2
+K7_REFUSED = {
+    "p_dtype": (16, 16, 8, 8, 0, 0, None, "bfloat16", True),
+    "d_past_192": (16, 16, 200, 200, 0, 0, None, None, True),
+    "dv_past_d": (16, 16, 8, 16, 0, 0, None, None, True),
+    "first_query_sees_nothing": (16, 16, 8, 8, 0, -1, None, None, True),
+    "no_keys": (16, 16, 8, 8, 0, 0, 0, None, False),
+    "window_past_the_keys": (8, 32, 8, 8, 4, 40, None, None, False),
+    "last_query_past_the_window": (64, 64, 8, 8, 4, 0, 20, None, True),
+}
+# K7's new widths timed, as (name, bh, s, d, dv, dtypes): D 256 (the bf16
+# kernel's <256, 256> build; float32 in slabs), D 320 (slabs in both), qk
+# 64 / v 128 (bf16 on the <128, 128> build), causal
+K7_WIDE = (("d256", 32, 4096, 256, 256, ("bfloat16", "float32")),
+           ("d320", 32, 4096, 320, 320, ("bfloat16", "float32")),
+           ("qk64_v128", 32, 4096, 64, 128, ("bfloat16", "float32")))
+# the p_dtype gate.  The plain version runs the kernels' own key tile
+# (k7_tile: kBK, 64 keys in both forward kernels), so the running max, and
+# so each bf16 rounding of P, falls at the same points.  A probability near
+# a rounding boundary may still round the other way (expf against the
+# kernel's exp2, scores summed in another order): such a flip moves one
+# output by up to 2**-7 of its key's weight times |v|.  So each element
+# within FLASH_TOL plus P_DTYPE_GATE of the largest |value| (a few flips of
+# heavy keys), and all of them within P_DTYPE_MEAN: sum |error| <=
+# P_DTYPE_MEAN * sum |value|.  Without the rounding (three P terms, or the
+# backward without its flag) every output moves by some 2**-9 of the
+# spread of its terms, and a dropped key tile by far more: the mean gate
+# refuses both, and p_dtype_control checks that it refuses the former on
+# the same inputs.  dQ and dK see no rounded P (dS takes float32 P), so
+# they keep the backward's own gate.
+P_DTYPE_GATE = 2 ** -8
+P_DTYPE_MEAN = 2 ** -12
+# float16 at the attention shape (Phi-3-mini's prefill) and p_dtype at
+# granite-3-2b's training shape (2 x 32 heads, S 2,048, D 64)
+K7_F16 = (64, 4096, 96)
+K7_P_DTYPE_TRAIN = (64, 2048, 64, 32)
+# the K6 routes past the tensor-core kernel's limits, timed at the FFN
+# path's shape: (block, dtype)
+K6_WIDE = ((512, "bfloat16"), (2048, "float32"))
+
+
+def lowp_data(a, dtype):
+    """A port CSR with its values cast to ``dtype``."""
+    return dataclasses.replace(a, data=a.data.to(dtype))
+
+
+def lowp_products(mats, log) -> dict:
+    """RoadTX and p2p-Gnutella04 at paper size with bf16 values, on the
+    three lanes of ``CALLS``, each lane's kernels launched and every sum in
+    bf16: p2p bit for bit the CPU port's bf16 product on every lane (the
+    plain versions, each add rounded to bf16), RoadTX with the structure of
+    its float32 product; a second run bit for bit."""
+    import torch
+
+    from repro_torch.core.spgemm import spgemm
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()  # this path's count starts here
+    per_call = {}
+    for name, a in mats.items():
+        a16 = lowp_data(a, torch.bfloat16)
+        f32 = spgemm(a, a).c
+        cpu, cpu_s = None, None
+        if name in LOWP_CPU_PRODUCT:
+            t0 = time.perf_counter()
+            cpu = spgemm(on_cpu(a16), on_cpu(a16)).c
+            cpu_s = time.perf_counter() - t0
+        for label, kwargs, kernels, _ in CALLS:
+            res, cold_ms, launches, routes, _, _ = run_call(a16, kwargs)
+            c, nnz = res.c, res.info["nnz_c"]
+            what = f"{name}/{label} bf16"
+            check(c.data.dtype == torch.bfloat16, f"{what}: {c.data.dtype}")
+            for k, n in launches.items():
+                check((n > 0) == (k in kernels),
+                      f"{what}: {k} launched {n} times")
+            check(nnz == int(f32.nnz) and torch.equal(c.indptr, f32.indptr)
+                  and torch.equal(c.indices[:nnz], f32.indices[:nnz]),
+                  f"{what}: another structure than the float32 product's")
+            check(bool(torch.isfinite(c.data[:nnz]).all()),
+                  f"{what}: non-finite values")
+            if cpu is not None:
+                check(same_csr(cpu, on_cpu(c)),
+                      f"{what}: differs from the CPU port's bf16 product")
+            again, ms, _, _, _, _ = run_call(a16, kwargs)
+            check(same_csr(again.c, c), f"{what}: a second run differs")
+            del again
+            host_ms, dev_ms, top = profile(lambda: spgemm(a16, a16, **kwargs))
+            per_call[f"{name}/{label}"] = launches
+            emit({"lowp_e2e": {
+                "matrix": name, "call": label, "dtype": "bfloat16",
+                "nnz_c": nnz, "ms": ms, "cold_ms": cold_ms,
+                "launches": launches, "route_launches": routes,
+                "bit_identical_to_cpu_port": cpu is not None,
+                "cpu_s": cpu_s, "profiled": {
+                    "host_ms": host_ms, "device_ms": dev_ms,
+                    "device_busy_share": None if dev_ms is None
+                    else dev_ms / host_ms, "top_kernels": top},
+                "rel_err_vs_float32": rel_err(c.data[:nnz],
+                                              f32.data[:nnz])}}, log)
+            del res, c
+        del a16, f32, cpu
+        torch.cuda.empty_cache()
+    return {"launches": ops.launch_counts(), "routes": ops.route_counts(),
+            "per_call": per_call}
+
+
+def lowp_segsum_hold(what, call, timed, log) -> dict:
+    """One recorded low-precision segment sum: one launch, bit for bit its
+    plain version on the CPU; ``timed`` adds the kernel's time beside its
+    bound, its plain version on the card and ``torch.segment_reduce``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as ss
+
+    ids, values, n_out, order, skip = call
+    values = values.contiguous()
+
+    def kernel():
+        return ss.segment_sum(ids, values, n_out, order, skip)
+
+    before = ops.launch_counts()["segment_sum"]
+    got = kernel()
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["segment_sum"] == before + 1,
+          f"segment_sum {what}: launches")
+    want = ss.segment_sum_plain(ids.cpu(), values.cpu(), n_out,
+                                None if order is None else order.cpu(), skip)
+    check(torch.equal(got.cpu(), want),
+          f"segment_sum {what}: differs from its plain version on the CPU")
+    rec = {"shape": what, "dtype": str(values.dtype), "n": ids.numel(),
+           "n_out": n_out, "width": values.shape[-1], "max_abs_err": 0.0,
+           "launches": ops.launch_counts()["segment_sum"] - before}
+    if timed:
+        summed = ids < n_out
+        if skip:
+            summed &= ids % skip != skip - 1
+        n_kept = int(summed.sum())
+        nbytes = ids.numel() * 8 + (0 if order is None else n_kept * 8) \
+            + (n_kept * values.numel() // max(ids.numel(), 1) + got.numel()) \
+            * values.element_size()
+        ordered = values if order is None else values.index_select(-2, order)
+        lengths = torch.bincount(ids, minlength=n_out)
+        rec.update({"bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                    "bound_by": "bytes", "ms": time_ms(kernel, reps=5),
+                    "device_ms": device_ms(kernel, 3),
+                    "loop_ms": loop_ms(kernel, reps=5),
+                    "plain_ms": time_ms(lambda: ss.segment_sum_plain(
+                        ids, values, n_out, order, skip), reps=1)})
+        rec.update(library_call([(
+            "torch.segment_reduce(values, 'sum', lengths)",
+            lambda: torch.segment_reduce(ordered, "sum", lengths=lengths,
+                                         axis=0))]))
+        del ordered, lengths
+    emit({"lowp_segment_sum": rec}, log)
+    del got, want
+    return rec
+
+
+def lowp_hash_hold(what, keys, vals, table_cap, timed, log) -> dict:
+    """K2 on one chunk's stream with low-precision values: one launch on
+    its table size's route, bit for bit its plain version (on the packed
+    stream, as ``hash_check`` holds it); ``timed`` adds its time beside its
+    bound and a COO ``coalesce()``."""
+    import torch
+
+    from repro_torch.kernels import hash_accum, ops
+
+    route = hash_accum.route(table_cap)
+    before = ops.launch_counts()["hash_accumulate"]
+    got, _ = routed_call("hash_accumulate", lambda: hash_accum.hash_accumulate(
+        keys, vals, table_cap), route)
+    launches = ops.launch_counts()["hash_accumulate"] - before
+    check(got[1].dtype == vals.dtype, f"K2 {what}: {got[1].dtype}")
+    held_k, held_v, rows = keys, vals, slice(None)
+    if keys.shape[1] > K2_MAX_STREAM:
+        held_k, held_v = packed_stream(keys, vals)
+        if held_k.shape[1] > K2_MAX_STREAM:
+            rows = ((held_k >= 0).sum(1) <= K2_MAX_STREAM).nonzero()[:, 0]
+            held_k = held_k[rows, :K2_MAX_STREAM].contiguous()
+            held_v = held_v[rows, :K2_MAX_STREAM].contiguous()
+    want = hash_accum.hash_accumulate_plain(held_k, held_v, table_cap)
+    for part, gp, wp in zip(("cols", "vals", "cnt"), got, want):
+        check(torch.equal(gp[rows], wp), f"K2 {what}: {part} differ")
+    rec = {"shape": what, "dtype": str(vals.dtype), "rows": keys.shape[0],
+           "ip_cap": keys.shape[1], "table_cap": table_cap, "route": route,
+           "max_abs_err": 0.0, "launches": launches}
+    if timed:
+        def kernel():
+            return hash_accum.hash_accumulate(keys, vals, table_cap)
+
+        products = int((keys >= 0).sum())
+        r = keys.shape[0]
+        nbytes = r * keys.shape[1] * 4 + products * vals.element_size() \
+            + r * table_cap * (4 + vals.element_size()) + r * 4
+        prow, pslot = (keys >= 0).nonzero(as_tuple=True)
+        coo_idx = torch.stack([prow, keys[prow, pslot].long()])
+        coo_val = vals[prow, pslot]
+        size = (r, int(keys.max()) + 1)
+        rec.update({"products": products, "bytes": nbytes,
+                    "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                    "ms": time_ms(kernel, reps=5),
+                    "device_ms": device_ms(kernel, 3),
+                    "loop_ms": loop_ms(kernel, reps=5)})
+        rec.update(library_call([(
+            "torch.sparse_coo_tensor(keys, vals).coalesce()",
+            lambda: torch.sparse_coo_tensor(coo_idx, coo_val,
+                                            size).coalesce())]))
+        del coo_idx, coo_val
+    emit({"lowp_hash_accumulate": rec}, log)
+    return rec
+
+
+def lowp_kernel_shapes(mats, log) -> dict:
+    """The segment sum and K2 in bf16 and float16 at 6b's four shapes:
+    the sort engine's chunks (RoadTX group 0, p2p-Gnutella04 group 2) with
+    K2 on the same chunks, ``csr_spmm`` on ogbn-arxiv's Â with 64 columns
+    (its forward and X's gradient; the path's bf16 run beside its float32
+    one), and ``csr_column_sums`` on Economics with self loops.  bf16 calls
+    are timed; float16 ones held only."""
+    import torch
+
+    from repro_torch.apps import gnn
+    from repro_torch.apps import markov_clustering as mc
+    from repro_torch.apps.graphs import rmat_graph, table_ii_matrix
+    from repro_torch.core import phases
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.sparse import ops as sparse_ops
+
+    t0 = time.perf_counter()
+    recs = {"segment_sum": {}, "hash_accumulate": {}}
+    for name, group in (("RoadTX", 0), ("p2p-Gnutella04", 2)):
+        a = mats[name]
+        ell, firsts = chunk_operands(a)
+        item, rows = firsts[group]
+        cols_a, vals_a = phases.gather_group_rows(
+            a.indptr, a.indices, a.data, rows, item.a_cap)
+        keys, vals = phases.enumerate_products(cols_a, vals_a, ell.indices,
+                                               ell.data)
+        out_cap = int(phases.allocate_sort(keys).max())
+        for dt in LOWP_DTYPES:
+            dtype = getattr(torch, dt)
+            _, lv = phases.enumerate_products(cols_a, vals_a.to(dtype),
+                                              ell.indices, ell.data.to(dtype))
+            timed = dt == "bfloat16"
+            with recorded_sums(phases) as calls:
+                phases.sort_unique(keys, lv, out_cap)
+            key = f"sort_unique/{name}/group {group}/{dt}"
+            recs["segment_sum"][key] = lowp_segsum_hold(key, calls[0], timed,
+                                                        log)
+            key = f"hash/{name}/group {group}/{dt}"
+            recs["hash_accumulate"][key] = lowp_hash_hold(
+                key, keys, lv, item.table_cap, timed, log)
+            del lv, calls
+        del ell, firsts, cols_a, vals_a, keys, vals
+        torch.cuda.empty_cache()
+    g = rmat_graph(GNN["nodes"], GNN["avg_deg"], seed=0, device="cuda")
+    a32 = gnn.normalize_adjacency(g)
+    rng = np.random.default_rng(0)
+    x32 = torch.from_numpy(rng.standard_normal(
+        (GNN["nodes"], GNN["d"])).astype(np.float32)).cuda()
+    ct32 = torch.from_numpy(rng.standard_normal(
+        (GNN["nodes"], GNN["d"])).astype(np.float32)).cuda()
+    y32 = sparse_ops.csr_spmm(a32, x32, gather="aia")
+    path = {}
+    for dt in LOWP_DTYPES:
+        dtype = getattr(torch, dt)
+        a = lowp_data(a32, dtype)
+        x = x32.to(dtype).requires_grad_()
+        with recorded_sums(sparse_ops, ss) as calls:
+            t1 = time.perf_counter()
+            y = sparse_ops.csr_spmm(a, x, gather="aia")
+            y.backward(ct32.to(dtype))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        check(len(calls) == 2, f"csr_spmm {dt}: {len(calls)} segment sums")
+        check(y.dtype == dtype and bool(torch.isfinite(y).all())
+              and bool(torch.isfinite(x.grad).all()),
+              f"csr_spmm {dt}: dtype or non-finite values")
+        path[dt] = {"forward_backward_ms": ms,
+                    "rel_err_vs_float32": rel_err(y.detach(), y32)}
+        timed = dt == "bfloat16"
+        for label, call in (("forward", calls[0]), ("dX", calls[1])):
+            key = f"csr_spmm/ogbn-arxiv/{label}/{dt}"
+            recs["segment_sum"][key] = lowp_segsum_hold(key, call, timed,
+                                                        log)
+        del a, x, y, calls
+    emit({"lowp_csr_spmm": {"shape": [GNN["nodes"], GNN["d"]],
+                            "nnz": int(a32.nnz), **path}}, log)
+    del g, a32, x32, ct32, y32
+    torch.cuda.empty_cache()
+    name, n = MCL_MATRIX
+    g = mc.add_self_loops(table_ii_matrix(name, seed=0, n_override=n,
+                                          device="cuda"))
+    for dt in LOWP_DTYPES:
+        with recorded_sums(ss) as calls:
+            sparse_ops.csr_column_sums(lowp_data(g, getattr(torch, dt)))
+        key = f"csr_column_sums/{name}/{dt}"
+        recs["segment_sum"][key] = lowp_segsum_hold(key, calls[0],
+                                                    dt == "bfloat16", log)
+        del calls
+    del g
+    torch.cuda.empty_cache()
+    emit({"lowp_kernel_shapes_s": time.perf_counter() - t0}, log)
+    return recs
+
+
+def k7_tile(path: str) -> int:
+    """The key tile of K7's forward kernel on route ``path``: the plain
+    version's ``k_blk`` under ``p_dtype``, so that P is rounded after the
+    same running maxima."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels._build import source_constants
+
+    if path.startswith("wgmma"):
+        return k7.wgmma_constants()["kBK"]
+    return source_constants("flash_attention.cu")["kBK"]
+
+
+def error_share(got, want) -> float:
+    """sum |got - want| over sum |want|."""
+    diff = (got.double() - want.double()).abs().sum()
+    return float(diff / want.double().abs().sum().clamp_min(1e-300))
+
+
+def k7_gate(got, want, vmax, p_dtype, case) -> float:
+    """``got`` within FLASH_TOL of ``want`` plus, under ``p_dtype``,
+    P_DTYPE_GATE of ``vmax`` (the largest value the rounding can move) and
+    its errors together within P_DTYPE_MEAN of ``want``'s values."""
+    rtol, atol = FLASH_TOL[str(want.dtype)]
+    if p_dtype is not None:
+        atol = atol + P_DTYPE_GATE * vmax
+        share = error_share(got, want)
+        check(share <= P_DTYPE_MEAN,
+              f"K7 {case}: sum |error| {share} of sum |value|, beyond "
+              f"P_DTYPE_MEAN {P_DTYPE_MEAN}")
+    diff = (got.double() - want.double()).abs()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"K7 {case}: {got.dtype} {tuple(got.shape)}")
+    check(bool((diff <= atol + rtol * want.double().abs()).all()),
+          f"K7 {case}: max |error| {float(diff.max())} beyond its gate")
+    return float(diff.max())
+
+
+def p_dtype_control(got, want, case) -> float:
+    """The share of ``got`` (a build without the rounding, on the inputs
+    that ``want``, the plain version under ``p_dtype``, was given) past
+    P_DTYPE_MEAN: the gate must refuse it."""
+    share = error_share(got, want)
+    check(share > P_DTYPE_MEAN,
+          f"{case}: the build without the rounding meets the p_dtype gate "
+          f"({share} <= {P_DTYPE_MEAN})")
+    return share
+
+
+def k7_call_hold(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
+                 case, k_chunk=1024, control=False) -> dict:
+    """One K7 forward and backward through ``ops.flash_attention_masked``
+    under autograd: each kernel launched once on the route ``route`` and
+    ``bwd_route`` name (the forward none where no query has a key), the
+    keyless pass once each way where some query has none; the output
+    against the plain forward, the gradients against the plain backward on
+    the kernel's own output and lse.  Under ``p_dtype`` the plain forward
+    runs the kernel's key tile, and with ``control`` the builds without
+    the rounding are held to the same plain versions (p_dtype_control)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[2]
+    a, b = k7.keyless_rows(sq, sk, causal, window, q_offset, kv_len)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before, routes = ops.launch_counts(), ops.route_counts()
+    out = ops.flash_attention_masked(*leaves, causal, window, q_offset,
+                                     kv_len, p_dtype, k_chunk)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    after, now = ops.launch_counts(), ops.route_counts()
+    keyless = a > 0 or b < sq
+    want = {"flash_attention_fused": int(a < b), "flash_attention_bwd": 1,
+            "flash_attention_keyless": 2 * int(keyless)}
+    for name, n in want.items():
+        check(after[name] - before[name] == n,
+              f"K7 {case}: {name} launched {after[name] - before[name]}, "
+              f"{n} wanted")
+    keys = ["flash_attention_bwd/"
+            f"{k7.bwd_route(q.dtype, d, dv, p_dtype, keyless)}"]
+    if a < b:
+        keys.append("flash_attention_fused/"
+                    f"{k7.route(q.dtype, d, dv, p_dtype)}")
+    for key in keys:
+        check(now.get(key, 0) == routes.get(key, 0) + 1,
+              f"K7 {case}: not on {key} ({now})")
+    fwd = k7.route(q.dtype, d, dv, p_dtype)
+    o_p = k7.flash_attention_masked_plain(q, k, v, causal, window, q_offset,
+                                          kv_len, p_dtype=p_dtype,
+                                          k_chunk=k_chunk,
+                                          k_blk=k7_tile(fwd))
+    vmax = float(v.double().abs().max())
+    rec = {"route": keys[-1], "keyless_rows": (a, sq - b),
+           "max_abs_err": k7_gate(out.detach(), o_p, vmax, p_dtype, case)}
+    kvl = k7._kv_limit(sk, kv_len)
+    lse = k7._launch(q, k, v, causal, window, q_offset, kvl, True, p_dtype,
+                     k_chunk)[1]
+    want_g = k7.flash_attention_masked_bwd_plain(
+        q, k, v, out.detach(), lse, do, causal, window, q_offset, kv_len,
+        p_dtype, k_chunk)
+    if p_dtype is None:
+        rec["grad_max_abs_err"] = flash_bwd_check(grads, want_g, case)
+    else:  # dq, dk: no rounded P; dv: the p_dtype gate
+        gmax = max(float(w.double().abs().max()) for w in want_g)
+        rec["grad_max_abs_err"] = max(
+            flash_bwd_check(grads[:2], want_g[:2], case, gmax),
+            k7_gate(grads[2], want_g[2], gmax, p_dtype, f"{case} dv"))
+        rec["error_share"] = error_share(out.detach(), o_p)
+        rec["dv_error_share"] = error_share(grads[2], want_g[2])
+    if control and p_dtype is not None:
+        three = k7._launch(q, k, v, causal, window, q_offset, kvl, False,
+                           None, k_chunk)
+        no_flag = k7._launch_bwd(q, k, v, out.detach(), lse, do, causal,
+                                 window, q_offset, kv_len, None, k_chunk,
+                                 route=k7.bwd_route(q.dtype, d, dv,
+                                                    p_dtype))[2]
+        rec["control_error_share"] = p_dtype_control(
+            three, o_p, f"K7 {case} without p_dtype")
+        rec["control_dv_error_share"] = p_dtype_control(
+            no_flag, want_g[2], f"K7 {case} backward without its flag")
+    return rec
+
+
+def k7_refused_cases(log) -> dict:
+    """K7_REFUSED in float32, bf16 and float16, forward and backward."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    recs = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for name, spec in K7_REFUSED.items():
+            sq, sk, d, dv, window, off, kvl, pdt, causal = spec
+            q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                           .to(dt) for shape in ((2, sq, d), (2, sk, d),
+                                                 (2, sk, dv), (2, sq, dv)))
+            case = f"{name}/{dt}"
+            recs[case] = k7_call_hold(
+                q, k, v, do, causal, window, off, kvl,
+                None if pdt is None else getattr(torch, pdt), case)
+    emit({"k7_refused_cases": recs}, log)
+    return recs
+
+
+def k7_timed(q, k, v, causal, p_dtype, heads, log, key) -> dict:
+    """K7 through ``ops.flash_attention_masked`` on (BH, S, .) inputs, held
+    against its plain version and timed beside its bound, its plain version
+    and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+
+    bh, s, d = q.shape
+    dv = v.shape[2]
+    path = k7.route(q.dtype, d, dv, p_dtype)
+
+    def kernel():
+        return ops.flash_attention_masked(q, k, v, causal, p_dtype=p_dtype)
+
+    def plain():
+        return k7.flash_attention_masked_plain(q, k, v, causal,
+                                               p_dtype=p_dtype,
+                                               k_blk=k7_tile(path))
+
+    got, taken = routed_call("flash_attention_fused", kernel, path)
+    vmax = float(v.double().abs().max())
+    want = plain()
+    rec = {"name": "flash_attention_fused", "route": taken,
+           "shape": {"bh": bh, "s": s, "d": d, "dv": dv,
+                     "dtype": str(q.dtype), "causal": causal,
+                     "p_dtype": None if p_dtype is None else str(p_dtype)},
+           "max_abs_err": k7_gate(got, want, vmax, p_dtype, key)}
+    if p_dtype is not None:  # and the build without the rounding
+        rec["error_share"] = error_share(got, want)
+        rec["control_error_share"] = p_dtype_control(
+            k7._launch(q, k, v, causal, 0, 0, s, False, None), want,
+            f"{key} without p_dtype")
+    del got, want
+    rec["ms"] = time_ms(kernel, reps=3)
+    rec["device_ms"] = device_ms(kernel, reps=2)
+    rec["plain_ms"] = time_ms(plain, reps=1)
+    pairs = bh * valid_pairs(s, s, causal, 0)
+    rec["flops"] = 2 * pairs * (d + dv)
+    rec["bytes"] = bh * s * (2 * d + 2 * dv) * q.element_size()
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
+                                             q.dtype)
+    q4, k4, v4 = (x.view(bh // heads, heads, s, x.shape[2])
+                  for x in (q, k, v))
+    rec.update(library_call([(
+        f"F.scaled_dot_product_attention(is_causal={causal}) on "
+        f"({bh // heads}, {heads}, s, d|dv)",
+        lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                               is_causal=causal))]))
+    emit({key: rec}, log)
+    return rec
+
+
+# the keyless pass timed: every query of (BH, S, D) bf16 without a key
+# (kv_len 0), key chunk 1,024 (den = S)
+K7_KEYLESS = (32, 4096, 128)
+
+
+def k7_keyless_timed(rand, log) -> dict:
+    """K7's keyless pass alone (kv_len 0: no attention launch) at
+    K7_KEYLESS, against its plain version, beside its bound (v read once,
+    o and lse written once) and ``torch.mean`` of v over the keys (the
+    rows' values, not written out)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import ops
+
+    bh, s, d = K7_KEYLESS
+    q, k, v = (rand(bh, s, d, dtype=torch.bfloat16) for _ in range(3))
+
+    def kernel():
+        return ops.flash_attention_masked(q, k, v, False, kv_len=0)
+
+    before = ops.launch_counts()["flash_attention_fused"]
+    got, taken = routed_call("flash_attention_keyless", kernel, "fwd")
+    check(ops.launch_counts()["flash_attention_fused"] == before,
+          "keyless: the attention kernel was launched")
+    want = k7.flash_attention_masked_plain(q, k, v, False, kv_len=0)
+    rec = {"name": "flash_attention_keyless", "route": taken,
+           "shape": {"bh": bh, "sq": s, "sk": s, "d": d, "dv": d,
+                     "dtype": "bfloat16", "kv_len": 0},
+           "max_abs_err": k7_gate(got, want, 1.0, None, "keyless"),
+           "ms": time_ms(kernel, reps=5), "device_ms": device_ms(kernel, 3),
+           "plain_ms": time_ms(lambda: k7.flash_attention_masked_plain(
+               q, k, v, False, kv_len=0), reps=1)}
+    nbytes = bh * s * d * 2 * v.element_size() + bh * s * 4
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, bh * s * d,
+                                             torch.bfloat16)
+    rec.update(library_call([("torch.mean(v, 1) (the rows' values only)",
+                              lambda: torch.mean(v, 1))]))
+    # the backward's keyless pass alone: the float32 dV every key gets
+    g = torch.empty((bh, d), dtype=torch.float32, device="cuda")
+    before = ops.launch_counts()["flash_attention_keyless"]
+
+    def kernel_bwd():
+        k7._keyless(v, g, None, s, s, s, None, 1024, False)
+
+    kernel_bwd()
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["flash_attention_keyless"] == before + 1,
+          "keyless backward: launches")
+    check(torch.allclose(g, v.float().sum(1) / s, rtol=1e-5, atol=1e-6),
+          "keyless backward: differs from its plain sum")
+    rec["bwd"] = {"route": "bwd", "ms": time_ms(kernel_bwd, reps=5),
+                  "device_ms": device_ms(kernel_bwd, 3),
+                  "bound_ms": bound_ms(v.numel() * v.element_size()
+                                       + g.numel() * 4),
+                  "library_ms": time_ms(lambda: v.float().sum(1), reps=5),
+                  "library_call": "v.float().sum(1)"}
+    emit({"k7_keyless": rec}, log)
+    del q, k, v, got, want
+    return rec
+
+
+# the backward in slabs timed: bf16 D 256 (BH 16, S 2,048, causal)
+K7_BWD_SLABS = (16, 2048, 256)
+
+
+def k7_bwd_slabs_timed(rand, log) -> dict:
+    """K7's backward past 192 columns (``cuda_cores_slabs``) at
+    K7_BWD_SLABS, held against its plain version and timed beside its
+    bound and SDPA's forward + backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k7
+
+    bh, s, d = K7_BWD_SLABS
+    q, k, v, do = (rand(bh, s, d, dtype=torch.bfloat16) for _ in range(4))
+    rec = k7_call_hold(q, k, v, do, True, 0, 0, None, None,
+                       f"slab backward {bh}x{s}x{d}")
+    o, lse = k7._launch(q, k, v, True, 0, 0, s, True)
+
+    def bwd():
+        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s)
+
+    pairs = bh * valid_pairs(s, s, True, 0)
+    rec.update({"name": "flash_attention_bwd",
+                "bwd_route": k7.bwd_route(q.dtype, d, d),
+                "shape": {"bh": bh, "s": s, "d": d, "dv": d,
+                          "dtype": "bfloat16", "causal": True},
+                "ms": time_ms(bwd, reps=2), "device_ms": device_ms(bwd, 1),
+                "plain_ms": time_ms(lambda: k7.flash_attention_masked_bwd_plain(
+                    q, k, v, o, lse, do), reps=1),
+                "flops": 10 * d * pairs,
+                "bytes": bh * s * 8 * d * q.element_size() + bh * s * 4})
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
+                                             torch.bfloat16)
+    q4, k4, v4, do4 = (x.view(1, bh, s, d).detach()
+                       .requires_grad_(x is not do) for x in (q, k, v, do))
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        return torch.autograd.grad(out, (q4, k4, v4), do4)
+
+    rec.update(library_call([(
+        "F.scaled_dot_product_attention(is_causal=True) forward + backward "
+        f"on (1, {bh}, s, d)", sdpa)]))
+    emit({"k7_bwd_slabs": rec}, log)
+    del q, k, v, do, o, lse
+    return rec
+
+
+def k7_new_shapes(log) -> dict:
+    """K7 at its new widths (K7_WIDE), in float16 at Phi-3-mini's prefill
+    shape, and its backward with p_dtype at granite-3-2b's training
+    shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k7
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    recs = {}
+    for name, bh, s, d, dv, dtypes in K7_WIDE:
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            q, k = rand(bh, s, d, dtype=dtype), rand(bh, s, d, dtype=dtype)
+            v = rand(bh, s, dv, dtype=dtype)
+            key = f"k7_{name}_{dt}"
+            recs[key] = k7_timed(q, k, v, True, None, 16, log, key)
+            del q, k, v
+            torch.cuda.empty_cache()
+    bh, s, d = K7_F16
+    q, k, v = (rand(bh, s, d, dtype=torch.float16) for _ in range(3))
+    recs["k7_phi3_float16"] = k7_timed(q, k, v, True, None, 32, log,
+                                       "k7_phi3_float16")
+    q, k, v = (x.bfloat16() for x in (q, k, v))
+    recs["k7_phi3_p_dtype"] = k7_timed(q, k, v, True, torch.bfloat16, 32,
+                                       log, "k7_phi3_p_dtype")
+    del q, k, v
+    recs["k7_bwd_slabs"] = k7_bwd_slabs_timed(rand, log)
+    recs["keyless"] = k7_keyless_timed(rand, log)
+    # granite's training shape with p_dtype: the forward on the one-term
+    # build, the backward on the CUDA-core kernel with its flag
+    bh, s, d, heads = K7_P_DTYPE_TRAIN
+    q, k, v, do = (rand(bh, s, d, dtype=torch.bfloat16) for _ in range(4))
+    pdt = torch.bfloat16
+    case = f"granite train shape p_dtype {bh}x{s}x{d}"
+    rec = k7_call_hold(q, k, v, do, True, 0, 0, None, pdt, case,
+                       control=True)
+    o, lse = k7._launch(q, k, v, True, 0, 0, s, True, pdt)
+    route = k7.bwd_route(q.dtype, d, d, pdt)
+
+    def bwd():
+        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s, pdt)
+
+    def fwd_bwd():
+        o2, lse2 = k7._launch(q, k, v, True, 0, 0, s, True, pdt)
+        return k7._launch_bwd(q, k, v, o2, lse2, do, True, 0, 0, s, pdt)
+
+    pairs = bh * valid_pairs(s, s, True, 0)
+    rec.update({"name": "flash_attention_bwd", "bwd_route": route,
+                "shape": {"bh": bh, "s": s, "d": d, "dv": d,
+                          "dtype": "bfloat16", "causal": True,
+                          "p_dtype": "bfloat16"},
+                "ms": time_ms(bwd, reps=3), "loop_ms": loop_ms(bwd, reps=5),
+                "fwd_bwd_loop_ms": loop_ms(fwd_bwd, reps=5),
+                "plain_ms": time_ms(lambda: k7.flash_attention_masked_bwd_plain(
+                    q, k, v, o, lse, do, True, p_dtype=pdt), reps=1),
+                "flops": (6 * d + 4 * d) * pairs,
+                "bytes": bh * s * 8 * d * q.element_size() + bh * s * 4})
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
+                                             torch.bfloat16)
+    q4, k4, v4, do4 = (x.view(bh // heads, heads, s, d).detach()
+                       .requires_grad_(x is not do) for x in (q, k, v, do))
+
+    def sdpa():
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        return torch.autograd.grad(out, (q4, k4, v4), do4)
+
+    rec.update(library_call([(
+        f"F.scaled_dot_product_attention(is_causal=True) forward + backward "
+        f"on ({bh // heads}, {heads}, s, d)", sdpa)]))
+    emit({"k7_bwd_p_dtype_train_shape": rec}, log)
+    recs["k7_bwd_p_dtype_train_shape"] = rec
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return recs
+
+
+def ffn_new_routes(log) -> dict:
+    """K3-K6 in float16 at the FFN path's shape (K3's 16-byte copy, K4, K5
+    and K6 on the CUDA cores), and K6 past the tensor-core kernel's limits
+    (K6_WIDE): each held against its plain version and timed beside its
+    bound, its plain version and a library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import aia_gather, ops, spgemm_bsr, topk_spmm
+    from repro_torch.models.ffn import tile_block_select
+    from repro_torch.sparse.topk import topk_rows
+
+    x, w1, w2, h = (t.half() for t in ffn_operands(seed=0))
+    n, d, f = FFN["tokens"], FFN["d_model"], FFN["d_ff"]
+    k, block, tile = FFN["k"], FFN["block"], FFN["tile"]
+    el = 2
+    recs = {}
+
+    def row(name, kernel, plain, exact, nbytes, flops, dtype, library,
+            shape, expect):
+        got, taken = routed_call(name, kernel, expect)
+        want = plain()
+        if exact:
+            check(torch.equal(got, want), f"{name} {shape}: differs")
+            err = 0.0
+        else:
+            err = rel_err(got, want)
+            check(err <= FFN_REL, f"{name} {shape}: {err} > {FFN_REL}")
+        rec = {"name": name, "route": taken, "shape": shape,
+               "max_abs_err": float((got.double() - want.double()).abs()
+                                    .max()) if not exact else 0.0,
+               "rel_err": err, "ms": time_ms(kernel, reps=5),
+               "device_ms": device_ms(kernel, reps=3),
+               "plain_ms": time_ms(plain, reps=1)}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
+        rec.update(library_call(library))
+        del got, want
+        return rec
+
+    tk = topk_rows(h, k)
+    vals, idx = tk.values, tk.indices
+    recs["topk_spmm/float16"] = row(
+        "topk_spmm", lambda: ops.topk_spmm(vals, idx, w2),
+        lambda: topk_spmm.topk_spmm_plain(vals, idx, w2), True,
+        vals.numel() * (el + 4) + int(torch.unique(idx).numel()) * d * el
+        + n * d * 4, 2 * vals.numel() * d, torch.float16,
+        [("F.embedding_bag(mode='sum', per_sample_weights)",
+          lambda: F.embedding_bag(idx, w2, per_sample_weights=vals,
+                                  mode="sum"))],
+        {"vals": list(vals.shape), "w2": list(w2.shape), "dtype": "float16"},
+        "l2")
+    h_kept, bidx = tile_block_select(h, k // block, block, tile)
+    recs["block_topk_spmm/float16"] = row(
+        "block_topk_spmm", lambda: ops.block_topk_spmm(h_kept, bidx, w2, block),
+        lambda: topk_spmm.block_topk_spmm_plain(h_kept, bidx, w2, block),
+        False, h_kept.numel() * el + bidx.numel() * 4
+        + int(torch.unique(bidx).numel()) * block * d * el + n * d * 4,
+        2 * h_kept.numel() * d, torch.float16, [],
+        {"h_kept": list(h_kept.shape), "w2": list(w2.shape),
+         "dtype": "float16"}, "cuda_cores")
+    sel = bidx.reshape(-1)
+    recs["aia_ranged_gather/float16"] = row(
+        "aia_ranged_gather", lambda: ops.aia_ranged_gather(w2, sel, block),
+        lambda: aia_gather.aia_ranged_gather_plain(w2, sel, block), True,
+        2 * sel.numel() * block * d * el + sel.numel() * 4, 0, torch.float16,
+        [("index_select of the blocks", lambda: w2.view(-1, block * d)
+          .index_select(0, sel.long()))],
+        {"w2": list(w2.shape), "ids": sel.numel(), "dtype": "float16"},
+        "v16")
+    # K3's other new routes on W2's ranges (bf16): an x 2 bytes off a word
+    # ("u16"), W2's bytes 1 byte off ("bytes"), a column slice of a wider
+    # W2 ("words": rows a pitch apart)
+    w2b = w2.bfloat16()
+    off = torch.empty(w2b.numel() + 1, dtype=torch.bfloat16,
+                      device="cuda")[1:].view_as(w2b)
+    off.copy_(w2b)
+    raw = torch.empty(w2b.numel() * 2 + 1, dtype=torch.uint8,
+                      device="cuda")[1:].view(f, 2 * d)
+    raw.copy_(w2b.view(torch.uint8))
+    wide = torch.zeros((f, d + 64), dtype=torch.bfloat16, device="cuda")
+    wide[:, :d] = w2b
+    for route, xr in (("u16", off), ("bytes", raw), ("words", wide[:, :d])):
+        recs[f"aia_ranged_gather/{route}"] = row(
+            "aia_ranged_gather",
+            lambda xr=xr: ops.aia_ranged_gather(xr, sel, block),
+            lambda xr=xr: aia_gather.aia_ranged_gather_plain(xr, sel, block),
+            True, 2 * sel.numel() * block * xr.shape[1] * xr.element_size()
+            + sel.numel() * 4, 0, torch.bfloat16,
+            [("index_select of the ranges", lambda xr=xr: xr.reshape(
+                -1, block * xr.shape[1]).index_select(0, sel.long()))],
+            {"x": list(xr.shape), "stride": list(xr.stride()),
+             "dtype": str(xr.dtype), "ids": sel.numel()}, route)
+    del h_kept, bidx, sel, w2b, off, raw, wide
+    bsr = pruned_bsr(w1.t().contiguous(), FFN["bsr_keep"], block)
+    xt = x.t().contiguous()
+    keep = FFN["bsr_keep"]
+    used = int(bsr.indptr[-1])
+    b_blocks = int(torch.unique(bsr.indices[:used]).numel())
+    recs["bsr_spmm/float16"] = row(
+        "bsr_spmm", lambda: ops.bsr_spmm(bsr.indptr, bsr.indices, bsr.blocks,
+                                         xt, keep),
+        lambda: spgemm_bsr.bsr_spmm_plain(bsr.indptr, bsr.indices,
+                                          bsr.blocks, xt, keep), False,
+        (bsr.n_brows + 1) * 4 + used * (4 + block * block * el)
+        + b_blocks * block * n * el + f * n * 4,
+        2 * used * block * block * n, torch.float16, [],
+        {"a": list(bsr.shape), "block": block, "b": list(xt.shape),
+         "dtype": "float16"}, "cuda_cores")
+    del bsr, xt
+    for wide, dt in K6_WIDE:
+        dtype = getattr(torch, dt)
+        hw, w2w = h.to(dtype), w2.to(dtype)
+        h_kept, bidx = tile_block_select(hw, max(1, k // wide), wide, tile)
+        esz = hw.element_size()
+        recs[f"block_topk_spmm/block {wide}/{dt}"] = row(
+            "block_topk_spmm",
+            lambda: ops.block_topk_spmm(h_kept, bidx, w2w, wide),
+            lambda: topk_spmm.block_topk_spmm_plain(h_kept, bidx, w2w, wide),
+            False, h_kept.numel() * esz + bidx.numel() * 4
+            + int(torch.unique(bidx).numel()) * wide * d * esz + n * d * 4,
+            2 * h_kept.numel() * d, dtype, [],
+            {"h_kept": list(h_kept.shape), "w2": list(w2w.shape),
+             "block": wide, "dtype": dt}, "cuda_cores")
+        del hw, w2w, h_kept, bidx
+    for key, rec in recs.items():
+        emit({"ffn_new_route": {"case": key, **rec}}, log)
+    del x, w1, w2, h
+    torch.cuda.empty_cache()
+    return recs
+
+
+def refusals_phase(log) -> dict:
+    """Every call the port once refused on the card (listed in 6c of the
+    module's docstring), made once: each must launch its kernel and match its plain version on the
+    same inputs (on the CPU where the plain version is the CPU port's).
+    The calls that raise are collected and printed (``refused: [...]``);
+    the phase fails unless there are none."""
+    import torch
+
+    from repro_torch.core.spgemm import spgemm
+    from repro_torch.kernels import aia_gather, ops, spgemm_bsr, topk_spmm
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.models import attention
+    from repro_torch.sparse import formats as fm
+    from repro_torch.sparse import ops as sparse_ops
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rng = np.random.default_rng(14)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def same(got, want, what):
+        check(torch.equal(got.cpu(), want.cpu()), f"{what}: differs")
+
+    def launched(name, fn):
+        before = ops.launch_counts()[name]
+        out = fn()
+        torch.cuda.synchronize()
+        check(ops.launch_counts()[name] > before, f"{name} not launched")
+        return out
+
+    dense = rng.standard_normal((96, 96)).astype(np.float32)
+    dense = np.where(rng.random((96, 96)) < 0.15, dense, 0)
+    x16 = torch.from_numpy(dense).bfloat16()
+    calls = {}
+
+    def spgemm_lanes():
+        a = fm.csr_from_dense(x16.cuda(), device="cuda")
+        check(a.data.dtype == torch.bfloat16, "csr_from_dense dtype")
+        cpu = spgemm(on_cpu(a), on_cpu(a)).c
+        for label, kwargs, kernels, _ in CALLS:
+            c = spgemm(a, a, **kwargs).c
+            check(same_csr(on_cpu(c), cpu), f"spgemm bf16 {label}")
+        return "segment_sum, hash_accumulate"
+
+    calls["spgemm bf16 (sort, fused_hash, hash-xla) and csr_from_dense"] = \
+        spgemm_lanes
+
+    def csr_prims():
+        a = fm.csr_from_dense(x16, device="cuda")
+        ac = on_cpu(a)
+        xv = rand(96, dtype=torch.bfloat16)
+        same(launched("segment_sum", lambda: sparse_ops.csr_spmv(a, xv)),
+             sparse_ops.csr_spmv(ac, xv.cpu()), "csr_spmv bf16")
+        wide = rand(96, 80, dtype=torch.bfloat16)
+        xs = wide[:, 8:72]
+        same(launched("gather_rows", lambda: sparse_ops.csr_spmm(
+            a, xs, gather="aia")),
+            sparse_ops.csr_spmm(ac, xs.cpu()), "csr_spmm bf16 column slice")
+        same(launched("segment_sum", lambda: sparse_ops.csr_column_sums(a)),
+             sparse_ops.csr_column_sums(ac), "csr_column_sums bf16")
+        same(launched("segment_sum", lambda: fm.csr_to_dense(a)), x16,
+             "csr_to_dense bf16 (_add_at)")
+        return "segment_sum, gather_rows"
+
+    calls["csr_spmv, csr_spmm (strided X), column sums, dense bf16"] = \
+        csr_prims
+
+    def k7_model():
+        for name, spec in K7_REFUSED.items():
+            sq, sk, d, dv, window, off, kvl, pdt, causal = spec
+            q = rand(1, sq, 2, d, dtype=torch.bfloat16)
+            k = rand(1, sk, 2, d, dtype=torch.bfloat16)
+            v = rand(1, sk, 2, dv, dtype=torch.bfloat16)
+            kw = dict(causal=causal, window=window, q_offset=off,
+                      kv_valid_len=kvl,
+                      p_dtype=None if pdt is None else torch.bfloat16)
+            before = ops.launch_counts()
+            got = attention.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            check(after["flash_attention_fused"]
+                  + after["flash_attention_keyless"]
+                  > before["flash_attention_fused"]
+                  + before["flash_attention_keyless"],
+                  f"attention {name}: no K7 launch")
+            want = attention.flash_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+            k7_gate(got.cpu(), want, float(v.abs().max()), kw["p_dtype"],
+                    f"attention {name}")
+        return "flash_attention_fused, flash_attention_keyless"
+
+    calls["K7: p_dtype, D > 192, Dv > D, queries without keys"] = k7_model
+
+    def k1_k3():
+        x = rand(300, 40)
+        xs = rand(300, 64)[:, 8:48]
+        idx = torch.from_numpy(rng.integers(-3, 303, 500).astype(np.int32)
+                               ).cuda()
+        same(launched("gather_rows", lambda: aia_gather.gather_rows(xs, idx)),
+             aia_gather.gather_rows_plain(xs.cpu(), idx.cpu()),
+             "K1 strided x")
+        ridx = torch.from_numpy(rng.integers(-2, 102, 50).astype(np.int32)
+                                ).cuda()
+        for what, xr, r in (
+                ("K3 strided x", xs, 3),
+                ("K3 bf16 odd range", rand(300, 7, dtype=torch.bfloat16), 3),
+                ("K3 x 2 bytes off", rand(301 * 8, dtype=torch.bfloat16)
+                 [1:2401].view(300, 8), 3),
+                ("K3 bytes", torch.randint(0, 255, (300, 5), generator=g,
+                                           device="cuda",
+                                           dtype=torch.uint8), 3)):
+            same(launched("aia_ranged_gather",
+                          lambda: aia_gather.aia_ranged_gather(xr, ridx, r)),
+                 aia_gather.aia_ranged_gather_plain(xr.cpu(), ridx.cpu(), r),
+                 what)
+        del x
+        return "gather_rows, aia_ranged_gather"
+
+    calls["K1 and K3 on strided, odd and unaligned x"] = k1_k3
+
+    def k6_caps():
+        for block, nb, dt in ((264, 3, torch.bfloat16),
+                              (8, 32_770, torch.bfloat16),
+                              (2048, 3, torch.float32)):
+            h = rand(2, 2, 8, block, dtype=dt)
+            w2 = rand(nb * block, 24, dtype=dt)
+            bidx = torch.from_numpy(rng.integers(-1, nb + 1, (2, 2))
+                                    .astype(np.int32)).cuda()
+            got = launched("block_topk_spmm",
+                           lambda: ops.block_topk_spmm(h, bidx, w2, block))
+            e = rel_err(got, topk_spmm.block_topk_spmm_plain(h, bidx, w2,
+                                                             block))
+            check(e <= FFN_REL, f"K6 block {block} x {nb} {dt}: {e}")
+        return "block_topk_spmm"
+
+    calls["K6 past its caps"] = k6_caps
+
+    def f16_k4_k7():
+        h = rand(4, 24, dtype=torch.float16)
+        w2 = rand(40, 16, dtype=torch.float16)
+        idx = torch.from_numpy(rng.integers(0, 40, (4, 24)).astype(np.int32)
+                               ).cuda()
+        same(launched("topk_spmm", lambda: ops.topk_spmm(h, idx, w2)),
+             topk_spmm.topk_spmm_plain(h, idx, w2), "K5 float16")
+        q, k, v = (rand(2, 64, 32, dtype=torch.float16) for _ in range(3))
+        got = launched("flash_attention_fused",
+                       lambda: ops.flash_attention_fused(q, k, v))
+        k7_gate(got, ops.flash_attention_fused(q.cpu(), k.cpu(), v.cpu())
+                .cuda(), 1.0, None, "K7 float16")
+        rp = torch.tensor([0, 2, 3], dtype=torch.int32, device="cuda")
+        ci = torch.tensor([0, 1, 1], dtype=torch.int32, device="cuda")
+        blocks, b = rand(3, 8, 8, dtype=torch.float16), rand(16, 12,
+                                                            dtype=torch.float16)
+        got = launched("bsr_spmm", lambda: ops.bsr_spmm(rp, ci, blocks, b, 2))
+        e = rel_err(got, spgemm_bsr.bsr_spmm_plain(rp, ci, blocks, b, 2))
+        check(e <= FFN_REL, f"K4 float16: {e}")
+        hk = rand(2, 2, 8, 16, dtype=torch.float16)
+        w2b = rand(4 * 16, 24, dtype=torch.float16)
+        bidx = torch.tensor([[0, 3], [2, 2]], dtype=torch.int32,
+                            device="cuda")
+        got = launched("block_topk_spmm",
+                       lambda: ops.block_topk_spmm(hk, bidx, w2b, 16))
+        e = rel_err(got, topk_spmm.block_topk_spmm_plain(hk, bidx, w2b, 16))
+        check(e <= FFN_REL, f"K6 float16: {e}")
+        return "topk_spmm, flash_attention_fused, bsr_spmm, block_topk_spmm"
+
+    calls["K4-K7 in float16"] = f16_k4_k7
+
+    def segsum_sets():
+        ids = torch.tensor([0, 0, 2, 3], device="cuda")
+        vals = rand(70_000, 4, 2)
+        same(launched("segment_sum", lambda: ss.segment_sum(ids, vals, 4)),
+             ss.segment_sum_plain(ids.cpu(), vals.cpu(), 4),
+             "segment_sum 70,000 value sets")
+        return "segment_sum"
+
+    calls["segment sum past 65,535 value sets"] = segsum_sets
+
+    refused, done = [], {}
+    ops.reset_launch_counts()  # this phase's count starts here
+    for what, fn in calls.items():
+        try:
+            done[what] = fn()
+        except (ValueError, NotImplementedError, TypeError) as exc:
+            refused.append(f"{what}: {type(exc).__name__}: {exc}"[:300])
+    print(f"refused: {json.dumps(refused)}", flush=True)
+    emit({"refusals": {"calls": done, "refused": refused}}, log)
+    check(not refused, f"calls refused on the card: {refused}")
+    return {"calls": list(done), "refused": refused,
+            "launches": ops.launch_counts()}
+
+
+ROUTE_KEYS = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
+              "bound_ms", "bound_by", "library_ms", "library_call")
+
+
+def route_row(rec, launches) -> dict:
+    """A new route's entry in the kernels line: the launches counted
+    around the call its row holds and times, and its measured numbers."""
+    return {**{k: rec.get(k) for k in ROUTE_KEYS[1:]}, "launches": launches,
+            "route": rec.get("route"), "shape": rec.get("shape")}
+
+
+def add_new_routes(kernels, new, prefill_p) -> None:
+    """6c's routes into the kernels line: each kernel's entry gains
+    ``new_routes`` (launches, error, times, bound and library time of each
+    new route), and the keyless pass gets an entry of its own."""
+    by_name = {k["name"]: k for k in kernels}
+    products, shapes = new["products"], new["shapes"]
+    refusals = new["refusals"]["launches"]
+    seg = by_name["segment_sum"]
+    seg["new_routes"] = {key: route_row(rec, rec["launches"])
+                         for key, rec in shapes["segment_sum"].items()
+                         if "ms" in rec}
+    seg["launches_per_bf16_spgemm"] = {
+        c: n["segment_sum"] for c, n in products["per_call"].items()}
+    by_name["aia_gather_rows"]["launches_per_bf16_spgemm"] = {
+        c: n["gather_rows"] for c, n in products["per_call"].items()}
+    k2 = by_name["hash_accumulate"]
+    k2["new_routes"] = {key: route_row(rec, rec["launches"])
+                        for key, rec in shapes["hash_accumulate"].items()
+                        if "ms" in rec}
+    k2["launches_per_bf16_spgemm"] = {
+        c: n["hash_accumulate"] for c, n in products["per_call"].items()}
+    for key, rec in new["ffn"].items():
+        entry = by_name[rec["name"]]
+        entry.setdefault("new_routes", {})[key] = route_row(rec, 1)
+    k7 = by_name["flash_attention_fused"]
+    k7["new_routes"] = {key: route_row(rec, 1)
+                        for key, rec in new["k7"].items()
+                        if rec["name"] == "flash_attention_fused"}
+    k7["launches_per_phi3_p_dtype_prefill"] = \
+        prefill_p["launches"]["flash_attention_fused"]
+    k7["routes_per_phi3_p_dtype_prefill"] = prefill_p["routes"]
+    k7["refused_cases"] = new["k7_cases"]
+    k7["launches_per_refusals_phase"] = refusals["flash_attention_fused"]
+    bwd = by_name["flash_attention_bwd"]
+    rec = new["k7"]["k7_bwd_p_dtype_train_shape"]
+    bwd["new_routes"] = {"p_dtype granite train shape": {
+        **route_row(rec, 1), "route": rec["bwd_route"],
+        "loop_ms": rec["loop_ms"], "fwd_bwd_loop_ms": rec["fwd_bwd_loop_ms"]}}
+    rec = new["k7"]["k7_bwd_slabs"]
+    bwd["new_routes"]["slabs D 256"] = {**route_row(rec, 1),
+                                        "route": rec["bwd_route"]}
+    rec = new["k7"]["keyless"]
+    kernels.append({
+        "bwd": rec["bwd"],
+        "name": "flash_attention_keyless", "route": "cuda",
+        "path": rec["route"],
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "none: the rows the reference's chunked attention "
+                    "(src/repro/models/attention.py:96-120) gives a query "
+                    "without keys",
+        "shape": rec["shape"],
+        "launches": refusals["flash_attention_keyless"],
+        **{k: rec.get(k) for k in ROUTE_KEYS[1:]}})
+
+
+def new_routes_phase(log) -> dict:
+    """K7's once-refused cases and new shapes and the FFN kernels' new
+    routes, early in the script (the profiler reads no device time after
+    the long SpGEMM traces)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"k7_cases": k7_refused_cases(log), "k7": k7_new_shapes(log),
+           "ffn": ffn_new_routes(log)}
+    torch.cuda.empty_cache()
+    emit({"new_routes_phase_s": time.perf_counter() - t0}, log)
+    return out
+
+
+def refused_calls_phase(mats, log) -> dict:
+    """The low-precision products and kernel shapes, then the refusals."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"products": lowp_products(mats, log)}
+    out["shapes"] = lowp_kernel_shapes(mats, log)
+    torch.cuda.empty_cache()
+    out["refusals"] = refusals_phase(log)
+    emit({"refused_calls_phase_s": time.perf_counter() - t0}, log)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", help="also write every record to this file")
@@ -6165,7 +7354,10 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
     # then K7 and the LM path, still ahead of the SpGEMM traces
     flash, flash_mla, flash_masked = flash_phase(log)
     torch.cuda.empty_cache()
+    new_routes = new_routes_phase(log)
     prefill, _, _ = lm_phase(log)
+    prefill_p = next(r["lm_prefill_p_dtype"] for r in log
+                     if "lm_prefill_p_dtype" in r)
     ds_prefill, _, _ = deepseek_phase(log)
     families = families_phase(log)
     torch.cuda.empty_cache()
@@ -6177,6 +7369,8 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
             for name, n in MATRICES.items()}
     k1, k2 = kernel_phase(mats, log)
     segsum = segment_sum_phase(mats, log)
+    refused = refused_calls_phase(mats, log)
+    torch.cuda.empty_cache()
     totals, per_call = end_to_end_phase(mats, log)
     per_serve = serve_phase(mats, log)
     torch.cuda.empty_cache()
@@ -6406,6 +7600,7 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
         "deepseek_train_device_ms": ds_train["steps"]["profiled"]
         ["k7_backward"]["ms_per_call"],
         "ptxas": timed["ptxas"]})
+    add_new_routes(kernels, {**refused, **new_routes}, prefill_p)
     emit({"script_s": time.perf_counter() - t_script}, log)
     emit({"kernels": kernels}, log)
     if args.json:

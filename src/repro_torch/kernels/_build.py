@@ -29,52 +29,66 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P, _I, _B = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their arguments (pointers and the stream as void*;
-# ``_B`` is 1 for bfloat16 operands, 0 for float32, or a flag).
+# ``_B`` is a dtype code, ``ops.DTYPE_CODES``: 0 float32, 1 bfloat16,
+# 2 float16, 3 float64; or a flag).
 SIGNATURES = {
-    # idx, n_idx, n_x_rows, x0, out0, row_bytes0, x1, out1, row_bytes1
-    # (NULL, NULL, 0 for one plane), unit bytes, stream
-    "repro_gather_planes": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _B, _P],
+    # idx, n_idx, n_x_rows, x0, out0, row_bytes0, pitch_bytes0, x1, out1,
+    # row_bytes1, pitch_bytes1 (NULL, NULL, 0, 0 for one plane), unit
+    # bytes, stream
+    "repro_gather_planes": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _I, _I, _B,
+                            _P],
     # keys, vals, masks (scratch), cols, out_vals, cnt, rows, ip_cap,
-    # table_cap, stream (the table in shared memory up to kSmemTableBytes,
-    # else in cols and out_vals)
-    "repro_hash_accumulate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, idx, out, n_blocks, range_words, n_idx, v16 (1: the 16-byte
-    # copy, 0: the word copy), stream
-    "repro_aia_ranged_gather": [_P, _P, _P, _I, _I, _I, _B, _P],
+    # table_cap, dtype code, stream (the table in shared memory up to
+    # kSmemTableBytes, else in cols and out_vals)
+    "repro_hash_accumulate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _B, _P],
+    # x, idx, out, n_blocks, rows a range (1: a contiguous x's range as one
+    # row), row_bytes, pitch_bytes, n_idx, unit bytes, v16 (1: the 16-byte
+    # copy, 0: the row gather's copy in units), stream
+    "repro_aia_ranged_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _B, _B, _P],
     # rowptr, colidx, a_blocks, b, out, n_brows, n_bcols, bs, d,
-    # max_blocks_per_row, bcap, stream (float32; bfloat16 for the wgmma
-    # kernel)
-    "repro_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "repro_bsr_spmm_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # vals, idx, w2, out, n, k, d, d_ff, bf16, stream (the "l2" route)
+    # max_blocks_per_row, bcap, dtype code, stream (float32 or float16;
+    # bfloat16 for the wgmma kernel)
+    "repro_bsr_spmm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B, _P],
+    "repro_bsr_spmm_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B,
+                             _P],
+    # vals, idx, w2, out, n, k, d, d_ff, dtype code, stream (the "l2"
+    # route)
     "repro_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
-    # vals, idx, w2, pairs (scratch), out, n, k, d, d_ff, bf16, stream (the
-    # "smem" route)
+    # vals, idx, w2, pairs (scratch), out, n, k, d, d_ff, bf16 (0: float32),
+    # stream (the "smem" route)
     "repro_topk_spmm_smem": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
-    # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, stream
-    # (float32; bfloat16 for the wgmma kernel, with pair_ptr and pairs
-    # scratch after w2)
-    "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, dtype
+    # code, stream (the CUDA cores); the wgmma kernel (bfloat16) has
+    # pair_ptr and pairs scratch after w2 and no dtype code
+    "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B,
+                              _P],
     "repro_block_topk_spmm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P],
     # q, k, v, o, lse (NULL: not written), bh, sq, sk, d, dv, causal,
-    # q_offset, window, kv_len, scale, stream (float32; bfloat16 for the
-    # wgmma kernel)
+    # q_offset, window, kv_len, scale, p_bf16, dtype code, stream (the
+    # CUDA-core kernel); the wgmma kernel (bfloat16) takes no dtype code
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B,
-                              _I, _I, _I, _F, _P],
+                              _I, _I, _I, _F, _B, _B, _P],
     "repro_flash_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _B, _I, _I, _I, _F, _P],
-    # q, k, v, o, lse, do, dq, dk, dv, delta (scratch), bh, sq, sk, d, dv,
-    # causal, q_offset, window, kv_len, scale, bf16, stream
+                                    _B, _I, _I, _I, _F, _B, _P],
+    # v, o, lse (NULL: none), bh, sq, sk, dv, a, b, den, p_bf16, dtype
+    # code, fwd (0: the backward's keyless dV into o), stream: the queries
+    # without a key
+    "repro_flash_keyless": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _B, _B,
+                            _B, _P],
+    # q, k, v, o, lse, do, dq, dk, dv, delta (scratch), keyless dV (NULL:
+    # none), bh, sq, sk, d, dv, causal, q_offset, window, kv_len, scale,
+    # p_bf16, dtype code, stream
     "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _B, _I, _I, _I, _F,
-                                  _B, _P],
-    # the same less the dtype flag (bfloat16 only; the wgmma kernels)
+                                  _P, _I, _I, _I, _I, _I, _B, _I, _I, _I,
+                                  _F, _B, _B, _P],
+    # the same less the keyless dV, p_bf16 and the dtype code (bfloat16
+    # only; the wgmma kernels)
     "repro_flash_attention_bwd_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _I, _I, _B, _I, _I,
                                         _I, _F, _P],
     # ids, vals, order (NULL: none), out, n, n_out, width, skip, batch,
-    # float64, stream
+    # dtype code, stream
     "repro_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _P],
 }
 

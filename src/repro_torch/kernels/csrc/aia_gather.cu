@@ -25,10 +25,18 @@
 // and out (the wrapper picks it): B's ELL rows on the Table II matrices
 // are 56 bytes (RoadTX: 8-byte units) and 2,364 bytes (p2p-Gnutella04:
 // 4-byte units), not multiples of 16, and an odd-width bf16 plane takes
-// 2-byte units.  Offsets into x and out are 64-bit, so one code path
-// serves every size; only the unit within a tile is 32-bit.  The grid is
-// capped and strides beyond the cap.  The single-plane 4-byte entry,
-// repro_gather_rows, is the one-plane case of the same kernel.
+// 2-byte units.  Each plane's rows may lie a pitch apart (a column slice
+// of a wider matrix: csr_spmm's X), so a view with unit inner stride is
+// gathered without a copy; the unit divides the pitch too.  Offsets into x
+// and out are 64-bit, so one code path serves every size; only the unit
+// within a tile is 32-bit.  The grid is capped and strides beyond the cap.
+//
+// The ranged gather's other routes run the same kernel with each id naming
+// an R-row range: output row i * R + t is source row clip(idx[i]) * R + t,
+// so a strided x, a range of odd bytes and an unaligned x copy in the
+// widest unit that divides a row's bytes, its pitch and both addresses
+// (4 bytes: "words"; 2: "u16"; 1: "bytes"; 8 and 16 where they divide but
+// "v16" does not apply).
 //
 // The ranged gather's "v16" route, for ranges that are whole 16-byte
 // chunks at 16-byte aligned x and out (W2's ranges on the FFN path are
@@ -60,13 +68,14 @@ constexpr int kChunkVec = kThreads * kUnroll;   // vectors a block copies
 constexpr long long kMaxBlocks = 132LL * 512;   // grid-stride beyond this
 constexpr long long kMaxRowBlocks = 132LL * 16;  // the same, row gather
 
-// Copy a tile's rows of one plane: out[t] = x[rows_s[t / units] * units +
-// t % units] for t < rows * units, in units of U.
+// Copy a tile's rows of one plane: out[t] = x[rows_s[t / units] * pitch +
+// t % units] for t < rows * units, in units of U (pitch: x's row stride in
+// units, >= units).
 template <typename U>
 __device__ __forceinline__ void copy_rows(const U* __restrict__ x,
                                           U* __restrict__ out,
-                                          const int* rows_s, int rows,
-                                          int units) {
+                                          const long long* rows_s, int rows,
+                                          int units, long long pitch) {
   const int n = rows * units;
   for (int t0 = threadIdx.x; t0 < n; t0 += kThreads * kUnroll) {
     U v[kUnroll];
@@ -75,7 +84,7 @@ __device__ __forceinline__ void copy_rows(const U* __restrict__ x,
       const int t = t0 + u * kThreads;
       if (t < n) {
         const int i = t / units;
-        v[u] = __ldg(x + (long long)rows_s[i] * units + (t - i * units));
+        v[u] = __ldg(x + rows_s[i] * pitch + (t - i * units));
       }
     }
 #pragma unroll
@@ -86,26 +95,32 @@ __device__ __forceinline__ void copy_rows(const U* __restrict__ x,
   }
 }
 
+// Output row o (of n_idx * r) is source row clip(idx[o / r]) * r + o % r:
+// r = 1 is the row gather, r > 1 a ranged gather of r-row ranges.
 // units1 == 0: one plane.
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
-gather_planes_kernel(const int* __restrict__ idx, long long n_idx,
-                     long long n_x_rows, int tile_rows,
+gather_planes_kernel(const int* __restrict__ idx, long long n_out,
+                     long long n_ranges, long long r, int tile_rows,
                      const U* __restrict__ x0, U* __restrict__ out0,
-                     int units0, const U* __restrict__ x1,
-                     U* __restrict__ out1, int units1) {
-  __shared__ int rows_s[kTileUnits];
-  for (long long row0 = (long long)blockIdx.x * tile_rows; row0 < n_idx;
+                     int units0, long long pitch0, const U* __restrict__ x1,
+                     U* __restrict__ out1, int units1, long long pitch1) {
+  __shared__ long long rows_s[kTileUnits];
+  for (long long row0 = (long long)blockIdx.x * tile_rows; row0 < n_out;
        row0 += (long long)gridDim.x * tile_rows) {
-    const int rows = n_idx - row0 < tile_rows ? (int)(n_idx - row0) : tile_rows;
+    const int rows = n_out - row0 < tile_rows ? (int)(n_out - row0) : tile_rows;
     __syncthreads();  // the previous tile's ids are consumed
     for (int i = threadIdx.x; i < rows; i += kThreads) {
-      const int id = __ldg(idx + row0 + i);
-      rows_s[i] = id < 0 ? 0 : (id >= n_x_rows ? (int)(n_x_rows - 1) : id);
+      const long long o = row0 + i;
+      const long long j = r == 1 ? o : o / r;
+      const int id = __ldg(idx + j);
+      const long long c = id < 0 ? 0 : (id >= n_ranges ? n_ranges - 1 : id);
+      rows_s[i] = c * r + (o - j * r);
     }
     __syncthreads();
-    copy_rows(x0, out0 + row0 * units0, rows_s, rows, units0);
-    if (units1) copy_rows(x1, out1 + row0 * units1, rows_s, rows, units1);
+    copy_rows(x0, out0 + row0 * units0, rows_s, rows, units0, pitch0);
+    if (units1)
+      copy_rows(x1, out1 + row0 * units1, rows_s, rows, units1, pitch1);
   }
 }
 
@@ -138,104 +153,122 @@ ranged_gather_v16_kernel(const uint4* __restrict__ x,
   }
 }
 
-}  // namespace
-
 template <typename U>
-int launch_planes(const void* idx, long long n_idx, long long n_x_rows,
-                  const void* x0, void* out0, long long units0,
-                  const void* x1, void* out1, long long units1,
-                  cudaStream_t stream) {
+int launch_planes(const void* idx, long long n_out, long long n_ranges,
+                  long long r, const void* x0, void* out0, long long units0,
+                  long long pitch0, const void* x1, void* out1,
+                  long long units1, long long pitch1, cudaStream_t stream) {
   const long long units = units0 > units1 ? units0 : units1;
   const int tile_rows = units >= kTileUnits ? 1 : (int)(kTileUnits / units);
-  long long blocks = (n_idx + tile_rows - 1) / tile_rows;
+  long long blocks = (n_out + tile_rows - 1) / tile_rows;
   if (blocks > kMaxRowBlocks) blocks = kMaxRowBlocks;
   gather_planes_kernel<U><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const int*>(idx), n_idx, n_x_rows, tile_rows,
-      static_cast<const U*>(x0), static_cast<U*>(out0), (int)units0,
-      static_cast<const U*>(x1), static_cast<U*>(out1), (int)units1);
+      static_cast<const int*>(idx), n_out, n_ranges, r, tile_rows,
+      static_cast<const U*>(x0), static_cast<U*>(out0), (int)units0, pitch0,
+      static_cast<const U*>(x1), static_cast<U*>(out1), (int)units1, pitch1);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One id stream, up to two planes: out_p[i, :] = x_p[clip(idx[i]), :] for
-// x_p (n_x_rows, row_bytes_p bytes), out_p (n_idx, row_bytes_p bytes);
-// x1 = out1 = NULL and row_bytes1 = 0 for one plane.  unit (16, 8, 4, 2 or
-// 1) must divide every row's bytes and every plane's addresses.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a unit,
-// a row or an address the kernel cannot take.
-extern "C" int repro_gather_planes(const void* idx, long long n_idx,
-                                   long long n_x_rows, const void* x0,
-                                   void* out0, long long row_bytes0,
-                                   const void* x1, void* out1,
-                                   long long row_bytes1, int unit,
-                                   void* stream) {
+// n_idx ids, each naming a range of r rows of up to two planes: out_p row
+// i * r + t = x_p row clip(idx[i], 0, n_ranges - 1) * r + t, for x_p of
+// n_ranges * r rows of row_bytes_p bytes, pitch_p bytes apart (pitch_p >=
+// row_bytes_p: a view with unit inner stride), out_p (n_idx * r rows,
+// row_bytes_p bytes, contiguous); x1 = out1 = NULL and row_bytes1 = 0 for
+// one plane.  unit (16, 8, 4, 2 or 1) must divide every row's bytes and
+// pitch and every plane's addresses.
+int gather(const void* idx, long long n_idx, long long n_ranges, long long r,
+           const void* x0, void* out0, long long row_bytes0,
+           long long pitch0, const void* x1, void* out1,
+           long long row_bytes1, long long pitch1, int unit,
+           cudaStream_t s) {
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x0)
                          | reinterpret_cast<uintptr_t>(out0)
                          | reinterpret_cast<uintptr_t>(x1)
                          | reinterpret_cast<uintptr_t>(out1);
   if ((unit != 16 && unit != 8 && unit != 4 && unit != 2 && unit != 1)
-      || row_bytes0 <= 0 || row_bytes1 < 0
+      || row_bytes0 <= 0 || row_bytes1 < 0 || r < 1
       || (row_bytes1 > 0) != (x1 != nullptr)
-      || row_bytes0 % unit || row_bytes1 % unit || addr % unit
+      || pitch0 < row_bytes0 || (row_bytes1 > 0 && pitch1 < row_bytes1)
+      || row_bytes0 % unit || row_bytes1 % unit || pitch0 % unit
+      || (row_bytes1 > 0 && pitch1 % unit) || addr % unit
       || row_bytes0 / unit > INT_MAX - kTileUnits
-      || row_bytes1 / unit > INT_MAX - kTileUnits || n_x_rows <= 0)
+      || row_bytes1 / unit > INT_MAX - kTileUnits || n_ranges <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_idx <= 0) return static_cast<int>(cudaGetLastError());
   const long long u0 = row_bytes0 / unit, u1 = row_bytes1 / unit;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long p0 = pitch0 / unit, p1 = row_bytes1 > 0 ? pitch1 / unit : 0;
+  const long long n_out = n_idx * r;
   switch (unit) {
     case 16:
-      return launch_planes<uint4>(idx, n_idx, n_x_rows, x0, out0, u0, x1,
-                                  out1, u1, s);
+      return launch_planes<uint4>(idx, n_out, n_ranges, r, x0, out0, u0, p0,
+                                  x1, out1, u1, p1, s);
     case 8:
-      return launch_planes<uint2>(idx, n_idx, n_x_rows, x0, out0, u0, x1,
-                                  out1, u1, s);
+      return launch_planes<uint2>(idx, n_out, n_ranges, r, x0, out0, u0, p0,
+                                  x1, out1, u1, p1, s);
     case 4:
-      return launch_planes<unsigned int>(idx, n_idx, n_x_rows, x0, out0, u0,
-                                         x1, out1, u1, s);
+      return launch_planes<unsigned int>(idx, n_out, n_ranges, r, x0, out0,
+                                         u0, p0, x1, out1, u1, p1, s);
     case 2:
-      return launch_planes<unsigned short>(idx, n_idx, n_x_rows, x0, out0,
-                                           u0, x1, out1, u1, s);
+      return launch_planes<unsigned short>(idx, n_out, n_ranges, r, x0, out0,
+                                           u0, p0, x1, out1, u1, p1, s);
     default:
-      return launch_planes<unsigned char>(idx, n_idx, n_x_rows, x0, out0, u0,
-                                          x1, out1, u1, s);
+      return launch_planes<unsigned char>(idx, n_out, n_ranges, r, x0, out0,
+                                          u0, p0, x1, out1, u1, p1, s);
   }
 }
 
-// One plane of 4-byte words: x (n_x_rows, row_words), idx (n_idx,) int32,
-// out (n_idx, row_words).  The ranged gather's word copy.
-extern "C" int repro_gather_rows(const void* x, const void* idx, void* out,
-                                 long long n_x_rows, long long row_words,
-                                 long long n_idx, void* stream) {
-  if (n_idx <= 0 || row_words <= 0)
-    return static_cast<int>(cudaGetLastError());
-  return repro_gather_planes(idx, n_idx, n_x_rows, x, out, row_words * 4,
-                             nullptr, nullptr, 0, 4, stream);
+}  // namespace
+
+// One id stream, up to two planes: out_p[i, :] = x_p[clip(idx[i]), :] for
+// x_p (n_x_rows rows of row_bytes_p bytes, pitch_p bytes apart), out_p
+// (n_idx, row_bytes_p bytes); x1 = out1 = NULL and row_bytes1 = 0 for one
+// plane.  unit (16, 8, 4, 2 or 1) must divide every row's bytes and pitch
+// and every plane's addresses.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a unit, a row, a pitch or an address
+// the kernel cannot take.
+extern "C" int repro_gather_planes(const void* idx, long long n_idx,
+                                   long long n_x_rows, const void* x0,
+                                   void* out0, long long row_bytes0,
+                                   long long pitch0, const void* x1,
+                                   void* out1, long long row_bytes1,
+                                   long long pitch1, int unit, void* stream) {
+  return gather(idx, n_idx, n_x_rows, 1, x0, out0, row_bytes0, pitch0, x1,
+                out1, row_bytes1, pitch1, unit,
+                static_cast<cudaStream_t>(stream));
 }
 
-// The ranged AIA gather: out[i*R:(i+1)*R, :] = x[clip(idx[i])*R : +R, :],
-// with x viewed as (n_blocks, range_words) 4-byte words and one range per
-// id.  v16 = 1 takes the 16-byte streaming copy (range_words % 4 == 0, x and
-// out 16-byte aligned), v16 = 0 the row gather's word copy.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a range
-// or pointers the route cannot take.
+// The ranged AIA gather: out[i*R:(i+1)*R, :] = x[clip(idx[i])*R : +R, :]
+// for x of n_blocks * R rows of row_bytes bytes, pitch bytes apart.  v16 = 1
+// takes the 16-byte streaming copy of whole ranges (a contiguous x, pitch
+// == row_bytes, R * row_bytes a multiple of 16, x and out 16-byte
+// aligned); v16 = 0 the row gather's copy in `unit`-byte units (16, 8, 4,
+// 2 or 1, dividing row_bytes, pitch and both addresses), one R-row range
+// an id.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a range, pitch or pointers the route cannot
+// take.
 extern "C" int repro_aia_ranged_gather(const void* x, const void* idx,
                                        void* out, long long n_blocks,
-                                       long long range_words, long long n_idx,
-                                       int v16, void* stream) {
-  if (!v16)
-    return repro_gather_rows(x, idx, out, n_blocks, range_words, n_idx,
-                             stream);
-  if (range_words % 4
+                                       long long r, long long row_bytes,
+                                       long long pitch, long long n_idx,
+                                       int unit, int v16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!v16) {
+    if (n_idx <= 0 || row_bytes <= 0)
+      return static_cast<int>(cudaGetLastError());
+    return gather(idx, n_idx, n_blocks, r, x, out, row_bytes, pitch, nullptr,
+                  nullptr, 0, 0, unit, s);
+  }
+  const long long range_bytes = r * row_bytes;
+  if (pitch != row_bytes || range_bytes % 16
       || ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out))
           & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_idx > 0 && range_words > 0) {
-    const long long range_vec = range_words / 4;
+  if (n_idx > 0 && range_bytes > 0) {
+    const long long range_vec = range_bytes / 16;
     const long long per_range = (range_vec + kChunkVec - 1) / kChunkVec;
     const long long n_chunks = n_idx * per_range;
     const long long blocks = n_chunks < kMaxBlocks ? n_chunks : kMaxBlocks;
-    ranged_gather_v16_kernel<<<(unsigned)blocks, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+    ranged_gather_v16_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
         static_cast<const uint4*>(x), static_cast<const int*>(idx),
         static_cast<uint4*>(out), n_blocks, range_vec, n_idx, n_chunks);
   }

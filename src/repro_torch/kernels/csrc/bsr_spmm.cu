@@ -1,7 +1,8 @@
-// Block-row Gustavson product of a float32 BSR matrix with a float32 dense
-// one, on the CUDA cores: the float32 route of ops.bsr_spmm.  bfloat16
-// inputs go to bsr_spmm_wgmma.cu (the tensor cores; a TF32 wgmma would keep
-// only 10 mantissa bits of float32 operands).
+// Block-row Gustavson product of a float32 or float16 BSR matrix with a
+// dense one of its type, on the CUDA cores: the float32 and float16 route
+// of ops.bsr_spmm (operands widened to float32 as they are staged).
+// bfloat16 inputs go to bsr_spmm_wgmma.cu (the tensor cores; a TF32 wgmma
+// would keep only 10 mantissa bits of float32 operands).
 //   C[i*bs:(i+1)*bs, :] = sum over j < min(max_blocks_per_row, row length)
 //                         of A_blocks[rowptr[i] + j] @ B[colidx[.]*bs : +bs, :]
 // accumulated in float32.
@@ -30,7 +31,11 @@
 // zeros and not stored, so any bs and d are served.  Offsets are 64-bit.
 #include <cuda_runtime.h>
 
+#include "dtypes.cuh"
+
 namespace {
+
+using dtypes::to_f;
 
 constexpr int kTM = 64;
 constexpr int kTN = 64;
@@ -38,10 +43,11 @@ constexpr int kTK = 16;
 constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 patch each
 constexpr int kPad = 4;        // keeps As's columns 16-byte aligned
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bsr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colidx,
-                const float* __restrict__ a_blocks,
-                const float* __restrict__ b,
+                const T* __restrict__ a_blocks,
+                const T* __restrict__ b,
                 float* __restrict__ out, int n_bcols, int bs, long long d,
                 int max_bpr, long long bcap, int m_tiles) {
   __shared__ __align__(16) float As[kTK][kTM + kPad];  // As[k][m]
@@ -65,19 +71,19 @@ bsr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colidx,
     const long long p = start + j < bcap ? start + j : bcap - 1;
     int c = colidx[p];
     c = c < 0 ? 0 : (c >= n_bcols ? n_bcols - 1 : c);
-    const float* a = a_blocks + p * bs * bs;
-    const float* bb = b + (long long)c * bs * d;
+    const T* a = a_blocks + p * bs * bs;
+    const T* bb = b + (long long)c * bs * d;
     for (int k0 = 0; k0 < bs; k0 += kTK) {
       for (int e = threadIdx.x; e < kTM * kTK; e += kThreads) {
         const int m = e / kTK, k = e % kTK;
         As[k][m] = (m0 + m < bs && k0 + k < bs)
-                       ? a[(long long)(m0 + m) * bs + k0 + k]
+                       ? to_f(a[(long long)(m0 + m) * bs + k0 + k])
                        : 0.0f;
       }
       for (int e = threadIdx.x; e < kTK * kTN; e += kThreads) {
         const int k = e / kTN, n = e % kTN;
         Bs[k][n] = (k0 + k < bs && n0 + n < d)
-                       ? bb[(long long)(k0 + k) * d + n0 + n]
+                       ? to_f(bb[(long long)(k0 + k) * d + n0 + n])
                        : 0.0f;
       }
       __syncthreads();
@@ -109,6 +115,7 @@ bsr_spmm_kernel(const int* __restrict__ rowptr, const int* __restrict__ colidx,
   }
 }
 
+template <typename T>
 int launch(const void* rowptr, const void* colidx, const void* a_blocks,
            const void* b, void* out, long long n_brows, long long n_bcols,
            long long bs, long long d, long long max_bpr, long long bcap,
@@ -119,10 +126,10 @@ int launch(const void* rowptr, const void* colidx, const void* a_blocks,
   if (gx > 2147483647LL || gy > 65535 || n_bcols > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (max_bpr > 2147483647LL) max_bpr = 2147483647LL;
-  bsr_spmm_kernel<<<dim3((unsigned)gx, (unsigned)gy), kThreads, 0,
-                    stream>>>(
+  bsr_spmm_kernel<T><<<dim3((unsigned)gx, (unsigned)gy), kThreads, 0,
+                       stream>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(colidx),
-      static_cast<const float*>(a_blocks), static_cast<const float*>(b),
+      static_cast<const T*>(a_blocks), static_cast<const T*>(b),
       static_cast<float*>(out), (int)n_bcols, (int)bs, d, (int)max_bpr, bcap,
       (int)m_tiles);
   return static_cast<int>(cudaGetLastError());
@@ -131,18 +138,22 @@ int launch(const void* rowptr, const void* colidx, const void* a_blocks,
 }  // namespace
 
 // rowptr: (n_brows + 1,) int32; colidx: (bcap,) int32; a_blocks:
-// (bcap, bs, bs) float32; b: (n_bcols * bs, d) float32; out:
-// (n_brows * bs, d) float32, written in full.  bcap > 0.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a shape
-// the grid cannot hold.
+// (bcap, bs, bs) and b: (n_bcols * bs, d) of the type `dtype` names (0
+// float32, 2 float16); out: (n_brows * bs, d) float32, written in full.
+// bcap > 0.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a type or a shape the grid cannot hold.
 extern "C" int repro_bsr_spmm(const void* rowptr, const void* colidx,
                               const void* a_blocks, const void* b, void* out,
                               long long n_brows, long long n_bcols,
                               long long bs, long long d, long long max_bpr,
-                              long long bcap, void* stream) {
+                              long long bcap, int dtype, void* stream) {
   if (n_brows <= 0 || bs <= 0 || d <= 0) return 0;
-  if (bcap <= 0 || n_bcols <= 0)
+  if (bcap <= 0 || n_bcols <= 0 || (dtype != 0 && dtype != 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch(rowptr, colidx, a_blocks, b, out, n_brows, n_bcols, bs, d,
-                max_bpr, bcap, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 2)
+    return launch<__half>(rowptr, colidx, a_blocks, b, out, n_brows, n_bcols,
+                          bs, d, max_bpr, bcap, s);
+  return launch<float>(rowptr, colidx, a_blocks, b, out, n_brows, n_bcols,
+                       bs, d, max_bpr, bcap, s);
 }

@@ -261,17 +261,19 @@ bsr_spmm_wgmma_kernel(const int* __restrict__ rowptr,
 
 // rowptr: (n_brows + 1,) int32; colidx: (bcap,) int32; a_blocks:
 // (bcap, bs, bs) bfloat16; b: (n_bcols * bs, d) bfloat16; out:
-// (n_brows * bs, d) float32, written in full.  bcap > 0, n_bcols > 0.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a shape the grid cannot hold.
+// (n_brows * bs, d) float32, written in full.  bcap > 0, n_bcols > 0;
+// dtype (the CUDA-core entry's type code) must be 1, bfloat16.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a type
+// or a shape the grid cannot hold.
 extern "C" int repro_bsr_spmm_wgmma(const void* rowptr, const void* colidx,
                                     const void* a_blocks, const void* b,
                                     void* out, long long n_brows,
                                     long long n_bcols, long long bs,
                                     long long d, long long max_bpr,
-                                    long long bcap, void* stream) {
+                                    long long bcap, int dtype, void* stream) {
   if (n_brows <= 0 || bs <= 0 || d <= 0) return 0;
-  if (bcap <= 0 || n_bcols <= 0 || bs > INT_MAX || n_bcols > INT_MAX)
+  if (bcap <= 0 || n_bcols <= 0 || bs > INT_MAX || n_bcols > INT_MAX
+      || dtype != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long m_tiles = (bs + kTM - 1) / kTM;
   const long long n_tiles = (d + kTN - 1) / kTN;

@@ -1,7 +1,7 @@
 // The backward of the fused flash attention (K7): dq, dk and dv of
 // o = softmax(q.k^T * scale, masked) . v for q of (BH, Sq, D), k of
-// (BH, Sk, D), v of (BH, Sk, Dv), Dv <= D <= 192, float32 or bf16, under
-// the forward's masks: key j is valid for query i iff j < kv_len,
+// (BH, Sk, D), v of (BH, Sk, Dv), any D and Dv, float32, bf16 or float16,
+// under the forward's masks: key j is valid for query i iff j < kv_len,
 // j <= i + q_offset when causal, and j > i + q_offset - window when
 // window > 0.  It is the gradient route of ops.flash_attention_masked and
 // ops.flash_attention_fused (kernels/flash_attention.py, _FlashAttention).
@@ -42,16 +42,27 @@
 //      above, dQ += dS.K, scaled at the end.
 // Each output element is written by one thread of one block, after a loop
 // in a fixed order: no atomics, no cross-block sums.  lse is the forward's
-// float32 row log-sum-exp (m + log l); a row with no valid key is refused
-// by the wrappers before the forward runs.  Inputs of either dtype are
-// converted to float32 as they are staged; dq, dk and dv are written in
-// the operands' dtype.  The qk width is padded to a multiple of 32 with
-// zero columns (template NCK = 2 * ceil(D / 32) columns of 16), the value
-// width likewise (NCV = NCK, or 8 for MLA's 192 / 128).  Shared memory at
-// D = Dv = 192: Q, dO, K and V tiles of 64 x 196 floats and one 64 x 68
-// tile of P^T or dS^T, 218,624 bytes.
-#include <cuda_bf16.h>
+// float32 row log-sum-exp (m + log l); a row with no valid key has lse
+// +1e30 (flash_attention.cu's keyless pass), so its P is 0 here; the dV
+// such rows give every key, summed by that file's keyless_bwd_kernel,
+// comes in as keyless_dv and is added before dV is rounded.  Inputs of any
+// of the three types are converted to float32 as they are staged; dq, dk
+// and dv are written in the operands' type.  The widths are padded to a
+// multiple of 32 with zero columns (template NCK = 2 * ceil(max(D, Dv) /
+// 32) columns of 16 for both, or NCV = 8 for MLA's 192 / 128).  Shared
+// memory at D = Dv = 192: Q, dO, K and V tiles of 64 x 196 floats and one
+// 64 x 68 tile of P^T or dS^T, 218,624 bytes.  Wider heads take the slab
+// kernels (dkdv_slab_kernel, dq_slab_kernel): a block owns one 64-column
+// slab of its outputs and sums S and dP over 64-column slabs of its
+// operands staged in turn, recomputing them for each of its slabs.
+//
+// p_dtype (p_bf16 = 1): the forward rounded P and V to bf16 before P.V
+// (repro/models/attention.py:96-104).  The backward takes that rounding's
+// gradient as the identity, as JAX's gradient of a cast is: dP = dO.V^T
+// with V rounded to bf16, and dV = P^T.dO with P rounded to bf16.
 #include <cuda_runtime.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -61,32 +72,42 @@ constexpr int kThreads = 256;  // 16 row groups x 16 column lanes
 constexpr int kMaxD = 192;
 constexpr int kLdP = kBQ + 4;  // row stride of the transposed P / dS tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kSlab = 64;      // columns of a slab (the slab kernels)
+constexpr int kLdS = kSlab + 4;  // row stride of a staged slab
 
-// rows x dp floats from src (s_len rows x d columns, row-major, starting
-// at row r0) into dst with row stride ld; zeros past d and at or past row
-// s_len.
+using dtypes::from_f;
+using dtypes::round_bf16;
+using dtypes::to_f;
+
+// rows x dp floats of columns [c0, c0 + dp) of src (s_len rows x `width`
+// columns, row-major, from row r0) into dst with row stride ld; zeros at or
+// past column `width` and at or past row s_len; rounded to bf16 with rnd.
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int r0, int rows, int s_len, int d,
-                                      int dp, int ld) {
+                                      int r0, int rows, int s_len, int width,
+                                      int dp, int ld, int c0 = 0,
+                                      bool rnd = false) {
   for (int e = threadIdx.x; e < rows * dp; e += kThreads) {
     const int r = e / dp;
     const int c = e - r * dp;
     const int row = r0 + r;
-    dst[r * ld + c] = (row < s_len && c < d)
-                          ? to_f(src[(long long)row * d + c]) : 0.0f;
+    const float x = (row < s_len && c0 + c < width)
+                        ? to_f(src[(long long)row * width + c0 + c]) : 0.0f;
+    dst[r * ld + c] = rnd ? round_bf16(x) : x;
+  }
+}
+
+// P or dS (this thread's 4 x 4, s[i][j] for rows 4*ty+i and columns
+// tx+16*j) into pt transposed, rounded to bf16 with rnd.
+__device__ __forceinline__ void store_t(float* pt, const float (&s)[4][4],
+                                        int ty, int tx, bool rnd) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float4 p = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    if (rnd)
+      p = make_float4(round_bf16(p.x), round_bf16(p.y), round_bf16(p.z),
+                      round_bf16(p.w));
+    *reinterpret_cast<float4*>(&pt[(tx + 16 * j) * kLdP + 4 * ty]) = p;
   }
 }
 
@@ -180,8 +201,9 @@ __global__ void __launch_bounds__(kThreads, NCK > 6 ? 1 : 2)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            T* __restrict__ dk, T* __restrict__ dv_out, int bh_count, int sq,
-            int sk, int d, int dv, Mask mask, float scale) {
+            T* __restrict__ dk, T* __restrict__ dv_out,
+            const float* __restrict__ kl, int bh_count, int sq, int sk,
+            int d, int dv, Mask mask, float scale, int p_bf16) {
   extern __shared__ float4 smem4[];
   constexpr int kDK = 16 * NCK, kDV = 16 * NCV;
   constexpr int kLdK = kDK + 4, kLdV = kDV + 4;
@@ -206,7 +228,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* db = delta + bh * sq;
 
   stage(ks, kb, k0, kBK, mask.kv_len, d, kDK, kLdK);
-  stage(vs, vb, k0, kBK, mask.kv_len, dv, kDV, kLdV);
+  stage(vs, vb, k0, kBK, mask.kv_len, dv, kDV, kLdV, 0, p_bf16 != 0);
 
   float acc_k[4][NCK], acc_v[4][NCV];
 #pragma unroll
@@ -254,17 +276,11 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[i][j] = p;
         dp[i][j] = p * (dp[i][j] - del_s[tx + 16 * j]);  // now dS
       }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&pt[(tx + 16 * j) * kLdP + 4 * ty]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    store_t(pt, s, ty, tx, p_bf16 != 0);
     __syncthreads();
     accumulate<NCV>(acc_v, pt, ds, ty, tx, kLdV);  // dV += P^T.dO
     __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&pt[(tx + 16 * j) * kLdP + 4 * ty]) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
+    store_t(pt, dp, ty, tx, false);
     __syncthreads();
     accumulate<NCK>(acc_k, pt, qs, ty, tx, kLdK);  // dK += dS^T.Q
   }
@@ -283,7 +299,9 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < NCV; ++kk) {
       const int c = tx + 16 * kk;
-      if (c < dv) dvb[(long long)row * dv + c] = from_f<T>(acc_v[i][kk]);
+      if (c < dv)
+        dvb[(long long)row * dv + c] = from_f<T>(
+            kl != nullptr ? acc_v[i][kk] + kl[bh * dv + c] : acc_v[i][kk]);
     }
   }
 }
@@ -295,7 +313,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, int bh_count, int sq, int sk, int d, int dv,
-          Mask mask, float scale) {
+          Mask mask, float scale, int p_bf16) {
   extern __shared__ float4 smem4[];
   constexpr int kDK = 16 * NCK, kDV = 16 * NCV;
   constexpr int kLdK = kDK + 4, kLdV = kDV + 4;
@@ -341,7 +359,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * kBK;
     __syncthreads();  // the previous tile's K, V and dS^T are consumed
     stage(ks, kb, k0, kBK, mask.kv_len, d, kDK, kLdK);
-    stage(vs, vb, k0, kBK, mask.kv_len, dv, kDV, kLdV);
+    stage(vs, vb, k0, kBK, mask.kv_len, dv, kDV, kLdV, 0, p_bf16 != 0);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -380,14 +398,245 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The arguments of one call: pointers, shapes, mask and scale.
+// Shared memory of either slab kernel: two 64 x kLdS slabs, the
+// transposed P / dS tile, and lse and Delta of a tile.
+constexpr int kSlabSmem = 4 * (2 * 64 * kLdS + kBK * kLdP + 2 * kBQ);
+
+// Any widths: one block per (output slab, 64-key tile, bh) computes dK's
+// and dV's columns [64 slab, 64 slab + 64) of its keys.  S = K.Q^T and
+// dP = V.dO^T are summed over 64-column slabs of the operands, staged in
+// turn into the two slab buffers a and b.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+dkdv_slab_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv_out, const float* __restrict__ kl,
+                 int bh_count, int sq, int sk, int d, int dv, Mask mask,
+                 float scale, int p_bf16, int n_slabs) {
+  extern __shared__ float4 smem4[];
+  float* sa = reinterpret_cast<float*>(smem4);  // 64 x kLdS
+  float* sb = sa + 64 * kLdS;                    // 64 x kLdS
+  float* pt = sb + 64 * kLdS;                    // kBK x kLdP
+  float* lse_s = pt + kBK * kLdP;
+  float* del_s = lse_s + kBQ;
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int slab = (int)(blockIdx.x % n_slabs);
+  const long long rest = blockIdx.x / n_slabs;
+  const int kt = (int)(rest / bh_count);  // early keys (most work) first
+  const long long bh = rest % bh_count;
+  const int k0 = kt * kBK;
+  const int c0 = slab * kSlab;
+  const T* qb = q + bh * sq * (long long)d;
+  const T* kb = k + bh * sk * (long long)d;
+  const T* vb = v + bh * sk * (long long)dv;
+  const T* dob = dout + bh * sq * (long long)dv;
+  const float* lb = lse + bh * sq;
+  const float* db = delta + bh * sq;
+
+  float acc_k[4][4], acc_v[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_k[i][kk] = acc_v[i][kk] = 0.0f;
+
+  // the queries [i_lo, i_hi) that may see a key of [k0, k0 + kBK)
+  const int k1 = min(k0 + kBK, mask.kv_len);
+  int i_lo = 0, i_hi = sq;
+  if (mask.causal) i_lo = max(0, k0 - mask.q_offset);
+  if (mask.window > 0) i_hi = min(sq, k1 - 1 + mask.window - mask.q_offset);
+  if (k0 >= mask.kv_len) i_hi = i_lo;
+  const int t_lo = i_lo / kBQ;
+  const int t_hi = i_hi > i_lo ? (i_hi + kBQ - 1) / kBQ : t_lo;
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int q0 = t * kBQ;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    for (int c = 0; c < d; c += kSlab) {  // S = K.Q^T: keys x queries
+      __syncthreads();  // the slabs (and the last tile's P^T) consumed
+      stage(sa, kb, k0, kBK, mask.kv_len, d, kSlab, kLdS, c);
+      stage(sb, qb, q0, kBQ, sq, d, kSlab, kLdS, c);
+      if (c == 0)
+        for (int r = tid; r < kBQ; r += kThreads) {
+          const bool in = q0 + r < sq;
+          lse_s[r] = in ? lb[q0 + r] : 0.0f;
+          del_s[r] = in ? db[q0 + r] : 0.0f;
+        }
+      __syncthreads();
+      patch(s, sa, sb, ty, tx, kSlab, kLdS);
+    }
+    for (int c = 0; c < dv; c += kSlab) {  // dP = V.dO^T
+      __syncthreads();
+      stage(sa, vb, k0, kBK, mask.kv_len, dv, kSlab, kLdS, c, p_bf16 != 0);
+      stage(sb, dob, q0, kBQ, sq, dv, kSlab, kLdS, c);
+      __syncthreads();
+      patch(dp, sa, sb, ty, tx, kSlab, kLdS);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = q0 + tx + 16 * j;
+        const float p = mask.ok(qi, k0 + 4 * ty + i)
+            ? expf(s[i][j] * scale - lse_s[tx + 16 * j]) : 0.0f;
+        s[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - del_s[tx + 16 * j]);  // now dS
+      }
+    __syncthreads();  // the operand slabs are consumed
+    store_t(pt, s, ty, tx, p_bf16 != 0);
+    stage(sb, dob, q0, kBQ, sq, dv, kSlab, kLdS, c0);  // dO's slab
+    stage(sa, qb, q0, kBQ, sq, d, kSlab, kLdS, c0);    // Q's slab
+    __syncthreads();
+    accumulate<4>(acc_v, pt, sb, ty, tx, kLdS);  // dV += P^T.dO
+    __syncthreads();
+    store_t(pt, dp, ty, tx, false);
+    __syncthreads();
+    accumulate<4>(acc_k, pt, sa, ty, tx, kLdS);  // dK += dS^T.Q
+  }
+
+  T* dkb = dk + bh * sk * (long long)d;
+  T* dvb = dv_out + bh * sk * (long long)dv;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + 4 * ty + i;
+    if (row >= sk) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = c0 + tx + 16 * kk;
+      if (c < d) dkb[(long long)row * d + c] = from_f<T>(acc_k[i][kk] * scale);
+      if (c < dv)
+        dvb[(long long)row * dv + c] = from_f<T>(
+            kl != nullptr ? acc_v[i][kk] + kl[bh * dv + c] : acc_v[i][kk]);
+    }
+  }
+}
+
+// Any widths: one block per (dQ slab, 64-query tile, bh) computes dQ's
+// columns [64 slab, 64 slab + 64) of its queries.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+dq_slab_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dq, int bh_count, int sq, int sk, int d,
+               int dv, Mask mask, float scale, int p_bf16, int n_slabs) {
+  extern __shared__ float4 smem4[];
+  float* sa = reinterpret_cast<float*>(smem4);  // 64 x kLdS
+  float* sb = sa + 64 * kLdS;                    // 64 x kLdS
+  float* pt = sb + 64 * kLdS;                    // kBK x kLdP: dS^T
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int nq = (sq + kBQ - 1) / kBQ;
+  const int slab = (int)(blockIdx.x % n_slabs);
+  const long long rest = blockIdx.x / n_slabs;
+  const int qt = nq - 1 - (int)(rest / bh_count);  // heaviest first
+  const long long bh = rest % bh_count;
+  const int q0 = qt * kBQ;
+  const int c0 = slab * kSlab;
+  const T* qb = q + bh * sq * (long long)d;
+  const T* dob = dout + bh * sq * (long long)dv;
+  const T* kb = k + bh * sk * (long long)d;
+  const T* vb = v + bh * sk * (long long)dv;
+  float lse_r[4], del_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    lse_r[i] = row < sq ? lse[bh * sq + row] : 0.0f;
+    del_r[i] = row < sq ? delta[bh * sq + row] : 0.0f;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc[i][kk] = 0.0f;
+
+  // the kv tiles the forward visits for this query tile
+  const int last_q = min(q0 + kBQ, sq) - 1;
+  const int hi = mask.causal ? min(mask.kv_len, last_q + mask.q_offset + 1)
+                             : mask.kv_len;
+  const int lo = mask.window > 0
+      ? max(0, q0 + mask.q_offset - mask.window + 1) : 0;
+  const int t_lo = lo / kBK;
+  const int t_hi = hi > lo ? (hi + kBK - 1) / kBK : t_lo;
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * kBK;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    for (int c = 0; c < d; c += kSlab) {  // S = Q.K^T: queries x keys
+      __syncthreads();  // the slabs (and the last tile's dS^T) consumed
+      stage(sa, qb, q0, kBQ, sq, d, kSlab, kLdS, c);
+      stage(sb, kb, k0, kBK, mask.kv_len, d, kSlab, kLdS, c);
+      __syncthreads();
+      patch(s, sa, sb, ty, tx, kSlab, kLdS);
+    }
+    for (int c = 0; c < dv; c += kSlab) {  // dP = dO.V^T
+      __syncthreads();
+      stage(sa, dob, q0, kBQ, sq, dv, kSlab, kLdS, c);
+      stage(sb, vb, k0, kBK, mask.kv_len, dv, kSlab, kLdS, c, p_bf16 != 0);
+      __syncthreads();
+      patch(dp, sa, sb, ty, tx, kSlab, kLdS);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = mask.ok(q0 + 4 * ty + i, k0 + tx + 16 * j)
+            ? expf(s[i][j] * scale - lse_r[i]) : 0.0f;
+        dp[i][j] = p * (dp[i][j] - del_r[i]);  // dS
+      }
+    __syncthreads();  // the operand slabs are consumed
+    store_t(pt, dp, ty, tx, false);
+    stage(sa, kb, k0, kBK, mask.kv_len, d, kSlab, kLdS, c0);  // K's slab
+    __syncthreads();
+    accumulate<4>(acc, pt, sa, ty, tx, kLdS);  // dQ += dS.K
+  }
+
+  T* dqb = dq + bh * sq * (long long)d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int c = c0 + tx + 16 * kk;
+      if (c < d) dqb[(long long)row * d + c] = from_f<T>(acc[i][kk] * scale);
+    }
+  }
+}
+
+// The arguments of one call: pointers, shapes, mask, scale and the
+// p_dtype flag.
 struct Args {
   const void *q, *k, *v, *o, *lse, *dout;
   void *dq, *dk, *dv, *delta;
+  const void* kl;
   long long bh, sq, sk, d, dv_w;
   Mask mask;
   float scale;
+  int p_bf16;
 };
+
+// The Delta pre-pass.
+template <typename T>
+int launch_delta(const Args& a, cudaStream_t stream) {
+  const long long rows = a.bh * a.sq;
+  const int rows_per_block = kThreads / 32;
+  delta_kernel<T><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                    kThreads, 0, stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<float*>(a.delta), rows, (int)a.dv_w);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, int NCK, int NCV>
 int launch(const Args& a, cudaStream_t stream) {
@@ -405,34 +654,75 @@ int launch(const Args& a, cudaStream_t stream) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
-  float* delta = static_cast<float*>(a.delta);
-  const long long rows = a.bh * a.sq;
-  const int rows_per_block = kThreads / 32;
-  delta_kernel<T><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
-                    kThreads, 0, stream>>>(static_cast<const T*>(a.o), dout,
-                                           delta, rows, (int)a.dv_w);
-  err = cudaGetLastError();
+  const float* delta = static_cast<const float*>(a.delta);
+  err = static_cast<cudaError_t>(launch_delta<T>(a, stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nk = (a.sk + kBK - 1) / kBK;
   dkdv_kernel<T, NCK, NCV><<<(unsigned)(nk * a.bh), kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      (int)a.bh, (int)a.sq, (int)a.sk, (int)a.d, (int)a.dv_w, a.mask,
-      a.scale);
+      static_cast<const float*>(a.kl), (int)a.bh, (int)a.sq, (int)a.sk,
+      (int)a.d, (int)a.dv_w, a.mask, a.scale, a.p_bf16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long nq = (a.sq + kBQ - 1) / kBQ;
   dq_kernel<T, NCK, NCV><<<(unsigned)(nq * a.bh), kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, static_cast<T*>(a.dq), (int)a.bh,
-      (int)a.sq, (int)a.sk, (int)a.d, (int)a.dv_w, a.mask, a.scale);
+      (int)a.sq, (int)a.sk, (int)a.d, (int)a.dv_w, a.mask, a.scale,
+      a.p_bf16);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The widths' kernels: the qk width padded to a multiple of 32 (NCK
-// columns of 16), the value width to the same, or to 128 for a qk width
-// past 128 with dv <= 128 (MLA's 192 / 128).
+// Widths past kMaxD: the slab kernels.
+template <typename T>
+int launch_slabs(const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_slab_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSlabSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dq_slab_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSlabSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  const long long wide = a.d > a.dv_w ? a.d : a.dv_w;
+  const long long kv_slabs = (wide + kSlab - 1) / kSlab;
+  const long long q_slabs = (a.d + kSlab - 1) / kSlab;
+  const long long nk = (a.sk + kBK - 1) / kBK;
+  const long long nq = (a.sq + kBQ - 1) / kBQ;
+  if (nk * a.bh * kv_slabs > 2147483647LL
+      || nq * a.bh * q_slabs > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = static_cast<cudaError_t>(launch_delta<T>(a, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_slab_kernel<T><<<(unsigned)(nk * a.bh * kv_slabs), kThreads,
+                        kSlabSmem, stream>>>(
+      q, k, v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<const float*>(a.kl), (int)a.bh, (int)a.sq, (int)a.sk,
+      (int)a.d, (int)a.dv_w, a.mask, a.scale, a.p_bf16, (int)kv_slabs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dq_slab_kernel<T><<<(unsigned)(nq * a.bh * q_slabs), kThreads, kSlabSmem,
+                      stream>>>(
+      q, k, v, dout, lse, delta, static_cast<T*>(a.dq), (int)a.bh,
+      (int)a.sq, (int)a.sk, (int)a.d, (int)a.dv_w, a.mask, a.scale,
+      a.p_bf16, (int)q_slabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The widths' kernels: both widths padded to the wider one rounded up to a
+// multiple of 32 (NCK columns of 16; V, or Q and K, zero-filled past their
+// width), or NCV = 8 for a qk width past 160 with dv <= 128 (MLA's 192 /
+// 128); past kMaxD the slab kernels.
 template <typename T>
 int dispatch(const Args& a, cudaStream_t s) {
-  const int nck = 2 * (int)((a.d + 31) / 32);
+  const long long wide = a.d > a.dv_w ? a.d : a.dv_w;
+  if (wide > kMaxD) return launch_slabs<T>(a, s);
+  const int nck = 2 * (int)((wide + 31) / 32);
   if (nck == 12 && a.dv_w <= 128) return launch<T, 12, 8>(a, s);
   switch (nck) {
     case 2: return launch<T, 2, 2>(a, s);
@@ -440,30 +730,35 @@ int dispatch(const Args& a, cudaStream_t s) {
     case 6: return launch<T, 6, 6>(a, s);
     case 8: return launch<T, 8, 8>(a, s);
     case 10: return launch<T, 10, 10>(a, s);
-    case 12: return launch<T, 12, 12>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return launch<T, 12, 12>(a, s);
   }
 }
 
 }  // namespace
 
 // q, dq: (bh, sq, d); k, dk: (bh, sk, d); v, dv: (bh, sk, dv_w); o, dout:
-// (bh, sq, dv_w), all float32 (bf16 = 0) or bfloat16 (bf16 = 1),
-// contiguous; lse: the forward's (bh, sq) float32 row log-sum-exp; delta:
-// (bh, sq) float32 scratch.  dq, dk and dv are written in full (keys at or
-// past kv_len get zeros).  The mask and scale are the forward's.  Three
-// launches on `stream`: the Delta pre-pass, the dK/dV pass and the dQ
-// pass.  Returns cudaGetLastError() after them, or cudaErrorInvalidValue
-// for d outside 1..192, dv_w outside 1..d, sk < 1, an sq, sk, |q_offset|
-// or window past 2^28, or a grid the launch cannot hold.
+// (bh, sq, dv_w), all of the type `dtype` names (0 float32, 1 bfloat16,
+// 2 float16), contiguous; lse: the forward's (bh, sq) float32 row
+// log-sum-exp (+1e30 on a row without keys); delta: (bh, sq) float32
+// scratch; keyless_dv: NULL, or the (bh, dv_w) float32 dV that every key
+// gets from the queries without a key (repro_flash_keyless), added to dv
+// before its rounding.  dq, dk and dv are written in full (keys at or past
+// kv_len get zeros, plus keyless_dv).  The mask, scale and p_bf16 are the
+// forward's.  Three launches on
+// `stream`: the Delta pre-pass, the dK/dV pass and the dQ pass.  Returns
+// cudaGetLastError() after them, or cudaErrorInvalidValue for a type, d or
+// dv_w outside 1..2^20, sk < 1, an sq, sk, |q_offset| or window past 2^28,
+// or a grid the launch cannot hold.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, long long bh, long long sq, long long sk, long long d,
+    void* delta, const void* keyless_dv, long long bh, long long sq,
+    long long sk, long long d,
     long long dv_w, int causal, long long q_offset, long long window,
-    long long kv_len, float scale, int bf16, void* stream) {
+    long long kv_len, float scale, int p_bf16, int dtype, void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
-  if (d <= 0 || d > kMaxD || dv_w <= 0 || dv_w > d || sk <= 0
+  if (d <= 0 || d > (1LL << 20) || dv_w <= 0 || dv_w > (1LL << 20)
+      || sk <= 0 || dtype < 0 || dtype > 2
       || sq > (1LL << 28) || sk > (1LL << 28) || q_offset > (1LL << 28)
       || q_offset < -(1LL << 28) || window < 0 || window > (1LL << 28)
       || ((sq + kBQ - 1) / kBQ) * bh > 2147483647LL
@@ -472,8 +767,12 @@ extern "C" int repro_flash_attention_bwd(
   const Mask mask{causal, (int)q_offset, (int)window,
                   (int)(kv_len < 0 ? 0 : kv_len > sk ? sk : kv_len),
                   (int)sq};
-  const Args a{q, k, v, o, lse, dout, dq, dk, dv, delta, bh, sq, sk, d,
-               dv_w, mask, scale};
+  const Args a{q, k, v, o, lse, dout, dq, dk, dv, delta, keyless_dv, bh, sq,
+               sk, d, dv_w, mask, scale, p_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(a, s) : dispatch<float>(a, s);
+  switch (dtype) {
+    case 1: return dispatch<__nv_bfloat16>(a, s);
+    case 2: return dispatch<__half>(a, s);
+    default: return dispatch<float>(a, s);
+  }
 }

@@ -1,8 +1,9 @@
 // Fused online-softmax attention (flash attention) for bf16 q of
-// (BH, Sq, D), k of (BH, Sk, D) and v of (BH, Sk, Dv), Dv <= D <= 192, on
-// the tensor cores of a Hopper GPU (sm_90a): the bf16 route of
-// ops.flash_attention_fused and ops.flash_attention_masked.  float32
-// inputs go to flash_attention.cu.  The output is (BH, Sq, Dv).
+// (BH, Sq, D), k of (BH, Sk, D) and v of (BH, Sk, Dv), D and Dv up to 256,
+// on the tensor cores of a Hopper GPU (sm_90a): the bf16 route of
+// ops.flash_attention_fused and ops.flash_attention_masked.  float32 and
+// float16 inputs, and wider bf16 heads, go to flash_attention.cu.  The
+// output is (BH, Sq, Dv).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:73
 // (flash_attention_fused; body _flash_kernel :29).  What it computes, as
@@ -86,6 +87,18 @@
 //     zero, where the gate's absolute 1e-6 binds (tests/test_torch_flash.py
 //     emulates both).
 //
+// p_dtype (the reference's p_bf16: P rounded to bf16 before P.V, l summed
+// from the unrounded P, repro/models/attention.py:96-104) is the build with
+// one P term (PT = 1): p1 = bf16(p) is that rounding, and V is already
+// bf16.
+//
+// Widths: the qk and value tiles are DQ = DV = the wider of D and Dv
+// rounded up to 32 (V, or Q and K, zero-filled past their width), except
+// MLA's DV = 128 past a qk width of 128 with Dv <= 128; D or Dv in
+// 193..256 takes the <256, 256> build: a warpgroup's float32 accumulator at
+// 256 columns is 128 registers a thread, and Q and a two-stage K/V ring
+// take 193 KB of shared memory.
+//
 // The masked-row trap: a row whose first processed tile is wholly masked
 // (under a window, the later queries of a warpgroup see none of its first
 // tiles) gets m = -1e30 and p = 2^0 = 1 on every masked key, so l and acc
@@ -93,8 +106,8 @@
 // score arrives: corr = 2^(-1e30 - m_new) is 0 (ex2.approx flushes it to
 // +0), and l * 0 and acc * 0 are 0.  From then on a masked key's
 // p = 2^(-1e30 - m) is exactly 0.  The reference's chunked loop does the
-// same.  A row with no valid key at all would keep those terms; the
-// wrappers refuse such calls.  Query rows past Sq are computed on zero rows
+// same.  A row with no valid key at all keeps those terms; the wrapper
+// overwrites such rows with flash_attention.cu's keyless pass.  Query rows past Sq are computed on zero rows
 // and not stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,8 +125,8 @@ constexpr int kRows = 64 * kWG;      // query rows per block
 constexpr int kThreads = 128 * kWG;
 constexpr int kBK = 64;              // keys per kv tile
 constexpr int kStages = 2;           // K/V ring depth
-constexpr int kPTerms = 3;           // bf16 terms of P
-constexpr int kMaxD = 192;
+constexpr int kPTerms = 3;           // bf16 terms of P (1 under p_dtype)
+constexpr int kMaxD = 256;
 constexpr float kNegInf = -1e30f;
 constexpr uint32_t kTile = kBK * 128;  // one 64-column panel of a K/V tile
 
@@ -171,7 +184,7 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
 
 // Two blocks an SM hold the accumulators of D <= 96 in 128 registers a
 // thread, and their shared memory; wider tiles need one block an SM.
-template <int DQ, int DV>
+template <int DQ, int DV, int PT>
 __global__ void __launch_bounds__(kThreads, DQ > 96 || DV > 96 ? 1 : 2)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
@@ -321,7 +334,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       // values 8 kk .. 8 kk + 7, pairwise (rows r, r + 8, r, r + 8); its
       // exponentials and bf16 terms are computed while the tensor cores run
       // the steps before it.
-      uint32_t pa[4][kPTerms][4];
+      uint32_t pa[4][PT][4];
       fence_acc<DV>(acc);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -332,7 +345,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
           float b = hopper::ex2(s[8 * kk + 2 * r + 1] - m[h]);
           l[h] += a + b;
 #pragma unroll
-          for (int term = 0; term < kPTerms; ++term) {
+          for (int term = 0; term < PT; ++term) {
             const __nv_bfloat162 t2 = __floats2bfloat162_rn(a, b);
             const float2 back = __bfloat1622float2(t2);
             pa[kk][term][r] = hopper::bf16x2_bits(t2);
@@ -346,7 +359,7 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
           const uint64_t desc = sw128_desc(vt + p * kTile + kk * 2048,
                                            kTile, 1024);
 #pragma unroll
-          for (int term = 0; term < kPTerms; ++term) {
+          for (int term = 0; term < PT; ++term) {
             if (panel_cols<DV>(p) == 64)
               hopper::wgmma_rs_m64n64k16(acc[p], pa[kk][term], desc);
             else
@@ -408,14 +421,15 @@ struct Args {
   long long bh, sq, sk, d, dv;
   int causal, q_offset, window, kv_len;
   float scale;
+  int p_bf16;
 };
 
-template <int DQ, int DV>
-int launch(const void* q, const void* k, const void* v, void* o,
+template <int DQ, int DV, int PT>
+int launch_pt(const void* q, const void* k, const void* v, void* o,
            void* lse, const Args& a, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DQ, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DQ, DV>,
+      flash_wgmma_kernel<DQ, DV, PT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = a.d % 8 == 0 && a.dv % 8 == 0
@@ -424,8 +438,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   // the scale and log2(e) in one float, for exp2
   const float scale_log2 = (float)((double)a.scale * 1.4426950408889634);
   const long long nq = (a.sq + kRows - 1) / kRows;
-  flash_wgmma_kernel<DQ, DV><<<(unsigned)(nq * a.bh), kThreads, smem,
-                               stream>>>(
+  flash_wgmma_kernel<DQ, DV, PT><<<(unsigned)(nq * a.bh), kThreads, smem,
+                                   stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -434,12 +448,21 @@ int launch(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The value width's kernel for a qk width of DQ: DV = DQ (V zero-filled
-// past dv), or 128 for a qk width past 128 with dv <= 128 (MLA's 192 / 128).
+// Three P terms, or one under p_dtype.
+template <int DQ, int DV>
+int launch(const void* q, const void* k, const void* v, void* o,
+           void* lse, const Args& a, cudaStream_t stream) {
+  return a.p_bf16 ? launch_pt<DQ, DV, 1>(q, k, v, o, lse, a, stream)
+                  : launch_pt<DQ, DV, kPTerms>(q, k, v, o, lse, a, stream);
+}
+
+// The value width's kernel for a tile width of DQ (the wider of d and dv
+// rounded up): DV = DQ (V or Q and K zero-filled past their width), or 128
+// for a qk width past 128 with dv <= 128 (MLA's 192 / 128), up to 192.
 template <int DQ>
 int launch_dq(const void* q, const void* k, const void* v, void* o,
               void* lse, const Args& a, cudaStream_t stream) {
-  if constexpr (DQ > 128) {
+  if constexpr (DQ > 128 && DQ <= 192) {
     if (a.dv <= 128) return launch<DQ, 128>(q, k, v, o, lse, a, stream);
   }
   return launch<DQ, DQ>(q, k, v, o, lse, a, stream);
@@ -453,11 +476,13 @@ int launch_dq(const void* q, const void* k, const void* v, void* o,
 // scores (the backward's input; an epilogue store only).  Key j is
 // valid for query i iff j < kv_len, j <= i + q_offset when causal is 1, and
 // j > i + q_offset - window when window > 0 (kv_len is clipped to
-// 0..sk).  A query with no valid key gets zeros.  scale: the score scale,
-// 1/sqrt(d) rounded once to float32.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for d outside 1..192, dv outside 1..d,
-// sk < 1, an sq, sk, |q_offset| or window past 2^28 (so that positions
-// and their sums stay in int), or a grid the launch cannot hold.
+// 0..sk).  A query with no valid key gets zeros here (the wrapper's
+// keyless pass writes its row).  scale: the score scale, 1/sqrt(d) rounded
+// once to float32.  p_bf16 = 1 carries P in one bf16 term (p_dtype).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for d or dv outside 1..256, sk < 1, an sq, sk, |q_offset| or window past
+// 2^28 (so that positions and their sums stay in int), or a grid the
+// launch cannot hold.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* o,
                                            void* lse, long long bh,
@@ -466,22 +491,25 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            long long dv, int causal,
                                            long long q_offset,
                                            long long window, long long kv_len,
-                                           float scale, void* stream) {
+                                           float scale, int p_bf16,
+                                           void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
-  if (d <= 0 || d > kMaxD || dv <= 0 || dv > d || sk <= 0
+  if (d <= 0 || d > kMaxD || dv <= 0 || dv > kMaxD || sk <= 0
       || sq > (1LL << 28) || sk > (1LL << 28) || q_offset > (1LL << 28)
       || q_offset < -(1LL << 28) || window < 0 || window > (1LL << 28)
       || ((sq + kRows - 1) / kRows) * bh > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{bh, sq, sk, d, dv, causal, (int)q_offset, (int)window,
-               (int)(kv_len < 0 ? 0 : kv_len > sk ? sk : kv_len), scale};
+               (int)(kv_len < 0 ? 0 : kv_len > sk ? sk : kv_len), scale,
+               p_bf16};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 31) / 32) {
+  switch (((d > dv ? d : dv) + 31) / 32) {
     case 1: return launch_dq<32>(q, k, v, o, lse, a, s);
     case 2: return launch_dq<64>(q, k, v, o, lse, a, s);
     case 3: return launch_dq<96>(q, k, v, o, lse, a, s);
     case 4: return launch_dq<128>(q, k, v, o, lse, a, s);
     case 5: return launch_dq<160>(q, k, v, o, lse, a, s);
-    default: return launch_dq<192>(q, k, v, o, lse, a, s);
+    case 6: return launch_dq<192>(q, k, v, o, lse, a, s);
+    default: return launch_dq<256>(q, k, v, o, lse, a, s);
   }
 }

@@ -26,7 +26,8 @@
 //     words 32 at a time (a word a lane, the next 32 in flight) and copies
 //     the keys and values of the windows they name into a ring of 16
 //     windows in shared memory (cp.async, 4 bytes a lane), 15 windows
-//     ahead of the one it inserts.
+//     ahead of the one it inserts.  A 2-byte value (bf16, float16) is not
+//     a cp.async unit: its lane loads it when the window is inserted.
 //   * Insert, a window at a time, lane j holding slot j:
 //     1. every lane looks its key up in the table in parallel, read-only:
 //        a key already in the table cannot move, so what the window
@@ -42,7 +43,10 @@
 //     3. the lowest lane of each group adds the group's values to its
 //        slot's sum in lane order with __fadd_rn (no contraction), starting
 //        from the table's value: a new key starts from the table's +0.0,
-//        so -0.0 sums to +0.0 as in the reference.
+//        so -0.0 sums to +0.0 as in the reference.  bf16 and float16
+//        values are added in float32 and each sum rounded to their type
+//        (dtypes::round_to), as the reference's adds in that type round,
+//        and the table keeps them in that type.
 //     Every key therefore takes the same slot, and every sum the same
 //     terms in the same order, as in the reference's scan engine and
 //     Pallas kernel: the table is bit-identical.
@@ -56,6 +60,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtypes.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -103,8 +108,10 @@ window_mask_kernel(const int* __restrict__ keys, unsigned* __restrict__ masks,
 }
 
 // Insert one window: lane `lane` holds `key` (a product where `valid`) and
-// `val`.  `count` (the same in every lane) counts the keys placed.
-__device__ __forceinline__ void insert_window(int* tk, float* tv,
+// `val`.  `count` (the same in every lane) counts the keys placed.  The
+// table's sums are of type V, each add rounded to it.
+template <typename V>
+__device__ __forceinline__ void insert_window(int* tk, V* tv,
                                               unsigned cap, int key,
                                               float val, bool valid,
                                               int lane, int& count) {
@@ -118,7 +125,7 @@ __device__ __forceinline__ void insert_window(int* tk, float* tv,
     pos = (static_cast<unsigned>(key) * kMultiplier) % cap;
     for (; dist < cap; ++dist) {
       const int s = tk[pos];
-      const float t = tv[pos];  // read with the key: one round trip
+      const float t = dtypes::to_f(tv[pos]);  // read with the key
       if (s == key) {
         slot = (int)pos;
         base = t;
@@ -164,18 +171,19 @@ __device__ __forceinline__ void insert_window(int* tk, float* tv,
   // 3. add the values, per slot in lane order
   slot = __shfl_sync(kFull, slot, leader);
   if (__all_sync(kFull, !valid || group == (1u << lane))) {
-    if (valid && slot >= 0) tv[slot] = __fadd_rn(base, val);
+    if (valid && slot >= 0) tv[slot] = dtypes::from_f<V>(__fadd_rn(base, val));
   } else {
-    float sum = __fadd_rn(base, val);  // kept by the leader only
+    // kept by the leader only, rounded to V after each add
+    float sum = dtypes::round_to<V>(__fadd_rn(base, val));
     unsigned rest = lead ? group & (group - 1) : 0;  // the others, in order
     while (__any_sync(kFull, rest != 0)) {
       const float v = __shfl_sync(kFull, val, rest ? __ffs(rest) - 1 : lane);
       if (rest) {
-        sum = __fadd_rn(sum, v);
+        sum = dtypes::round_to<V>(__fadd_rn(sum, v));
         rest &= rest - 1;
       }
     }
-    if (lead && slot >= 0) tv[slot] = sum;
+    if (lead && slot >= 0) tv[slot] = dtypes::from_f<V>(sum);
   }
   __syncwarp();
 }
@@ -220,13 +228,13 @@ struct Windows {
 };
 
 // kShared: the table in shared memory (the "smem" route); otherwise in
-// cols and out (the "global" route).
-template <bool kShared>
+// cols and out (the "global" route).  V: the values' type.
+template <bool kShared, typename V>
 __global__ void hash_insert_kernel(const int* __restrict__ keys,
-                                   const float* __restrict__ vals,
+                                   const V* __restrict__ vals,
                                    const unsigned* __restrict__ masks,
                                    int* __restrict__ cols,
-                                   float* __restrict__ out,
+                                   V* __restrict__ out,
                                    int* __restrict__ cnt, long long rows,
                                    long long ip_cap, long long n_words,
                                    unsigned cap, int warp_bytes) {
@@ -240,20 +248,21 @@ __global__ void hash_insert_kernel(const int* __restrict__ keys,
   float* ring_v = reinterpret_cast<float*>(ring_k + kRingWindows * 32);
   long long* ring_w = reinterpret_cast<long long*>(mine + kRingBytes);
   int* tk;
-  float* tv;
+  V* tv;
   if (kShared) {
     tk = reinterpret_cast<int*>(mine + kRingBytes + kRingWindows * 8);
-    tv = reinterpret_cast<float*>(tk + cap);
+    tv = reinterpret_cast<V*>(tk + cap);
   } else {
     tk = cols + r * cap;
     tv = out + r * cap;
   }
   for (unsigned s = lane; s < cap; s += 32) {
     tk[s] = kEmpty;
-    tv[s] = 0.0f;
+    tv[s] = dtypes::from_f<V>(0.0f);
   }
   const int* k = keys + r * ip_cap;
-  const float* v = vals + r * ip_cap;
+  const V* v = vals + r * ip_cap;
+  constexpr bool kRingVals = sizeof(V) == 4;  // values by cp.async
   Windows ws(masks ? masks + r * n_words : nullptr, n_words, k, ip_cap,
              lane);
   // Copy window w (-1: none) into ring slot `slot`: its keys and values,
@@ -263,8 +272,9 @@ __global__ void hash_insert_kernel(const int* __restrict__ keys,
     const bool in = w >= 0 && s < ip_cap;
     const uint32_t at = hopper::smem_addr(ring_k + slot * 32 + lane);
     hopper::cp_async_4(at, in ? k + s : k, in ? 4 : 0);
-    hopper::cp_async_4(at + kRingWindows * 32 * 4, in ? v + s : v,
-                       in ? 4 : 0);
+    if (kRingVals)
+      hopper::cp_async_4(at + kRingWindows * 32 * 4, in ? v + s : v,
+                         in ? 4 : 0);
     if (lane == 0) ring_w[slot] = w;
     hopper::cp_async_commit();
   };
@@ -277,10 +287,13 @@ __global__ void hash_insert_kernel(const int* __restrict__ keys,
     const long long w = ring_w[slot];
     if (w < 0) break;
     const int key = ring_k[slot * 32 + lane];
-    const float val = ring_v[slot * 32 + lane];
+    const long long at = w * 32 + lane;
+    const float val = kRingVals ? ring_v[slot * 32 + lane]
+                      : (at < ip_cap && key >= 0 ? dtypes::to_f(v[at])
+                                                 : 0.0f);
     fetch(ws.next(lane), (int)((n + kAhead) % kRingWindows));
-    insert_window(tk, tv, cap, key, val,
-                  w * 32 + lane < ip_cap && key >= 0, lane, count);
+    insert_window<V>(tk, tv, cap, key, val, at < ip_cap && key >= 0, lane,
+                     count);
   }
   hopper::cp_async_wait<0>();
   __syncwarp();
@@ -293,21 +306,50 @@ __global__ void hash_insert_kernel(const int* __restrict__ keys,
   if (lane == 0) cnt[r] = count;
 }
 
+// The insert launch's arguments.
+struct Insert {
+  const void *keys, *vals, *masks;
+  void *cols, *out, *cnt;
+  long long rows, ip_cap, n_words;
+  unsigned cap;
+  int warp_bytes;
+  unsigned blocks, threads;
+  int smem;
+  cudaStream_t stream;
+};
+
+template <typename V>
+int insert(const Insert& a, bool shared) {
+  auto kernel = shared ? hash_insert_kernel<true, V>
+                       : hash_insert_kernel<false, V>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<a.blocks, a.threads, (size_t)a.smem, a.stream>>>(
+      static_cast<const int*>(a.keys), static_cast<const V*>(a.vals),
+      static_cast<const unsigned*>(a.masks), static_cast<int*>(a.cols),
+      static_cast<V*>(a.out), static_cast<int*>(a.cnt), a.rows, a.ip_cap,
+      a.n_words, a.cap, a.warp_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// keys, vals: (rows, ip_cap) int32 / float32; masks: (rows, ceil(ip_cap /
-// kWordSlots)) int32 scratch; cols, out: (rows, table_cap) int32 / float32
-// (written in full); cnt: (rows,) int32.  The table lives in shared memory
-// when table_cap * 8 <= kSmemTableBytes, else in cols and out.  Returns
+// keys, vals: (rows, ip_cap) int32 / the type `dtype` names (0 float32,
+// 1 bfloat16, 2 float16); masks: (rows, ceil(ip_cap / kWordSlots)) int32
+// scratch; cols, out: (rows, table_cap) int32 / vals' type (written in
+// full); cnt: (rows,) int32.  The table lives in shared memory when
+// table_cap * 8 <= kSmemTableBytes, else in cols and out.  Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
-// shape the grid cannot hold.
+// type or a shape the grid cannot hold.
 extern "C" int repro_hash_accumulate(const void* keys, const void* vals,
                                      void* masks, void* cols, void* out,
                                      void* cnt, long long rows,
                                      long long ip_cap, long long table_cap,
-                                     void* stream) {
+                                     int dtype, void* stream) {
   if (rows <= 0) return 0;
-  if (table_cap <= 0 || table_cap >= (1LL << 31) || ip_cap < 0)
+  if (table_cap <= 0 || table_cap >= (1LL << 31) || ip_cap < 0 || dtype < 0
+      || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool shared = table_cap * 8 <= kSmemTableBytes;
   const long long n_words = (ip_cap + kWordSlots - 1) / kWordSlots;
@@ -331,15 +373,12 @@ extern "C" int repro_hash_accumulate(const void* keys, const void* vals,
     masks = nullptr;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto kernel = shared ? hash_insert_kernel<true> : hash_insert_kernel<false>;
-  const int smem = (int)(warps * warp_bytes);
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(unsigned)blocks, (unsigned)(warps * 32), (size_t)smem, s>>>(
-      static_cast<const int*>(keys), static_cast<const float*>(vals),
-      static_cast<const unsigned*>(masks), static_cast<int*>(cols),
-      static_cast<float*>(out), static_cast<int*>(cnt), rows, ip_cap,
-      n_words, (unsigned)table_cap, (int)warp_bytes);
-  return static_cast<int>(cudaGetLastError());
+  const Insert a{keys, vals, masks, cols, out, cnt, rows, ip_cap, n_words,
+                 (unsigned)table_cap, (int)warp_bytes, (unsigned)blocks,
+                 (unsigned)(warps * 32), (int)(warps * warp_bytes), s};
+  switch (dtype) {
+    case 1: return insert<__nv_bfloat16>(a, shared);
+    case 2: return insert<__half>(a, shared);
+    default: return insert<float>(a, shared);
+  }
 }

@@ -44,9 +44,16 @@
 //     memory latency every 16 entries, not every entry.
 //   * Every add is __fadd_rn / __dadd_rn: the compiler cannot contract it
 //     into an FMA or reassociate it.  The kernel forms no product.
-//   * A batch of value sets (B, N, W) over one ids runs on grid.y.
+//   * bf16 and float16 values are summed in float32, each add rounded to
+//     the value's type (dtypes::round_to), as the CPU's index_add_ and
+//     XLA's scatter-add add them: the sum is the one a chain of adds in
+//     that type gives, bit for bit.
+//   * A batch of value sets (B, N, W) over one ids runs on grid.y, in
+//     slices of at most 65,535 sets a launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -54,14 +61,37 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCols = 4;   // columns a lane holds at once (W > 1)
 constexpr int kBatch = 16;    // entries whose loads are in flight at once
-constexpr int kMaxBatch = 65535;  // grid.y
+constexpr int kMaxBatch = 65535;  // grid.y of one launch
 
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
+// How a value of type T is summed: in A (float, or double for double),
+// every add rounded to T.
+template <typename T>
+struct Sum {
+  using A = float;
+  static __device__ __forceinline__ A add(A a, T b) {
+    return dtypes::round_to<T>(__fadd_rn(a, dtypes::to_f(b)));
+  }
+};
+template <>
+struct Sum<float> {
+  using A = float;
+  static __device__ __forceinline__ A add(A a, float b) {
+    return __fadd_rn(a, b);
+  }
+};
+template <>
+struct Sum<double> {
+  using A = double;
+  static __device__ __forceinline__ A add(A a, double b) {
+    return __dadd_rn(a, b);
+  }
+};
+template <typename T>
+__device__ __forceinline__ T store(typename Sum<T>::A a) {
+  return dtypes::from_f<T>(a);
 }
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
+template <>
+__device__ __forceinline__ double store<double>(double a) { return a; }
 
 // The first i in [0, n) with ids[i] >= s, or n.
 __device__ __forceinline__ long long lower_bound(const long long* ids,
@@ -103,10 +133,10 @@ __device__ __forceinline__ long long run_end(const long long* ids, long long n,
 // adds: an add waits on its load, so one load at a time would cost a
 // memory latency an entry on a long run.
 template <typename T>
-__device__ __forceinline__ T sum_run(const T* __restrict__ v,
-                                     const long long* __restrict__ order,
-                                     long long lo, long long hi) {
-  T acc = T(0);
+__device__ __forceinline__ typename Sum<T>::A sum_run(
+    const T* __restrict__ v, const long long* __restrict__ order,
+    long long lo, long long hi) {
+  typename Sum<T>::A acc = 0;
   long long i = lo;
   for (; i + kBatch <= hi; i += kBatch) {
     T x[kBatch];
@@ -114,10 +144,11 @@ __device__ __forceinline__ T sum_run(const T* __restrict__ v,
     for (int u = 0; u < kBatch; ++u)
       x[u] = __ldg(v + (order != nullptr ? __ldg(order + i + u) : i + u));
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) acc = add_rn(acc, x[u]);
+    for (int u = 0; u < kBatch; ++u) acc = Sum<T>::add(acc, x[u]);
   }
   for (; i < hi; ++i)
-    acc = add_rn(acc, __ldg(v + (order != nullptr ? __ldg(order + i) : i)));
+    acc = Sum<T>::add(acc,
+                      __ldg(v + (order != nullptr ? __ldg(order + i) : i)));
   return acc;
 }
 
@@ -136,9 +167,9 @@ segment_sum_narrow(const long long* __restrict__ ids,
   if ((i > 0 && __ldg(ids + i - 1) == s) || s < 0 || s >= n_out
       || (skip > 0 && s % skip == skip - 1))
     return;
-  out[static_cast<long long>(blockIdx.y) * n_out + s] =
+  out[static_cast<long long>(blockIdx.y) * n_out + s] = store<T>(
       sum_run(vals + static_cast<long long>(blockIdx.y) * n, order, i,
-              run_end(ids, n, i, s));
+              run_end(ids, n, i, s)));
 }
 
 // W > 1: segment s = blockIdx.x * kWarps + warp of value set b, a warp's
@@ -164,9 +195,9 @@ segment_sum_wide(const long long* __restrict__ ids, const T* __restrict__ vals,
 #pragma unroll
     for (int k = 0; k < KC; ++k) on[k] = w0 + lane + 32 * k < width;
     const T* col = v + w0 + lane;
-    T acc[KC];
+    typename Sum<T>::A acc[KC];
 #pragma unroll
-    for (int k = 0; k < KC; ++k) acc[k] = T(0);
+    for (int k = 0; k < KC; ++k) acc[k] = 0;
     long long i = lo;
     for (; i + kBatch <= hi; i += kBatch) {
       T x[kBatch][KC];
@@ -176,79 +207,91 @@ segment_sum_wide(const long long* __restrict__ ids, const T* __restrict__ vals,
             col + (order != nullptr ? __ldg(order + i + u) : i + u) * width;
 #pragma unroll
         for (int k = 0; k < KC; ++k)
-          x[u][k] = on[k] ? __ldg(row + 32 * k) : T(0);
+          x[u][k] = on[k] ? __ldg(row + 32 * k) : T();
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
 #pragma unroll
-        for (int k = 0; k < KC; ++k) acc[k] = add_rn(acc[k], x[u][k]);
+        for (int k = 0; k < KC; ++k)
+          if (on[k]) acc[k] = Sum<T>::add(acc[k], x[u][k]);
     }
     for (; i < hi; ++i) {
       const T* row = col + (order != nullptr ? __ldg(order + i) : i) * width;
 #pragma unroll
       for (int k = 0; k < KC; ++k)
-        if (on[k]) acc[k] = add_rn(acc[k], __ldg(row + 32 * k));
+        if (on[k]) acc[k] = Sum<T>::add(acc[k], __ldg(row + 32 * k));
     }
 #pragma unroll
     for (int k = 0; k < KC; ++k)
-      if (on[k]) o[w0 + lane + 32 * k] = acc[k];
+      if (on[k]) o[w0 + lane + 32 * k] = store<T>(acc[k]);
   }
 }
 
+// The value sets [0, batch) in slices of at most kMaxBatch, one launch a
+// slice (grid.y is a slice's sets).
 template <typename T>
 int launch(const long long* ids, const void* vals, const long long* order,
            void* out, long long n, long long n_out, long long width,
            long long skip, long long batch, cudaStream_t stream) {
-  const T* v = static_cast<const T*>(vals);
-  T* o = static_cast<T*>(out);
   if (width == 1) {
     const cudaError_t err =
-        cudaMemsetAsync(o, 0, sizeof(T) * batch * n_out, stream);
+        cudaMemsetAsync(out, 0, sizeof(T) * batch * n_out, stream);
     if (err != cudaSuccess || n == 0) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                    static_cast<unsigned>(batch));
-    segment_sum_narrow<T><<<grid, kThreads, 0, stream>>>(ids, v, order, o, n,
-                                                         n_out, skip);
-  } else {
-    const dim3 grid(static_cast<unsigned>((n_out + kWarps - 1) / kWarps),
-                    static_cast<unsigned>(batch));
-    // columns a lane holds: as many as the row needs, at most kMaxCols
-    switch (width <= 32 ? 1 : width <= 64 ? 2 : width <= 96 ? 3 : 4) {
-      case 1:
-        segment_sum_wide<T, 1><<<grid, kThreads, 0, stream>>>(
-            ids, v, order, o, n, n_out, width, skip);
-        break;
-      case 2:
-        segment_sum_wide<T, 2><<<grid, kThreads, 0, stream>>>(
-            ids, v, order, o, n, n_out, width, skip);
-        break;
-      case 3:
-        segment_sum_wide<T, 3><<<grid, kThreads, 0, stream>>>(
-            ids, v, order, o, n, n_out, width, skip);
-        break;
-      default:
-        segment_sum_wide<T, kMaxCols><<<grid, kThreads, 0, stream>>>(
-            ids, v, order, o, n, n_out, width, skip);
+  }
+  for (long long b0 = 0; b0 < batch; b0 += kMaxBatch) {
+    const T* v = static_cast<const T*>(vals) + b0 * n * width;
+    T* o = static_cast<T*>(out) + b0 * n_out * width;
+    const unsigned sets = static_cast<unsigned>(
+        batch - b0 < kMaxBatch ? batch - b0 : kMaxBatch);
+    if (width == 1) {
+      const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads),
+                      sets);
+      segment_sum_narrow<T><<<grid, kThreads, 0, stream>>>(ids, v, order, o,
+                                                           n, n_out, skip);
+    } else {
+      const dim3 grid(static_cast<unsigned>((n_out + kWarps - 1) / kWarps),
+                      sets);
+      // columns a lane holds: as many as the row needs, at most kMaxCols
+      switch (width <= 32 ? 1 : width <= 64 ? 2 : width <= 96 ? 3 : 4) {
+        case 1:
+          segment_sum_wide<T, 1><<<grid, kThreads, 0, stream>>>(
+              ids, v, order, o, n, n_out, width, skip);
+          break;
+        case 2:
+          segment_sum_wide<T, 2><<<grid, kThreads, 0, stream>>>(
+              ids, v, order, o, n, n_out, width, skip);
+          break;
+        case 3:
+          segment_sum_wide<T, 3><<<grid, kThreads, 0, stream>>>(
+              ids, v, order, o, n, n_out, width, skip);
+          break;
+        default:
+          segment_sum_wide<T, kMaxCols><<<grid, kThreads, 0, stream>>>(
+              ids, v, order, o, n, n_out, width, skip);
+      }
     }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ids (n,) int64 non-decreasing; vals (batch, n, width) float32 (f64 = 0) or
-// float64 (f64 = 1); order (n,) int64 or NULL; skip >= 0 (0: every segment
-// summed); out (batch, n_out, width), every element written (W == 1: zeroed
-// by a memset on the stream, then each run's sum).  Returns
-// cudaGetLastError() after the launch (nothing is launched when n_out is
-// 0), or cudaErrorInvalidValue for sizes the grid cannot take.
+// ids (n,) int64 non-decreasing; vals (batch, n, width) of the type `dtype`
+// names (0 float32, 1 bfloat16, 2 float16, 3 float64); order (n,) int64 or
+// NULL; skip >= 0 (0: every segment summed); out (batch, n_out, width) of
+// vals' type, every element written (W == 1: zeroed by a memset on the
+// stream, then each run's sum).  Returns cudaGetLastError() after the
+// launches (nothing is launched when n_out is 0), or
+// cudaErrorInvalidValue for a type or sizes the grid cannot take.
 extern "C" int repro_segment_sum(const void* ids, const void* vals,
                                  const void* order, void* out, long long n,
                                  long long n_out, long long width,
-                                 long long skip, long long batch, int f64,
+                                 long long skip, long long batch, int dtype,
                                  void* stream) {
   if (n < 0 || n_out < 0 || width < 1 || skip < 0 || batch < 1
-      || batch > kMaxBatch
+      || dtype < 0 || dtype > 3
       || (width == 1 ? (n + kThreads - 1) / kThreads
                      : (n_out + kWarps - 1) / kWarps) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -256,8 +299,15 @@ extern "C" int repro_segment_sum(const void* ids, const void* vals,
   const long long* i = static_cast<const long long*>(ids);
   const long long* p = static_cast<const long long*>(order);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f64 ? launch<double>(i, vals, p, out, n, n_out, width, skip, batch,
-                              s)
-             : launch<float>(i, vals, p, out, n, n_out, width, skip, batch,
-                             s);
+  switch (dtype) {
+    case 1:
+      return launch<__nv_bfloat16>(i, vals, p, out, n, n_out, width, skip,
+                                   batch, s);
+    case 2:
+      return launch<__half>(i, vals, p, out, n, n_out, width, skip, batch, s);
+    case 3:
+      return launch<double>(i, vals, p, out, n, n_out, width, skip, batch, s);
+    default:
+      return launch<float>(i, vals, p, out, n, n_out, width, skip, batch, s);
+  }
 }

@@ -1,6 +1,6 @@
 """Fused online-softmax attention (flash) on ``(BH, S, D)`` q and k and a
-``(BH, S, Dv)`` v, ``Dv <= D``; and its masked form on ``(BH, Sq, D)`` q,
-``(BH, Sk, D)`` k and ``(BH, Sk, Dv)`` v.
+``(BH, S, Dv)`` v; and its masked form on ``(BH, Sq, D)`` q, ``(BH, Sk,
+D)`` k and ``(BH, Sk, Dv)`` v, any D and Dv.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention_fused``
 (which takes Dv == D; the model's chunked attention, which this kernel
@@ -17,14 +17,36 @@ once to float32, as the Pallas kernel's ``1.0 / (d ** 0.5)``.  (The
 model's chunked attention computes ``1/sqrt(float32(D))``; for D = 96 the
 two differ by one float32 ulp, a relative 6e-8 on every score.)
 
-On CUDA the dtype chooses the kernel (``route``): bfloat16 inputs go to
-``csrc/flash_attention_wgmma.cu``, both products on the tensor cores
-(``wgmma``, float32 accumulators, P carried in three bfloat16 terms so that
-it keeps float32 precision); float32 inputs to ``csrc/flash_attention.cu``,
-float32 on the CUDA cores.  Either is one launch per call, for D up to 192
-(``MAX_HEAD_DIM``); the bf16 kernel's qk and value widths are template
-parameters of their own, so MLA's 192 / 128 keeps the accumulator of a
-128-wide head.
+On CUDA the dtype and widths choose the kernel (``route``): bfloat16 inputs
+with D and Dv up to 256 go to ``csrc/flash_attention_wgmma.cu``, both
+products on the tensor cores (``wgmma``, float32 accumulators, P carried in
+three bfloat16 terms so that it keeps float32 precision; ``"wgmma_p1"``,
+one term, under ``p_dtype``); float32 and float16 inputs, and bfloat16 past
+256, to ``csrc/flash_attention.cu``, float32 on the CUDA cores
+(``"cuda_cores"`` up to 192 columns, ``"cuda_cores_slabs"`` past that:
+D and Dv in 64-column slabs).  Either is one launch per call; the bf16
+kernel's qk and value widths are template parameters of their own, so
+MLA's 192 / 128 keeps the accumulator of a 128-wide head.
+
+``p_dtype=torch.bfloat16`` is the reference's ``p_dtype``
+(``repro.models.attention.flash_attention``): ``l`` sums the float32
+probabilities, then P and V are rounded to bf16 and P.V is summed in
+float32.
+
+A query with no valid key: every score of its row is exactly -1e30 in the
+reference's chunked loop, so its ``m`` stays -1e30 and ``p = 1`` on every
+key of every chunk it visits, padded keys included.  Its output is
+``sum_{j < Sk} v_j / (ceil(Sk / kc) * kc)``, ``kc = min(k_chunk, Sk)``
+(v rounded to bf16 under ``p_dtype``), which depends on the reference's
+key chunk, so the masked entry takes ``k_chunk``.  Such queries are a
+prefix and a suffix of the queries (``keyless_rows``); after the attention
+kernel a small kernel (``repro_flash_keyless`` in
+``csrc/flash_attention.cu``, counted as ``flash_attention_keyless``)
+writes their rows, and their ``lse`` as +1e30, so that the backward's P is
+0 on them; in the backward it first sums their ``dV_j += sum_i dO_i /
+den`` (the same for every key ``j < Sk``) in float32, and the CUDA-core
+backward kernel, which takes every call with such queries, adds it to dV
+before it rounds dV; dQ and dK get nothing from them.
 
 A call whose inputs need a gradient goes through ``_FlashAttention``, a
 ``torch.autograd.Function``, on both devices.  Its forward also saves the
@@ -32,14 +54,15 @@ float32 row log-sum-exp ``lse = m + log(l)`` of the scaled scores, ``(BH,
 Sq)`` (the kernels write it only when they are given a pointer for it, so a
 call without a gradient launches as before); its backward is a kernel on
 CUDA and ``flash_attention_masked_bwd_plain`` on the CPU.  On CUDA the
-dtype and widths choose the backward kernel (``bwd_route``): bfloat16 with
-D up to the source's ``kMaxD`` (128), or with D up to ``kWideD`` (192) and
-Dv up to ``kWideDV`` (128), MLA's qk 192 / v 128, goes to
-``csrc/flash_attention_bwd_wgmma.cu`` (every product on the tensor cores,
-P and dS carried in three bfloat16 terms; MLA's build streams 32-query
-tiles through its dK/dV pass, ``kWideBT``, so that dK's 192 columns fit
-the registers); float32, and the other bfloat16 heads past 128, to
-``csrc/flash_attention_bwd.cu`` (float32 on the CUDA cores).
+dtype and widths choose the backward kernel (``bwd_route``): bfloat16
+without ``p_dtype``, Dv <= D, with D up to the source's ``kMaxD`` (128), or
+with D up to ``kWideD`` (192) and Dv up to ``kWideDV`` (128), MLA's qk 192
+/ v 128, goes to ``csrc/flash_attention_bwd_wgmma.cu`` (every product on
+the tensor cores, P and dS carried in three bfloat16 terms; MLA's build
+streams 32-query tiles through its dK/dV pass, ``kWideBT``, so that dK's
+192 columns fit the registers); every other call to
+``csrc/flash_attention_bwd.cu`` (float32 on the CUDA cores, any widths:
+``"cuda_cores"`` up to 192 columns, ``"cuda_cores_slabs"`` past that).
 Both are FlashAttention-2's schedule: a Delta pre-pass, a dK/dV pass over
 key blocks, a dQ pass over query blocks, no atomics, so a gradient is the
 same bits run to run; counted as ``flash_attention_bwd``, one count a
@@ -53,9 +76,7 @@ model's chunked attention (``repro.models.attention``'s ``_mask_val`` and
 0``, for any Sq, Sk >= 1 (a ragged S needs no padding: keys past Sk are
 simply invalid).  Both kernels run the kv tiles from the first key any
 query of a block may see to the last, skipping the tiles wholly outside a
-window as they skip those above a causal diagonal.  A call in which some
-query has no valid key raises (``rows_without_keys``): the reference gives
-such a row the mean of the masked values, which no model here asks for.
+window as they skip those above a causal diagonal.
 ``flash_attention_fused`` is its unmasked case (Sq == Sk, no window, no
 offset), under the reference's block-divisibility contract.
 """
@@ -67,20 +88,23 @@ from repro_torch.kernels import ops
 from repro_torch.kernels._build import library, source_constants
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 192  # the qk width both kernels take (MLA: 128 + 64)
-# the kernel each dtype goes to on CUDA: (C entry point, route)
-KERNELS = {torch.bfloat16: ("repro_flash_attention_wgmma", "wgmma"),
-           torch.float32: ("repro_flash_attention", "cuda_cores")}
+KEYLESS_LSE = 1e30  # the lse of a row without keys: its backward P is 0
+# the forward's C entry point on each route
+KERNELS = {"wgmma": "repro_flash_attention_wgmma",
+           "wgmma_p1": "repro_flash_attention_wgmma",
+           "cuda_cores": "repro_flash_attention",
+           "cuda_cores_slabs": "repro_flash_attention"}
 # the backward's C entry point on each route
 BWD_KERNELS = {"wgmma": "repro_flash_attention_bwd_wgmma",
-               "cuda_cores": "repro_flash_attention_bwd"}
+               "cuda_cores": "repro_flash_attention_bwd",
+               "cuda_cores_slabs": "repro_flash_attention_bwd"}
 
 
 def wgmma_constants() -> dict:
     """The bf16 kernel's integer constants, read from its source
     (``_build.source_constants``): ``kPTerms``, the bf16 terms P is carried
-    in (p1 = bf16(p), p2 = bf16(p - p1), ...), ``kWG``, ``kBK``,
-    ``kStages``."""
+    in (p1 = bf16(p), p2 = bf16(p - p1), ...; one under ``p_dtype``),
+    ``kWG``, ``kBK``, ``kStages``, ``kMaxD`` (its widest head)."""
     return source_constants("flash_attention_wgmma.cu")
 
 
@@ -94,32 +118,51 @@ def bwd_constants() -> dict:
     return source_constants("flash_attention_bwd_wgmma.cu")
 
 
-def bwd_route(dtype: torch.dtype, d: int, dv: int) -> str:
+def _cuda_cores(d: int, dv: int) -> str:
+    """The CUDA-core kernels' route: one block a query or key tile up to the
+    source's ``kMaxD`` (192) columns, 64-column slabs past it."""
+    wide = max(d, dv) > source_constants("flash_attention.cu")["kMaxD"]
+    return "cuda_cores_slabs" if wide else "cuda_cores"
+
+
+def bwd_route(dtype: torch.dtype, d: int, dv: int, p_dtype=None,
+              keyless: bool = False) -> str:
     """The backward kernel a CUDA call with ``dtype`` operands, qk width
-    ``d`` and value width ``dv <= d`` launches: ``"wgmma"`` (bfloat16 with
+    ``d`` and value width ``dv`` launches: ``"wgmma"`` (bfloat16 without
+    ``p_dtype`` or queries without a key (``keyless``), ``dv <= d``, with
     ``d`` up to ``kMaxD``, or with ``d`` up to ``kWideD`` and ``dv`` up to
-    ``kWideDV``: MLA's 192 / 128; tensor cores) or ``"cuda_cores"``
-    (float32, and the other bfloat16 heads past ``kMaxD``: their dK/dV
-    pass would spill past 255 registers a thread)."""
+    ``kWideDV``: MLA's 192 / 128; tensor cores), else the CUDA-core kernel
+    (``_cuda_cores``: float32, float16, ``p_dtype``, keyless rows, ``dv >
+    d`` and the other bfloat16 heads past ``kMaxD``, whose dK/dV pass
+    would spill past 255 registers a thread)."""
     c = bwd_constants()
-    if dtype == torch.bfloat16 and (
+    if dtype == torch.bfloat16 and p_dtype is None and not keyless \
+            and dv <= d and (
             d <= c["kMaxD"] or (d <= c["kWideD"] and dv <= c["kWideDV"])):
         return "wgmma"
-    return "cuda_cores"
+    return _cuda_cores(d, dv)
 
 
-def route(dtype: torch.dtype) -> str:
-    """The kernel a CUDA call with ``dtype`` inputs launches: ``"wgmma"``
-    (bfloat16, tensor cores) or ``"cuda_cores"`` (float32)."""
-    return KERNELS[dtype][1]
+def route(dtype: torch.dtype, d: int = 1, dv: int = 1, p_dtype=None) -> str:
+    """The kernel a CUDA call with ``dtype`` inputs, qk width ``d`` and
+    value width ``dv`` launches: ``"wgmma"`` (bfloat16 with both widths up
+    to the source's ``kMaxD``, 256; tensor cores), ``"wgmma_p1"`` (the same
+    with one P term, under ``p_dtype``), else the CUDA-core kernel
+    (``"cuda_cores"``, or ``"cuda_cores_slabs"`` past 192 columns)."""
+    if dtype == torch.bfloat16 and max(d, dv) <= wgmma_constants()["kMaxD"]:
+        return "wgmma" if p_dtype is None else "wgmma_p1"
+    return _cuda_cores(d, dv)
 
 
 def wgmma_widths(d: int, dv: int) -> tuple:
     """The (qk, value) tile widths of the bf16 kernel a call with qk width
-    ``d`` and value width ``dv`` launches: D rounded up to a multiple of 32,
-    and the value width 128 where that passes 128 and ``dv <= 128`` (MLA's
-    192 / 128), else the qk width (V zero-filled past ``dv``)."""
-    dq = -(-d // 32) * 32
+    ``d`` and value width ``dv`` launches: the wider of the two rounded up
+    to a multiple of 32 for both (V, or Q and K, zero-filled past their
+    width), 256 past 192, and the value width 128 where the qk width
+    passes 128 and ``dv <= 128`` (MLA's 192 / 128)."""
+    dq = -(-max(d, dv) // 32) * 32
+    if dq > 192:
+        return 256, 256
     return dq, 128 if dq > 128 and dv <= 128 else dq
 
 
@@ -136,28 +179,44 @@ def bwd_widths(d: int, dv: int) -> tuple:
     return dq, dq, c["kBT"]
 
 
-def rows_without_keys(sq: int, sk: int, causal: bool = True,
-                      window: int = 0, q_offset: int = 0,
-                      kv_len=None) -> bool:
-    """True when some query of a masked call has no valid key.  Query i
-    sees the keys ``[lo(i), hi(i))``, ``lo`` convex and ``hi`` concave in
-    i, so ``hi - lo`` is least at the first or the last query."""
-    kvl = sk if kv_len is None else min(int(kv_len), sk)
+def _key_range(p, kvl: int, causal: bool, window: int):
+    """The keys ``[lo, hi)`` query position ``p`` (query i + q_offset) may
+    see, elementwise on an int64 tensor of positions."""
+    lo = (p - window + 1).clamp_min(0) if window > 0 else torch.zeros_like(p)
+    hi = (p + 1).clamp(max=kvl) if causal else torch.full_like(p, kvl)
+    return lo, hi
 
-    def empty(i):
-        p = i + q_offset
-        lo = max(0, p - window + 1) if window > 0 else 0
-        hi = min(kvl, p + 1) if causal else kvl
-        return hi <= lo
 
-    return sq < 1 or sk < 1 or empty(0) or empty(sq - 1)
+def keyless_rows(sq: int, sk: int, causal: bool = True, window: int = 0,
+                 q_offset: int = 0, kv_len=None) -> tuple:
+    """``(a, b)``: the queries ``[0, a)`` and ``[b, Sq)`` of a masked call
+    have no valid key, every query of ``[a, b)`` has one.  Query i sees the
+    keys ``[lo(i), hi(i))``, ``lo`` convex and ``hi`` concave in i, so the
+    queries without a key are a prefix and a suffix."""
+    kvl = sk if kv_len is None else max(0, min(int(kv_len), sk))
+    ends = torch.tensor([0, max(sq - 1, 0)]) + q_offset
+    lo, hi = _key_range(ends, kvl, causal, window)
+    if sq > 0 and bool((hi > lo).all()):  # so does every query between
+        return 0, sq
+    lo, hi = _key_range(torch.arange(sq) + q_offset, kvl, causal, window)
+    has = (hi > lo).nonzero()
+    if has.numel() == 0:
+        return sq, sq
+    return int(has[0]), int(has[-1]) + 1
+
+
+def keyless_den(sk: int, k_chunk: int) -> int:
+    """The denominator of a row without keys: every key of every chunk of
+    ``min(k_chunk, Sk)`` keys the reference's chunked loop visits."""
+    kc = min(k_chunk, sk)
+    return -(-sk // kc) * kc
 
 
 def _blocks(q, k, v, q_blk, k_blk):
     if (q.dim() != 3 or k.shape != q.shape or v.dim() != 3
-            or v.shape[:2] != q.shape[:2] or v.shape[2] > q.shape[2]):
+            or v.shape[:2] != q.shape[:2]):
         raise ValueError(f"expected q and k of one shape (BH, S, D) and v of "
-                         f"(BH, S, Dv) with Dv <= D; got {tuple(q.shape)}, "
+                         f"(BH, S, Dv); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     s = q.shape[1]
     q_blk, k_blk = min(q_blk, s), min(k_blk, s)
@@ -165,24 +224,22 @@ def _blocks(q, k, v, q_blk, k_blk):
     return q_blk, k_blk
 
 
-def _masked_shapes(q, k, v, causal, window, q_offset, kv_len) -> int:
-    """Check a masked call's shapes and mask; return the key limit
-    ``min(kv_len, Sk)``."""
+def _masked_shapes(q, k, v, window) -> None:
+    """Check a masked call's shapes and window."""
     if (q.dim() != 3 or k.dim() != 3 or v.dim() != 3
             or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]
-            or v.shape[:2] != k.shape[:2] or v.shape[2] > q.shape[2]):
+            or v.shape[:2] != k.shape[:2] or k.shape[1] < 1):
         raise ValueError(f"expected q (BH, Sq, D), k (BH, Sk, D) and v (BH, "
-                         f"Sk, Dv) with Dv <= D; got {tuple(q.shape)}, "
+                         f"Sk, Dv) with Sk >= 1; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if window < 0:
         raise ValueError(f"window {window}: expected >= 0 (0: none)")
-    sq, sk = q.shape[1], k.shape[1]
-    if rows_without_keys(sq, sk, causal, window, q_offset, kv_len):
-        raise ValueError(
-            f"a query sees no key (Sq {sq}, Sk {sk}, causal {causal}, window "
-            f"{window}, q_offset {q_offset}, kv_len {kv_len}); outside the "
-            f"kernel's contract")
-    return sk if kv_len is None else min(int(kv_len), sk)
+
+
+def _kv_limit(sk: int, kv_len) -> int:
+    """The key limit ``kv_len`` clipped to ``[0, Sk]`` (``kv_len`` an int
+    or a 0-d tensor, read once on the host)."""
+    return sk if kv_len is None else max(0, min(int(kv_len), sk))
 
 
 def _key_blocks(sq, causal, window, q_offset, kvl, k_blk):
@@ -204,19 +261,30 @@ def _valid(sq, k0, k1, causal, window, q_offset, device):
     return ok
 
 
+def _p_round(x: torch.Tensor, p_dtype) -> torch.Tensor:
+    """``x`` (float32) rounded to ``p_dtype`` and back; as it is without."""
+    return x if p_dtype is None else x.to(p_dtype).float()
+
+
 def flash_attention_masked_plain(q, k, v, causal: bool = True,
                                  window: int = 0, q_offset: int = 0,
-                                 kv_len=None, k_blk: int = 128,
+                                 kv_len=None, p_dtype=None,
+                                 k_chunk: int = 1024, k_blk: int = 128,
                                  with_lse: bool = False):
     """The plain PyTorch version of the masked kernel: the online-softmax
     loop over ``k_blk``-key blocks in ascending order, all queries at once,
     from the block of the first key any query may see to that of the
-    last.  ``with_lse`` also returns the float32 row log-sum-exp ``m +
-    log(l)``, ``(BH, Sq)``, as the kernels' forward saves it."""
-    kvl = _masked_shapes(q, k, v, causal, window, q_offset, kv_len)
+    last; under ``p_dtype`` P and V rounded to it before P.V.  The rows of
+    queries without a key get the reference's value for them (the module's
+    docstring; ``k_chunk`` is the reference's key chunk).  ``with_lse``
+    also returns the float32 row log-sum-exp ``m + log(l)``, ``(BH, Sq)``,
+    as the kernels' forward saves it (+1e30 on a row without keys)."""
+    _masked_shapes(q, k, v, window)
     bh, sq, d = q.shape
+    sk = k.shape[1]
+    kvl = _kv_limit(sk, kv_len)
     scale = 1.0 / (d ** 0.5)
-    qf, kf, vf = q.float(), k.float(), v.float()
+    qf, kf, vf = q.float(), k.float(), _p_round(v.float(), p_dtype)
     m = torch.full((bh, sq, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((bh, sq, 1), dtype=torch.float32, device=q.device)
@@ -230,28 +298,42 @@ def flash_attention_masked_plain(q, k, v, causal: bool = True,
         p = torch.exp(sc - m_new)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + torch.matmul(p, vf[:, k0:k1])
+        acc = acc * corr + torch.matmul(_p_round(p, p_dtype), vf[:, k0:k1])
         m = m_new
-    out = (acc / l.clamp_min(1e-30)).to(q.dtype)
-    if with_lse:
-        return out, (m + torch.log(l))[..., 0]
-    return out
+    out = acc / l.clamp_min(1e-30)
+    lse = (m + torch.log(l))[..., 0]
+    a, b = keyless_rows(sq, sk, causal, window, q_offset, kv_len)
+    if a > 0 or b < sq:
+        mean = vf.sum(1, keepdim=True) / keyless_den(sk, k_chunk)
+        out[:, :a] = mean
+        out[:, b:] = mean
+        lse[:, :a] = KEYLESS_LSE
+        lse[:, b:] = KEYLESS_LSE
+    out = out.to(q.dtype)
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_masked_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
                                      window: int = 0, q_offset: int = 0,
-                                     kv_len=None, k_blk: int = 128):
+                                     kv_len=None, p_dtype=None,
+                                     k_chunk: int = 1024, k_blk: int = 128):
     """The plain PyTorch version of the backward kernel: ``(dq, dk, dv)`` in
     ``q``'s dtype from the forward's output ``o`` and row log-sum-exp
     ``lse`` and the output's gradient ``do``.  The same blockwise equations
     in float32: ``Delta = sum(do * o)`` a row, then for each ``k_blk``-key
     block the forward visits, ``P = exp(S * scale - lse)`` (0 on invalid
-    pairs), ``dV = P^T.dO``, ``dS = P * (dO.V^T - Delta)``, ``dQ += dS.K``
-    and ``dK = dS^T.Q``; dQ and dK are scaled once, at the end."""
-    kvl = _masked_shapes(q, k, v, causal, window, q_offset, kv_len)
+    pairs and on rows without keys), ``dV = P^T.dO``, ``dS = P * (dO.V^T -
+    Delta)``, ``dQ += dS.K`` and ``dK = dS^T.Q``; dQ and dK are scaled once,
+    at the end.  Under ``p_dtype`` V in dO.V^T and P in P^T.dO are rounded
+    to it (the rounding's gradient taken as the identity).  The queries
+    without a key add ``sum_i dO_i / den`` to every key's dV."""
+    _masked_shapes(q, k, v, window)
     sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    kvl = _kv_limit(sk, kv_len)
     scale = 1.0 / (d ** 0.5)
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    qf, kf, dof = q.float(), k.float(), do.float()
+    vf = _p_round(v.float(), p_dtype)
     delta = (dof * o.float()).sum(-1, keepdim=True)
     lse = lse[..., None]
     dq = torch.zeros_like(qf)
@@ -261,10 +343,14 @@ def flash_attention_masked_bwd_plain(q, k, v, o, lse, do, causal: bool = True,
         sc = torch.matmul(qf, kf[:, k0:k1].transpose(1, 2)) * scale
         ok = _valid(sq, k0, k1, causal, window, q_offset, q.device)
         p = torch.where(ok, torch.exp(sc - lse), 0.0)
-        dv[:, k0:k1] = torch.matmul(p.transpose(1, 2), dof)
+        dv[:, k0:k1] = torch.matmul(_p_round(p, p_dtype).transpose(1, 2), dof)
         ds = p * (torch.matmul(dof, vf[:, k0:k1].transpose(1, 2)) - delta)
         dq = dq + torch.matmul(ds, kf[:, k0:k1])
         dk[:, k0:k1] = torch.matmul(ds.transpose(1, 2), qf)
+    a, b = keyless_rows(sq, sk, causal, window, q_offset, kv_len)
+    if a > 0 or b < sq:
+        g = dof[:, :a].sum(1, keepdim=True) + dof[:, b:].sum(1, keepdim=True)
+        dv = dv + g / keyless_den(sk, k_chunk)
     return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
             dv.to(q.dtype))
 
@@ -278,51 +364,84 @@ def flash_attention_fused_plain(q, k, v, causal: bool = True,
     return flash_attention_masked_plain(q, k, v, causal, k_blk=k_blk)
 
 
-def _check_operands(q, k, v):
-    ops.expect_float(q, 3, "q")
+def _check_operands(q, k, v) -> int:
+    """The operands' dtype code (``ops.expect_float``)."""
+    code = ops.expect_float(q, 3, "q")
     ops.expect(k, q.dtype, 3, "k")
     ops.expect(v, q.dtype, 3, "v")
     ops.same_device(("q", q), ("k", k), ("v", v))
-    if q.shape[2] > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[2]}: the kernel takes D <= "
-                         f"{MAX_HEAD_DIM}")
+    return code
 
 
-def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False):
-    """One launch of the dtype's kernel; the output ``(BH, Sq, Dv)``, and
-    with ``with_lse`` the float32 row log-sum-exp ``(BH, Sq)`` too."""
-    _check_operands(q, k, v)
+def _keyless(v, o, lse, sk, a, b, p_dtype, k_chunk, fwd):
+    """One launch of the keyless pass on the queries ``[0, a)`` and ``[b,
+    Sq)`` of a call with ``sk`` keys: their rows of ``o`` and ``lse``
+    (``fwd``), or the float32 dV ``o`` (BH, Dv) every key gets from them
+    (``v`` then the output's gradient)."""
+    bh = o.shape[0]
+    sq = o.shape[1] if fwd else v.shape[1]
+    with torch.cuda.device(o.device):
+        rc = library().repro_flash_keyless(
+            v.data_ptr(), o.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            bh, sq, sk, v.shape[2], a, b, float(keyless_den(sk, k_chunk)),
+            int(p_dtype is not None), ops.DTYPE_CODES[v.dtype], int(fwd),
+            torch.cuda.current_stream().cuda_stream)
+    ops.check_launch("flash_attention_keyless", rc, "fwd" if fwd else "bwd")
+
+
+def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False,
+            p_dtype=None, k_chunk=1024):
+    """One launch of the call's kernel (none when no query has a key) and,
+    when some query has none, of the keyless pass; the output ``(BH, Sq,
+    Dv)``, and with ``with_lse`` the float32 row log-sum-exp ``(BH, Sq)``
+    too."""
+    code = _check_operands(q, k, v)
+    _masked_shapes(q, k, v, window)
+    if p_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"p_dtype {p_dtype}: the kernels round P to "
+                         f"bfloat16 or not at all")
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
+    kvl = _kv_limit(sk, kv_len)
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if out.numel():
-        name, path = KERNELS[q.dtype]
-        kernel = getattr(library(), name)
+    if not out.numel():
+        return (out, lse) if with_lse else out
+    a, b = keyless_rows(sq, sk, causal, window, q_offset, kvl)
+    if a < b:
+        path = route(q.dtype, d, dv, p_dtype)
+        flags = ([int(p_dtype is not None)] if path.startswith("wgmma")
+                 else [int(p_dtype is not None), code])
         with torch.cuda.device(q.device):
-            rc = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-                        bh, sq, sk, d, dv, int(bool(causal)), q_offset,
-                        window, kv_len, 1.0 / (d ** 0.5),
-                        torch.cuda.current_stream().cuda_stream)
+            rc = getattr(library(), KERNELS[path])(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                0 if lse is None else lse.data_ptr(), bh, sq, sk, d, dv,
+                int(bool(causal)), q_offset, window, kvl, 1.0 / (d ** 0.5),
+                *flags, torch.cuda.current_stream().cuda_stream)
         ops.check_launch("flash_attention_fused", rc, path)
+    if a > 0 or b < sq:
+        _keyless(v, out, lse, sk, a, b, p_dtype, k_chunk, True)
     return (out, lse) if with_lse else out
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
-                route=None):
-    """One call of the backward kernel (its three launches); ``(dq, dk,
-    dv)``.  ``route`` (default ``bwd_route``'s) names the kernel: the
-    CUDA-core kernel takes every call, the tensor-core one the bf16 calls
+                p_dtype=None, k_chunk=1024, route=None):
+    """One call of the backward kernel (its three launches) and, when some
+    query has no key, first the keyless pass's, whose float32 dV the
+    CUDA-core kernel adds before it rounds dV; ``(dq, dk, dv)``.
+    ``route`` (default ``bwd_route``'s) names the kernel: the CUDA-core
+    kernel takes every call, the tensor-core one the bf16 calls
     ``bwd_route`` sends it."""
-    _check_operands(q, k, v)
+    code = _check_operands(q, k, v)
+    _masked_shapes(q, k, v, window)
     ops.expect(o, q.dtype, 3, "o")
     ops.expect(do, q.dtype, 3, "do")
     ops.expect(lse, torch.float32, 2, "lse")
     ops.same_device(("q", q), ("o", o), ("do", do), ("lse", lse))
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
+    kvl = _kv_limit(sk, kv_len)
     if (o.shape != (bh, sq, dv) or do.shape != o.shape
             or lse.shape != (bh, sq)):
         raise ValueError(f"o and do of (BH, Sq, Dv) = {(bh, sq, dv)} and lse "
@@ -330,24 +449,37 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
                          f"{tuple(do.shape)}, {tuple(lse.shape)}")
     dq, dk, dvv = (torch.empty_like(q), torch.empty_like(k),
                    torch.empty_like(v))
-    if q.numel() == 0:
-        return dq, dk, dvv
+    if q.numel() == 0 or v.numel() == 0:
+        return dq.zero_(), dk.zero_(), dvv.zero_()
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    path = route or bwd_route(q.dtype, d, dv)
-    if path == "wgmma" and bwd_route(q.dtype, d, dv) != "wgmma":
+    a, b = keyless_rows(sq, sk, causal, window, q_offset, kvl)
+    keyless = a > 0 or b < sq
+    path = route or bwd_route(q.dtype, d, dv, p_dtype, keyless)
+    if path == "wgmma" and \
+            bwd_route(q.dtype, d, dv, p_dtype, keyless) != "wgmma":
         c = bwd_constants()
-        raise ValueError(f"the wgmma backward takes bf16 with D <= "
-                         f"{c['kMaxD']}, or D <= {c['kWideD']} and Dv <= "
-                         f"{c['kWideDV']}; got {q.dtype}, D {d}, Dv {dv}")
-    # the CUDA-core kernel takes both dtypes and a flag for them
-    flag = [int(q.dtype == torch.bfloat16)] if path == "cuda_cores" else []
+        raise ValueError(f"the wgmma backward takes bf16 without p_dtype "
+                         f"or keyless queries, Dv <= D, D <= {c['kMaxD']}, "
+                         f"or D <= {c['kWideD']} and Dv <= {c['kWideDV']}; "
+                         f"got {q.dtype}, D {d}, Dv {dv}, p_dtype {p_dtype}")
+    if path != "wgmma":
+        path = _cuda_cores(d, dv)
+    kl = None
+    if keyless:  # the dV of the queries without a key, added by the kernel
+        kl = torch.empty((bh, dv), dtype=torch.float32, device=q.device)
+        _keyless(do, kl, None, sk, a, b, p_dtype, k_chunk, False)
+    # the CUDA-core kernel takes the keyless dV, the p_dtype flag and the
+    # dtype code
+    lead = [] if path == "wgmma" else [0 if kl is None else kl.data_ptr()]
+    flags = ([] if path == "wgmma"
+             else [int(p_dtype is not None), code])
     with torch.cuda.device(q.device):
         rc = getattr(library(), BWD_KERNELS[path])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dvv.data_ptr(), delta.data_ptr(), bh, sq, sk, d, dv,
-            int(bool(causal)), q_offset, window, kv_len, 1.0 / (d ** 0.5),
-            *flag, torch.cuda.current_stream().cuda_stream)
+            dvv.data_ptr(), delta.data_ptr(), *lead, bh, sq, sk, d, dv,
+            int(bool(causal)), q_offset, window, kvl, 1.0 / (d ** 0.5),
+            *flags, torch.cuda.current_stream().cuda_stream)
     ops.check_launch("flash_attention_bwd", rc, path)
     return dq, dk, dvv
 
@@ -355,18 +487,20 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
 class _FlashAttention(torch.autograd.Function):
     """K7 with its backward: on CUDA the forward kernel with ``lse`` and the
     backward kernel, on the CPU their plain versions.  ``kv_len`` is the
-    key limit already clipped to Sk (an int)."""
+    key limit already clipped to ``[0, Sk]`` (an int)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
+    def forward(ctx, q, k, v, causal, window, q_offset, kv_len, p_dtype,
+                k_chunk):
         if ops.on_plain_device(q, k, v):
             out, lse = flash_attention_masked_plain(
-                q, k, v, causal, window, q_offset, kv_len, with_lse=True)
+                q, k, v, causal, window, q_offset, kv_len, with_lse=True,
+                p_dtype=p_dtype, k_chunk=k_chunk)
         else:
             out, lse = _launch(q, k, v, causal, window, q_offset, kv_len,
-                               with_lse=True)
+                               True, p_dtype, k_chunk)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, window, q_offset, kv_len)
+        ctx.mask = (causal, window, q_offset, kv_len, p_dtype, k_chunk)
         return out
 
     @staticmethod
@@ -375,7 +509,7 @@ class _FlashAttention(torch.autograd.Function):
         bwd = (flash_attention_masked_bwd_plain if ops.on_plain_device(q)
                else _launch_bwd)
         dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), *ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _needs_grad(*ts) -> bool:
@@ -391,16 +525,17 @@ def _flash_attention_cuda(q, k, v, causal: bool = True, q_blk: int = 128,
 def _flash_attention_grad(q, k, v, causal: bool = True, q_blk: int = 128,
                           k_blk: int = 128):
     _blocks(q, k, v, q_blk, k_blk)
-    return _FlashAttention.apply(q, k, v, causal, 0, 0, q.shape[1])
+    return _FlashAttention.apply(q, k, v, causal, 0, 0, q.shape[1], None,
+                                 1024)
 
 
 def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
                           k_blk: int = 128):
     """Flash attention on ``(BH, S, D)`` q and k and ``(BH, S, Dv)`` v: the
-    plain version on the CPU, the dtype's kernel on CUDA (q, k and v
-    float32 or bfloat16 of one dtype, Dv <= D <= 192).  ``q_blk`` and
-    ``k_blk`` keep the reference's divisibility contract; the kernels' own
-    tiles are their choice.  Under autograd both devices go through
+    plain version on the CPU, the route's kernel on CUDA (q, k and v
+    float32, bfloat16 or float16 of one dtype, any D and Dv).  ``q_blk``
+    and ``k_blk`` keep the reference's divisibility contract; the kernels'
+    own tiles are their choice.  Under autograd both devices go through
     ``_FlashAttention`` (forward with ``lse``, then the backward)."""
     if _needs_grad(q, k, v):
         return _flash_attention_grad(q, k, v, causal, q_blk, k_blk)
@@ -410,22 +545,29 @@ def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
 
 def _flash_attention_masked_cuda(q, k, v, causal: bool = True,
                                  window: int = 0, q_offset: int = 0,
-                                 kv_len=None):
-    kvl = _masked_shapes(q, k, v, causal, window, q_offset, kv_len)
-    return _launch(q, k, v, causal, window, q_offset, kvl)
+                                 kv_len=None, p_dtype=None,
+                                 k_chunk: int = 1024):
+    _masked_shapes(q, k, v, window)
+    return _launch(q, k, v, causal, window, q_offset,
+                   _kv_limit(k.shape[1], kv_len), False, p_dtype, k_chunk)
 
 
 def flash_attention_masked(q, k, v, causal: bool = True, window: int = 0,
-                           q_offset: int = 0, kv_len=None):
+                           q_offset: int = 0, kv_len=None, p_dtype=None,
+                           k_chunk: int = 1024):
     """Flash attention on ``(BH, Sq, D)`` q, ``(BH, Sk, D)`` k and ``(BH,
     Sk, Dv)`` v under the chunked attention's masks (the module's
-    docstring): the plain version on the CPU, the dtype's kernel on CUDA.
+    docstring): the plain version on the CPU, the route's kernel on CUDA.
     ``kv_len`` (an int or a 0-d tensor, read once on the host) limits the
-    keys; a call in which some query sees no key raises ``ValueError``.
-    Under autograd both devices go through ``_FlashAttention``."""
+    keys; ``p_dtype`` (None or ``torch.bfloat16``) rounds P and V before
+    P.V; the rows of queries without a key take the reference's value for
+    its key chunk ``k_chunk``.  Under autograd both devices go through
+    ``_FlashAttention``."""
     if _needs_grad(q, k, v):
-        kvl = _masked_shapes(q, k, v, causal, window, q_offset, kv_len)
-        return _FlashAttention.apply(q, k, v, causal, window, q_offset, kvl)
+        _masked_shapes(q, k, v, window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                     _kv_limit(k.shape[1], kv_len), p_dtype,
+                                     k_chunk)
     return ops.dispatch(flash_attention_masked_plain,
                         _flash_attention_masked_cuda, q, k, v, causal,
-                        window, q_offset, kv_len)
+                        window, q_offset, kv_len, p_dtype, k_chunk)

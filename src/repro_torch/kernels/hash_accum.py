@@ -13,7 +13,10 @@ the plain version (``core.hashtable``) and the reference's scan engine and
 Pallas kernel give the same table bit for bit.  On CUDA the table's size
 chooses where the kernel keeps it (``route``): in shared memory up to
 8,192 slots (Table-I groups 0-2, ``"smem"``), else in the output buffers
-in global memory (group 3, ``"global"``).
+in global memory (group 3, ``"global"``).  Values may be float32,
+bfloat16 or float16: the table's sums keep the values' type, each add
+rounded to it, as the plain version's and the reference's adds in that
+type are, so a low-precision table is the CPU's bits too.
 
 Replaces ``repro.kernels.hash_accum.hash_accumulate`` (the Pallas
 ``_hash_kernel``); ``hash_accumulate_sorted`` is the counterpart of the
@@ -47,7 +50,7 @@ def hash_accumulate_plain(keys: torch.Tensor, vals: torch.Tensor,
 def _hash_accumulate_cuda(keys: torch.Tensor, vals: torch.Tensor,
                           table_cap: int):
     ops.expect(keys, torch.int32, 2, "keys")
-    ops.expect(vals, torch.float32, 2, "vals")
+    code = ops.expect_float(vals, 2, "vals")
     if vals.shape != keys.shape or vals.device != keys.device:
         raise ValueError(f"vals {tuple(vals.shape)} on {vals.device} must "
                          f"match keys {tuple(keys.shape)} on {keys.device}")
@@ -56,7 +59,7 @@ def _hash_accumulate_cuda(keys: torch.Tensor, vals: torch.Tensor,
     r, ip_cap = keys.shape
     dev = keys.device
     cols = torch.empty((r, table_cap), dtype=torch.int32, device=dev)
-    out = torch.empty((r, table_cap), dtype=torch.float32, device=dev)
+    out = torch.empty((r, table_cap), dtype=vals.dtype, device=dev)
     cnt = torch.empty(r, dtype=torch.int32, device=dev)
     if r == 0:
         return cols, out, cnt
@@ -68,7 +71,7 @@ def _hash_accumulate_cuda(keys: torch.Tensor, vals: torch.Tensor,
         rc = library().repro_hash_accumulate(
             keys.data_ptr(), vals.data_ptr(), masks.data_ptr(),
             cols.data_ptr(), out.data_ptr(), cnt.data_ptr(), r, ip_cap,
-            table_cap, torch.cuda.current_stream().cuda_stream)
+            table_cap, code, torch.cuda.current_stream().cuda_stream)
     ops.check_launch("hash_accumulate", rc, route(table_cap))
     return cols, out, cnt
 
@@ -76,7 +79,8 @@ def _hash_accumulate_cuda(keys: torch.Tensor, vals: torch.Tensor,
 def hash_accumulate(keys: torch.Tensor, vals: torch.Tensor, table_cap: int):
     """Per-row Algorithm-4 accumulation.
 
-    keys: (R, ip_cap) int32, -1 padded; vals: (R, ip_cap) (float32 on CUDA).
+    keys: (R, ip_cap) int32, -1 padded; vals: (R, ip_cap) (float32,
+    bfloat16 or float16 on CUDA).
     Returns (cols (R, table_cap) int32 EMPTY-padded, *unsorted*;
     vals (R, table_cap); counts (R,) int32).
     """

@@ -6,9 +6,11 @@ other device raise (a meta tensor takes the plain version only inside
 ``shape_trace``, the dry run's trace of shapes, where nothing runs).  There is no fallback from the card to the plain version.  Each
 launch adds one to the kernel's count in ``LAUNCHES``, so a run can show
 that its path went through the kernels.  The row gather (by its copy
-unit), the ranged gather (by the range's alignment), the BSR and block
-TopK products (by dtype), the per-token TopK product (by W2's rows),
-the hash accumulate (by table size) and the flash attention (by dtype)
+unit), the ranged gather (by the range's alignment and width), the BSR
+product (by dtype), the block TopK product (by dtype and block), the
+per-token TopK product (by W2's rows and dtype), the hash accumulate (by
+table size), the flash attention and its backward (by dtype, widths and
+``p_dtype``) and the flash attention's keyless pass (forward or backward)
 also count the CUDA route they took in ``ROUTE_LAUNCHES``, under
 ``"<kernel>/<route>"``.
 
@@ -43,7 +45,8 @@ from torch.distributed.tensor import DTensor
 LAUNCHES: Dict[str, int] = {
     "gather_rows": 0, "hash_accumulate": 0, "aia_ranged_gather": 0,
     "bsr_spmm": 0, "topk_spmm": 0, "block_topk_spmm": 0,
-    "flash_attention_fused": 0, "flash_attention_bwd": 0, "segment_sum": 0,
+    "flash_attention_fused": 0, "flash_attention_bwd": 0,
+    "flash_attention_keyless": 0, "segment_sum": 0,
 }
 ROUTE_LAUNCHES: Dict[str, int] = {}
 
@@ -141,13 +144,19 @@ def expect(x: torch.Tensor, dtype: torch.dtype, ndim: int, what: str) -> None:
             f"{x.is_contiguous()})")
 
 
+# the C entry points' dtype codes (csrc/dtypes.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.float64: 3}
+
+
 def expect_float(x: torch.Tensor, ndim: int, what: str) -> int:
-    """Validate a float32 or bfloat16 kernel operand; return the C entry
-    points' dtype flag (1 for bfloat16, 0 for float32)."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{what}: expected float32 or bfloat16, got {x.dtype}")
+    """Validate a float32, bfloat16 or float16 kernel operand; return the C
+    entry points' dtype code (0 float32, 1 bfloat16, 2 float16)."""
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"{what}: expected float32, bfloat16 or float16, "
+                         f"got {x.dtype}")
     expect(x, x.dtype, ndim, what)
-    return int(x.dtype == torch.bfloat16)
+    return DTYPE_CODES[x.dtype]
 
 
 def same_device(*named: tuple) -> None:
@@ -231,7 +240,7 @@ def block_topk_spmm(h_kept, bidx, w2, block: int = 128,
 def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
                           k_blk: int = 128, backend: str = "auto"):
     """Online-softmax attention on ``(BH, S, D)`` q and k and a ``(BH, S,
-    Dv)`` v (Dv <= D) with KV expanded to the query heads, scale
+    Dv)`` v (any D and Dv) with KV expanded to the query heads, scale
     ``1/sqrt(D)``, output ``(BH, S, Dv)`` in ``q``'s dtype; ``S`` must be a
     multiple of ``min(q_blk, S)`` and ``min(k_blk, S)``."""
     from repro_torch.kernels import flash_attention as k7
@@ -241,16 +250,19 @@ def flash_attention_fused(q, k, v, causal: bool = True, q_blk: int = 128,
 
 
 def flash_attention_masked(q, k, v, causal: bool = True, window: int = 0,
-                           q_offset: int = 0, kv_len=None,
-                           backend: str = "auto"):
+                           q_offset: int = 0, kv_len=None, p_dtype=None,
+                           k_chunk: int = 1024, backend: str = "auto"):
     """K7 under the chunked attention's masks, on ``(BH, Sq, D)`` q,
-    ``(BH, Sk, D)`` k and ``(BH, Sk, Dv)`` v (Dv <= D), KV expanded to the
-    query heads: key j is valid for query i iff ``j < kv_len``, ``j <= i +
-    q_offset`` when causal and ``j > i + q_offset - window`` when ``window
-    > 0``; output ``(BH, Sq, Dv)`` in ``q``'s dtype.  It counts as a launch
-    of ``flash_attention_fused``, the one kernel it runs; under autograd its
-    backward kernel counts once a backward, as ``flash_attention_bwd``."""
+    ``(BH, Sk, D)`` k and ``(BH, Sk, Dv)`` v (any D and Dv), KV expanded to
+    the query heads: key j is valid for query i iff ``j < kv_len``, ``j <=
+    i + q_offset`` when causal and ``j > i + q_offset - window`` when
+    ``window > 0``; ``p_dtype=torch.bfloat16`` rounds P and V before P.V; a
+    query without a valid key gets the reference's row for its key chunk
+    ``k_chunk``; output ``(BH, Sq, Dv)`` in ``q``'s dtype.  It counts as a
+    launch of ``flash_attention_fused`` (and of ``flash_attention_keyless``
+    where some query has no key); under autograd its backward kernel counts
+    once a backward, as ``flash_attention_bwd``."""
     from repro_torch.kernels import flash_attention as k7
     return _route(backend, k7.flash_attention_masked,
-                  k7.flash_attention_masked_plain)(q, k, v, causal, window,
-                                                   q_offset, kv_len)
+                  k7.flash_attention_masked_plain)(
+        q, k, v, causal, window, q_offset, kv_len, p_dtype, k_chunk)

@@ -1,8 +1,8 @@
 """Sorted segment sum in the reference's order of adds.
 
 ``segment_sum(ids, values, n_out, order=None)``: for non-decreasing int64
-``ids`` of shape (N,) and ``values`` of shape (N, W) or (B, N, W), float32
-or float64, ``out[..., s, :] = ((0 + v[i0]) + v[i1]) + ...`` over the
+``ids`` of shape (N,) and ``values`` of shape (N, W) or (B, N, W), float32,
+float64, bfloat16 or float16, ``out[..., s, :] = ((0 + v[i0]) + v[i1]) + ...`` over the
 entries ``i0 < i1 < ...`` with ``ids[i] == s``, where ``v[i]`` is
 ``values[..., order[i], :]`` when a permutation ``order`` (N,) is given and
 ``values[..., i, :]`` otherwise; a segment with no entry is 0.  The result
@@ -26,7 +26,11 @@ changes from run to run, so the port's sums there go through the CUDA
 kernel ``csrc/segment_sum.cu`` instead: no atomics, each run added left
 to right by one thread (for W = 1 found at its first entry, for W > 1 a
 warp a segment across the columns), every add ``__fadd_rn`` /
-``__dadd_rn``.  It
+``__dadd_rn``; bfloat16 and float16 values are added in float32 with
+each add rounded to their type, as the CPU's ``index_add_`` and XLA's
+scatter-add add them, so a low-precision sum is the CPU's bits too.  Any
+number of value sets is taken (the kernel walks its grid's y dimension in
+slices of 65,535).  It
 replaces no Pallas kernel: the reference leaves these sums to XLA.  Each
 launch counts under ``segment_sum``.
 
@@ -48,7 +52,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import library
 
-MAX_BATCH = 65535  # the kernel's grid.y
+FLOATS = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
 
 
 def _check(ids, values, order, skip) -> None:
@@ -64,24 +68,54 @@ def _check(ids, values, order, skip) -> None:
                          f"ids' shape {tuple(ids.shape)}")
 
 
+def _add_rounded(ids, values, n_out):
+    """``zeros(...).index_add_(-2, ids, values)`` for bfloat16 and float16
+    values with every add rounded to their type, in index order: the CPU's
+    ``index_add_`` sums such runs in float32 and rounds once.  Each step
+    adds the next entry of every run at once (its rank in its run after a
+    stable sort), so a step's ids are distinct."""
+    ids, order = torch.sort(ids, stable=True)
+    pos = torch.arange(ids.shape[0], device=ids.device)
+    start = torch.ones_like(ids, dtype=torch.bool)
+    start[1:] = ids[1:] != ids[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    # the entries by rank, so that each step's are one slice
+    by_rank = torch.sort(rank, stable=True).indices
+    ids, order = ids[by_rank], order[by_rank]
+    ends = torch.bincount(rank).cumsum(0).tolist() if ids.numel() else []
+    acc = values.new_zeros((*values.shape[:-2], n_out, values.shape[-1]),
+                           dtype=torch.float32)
+    lo = 0
+    for hi in ends:
+        seg = ids[lo:hi]
+        acc[..., seg, :] = (acc[..., seg, :] + values.index_select(
+            -2, order[lo:hi]).float()).to(values.dtype).float()
+        lo = hi
+    return acc.to(values.dtype)
+
+
 def segment_sum_plain(ids: torch.Tensor, values: torch.Tensor, n_out: int,
                       order: torch.Tensor | None = None,
                       skip: int = 0) -> torch.Tensor:
     """The plain PyTorch version: ``index_add_`` into zeros, which adds in
-    index order on the CPU.  ``ids`` need not be sorted here."""
+    index order on the CPU (``_add_rounded`` for bfloat16 and float16, so
+    that each add rounds to their type as the reference's does).  ``ids``
+    need not be sorted here."""
     _check(ids, values, order, skip)
     if order is not None:
         values = values.index_select(-2, order)
     keep = ids < n_out
+    if skip:  # skipped segments are left out
+        keep &= ids % skip != skip - 1
     if not bool(keep.all()):  # ids past the end are left out
         ids, values = ids[keep], values[..., keep, :]
+    if values.dtype in (torch.bfloat16, torch.float16):
+        return _add_rounded(ids, values, n_out)
     out = values.new_zeros((*values.shape[:-2], n_out, values.shape[-1]))
     if values.shape[-1] == 1:  # ATen's index_add_ is fastest on the last dim
         out[..., 0].index_add_(-1, ids, values[..., 0])
     else:
         out.index_add_(-2, ids, values)
-    if skip:
-        out[..., skip - 1::skip, :] = 0
     return out
 
 
@@ -91,15 +125,12 @@ def _segment_sum_cuda(ids, values, n_out, order, skip=0):
     if order is not None:
         ops.expect(order, torch.int64, 1, "order")
         ops.same_device(("ids", ids), ("order", order))
-    if values.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"segment_sum: float32 or float64 values expected, "
+    if values.dtype not in FLOATS:
+        raise ValueError(f"segment_sum: floating-point values expected, "
                          f"got {values.dtype}")
     ops.same_device(("values", values), ("ids", ids))
     values = values.contiguous()
     batch = values.shape[0] if values.dim() == 3 else 1
-    if batch > MAX_BATCH:
-        raise ValueError(f"segment_sum: {batch} value sets, at most "
-                         f"{MAX_BATCH}")
     n, width = values.shape[-2], values.shape[-1]
     out = torch.empty((*values.shape[:-2], n_out, width), dtype=values.dtype,
                       device=values.device)
@@ -109,7 +140,7 @@ def _segment_sum_cuda(ids, values, n_out, order, skip=0):
         values.device, library().repro_segment_sum, ids.data_ptr(),
         values.data_ptr(), None if order is None else order.data_ptr(),
         out.data_ptr(), n, n_out, width, skip, batch,
-        int(values.dtype == torch.float64))
+        ops.DTYPE_CODES[values.dtype])
     ops.check_launch("segment_sum", rc)
     return out
 

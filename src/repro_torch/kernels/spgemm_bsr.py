@@ -1,8 +1,8 @@
 """Block-row Gustavson SpGEMM with a dense right-hand side (BSR x dense).
 
 ``C[i*bs:(i+1)*bs] = sum_j A_blocks[rowptr[i] + j] @ B[colidx[.]*bs : +bs]``
-over ``j < min(max_blocks_per_row, row length)``, in float32 from float32
-or bfloat16 operands.  As in the reference's grid of ``(n_brows,
+over ``j < min(max_blocks_per_row, row length)``, in float32 from float32,
+bfloat16 or float16 operands.  As in the reference's grid of ``(n_brows,
 max_blocks_per_row)`` steps, the blocks of a row past
 ``max_blocks_per_row`` are dropped, a slot past the last stored block reads
 the last block, and an empty row gives zeros; block-column ids are clipped
@@ -13,8 +13,9 @@ the order of each block product's sums.
 On CUDA the dtype chooses the kernel (``route``): bfloat16 blocks and ``b``
 go to ``csrc/bsr_spmm_wgmma.cu``, the products on the tensor cores
 (``wgmma`` on ``cp.async``-staged block tiles, float32 accumulators: bf16
-products are exact in float32); float32 ones to ``csrc/bsr_spmm.cu``,
-float32 on the CUDA cores (a TF32 ``wgmma`` would keep 10 mantissa bits).
+products are exact in float32); float32 and float16 ones to
+``csrc/bsr_spmm.cu``, float32 on the CUDA cores (a TF32 ``wgmma`` would
+keep 10 mantissa bits).
 Either is one launch per call.
 
 Replaces ``repro.kernels.spgemm_bsr.bsr_spmm`` (the Pallas
@@ -30,12 +31,14 @@ from repro_torch.kernels._build import library
 
 # the kernel each dtype goes to on CUDA: (C entry point, route)
 KERNELS = {torch.bfloat16: ("repro_bsr_spmm_wgmma", "wgmma"),
-           torch.float32: ("repro_bsr_spmm", "cuda_cores")}
+           torch.float32: ("repro_bsr_spmm", "cuda_cores"),
+           torch.float16: ("repro_bsr_spmm", "cuda_cores")}
 
 
 def route(dtype: torch.dtype) -> str:
     """The kernel a CUDA call with ``dtype`` blocks and ``b`` launches:
-    ``"wgmma"`` (bfloat16, tensor cores) or ``"cuda_cores"`` (float32)."""
+    ``"wgmma"`` (bfloat16, tensor cores) or ``"cuda_cores"`` (float32 and
+    float16)."""
     return KERNELS[dtype][1]
 
 
@@ -95,7 +98,7 @@ def _bsr_spmm_cuda(rowptr, colidx, a_blocks, b, max_blocks_per_row: int):
     _check_shapes(rowptr, colidx, a_blocks, b)
     ops.expect(rowptr, torch.int32, 1, "rowptr")
     ops.expect(colidx, torch.int32, 1, "colidx")
-    ops.expect_float(a_blocks, 3, "a_blocks")
+    code = ops.expect_float(a_blocks, 3, "a_blocks")
     ops.expect(b, a_blocks.dtype, 2, "b")
     ops.same_device(("rowptr", rowptr), ("colidx", colidx),
                     ("a_blocks", a_blocks), ("b", b))
@@ -114,13 +117,15 @@ def _bsr_spmm_cuda(rowptr, colidx, a_blocks, b, max_blocks_per_row: int):
         rc = getattr(library(), entry)(
             rowptr.data_ptr(), colidx.data_ptr(), a_blocks.data_ptr(),
             b.data_ptr(), out.data_ptr(), n_brows, n_bcols, bs, d,
-            max_blocks_per_row, bcap, torch.cuda.current_stream().cuda_stream)
+            max_blocks_per_row, bcap, code,
+            torch.cuda.current_stream().cuda_stream)
     ops.check_launch("bsr_spmm", rc, path)
     return out
 
 
 def bsr_spmm(rowptr, colidx, a_blocks, b, max_blocks_per_row: int):
     """BSR @ dense in float32: the plain version on the CPU, the dtype's
-    kernel on CUDA (float32 or bfloat16 blocks and ``b`` of one dtype)."""
+    kernel on CUDA (float32, bfloat16 or float16 blocks and ``b`` of one
+    dtype)."""
     return ops.dispatch(bsr_spmm_plain, _bsr_spmm_cuda, rowptr, colidx,
                         a_blocks, b, max_blocks_per_row)

@@ -6,21 +6,25 @@
   from zero, in float32, as in the reference's grid of ``(tokens, k)``
   steps, so the kernels, the plain version and the reference's Pallas
   kernel agree bit for bit, and a repeated id accumulates.  On CUDA W2's
-  rows choose the kernel (``topk_spmm_route``): where a 16-byte column
-  slice of W2 for all its rows, and the pair buffers, fit one block's
-  shared memory (d_ff <= 10,424), ``csrc/topk_spmm_smem.cu`` (``"smem"``:
-  each block holds one slice, so W2 leaves L2 once, and walks every
-  token's pairs, one thread a token); otherwise ``csrc/topk_spmm.cu``
-  (``"l2"``: a block a token, W2's rows read through L2).
+  rows and dtype choose the kernel (``topk_spmm_route``): float32 or
+  bfloat16 where a 16-byte column slice of W2 for all its rows, and the
+  pair buffers, fit one block's shared memory (d_ff <= 10,424),
+  ``csrc/topk_spmm_smem.cu`` (``"smem"``: each block holds one slice, so
+  W2 leaves L2 once, and walks every token's pairs, one thread a token);
+  otherwise, and for float16, ``csrc/topk_spmm.cu`` (``"l2"``: a block a
+  token, W2's rows read through L2).
 * ``block_topk_spmm`` (per token tile): ``y[tile] = sum_{t < kb}
   h_kept[tile, t] (tile x block) @ W2[bidx[tile, t]*block : +block]``, in
   float32; the kernels and the plain version differ only in the order of
-  the sums.  On CUDA the dtype chooses the kernel (``route``): bfloat16
-  goes to ``csrc/block_topk_spmm_wgmma.cu`` (block-major: each selected W2
-  block read once, ``wgmma`` on the stacked tile rows that picked it, the
-  partial products added into y by float32 reductions, so the order of the
-  sums over ``t`` varies from run to run); float32 to the CUDA-core kernel
-  in ``csrc/topk_spmm.cu`` (tile by tile, deterministic).
+  the sums.  On CUDA the dtype and sizes choose the kernel (``route``):
+  bfloat16 within the tensor-core kernel's limits (a block up to its
+  ``kMaxBlock``, 256 lanes, and up to ``kMaxInvertBlocks`` blocks) goes to
+  ``csrc/block_topk_spmm_wgmma.cu`` (block-major: each selected W2 block
+  read once, ``wgmma`` on the stacked tile rows that picked it, the partial
+  products added into y by float32 reductions, so the order of the sums
+  over ``t`` varies from run to run); float32, float16 and the other
+  bfloat16 calls to the CUDA-core kernel in ``csrc/topk_spmm.cu`` (tile by
+  tile, deterministic; any block, staged in panels of 1,536 lanes).
 
 Ids outside W2 are clipped to its first or last row (block).  Replace
 ``repro.kernels.topk_spmm.topk_spmm`` and ``block_topk_spmm`` (the Pallas
@@ -33,18 +37,22 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import library, source_constants
 
-# the block-form kernel each dtype goes to on CUDA: (C entry point, route)
-KERNELS = {torch.bfloat16: ("repro_block_topk_spmm_wgmma", "wgmma"),
-           torch.float32: ("repro_block_topk_spmm", "cuda_cores")}
-# the CUDA-core kernel stages 8 rows of a block as float32 in 48 KB
-F32_MAX_BLOCK = 1536
+# the block-form kernel's C entry point on each route
+KERNELS = {"wgmma": "repro_block_topk_spmm_wgmma",
+           "cuda_cores": "repro_block_topk_spmm"}
 
 
-def route(dtype: torch.dtype) -> str:
-    """The kernel a CUDA ``block_topk_spmm`` call with ``dtype`` operands
-    launches: ``"wgmma"`` (bfloat16, tensor cores) or ``"cuda_cores"``
-    (float32)."""
-    return KERNELS[dtype][1]
+def route(dtype: torch.dtype, block: int = 128, n_blocks: int = 1) -> str:
+    """The kernel a CUDA ``block_topk_spmm`` call with ``dtype`` operands,
+    ``block``-lane blocks and ``n_blocks`` W2 blocks launches: ``"wgmma"``
+    (bfloat16 with ``block`` up to the source's ``kMaxBlock`` and
+    ``n_blocks`` up to ``kMaxInvertBlocks``; tensor cores) or
+    ``"cuda_cores"`` (everything else)."""
+    c = source_constants("block_topk_spmm_wgmma.cu")
+    if dtype == torch.bfloat16 and block <= c["kMaxBlock"] \
+            and n_blocks <= c["kMaxInvertBlocks"]:
+        return "wgmma"
+    return "cuda_cores"
 
 
 def _check_topk(vals, idx, w2):
@@ -78,17 +86,18 @@ def topk_spmm_smem_bytes(d_ff: int) -> int:
         + c["kBarrierBytes"]
 
 
-def topk_spmm_route(d_ff: int) -> str:
-    """The kernel a CUDA ``topk_spmm`` call with W2 of ``d_ff`` rows
-    launches: ``"smem"`` where its block fits the shared memory a block may
-    use (``kMaxSmem``), else ``"l2"``."""
+def topk_spmm_route(d_ff: int, dtype: torch.dtype = torch.float32) -> str:
+    """The kernel a CUDA ``topk_spmm`` call with W2 of ``d_ff`` rows of
+    ``dtype`` launches: ``"smem"`` for float32 or bfloat16 where its block
+    fits the shared memory a block may use (``kMaxSmem``), else ``"l2"``."""
     c = source_constants("topk_spmm_smem.cu")
-    return "smem" if topk_spmm_smem_bytes(d_ff) <= c["kMaxSmem"] else "l2"
+    fits = topk_spmm_smem_bytes(d_ff) <= c["kMaxSmem"]
+    return "smem" if fits and dtype != torch.float16 else "l2"
 
 
 def _topk_spmm_cuda(vals, idx, w2):
     _check_topk(vals, idx, w2)
-    bf16 = ops.expect_float(vals, 2, "vals")
+    code = ops.expect_float(vals, 2, "vals")
     ops.expect(idx, torch.int32, 2, "idx")
     ops.expect(w2, vals.dtype, 2, "w2")
     ops.same_device(("vals", vals), ("idx", idx), ("w2", w2))
@@ -98,29 +107,29 @@ def _topk_spmm_cuda(vals, idx, w2):
         return out
     if k == 0:
         return out.zero_()
-    path = topk_spmm_route(d_ff)
+    path = topk_spmm_route(d_ff, vals.dtype)
     if path == "smem":  # (id, value) pairs, t-major in token groups
         group = source_constants("topk_spmm_smem.cu")["kThreads"]
-        pair_bytes = 4 if bf16 else 8
+        pair_bytes = 4 if code else 8
         pairs = torch.empty(-(-n // group) * group * k * pair_bytes,
                             dtype=torch.uint8, device=w2.device)
         rc = ops.launch_on(
             w2.device, library().repro_topk_spmm_smem, vals.data_ptr(),
             idx.data_ptr(), w2.data_ptr(), pairs.data_ptr(), out.data_ptr(),
-            n, k, d, d_ff, bf16)
+            n, k, d, d_ff, code)
     else:
         rc = ops.launch_on(
             w2.device, library().repro_topk_spmm, vals.data_ptr(),
             idx.data_ptr(), w2.data_ptr(), out.data_ptr(), n, k, d, d_ff,
-            bf16)
+            code)
     ops.check_launch("topk_spmm", rc, path)
     return out
 
 
 def topk_spmm(vals, idx, w2):
     """``sum_t vals[i, t] * w2[idx[i, t]]`` in float32: the plain version on
-    the CPU, the kernel on CUDA (vals and w2 float32 or bfloat16 of one
-    dtype, idx int32)."""
+    the CPU, the kernel on CUDA (vals and w2 float32, bfloat16 or float16 of
+    one dtype, idx int32)."""
     return ops.dispatch(topk_spmm_plain, _topk_spmm_cuda, vals, idx, w2)
 
 
@@ -155,26 +164,14 @@ def block_topk_spmm_plain(h_kept, bidx, w2, block: int = 128):
 
 def _block_topk_spmm_cuda(h_kept, bidx, w2, block: int = 128):
     _check_tiles(h_kept, bidx, w2, block)
-    ops.expect_float(h_kept, 4, "h_kept")
+    code = ops.expect_float(h_kept, 4, "h_kept")
     ops.expect(bidx, torch.int32, 2, "bidx")
     ops.expect(w2, h_kept.dtype, 2, "w2")
     ops.same_device(("h_kept", h_kept), ("bidx", bidx), ("w2", w2))
     n_tiles, kb, tile, _ = h_kept.shape
     d = w2.shape[1]
     n_blocks = w2.shape[0] // block
-    path = route(h_kept.dtype)
-    if path == "wgmma":
-        c = source_constants("block_topk_spmm_wgmma.cu")
-        if block > c["kMaxBlock"] or n_blocks > c["kMaxInvertBlocks"]:
-            raise ValueError(
-                f"block={block}, {n_blocks} blocks: the bf16 kernel takes "
-                f"block <= {c['kMaxBlock']} (W2's slice and four A slots in "
-                f"one block's shared memory) and at most "
-                f"{c['kMaxInvertBlocks']} blocks (its counting sort)")
-    elif block > F32_MAX_BLOCK:
-        raise ValueError(f"block={block}: the float32 kernel stages 8 rows "
-                         f"of a block in 48 KB of shared memory (block <= "
-                         f"{F32_MAX_BLOCK})")
+    path = route(h_kept.dtype, block, n_blocks)
     if n_tiles * tile * d == 0 or kb == 0:
         return torch.zeros((n_tiles * tile, d), dtype=torch.float32,
                            device=w2.device)
@@ -194,14 +191,15 @@ def _block_topk_spmm_cuda(h_kept, bidx, w2, block: int = 128):
         else:
             rc = library().repro_block_topk_spmm(
                 h_kept.data_ptr(), bidx.data_ptr(), w2.data_ptr(),
-                out.data_ptr(), n_tiles, kb, tile, block, d, n_blocks, stream)
+                out.data_ptr(), n_tiles, kb, tile, block, d, n_blocks, code,
+                stream)
     ops.check_launch("block_topk_spmm", rc, path)
     return out
 
 
 def block_topk_spmm(h_kept, bidx, w2, block: int = 128):
     """Per-tile block product in float32, ``(n_tiles * tile, d)``: the plain
-    version on the CPU, the kernel on CUDA (h_kept and w2 float32 or
-    bfloat16 of one dtype, bidx int32)."""
+    version on the CPU, the kernel on CUDA (h_kept and w2 float32, bfloat16
+    or float16 of one dtype, bidx int32; any block)."""
     return ops.dispatch(block_topk_spmm_plain, _block_topk_spmm_cuda, h_kept,
                         bidx, w2, block)

@@ -6,21 +6,23 @@ cache holds the latent ``(B, S_max, kv_lora)`` and the shared rope key
 ``(B, S_max, rope)``.
 
 ``flash_attention`` is the reference's online softmax over query and key
-chunks.  A call inside the fused kernel's contract goes through
-``kernels.ops.flash_attention_masked`` (K7: the CUDA kernel on the card, its
-plain blockwise version on the CPU): Dv <= D <= 192, no ``p_dtype``, and
-every query with at least one valid key; any window, query offset,
-``kv_valid_len``, Sq and Sk.  So the causal self-attention of every model
-here, MLA's expanded prefill (qk 192 = 128 + 64 rope lanes, v 128), Zamba2's
-windowed shared block, Whisper's unmasked encoder over 1,500 frames and its
-cross-attention (448 queries against 1,500 keys) take K7.  Every other call
-runs the chunked PyTorch code (``flash_attention_chunked``, the reference's
-arithmetic) on the CPU; on the card it raises, since the port has no kernel
-for it.
+chunks.  Every call goes through ``kernels.ops.flash_attention_masked``
+(K7: the CUDA kernel on the card, its plain blockwise version on the CPU):
+any D and Dv, any window, query offset, ``kv_valid_len``, Sq and Sk,
+``p_dtype`` (bf16 P and V in P.V: on the card the tensor-core kernel's
+one-term build, or the CUDA-core kernel's flag), and queries without a
+valid key (their rows take the reference's value for its ``k_chunk``,
+written by K7's keyless pass).  So the causal self-attention of every
+model here, MLA's expanded prefill (qk 192 = 128 + 64 rope lanes, v 128),
+Zamba2's windowed shared block, Whisper's unmasked encoder over 1,500
+frames and its cross-attention (448 queries against 1,500 keys) take K7,
+on the route the dtype and widths choose (``kernels.flash_attention.
+route``).  ``q_chunk`` is kept in the reference's signature and has no
+effect; ``k_chunk`` shapes only the rows of queries without a valid key.
 
-The K7 route scales scores by ``1/sqrt(D)`` rounded once from double, as
-the Pallas kernel does; the chunked code by ``1/sqrt(float32(D))``, as the
-reference's model code does (one float32 ulp apart for D = 96).
+K7 scales scores by ``1/sqrt(D)`` rounded once from double, as the Pallas
+kernel does; the reference's model code by ``1/sqrt(float32(D))`` (one
+float32 ulp apart for D = 96).
 
 ``decode_attention`` and MLA's absorbed decode (``mla_decode``, float32
 einsums) are plain PyTorch, as the reference leaves them to XLA.
@@ -43,32 +45,13 @@ from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import ops
 from repro_torch.launch.sharding import unsplit
-from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM,
-                                                 rows_without_keys)
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
 
 
-def _mask_val(qpos, kpos, causal: bool, window: int):
-    ok = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)
-    if window:
-        ok = ok & (kpos > qpos - window)
-    return ok
-
-
-def on_k7_route(sq: int, sk: int, d: int, dv: int, window: int = 0,
-                q_offset: int = 0, kv_valid_len=None, p_dtype=None,
-                causal: bool = True) -> bool:
-    """True when ``flash_attention`` with these arguments goes through the
-    fused kernel (K7): Dv <= D <= 192, no ``p_dtype``, and no query without
-    a valid key."""
-    return (dv <= d <= MAX_HEAD_DIM and p_dtype is None
-            and not rows_without_keys(sq, sk, causal, window, q_offset,
-                                      kv_valid_len))
-
-
-def _fused(q, k, v, causal: bool, window: int, q_offset: int, kv_len):
+def _fused(q, k, v, causal: bool, window: int, q_offset: int, kv_len,
+           p_dtype=None, k_chunk: int = 1024):
     """K7 on the ``(B*H, S, D)`` layout: heads next to the batch, KV
     expanded to the query heads (head h reads kv head h // G); q keeps its
     length and v its width."""
@@ -85,7 +68,8 @@ def _fused(q, k, v, causal: bool, window: int, q_offset: int, kv_len):
     out = ops.flash_attention_masked(heads_first(q), heads_first(k),
                                      heads_first(v), causal=causal,
                                      window=window, q_offset=q_offset,
-                                     kv_len=kv_len)
+                                     kv_len=kv_len, p_dtype=p_dtype,
+                                     k_chunk=k_chunk)
     return out.reshape(b, h, sq, v.shape[3]).permute(0, 2, 1, 3)
 
 
@@ -139,95 +123,17 @@ def flash_attention(
 
     ``p_dtype=torch.bfloat16`` rounds the softmax probabilities to bf16
     between the two products (the sums stay float32).  Returns ``(B, Sq, H,
-    Dv)`` in ``q``'s dtype.
+    Dv)`` in ``q``'s dtype.  Every call runs K7 (``_fused``); ``q_chunk``
+    has no effect on the result, ``k_chunk`` only on the rows of queries
+    without a valid key.
     """
     if isinstance(q, DTensor):
         return _local_heads(
             lambda ql, kl, vl: flash_attention(
                 ql, kl, vl, causal, window, q_offset, q_chunk, k_chunk,
                 kv_valid_len, p_dtype), q, k, v)
-    b, sq, h, d = q.shape
-    sk, dv = k.shape[1], v.shape[3]
-    if on_k7_route(sq, sk, d, dv, window, q_offset, kv_valid_len, p_dtype,
-                   causal):
-        return _fused(q, k, v, causal, window, q_offset, kv_valid_len)
-    if q.device.type != "cpu":
-        empty = rows_without_keys(sq, sk, causal, window, q_offset,
-                                  kv_valid_len)
-        raise NotImplementedError(
-            f"flash_attention(p_dtype={p_dtype}, D={d}, Dv={dv}, a query "
-            f"without keys: {empty}) is outside the fused kernel's contract "
-            f"(Dv <= D <= {MAX_HEAD_DIM}, no p_dtype, every query with a "
-            f"valid key) and the port has no kernel for it on {q.device} "
-            f"(ROADMAP Queue C)")
-    return flash_attention_chunked(q, k, v, causal, window, q_offset,
-                                   q_chunk, k_chunk, kv_valid_len, p_dtype)
-
-
-def flash_attention_chunked(q, k, v, causal: bool = True, window: int = 0,
-                            q_offset: int = 0, q_chunk: int = 512,
-                            k_chunk: int = 1024, kv_valid_len=None,
-                            p_dtype: Optional[torch.dtype] = None):
-    """The reference's chunked online softmax, in plain PyTorch: query
-    chunks, and inside each the key chunks in ascending order (ragged
-    lengths padded to the chunk grid, padded keys masked).  The CPU runs it
-    for the calls outside K7's contract."""
-    b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
-    dv = v.shape[3]
-    g = h // kv
-    scale = float(1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32)))
-    q_chunk = min(q_chunk, sq)
-    k_chunk = min(k_chunk, sk)
-    # pad ragged lengths up to the chunk grid; padded keys are masked via
-    # kv_valid_len, padded queries are sliced off the output
-    sq_orig, sk_orig = sq, sk
-    if sq % q_chunk or sk % k_chunk:
-        sq_pad, sk_pad = (-sq) % q_chunk, (-sk) % k_chunk
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, sq_pad))
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, sk_pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, sk_pad))
-        sq, sk = sq + sq_pad, sk + sk_pad
-        if kv_valid_len is None:
-            kv_valid_len = sk_orig
-        else:
-            kv_valid_len = torch.clamp(torch.as_tensor(kv_valid_len),
-                                       max=sk_orig)
-    nq, nk = sq // q_chunk, sk // k_chunk
-
-    qr = q.reshape(b, nq, q_chunk, kv, g, d)
-    kr = k.reshape(b, nk, k_chunk, kv, d)
-    vr = v.reshape(b, nk, k_chunk, kv, dv)
-    outs = []
-    for qi in range(nq):
-        qc = qr[:, qi].float()  # (B, q_chunk, KV, G, D)
-        m = torch.full((b, q_chunk, kv, g), NEG_INF, dtype=torch.float32)
-        l = torch.zeros((b, q_chunk, kv, g), dtype=torch.float32)
-        acc = torch.zeros((b, q_chunk, kv, g, dv), dtype=torch.float32)
-        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk)
-        for kj in range(nk):
-            s = torch.einsum("bqkgd,bckd->bqkgc", qc,
-                             kr[:, kj].float()) * scale
-            kpos = kj * k_chunk + torch.arange(k_chunk)
-            ok = _mask_val(qpos[:, None], kpos[None, :], causal, window)
-            if kv_valid_len is not None:
-                ok = ok & (kpos[None, :] < kv_valid_len)
-            s = torch.where(ok[None, :, None, None, :], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            vs = vr[:, kj]
-            if p_dtype is not None:
-                # rounded to p_dtype, multiplied and summed in float32
-                p = p.to(p_dtype).float()
-                vs = vs.to(p_dtype)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqkgc,bckd->bqkgd", p, vs.float())
-            m = m_new
-        outs.append((acc / l[..., None].clamp_min(1e-30)).to(q.dtype))
-    out = torch.stack(outs, dim=1).reshape(b, sq, h, dv)
-    return out[:, :sq_orig]
+    return _fused(q, k, v, causal, window, q_offset, kv_valid_len, p_dtype,
+                  k_chunk)
 
 
 def decode_attention(

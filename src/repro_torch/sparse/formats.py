@@ -32,7 +32,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.segment_sum import index_sum
+from repro_torch.kernels.segment_sum import index_sum, segment_sum_plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,13 +163,13 @@ def _add_at(n_out: int, ids: torch.Tensor, values: torch.Tensor):
     """``zeros(n_out, *values.shape[1:])`` with ``values[i]`` added at
     ``ids[i]`` in stream order, as the reference's ``.at[ids].add`` (ids
     >= ``n_out``, the padding's, left out):
-    float32 and float64 through ``kernels.segment_sum.index_sum`` (CUDA's
-    ``index_add_`` and ``index_put_(accumulate=True)`` add in no fixed
-    order, and so does the CPU's ``index_put_`` on long runs of one
-    index); other dtypes, which the kernel does not take, by
+    every floating dtype through ``kernels.segment_sum.index_sum``
+    (CUDA's ``index_add_`` and ``index_put_(accumulate=True)`` add in no
+    fixed order, and so does the CPU's ``index_put_`` on long runs of one
+    index); integers, whose sums do not depend on the order, by
     ``index_put_(accumulate=True)``."""
     w = values.reshape(values.shape[0], -1)
-    if w.dtype in (torch.float32, torch.float64):
+    if w.dtype.is_floating_point:
         out = index_sum(ids, w, n_out)
     else:
         out = torch.zeros((n_out + 1, w.shape[1]), dtype=w.dtype,
@@ -235,31 +235,61 @@ def _csr_from_sorted(rows, cols, vals, shape, capacity, device) -> CSR:
     return csr_from_arrays(indptr, indices, data, (n, m), device)
 
 
+def _host(x):
+    """A tensor or array -> (a numpy array, the dtype the result keeps).  A
+    bfloat16 tensor, which numpy cannot hold, comes across as float32 (an
+    exact widening) with ``torch.bfloat16`` to cast back to; anything else
+    keeps its own dtype (None)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return x.float().numpy(), torch.bfloat16
+        return x.numpy(), None
+    return np.asarray(x), None
+
+
+def _keep(a: CSR, dtype) -> CSR:
+    """``a`` with its data cast back to ``dtype`` (None: as it is); exact,
+    since the values came from ``dtype`` and were only moved."""
+    if dtype is None:
+        return a
+    return CSR(a.indptr, a.indices, a.data.to(dtype), a.shape)
+
+
 def csr_from_dense(x, capacity: int | None = None, device="cuda") -> CSR:
-    """Dense (n, m) -> CSR.  Host-side helper (numpy compaction)."""
-    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """Dense (n, m) -> CSR.  Host-side helper (numpy compaction); a
+    bfloat16 tensor goes through float32 on the host and keeps its
+    dtype."""
+    x, dtype = _host(x)
     rows, cols = np.nonzero(x)
-    return _csr_from_sorted(rows, cols, x[rows, cols], x.shape, capacity,
-                            device)
+    return _keep(_csr_from_sorted(rows, cols, x[rows, cols], x.shape,
+                                  capacity, device), dtype)
 
 
 def csr_from_coo(rows, cols, vals, shape, capacity: int | None = None,
                  device="cuda") -> CSR:
     """COO triplets (host numpy) -> CSR, sorting by (row, col) and merging
     duplicates (summed in ``np.add.at`` order, as the reference does)."""
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    vals = np.asarray(vals)
+    rows = np.asarray(_host(rows)[0], np.int64)
+    cols = np.asarray(_host(cols)[0], np.int64)
+    vals, dtype = _host(vals)
     n, m = shape
     order = np.lexsort((cols, rows))
     rows, cols, vals = rows[order], cols[order], vals[order]
     if len(rows):
         key = rows * m + cols
         uniq, inv = np.unique(key, return_inverse=True)
-        merged = np.zeros(len(uniq), vals.dtype)
-        np.add.at(merged, inv, vals)
+        if dtype is None:
+            merged = np.zeros(len(uniq), vals.dtype)
+            np.add.at(merged, inv, vals)
+        else:  # each add rounded to bfloat16, in np.add.at's order
+            merged = segment_sum_plain(
+                torch.from_numpy(inv.reshape(-1)),
+                torch.from_numpy(vals).to(dtype)[:, None],
+                len(uniq))[:, 0].float().numpy()
         rows, cols, vals = uniq // m, uniq % m, merged
-    return _csr_from_sorted(rows, cols, vals, (n, m), capacity, device)
+    return _keep(_csr_from_sorted(rows, cols, vals, (n, m), capacity,
+                                  device), dtype)
 
 
 def bsr_from_arrays(indptr, indices, blocks, shape, device="cuda") -> BSR:
@@ -361,8 +391,9 @@ def csr_to_dense(a: CSR) -> torch.Tensor:
 def ell_from_dense(x, k_cap: int | None = None, device="cuda") -> ELL:
     """Dense (n, m) -> ELL with ``k_cap`` slots a row (default: the widest
     row's nonzeros; a row's nonzeros past ``k_cap`` drop).  Host-side
-    helper (numpy compaction)."""
-    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    helper (numpy compaction; a bfloat16 tensor goes through float32 and
+    keeps its dtype)."""
+    x, dtype = _host(x)
     n, m = x.shape
     nz = x != 0
     per_row = nz.sum(axis=1)
@@ -375,7 +406,9 @@ def ell_from_dense(x, k_cap: int | None = None, device="cuda") -> ELL:
     data = np.zeros((n, k), x.dtype)
     indices[rows[keep], within[keep]] = cols[keep]
     data[rows[keep], within[keep]] = x[rows[keep], cols[keep]]
-    return ELL(from_numpy(indices, device), from_numpy(data, device), (n, m))
+    data = from_numpy(data, device)
+    return ELL(from_numpy(indices, device),
+               data if dtype is None else data.to(dtype), (n, m))
 
 
 def ell_to_dense(a: ELL) -> torch.Tensor:

@@ -34,16 +34,18 @@ def csr_row_nnz(a: CSR) -> torch.Tensor:
 class _TakeRows(torch.autograd.Function):
     """``x[clip(idx)]`` with a pluggable gather; the backward adds the
     cotangent into zeros at the clipped ids, in stream order
-    (``index_sum``).  The kernel reads rows of a
-    contiguous ``x``, so a strided ``x`` (a transpose, a column slice) is
-    copied to a contiguous one first."""
+    (``index_sum``).  The kernel reads rows a pitch apart, so a
+    view with unit inner stride (a column slice) is gathered as it is; only
+    one whose inner stride is not 1 (a transpose) is copied to a
+    contiguous one first."""
 
     @staticmethod
     def forward(ctx, x, idx, gather):
         ctx.save_for_backward(idx)
         ctx.n_rows = x.shape[0]
         if gather == "aia":
-            return gather_rows(x.contiguous(), idx)
+            unit = x.shape[1] <= 1 or x.stride(1) == 1
+            return gather_rows(x if unit else x.contiguous(), idx)
         return x[idx.clamp(0, max(x.shape[0] - 1, 0)).long()]
 
     @staticmethod

@@ -32,8 +32,9 @@ SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory, 1 KB a block kept
 def test_block_topk_routes_by_dtype_to_built_entry_points():
     assert topk_spmm.route(torch.bfloat16) == "wgmma"
     assert topk_spmm.route(torch.float32) == "cuda_cores"
+    assert topk_spmm.route(torch.float16) == "cuda_cores"
     assert all(name in _build.SIGNATURES
-               for name, _ in topk_spmm.KERNELS.values())
+               for name in topk_spmm.KERNELS.values())
 
 
 @pytest.mark.parametrize("cap,want", [(64, "smem"), (1024, "smem"),
@@ -83,12 +84,13 @@ def test_cpu_calls_count_no_launch_or_route():
 @pytest.mark.parametrize("block,n_blocks", [(264, 2), (8, 32769)])
 def test_bf16_route_refuses_past_its_limits_before_a_launch(block, n_blocks):
     """block above kMaxBlock, or more blocks than the counting sort holds,
-    raise before the library is asked for."""
-    h = torch.zeros((1, 1, 1, block), dtype=torch.bfloat16)
-    w2 = torch.zeros((n_blocks * block, 1), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="the bf16 kernel takes"):
-        topk_spmm._block_topk_spmm_cuda(
-            h, torch.zeros((1, 1), dtype=torch.int32), w2, block)
+    are past the tensor-core kernel's limits: such a bf16 call takes the
+    CUDA-core kernel (its bf16 build), which takes any block."""
+    c = _build.source_constants("block_topk_spmm_wgmma.cu")
+    assert block > c["kMaxBlock"] or n_blocks > c["kMaxInvertBlocks"]
+    assert topk_spmm.route(torch.bfloat16, block, n_blocks) == "cuda_cores"
+    assert topk_spmm.route(torch.bfloat16, c["kMaxBlock"],
+                           c["kMaxInvertBlocks"]) == "wgmma"
 
 
 def both(x, jdt):

@@ -73,10 +73,10 @@ def test_ranged_route_of_a_tensor_view(offset, want):
 
 def test_ranged_gather_refuses_an_x_off_the_word_grid():
     """The word copy reads 4-byte words: a bf16 view 2 bytes into its
-    allocation is refused before any launch."""
+    allocation is off their grid, so it takes the 2-byte copy instead."""
     x = torch.zeros(2 * 4 + 1, dtype=torch.bfloat16)[1:].view(2, 4)
-    with pytest.raises(ValueError, match="4-byte aligned"):
-        aia_gather._aia_ranged_gather_cuda(x, torch.zeros(3, dtype=torch.int32))
+    assert x.data_ptr() % 4 == 2
+    assert aia_gather.ranged_route(8, x.data_ptr()) == "u16"
 
 
 def test_launches_are_counted_by_route():

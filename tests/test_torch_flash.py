@@ -8,21 +8,27 @@
   rounded to bfloat16 once, so a sum that lands near a rounding boundary
   may round the other way: within one bfloat16 step, 2**-7 relative.
 * The port's model attention (``models.attention.flash_attention``) against
-  the reference's, on the K7 route (the fused kernel's contract, now with
-  windows, ``q_offset``, ``kv_valid_len``, Sq != Sk and ragged S: K7's
-  masked entry, ``flash_attention_masked``) and the port's chunked code
-  (``flash_attention_chunked``: window, ``q_offset``, ``kv_valid_len``,
-  ragged S, GQA, ``p_dtype``, cross-attention).  The K7 route differs from
-  the reference's chunked loop in its blocks (so the order of sums) and in
-  its scale (``1/sqrt(D)`` rounded from double, one float32 ulp from
-  ``1/sqrt(float32(D))`` for some D): within rtol 2e-4 / atol 2e-5, the
-  reference's own kernel-vs-model bar (``test_flash_fused_matches_model_
-  flash``).  The chunked code repeats the reference's arithmetic: within
-  1e-5 relative / 1e-6; with ``p_dtype=bfloat16`` the probabilities are
-  rounded to bfloat16, so a probability near a rounding boundary may round
-  the other way: within 2**-8 relative / 1e-4.  Only ``p_dtype``, D > 192,
-  Dv > D and a query without a valid key stay off K7's route, and raise
-  off the CPU.
+  the reference's: every call goes through K7's masked entry
+  (``flash_attention_masked``), with windows, ``q_offset``,
+  ``kv_valid_len``, Sq != Sk, ragged S, GQA, ``p_dtype``, cross-attention
+  and the reference's chunk sizes (``CHUNKED``, which change nothing on
+  K7's route).  K7 differs from the reference's chunked loop in its blocks
+  (so the order of sums) and in its scale (``1/sqrt(D)`` rounded from
+  double, one float32 ulp from ``1/sqrt(float32(D))`` for some D): within
+  rtol 2e-4 / atol 2e-5, the reference's own kernel-vs-model bar
+  (``test_flash_fused_matches_model_flash``); with ``p_dtype=bfloat16``
+  the probabilities are rounded to bfloat16 in other blocks than the
+  reference's, so a probability near a rounding boundary may round the
+  other way: within 2**-8 relative / 1e-4.
+* The calls K7 once refused (``REFUSED``: ``p_dtype``, D > 192, Dv > D and
+  four kinds of query without a valid key) through K7's plain version
+  against the reference's chunked attention: forward within rtol 2e-4 /
+  atol 2e-5 (2**-8 / 1e-4 under ``p_dtype``), gradients through
+  ``jax.grad`` within the same (under ``p_dtype`` within 2**-8 of the
+  largest |gradient|: JAX rounds the cotangents of its bf16 product to
+  bf16, a relative 2**-9 of each, which the difference in dS leaves
+  relative to the largest gradient, not to each element); a keyless row
+  at two key chunks; every case reaching K7's wrapper on the meta device.
 * ``ops`` routing: a CPU call launches nothing; the TPU backends raise.
 * The bf16 kernel's arithmetic (``csrc/flash_attention_wgmma.cu``),
   emulated here, with the tile and the term count read from its source:
@@ -41,6 +47,7 @@ import importlib.util
 import math
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,11 +103,11 @@ def test_k7_keeps_the_reference_divisibility_contract():
     x = torch.zeros((1, 96, 16))
     with pytest.raises(AssertionError):
         k7.flash_attention_fused(x, x, x, q_blk=64, k_blk=64)
-    # v may be narrower than q and k (MLA), never wider or of another S
+    # v may be narrower than q and k (MLA) or wider, never of another S
     assert tuple(k7.flash_attention_fused(x, x, x[:, :, :8]).shape) == \
         (1, 96, 8)
-    with pytest.raises(ValueError):
-        k7.flash_attention_fused(x[:, :, :8], x[:, :, :8], x)
+    assert tuple(k7.flash_attention_fused(x[:, :, :8], x[:, :, :8],
+                                          x).shape) == (1, 96, 16)
     with pytest.raises(ValueError):
         k7.flash_attention_fused(x, x, x[:, :48])
 
@@ -123,7 +130,7 @@ def test_routes_by_dtype_to_built_entry_points():
 
     assert k7.route(torch.bfloat16) == "wgmma"
     assert k7.route(torch.float32) == "cuda_cores"
-    assert all(name in SIGNATURES for name, _ in k7.KERNELS.values())
+    assert all(name in SIGNATURES for name in k7.KERNELS.values())
 
 
 class Spy:
@@ -154,7 +161,6 @@ def qkv(rng, b, sq, sk, h, kv, d, dv=None):
 def test_model_flash_k7_route(monkeypatch, b, s, h, kv, d, causal):
     d, dv = d if isinstance(d, tuple) else (d, d)  # qk and v widths
     q, k, v = qkv(np.random.default_rng(1), b, s, s, h, kv, d, dv)
-    assert attention.on_k7_route(s, s, d, dv)
     spy = Spy(monkeypatch)
     got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)),
                                     causal=causal)
@@ -164,6 +170,8 @@ def test_model_flash_k7_route(monkeypatch, b, s, h, kv, d, causal):
     np.testing.assert_allclose(host(got), host(want), rtol=2e-4, atol=2e-5)
 
 
+# the reference's chunk sizes beside masks, GQA, p_dtype and Dv > D: K7
+# takes each call whatever its chunks
 CHUNKED = {
     "window": dict(shape=(2, 64, 64, 4, 4, 16), kw=dict(window=24,
                                                       q_chunk=16, k_chunk=32)),
@@ -179,7 +187,7 @@ CHUNKED = {
     "p_dtype": dict(shape=(2, 64, 64, 4, 2, 16), kw=dict(
         p_dtype=(jnp.bfloat16, torch.bfloat16), q_chunk=32, k_chunk=16)),
     "cross": dict(shape=(2, 8, 24, 4, 4, 16), kw=dict(causal=False)),
-    # v wider than q and k: outside K7's Dv <= D
+    # v wider than q and k
     "dv": dict(shape=(1, 32, 32, 2, 2, 8), dv=16, kw={}),
 }
 
@@ -194,17 +202,22 @@ def test_model_flash_chunked_route(monkeypatch, case):
     if "p_dtype" in kw_ref:
         kw_ref["p_dtype"], kw_port["p_dtype"] = kw_ref["p_dtype"]
     spy = Spy(monkeypatch)
-    got = attention.flash_attention_chunked(*map(torch.from_numpy,
-                                                 (q, k, v)), **kw_port)
-    assert spy.calls == 0
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                    **kw_port)
+    assert spy.calls == 1
     want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)), **kw_ref)
     assert tuple(got.shape) == want.shape
-    if "p_dtype" in kw_ref:
-        np.testing.assert_allclose(host(got), host(want), rtol=2 ** -8,
-                                   atol=1e-4)
-    else:
-        np.testing.assert_allclose(host(got), host(want), rtol=1e-5,
-                                   atol=1e-6)
+    if "p_dtype" not in kw_ref:
+        np.testing.assert_allclose(host(got), host(want), rtol=K7_TOL[0],
+                                   atol=K7_TOL[1])
+        return
+    # K7 rounds P after other running maxima than the reference's chunks
+    kw_abs = dict(kw_ref, p_dtype=None)
+    wv = host(ref_attn.flash_attention(*map(jnp.asarray, (q, k, np.abs(v))),
+                                       **kw_abs))
+    err = np.abs(host(got) - host(want))
+    assert (err <= P_DTYPE_BLOCKS * wv + K7_TOL[0] * np.abs(host(want))
+            + K7_TOL[1]).all()
 
 
 # K7's masked contract: (b, sq, sk, h, kv, d, kwargs); the model's route
@@ -238,9 +251,6 @@ def test_model_flash_masked_k7_route(monkeypatch, case):
     reference's chunked attention with the same arguments."""
     (b, sq, sk, h, kv, d), kw = MASKED[case]
     q, k, v = qkv(np.random.default_rng(4), b, sq, sk, h, kv, d)
-    assert attention.on_k7_route(
-        sq, sk, d, d, kw.get("window", 0), kw.get("q_offset", 0),
-        kw.get("kv_valid_len"), None, kw.get("causal", True))
     spy = Spy(monkeypatch)
     got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
     assert spy.calls == 1
@@ -249,8 +259,8 @@ def test_model_flash_masked_k7_route(monkeypatch, case):
     np.testing.assert_allclose(host(got), host(want), rtol=2e-4, atol=2e-5)
 
 
-# calls outside K7's route: (sq, sk, d, dv, window, q_offset, kv_len,
-# p_dtype, causal)
+# the calls that K7 once refused, each on its route now: (sq, sk, d, dv,
+# window, q_offset, kv_len, p_dtype, causal)
 REFUSED = {
     "p_dtype": (16, 16, 8, 8, 0, 0, None, torch.bfloat16, True),
     "d_past_192": (16, 16, 200, 200, 0, 0, None, None, True),
@@ -260,51 +270,121 @@ REFUSED = {
     "window_past_the_keys": (8, 32, 8, 8, 4, 40, None, None, False),
     "last_query_past_the_window": (64, 64, 8, 8, 4, 0, 20, None, True),
 }
+# K7's route against the reference: rtol / atol, and under p_dtype (the
+# probabilities rounded to bf16 in other blocks than the reference's)
+K7_TOL = (2e-4, 2e-5)
+P_DTYPE_TOL = (2 ** -8, 1e-4)
+# p_dtype where K7's blocks are not the reference's chunks: each
+# probability is rounded to bf16 (by at most 2**-8 of itself) after another
+# running max, so the outputs differ by at most 2 * 2**-8 of sum_j w_j
+# |v_j| (the attention of |v|) beyond K7_TOL
+P_DTYPE_BLOCKS = 2 ** -7
+# the p_dtype gradient, of the largest |gradient|: the reference's jax.grad
+# rounds the cotangents of its bf16 P.V product (dP and dV) to bf16, a
+# relative 2**-9 of each, which the difference of dS = P (dP - Delta)
+# leaves relative to the largest gradient, not to each element
+P_DTYPE_GRAD_TOL = 2 ** -8
+
+
+def _refused_inputs(case, seed=5):
+    sq, sk, d, dv = REFUSED[case][:4]
+    rng = np.random.default_rng(seed)
+    q, k, v = qkv(rng, 1, sq, sk, 2, 2, d, dv)
+    ct = rng.standard_normal((1, sq, 2, dv)).astype(np.float32)
+    return q, k, v, ct
+
+
+def _refused_kw(case, k_chunk=1024):
+    _, _, _, _, window, q_offset, kv_len, p_dtype, causal = REFUSED[case]
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_valid_len=kv_len, k_chunk=k_chunk)
+    ref_kw = dict(kw, p_dtype=None if p_dtype is None else jnp.bfloat16)
+    return dict(kw, p_dtype=p_dtype), ref_kw
+
+
+def _tol(case):
+    return P_DTYPE_TOL if REFUSED[case][7] is not None else K7_TOL
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
-def test_calls_outside_the_k7_route_raise_off_the_cpu(case):
-    """Only p_dtype, D > 192, Dv > D and a query with no valid key stay
-    outside the route; each raises on a tensor off the CPU, and the masked
-    kernel entry refuses a query with no valid key itself."""
-    sq, sk, d, dv, window, q_offset, kv_len, p_dtype, causal = REFUSED[case]
-    assert not attention.on_k7_route(sq, sk, d, dv, window, q_offset,
-                                     kv_len, p_dtype, causal)
-    q = torch.zeros((1, sq, 2, d), device="meta")
-    k = torch.zeros((1, sk, 2, d), device="meta")
-    v = torch.zeros((1, sk, 2, dv), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.flash_attention(q, k, v, causal=causal, window=window,
-                                  q_offset=q_offset, kv_valid_len=kv_len,
-                                  p_dtype=p_dtype)
-    if dv <= d <= k7.MAX_HEAD_DIM and p_dtype is None:
-        x = torch.zeros((2, sq, d))
-        y = torch.zeros((2, sk, d))
-        with pytest.raises(ValueError, match="sees no key"):
-            ops.flash_attention_masked(x, y, y, causal, window, q_offset,
-                                       kv_len)
+def test_refused_calls_run_k7_forward(monkeypatch, case):
+    """Each call K7 once refused goes through K7 (its plain version here)
+    and gives the reference's output."""
+    q, k, v, _ = _refused_inputs(case)
+    kw, ref_kw = _refused_kw(case)
+    spy = Spy(monkeypatch)
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    assert spy.calls == 1
+    want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)), **ref_kw)
+    assert tuple(got.shape) == want.shape
+    rtol, atol = _tol(case)
+    np.testing.assert_allclose(host(got), host(want), rtol=rtol, atol=atol)
 
 
-def test_chunked_route_raises_off_the_cpu():
-    """Outside K7's contract the port has no kernel: a tensor that is not on
-    the CPU raises instead of running the chunked code there."""
-    q = torch.zeros((1, 16, 2, 8), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.flash_attention(q, q, q, p_dtype=torch.bfloat16)
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_refused_calls_run_k7_backward(case):
+    """Their gradients through K7's autograd Function (the plain backward
+    here) against ``jax.grad`` of the reference's chunked attention."""
+    q, k, v, ct = _refused_inputs(case)
+    kw, ref_kw = _refused_kw(case)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (attention.flash_attention(tq, tk, tv, **kw)
+     * torch.from_numpy(ct)).sum().backward()
+
+    def f(q, k, v):
+        return jnp.sum(ref_attn.flash_attention(q, k, v, **ref_kw) * ct)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for t, w in zip((tq, tk, tv), want):
+        if REFUSED[case][7] is None:
+            np.testing.assert_allclose(host(t.grad), host(w), rtol=K7_TOL[0],
+                                       atol=K7_TOL[1])
+        else:  # JAX rounds the bf16 product's cotangents to bf16 too
+            err = np.abs(host(t.grad) - host(w)).max()
+            assert err <= P_DTYPE_GRAD_TOL * np.abs(host(w)).max()
 
 
-def test_fused_matches_model_chunked_in_the_port():
-    """The port's counterpart of ``test_flash_fused_matches_model_flash``:
-    K7's plain version against the port's own chunked loop."""
-    b, s, h, d = 2, 64, 4, 32
-    q, k, v = map(torch.from_numpy, qkv(np.random.default_rng(1), b, s, s,
-                                        h, h, d))
-    chunked = attention.flash_attention_chunked(q, k, v, causal=True,
-                                                q_chunk=32, k_chunk=32,
-                                                kv_valid_len=s)
-    fused = attention.flash_attention(q, k, v, causal=True)
-    np.testing.assert_allclose(host(fused), host(chunked), rtol=2e-4,
-                               atol=2e-5)
+@pytest.mark.parametrize("k_chunk", [16, 24])
+def test_keyless_rows_follow_the_reference_key_chunk(k_chunk):
+    """A query without keys gets ``sum_{j<Sk} v_j / (ceil(Sk/kc) kc)``: at
+    Sk 40 the chunk 16 pads to 48 keys and the chunk 24 to 48 too but with
+    another order, and the row differs from the mean of v (40 keys)."""
+    rng = np.random.default_rng(8)
+    q, k, v = qkv(rng, 1, 8, 40, 2, 2, 8)
+    kw = dict(causal=True, q_offset=-3, k_chunk=k_chunk)
+    got = attention.flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)), **kw)
+    np.testing.assert_allclose(host(got), host(want), rtol=2e-4, atol=2e-5)
+    den = k7.keyless_den(40, k_chunk)
+    assert den == -(-40 // k_chunk) * k_chunk > 40
+    np.testing.assert_allclose(host(got)[0, :3],
+                               np.broadcast_to(v[0].sum(0) / den,
+                                               (3, 2, 8)),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_every_refused_case_takes_k7_on_the_card_side(monkeypatch):
+    """On meta tensors (the card's stand-in) each case reaches K7's
+    wrapper once, with its p_dtype and k_chunk, and nothing raises."""
+    calls = []
+
+    def k7_stub(q, k, v, **kw):
+        calls.append(kw)
+        return q.new_empty((*q.shape[:2], v.shape[2]))
+
+    monkeypatch.setattr(attention.ops, "flash_attention_masked", k7_stub)
+    for case, spec in sorted(REFUSED.items()):
+        sq, sk, d, dv, window, q_offset, kv_len, p_dtype, causal = spec
+        q = torch.zeros((1, sq, 2, d), device="meta")
+        k = torch.zeros((1, sk, 2, d), device="meta")
+        v = torch.zeros((1, sk, 2, dv), device="meta")
+        out = attention.flash_attention(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset, k_chunk=48,
+                                        kv_valid_len=kv_len, p_dtype=p_dtype)
+        assert tuple(out.shape) == (1, sq, 2, dv)
+        assert calls[-1]["p_dtype"] is p_dtype
+        assert calls[-1]["k_chunk"] == 48
+    assert len(calls) == len(REFUSED)
 
 
 def test_decode_attention_matches_reference():

@@ -421,7 +421,7 @@ def test_bwd_routes_by_dtype_and_width_to_built_entry_points():
     assert k7.bwd_route(torch.float32, 192, 128) == "cuda_cores"
     for d, dv in ((129, 129), (160, 160), (192, 192)):
         assert k7.bwd_route(torch.bfloat16, d, dv) == "cuda_cores"
-    assert set(k7.BWD_KERNELS) == {"wgmma", "cuda_cores"}
+    assert set(k7.BWD_KERNELS) == {"wgmma", "cuda_cores", "cuda_cores_slabs"}
     assert all(name in SIGNATURES for name in k7.BWD_KERNELS.values())
 
 

@@ -270,11 +270,8 @@ def test_cuda_wrapper_refuses_before_launch():
     ids = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="int64"):
         ss._segment_sum_cuda(ids.int(), torch.zeros(4, 1), 2, None)
-    with pytest.raises(ValueError, match="float32 or float64"):
-        ss._segment_sum_cuda(ids, torch.zeros(4, 1, dtype=torch.float16), 2,
-                             None)
-    with pytest.raises(ValueError, match="value sets"):
-        ss._segment_sum_cuda(ids, torch.zeros(ss.MAX_BATCH + 1, 4, 1), 2,
+    with pytest.raises(ValueError, match="floating-point"):
+        ss._segment_sum_cuda(ids, torch.zeros(4, 1, dtype=torch.int32), 2,
                              None)
     with pytest.raises(ValueError, match=r"ids \(N,\)"):
         ss._segment_sum_cuda(ids, torch.zeros(5, 1), 2, None)

@@ -51,7 +51,7 @@ _P, _I, _B, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
 # q, k, v, o, lse, do, dq, dk, dv, delta, bh, sq, sk, d, dv, causal,
 # q_offset, window, kv_len, scale[, bf16], stream
 WGMMA = [_P] * 10 + [_I] * 5 + [_B, _I, _I, _I, _F, _P]
-CUDA_CORES = [_P] * 10 + [_I] * 5 + [_B, _I, _I, _I, _F, _B, _P]
+CUDA_CORES = [_P] * 11 + [_I] * 5 + [_B, _I, _I, _I, _F, _B, _B, _P]
 # (name, bh, s, d, dv)
 SHAPES = (("granite", 64, 2048, 64, 64), ("phi3", 64, 4096, 96, 96),
           ("d128", 32, 4096, 128, 128), ("mla", 32, 2048, 192, 128))
@@ -161,9 +161,11 @@ def main(argv=None) -> int:
             fn, kind, _, _ = built[n]
             ptrs = [x.data_ptr() for x in (q, k, v, o, lse, do, *grads[n],
                                           delta)]
-            flag = [1] if kind == "cuda_cores" else []
-            rc = fn(*ptrs, bh, s, s, d, dv, 1, 0, 0, s, 1.0 / d ** 0.5,
-                    *flag, stream)
+            # no keyless dV; p_bf16 0, the bf16 type code
+            lead, flag = ([None], [0, 1]) if kind == "cuda_cores" \
+                else ([], [])
+            rc = fn(*ptrs, *lead, bh, s, s, d, dv, 1, 0, 0, s,
+                    1.0 / d ** 0.5, *flag, stream)
             if rc:
                 raise RuntimeError(f"{n} at {shape}: error {rc}")
 

@@ -44,7 +44,10 @@ CSRC = ROOT / "src/repro_torch/kernels/csrc"
 OUT = ROOT / "build/k7_variants"
 _P, _I, _B, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
-NEW = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _I, _I, _I, _F, _P]
+# q, k, v, o, lse (NULL), bh, sq, sk, d, dv, causal, q_offset, window,
+# kv_len, scale, p_bf16, [dtype code: the CUDA-core entry], stream
+NEW = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _I, _I, _I, _F, _B, _P]
+NEW_F32 = NEW[:-1] + [_B, _P]
 OLD = [_P, _P, _P, _P, _I, _I, _I, _I, _B, _F, _P]
 # (name, bh, s, d, dv, causal, window, dtype)
 SHAPES = (("phi3", 64, 4096, 96, 96, True, 0, "bf16"),
@@ -97,7 +100,8 @@ def build(srcs: dict) -> dict:
         _, _, entry, kind = srcs[name]
         fn = getattr(ctypes.CDLL(str(OUT / f"lib{name}.so")),
                      f"{entry}_{name}")
-        fn.argtypes, fn.restype = (NEW if kind == "new" else OLD), _B
+        new = NEW_F32 if srcs[name][1] == "f32" else NEW
+        fn.argtypes, fn.restype = (new if kind == "new" else OLD), _B
         report = {}
         for block in out.split("Compiling entry function '")[1:]:
             kernel = re.search(r"flash_\w*?kernelI(?:Li\d+E)+",
@@ -151,9 +155,9 @@ def main(argv=None) -> int:
             fn, kind, _ = built[n]
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     outs[n].data_ptr())
-            if kind == "new":
-                rc = fn(*ptrs, bh, s, s, d, dv, int(causal), 0, window, s,
-                        scale, stream)
+            if kind == "new":  # no lse, no p_dtype; float32's type code 0
+                rc = fn(*ptrs, None, bh, s, s, d, dv, int(causal), 0, window,
+                        s, scale, 0, *([0] if dt == "f32" else []), stream)
             else:
                 rc = fn(*ptrs, bh, s, d, dv, int(causal), scale, stream)
             if rc:
