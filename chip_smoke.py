@@ -100,9 +100,9 @@ products run in full float32 (TF32 off).  It
    backward (through the autograd ``Function`` of
    ``ops.flash_attention_masked``: one forward and one
    ``flash_attention_bwd`` count a call, on the route ``bwd_route``
-   names: bf16 with D <= 128 on ``csrc/flash_attention_bwd_wgmma.cu``, the
-   tensor cores; float32 and wider bf16 heads on
-   ``csrc/flash_attention_bwd.cu``, the CUDA cores) against its plain
+   names: bf16 and float16 with D and Dv <= 256 on
+   ``csrc/flash_bwd_wgmma.cuh``, the tensor cores; float32 and wider heads
+   on ``csrc/flash_attention_bwd.cu``, the CUDA cores) against its plain
    version on ``FLASH_BWD_CASES`` in both dtypes (dq, dk, dv; float32
    within 1e-5 of the call's largest |gradient|, bf16 one bf16 step more;
    the plain backward takes the plain forward's ``lse``) and the forward's
@@ -196,11 +196,14 @@ products run in full float32 (TF32 off).  It
    product, RoadTX with its float32 structure); the segment sum and K2 in
    bf16 and float16 at 6b's shapes, bit for bit their plain versions on
    the CPU, bf16 timed; K7 on the seven calls it once refused
-   (``K7_REFUSED``) in three dtypes, forward and backward, at D 256 and
+   (``K7_REFUSED``) in three dtypes, forward and backward (the 16-bit
+   calls on the tensor cores, their backward twice bit for bit, each
+   timed beside the CUDA-core kernel on the same inputs), at D 256 and
    320 and qk 64 / v 128 (``K7_WIDE``), in float16 and with ``p_dtype``
-   at Phi-3-mini's prefill shape, its backward in slabs
-   (``K7_BWD_SLABS``) and with ``p_dtype`` at granite's training shape,
-   and its keyless pass, each beside its bound and SDPA; K3-K6 in float16
+   at Phi-3-mini's prefill shape, its backward at D 256
+   (``K7_BWD_SLABS``) and with ``p_dtype`` and in float16 at granite's
+   training shape, and its keyless pass, each beside its bound, SDPA and
+   (16-bit) the CUDA-core kernel; K3-K6 in float16
    at the FFN shape, K3's ``"u16"``, ``"bytes"`` and strided copies and
    K6 past the tensor-core kernel's limits (``K6_WIDE``); then
    ``refusals_phase``: every call the port once refused, made once on the
@@ -2467,8 +2470,9 @@ def flash_timed(q, k, v, heads: int, qb: int, kb: int) -> dict:
     consts = k7.wgmma_constants()
     rec["tensor_flops"] = 2 * pairs * (d + consts["kPTerms"] * dv)
     rec["tensor_bound_ms"] = bound(0, rec["tensor_flops"], q.dtype)[0]
-    rec["ptxas"] = ptxas_report("flash_wgmma_kernelILi{}ELi{}ELi{}E".format(
-        *k7.wgmma_widths(d, dv), consts["kPTerms"]))
+    rec["ptxas"] = ptxas_report(
+        "flash_wgmma_kernelI13__nv_bfloat16Li{}ELi{}ELi{}E".format(
+            *k7.wgmma_widths(d, dv), consts["kPTerms"]))
     rec["launch"] = launch_config(kernel, "flash_wgmma_kernel")
     rec.update(library_call([(
         f"F.scaled_dot_product_attention(is_causal=True) on "
@@ -2622,17 +2626,19 @@ def flash_phase(log):
     return rec, mla, {"cases": len(masked), "timed": timed}
 
 
-def ptxas_report(kernel: str) -> dict:
+def ptxas_report(kernel) -> dict:
     """Registers, spills and static shared memory of the kernel whose
-    mangled name holds ``kernel``, from ``ptxas -v`` in ``build.log``."""
+    mangled name holds ``kernel`` (a string, or a tuple of strings it holds
+    all of), from ``ptxas -v`` in ``build.log``."""
     import re
 
     from repro_torch.kernels._build import build
 
     text = (build().parent / "build.log").read_text()
     blocks = text.split("Compiling entry function '")[1:]
+    parts = (kernel,) if isinstance(kernel, str) else kernel
     for block in blocks:
-        if kernel in block.split("'", 1)[0]:
+        if all(part in block.split("'", 1)[0] for part in parts):
             nums = {k: int(v) for v, k in re.findall(
                 r"(\d+) (bytes spill stores|bytes spill loads|registers|"
                 r"bytes smem)", block)}
@@ -3235,6 +3241,8 @@ def flash_bwd_cases(log) -> dict:
 # training shape (2 x 32 heads of 64 over 2,048 tokens), Phi-3's head (D 96)
 # at 2 x 32 heads over 4,096, and DeepSeek-V2-Lite's (MLA's qk 192 / v 128,
 # 2 x 16 heads over 2,048: its training shape)
+# the mangled name of the tensor-core kernels' bf16 template argument
+BF16 = "13__nv_bfloat16"
 FLASH_BWD_TIMED = (("granite", 2 * 32, TRAIN["seq"], 64, 64, 32),
                    ("d96", 64, 4096, 96, 96, 32),
                    ("mla", 2 * 16, TRAIN["seq"], 192, 128, 16))
@@ -3357,23 +3365,32 @@ def flash_bwd_timed(log) -> dict:
     rec = recs.pop("granite")
     rec.update(recs)
     rec["ptxas"] = {name: ptxas_report(kernel) for name, kernel in (
-        ("dkdv_wgmma_d32", "dkdv_kernelILi32ELi32ELi64E"),
-        ("dq_wgmma_d32", "dq_kernelILi32ELi32E"),
-        ("dkdv_wgmma_d64", "dkdv_kernelILi64ELi64ELi64E"),
-        ("dq_wgmma_d64", "dq_kernelILi64ELi64E"),
-        ("dkdv_wgmma_d96", "dkdv_kernelILi96ELi96ELi64E"),
-        ("dq_wgmma_d96", "dq_kernelILi96ELi96E"),
-        ("dkdv_wgmma_d128", "dkdv_kernelILi128ELi128ELi64E"),
-        ("dq_wgmma_d128", "dq_kernelILi128ELi128E"),
-        ("dkdv_wgmma_mla", "dkdv_kernelILi192ELi128ELi32E"),
-        ("dq_wgmma_mla", "dq_kernelILi192ELi128E"),
-        ("delta_wgmma", "12delta_kernelEPK"),
+        *((f"{pass_}_wgmma_{name}", f"{pass_}_kernelI{BF16}{tmpl}Lb0E")
+          for name, tmpl in (("d32", "Li32ELi32ELi64E"),
+                             ("d64", "Li64ELi64ELi64E"),
+                             ("d96", "Li96ELi96ELi64E"),
+                             ("d128", "Li128ELi128ELi64E"),
+                             ("qk64_v128", "Li64ELi128ELi64E"))
+          for pass_ in ("dkdv", "dq")),
+        ("dkdv_wgmma_mla", f"dkdv_kernelI{BF16}Li192ELi128ELi32ELb0ELb0E"),
+        ("dq_wgmma_mla", f"dq_kernelI{BF16}Li192ELi128ELi64ELb0E"),
+        ("dkdv_wgmma_p_dtype_d64",
+         f"dkdv_kernelI{BF16}Li64ELi64ELi64ELb0ELb1E"),
+        ("dkdv_wgmma_split_d256",
+         f"dkdv_kernelI{BF16}Li256ELi256ELi32ELb1ELb0E"),
+        ("dq_wgmma_split_d256", f"dq_kernelI{BF16}Li256ELi256ELi32ELb0E"),
+        ("dkdv_wgmma_f16_d64", "dkdv_kernelI6__halfLi64ELi64ELi64ELb0ELb0E"),
+        ("delta_wgmma", ("flash_attention_bwd_wgmma_cu",
+                         f"12delta_kernelI{BF16}E")),
         ("dkdv_bf16_d64", "dkdv_kernelI13__nv_bfloat16Li4ELi4EE"),
         ("dq_bf16_d64", "dq_kernelI13__nv_bfloat16Li4ELi4EE"),
         ("dkdv_f32_d64", "dkdv_kernelIfLi4ELi4EE"),
         ("dq_f32_d64", "dq_kernelIfLi4ELi4EE"),
-        ("fwd_wgmma_d64", "flash_wgmma_kernelILi64ELi64E"),
-        ("fwd_wgmma_d96", "flash_wgmma_kernelILi96ELi96E"),
+        ("fwd_wgmma_d64", f"flash_wgmma_kernelI{BF16}Li64ELi64E"),
+        ("fwd_wgmma_d96", f"flash_wgmma_kernelI{BF16}Li96ELi96E"),
+        ("fwd_wgmma_f16_d96", "flash_wgmma_kernelI6__halfLi96ELi96E"),
+        ("fwd_wgmma_d320", f"flash_wgmma_kernelI{BF16}Li320ELi160E"),
+        ("fwd_wgmma_d384", f"flash_wgmma_kernelI{BF16}Li384ELi128E"),
         ("fwd_f32_d96", "flash_kernelILi6E"))}
     emit({"flash_bwd_kernel": rec}, log)
     return rec
@@ -3607,8 +3624,9 @@ def train_steps(log, spec=TRAIN, key="train_steps") -> dict:
     # (not a template) and its two passes
     d, dv = attn_widths(cfg)
     wq, wv, bt = k7.bwd_widths(d, dv)
-    k7_bwd = k7_device("delta_kernel(", f"dkdv_kernel<{wq}, {wv}, {bt}>",
-                       f"dq_kernel<{wq}, {wv}>")
+    k7_bwd = k7_device("delta_kernel<",
+                       f"dkdv_kernel<__nv_bfloat16, {wq}, {wv}, {bt},",
+                       f"dq_kernel<__nv_bfloat16, {wq}, {wv},")
     # operations: the products (step_product_flops), and K7's forward (2 d
     # + 2 dv) and backward (6 d + 4 dv) over the causal pairs of every
     # layer's heads
@@ -6198,11 +6216,12 @@ K7_REFUSED = {
     "window_past_the_keys": (8, 32, 8, 8, 4, 40, None, None, False),
     "last_query_past_the_window": (64, 64, 8, 8, 4, 0, 20, None, True),
 }
-# K7's new widths timed, as (name, bh, s, d, dv, dtypes): D 256 (the bf16
-# kernel's <256, 256> build; float32 in slabs), D 320 (slabs in both), qk
-# 64 / v 128 (bf16 on the <128, 128> build), causal
+# K7's new widths timed, as (name, bh, s, d, dv, dtypes): D 256 (the
+# tensor cores' <256, 256> build; float32 in slabs on the CUDA cores), D 320
+# (the wide build <320, 160>, two value slabs, in both 16-bit types;
+# float32 in slabs), qk 64 / v 128 (the <128, 128> build), causal
 K7_WIDE = (("d256", 32, 4096, 256, 256, ("bfloat16", "float32")),
-           ("d320", 32, 4096, 320, 320, ("bfloat16", "float32")),
+           ("d320", 32, 4096, 320, 320, ("bfloat16", "float16", "float32")),
            ("qk64_v128", 32, 4096, 64, 128, ("bfloat16", "float32")))
 # the p_dtype gate.  The plain version runs the kernels' own key tile
 # (k7_tile: kBK, 64 keys in both forward kernels), so the running max, and
@@ -6544,15 +6563,18 @@ def p_dtype_control(got, want, case) -> float:
 
 
 def k7_call_hold(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
-                 case, k_chunk=1024, control=False) -> dict:
+                 case, k_chunk=1024, control=False, timed=False) -> dict:
     """One K7 forward and backward through ``ops.flash_attention_masked``
     under autograd: each kernel launched once on the route ``route`` and
     ``bwd_route`` name (the forward none where no query has a key), the
     keyless pass once each way where some query has none; the output
     against the plain forward, the gradients against the plain backward on
-    the kernel's own output and lse.  Under ``p_dtype`` the plain forward
+    the kernel's own output and lse; a 16-bit call's gradients (the
+    tensor cores) twice, bit for bit.  Under ``p_dtype`` the plain forward
     runs the kernel's key tile, and with ``control`` the builds without
-    the rounding are held to the same plain versions (p_dtype_control)."""
+    the rounding are held to the same plain versions (p_dtype_control).
+    With ``timed``, each kernel is timed beside the CUDA-core kernel on the
+    same inputs, its bound and SDPA (``k7_route_times``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as k7
@@ -6575,8 +6597,7 @@ def k7_call_hold(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
         check(after[name] - before[name] == n,
               f"K7 {case}: {name} launched {after[name] - before[name]}, "
               f"{n} wanted")
-    keys = ["flash_attention_bwd/"
-            f"{k7.bwd_route(q.dtype, d, dv, p_dtype, keyless)}"]
+    keys = [f"flash_attention_bwd/{k7.bwd_route(q.dtype, d, dv)}"]
     if a < b:
         keys.append("flash_attention_fused/"
                     f"{k7.route(q.dtype, d, dv, p_dtype)}")
@@ -6606,22 +6627,136 @@ def k7_call_hold(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
             k7_gate(grads[2], want_g[2], gmax, p_dtype, f"{case} dv"))
         rec["error_share"] = error_share(out.detach(), o_p)
         rec["dv_error_share"] = error_share(grads[2], want_g[2])
+    if q.dtype in k7.TENSOR_CORE_DTYPES:  # a repeat, bit for bit
+        again = torch.autograd.grad(ops.flash_attention_masked(
+            *leaves, causal, window, q_offset, kv_len, p_dtype, k_chunk),
+            leaves, do)
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"K7 {case}: a repeat of the backward differs")
+        rec["repeat_bit_identical"] = True
     if control and p_dtype is not None:
+        # the same routes without the rounding: the forward's full P terms,
+        # the backward without its flag
+        routes = ops.route_counts()
         three = k7._launch(q, k, v, causal, window, q_offset, kvl, False,
                            None, k_chunk)
         no_flag = k7._launch_bwd(q, k, v, out.detach(), lse, do, causal,
                                  window, q_offset, kv_len, None, k_chunk,
-                                 route=k7.bwd_route(q.dtype, d, dv,
-                                                    p_dtype))[2]
+                                 route=k7.bwd_route(q.dtype, d, dv))[2]
+        rec["control_routes"] = {
+            key: n - routes.get(key, 0)
+            for key, n in ops.route_counts().items()
+            if key.startswith("flash_attention_") and n != routes.get(key, 0)}
         rec["control_error_share"] = p_dtype_control(
             three, o_p, f"K7 {case} without p_dtype")
         rec["control_dv_error_share"] = p_dtype_control(
             no_flag, want_g[2], f"K7 {case} backward without its flag")
+    if timed:
+        rec.update(k7_route_times(q, k, v, do, causal, window, q_offset,
+                                  kv_len, p_dtype, k_chunk))
+    return rec
+
+
+# the kernels of K7's forward and backward calls (both routes, the keyless
+# pass's included), by name
+K7_FWD_KERNEL_NAMES = ("flash_wgmma_kernel", "flash_kernel",
+                       "flash_slab_kernel", "keyless_fwd_kernel")
+K7_BWD_KERNEL_NAMES = ("delta_kernel", "dkdv_kernel", "dkdv_slab_kernel",
+                       "dq_kernel", "dq_slab_kernel", "keyless_bwd_kernel")
+
+
+def k7_route_times(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
+                   k_chunk=1024) -> dict:
+    """K7's forward (with lse) and backward on their routes, each beside
+    the CUDA-core kernel on the same inputs (``cuda_cores_ms``,
+    ``bwd_cuda_cores_ms``; CUDA events, and the profiler's device time
+    under ``*device_ms``), its bound over the pairs the mask lets through
+    (forward 2 (D + Dv) FLOP a pair, backward 2 (3 D + 2 Dv); each input
+    read once, each output written once) and SDPA with the same boolean
+    mask (forward; forward and backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as k7
+
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[2]
+    kvl = k7._kv_limit(sk, kv_len)
+    args = (causal, window, q_offset)
+
+    def fwd(path=None):
+        return k7._launch(q, k, v, *args, kvl, True, p_dtype, k_chunk, path)
+
+    o, lse = fwd()
+
+    def bwd(route=None):
+        return k7._launch_bwd(q, k, v, o, lse, do, *args, kv_len, p_dtype,
+                              k_chunk, route)
+
+    pairs = bh * valid_pairs(sq, sk, causal, window, q_offset, kv_len)
+    esz = q.element_size()
+    io_f = bh * (sq * d + sk * d + sk * dv + sq * dv) * esz + bh * sq * 4
+    # at these sizes a call's host time (~0.1 ms) hides its kernels' few
+    # microseconds: the routes are compared on device time (one profile a
+    # route of 3 forwards and 3 backwards, the kernels split by name: the
+    # keyless pass's included, other kernels under other_device_ms), CUDA
+    # events kept beside
+    rec = {}
+    for key, fn in (("", fwd), ("cuda_cores_", lambda: fwd("cuda_cores")),
+                    ("bwd_", bwd),
+                    ("bwd_cuda_cores_", lambda: bwd("cuda_cores"))):
+        rec[f"{key}ms"] = time_ms(fn, reps=3)
+    for key, path in (("", None), ("cuda_cores_", "cuda_cores")):
+        fwd(path), bwd(path)
+        for _ in range(2):  # once more where the profiler recorded nothing
+            _, dev, top = profile(lambda: [(fwd(path), bwd(path))
+                                           for _ in range(3)], top_n=64)
+            if dev:
+                break
+        split = {"fwd": 0.0, "bwd": 0.0, "other": 0.0}
+        for name, ms, _ in top:
+            part = ("bwd" if any(n in name for n in K7_BWD_KERNEL_NAMES)
+                    else "fwd" if any(n in name for n in K7_FWD_KERNEL_NAMES)
+                    else "other")
+            split[part] += ms / 3
+        rec[f"{key}device_ms"] = split["fwd"] if dev else None
+        rec[f"bwd_{key}device_ms"] = split["bwd"] if dev else None
+        rec[f"{key}other_device_ms"] = split["other"] if dev else None
+    rec["bound_ms"], rec["bound_by"] = bound(
+        io_f, 2 * pairs * (d + dv), q.dtype)
+    rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(
+        2 * io_f, 2 * pairs * (3 * d + 2 * dv), q.dtype)
+    # a forward and a backward call's kernels together, each route's
+    totals = [None if rec[f"{key}device_ms"] is None else
+              rec[f"{key}device_ms"] + rec[f"bwd_{key}device_ms"]
+              + rec[f"{key}other_device_ms"] for key in ("", "cuda_cores_")]
+    rec["faster_than_cuda_cores"] = None if None in totals \
+        else totals[0] < totals[1]
+    mask = k7._valid(sq, 0, sk, causal, window, q_offset, q.device)
+    mask = mask & (torch.arange(sk, device=q.device) < kvl)[None, :]
+    q4, k4, v4, do4 = (x.detach().view(1, bh, x.shape[1], x.shape[2])
+                       .requires_grad_(x is not do) for x in (q, k, v, do))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+
+    rec["library_call"] = ("F.scaled_dot_product_attention(attn_mask=the "
+                           "call's boolean mask); forward + backward")
+    try:
+        rec["library_ms"] = time_ms(sdpa, reps=5)
+        rec["bwd_library_ms"] = time_ms(sdpa_bwd, reps=5)
+    except (RuntimeError, NotImplementedError) as exc:
+        rec["library_ms"] = rec["bwd_library_ms"] = None
+        rec["library_refused"] = str(exc).splitlines()[0][:200]
     return rec
 
 
 def k7_refused_cases(log) -> dict:
-    """K7_REFUSED in float32, bf16 and float16, forward and backward."""
+    """K7_REFUSED in float32, bf16 and float16, forward and backward; the
+    16-bit cases (the tensor cores) timed beside the CUDA-core kernel."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(12)
@@ -6635,7 +6770,8 @@ def k7_refused_cases(log) -> dict:
             case = f"{name}/{dt}"
             recs[case] = k7_call_hold(
                 q, k, v, do, causal, window, off, kvl,
-                None if pdt is None else getattr(torch, pdt), case)
+                None if pdt is None else getattr(torch, pdt), case,
+                timed=dt != torch.float32)
     emit({"k7_refused_cases": recs}, log)
     return recs
 
@@ -6679,6 +6815,11 @@ def k7_timed(q, k, v, causal, p_dtype, heads, log, key) -> dict:
     rec["ms"] = time_ms(kernel, reps=3)
     rec["device_ms"] = device_ms(kernel, reps=2)
     rec["plain_ms"] = time_ms(plain, reps=1)
+    if path.startswith("wgmma"):  # the CUDA-core kernel on the same inputs
+        rec["cuda_cores_ms"] = time_ms(lambda: k7._launch(
+            q, k, v, causal, 0, 0, s, False, p_dtype, path="cuda_cores"),
+            reps=2)
+        rec["faster_than_cuda_cores"] = rec["ms"] < rec["cuda_cores_ms"]
     pairs = bh * valid_pairs(s, s, causal, 0)
     rec["flops"] = 2 * pairs * (d + dv)
     rec["bytes"] = bh * s * (2 * d + 2 * dv) * q.element_size()
@@ -6757,41 +6898,67 @@ def k7_keyless_timed(rand, log) -> dict:
     return rec
 
 
-# the backward in slabs timed: bf16 D 256 (BH 16, S 2,048, causal)
+# the backward at D 256 timed: bf16 (BH 16, S 2,048, causal), the split
+# build on the tensor cores, beside the CUDA-core slab kernel
 K7_BWD_SLABS = (16, 2048, 256)
 
 
-def k7_bwd_slabs_timed(rand, log) -> dict:
-    """K7's backward past 192 columns (``cuda_cores_slabs``) at
-    K7_BWD_SLABS, held against its plain version and timed beside its
-    bound and SDPA's forward + backward."""
+def k7_bwd_repeat(bwd, case) -> bool:
+    """``bwd()`` twice, bit for bit (no atomics)."""
+    import torch
+
+    first = bwd()
+    again = bwd()
+    check(all(torch.equal(x, y) for x, y in zip(first, again)),
+          f"{case}: a repeat of the backward differs")
+    return True
+
+
+def k7_bwd_timed(q, k, v, do, p_dtype, heads, log, key, control=False):
+    """K7's causal backward on (BH, S, .) inputs, held with its forward
+    against their plain versions (``k7_call_hold``), twice bit for bit,
+    and timed beside the CUDA-core kernel on the same inputs, its bound
+    (6 D + 4 Dv FLOP a pair) and SDPA's forward + backward."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k7
 
-    bh, s, d = K7_BWD_SLABS
-    q, k, v, do = (rand(bh, s, d, dtype=torch.bfloat16) for _ in range(4))
-    rec = k7_call_hold(q, k, v, do, True, 0, 0, None, None,
-                       f"slab backward {bh}x{s}x{d}")
-    o, lse = k7._launch(q, k, v, True, 0, 0, s, True)
+    bh, s, d = q.shape
+    dv = v.shape[2]
+    rec = k7_call_hold(q, k, v, do, True, 0, 0, None, p_dtype, key,
+                       control=control)
+    o, lse = k7._launch(q, k, v, True, 0, 0, s, True, p_dtype)
+    route = k7.bwd_route(q.dtype, d, dv)
 
-    def bwd():
-        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s)
+    def bwd(route=None):
+        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s, p_dtype,
+                              route=route)
+
+    def fwd_bwd():
+        o2, lse2 = k7._launch(q, k, v, True, 0, 0, s, True, p_dtype)
+        return k7._launch_bwd(q, k, v, o2, lse2, do, True, 0, 0, s, p_dtype)
 
     pairs = bh * valid_pairs(s, s, True, 0)
-    rec.update({"name": "flash_attention_bwd",
-                "bwd_route": k7.bwd_route(q.dtype, d, d),
-                "shape": {"bh": bh, "s": s, "d": d, "dv": d,
-                          "dtype": "bfloat16", "causal": True},
-                "ms": time_ms(bwd, reps=2), "device_ms": device_ms(bwd, 1),
+    rec.update({"name": "flash_attention_bwd", "bwd_route": route,
+                "shape": {"bh": bh, "s": s, "d": d, "dv": dv,
+                          "dtype": str(q.dtype), "causal": True,
+                          "p_dtype": None if p_dtype is None
+                          else str(p_dtype)},
+                "repeat_bit_identical": k7_bwd_repeat(bwd, key),
+                "ms": time_ms(bwd, reps=3), "loop_ms": loop_ms(bwd, reps=5),
+                "device_ms": device_ms(bwd, 1),
+                "cuda_cores_ms": time_ms(lambda: bwd("cuda_cores"), reps=2),
+                "fwd_bwd_loop_ms": loop_ms(fwd_bwd, reps=5),
                 "plain_ms": time_ms(lambda: k7.flash_attention_masked_bwd_plain(
-                    q, k, v, o, lse, do), reps=1),
-                "flops": 10 * d * pairs,
-                "bytes": bh * s * 8 * d * q.element_size() + bh * s * 4})
+                    q, k, v, o, lse, do, True, p_dtype=p_dtype), reps=1),
+                "flops": (6 * d + 4 * dv) * pairs,
+                "bytes": bh * s * (4 * d + 4 * dv) * q.element_size()
+                + bh * s * 4})
+    rec["faster_than_cuda_cores"] = rec["ms"] < rec["cuda_cores_ms"]
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
-                                             torch.bfloat16)
-    q4, k4, v4, do4 = (x.view(1, bh, s, d).detach()
+                                             q.dtype)
+    q4, k4, v4, do4 = (x.view(bh // heads, heads, s, x.shape[2]).detach()
                        .requires_grad_(x is not do) for x in (q, k, v, do))
 
     def sdpa():
@@ -6800,20 +6967,18 @@ def k7_bwd_slabs_timed(rand, log) -> dict:
 
     rec.update(library_call([(
         "F.scaled_dot_product_attention(is_causal=True) forward + backward "
-        f"on (1, {bh}, s, d)", sdpa)]))
-    emit({"k7_bwd_slabs": rec}, log)
-    del q, k, v, do, o, lse
+        f"on ({bh // heads}, {heads}, s, d)", sdpa)]))
+    emit({key: rec}, log)
+    del o, lse
     return rec
 
 
 def k7_new_shapes(log) -> dict:
     """K7 at its new widths (K7_WIDE), in float16 at Phi-3-mini's prefill
-    shape, and its backward with p_dtype at granite-3-2b's training
-    shape."""
+    shape, its backward at D 256 (K7_BWD_SLABS), with p_dtype and in
+    float16 at granite-3-2b's training shape (K7_P_DTYPE_TRAIN), and the
+    keyless pass."""
     import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as k7
 
     g = torch.Generator(device="cuda").manual_seed(13)
 
@@ -6838,54 +7003,39 @@ def k7_new_shapes(log) -> dict:
     recs["k7_phi3_p_dtype"] = k7_timed(q, k, v, True, torch.bfloat16, 32,
                                        log, "k7_phi3_p_dtype")
     del q, k, v
-    recs["k7_bwd_slabs"] = k7_bwd_slabs_timed(rand, log)
-    recs["keyless"] = k7_keyless_timed(rand, log)
-    # granite's training shape with p_dtype: the forward on the one-term
-    # build, the backward on the CUDA-core kernel with its flag
-    bh, s, d, heads = K7_P_DTYPE_TRAIN
+    bh, s, d = K7_BWD_SLABS
     q, k, v, do = (rand(bh, s, d, dtype=torch.bfloat16) for _ in range(4))
-    pdt = torch.bfloat16
-    case = f"granite train shape p_dtype {bh}x{s}x{d}"
-    rec = k7_call_hold(q, k, v, do, True, 0, 0, None, pdt, case,
-                       control=True)
-    o, lse = k7._launch(q, k, v, True, 0, 0, s, True, pdt)
-    route = k7.bwd_route(q.dtype, d, d, pdt)
-
-    def bwd():
-        return k7._launch_bwd(q, k, v, o, lse, do, True, 0, 0, s, pdt)
-
-    def fwd_bwd():
-        o2, lse2 = k7._launch(q, k, v, True, 0, 0, s, True, pdt)
-        return k7._launch_bwd(q, k, v, o2, lse2, do, True, 0, 0, s, pdt)
-
-    pairs = bh * valid_pairs(s, s, True, 0)
-    rec.update({"name": "flash_attention_bwd", "bwd_route": route,
-                "shape": {"bh": bh, "s": s, "d": d, "dv": d,
-                          "dtype": "bfloat16", "causal": True,
-                          "p_dtype": "bfloat16"},
-                "ms": time_ms(bwd, reps=3), "loop_ms": loop_ms(bwd, reps=5),
-                "fwd_bwd_loop_ms": loop_ms(fwd_bwd, reps=5),
-                "plain_ms": time_ms(lambda: k7.flash_attention_masked_bwd_plain(
-                    q, k, v, o, lse, do, True, p_dtype=pdt), reps=1),
-                "flops": (6 * d + 4 * d) * pairs,
-                "bytes": bh * s * 8 * d * q.element_size() + bh * s * 4})
-    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
-                                             torch.bfloat16)
-    q4, k4, v4, do4 = (x.view(bh // heads, heads, s, d).detach()
-                       .requires_grad_(x is not do) for x in (q, k, v, do))
-
-    def sdpa():
-        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        return torch.autograd.grad(out, (q4, k4, v4), do4)
-
-    rec.update(library_call([(
-        f"F.scaled_dot_product_attention(is_causal=True) forward + backward "
-        f"on ({bh // heads}, {heads}, s, d)", sdpa)]))
-    emit({"k7_bwd_p_dtype_train_shape": rec}, log)
-    recs["k7_bwd_p_dtype_train_shape"] = rec
-    del q, k, v, do, o, lse
-    torch.cuda.empty_cache()
+    recs["k7_bwd_slabs"] = k7_bwd_timed(q, k, v, do, None, bh, log,
+                                        "k7_bwd_slabs")
+    del q, k, v, do
+    recs["keyless"] = k7_keyless_timed(rand, log)
+    # granite's training shape: with p_dtype (the forward on the one-term
+    # build, the backward with its flag; both held beside the same builds
+    # without the rounding), and in float16
+    bh, s, d, heads = K7_P_DTYPE_TRAIN
+    for key, dtype, pdt in (
+            ("k7_bwd_p_dtype_train_shape", torch.bfloat16, torch.bfloat16),
+            ("k7_bwd_float16_train_shape", torch.float16, None)):
+        q, k, v, do = (rand(bh, s, d, dtype=dtype) for _ in range(4))
+        recs[key] = k7_bwd_timed(q, k, v, do, pdt, heads, log, key,
+                                 control=pdt is not None)
+        del q, k, v, do
+        torch.cuda.empty_cache()
     return recs
+
+
+def k6_bmm(h_kept, bidx, w2, block) -> list:
+    """K6's library call, as on its own row: ``torch.bmm`` of each tile's
+    kept lanes with its picked W2 blocks, gathered beforehand (the gather
+    excluded from the time)."""
+    import torch
+
+    nt, kb = bidx.shape
+    hk_flat = h_kept.permute(0, 2, 1, 3).reshape(nt, -1, kb * block)
+    sel = w2.view(-1, block, w2.shape[1])[bidx.long()].reshape(
+        nt, kb * block, w2.shape[1])
+    return [("torch.bmm on the pre-gathered blocks (gather excluded)",
+             lambda: torch.bmm(hk_flat, sel))]
 
 
 def ffn_new_routes(log) -> dict:
@@ -6945,7 +7095,8 @@ def ffn_new_routes(log) -> dict:
         lambda: topk_spmm.block_topk_spmm_plain(h_kept, bidx, w2, block),
         False, h_kept.numel() * el + bidx.numel() * 4
         + int(torch.unique(bidx).numel()) * block * d * el + n * d * 4,
-        2 * h_kept.numel() * d, torch.float16, [],
+        2 * h_kept.numel() * d, torch.float16,
+        k6_bmm(h_kept, bidx, w2, block),
         {"h_kept": list(h_kept.shape), "w2": list(w2.shape),
          "dtype": "float16"}, "cuda_cores")
     sel = bidx.reshape(-1)
@@ -7008,10 +7159,11 @@ def ffn_new_routes(log) -> dict:
             lambda: topk_spmm.block_topk_spmm_plain(h_kept, bidx, w2w, wide),
             False, h_kept.numel() * esz + bidx.numel() * 4
             + int(torch.unique(bidx).numel()) * wide * d * esz + n * d * 4,
-            2 * h_kept.numel() * d, dtype, [],
+            2 * h_kept.numel() * d, dtype, k6_bmm(h_kept, bidx, w2w, wide),
             {"h_kept": list(h_kept.shape), "w2": list(w2w.shape),
              "block": wide, "dtype": dt}, "cuda_cores")
         del hw, w2w, h_kept, bidx
+        torch.cuda.empty_cache()
     for key, rec in recs.items():
         emit({"ffn_new_route": {"case": key, **rec}}, log)
     del x, w1, w2, h
@@ -7247,7 +7399,8 @@ def add_new_routes(kernels, new, prefill_p) -> None:
         entry = by_name[rec["name"]]
         entry.setdefault("new_routes", {})[key] = route_row(rec, 1)
     k7 = by_name["flash_attention_fused"]
-    k7["new_routes"] = {key: route_row(rec, 1)
+    k7["new_routes"] = {key: {**route_row(rec, 1),
+                              "cuda_cores_ms": rec.get("cuda_cores_ms")}
                         for key, rec in new["k7"].items()
                         if rec["name"] == "flash_attention_fused"}
     k7["launches_per_phi3_p_dtype_prefill"] = \
@@ -7256,13 +7409,16 @@ def add_new_routes(kernels, new, prefill_p) -> None:
     k7["refused_cases"] = new["k7_cases"]
     k7["launches_per_refusals_phase"] = refusals["flash_attention_fused"]
     bwd = by_name["flash_attention_bwd"]
-    rec = new["k7"]["k7_bwd_p_dtype_train_shape"]
-    bwd["new_routes"] = {"p_dtype granite train shape": {
-        **route_row(rec, 1), "route": rec["bwd_route"],
-        "loop_ms": rec["loop_ms"], "fwd_bwd_loop_ms": rec["fwd_bwd_loop_ms"]}}
-    rec = new["k7"]["k7_bwd_slabs"]
-    bwd["new_routes"]["slabs D 256"] = {**route_row(rec, 1),
-                                        "route": rec["bwd_route"]}
+    bwd["new_routes"] = {
+        name: {**route_row(rec, 1), "route": rec["bwd_route"],
+               **{k: rec[k] for k in ("loop_ms", "fwd_bwd_loop_ms",
+                                      "cuda_cores_ms")}}
+        for name, rec in (
+            ("p_dtype granite train shape",
+             new["k7"]["k7_bwd_p_dtype_train_shape"]),
+            ("float16 granite train shape",
+             new["k7"]["k7_bwd_float16_train_shape"]),
+            ("D 256", new["k7"]["k7_bwd_slabs"]))}
     rec = new["k7"]["keyless"]
     kernels.append({
         "bwd": rec["bwd"],
@@ -7493,7 +7649,10 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
                 f"src/repro_torch/kernels/csrc/{L2_SOURCES[name]}"
     kernels.append({
         "name": "flash_attention_fused", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+        "built_by": [f"src/repro_torch/kernels/csrc/{name}" for name in (
+            "flash_attention_wgmma.cu", "flash_attention_wgmma_f16.cu",
+            "flash_attention_wgmma_wide.cu")],
         "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "tpu_kernel": "src/repro/kernels/flash_attention.py:"
@@ -7544,7 +7703,10 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "path": timed["route"],
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd_wgmma.cuh",
+        "built_by": [f"src/repro_torch/kernels/csrc/{name}" for name in (
+            "flash_attention_bwd_wgmma.cu", "flash_attention_bwd_wgmma_f16.cu",
+            "flash_attention_bwd_wgmma_wide.cu")],
         "cuda_cores_source":
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "none: the reference differentiates its chunked "

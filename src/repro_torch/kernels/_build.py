@@ -7,7 +7,7 @@ goes to ``build/repro_torch_kernels/<hash>/`` at the root of the checkout,
 keyed on a hash of the sources and flags, so a changed source rebuilds and
 an unchanged one loads at once.  A failed build raises with the compiler's
 output; ``build.log`` beside the library keeps ``ptxas``'s register and
-shared-memory report.
+shared-memory report and each source's compile seconds.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
@@ -65,12 +66,14 @@ SIGNATURES = {
     "repro_block_topk_spmm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _P],
     # q, k, v, o, lse (NULL: not written), bh, sq, sk, d, dv, causal,
-    # q_offset, window, kv_len, scale, p_bf16, dtype code, stream (the
-    # CUDA-core kernel); the wgmma kernel (bfloat16) takes no dtype code
-    "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B,
-                              _I, _I, _I, _F, _B, _B, _P],
-    "repro_flash_attention_wgmma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _B, _I, _I, _I, _F, _B, _P],
+    # q_offset, window, kv_len, scale, p_bf16, dtype code, stream: the
+    # CUDA-core kernel (any type) and the tensor-core builds (bfloat16 and
+    # float16 up to 256 columns, and both types past it)
+    **{name: [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _I, _I, _I, _F, _B,
+              _B, _P]
+       for name in ("repro_flash_attention", "repro_flash_attention_wgmma",
+                    "repro_flash_attention_wgmma_f16",
+                    "repro_flash_attention_wgmma_wide")},
     # v, o, lse (NULL: none), bh, sq, sk, dv, a, b, den, p_bf16, dtype
     # code, fwd (0: the backward's keyless dV into o), stream: the queries
     # without a key
@@ -78,15 +81,14 @@ SIGNATURES = {
                             _B, _P],
     # q, k, v, o, lse, do, dq, dk, dv, delta (scratch), keyless dV (NULL:
     # none), bh, sq, sk, d, dv, causal, q_offset, window, kv_len, scale,
-    # p_bf16, dtype code, stream
-    "repro_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _I, _B, _I, _I, _I,
-                                  _F, _B, _B, _P],
-    # the same less the keyless dV, p_bf16 and the dtype code (bfloat16
-    # only; the wgmma kernels)
-    "repro_flash_attention_bwd_wgmma": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _P, _I, _I, _I, _I, _I, _B, _I, _I,
-                                        _I, _F, _P],
+    # p_bf16, dtype code, stream: the CUDA-core kernel and the tensor-core
+    # builds, as the forward's
+    **{name: [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+              _B, _I, _I, _I, _F, _B, _B, _P]
+       for name in ("repro_flash_attention_bwd",
+                    "repro_flash_attention_bwd_wgmma",
+                    "repro_flash_attention_bwd_wgmma_f16",
+                    "repro_flash_attention_bwd_wgmma_wide")},
     # ids, vals, order (NULL: none), out, n, n_out, width, skip, batch,
     # dtype code, stream
     "repro_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _P],
@@ -118,14 +120,26 @@ def build() -> Path:
     nvcc = _nvcc()
     tag = f"{os.getpid()}"
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
-    procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(src), "-o", str(obj)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
-             for src, obj in zip(sources, objs)]
+    outs = [out_dir / f"{src.stem}.{tag}.log" for src in sources]
+    t0 = time.perf_counter()
+    procs = []
+    for src, obj, out in zip(sources, objs, outs):
+        with open(out, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)], stdout=f,
+                stderr=subprocess.STDOUT))
+    # each source's wall from the common start: the slowest sets the build's
+    secs = [None] * len(procs)
+    while None in secs:
+        for i, proc in enumerate(procs):
+            if secs[i] is None and proc.poll() is not None:
+                secs[i] = time.perf_counter() - t0
+        time.sleep(0.05)
     log, failed = [], []
-    for src, proc in zip(sources, procs):
-        out, _ = proc.communicate()
-        log.append(f"$ nvcc {src.name} (exit {proc.returncode})\n{out}")
+    for src, proc, out, sec in zip(sources, procs, outs, secs):
+        log.append(f"$ nvcc {src.name} (exit {proc.returncode}, {sec:.1f} s)"
+                   f"\n{out.read_text()}")
+        out.unlink()
         if proc.returncode:
             failed.append(src.name)
     tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"

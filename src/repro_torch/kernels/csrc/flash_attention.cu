@@ -1,9 +1,10 @@
 // Fused online-softmax attention (flash attention) on q of (BH, Sq, D), k
 // of (BH, Sk, D) and v of (BH, Sk, Dv), float32, bfloat16 or float16, any
-// D and Dv, on the CUDA cores: the float32 and float16 route of
-// ops.flash_attention_fused and ops.flash_attention_masked, and the bf16
-// route of widths past the tensor-core kernel's (flash_attention_wgmma.cu
-// takes bf16 up to 256).  The output is (BH, Sq, Dv) in the inputs' type.
+// D and Dv, on the CUDA cores: the float32 route of
+// ops.flash_attention_fused and ops.flash_attention_masked, and the 16-bit
+// route of qk widths past the tensor-core kernel's (flash_wgmma.cuh takes
+// bf16 and float16 up to 384); any type when the wrapper is asked for it.
+// The output is (BH, Sq, Dv) in the inputs' type.
 // A second kernel writes the rows of the queries that have no valid key.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:

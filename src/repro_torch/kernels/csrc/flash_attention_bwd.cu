@@ -4,7 +4,9 @@
 // under the forward's masks: key j is valid for query i iff j < kv_len,
 // j <= i + q_offset when causal, and j > i + q_offset - window when
 // window > 0.  It is the gradient route of ops.flash_attention_masked and
-// ops.flash_attention_fused (kernels/flash_attention.py, _FlashAttention).
+// ops.flash_attention_fused (kernels/flash_attention.py, _FlashAttention)
+// for float32, and for 16-bit heads past the tensor-core backward's 256
+// columns (flash_bwd_wgmma.cuh).
 //
 // Replaces no Pallas kernel: the reference's training differentiates its
 // chunked attention (repro/models/attention.py:32-127) with XLA's autodiff,

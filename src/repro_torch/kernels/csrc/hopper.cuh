@@ -1,10 +1,10 @@
 // Inline-PTX helpers for Hopper (sm_90a) kernels: cp.async with zero-fill,
 // the async-proxy fence, the 128-byte shared-memory swizzle, wgmma
 // descriptors, the wgmma fence / commit / wait, the wgmma instructions the
-// kernels use (bf16 operands, float32 accumulators), a fast exp2, and
-// mbarriers with bulk copies.  Used by flash_attention_wgmma.cu,
-// bsr_spmm_wgmma.cu, block_topk_spmm_wgmma.cu, hash_accum.cu and
-// topk_spmm_smem.cu.
+// kernels use (bf16 operands, or f16 in the forms the flash kernels use;
+// float32 accumulators), a fast exp2, and mbarriers with bulk copies.
+// Used by flash_wgmma.cuh (the flash attention kernels), bsr_spmm_wgmma.cu,
+// block_topk_spmm_wgmma.cu, hash_accum.cu and topk_spmm_smem.cu.
 //
 // Shared-memory tiles use the 128-byte swizzle (SW128): a tile is stored
 // as panels of 64 bf16 columns, each row of a panel 128 bytes, rows
@@ -21,7 +21,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -116,48 +119,62 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
+// The operand lists of the wgmma wrappers: N accumulator registers.
+#define HOPPER_ACC16(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define HOPPER_ACC32(d)                                                      \
+  HOPPER_ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+      "+f"(d[30]), "+f"(d[31])
+#define HOPPER_REGS16                                                        \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_REGS32                                                        \
+  HOPPER_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+                "%27, %28, %29, %30, %31"
+
+// The 16-bit operand types of the flash kernels' wgmma forms: bf16
+// (__nv_bfloat16) and f16 (__half); f16 x f16 products, as bf16 x bf16
+// ones, are exact in float32.
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
+
 // D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T: A and B K-major in shared
-// memory (descriptors), bf16 operands, float32 accumulators; accumulate 0
-// overwrites D.
+// memory (descriptors), T operands (bf16 by default, or f16), float32
+// accumulators; accumulate 0 overwrites D.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
                                                    uint64_t desc_a,
                                                    uint64_t desc_b,
                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+#define HOPPER_SS64(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+               HOPPER_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"             \
+               : HOPPER_ACC32(d)                                            \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+  if constexpr (is_f16<T>) HOPPER_SS64("f16"); else HOPPER_SS64("bf16");
+#undef HOPPER_SS64
 }
 
 // D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T: A and B K-major in shared
-// memory (descriptors), bf16 operands, float32 accumulators; accumulate 0
+// memory (descriptors), T operands, float32 accumulators; accumulate 0
 // overwrites D.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
                                                    uint64_t desc_a,
                                                    uint64_t desc_b,
                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+#define HOPPER_SS32(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+               HOPPER_REGS16 "}, %16, %17, p, 1, 1, 0, 0;\n}\n"             \
+               : HOPPER_ACC16(d)                                            \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+  if constexpr (is_f16<T>) HOPPER_SS32("f16"); else HOPPER_SS32("bf16");
+#undef HOPPER_SS32
 }
 
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128]: A K-major and B MN-major
@@ -195,43 +212,36 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16_tb(float (&d)[64],
 }
 
 // D[64 x 64] += A[64 x 16] . B[16 x 64]: A in registers (the m64k16
-// fragment, 4 x bf16x2 a thread), B MN-major in shared memory (transpose
-// bit set), bf16 operands, float32 accumulators in d[0..31].
+// fragment, 4 x 2 T values packed a register a thread), B MN-major in
+// shared memory (transpose bit set), T operands (bf16 by default, or f16),
+// float32 accumulators in d[0..31].
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
                                                    const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+#define HOPPER_RS64(TY)                                                      \
+  asm volatile("wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+               HOPPER_REGS32 "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"  \
+               : HOPPER_ACC32(d)                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b))
+  if constexpr (is_f16<T>) HOPPER_RS64("f16"); else HOPPER_RS64("bf16");
+#undef HOPPER_RS64
 }
 
 // D[64 x 32] += A[64 x 16] . B[16 x 32]: A in registers (the m64k16
-// fragment, 4 x bf16x2 a thread), B MN-major in shared memory (transpose
-// bit set), bf16 operands, float32 accumulators in d[0..15].
+// fragment), B MN-major in shared memory (transpose bit set), T operands,
+// float32 accumulators in d[0..15].
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[32],
                                                    const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+#define HOPPER_RS32(TY)                                                      \
+  asm volatile("wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+               HOPPER_REGS16 "}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"  \
+               : HOPPER_ACC16(d)                                            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b))
+  if constexpr (is_f16<T>) HOPPER_RS32("f16"); else HOPPER_RS32("bf16");
+#undef HOPPER_RS32
 }
 
 // --- mbarriers and bulk copies --------------------------------------------

@@ -17,16 +17,19 @@ once to float32, as the Pallas kernel's ``1.0 / (d ** 0.5)``.  (The
 model's chunked attention computes ``1/sqrt(float32(D))``; for D = 96 the
 two differ by one float32 ulp, a relative 6e-8 on every score.)
 
-On CUDA the dtype and widths choose the kernel (``route``): bfloat16 inputs
-with D and Dv up to 256 go to ``csrc/flash_attention_wgmma.cu``, both
-products on the tensor cores (``wgmma``, float32 accumulators, P carried in
-three bfloat16 terms so that it keeps float32 precision; ``"wgmma_p1"``,
-one term, under ``p_dtype``); float32 and float16 inputs, and bfloat16 past
-256, to ``csrc/flash_attention.cu``, float32 on the CUDA cores
-(``"cuda_cores"`` up to 192 columns, ``"cuda_cores_slabs"`` past that:
-D and Dv in 64-column slabs).  Either is one launch per call; the bf16
-kernel's qk and value widths are template parameters of their own, so
-MLA's 192 / 128 keeps the accumulator of a 128-wide head.
+On CUDA the dtype and widths choose the kernel (``route``): bfloat16 and
+float16 inputs with a qk width up to 384 go to the tensor cores
+(``csrc/flash_wgmma.cuh``, built by ``flash_attention_wgmma.cu`` for bf16
+and ``flash_attention_wgmma_f16.cu`` for float16 up to 256 columns, and by
+``flash_attention_wgmma_wide.cu`` for both past that, its value columns in
+slabs; ``wgmma``, float32 accumulators, P carried in three bf16 or two f16
+terms so that it keeps float32 precision; ``"wgmma_p1"``, one term, under
+``p_dtype``); float32 inputs, and 16-bit qk widths past 384, to
+``csrc/flash_attention.cu``, float32 on the CUDA cores (``"cuda_cores"``
+up to 192 columns, ``"cuda_cores_slabs"`` past that: D and Dv in 64-column
+slabs).  Either is one launch per call; the tensor-core kernel's qk and
+value widths are template parameters of their own, so MLA's 192 / 128
+keeps the accumulator of a 128-wide head.
 
 ``p_dtype=torch.bfloat16`` is the reference's ``p_dtype``
 (``repro.models.attention.flash_attention``): ``l`` sums the float32
@@ -44,9 +47,8 @@ kernel a small kernel (``repro_flash_keyless`` in
 ``csrc/flash_attention.cu``, counted as ``flash_attention_keyless``)
 writes their rows, and their ``lse`` as +1e30, so that the backward's P is
 0 on them; in the backward it first sums their ``dV_j += sum_i dO_i /
-den`` (the same for every key ``j < Sk``) in float32, and the CUDA-core
-backward kernel, which takes every call with such queries, adds it to dV
-before it rounds dV; dQ and dK get nothing from them.
+den`` (the same for every key ``j < Sk``) in float32, and the backward
+kernel adds it to dV before it rounds dV; dQ and dK get nothing from them.
 
 A call whose inputs need a gradient goes through ``_FlashAttention``, a
 ``torch.autograd.Function``, on both devices.  Its forward also saves the
@@ -54,15 +56,18 @@ float32 row log-sum-exp ``lse = m + log(l)`` of the scaled scores, ``(BH,
 Sq)`` (the kernels write it only when they are given a pointer for it, so a
 call without a gradient launches as before); its backward is a kernel on
 CUDA and ``flash_attention_masked_bwd_plain`` on the CPU.  On CUDA the
-dtype and widths choose the backward kernel (``bwd_route``): bfloat16
-without ``p_dtype``, Dv <= D, with D up to the source's ``kMaxD`` (128), or
-with D up to ``kWideD`` (192) and Dv up to ``kWideDV`` (128), MLA's qk 192
-/ v 128, goes to ``csrc/flash_attention_bwd_wgmma.cu`` (every product on
-the tensor cores, P and dS carried in three bfloat16 terms; MLA's build
-streams 32-query tiles through its dK/dV pass, ``kWideBT``, so that dK's
-192 columns fit the registers); every other call to
-``csrc/flash_attention_bwd.cu`` (float32 on the CUDA cores, any widths:
-``"cuda_cores"`` up to 192 columns, ``"cuda_cores_slabs"`` past that).
+dtype and widths choose the backward kernel (``bwd_route``): bfloat16 and
+float16 with D and Dv up to 256, with or without ``p_dtype`` and queries
+without a key, go to the tensor cores (``csrc/flash_bwd_wgmma.cuh``,
+every product on the tensor cores, P and dS carried in three bf16 or two
+f16 terms; built by ``flash_attention_bwd_wgmma.cu`` and its ``_f16``
+twin up to MLA's qk 192 / v 128, whose build streams 32-query tiles
+through its dK/dV pass, ``kWideBT``, so that dK's 192 columns fit the
+registers, and by ``flash_attention_bwd_wgmma_wide.cu`` for the other
+heads up to 256, whose dK/dV pass computes dK and dV in blocks of their
+own); every other call to ``csrc/flash_attention_bwd.cu`` (float32 on the
+CUDA cores, any widths: ``"cuda_cores"`` up to 192 columns,
+``"cuda_cores_slabs"`` past that).
 Both are FlashAttention-2's schedule: a Delta pre-pass, a dK/dV pass over
 key blocks, a dQ pass over query blocks, no atomics, so a gradient is the
 same bits run to run; counted as ``flash_attention_bwd``, one count a
@@ -89,33 +94,51 @@ from repro_torch.kernels._build import library, source_constants
 
 NEG_INF = -1e30
 KEYLESS_LSE = 1e30  # the lse of a row without keys: its backward P is 0
-# the forward's C entry point on each route
-KERNELS = {"wgmma": "repro_flash_attention_wgmma",
-           "wgmma_p1": "repro_flash_attention_wgmma",
-           "cuda_cores": "repro_flash_attention",
-           "cuda_cores_slabs": "repro_flash_attention"}
-# the backward's C entry point on each route
-BWD_KERNELS = {"wgmma": "repro_flash_attention_bwd_wgmma",
-               "cuda_cores": "repro_flash_attention_bwd",
-               "cuda_cores_slabs": "repro_flash_attention_bwd"}
+# the dtypes the tensor-core kernels take
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+# the forward's C entry point on each route: the tensor-core routes by the
+# build family (``wgmma_entry``), the CUDA-core kernel any call
+KERNELS = {"wgmma": ("repro_flash_attention_wgmma",
+                     "repro_flash_attention_wgmma_f16",
+                     "repro_flash_attention_wgmma_wide"),
+           "cuda_cores": ("repro_flash_attention",)}
+KERNELS["wgmma_p1"] = KERNELS["wgmma"]
+KERNELS["cuda_cores_slabs"] = KERNELS["cuda_cores"]
+# the backward's C entry point on each route, as the forward's
+BWD_KERNELS = {"wgmma": ("repro_flash_attention_bwd_wgmma",
+                         "repro_flash_attention_bwd_wgmma_f16",
+                         "repro_flash_attention_bwd_wgmma_wide"),
+               "cuda_cores": ("repro_flash_attention_bwd",)}
+BWD_KERNELS["cuda_cores_slabs"] = BWD_KERNELS["cuda_cores"]
 
 
 def wgmma_constants() -> dict:
-    """The bf16 kernel's integer constants, read from its source
-    (``_build.source_constants``): ``kPTerms``, the bf16 terms P is carried
-    in (p1 = bf16(p), p2 = bf16(p - p1), ...; one under ``p_dtype``),
-    ``kWG``, ``kBK``, ``kStages``, ``kMaxD`` (its widest head)."""
-    return source_constants("flash_attention_wgmma.cu")
+    """The tensor-core forward's integer constants, read from its sources
+    (``_build.source_constants``: ``csrc/flash_wgmma_common.cuh`` and
+    ``csrc/flash_wgmma.cuh``): ``kPTerms`` and ``kPTermsF16``, the bf16
+    and f16 terms P is carried in (t1 = T(p), t2 = T(p - t1), ...; one
+    under ``p_dtype``), ``kWG``, ``kBK`` (its key tile), ``kStages``,
+    ``kMaxD`` (the widest head of its square builds), ``kSlabD`` /
+    ``kSlabDV`` and ``kWideD`` / ``kWideDV`` (the qk width and value slab
+    of its two wide builds)."""
+    return {**source_constants("flash_wgmma_common.cuh"),
+            **source_constants("flash_wgmma.cuh")}
 
 
 def bwd_constants() -> dict:
-    """The bf16 backward kernel's integer constants, read from its source:
-    ``kTerms``, the bf16 terms P and dS are carried in; ``kRows``, the keys
-    (dK/dV pass) or queries (dQ pass) of a block, 64 a warpgroup; ``kBT``,
-    the queries or keys of a streamed tile; ``kMaxD``, the widest head of
-    its square builds; ``kWideD`` and ``kWideDV``, the qk and value widths
-    of MLA's build, whose dK/dV pass streams ``kWideBT``-query tiles."""
-    return source_constants("flash_attention_bwd_wgmma.cu")
+    """The tensor-core backward's integer constants, read from its sources
+    (``csrc/flash_wgmma_common.cuh`` and ``csrc/flash_bwd_wgmma.cuh``):
+    ``kTerms`` and ``kTermsF16``, the bf16 and f16 terms P and dS are
+    carried in; ``kRows``, the keys (dK/dV pass) or queries (dQ pass) of a
+    block, 64 a warpgroup; ``kBT``, the queries or keys of a streamed tile;
+    ``kMaxD``, the widest head of its square builds; ``kNarrowD`` /
+    ``kNarrowDV``, the widths of its Dv > D build; ``kWideD`` and
+    ``kWideDV``, the qk and value widths of MLA's build, whose dK/dV pass
+    streams ``kWideBT``-query tiles; ``kSplitD``, the widths of the split
+    build (dK and dV in blocks of their own, ``kSplitBT``-row tiles in
+    both passes)."""
+    return {**source_constants("flash_wgmma_common.cuh"),
+            **source_constants("flash_bwd_wgmma.cuh")}
 
 
 def _cuda_cores(d: int, dv: int) -> str:
@@ -125,57 +148,82 @@ def _cuda_cores(d: int, dv: int) -> str:
     return "cuda_cores_slabs" if wide else "cuda_cores"
 
 
-def bwd_route(dtype: torch.dtype, d: int, dv: int, p_dtype=None,
-              keyless: bool = False) -> str:
+def bwd_route(dtype: torch.dtype, d: int, dv: int) -> str:
     """The backward kernel a CUDA call with ``dtype`` operands, qk width
-    ``d`` and value width ``dv`` launches: ``"wgmma"`` (bfloat16 without
-    ``p_dtype`` or queries without a key (``keyless``), ``dv <= d``, with
-    ``d`` up to ``kMaxD``, or with ``d`` up to ``kWideD`` and ``dv`` up to
-    ``kWideDV``: MLA's 192 / 128; tensor cores), else the CUDA-core kernel
-    (``_cuda_cores``: float32, float16, ``p_dtype``, keyless rows, ``dv >
-    d`` and the other bfloat16 heads past ``kMaxD``, whose dK/dV pass
-    would spill past 255 registers a thread)."""
-    c = bwd_constants()
-    if dtype == torch.bfloat16 and p_dtype is None and not keyless \
-            and dv <= d and (
-            d <= c["kMaxD"] or (d <= c["kWideD"] and dv <= c["kWideDV"])):
+    ``d`` and value width ``dv`` launches: ``"wgmma"`` (bfloat16 and
+    float16 with both widths up to the source's ``kSplitD``, 256; tensor
+    cores), else the CUDA-core kernel (``_cuda_cores``: float32, and heads
+    past 256).  ``p_dtype`` and queries without a key choose no route: both
+    kernels take them."""
+    if dtype in TENSOR_CORE_DTYPES and max(d, dv) <= bwd_constants()["kSplitD"]:
         return "wgmma"
     return _cuda_cores(d, dv)
 
 
 def route(dtype: torch.dtype, d: int = 1, dv: int = 1, p_dtype=None) -> str:
     """The kernel a CUDA call with ``dtype`` inputs, qk width ``d`` and
-    value width ``dv`` launches: ``"wgmma"`` (bfloat16 with both widths up
-    to the source's ``kMaxD``, 256; tensor cores), ``"wgmma_p1"`` (the same
-    with one P term, under ``p_dtype``), else the CUDA-core kernel
-    (``"cuda_cores"``, or ``"cuda_cores_slabs"`` past 192 columns)."""
-    if dtype == torch.bfloat16 and max(d, dv) <= wgmma_constants()["kMaxD"]:
+    value width ``dv`` launches: ``"wgmma"`` (bfloat16 and float16 with the
+    qk width up to the source's ``kWideD``, 384, any value width, in slabs
+    past 256; tensor cores), ``"wgmma_p1"`` (the same with one P term,
+    under ``p_dtype``), else the CUDA-core kernel (``"cuda_cores"``, or
+    ``"cuda_cores_slabs"`` past 192 columns): float32, and qk widths past
+    384."""
+    if dtype in TENSOR_CORE_DTYPES and d <= wgmma_constants()["kWideD"]:
         return "wgmma" if p_dtype is None else "wgmma_p1"
     return _cuda_cores(d, dv)
 
 
 def wgmma_widths(d: int, dv: int) -> tuple:
-    """The (qk, value) tile widths of the bf16 kernel a call with qk width
-    ``d`` and value width ``dv`` launches: the wider of the two rounded up
-    to a multiple of 32 for both (V, or Q and K, zero-filled past their
-    width), 256 past 192, and the value width 128 where the qk width
-    passes 128 and ``dv <= 128`` (MLA's 192 / 128)."""
+    """The (qk, value) tile widths of the tensor-core build a call with qk
+    width ``d`` and value width ``dv`` launches: up to ``kMaxD`` (256) the
+    wider of the two rounded up to a multiple of 32 for both (V, or Q and
+    K, zero-filled past their width), 256 past 192, and the value width 128
+    where the qk width passes 128 and ``dv <= 128`` (MLA's 192 / 128);
+    past 256 ``(kSlabD, kSlabDV)`` for ``d <= kSlabD`` (320 / 160), else
+    ``(kWideD, kWideDV)`` (384 / 128), the values in slabs of the value
+    width."""
+    c = wgmma_constants()
+    if max(d, dv) > c["kMaxD"]:
+        if d <= c["kSlabD"]:
+            return c["kSlabD"], c["kSlabDV"]
+        return c["kWideD"], c["kWideDV"]
     dq = -(-max(d, dv) // 32) * 32
     if dq > 192:
         return 256, 256
     return dq, 128 if dq > 128 and dv <= 128 else dq
 
 
+def wgmma_entry(kind: str, dtype: torch.dtype, d: int, dv: int) -> str:
+    """The C entry point of the tensor-core build family a call takes:
+    ``kind`` ``"fwd"`` (``KERNELS``) or ``"bwd"`` (``BWD_KERNELS``); the
+    bf16 and the f16 sources up to ``kMaxD`` (the backward's: up to MLA's
+    widths), the wide source past them, for both types."""
+    if kind == "fwd":
+        wide = max(d, dv) > wgmma_constants()["kMaxD"]
+        names = KERNELS["wgmma"]
+    else:
+        wide = bwd_widths(d, dv)[0] == bwd_constants()["kSplitD"]
+        names = BWD_KERNELS["wgmma"]
+    return names[2] if wide else names[int(dtype == torch.float16)]
+
+
 def bwd_widths(d: int, dv: int) -> tuple:
     """The template arguments (qk width, value width, the dK/dV pass's query
-    tile) of the bf16 backward build a call with qk width ``d`` and value
-    width ``dv`` launches: MLA's ``(kWideD, kWideDV, kWideBT)`` past
-    ``kMaxD``, else D rounded up to a multiple of 32 for both widths (V
-    zero-filled past ``dv``) and ``kBT``."""
+    tile) of the tensor-core backward build a call with qk width ``d`` and
+    value width ``dv`` launches: up to ``kMaxD`` (128) D rounded up to a
+    multiple of 32 for both widths (Dv, or D, zero-filled past its width)
+    and ``kBT``, or ``(kNarrowD, kNarrowDV, kBT)`` for ``d <= 64 < dv``;
+    MLA's ``(kWideD, kWideDV, kWideBT)`` for ``d <= 192`` and ``dv <=
+    128``; else the split build ``(kSplitD, kSplitD, kSplitBT)``."""
     c = bwd_constants()
-    if d > c["kMaxD"]:
-        return c["kWideD"], c["kWideDV"], c["kWideBT"]
-    dq = -(-d // 32) * 32
+    wide = max(d, dv)
+    if wide > c["kMaxD"]:
+        if d <= c["kWideD"] and dv <= c["kWideDV"]:
+            return c["kWideD"], c["kWideDV"], c["kWideBT"]
+        return c["kSplitD"], c["kSplitD"], c["kSplitBT"]
+    if d <= c["kNarrowD"] < dv:
+        return c["kNarrowD"], c["kNarrowDV"], c["kBT"]
+    dq = -(-wide // 32) * 32
     return dq, dq, c["kBT"]
 
 
@@ -390,11 +438,13 @@ def _keyless(v, o, lse, sk, a, b, p_dtype, k_chunk, fwd):
 
 
 def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False,
-            p_dtype=None, k_chunk=1024):
+            p_dtype=None, k_chunk=1024, path=None):
     """One launch of the call's kernel (none when no query has a key) and,
     when some query has none, of the keyless pass; the output ``(BH, Sq,
     Dv)``, and with ``with_lse`` the float32 row log-sum-exp ``(BH, Sq)``
-    too."""
+    too.  ``path`` (default ``route``'s) names the kernel: the CUDA-core
+    kernel takes every call (``"cuda_cores"`` or ``"cuda_cores_slabs"``,
+    by width), the tensor cores the calls ``route`` sends them."""
     code = _check_operands(q, k, v)
     _masked_shapes(q, k, v, window)
     if p_dtype not in (None, torch.bfloat16):
@@ -403,6 +453,14 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False,
     bh, sq, d = q.shape
     sk, dv = k.shape[1], v.shape[2]
     kvl = _kv_limit(sk, kv_len)
+    want = route(q.dtype, d, dv, p_dtype)
+    if path is None:
+        path = want
+    elif path.startswith("cuda_cores"):
+        path = _cuda_cores(d, dv)
+    elif path != want:
+        raise ValueError(f"route {path}: a {q.dtype} call of D {d}, Dv {dv} "
+                         f"takes {want} or the CUDA cores")
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -410,15 +468,15 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False,
         return (out, lse) if with_lse else out
     a, b = keyless_rows(sq, sk, causal, window, q_offset, kvl)
     if a < b:
-        path = route(q.dtype, d, dv, p_dtype)
-        flags = ([int(p_dtype is not None)] if path.startswith("wgmma")
-                 else [int(p_dtype is not None), code])
+        entry = (wgmma_entry("fwd", q.dtype, d, dv)
+                 if path.startswith("wgmma") else KERNELS[path][0])
         with torch.cuda.device(q.device):
-            rc = getattr(library(), KERNELS[path])(
+            rc = getattr(library(), entry)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 0 if lse is None else lse.data_ptr(), bh, sq, sk, d, dv,
                 int(bool(causal)), q_offset, window, kvl, 1.0 / (d ** 0.5),
-                *flags, torch.cuda.current_stream().cuda_stream)
+                int(p_dtype is not None), code,
+                torch.cuda.current_stream().cuda_stream)
         ops.check_launch("flash_attention_fused", rc, path)
     if a > 0 or b < sq:
         _keyless(v, out, lse, sk, a, b, p_dtype, k_chunk, True)
@@ -429,10 +487,9 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
                 p_dtype=None, k_chunk=1024, route=None):
     """One call of the backward kernel (its three launches) and, when some
     query has no key, first the keyless pass's, whose float32 dV the
-    CUDA-core kernel adds before it rounds dV; ``(dq, dk, dv)``.
-    ``route`` (default ``bwd_route``'s) names the kernel: the CUDA-core
-    kernel takes every call, the tensor-core one the bf16 calls
-    ``bwd_route`` sends it."""
+    kernel adds before it rounds dV; ``(dq, dk, dv)``.  ``route`` (default
+    ``bwd_route``'s) names the kernel: the CUDA-core kernel takes every
+    call, the tensor-core one the calls ``bwd_route`` sends it."""
     code = _check_operands(q, k, v)
     _masked_shapes(q, k, v, window)
     ops.expect(o, q.dtype, 3, "o")
@@ -454,32 +511,28 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     a, b = keyless_rows(sq, sk, causal, window, q_offset, kvl)
     keyless = a > 0 or b < sq
-    path = route or bwd_route(q.dtype, d, dv, p_dtype, keyless)
-    if path == "wgmma" and \
-            bwd_route(q.dtype, d, dv, p_dtype, keyless) != "wgmma":
-        c = bwd_constants()
-        raise ValueError(f"the wgmma backward takes bf16 without p_dtype "
-                         f"or keyless queries, Dv <= D, D <= {c['kMaxD']}, "
-                         f"or D <= {c['kWideD']} and Dv <= {c['kWideDV']}; "
-                         f"got {q.dtype}, D {d}, Dv {dv}, p_dtype {p_dtype}")
+    path = route or bwd_route(q.dtype, d, dv)
+    if path == "wgmma" and bwd_route(q.dtype, d, dv) != "wgmma":
+        raise ValueError(f"the wgmma backward takes bf16 and float16 with D "
+                         f"and Dv <= {bwd_constants()['kSplitD']}; got "
+                         f"{q.dtype}, D {d}, Dv {dv}")
     if path != "wgmma":
         path = _cuda_cores(d, dv)
     kl = None
     if keyless:  # the dV of the queries without a key, added by the kernel
         kl = torch.empty((bh, dv), dtype=torch.float32, device=q.device)
         _keyless(do, kl, None, sk, a, b, p_dtype, k_chunk, False)
-    # the CUDA-core kernel takes the keyless dV, the p_dtype flag and the
-    # dtype code
-    lead = [] if path == "wgmma" else [0 if kl is None else kl.data_ptr()]
-    flags = ([] if path == "wgmma"
-             else [int(p_dtype is not None), code])
+    entry = (wgmma_entry("bwd", q.dtype, d, dv) if path == "wgmma"
+             else BWD_KERNELS[path][0])
     with torch.cuda.device(q.device):
-        rc = getattr(library(), BWD_KERNELS[path])(
+        rc = getattr(library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dvv.data_ptr(), delta.data_ptr(), *lead, bh, sq, sk, d, dv,
+            dvv.data_ptr(), delta.data_ptr(),
+            0 if kl is None else kl.data_ptr(), bh, sq, sk, d, dv,
             int(bool(causal)), q_offset, window, kvl, 1.0 / (d ** 0.5),
-            *flags, torch.cuda.current_stream().cuda_stream)
+            int(p_dtype is not None), code,
+            torch.cuda.current_stream().cuda_stream)
     ops.check_launch("flash_attention_bwd", rc, path)
     return dq, dk, dvv
 

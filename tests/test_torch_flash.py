@@ -30,16 +30,21 @@
   relative to the largest gradient, not to each element); a keyless row
   at two key chunks; every case reaching K7's wrapper on the meta device.
 * ``ops`` routing: a CPU call launches nothing; the TPU backends raise.
-* The bf16 kernel's arithmetic (``csrc/flash_attention_wgmma.cu``),
-  emulated here, with the tile and the term count read from its source:
-  bf16 q, k, v; float32 scores over tiles of ``kBK`` keys, scaled
-  by ``1/sqrt(D)`` and ``log2(e)`` folded into one float32; the online
-  softmax in base 2; P split into ``kPTerms`` bfloat16 terms, each
-  multiplied by V into a float32 accumulator; the output rounded to
-  bfloat16.  It is held to the plain version under ``chip_smoke.py``'s
-  ``FLASH_TOL["torch.bfloat16"]``, the gate the kernel meets on the card.
-  Two terms miss that gate on outputs near zero, where its absolute 1e-6
-  binds; the kernel therefore carries three.
+* The tensor-core kernel's arithmetic (``csrc/flash_wgmma.cuh``),
+  emulated here, with the tile and the term counts read from its source:
+  bf16 or float16 q, k, v; float32 scores over tiles of ``kBK`` keys,
+  scaled by ``1/sqrt(D)`` and ``log2(e)`` folded into one float32; the
+  online softmax in base 2; P split into ``kPTerms`` bfloat16 terms, or
+  ``kPTermsF16`` float16 terms of ``p * 2**15``, each multiplied by V
+  into a float32 accumulator; the output rounded to the inputs' type.  It
+  is held to the plain version under ``chip_smoke.py``'s ``FLASH_TOL`` of
+  that type, the gate the kernel meets on the card.  Two bf16 terms miss
+  the bf16 gate on outputs near zero, where its absolute 1e-6 binds, and
+  one f16 term the f16 gate; the kernel therefore carries three and two.
+  Under ``p_dtype`` one term of P rounded to bf16 meets ``P_DTYPE_MEAN``
+  and the full terms miss it; the wide builds' value slabs meet the gate.
+* float16 calls through the plain version against the reference on the
+  same float16 inputs, forward and ``jax.grad``.
 The CUDA kernels are held against the same plain version on the card by
 ``chip_smoke.py``.
 """
@@ -124,13 +129,15 @@ def test_ops_routing():
 
 
 def test_routes_by_dtype_to_built_entry_points():
-    """bf16 goes to the tensor-core kernel, float32 to the CUDA-core one;
-    each names a C entry point the build binds."""
+    """bf16 and float16 go to the tensor-core kernel, float32 to the
+    CUDA-core one; each names C entry points the build binds."""
     from repro_torch.kernels._build import SIGNATURES
 
     assert k7.route(torch.bfloat16) == "wgmma"
+    assert k7.route(torch.float16) == "wgmma"
     assert k7.route(torch.float32) == "cuda_cores"
-    assert all(name in SIGNATURES for name in k7.KERNELS.values())
+    assert all(name in SIGNATURES for names in k7.KERNELS.values()
+               for name in names)
 
 
 class Spy:
@@ -412,20 +419,50 @@ def _chip_smoke():
     return mod
 
 
-BF16_GATE = _chip_smoke().FLASH_TOL["torch.bfloat16"]  # (rtol, atol)
-WGMMA = k7.wgmma_constants()  # the kernel's kv tile kBK, P's terms kPTerms
+CHIP = _chip_smoke()
+BF16_GATE = CHIP.FLASH_TOL["torch.bfloat16"]  # (rtol, atol)
+F16_GATE = CHIP.FLASH_TOL["torch.float16"]
+# the kernel's kv tile kBK, P's terms kPTerms (bf16) and kPTermsF16, the
+# value slabs of its wide builds, f16's P scale 2**kF16PScaleLog2
+WGMMA = k7.wgmma_constants()
 WGMMA_KEYS = WGMMA["kBK"]
+F16_P_SCALE = 2.0 ** WGMMA["kF16PScaleLog2"]
 
 
-def emulate_wgmma(q, k, v, causal: bool, terms: int, window: int = 0):
-    """The bf16 kernel's rounding, step by step, on the CPU (v may be
-    narrower than q and k, and of another length Sk).  Every row runs every
-    kv tile: a tile the kernel skips for a row is wholly masked for it, and
-    its terms are wiped once a real score arrives."""
+def _terms(p, terms, kind, p_dtype=None):
+    """p (float32) as the kernel's ``terms`` A-operand terms, each in
+    float32: bf16 terms as they are; f16 terms of p * 2**15, scaled back
+    (exact: a power of two); under ``p_dtype`` p rounded to bf16 first."""
+    scale = F16_P_SCALE if kind == "f16" else 1.0
+    x = p * scale
+    if p_dtype is not None:
+        x = x.bfloat16().float()
+    out = []
+    for _ in range(terms):
+        t = (x.half() if kind == "f16" else x.bfloat16()).float()
+        out.append(t / scale)
+        x = x - t
+    return out
+
+
+def emulate_wgmma(q, k, v, causal: bool, terms: int, window: int = 0,
+                  p_dtype=None):
+    """The tensor-core kernel's rounding, step by step, on the CPU (v may
+    be narrower than q and k, and of another length Sk), for bf16 or
+    float16 q, k and v (the kernel's 16-bit type is q's).  Every row runs
+    every kv tile: a tile the kernel skips for a row is wholly masked for
+    it, and its terms are wiped once a real score arrives.  Under
+    ``p_dtype`` P is rounded to bf16 and taken as one term, and V is
+    rounded to bf16 (float16's kernel rounds its V tiles to
+    f16(bf16(v) / 2) in shared memory and scales the sum back by 2: the
+    same values here)."""
+    kind = "f16" if q.dtype == torch.float16 else "bf16"
     bh, s, d = q.shape
     c = float(np.float32(np.float64(np.float32(1.0 / d ** 0.5))
                          * math.log2(math.e)))
     qf, kf, vf = q.float(), k.float(), v.float()
+    if p_dtype is not None:
+        vf = (v.bfloat16().float() * 0.5).to(q.dtype).float() * 2.0
     m = torch.full((bh, s, 1), k7.NEG_INF)
     l = torch.zeros((bh, s, 1))
     acc = torch.zeros((bh, s, v.shape[2]))
@@ -444,25 +481,31 @@ def emulate_wgmma(q, k, v, causal: bool, terms: int, window: int = 0):
         corr = torch.exp2(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
         pv = torch.zeros_like(acc)
-        for _ in range(terms):
-            term = p.bfloat16().float()
+        for term in _terms(p, terms, kind, p_dtype):
             pv += torch.matmul(term, vf[:, k0:k0 + WGMMA_KEYS])
-            p = p - term
         acc = acc * corr + pv
         m = m_new
-    return (acc / l.clamp_min(1e-30)).bfloat16()
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def emulate_wgmma_slabs(q, k, v, causal: bool, terms: int, slab: int):
+    """The wide builds: one block a (query tile, value slab), each running
+    the same online softmax over the full qk width and writing ``slab``
+    columns of the output."""
+    return torch.cat([emulate_wgmma(q, k, v[..., c:c + slab], causal, terms)
+                      for c in range(0, v.shape[2], slab)], -1)
 
 
 def gate_misses(got, want):
-    rtol, atol = BF16_GATE
+    rtol, atol = F16_GATE if want.dtype == torch.float16 else BF16_GATE
     diff = (got.double() - want.double()).abs()
     return int((diff > atol + rtol * want.double().abs()).sum())
 
 
-def bf16_qkv(seed, bh, s, d):
+def bf16_qkv(seed, bh, s, d, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((bh, s, d))
-                             .astype(np.float32)).bfloat16()
+                             .astype(np.float32)).to(dtype)
             for _ in range(3)]
 
 
@@ -517,3 +560,109 @@ def test_two_term_split_misses_the_bf16_gate():
         want = k7.flash_attention_fused_plain(q, k, v, True)
         misses += gate_misses(emulate_wgmma(q, k, v, True, 2), want)
     assert misses > 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,d", [(2, 64, 32), (2, 256, 96), (64, 256, 96),
+                                    (4, 1024, 96)])
+def test_wgmma_f16_arithmetic_meets_the_f16_gate(causal, bh, s, d):
+    """float16 on the tensor cores: f16 products, P in kPTermsF16 f16 terms
+    of p * 2**15, against the plain version under the f16 gate."""
+    q, k, v = bf16_qkv(0, bh, s, d, torch.float16)
+    want = k7.flash_attention_fused_plain(q, k, v, causal, min(128, s),
+                                          min(128, s))
+    got = emulate_wgmma(q, k, v, causal, WGMMA["kPTermsF16"])
+    assert got.dtype == torch.float16 and got.shape == want.shape
+    assert gate_misses(got, want) == 0
+
+
+def test_one_f16_term_misses_the_f16_gate():
+    """Why float16's P carries two terms: one (2^-11 of p) misses the f16
+    gate on the early causal rows of 64 heads."""
+    q, k, v = bf16_qkv(0, 64, 256, 96, torch.float16)
+    want = k7.flash_attention_fused_plain(q, k, v, True)
+    assert gate_misses(emulate_wgmma(q, k, v, True, 1), want) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgmma_p_dtype_arithmetic_meets_the_p_dtype_gate(dtype):
+    """``p_dtype`` on the tensor cores: one term of P rounded to bf16 (in
+    f16, bf16(p) * 2**15), V rounded to bf16 (f16's halved in the wrapper),
+    against the plain version on the kernel's key tile under
+    ``chip_smoke.py``'s ``P_DTYPE_MEAN``; the full-precision terms miss
+    it."""
+    q, k, v = bf16_qkv(2, 16, 256, 64, dtype)
+    want = k7.flash_attention_masked_plain(q, k, v, True,
+                                           p_dtype=torch.bfloat16,
+                                           k_blk=WGMMA_KEYS)
+    got = emulate_wgmma(q, k, v, True, 1, p_dtype=torch.bfloat16)
+    assert CHIP.error_share(got, want) <= CHIP.P_DTYPE_MEAN
+    full = WGMMA["kPTermsF16" if dtype == torch.float16 else "kPTerms"]
+    assert CHIP.error_share(emulate_wgmma(q, k, v, True, full), want) \
+        > CHIP.P_DTYPE_MEAN
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,dv", [(320, 320), (64, 300), (384, 100)])
+def test_value_slab_arithmetic_meets_the_gate(dtype, d, dv):
+    """The wide builds at small S: each value slab recomputes S over the
+    full qk width and writes its columns; the slabs together meet the gate
+    of the input type against the plain version."""
+    dq, slab = k7.wgmma_widths(d, dv)
+    assert max(d, dv) > WGMMA["kMaxD"] and dq >= d
+    assert k7.route(dtype, d, dv) == "wgmma"
+    q, k, _ = bf16_qkv(3, 2, 128, d, dtype)
+    v = bf16_qkv(4, 2, 128, dv, dtype)[0]
+    want = k7.flash_attention_fused_plain(q, k, v, True)
+    terms = WGMMA["kPTermsF16" if dtype == torch.float16 else "kPTerms"]
+    got = emulate_wgmma_slabs(q, k, v, True, terms, slab)
+    assert got.shape == want.shape == (2, 128, dv)
+    assert gate_misses(got, want) == 0
+
+
+# float16 calls the reference computes too: (sq, sk, d, dv, p_dtype)
+F16_GRAD_TOL = 2 ** -9
+F16_REF_CASES = {"causal": (32, 32, 16, 16, None),
+                 "dv_past_d": (16, 16, 8, 16, None),
+                 "p_dtype": (16, 16, 8, 8, torch.bfloat16)}
+
+
+@pytest.mark.parametrize("case", sorted(F16_REF_CASES))
+def test_float16_plain_matches_reference(case):
+    """float16 inputs through K7's plain forward and backward (the CPU's
+    K7) against the reference's chunked attention and ``jax.grad`` of it on
+    the same float16 inputs.  The forwards compute in float32 and round
+    once to float16: within one f16 step (2**-10 of the value) beyond
+    ``K7_TOL``.  The gradients within ``F16_GRAD_TOL`` of the largest
+    |gradient|: ``jax.grad`` sums the cotangents of its float16 operands
+    in float16, each add rounded to a step of the running sum, which
+    leaves a small gradient off by a step of the large ones; under
+    ``p_dtype`` ``P_DTYPE_GRAD_TOL`` more (its bf16 cotangents, as in
+    float32)."""
+    sq, sk, d, dv, p_dtype = F16_REF_CASES[case]
+    rng = np.random.default_rng(9)
+    q, k, v = (x.astype(np.float16) for x in qkv(rng, 1, sq, sk, 2, 2, d, dv))
+    ct = rng.standard_normal((1, sq, 2, dv)).astype(np.float16)
+    kw = dict(causal=True, p_dtype=p_dtype)
+    ref_kw = dict(causal=True, p_dtype=None if p_dtype is None
+                  else jnp.bfloat16)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = attention.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == torch.float16
+    want = ref_attn.flash_attention(*map(jnp.asarray, (q, k, v)), **ref_kw)
+    rtol, atol = P_DTYPE_TOL if p_dtype is not None else K7_TOL
+    np.testing.assert_allclose(host(got.detach()).astype(np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=rtol + 2 ** -10, atol=atol)
+    (got.float() * torch.from_numpy(ct).float()).sum().backward()
+
+    def f(q, k, v):
+        out = ref_attn.flash_attention(q, k, v, **ref_kw)
+        return jnp.sum(out.astype(jnp.float32) * ct.astype(np.float32))
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for t, w in zip((tq, tk, tv), grads):
+        g, w = host(t.grad).astype(np.float32), np.asarray(w, np.float32)
+        assert t.grad.dtype == torch.float16
+        tol = F16_GRAD_TOL + (0 if p_dtype is None else P_DTYPE_GRAD_TOL)
+        assert np.abs(g - w).max() <= tol * np.abs(w).max()

@@ -19,26 +19,32 @@
   operations: within 1e-5 of the largest |gradient| (two float32
   evaluations of the same equations).
 * The CUDA kernels' loop bounds (``csrc/flash_attention_bwd.cu``, 64-key
-  and 64-query blocks; ``csrc/flash_attention_bwd_wgmma.cu``, 128-key and
+  and 64-query blocks; ``csrc/flash_bwd_wgmma.cuh``, 128-key and
   128-query blocks of two 64-row warpgroups over 64-row tiles, or, in MLA's
-  build, 32-query tiles in the dK/dV pass, each warpgroup skipping the
-  tiles none of its pairs is valid in): the dK/dV pass visits, for each
-  key block, the query tiles from the causal diagonal to the window's far
-  edge; the dQ pass the key tiles the forward visits.  Emulated here over
-  a grid of masks, every valid (query, key) pair must fall in a visited
-  tile of both passes, and every tile the tensor-core kernel leaves
-  unmasked must hold valid pairs only.
-* The tensor-core kernel's arithmetic (bf16 products exact in float32,
+  build, 32-query tiles in the dK/dV pass, or, in the split build, 32-row
+  tiles in both passes, each warpgroup skipping the tiles none of its
+  pairs is valid in): the dK/dV pass visits, for each key block, the
+  query tiles from the causal diagonal to the window's far edge; the dQ
+  pass the key tiles the forward visits.  Emulated here over a grid of
+  masks, every valid (query, key) pair must fall in a visited tile of both
+  passes, and every tile the tensor-core kernel leaves unmasked must hold
+  valid pairs only.
+* The tensor-core kernel's arithmetic (16-bit products exact in float32,
   ``exp2`` with the scale folded with log2(e), P and dS split into the
-  source's ``kTerms`` bf16 terms, tiles summed in the passes' order, MLA's
-  dK/dV pass over ``kWideBT``-query tiles), emulated on the CPU and held
-  to ``chip_smoke.py``'s backward gate against the plain backward:
-  ``FLASH_BWD_F32`` of the call's largest |gradient| plus
-  ``FLASH_BWD_BF16_STEP`` of each value.  One term misses that gate; two
-  meet it.
-* ``bwd_route``: bf16 up to the source's ``kMaxD``, and MLA's qk 192 / v
-  128, on the tensor cores; float32 and the other heads past 128 on the
-  CUDA cores, each an entry point the build binds.
+  source's ``kTerms`` bf16 or ``kTermsF16`` f16 terms, f16's P as
+  ``p * 2**15``, tiles summed in the passes' order of the build
+  ``bwd_widths`` names; under ``p_dtype`` V rounded to bf16 and P one
+  bf16-rounded term in dV; the keyless queries' dV added before dV
+  rounds), emulated on the CPU and held to ``chip_smoke.py``'s backward
+  gate against the plain backward: ``FLASH_BWD_F32`` of the call's
+  largest |gradient| plus one step of each value's type (``LOWP_STEP``),
+  and under ``p_dtype`` dV to ``P_DTYPE_MEAN``.  One term of either type
+  misses its gate; two meet it; without the rounding dV misses
+  ``P_DTYPE_MEAN``.
+* ``bwd_route``: bf16 and float16 up to 256 columns (the source's
+  ``kSplitD``) on the tensor cores, with or without ``p_dtype`` and keyless
+  queries; float32 and wider heads on the CUDA cores, each an entry point
+  the build binds; ``bwd_widths`` names each call's build.
 The CUDA kernels themselves are held against the plain version on the card
 by ``chip_smoke.py`` (``train_phase``).
 """
@@ -210,7 +216,9 @@ BWD = k7.bwd_constants()  # kTerms, kRows, kBT, kMaxD, ... of the wgmma kernel
 WG_ROWS = BWD["kRows"] // BWD["kWG"]
 TILINGS = {"cuda_cores": (64, 64, 64, None),
            "wgmma": (BWD["kRows"], BWD["kBT"], BWD["kBT"], WG_ROWS),
-           "wgmma_mla": (BWD["kRows"], BWD["kWideBT"], BWD["kBT"], WG_ROWS)}
+           "wgmma_mla": (BWD["kRows"], BWD["kWideBT"], BWD["kBT"], WG_ROWS),
+           "wgmma_split": (BWD["kRows"], BWD["kSplitBT"], BWD["kSplitBT"],
+                           WG_ROWS)}
 
 
 def _bwd_tiles_cover(sq, sk, causal, window, q_offset, kv_len, tiling):
@@ -294,32 +302,49 @@ def test_kernel_tile_ranges_cover_every_valid_pair(tiling):
             sq, sk, causal, window, q_offset, kv_len)
 
 
-def _split(x, terms):
-    """x as ``terms`` bf16 terms, each the rounding of what is left."""
+def _split(x, terms, kind="bf16", scale=1.0, bf16=False):
+    """x as ``terms`` terms of the kernel's type (``kind``), each the
+    rounding of what is left, in float32: f16 terms of ``x * scale``,
+    scaled back (a power of two); ``bf16``: x rounded to bf16 first."""
     out = []
+    x = x * scale
+    if bf16:
+        x = x.bfloat16().float()
     for _ in range(terms):
-        out.append(x.bfloat16().float())
-        x = x - out[-1]
+        t = (x.half() if kind == "f16" else x.bfloat16()).float()
+        out.append(t / scale)
+        x = x - t
     return out
 
 
 def emulate_bwd_wgmma(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
-                      terms):
-    """The tensor-core backward's arithmetic on the CPU, from bf16 q, k, v,
-    o, do and the forward's float32 lse: scores and dP from bf16 products in
-    float32; P = 2^(S * c - lse * log2 e), c the scale and log2(e) in one
-    float32; dS = P (dP - Delta); P and dS split into ``terms`` bf16 terms,
-    each multiplied into float32 sums over the passes' tiles in ascending
-    order (dK/dV over kBT-query tiles, kWideBT in MLA's build past kMaxD;
-    dQ over kBT-key tiles); dK and dQ scaled at the end, every gradient
-    rounded once to bf16."""
-    bt = BWD["kBT"]
+                      terms, p_dtype=None, k_chunk=1024):
+    """The tensor-core backward's arithmetic on the CPU, from bf16 or
+    float16 q, k, v, o, do and the forward's float32 lse: scores and dP
+    from 16-bit products in float32; P = 2^(S * c - lse * log2 e), c the
+    scale and log2(e) in one float32; dS = P (dP - Delta); P and dS split
+    into ``terms`` terms of the operands' type (f16's P as p * 2**15), each
+    multiplied into float32 sums over the passes' tiles in ascending order
+    (the dK/dV pass's query tile and the dQ pass's key tile of the build
+    ``bwd_widths`` names); under ``p_dtype`` V rounded to bf16 (float16's
+    kernel rounds its V tiles to f16(bf16(v) / 2) in shared memory and
+    doubles dP back: the same values) and P in dV one term, rounded to
+    bf16; the keyless queries' float32 dV
+    added before dV rounds; dK and dQ scaled at the end, every gradient
+    rounded once to the operands' type."""
+    kind = "f16" if q.dtype == torch.float16 else "bf16"
+    pscale = 2.0 ** BWD["kF16PScaleLog2"] if kind == "f16" else 1.0
     sq, d, sk = q.shape[1], q.shape[2], k.shape[1]
-    bt_kv = BWD["kWideBT"] if d > BWD["kMaxD"] else bt
+    dv_w = v.shape[2]
+    bt_kv = k7.bwd_widths(d, dv_w)[2]
+    bt_q = BWD["kSplitBT"] if k7.bwd_widths(d, dv_w)[0] == BWD["kSplitD"] \
+        else BWD["kBT"]
     kvl = sk if kv_len is None else min(kv_len, sk)
     scale = float(np.float32(1.0 / d ** 0.5))
     c = float(np.float32(np.float64(scale) * math.log2(math.e)))
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    if p_dtype is not None:
+        vf = (v.bfloat16().float() * 0.5).to(q.dtype).float() * 2.0
     delta = (dof * o.float()).sum(-1, keepdim=True)
     x = torch.matmul(qf, kf.transpose(1, 2)) * c \
         - lse[..., None] * np.float32(math.log2(math.e))
@@ -329,41 +354,53 @@ def emulate_bwd_wgmma(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
     ds = p * (torch.matmul(dof, vf.transpose(1, 2)) - delta)
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), \
         torch.zeros_like(vf)
+    p_terms = 1 if p_dtype is not None else terms
     for t0 in range(0, sq, bt_kv):
         sl = slice(t0, t0 + bt_kv)
-        for tp, td in zip(_split(p[:, sl], terms), _split(ds[:, sl], terms)):
+        for tp in _split(p[:, sl], p_terms, kind, pscale,
+                         bf16=p_dtype is not None):
             dv += torch.matmul(tp.transpose(1, 2), dof[:, sl])
+        for td in _split(ds[:, sl], terms, kind):
             dk += torch.matmul(td.transpose(1, 2), qf[:, sl])
-    for t0 in range(0, sk, bt):
-        sl = slice(t0, t0 + bt)
-        for td in _split(ds[:, :, sl], terms):
+    for t0 in range(0, sk, bt_q):
+        sl = slice(t0, t0 + bt_q)
+        for td in _split(ds[:, :, sl], terms, kind):
             dq += torch.matmul(td, kf[:, sl])
-    return ((dq * scale).bfloat16(), (dk * scale).bfloat16(),
-            dv.bfloat16())
+    a, b = k7.keyless_rows(sq, sk, causal, window, q_offset, kv_len)
+    if a > 0 or b < sq:
+        g = dof[:, :a].sum(1, keepdim=True) + dof[:, b:].sum(1, keepdim=True)
+        dv = dv + g / k7.keyless_den(sk, k_chunk)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
+            dv.to(q.dtype))
 
 
 def bwd_gate_misses(got, want) -> int:
-    """Values beyond chip_smoke.py's bf16 backward gate."""
+    """Values beyond chip_smoke.py's backward gate of their type (one
+    rounding step of each value, ``LOWP_STEP``, beyond the float32 gate)."""
     scale = max(float(w.double().abs().max()) for w in want)
     misses = 0
     for g, w in zip(got, want):
         diff = (g.double() - w.double()).abs()
         gate = CHIP.FLASH_BWD_F32 * scale \
-            + CHIP.FLASH_BWD_BF16_STEP * w.double().abs()
+            + CHIP.LOWP_STEP[str(w.dtype)] * w.double().abs()
         misses += int((diff > gate).sum())
     return misses
 
 
-def _bf16_case(bh, sq, sk, d, dv, causal, window, q_offset, kv_len, seed=0):
-    """bf16 operands, the plain forward's o and lse, the plain backward."""
+def _bf16_case(bh, sq, sk, d, dv, causal, window, q_offset, kv_len, seed=0,
+               dtype=torch.bfloat16, p_dtype=None):
+    """16-bit operands, the plain forward's o and lse, the plain
+    backward."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)
-                                    .astype(np.float32)).bfloat16()
+                                    .astype(np.float32)).to(dtype)
                    for shape in ((bh, sq, d), (bh, sk, d), (bh, sk, dv),
                                  (bh, sq, dv)))
     args = (causal, window, q_offset, kv_len)
-    o, lse = k7.flash_attention_masked_plain(q, k, v, *args, with_lse=True)
-    want = k7.flash_attention_masked_bwd_plain(q, k, v, o, lse, do, *args)
+    o, lse = k7.flash_attention_masked_plain(q, k, v, *args, with_lse=True,
+                                             p_dtype=p_dtype)
+    want = k7.flash_attention_masked_bwd_plain(q, k, v, o, lse, do, *args,
+                                               p_dtype=p_dtype)
     return (q, k, v, o, lse, do, *args), want
 
 
@@ -382,6 +419,15 @@ BWD_WGMMA_CASES = {
     "d128_window": (4, 200, 200, 128, 128, True, 100, 0, None),
     "mla_192_128": (8, 256, 256, 192, 128, True, 0, 0, None),
     "mla_key_limit_sq_ne_sk": (4, 100, 230, 192, 128, False, 0, 0, 170),
+    # Dv > D (the narrow build qk 64 / v 128, and a square one), the split
+    # build (D 160, D 256 with a window, unequal widths under a key limit)
+    # and queries without a key (their dV added before dV rounds)
+    "dv_past_d_64_128": (8, 200, 200, 64, 128, True, 0, 0, None),
+    "dv_past_d_8_16": (8, 100, 100, 8, 16, True, 0, 0, None),
+    "split_160": (4, 130, 130, 160, 160, True, 0, 0, None),
+    "split_256_window": (4, 200, 200, 256, 256, True, 64, 0, None),
+    "split_key_limit_sq_ne_sk": (2, 100, 230, 200, 256, False, 0, 0, 170),
+    "keyless_first_queries": (8, 96, 96, 64, 64, True, 0, -3, None),
 }
 
 
@@ -396,6 +442,56 @@ def test_bwd_wgmma_arithmetic_meets_the_bf16_gate(case):
     assert bwd_gate_misses(got, want) == 0
 
 
+# the float16 cases: granite's head across 64 heads, Phi-3's, a window of
+# one key, MLA's widths, the split build, Dv > D, keyless queries
+BWD_F16_CASES = ("d64_causal_64_heads", "d96_causal", "window_1",
+                 "mla_192_128", "split_256_window", "dv_past_d_64_128",
+                 "keyless_first_queries")
+
+
+@pytest.mark.parametrize("case", BWD_F16_CASES)
+def test_bwd_wgmma_arithmetic_meets_the_f16_gate(case):
+    """float16 on the tensor cores: f16 products, P (as p * 2**15) and dS
+    in ``kTermsF16`` f16 terms, against the plain backward under the f16
+    gate."""
+    shape = BWD_WGMMA_CASES[case]
+    assert k7.bwd_route(torch.float16, shape[3], shape[4]) == "wgmma"
+    args, want = _bf16_case(*shape, dtype=torch.float16)
+    got = emulate_bwd_wgmma(*args, BWD["kTermsF16"])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and g.shape == w.shape
+    assert bwd_gate_misses(got, want) == 0
+
+
+@pytest.mark.parametrize("terms,misses", [(1, True), (2, False)])
+def test_bwd_term_count_against_the_f16_gate(terms, misses):
+    """One f16 term of P and dS (2^-11 of each) misses the f16 gate across
+    64 causal heads; two (2^-22) meet it."""
+    args, want = _bf16_case(*BWD_WGMMA_CASES["d64_causal_64_heads"],
+                            dtype=torch.float16)
+    got = emulate_bwd_wgmma(*args, terms)
+    assert (bwd_gate_misses(got, want) > 0) == misses
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["d64_causal_64_heads", "split_256_window"])
+def test_bwd_p_dtype_arithmetic_meets_the_p_dtype_gate(dtype, case):
+    """``p_dtype`` on the tensor cores: V rounded to bf16 in dP, P in dV
+    one term rounded to bf16, dS keeping its terms.  dV within
+    ``chip_smoke.py``'s ``P_DTYPE_MEAN`` of the plain backward under
+    ``p_dtype`` (sum |error| over sum |value|), dQ and dK within the
+    backward's own gate; the same build without the rounding misses
+    ``P_DTYPE_MEAN`` on dV."""
+    pdt = torch.bfloat16
+    args, want = _bf16_case(*BWD_WGMMA_CASES[case], dtype=dtype, p_dtype=pdt)
+    terms = BWD["kTermsF16" if dtype == torch.float16 else "kTerms"]
+    got = emulate_bwd_wgmma(*args, terms, p_dtype=pdt)
+    assert CHIP.error_share(got[2], want[2]) <= CHIP.P_DTYPE_MEAN
+    assert bwd_gate_misses(got[:2], want[:2]) == 0
+    full = emulate_bwd_wgmma(*args, terms)
+    assert CHIP.error_share(full[2], want[2]) > CHIP.P_DTYPE_MEAN
+
+
 @pytest.mark.parametrize("terms,misses", [(1, True), (2, False)])
 def test_bwd_term_count_against_the_bf16_gate(terms, misses):
     """One bf16 term of P and dS (2^-9 of each) misses the gate across 64
@@ -406,33 +502,48 @@ def test_bwd_term_count_against_the_bf16_gate(terms, misses):
 
 
 def test_bwd_routes_by_dtype_and_width_to_built_entry_points():
-    """bf16 up to kMaxD (granite's 64, Phi-3's 96, 128) and MLA's 192 /
-    128 on the tensor cores; float32, and the other bf16 heads past 128,
-    on the CUDA cores; each route names a C entry point the build binds."""
+    """bf16 and float16 with D and Dv up to kSplitD (256) on the tensor
+    cores (``p_dtype`` and keyless queries choose no route); float32, and
+    16-bit heads past 256, on the CUDA cores; each route names C entry
+    points the build binds.  (Before the split build, bf16 heads of 129 to
+    256 columns other than MLA's, float16, ``p_dtype``, keyless queries and
+    Dv > D took the CUDA cores.)"""
     from repro_torch.kernels._build import SIGNATURES
 
-    assert BWD["kMaxD"] == 128
+    assert BWD["kMaxD"] == 128 and BWD["kSplitD"] == 256
     assert (BWD["kWideD"], BWD["kWideDV"], BWD["kWideBT"]) == (192, 128, 32)
     for d in (7, 32, 64, 96, 128):
         assert k7.bwd_route(torch.bfloat16, d, d) == "wgmma"
+        assert k7.bwd_route(torch.float16, d, d) == "wgmma"
         assert k7.bwd_route(torch.float32, d, d) == "cuda_cores"
     assert k7.bwd_route(torch.bfloat16, 96, 80) == "wgmma"
     assert k7.bwd_route(torch.bfloat16, 192, 128) == "wgmma"
     assert k7.bwd_route(torch.float32, 192, 128) == "cuda_cores"
-    for d, dv in ((129, 129), (160, 160), (192, 192)):
-        assert k7.bwd_route(torch.bfloat16, d, dv) == "cuda_cores"
+    for d, dv in ((129, 129), (160, 160), (192, 192), (64, 256), (256, 256)):
+        assert k7.bwd_route(torch.bfloat16, d, dv) == "wgmma"
+        assert k7.bwd_route(torch.float16, d, dv) == "wgmma"
+    assert k7.bwd_route(torch.bfloat16, 257, 64) == "cuda_cores_slabs"
+    assert k7.bwd_route(torch.float16, 64, 320) == "cuda_cores_slabs"
     assert set(k7.BWD_KERNELS) == {"wgmma", "cuda_cores", "cuda_cores_slabs"}
-    assert all(name in SIGNATURES for name in k7.BWD_KERNELS.values())
+    assert all(name in SIGNATURES for names in k7.BWD_KERNELS.values()
+               for name in names)
 
 
 @pytest.mark.parametrize("d,dv,want", [
     (7, 7, (32, 32, 64)), (64, 64, (64, 64, 64)), (96, 80, (96, 96, 64)),
     (128, 128, (128, 128, 64)), (192, 128, (192, 128, 32)),
-    (160, 128, (192, 128, 32))])
+    (160, 128, (192, 128, 32)), (64, 128, (64, 128, 64)),
+    (8, 16, (32, 32, 64)), (96, 128, (128, 128, 64)),
+    (160, 160, (256, 256, 32)), (256, 256, (256, 256, 32)),
+    (64, 256, (256, 256, 32))])
 def test_bwd_widths_name_the_build_each_wgmma_call_launches(d, dv, want):
     """The template arguments (qk, value, dK/dV query tile) of the
-    tensor-core build a call takes, as the source's entry point switches:
-    the square builds pad D to a multiple of 32 with kBT-query tiles, and
-    every head past kMaxD that the route sends there takes MLA's build."""
+    tensor-core build a call takes, as the sources' entry points switch:
+    the square builds pad the wider width to a multiple of 32 with
+    kBT-query tiles, qk 64 / v 128 has a build of its own, D 129..192 with
+    Dv <= 128 takes MLA's, and every other head up to 256 the split
+    build, whose entry point is the wide source's."""
     assert k7.bwd_route(torch.bfloat16, d, dv) == "wgmma"
     assert k7.bwd_widths(d, dv) == want
+    entry = k7.wgmma_entry("bwd", torch.bfloat16, d, dv)
+    assert entry.endswith("_wide") == (want[0] == BWD["kSplitD"])

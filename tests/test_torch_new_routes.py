@@ -13,9 +13,11 @@ are held against the JAX package:
 * K6 (``topk_spmm.route``): the tensor cores for bf16 within ``kMaxBlock``
   and ``kMaxInvertBlocks``, the CUDA cores for everything else.
 * K5: float16 on the ``"l2"`` kernel.  K7 (``flash_attention.route`` and
-  ``bwd_route``): bf16 up to 256 on ``wgmma`` (``wgmma_p1`` under
-  ``p_dtype``), the CUDA cores past that (in slabs past 192), and the
-  backward of ``p_dtype``, keyless and ``Dv > D`` calls on the CUDA cores.
+  ``bwd_route``): bf16 and float16 forwards up to a qk width of 384 on
+  ``wgmma`` (``wgmma_p1`` under ``p_dtype``; values in slabs past 256),
+  their backwards up to 256 columns, ``p_dtype`` and keyless queries
+  included; float32 and wider heads on the CUDA cores (in slabs past
+  192); each build family's entry point.
 * The plain versions on float16 (K3, K5, K6), a strided ``x`` (K1, K3)
   and a bf16 block of 512 lanes (K6) against the reference's Pallas kernels
   in interpret mode: bit for bit for the copies and for K5 in float16
@@ -123,36 +125,76 @@ def test_topk_spmm_route_by_dtype(dtype, d_ff, want):
     assert topk_spmm.topk_spmm_route(d_ff, dtype) == want
 
 
+# 16-bit forwards up to a qk width of 384 (any value width, in slabs past
+# 256) take the tensor cores (bf16 past 256 and every float16 call once
+# took the CUDA cores)
 @pytest.mark.parametrize("dtype,d,dv,p_dtype,want", [
     (torch.bfloat16, 96, 96, None, "wgmma"),
     (torch.bfloat16, 96, 96, torch.bfloat16, "wgmma_p1"),
     (torch.bfloat16, 256, 256, None, "wgmma"),
     (torch.bfloat16, 64, 128, None, "wgmma"),
-    (torch.bfloat16, 320, 320, None, "cuda_cores_slabs"),
-    (torch.bfloat16, 64, 300, torch.bfloat16, "cuda_cores_slabs"),
+    (torch.bfloat16, 320, 320, None, "wgmma"),
+    (torch.bfloat16, 64, 300, torch.bfloat16, "wgmma_p1"),
+    (torch.bfloat16, 384, 512, None, "wgmma"),
+    (torch.bfloat16, 385, 64, None, "cuda_cores_slabs"),
     (torch.float32, 192, 192, None, "cuda_cores"),
     (torch.float32, 256, 256, torch.bfloat16, "cuda_cores_slabs"),
-    (torch.float16, 96, 96, None, "cuda_cores"),
-    (torch.float16, 8, 200, None, "cuda_cores_slabs"),
+    (torch.float16, 96, 96, None, "wgmma"),
+    (torch.float16, 96, 96, torch.bfloat16, "wgmma_p1"),
+    (torch.float16, 8, 200, None, "wgmma"),
+    (torch.float16, 400, 400, None, "cuda_cores_slabs"),
 ])
 def test_k7_forward_routes(dtype, d, dv, p_dtype, want):
     assert k7.route(dtype, d, dv, p_dtype) == want
-    assert k7.KERNELS[want] in _build.SIGNATURES
+    assert all(name in _build.SIGNATURES for name in k7.KERNELS[want])
 
 
-@pytest.mark.parametrize("dtype,d,dv,p_dtype,keyless,want", [
-    (torch.bfloat16, 64, 64, None, False, "wgmma"),
-    (torch.bfloat16, 64, 64, torch.bfloat16, False, "cuda_cores"),
-    (torch.bfloat16, 64, 64, None, True, "cuda_cores"),
-    (torch.bfloat16, 64, 128, None, False, "cuda_cores"),
-    (torch.bfloat16, 192, 128, None, False, "wgmma"),
-    (torch.bfloat16, 256, 256, None, False, "cuda_cores_slabs"),
-    (torch.float16, 96, 96, None, False, "cuda_cores"),
-    (torch.float32, 8, 320, None, True, "cuda_cores_slabs"),
+# 16-bit backwards with D and Dv up to 256 take the tensor cores; p_dtype
+# and keyless queries choose no route (p_dtype, keyless queries, Dv > D,
+# float16 and heads past 128 but MLA's once took the CUDA cores)
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 96, 80, "wgmma"),
+    (torch.bfloat16, 8, 16, "wgmma"),
+    (torch.bfloat16, 64, 128, "wgmma"),
+    (torch.bfloat16, 192, 128, "wgmma"),
+    (torch.bfloat16, 256, 256, "wgmma"),
+    (torch.bfloat16, 257, 64, "cuda_cores_slabs"),
+    (torch.float16, 96, 96, "wgmma"),
+    (torch.float16, 160, 200, "wgmma"),
+    (torch.float16, 64, 320, "cuda_cores_slabs"),
+    (torch.float32, 64, 64, "cuda_cores"),
+    (torch.float32, 8, 320, "cuda_cores_slabs"),
 ])
-def test_k7_backward_routes(dtype, d, dv, p_dtype, keyless, want):
-    assert k7.bwd_route(dtype, d, dv, p_dtype, keyless) == want
-    assert k7.BWD_KERNELS[want] in _build.SIGNATURES
+def test_k7_backward_routes(dtype, d, dv, want):
+    assert k7.bwd_route(dtype, d, dv) == want
+    assert all(name in _build.SIGNATURES for name in k7.BWD_KERNELS[want])
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 96, 96, "repro_flash_attention_wgmma"),
+    (torch.float16, 96, 96, "repro_flash_attention_wgmma_f16"),
+    (torch.float16, 200, 256, "repro_flash_attention_wgmma_f16"),
+    (torch.bfloat16, 64, 300, "repro_flash_attention_wgmma_wide"),
+    (torch.float16, 320, 320, "repro_flash_attention_wgmma_wide"),
+])
+def test_k7_forward_entry_by_build_family(dtype, d, dv, want):
+    """bf16 and float16 up to 256 columns have a source and an entry point
+    each; the wide builds one for both types."""
+    assert k7.wgmma_entry("fwd", dtype, d, dv) == want
+    assert want in _build.SIGNATURES
+
+
+@pytest.mark.parametrize("d,dv,want", [
+    (320, 320, (320, 160)), (257, 100, (320, 160)), (64, 300, (320, 160)),
+    (321, 64, (384, 128)), (384, 512, (384, 128))])
+def test_wgmma_widths_of_the_wide_builds(d, dv, want):
+    """Past 256 columns: the qk width's wide build, the values in slabs of
+    its value width; the builds' widths are the source's constants."""
+    c = k7.wgmma_constants()
+    assert (c["kSlabD"], c["kSlabDV"], c["kWideD"], c["kWideDV"]) == (
+        320, 160, 384, 128)
+    assert k7.wgmma_widths(d, dv) == want
 
 
 @pytest.mark.parametrize("d,dv,want", [

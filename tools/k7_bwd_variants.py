@@ -48,17 +48,21 @@ CSRC = ROOT / "src/repro_torch/kernels/csrc"
 OUT = ROOT / "build/k7_bwd_variants"
 _P, _I, _B, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
-# q, k, v, o, lse, do, dq, dk, dv, delta, bh, sq, sk, d, dv, causal,
-# q_offset, window, kv_len, scale[, bf16], stream
-WGMMA = [_P] * 10 + [_I] * 5 + [_B, _I, _I, _I, _F, _P]
+# q, k, v, o, lse, do, dq, dk, dv, delta, keyless dV (NULL), bh, sq, sk,
+# d, dv, causal, q_offset, window, kv_len, scale, p_bf16, dtype code,
+# stream: both entries
 CUDA_CORES = [_P] * 11 + [_I] * 5 + [_B, _I, _I, _I, _F, _B, _B, _P]
+WGMMA = CUDA_CORES
 # (name, bh, s, d, dv)
 SHAPES = (("granite", 64, 2048, 64, 64), ("phi3", 64, 4096, 96, 96),
           ("d128", 32, 4096, 128, 128), ("mla", 32, 2048, 192, 128))
 
 
 def takes(text: str, d: int, dv: int) -> bool:
-    """Whether the tensor-core source ``text`` has a build for (d, dv)."""
+    """Whether the tensor-core source ``text`` (with the shared header it
+    includes) has a build for (d, dv)."""
+    if '#include "flash_bwd_wgmma.cuh"' in text:
+        text += (CSRC / "flash_bwd_wgmma.cuh").read_text()
     consts = {k: int(v) for k, v in re.findall(
         r"constexpr int (k\w+) = (\d+);", text)}
     return d <= consts["kMaxD"] or (
@@ -106,7 +110,8 @@ def build(srcs: dict) -> dict:
         report = {}
         for block in out.split("Compiling entry function '")[1:]:
             kernel = re.search(
-                r"(?:dkdv|dq|delta)_kernel(?:I(?:Li\d+E|13__nv_bfloat16|f)+E)?",
+                r"(?:dkdv|dq|delta)_kernel"
+                r"(?:I(?:Li\d+E|Lb\dE|13__nv_bfloat16|f)+E)?",
                 block.split("'", 1)[0])
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
@@ -162,10 +167,8 @@ def main(argv=None) -> int:
             ptrs = [x.data_ptr() for x in (q, k, v, o, lse, do, *grads[n],
                                           delta)]
             # no keyless dV; p_bf16 0, the bf16 type code
-            lead, flag = ([None], [0, 1]) if kind == "cuda_cores" \
-                else ([], [])
-            rc = fn(*ptrs, *lead, bh, s, s, d, dv, 1, 0, 0, s,
-                    1.0 / d ** 0.5, *flag, stream)
+            rc = fn(*ptrs, None, bh, s, s, d, dv, 1, 0, 0, s,
+                    1.0 / d ** 0.5, 0, 1, stream)
             if rc:
                 raise RuntimeError(f"{n} at {shape}: error {rc}")
 

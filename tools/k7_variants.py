@@ -6,8 +6,9 @@ CUDA card, in turns.
                                  [--json PATH]
 
 Run from the root of a checkout.  ``shipped`` is
-``src/repro_torch/kernels/csrc/flash_attention_wgmma.cu`` (bf16) and
-``flash_attention.cu`` (float32) as they are.  ``--parent DIR`` adds the
+``src/repro_torch/kernels/csrc/flash_attention_wgmma.cu`` (bf16, the
+kernel in ``flash_wgmma.cuh``) and ``flash_attention.cu`` (float32) as
+they are.  ``--parent DIR`` adds the
 two files of an older checkout, whose C entry points take one length S
 and no mask (q, k, v, o, bh, s, d, dv, causal, scale, stream), as K7 did
 before its masked entry; ``--variant NAME=PATH`` adds another bf16 source
@@ -45,9 +46,10 @@ OUT = ROOT / "build/k7_variants"
 _P, _I, _B, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 # q, k, v, o, lse (NULL), bh, sq, sk, d, dv, causal, q_offset, window,
-# kv_len, scale, p_bf16, [dtype code: the CUDA-core entry], stream
-NEW = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _I, _I, _I, _F, _B, _P]
-NEW_F32 = NEW[:-1] + [_B, _P]
+# kv_len, scale, p_bf16, dtype code, stream: both shipped entries
+NEW = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _I, _I, _I, _F, _B, _B,
+       _P]
+NEW_F32 = NEW
 OLD = [_P, _P, _P, _P, _I, _I, _I, _I, _B, _F, _P]
 # (name, bh, s, d, dv, causal, window, dtype)
 SHAPES = (("phi3", 64, 4096, 96, 96, True, 0, "bf16"),
@@ -104,7 +106,8 @@ def build(srcs: dict) -> dict:
         fn.argtypes, fn.restype = (new if kind == "new" else OLD), _B
         report = {}
         for block in out.split("Compiling entry function '")[1:]:
-            kernel = re.search(r"flash_\w*?kernelI(?:Li\d+E)+",
+            kernel = re.search(r"flash_\w*?kernelI(?:13__nv_bfloat16|f)?"
+                               r"(?:Li\d+E)+",
                                block.split("'", 1)[0])
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
@@ -155,9 +158,9 @@ def main(argv=None) -> int:
             fn, kind, _ = built[n]
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     outs[n].data_ptr())
-            if kind == "new":  # no lse, no p_dtype; float32's type code 0
+            if kind == "new":  # no lse, no p_dtype; type code 0 or 1
                 rc = fn(*ptrs, None, bh, s, s, d, dv, int(causal), 0, window,
-                        s, scale, 0, *([0] if dt == "f32" else []), stream)
+                        s, scale, 0, 0 if dt == "f32" else 1, stream)
             else:
                 rc = fn(*ptrs, bh, s, d, dv, int(causal), scale, stream)
             if rc:
