@@ -108,7 +108,9 @@ products run in full float32 (TF32 off).  It
    the plain backward takes the plain forward's ``lse``) and the forward's
    output and ``lse`` against the plain forward's (``lse`` within 1e-5 of
    max(1, its largest |value|)), one case on the tensor cores twice bit
-   for bit; times K7's forward with ``lse`` and its backward at
+   for bit, and float16 / bf16 calls whose dS passes 65,504 or sits below
+   2^-14 (``FLASH_BWD_DS_RANGE``), each twice bit for bit; times K7's
+   forward with ``lse`` and its backward at
    granite-3-2b's training shape (BH 64, S 2,048, D 64, bf16, causal) and
    at Phi-3's head (BH 64, S 4,096, D 96), the CUDA-core kernel on the
    same bf16 inputs in turns, beside their bounds (10 D FLOP a pair, and
@@ -177,18 +179,22 @@ products run in full float32 (TF32 off).  It
    CPU, on calls recorded at their sites: the sort engine on RoadTX's
    group-0 chunk and p2p-Gnutella04's group-2 chunk (976 x 131,793
    slots), ``csr_spmm`` on ogbn-arxiv's Â forward and X's gradient (the
-   stable-sort route), ``csr_column_sums`` on Economics with its self
-   loops; times each (CUDA events, device time) beside its bound (bytes)
+   stable-sort route), the MoE gathers' backward at DeepSeek-V2-Lite's
+   training shape (``MOE_GATHER``), ``csr_column_sums`` on Economics with
+   its self loops; times each (CUDA events, device time) beside its bound
+   (bytes)
    and its plain version on the card (``index_add_``, with atomics), the
    site's call before this kernel, ``scatter_add_``,
    ``torch.segment_reduce`` and ``index_put_(accumulate=True)``, with
    whether each gives the kernel's bits; then on ``SEGSUM_EDGES`` (one
-   column, wide rows on 1-4 columns a lane, runs past the kernel's batch
-   of loads, a batch, the permuted route, skipped segments, float64, no
-   entry); and holds the dense conversions that add repeated entries
-   (``TopKRows.to_dense``, ``bsr_to_dense``, ``csr_to_dense``,
-   ``ell_to_dense``, each through the segment sum) on the card against
-   the CPU, short and long runs of repeats, bit for bit;
+   column, wide rows packed several to a warp and past one warp, runs past
+   the kernel's batch of loads and past ``kLongRun`` on the block route,
+   bf16, a batch, the permuted route, skipped segments, float64, no
+   entry), each twice, bit for bit; and holds the dense conversions that
+   add repeated entries (``TopKRows.to_dense``, ``bsr_to_dense``,
+   ``csr_to_dense``, ``ell_to_dense``, each through the segment sum) on
+   the card against the CPU, short and long runs of repeats, bit for
+   bit;
 6c. drives the calls the port once refused (``refused_calls_phase``, and
    ``new_routes_phase`` right after K7's phase, while the profiler still
    reads device time): the RoadTX and p2p-Gnutella04 self-products with
@@ -900,9 +906,12 @@ def segment_sum_check(what, call, log) -> dict:
 
 
 # (width, value sets, order, dtype, entries, segments, skip): one column,
-# wide rows on 1-4 columns a lane and past one slab, runs shorter and
-# longer than the kernel's batch of 16 loads, a batch, the permuted route,
-# skipped segments, float64, one segment, no entry.
+# wide rows on several segments a warp, a lane a row and past one warp,
+# runs shorter and longer than the kernel's batches of loads, a batch, the
+# permuted route, skipped segments, float64, one segment, no entry; then
+# runs of ~4,000 past kLongRun on the block route: bf16 through the
+# permutation, float32 with a batch and skipped segments, and 2,048 bf16
+# columns (tiles of 4 rows) through the permutation.
 SEGSUM_EDGES = (
     (1, 1, False, "float32", 5000, 700, 0),
     (1, 3, True, "float32", 5000, 700, 0),
@@ -915,6 +924,9 @@ SEGSUM_EDGES = (
     (130, 1, False, "float64", 2000, 9, 0),
     (1, 1, False, "float32", 0, 40, 0),
     (64, 1, True, "float32", 0, 40, 0),
+    (64, 1, True, "bfloat16", 20000, 9, 0),
+    (64, 2, False, "float32", 20000, 9, 3),
+    (2048, 1, True, "bfloat16", 6000, 6, 0),
 )
 
 
@@ -933,10 +945,11 @@ def segment_sum_edges(log):
         shape = (batch, n, width) if batch > 1 else (n, width)
         vals = np.where(rng.random(shape) < 0.3,
                         np.where(rng.random(shape) < 0.5, -1e8, 1e8),
-                        rng.random(shape) + 0.5).astype(dt)
+                        rng.random(shape) + 0.5)
         ids = np.sort(rng.integers(0, n_out, n) // 2 * 2 % n_out)
         order = rng.permutation(n) if ordered else None
-        host = (torch.from_numpy(ids), torch.from_numpy(vals),
+        host = (torch.from_numpy(ids),
+                torch.from_numpy(vals).to(getattr(torch, dt)),
                 None if order is None else torch.from_numpy(order))
         dev = tuple(None if h is None else h.cuda() for h in host)
         before = ops.launch_counts()["segment_sum"]
@@ -945,8 +958,11 @@ def segment_sum_edges(log):
               f"segment_sum edge {case}: launches")
         want = ss.segment_sum_plain(host[0], host[1], n_out, host[2], skip)
         check(torch.equal(got, want), f"segment_sum edge {case} differs")
-    emit({"segment_sum_edges": {"cases": len(SEGSUM_EDGES), "ok": True}},
-         log)
+        again = ss.segment_sum(dev[0], dev[1], n_out, dev[2], skip).cpu()
+        check(torch.equal(got, again), f"segment_sum edge {case}: a repeat "
+                                       f"differs")
+    emit({"segment_sum_edges": {"cases": len(SEGSUM_EDGES), "ok": True,
+                                "long_run": ss.long_run()}}, log)
 
 
 def formats_check(log) -> dict:
@@ -1005,6 +1021,72 @@ def formats_check(log) -> dict:
     return rec
 
 
+# the MoE dispatch gather's backward at DeepSeek-V2-Lite's training shape
+# (2 x 2,048 tokens, top-6 of 64 routed experts, d_model 2,048, bf16): the
+# tokens of the expert-sorted (token, pick) stream, and a cotangent
+MOE_GATHER = {"tokens": 4096, "k": 6, "experts": 64, "d": 2048}
+
+
+def moe_gather_operands():
+    """(t_sorted, ct) on the card from seed 0: each pair's token in the
+    stable expert sort of random picks, and a bf16 (pairs, d) cotangent."""
+    import torch
+
+    m = MOE_GATHER
+    rng = np.random.default_rng(0)
+    flat_e = torch.from_numpy(rng.integers(0, m["experts"],
+                                           m["tokens"] * m["k"])).cuda()
+    t_sorted = torch.argsort(flat_e, stable=True) // m["k"]
+    ct = torch.from_numpy(rng.standard_normal(
+        (m["tokens"] * m["k"], m["d"])).astype(np.float32)).cuda().bfloat16()
+    return t_sorted, ct
+
+
+def moe_gather_check(log) -> dict:
+    """The MoE dispatch gather ``xt[t_sorted]`` through ``take_rows`` at
+    MOE_GATHER: its backward on the card (the sort and the segment sum,
+    one launch) bit for bit the CPU port's (the reference's order of adds,
+    each rounded to bf16), and the same on a repeat; timed beside PyTorch's
+    indexing backward (``indexing_backward_kernel``), which it replaces."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.ops import take_rows
+
+    t_sorted, ct = moe_gather_operands()
+    x = torch.zeros((MOE_GATHER["tokens"], MOE_GATHER["d"]),
+                    dtype=torch.bfloat16, device="cuda", requires_grad=True)
+
+    def grad():
+        return torch.autograd.grad(take_rows(x, t_sorted), x, ct)[0]
+
+    before = ops.launch_counts()["segment_sum"]
+    got = grad()
+    torch.cuda.synchronize()
+    check(ops.launch_counts()["segment_sum"] == before + 1,
+          "the MoE gather's backward: segment sum launches")
+    xc = x.detach().cpu().requires_grad_()
+    want = torch.autograd.grad(take_rows(xc, t_sorted.cpu()), xc,
+                               ct.cpu())[0]
+    check(torch.equal(got.cpu(), want), "the MoE gather's backward differs "
+          "from the CPU port's")
+    check(torch.equal(grad(), got), "the MoE gather's backward: a repeat "
+                                    "differs")
+
+    def indexing():
+        return torch.autograd.grad(x[t_sorted], x, ct)[0]
+
+    rec = {"shape": dict(MOE_GATHER), "bit_identical_to_cpu": True,
+           "ms": time_ms(grad, reps=10), "loop_ms": loop_ms(grad, reps=10),
+           "indexing_backward_ms": time_ms(indexing, reps=10),
+           "indexing_backward_loop_ms": loop_ms(indexing, reps=10),
+           "indexing_backward_equal": bool(torch.equal(indexing(), got))}
+    emit({"moe_gather_backward": rec}, log)
+    del x, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
 def segment_sum_phase(mats, log) -> dict:
     """The sorted segment sum at the main paths' shapes, each call recorded
     at its site and held bit for bit against the plain version on the CPU:
@@ -1059,6 +1141,16 @@ def segment_sum_phase(mats, log) -> dict:
         "csr_spmm ogbn-arxiv X's gradient (stable-sort order)", calls[1],
         log)
     del g, a, x, ct, calls
+    torch.cuda.empty_cache()
+    ids, ct = moe_gather_operands()
+    with recorded_sums(ss) as calls:
+        ss.index_sum(ids, ct, MOE_GATHER["tokens"])
+    check(len(calls) == 1, f"index_sum made {len(calls)} segment sums")
+    recs["moe_backward/deepseek"] = segment_sum_check(
+        f"the MoE gathers' backward, DeepSeek-V2-Lite's training shape "
+        f"({ids.numel()} pairs x {MOE_GATHER['d']} bf16, runs of "
+        f"{MOE_GATHER['k']})", calls[0], log)
+    del ids, ct, calls
     torch.cuda.empty_cache()
     name, n = MCL_MATRIX
     g = mc.add_self_loops(table_ii_matrix(name, seed=0, n_override=n,
@@ -3171,12 +3263,71 @@ def flash_grad_call(q, k, v, do, causal, window, q_offset, kv_len):
     return out.detach(), grads
 
 
+# float16 backward calls whose dS leaves f16's normal range, (scales of q,
+# k, v, do) on a causal (8, 128, 128, 64) call, as
+# tests/test_torch_flash_bwd.py's DS_RANGE: a large V against small scores,
+# |dS| past 65,504; a small dO and V, every |dS| below 2^-14, with large K
+# so that dQ, the largest gradient, stays normal
+FLASH_BWD_DS_RANGE = {"large_ds": (2 ** -3, 2 ** -5, 2 ** 12, 4.0),
+                      "small_ds": (2 ** -10, 2 ** 10, 2 ** -6, 2 ** -12)}
+FLASH_BWD_DS_SHAPE = (8, 128, 128, 64)
+
+
+def flash_bwd_ds_range(errs, routes) -> dict:
+    """The FLASH_BWD_DS_RANGE calls in float16 on the tensor cores (f16's dS
+    carried at a power of two a head): each within the backward's gate of
+    the plain backward, every gradient finite, the same bits on a repeat;
+    and in bf16 on the same values.  Adds each case's error to ``errs``."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as k7
+
+    bh, s, _, d = FLASH_BWD_DS_SHAPE
+    rec = {}
+    for name, scales in FLASH_BWD_DS_RANGE.items():
+        rng = np.random.default_rng(4)
+        host = [torch.from_numpy((rng.standard_normal((bh, s, d)) * sc)
+                                 .astype(np.float32)) for sc in scales]
+        for dt in (torch.float16, torch.bfloat16):
+            q, k, v, do = (x.to(dt).cuda() for x in host)
+            out, got = flash_grad_call(q, k, v, do, True, 0, 0, None)
+            _, lse_p = k7.flash_attention_masked_plain(q, k, v, True,
+                                                       with_lse=True)
+            want = k7.flash_attention_masked_bwd_plain(q, k, v, out, lse_p,
+                                                       do, True)
+            case = f"{dt}/{name}/{bh}x{s}x{d}/scales={scales}"
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"flash_attention_bwd {case}: a gradient is not finite")
+            errs[case] = flash_bwd_check(got, want, case)
+            routes[case] = k7.bwd_route(dt, d, d)
+            again = flash_grad_call(q, k, v, do, True, 0, 0, None)[1]
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash_attention_bwd {case}: a repeat differs")
+            # dS = P (dP - Delta) of the plain backward, in float32
+            sc = (q.float() @ k.float().transpose(1, 2)) / d ** 0.5
+            ok = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+            p = torch.where(ok, torch.exp(sc - lse_p[..., None]), 0.0)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            ds = (p * (do.float() @ v.float().transpose(1, 2) - delta)).abs()
+            rec[case] = {"route": routes[case], "max_abs_err": errs[case],
+                         "max_abs_ds": float(ds.max()),
+                         "grad_max": [float(g.float().abs().max())
+                                      for g in got]}
+    large = [r for c, r in rec.items() if "large_ds" in c]
+    small = [r for c, r in rec.items() if "small_ds" in c]
+    check(all(r["max_abs_ds"] > 65504 for r in large)
+          and all(0 < r["max_abs_ds"] < 2 ** -14 for r in small),
+          f"flash_attention_bwd: the dS range cases miss their range {rec}")
+    return rec
+
+
 def flash_bwd_cases(log) -> dict:
     """K7's backward against its plain version on FLASH_BWD_CASES in both
     dtypes, each call one forward and one backward count, the backward on
     the route ``bwd_route`` names, with the forward's output and ``lse``
     against the plain forward's; the causal bf16 case at S 1,500 (the
-    tensor cores) twice, bit for bit (no atomics)."""
+    tensor cores) twice, bit for bit (no atomics); float16's dS past its
+    range (``flash_bwd_ds_range``)."""
     import torch
 
     from repro_torch.kernels import flash_attention as k7
@@ -3223,7 +3374,8 @@ def flash_bwd_cases(log) -> dict:
                       f"flash_attention_bwd {case}: a repeat differs")
                 repeat = case
     check(repeat is not None, "flash_attention_bwd: no repeat on wgmma")
-    rec = {"cases": len(errs), "max_abs_err": errs,
+    ds_range = flash_bwd_ds_range(errs, routes)
+    rec = {"cases": len(errs), "max_abs_err": errs, "ds_range": ds_range,
            "lse_max_abs_err": lse_errs, "routes": routes,
            "gate": {"float32": f"{FLASH_BWD_F32} of the largest |value| "
                                f"of dq, dk, dv",
@@ -3532,6 +3684,19 @@ def step_product_flops(cfg, flat, tokens: int) -> float:
     return 6 * rest * tokens + 6 * moe_capacity(tokens, cfg.moe) * experts
 
 
+# the segment sums of a MoE layer's backward: one a row gather through
+# take_rows (models/ffn.py: the tokens, the gates, the expert outputs, the
+# combine's parts)
+MOE_SEGMENT_SUMS = 4
+
+
+def moe_layers(cfg) -> int:
+    """The MoE layers of ``cfg``'s stack (its dense prefix left out)."""
+    from repro_torch.models.transformer import is_moe, n_prefix
+
+    return cfg.n_layers - n_prefix(cfg) if is_moe(cfg) else 0
+
+
 def train_steps(log, spec=TRAIN, key="train_steps") -> dict:
     """``spec``'s model at full width (granite at its full depth of 40
     layers; DeepSeek-V2-Lite at DS_TRAIN's 4), bf16 with float32 AdamW
@@ -3582,11 +3747,14 @@ def train_steps(log, spec=TRAIN, key="train_steps") -> dict:
                          if after[k] != before[k]})
         i += 1
     launches, routes = ops.launch_counts(), ops.route_counts()
+    # one K7 forward and backward a layer; a MoE layer's backward adds its
+    # row gathers' segment sums
+    want_step = {"flash_attention_fused": cfg.n_layers,
+                 "flash_attention_bwd": cfg.n_layers}
+    if moe_layers(cfg):
+        want_step["segment_sum"] = MOE_SEGMENT_SUMS * moe_layers(cfg)
     for n in per_step:
-        check(n == {"flash_attention_fused": cfg.n_layers,
-                    "flash_attention_bwd": cfg.n_layers},
-              f"{key}: launches {n}, {cfg.n_layers} + {cfg.n_layers} K7 "
-              f"wanted")
+        check(n == want_step, f"{key}: launches {n}, {want_step} wanted")
     check(routes.get("flash_attention_bwd/wgmma") == launches[
         "flash_attention_bwd"], f"{key}: backward routes {routes}")
     for m in metrics:
@@ -3599,6 +3767,13 @@ def train_steps(log, spec=TRAIN, key="train_steps") -> dict:
         box["state"], box["m"] = step(state, batch)
 
     host_ms, dev_ms, events = profile(one, top_n=None)
+    # PyTorch's indexing backward adds repeated rows in its own order; the
+    # MoE's gathers go through take_rows and the segment sum instead
+    indexing = [e for e in events if "indexing_backward_kernel" in e[0]]
+    check(not indexing, f"{key}: PyTorch's indexing backward ran: "
+                        f"{indexing}")
+    segsum = [e for e in events if "segment_sum" in e[0]
+              or "mark_runs" in e[0]]
     metrics.append({k: float(x) for k, x in box["m"].items()})
     del state
     state = box.pop("state")
@@ -3651,7 +3826,10 @@ def train_steps(log, spec=TRAIN, key="train_steps") -> dict:
            "profiled": {"host_ms": host_ms, "device_ms": dev_ms,
                         "device_busy_share": None if dev_ms is None
                         else dev_ms / host_ms, "k7_forward": k7_fwd,
-                        "k7_backward": k7_bwd, "top_kernels": events[:12]}}
+                        "k7_backward": k7_bwd, "top_kernels": events[:12],
+                        "segment_sum_ms": sum(t for _, t, _ in segsum),
+                        "segment_sum_kernels": segsum,
+                        "indexing_backward": indexing}}
     emit({key: rec}, log)
     del state, box
     torch.cuda.empty_cache()
@@ -3691,10 +3869,13 @@ def train_repeat(log, spec=DS_TRAIN, key="deepseek_train_repeat") -> dict:
 def deepseek_train(log) -> dict:
     """DeepSeek-V2-Lite's training on the card at DS_TRAIN: the timed
     steps (MLA's K7 backward on the tensor cores at qk 192 / v 128, the
-    MoE's dispatch and combine backward), the first step twice bit for
-    bit, and the float32 gradients of the dense and one MoE layer against
-    the CPU's."""
+    MoE's dispatch and combine backward through the segment sum, no
+    PyTorch indexing backward), the dispatch gather's backward at full
+    shape bit for bit the CPU port's, the first step twice bit for bit,
+    and the float32 gradients of the dense and one MoE layer against the
+    CPU's."""
     out = {"steps": train_steps(log, DS_TRAIN, "deepseek_train_steps")}
+    out["moe_gather"] = moe_gather_check(log)
     out["repeat"] = train_repeat(log, DS_TRAIN, "deepseek_train_repeat")
     out["grad_path"] = grad_path_check(log, DS_TRAIN,
                                        "deepseek_train_grad_path")
@@ -6659,10 +6840,13 @@ def k7_call_hold(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
 
 # the kernels of K7's forward and backward calls (both routes, the keyless
 # pass's included), by name
+KEYLESS_TYPES = ("__nv_bfloat16", "__half", "float")
 K7_FWD_KERNEL_NAMES = ("flash_wgmma_kernel", "flash_kernel",
-                       "flash_slab_kernel", "keyless_fwd_kernel")
+                       "flash_slab_kernel") \
+    + tuple(f"keyless_kernel<{t}, true>" for t in KEYLESS_TYPES)
 K7_BWD_KERNEL_NAMES = ("delta_kernel", "dkdv_kernel", "dkdv_slab_kernel",
-                       "dq_kernel", "dq_slab_kernel", "keyless_bwd_kernel")
+                       "dq_kernel", "dq_slab_kernel") \
+    + tuple(f"keyless_kernel<{t}, false>" for t in KEYLESS_TYPES)
 
 
 def k7_route_times(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
@@ -6843,9 +7027,10 @@ K7_KEYLESS = (32, 4096, 128)
 
 def k7_keyless_timed(rand, log) -> dict:
     """K7's keyless pass alone (kv_len 0: no attention launch) at
-    K7_KEYLESS, against its plain version, beside its bound (v read once,
-    o and lse written once) and ``torch.mean`` of v over the keys (the
-    rows' values, not written out)."""
+    K7_KEYLESS, against its plain version and the same bits on a repeat,
+    beside its bound (v read once, o and lse written once) and
+    ``torch.mean`` of v over the keys (the rows' values, not written out);
+    the backward's dV sum likewise, beside ``v.float().sum(1)``."""
     import torch
 
     from repro_torch.kernels import flash_attention as k7
@@ -6862,11 +7047,13 @@ def k7_keyless_timed(rand, log) -> dict:
     check(ops.launch_counts()["flash_attention_fused"] == before,
           "keyless: the attention kernel was launched")
     want = k7.flash_attention_masked_plain(q, k, v, False, kv_len=0)
+    check(torch.equal(kernel(), got), "keyless: a repeat differs")
     rec = {"name": "flash_attention_keyless", "route": taken,
            "shape": {"bh": bh, "sq": s, "sk": s, "d": d, "dv": d,
                      "dtype": "bfloat16", "kv_len": 0},
            "max_abs_err": k7_gate(got, want, 1.0, None, "keyless"),
            "ms": time_ms(kernel, reps=5), "device_ms": device_ms(kernel, 3),
+           "loop_ms": loop_ms(kernel, reps=20),
            "plain_ms": time_ms(lambda: k7.flash_attention_masked_plain(
                q, k, v, False, kv_len=0), reps=1)}
     nbytes = bh * s * d * 2 * v.element_size() + bh * s * 4
@@ -6874,6 +7061,7 @@ def k7_keyless_timed(rand, log) -> dict:
                                              torch.bfloat16)
     rec.update(library_call([("torch.mean(v, 1) (the rows' values only)",
                               lambda: torch.mean(v, 1))]))
+    rec["library_loop_ms"] = loop_ms(lambda: torch.mean(v, 1), reps=20)
     # the backward's keyless pass alone: the float32 dV every key gets
     g = torch.empty((bh, d), dtype=torch.float32, device="cuda")
     before = ops.launch_counts()["flash_attention_keyless"]
@@ -6887,8 +7075,14 @@ def k7_keyless_timed(rand, log) -> dict:
           "keyless backward: launches")
     check(torch.allclose(g, v.float().sum(1) / s, rtol=1e-5, atol=1e-6),
           "keyless backward: differs from its plain sum")
+    first = g.clone()
+    kernel_bwd()
+    check(torch.equal(g, first), "keyless backward: a repeat differs")
     rec["bwd"] = {"route": "bwd", "ms": time_ms(kernel_bwd, reps=5),
                   "device_ms": device_ms(kernel_bwd, 3),
+                  "loop_ms": loop_ms(kernel_bwd, reps=20),
+                  "library_loop_ms": loop_ms(lambda: v.float().sum(1),
+                                             reps=20),
                   "bound_ms": bound_ms(v.numel() * v.element_size()
                                        + g.numel() * 4),
                   "library_ms": time_ms(lambda: v.float().sum(1), reps=5),
@@ -7614,6 +7808,9 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
                                 for c, n in per_stream.items()},
         "launches_per_mesh": {c: n["segment_sum"]
                               for c, n in per_mesh.items()},
+        # the MoE gathers' backward, 4 a MoE layer
+        "launches_per_deepseek_train_step":
+            ds_train["steps"]["launches_per_step"].get("segment_sum", 0),
         "max_abs_err": head["max_abs_err"], "ms": head["ms"],
         "kernel_ms": head["ms"], "device_ms": head["device_ms"],
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

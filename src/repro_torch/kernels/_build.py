@@ -89,9 +89,9 @@ SIGNATURES = {
                     "repro_flash_attention_bwd_wgmma",
                     "repro_flash_attention_bwd_wgmma_f16",
                     "repro_flash_attention_bwd_wgmma_wide")},
-    # ids, vals, order (NULL: none), out, n, n_out, width, skip, batch,
-    # dtype code, stream
-    "repro_segment_sum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _P],
+    # ids, vals, order (NULL: none), out, work (scratch; NULL for one
+    # column), n, n_out, width, skip, batch, dtype code, stream
+    "repro_segment_sum": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _B, _P],
 }
 
 _LIB = None

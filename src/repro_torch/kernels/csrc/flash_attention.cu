@@ -66,20 +66,23 @@
 // reference's chunked loop does the same.  A row with no valid key at all
 // keeps those terms: in the reference it is sum_{j < Sk} v_j / den over
 // every key of every chunk it visits, den = ceil(Sk / kc) * kc for its key
-// chunk kc (padded keys count, with v = 0).  keyless_fwd_kernel writes
-// those rows (a prefix and a suffix of the queries, found by the wrapper)
-// after the attention kernel, and their lse as +1e30, so that the
-// backward's P is 0 on them; keyless_bwd_kernel sums their dV for the
-// CUDA-core backward to add.
+// chunk kc (padded keys count, with v = 0).  keyless_kernel writes those
+// rows (a prefix and a suffix of the queries, found by the wrapper) after
+// the attention kernel, and their lse as +1e30, so that the backward's P
+// is 0 on them; its backward form sums their dV for the backward kernels
+// to add.
 //
 // Internal tiles (64 x 64) are the kernel's choice: masking is elementwise
 // and the function does not depend on them.  The kernel and the Python
 // version differ only in the order of float32 sums.  At D = Dv = 192, Q and
 // K tiles of 64 x 196 floats and V's and P's take 166,912 bytes of shared
 // memory.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "dtypes.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -400,53 +403,125 @@ flash_slab_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    slab == 0);
 }
 
-// The rows of the queries with no valid key, [0, a) and [b, sq): for each
-// (bh, column c), o[bh, i, c] = sum_{j < sk} v[bh, j, c] / den, added in
-// key order in float32 (v rounded to bf16 first with p_bf16), and lse
-// +1e30.  A thread a (bh, column).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-keyless_fwd_kernel(const T* __restrict__ v, T* __restrict__ o,
-                   float* __restrict__ lse, long long bh_count, int sq,
-                   int sk, int dv, int a, int b, float den, int p_bf16) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= bh_count * dv) return;
-  const long long bh = t / dv;
-  const int c = (int)(t - bh * dv);
-  const T* vc = v + bh * sk * (long long)dv + c;
-  float sum = 0.0f;
-  for (int j = 0; j < sk; ++j) {
-    const float x = to_f(vc[(long long)j * dv]);
-    sum = __fadd_rn(sum, p_bf16 ? round_bf16(x) : x);
-  }
-  const T mean = from_f<T>(sum / den);
-  T* oc = o + bh * sq * (long long)dv + c;
-  for (int i = 0; i < a; ++i) oc[(long long)i * dv] = mean;
-  for (int i = b; i < sq; ++i) oc[(long long)i * dv] = mean;
-  if (lse != nullptr && c == 0) {
-    for (int i = 0; i < a; ++i) lse[bh * sq + i] = kKeylessLse;
-    for (int i = b; i < sq; ++i) lse[bh * sq + i] = kKeylessLse;
-  }
-}
+// The rows of the queries with no valid key, [0, a) and [b, sq), and their
+// gradient: column sums over the rows of one (bh), spread over a cluster.
+// FWD: o[bh, i, c] = sum_{j < sk} v[bh, j, c] / den for every keyless
+// query i (v rounded to bf16 first with p_bf16), and lse +1e30.  Backward:
+// g[bh, c] = sum_i dout[bh, i, c] / den over the keyless queries i, the dV
+// every key j < sk gets from them, which the backward kernels add to their
+// float32 dV before they round it.
+//
+// A cluster of kKeylessCluster blocks a (bh, slab of kKeylessCols
+// columns): the cluster's kKeylessCluster * kKeylessWarps warps each sum a
+// contiguous chunk of the rows (warp w of block r the chunk r *
+// kKeylessWarps + w), lane l columns l + 32 k of the slab, kKeylessRows
+// rows' loads in flight, in float32.  Then, in a fixed order: each block
+// adds its warps' partial sums in warp order (shared memory), and every
+// block adds the cluster's block sums in rank order (distributed shared
+// memory, read after a cluster barrier), so every block holds the same
+// column sums, the same bits on every run; no atomics.  FWD: block r writes
+// its share of the keyless rows, a row's columns coalesced; the backward's
+// rank 0 writes g.
+constexpr int kKeylessCluster = 8;  // blocks of a cluster (the portable most)
+constexpr int kKeylessWarps = kThreads / 32;
+constexpr int kKeylessCols = 128;   // columns a cluster: 4 a lane
+constexpr int kKeylessRows = 4;     // rows whose loads are in flight a lane
 
-// Their gradient: every key j < sk gets g[bh, c] = sum_i dout[bh, i, c] /
-// den over the keyless queries i (in query order, float32), which the
-// CUDA-core backward (flash_attention_bwd.cu) adds to its float32 dV
-// before it rounds it.  A thread a (bh, column); no atomics.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-keyless_bwd_kernel(const T* __restrict__ dout, float* __restrict__ g_out,
-                   long long bh_count, int sq, int dv, int a, int b,
-                   float den) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= bh_count * dv) return;
-  const long long bh = t / dv;
-  const int c = (int)(t - bh * dv);
-  const T* gc = dout + bh * sq * (long long)dv + c;
-  float g = 0.0f;
-  for (int i = 0; i < a; ++i) g = __fadd_rn(g, to_f(gc[(long long)i * dv]));
-  for (int i = b; i < sq; ++i) g = __fadd_rn(g, to_f(gc[(long long)i * dv]));
-  g_out[bh * dv + c] = g / den;
+template <typename T, bool FWD>
+__global__ void __cluster_dims__(kKeylessCluster, 1, 1)
+    __launch_bounds__(kThreads)
+keyless_kernel(const T* __restrict__ src, T* __restrict__ o,
+               float* __restrict__ g, float* __restrict__ lse, int sq,
+               int sk, int dv, int a, int b, int n_slabs, float den,
+               int p_bf16) {
+  constexpr int kC = kKeylessCols / 32;
+  __shared__ float part[kKeylessWarps][kKeylessCols];
+  __shared__ float block_sum[kKeylessCols];
+  __shared__ float total[kKeylessCols];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const long long unit = blockIdx.x / kKeylessCluster;  // (bh, slab)
+  const long long bh = unit / n_slabs;
+  const int c0 = (int)(unit - bh * n_slabs) * kKeylessCols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the rows summed: v's keys [0, sk), or dout's keyless queries, [0, a)
+  // then [b, sq)
+  const int rows = FWD ? sk : a + sq - b;
+  const T* base = src + bh * (long long)(FWD ? sk : sq) * dv;
+  constexpr int kChunks = kKeylessCluster * kKeylessWarps;
+  const int len = (rows + kChunks - 1) / kChunks;
+  const int r0 = (rank * kKeylessWarps + warp) * len;
+  const int r1 = min(rows, r0 + len);
+  bool on[kC];
+#pragma unroll
+  for (int k = 0; k < kC; ++k) on[k] = c0 + lane + 32 * k < dv;
+  float acc[kC];
+#pragma unroll
+  for (int k = 0; k < kC; ++k) acc[k] = 0.0f;
+  for (int r = r0; r < r1; r += kKeylessRows) {
+    float x[kKeylessRows][kC];
+#pragma unroll
+    for (int u = 0; u < kKeylessRows; ++u) {
+      const int t = r + u;
+      const int row = FWD || t < a ? t : b + (t - a);
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        x[u][k] = t < r1 && on[k]
+                      ? to_f(base[(long long)row * dv + c0 + lane + 32 * k])
+                      : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kKeylessRows; ++u)
+#pragma unroll
+      for (int k = 0; k < kC; ++k)
+        if (r + u < r1)
+          acc[k] = __fadd_rn(acc[k], FWD && p_bf16 ? round_bf16(x[u][k])
+                                                   : x[u][k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kC; ++k) part[warp][lane + 32 * k] = acc[k];
+  __syncthreads();
+  if (threadIdx.x < kKeylessCols) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kKeylessWarps; ++w)
+      sum = __fadd_rn(sum, part[w][threadIdx.x]);
+    block_sum[threadIdx.x] = sum;
+  }
+  cluster.sync();  // every block's sums are written
+  if (threadIdx.x < kKeylessCols) {
+    float sum = 0.0f;
+    for (int q = 0; q < kKeylessCluster; ++q)
+      sum = __fadd_rn(sum, cluster.map_shared_rank(block_sum, q)[threadIdx.x]);
+    total[threadIdx.x] = sum;
+  }
+  cluster.sync();  // no block leaves while its sums are read; total written
+  const int width = min(kKeylessCols, dv - c0);
+  if (!FWD) {
+    if (rank == 0 && threadIdx.x < width)
+      g[bh * dv + c0 + threadIdx.x] = total[threadIdx.x] / den;
+    return;
+  }
+  // block r's share of the keyless rows [0, a) then [b, sq), a warp a
+  // row, lane l its columns l + 32 k
+  const int nk = a + sq - b;
+  const int share = (nk + kKeylessCluster - 1) / kKeylessCluster;
+  const int k0 = rank * share;
+  const int k1 = min(nk, k0 + share);
+  T mean[kC];
+#pragma unroll
+  for (int k = 0; k < kC; ++k)
+    mean[k] = from_f<T>(on[k] ? total[lane + 32 * k] / den : 0.0f);
+  T* ob = o + bh * (long long)sq * dv + c0 + lane;
+  for (int t = k0 + warp; t < k1; t += kKeylessWarps) {
+    T* orow = ob + (long long)(t < a ? t : b + (t - a)) * dv;
+#pragma unroll
+    for (int k = 0; k < kC; ++k)
+      if (on[k]) orow[32 * k] = mean[k];
+  }
+  if (lse != nullptr && c0 == 0)
+    for (int t = k0 + threadIdx.x; t < k1; t += kThreads)
+      lse[bh * sq + (t < a ? t : b + (t - a))] = kKeylessLse;
 }
 
 // The arguments of one launch: shapes, mask, scale and the p_dtype flag.
@@ -584,19 +659,22 @@ extern "C" int repro_flash_keyless(const void* v, void* o, void* lse,
   if (sq > (1LL << 28) || sk <= 0 || sk > (1LL << 28) || a < 0 || b > sq
       || a > b || dtype < 0 || dtype > 2 || !(den > 0.0f))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = bh * dv;
-  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  const long long n_slabs = (dv + kKeylessCols - 1) / kKeylessCols;
+  if (bh * n_slabs * kKeylessCluster > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = (unsigned)(bh * n_slabs * kKeylessCluster);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_KEYLESS(T)                                                    \
   if (fwd)                                                                \
-    keyless_fwd_kernel<T><<<blocks, kThreads, 0, s>>>(                    \
-        static_cast<const T*>(v), static_cast<T*>(o),                     \
-        static_cast<float*>(lse), bh, (int)sq, (int)sk, (int)dv, (int)a,  \
-        (int)b, den, p_bf16);                                             \
+    keyless_kernel<T, true><<<blocks, kThreads, 0, s>>>(                  \
+        static_cast<const T*>(v), static_cast<T*>(o), nullptr,            \
+        static_cast<float*>(lse), (int)sq, (int)sk, (int)dv, (int)a,      \
+        (int)b, (int)n_slabs, den, p_bf16);                               \
   else                                                                    \
-    keyless_bwd_kernel<T><<<blocks, kThreads, 0, s>>>(                    \
-        static_cast<const T*>(v), static_cast<float*>(o), bh, (int)sq,    \
-        (int)dv, (int)a, (int)b, den);
+    keyless_kernel<T, false><<<blocks, kThreads, 0, s>>>(                 \
+        static_cast<const T*>(v), nullptr, static_cast<float*>(o),        \
+        nullptr, (int)sq, (int)sk, (int)dv, (int)a, (int)b, (int)n_slabs, \
+        den, 0);
   switch (dtype) {
     case 1: REPRO_KEYLESS(__nv_bfloat16) break;
     case 2: REPRO_KEYLESS(__half) break;

@@ -46,7 +46,7 @@
 // in a fixed order: no atomics, no cross-block sums.  lse is the forward's
 // float32 row log-sum-exp (m + log l); a row with no valid key has lse
 // +1e30 (flash_attention.cu's keyless pass), so its P is 0 here; the dV
-// such rows give every key, summed by that file's keyless_bwd_kernel,
+// such rows give every key, summed by that file's keyless_kernel,
 // comes in as keyless_dv and is added before dV is rounded.  Inputs of any
 // of the three types are converted to float32 as they are staged; dq, dk
 // and dv are written in the operands' type.  The widths are padded to a

@@ -9,8 +9,8 @@
 
 // q, dq: (bh, sq, d); k, dk: (bh, sk, d); v, dv: (bh, sk, dv_w); o, dout:
 // (bh, sq, dv_w), all bfloat16, contiguous; lse: the forward's (bh, sq)
-// float32 row log-sum-exp (+1e30 on a row without keys); delta: (bh, sq)
-// float32 scratch; keyless_dv: NULL, or the (bh, dv_w) float32 dV that
+// float32 row log-sum-exp (+1e30 on a row without keys); delta: bh * sq +
+// 2 bh float32 scratch (Delta, then float16's dS stats); keyless_dv: NULL, or the (bh, dv_w) float32 dV that
 // every key gets from the queries without a key (repro_flash_keyless),
 // added to dv before its rounding.  dq, dk and dv are written in full
 // (keys at or past kv_len get zeros, plus keyless_dv).  The mask, scale and

@@ -68,9 +68,13 @@
 //   terms, 2^-24 of the value, or two f16 terms, 2^-22: one term of either
 //   type misses chip_smoke.py's backward gate, tests/test_torch_flash_bwd.py
 //   emulates each), multiplied into the same float32 accumulator.  f16's P
-//   is carried as p * kF16PScale, dV scaled back at its store; dS is
-//   carried as it is, so f16's dS must lie in f16's range (|dS| < 65,504).
-//   dK and dQ are scaled once, at the end.
+//   is carried as p * kF16PScale, dV scaled back at its store; f16's dS
+//   as dS * 2^e, one power of two a bh (ds_scale: from the bound 2 max_i
+//   |dO_i| max_j |V_j| that ds_stats_kernel gathers, kF16DsLog2; folded
+//   into dP's multiplier and Delta, exactly), so that a large dS does not
+//   overflow f16 and a small one keeps normal f16 terms; bf16's dS, in
+//   float32's range, as it is.  dK and dQ are scaled once, at the end (by
+//   scale / 2^e: exact).
 //   Staging: a two-stage ring of cp.async 16-byte zero-fill copies (the
 //   Q / dO tiles with their lse and Delta in the dK/dV pass, the K / V
 //   tiles in the dQ pass): the next tile's copies are in flight while this
@@ -179,6 +183,21 @@ __device__ __forceinline__ void load_stats(uint32_t dst,
     const float* src = (t < BT ? lse : delta) + q0 + r;
     hopper::cp_async_4(dst + 4 * t, ok ? src : lse, ok ? 4 : 0);
   }
+}
+
+// The power of two f16's dS is carried at in bh: 2^e with 2^e * 2
+// sqrt(max |dO_i|^2) sqrt(max |V_j|^2) < 2^kF16DsLog2, from
+// ds_stats_kernel's stats, which follow Delta's bh * sq floats; 1 where
+// the bound is 0 or not finite.
+__device__ __forceinline__ float ds_scale(const BwdParams& a, long long bh) {
+  const float* stats = a.delta + (long long)a.bh_count * a.mask.sq;
+  const float bound =
+      2.0f * sqrtf(stats[2 * bh]) * sqrtf(stats[2 * bh + 1]);
+  if (!(bound > 0.0f && bound <= 3.0e38f)) return 1.0f;
+  int e;
+  frexpf(bound, &e);  // bound < 2^e
+  e = kF16DsLog2 - e;
+  return ldexpf(1.0f, e < -100 ? -100 : e > 100 ? 100 : e);
 }
 
 // The A fragments of 16 columns (kk) of an m64n(2 N) accumulator x as NT
@@ -328,6 +347,9 @@ __device__ __forceinline__ void dkdv_body(const BwdParams& a, int idx) {
   const int lane = tid & 31;
   const int kt = idx / a.bh_count;  // early keys (most work) first
   const long long bh = idx % a.bh_count;
+  // f16: dS at ds_scale's power of two, folded into dP's multiplier and
+  // Delta (exact), and out of dK's scale at its store
+  const float ds_mul = kF16 ? ds_scale(a, bh) : 1.0f;
   const int k0 = kt * kRows;
   const T* qb = static_cast<const T*>(a.q) + bh * sq * (long long)d;
   const T* kb = static_cast<const T*>(a.k) + bh * sk * (long long)d;
@@ -441,11 +463,20 @@ __device__ __forceinline__ void dkdv_body(const BwdParams& a, int idx) {
         hopper::fence_regs(dp);
 #pragma unroll
         for (int j = 0; j < BT / 8; ++j) {
-          const float2 dl =
+          float2 dl =
               *reinterpret_cast<const float2*>(del_t + 8 * j + col0);
+          if constexpr (kF16) {
+            dl.x *= ds_mul;
+            dl.y *= ds_mul;
 #pragma unroll
-          for (int i = 4 * j; i < 4 * j + 4; ++i)
-            dp[i] = s[i] * (dp[i] * kDPMul - (i & 1 ? dl.y : dl.x));
+            for (int i = 4 * j; i < 4 * j + 4; ++i)
+              dp[i] = s[i] * (dp[i] * (kDPMul * ds_mul)
+                              - (i & 1 ? dl.y : dl.x));
+          } else {
+#pragma unroll
+            for (int i = 4 * j; i < 4 * j + 4; ++i)
+              dp[i] = s[i] * (dp[i] * kDPMul - (i & 1 ? dl.y : dl.x));
+          }
         }
       }
 
@@ -483,7 +514,8 @@ __device__ __forceinline__ void dkdv_body(const BwdParams& a, int idx) {
 
   if constexpr (kDoDK)
     store_rows<T, DQ>(static_cast<T*>(a.dk) + bh * sk * (long long)d, dk_acc,
-                      row0, sk, d, col0, a.scale, nullptr);
+                      row0, sk, d, col0, kF16 ? a.scale / ds_mul : a.scale,
+                      nullptr);
   if constexpr (kDoDV)
     store_rows<T, DV>(static_cast<T*>(a.dv) + bh * sk * (long long)dv,
                       dv_acc, row0, sk, dv, col0, 1.0f / kPMul,
@@ -531,6 +563,9 @@ dq_kernel(const BwdParams a) {
   const int nq = (sq + kRows - 1) / kRows;
   const int qt = nq - 1 - (int)(blockIdx.x / a.bh_count);  // heaviest first
   const long long bh = blockIdx.x % a.bh_count;
+  // f16: dS at ds_scale's power of two, folded into dP's multiplier and
+  // Delta (exact), and out of dQ's scale at its store
+  const float ds_mul = kF16 ? ds_scale(a, bh) : 1.0f;
   const int q0 = qt * kRows;
   const T* kb = static_cast<const T*>(a.k) + bh * sk * (long long)d;
   const T* vb = static_cast<const T*>(a.v) + bh * sk * (long long)dv;
@@ -633,9 +668,17 @@ dq_kernel(const BwdParams a) {
       }
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
+      if constexpr (kF16) {
+        const float dpm = kDPMul * ds_mul;
+        const float del_s[2] = {del_r[0] * ds_mul, del_r[1] * ds_mul};
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i)
-        dp[i] = s[i] * (dp[i] * kDPMul - del_r[(i >> 1) & 1]);
+        for (int i = 0; i < BK / 2; ++i)
+          dp[i] = s[i] * (dp[i] * dpm - del_s[(i >> 1) & 1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          dp[i] = s[i] * (dp[i] * kDPMul - del_r[(i >> 1) & 1]);
+      }
 
       // dQ += dS.K in BK / 16 steps of 16 keys, a commit group each (one
       // step's terms live in the 32-key builds, as in the dK/dV pass)
@@ -657,7 +700,8 @@ dq_kernel(const BwdParams a) {
   }
 
   store_rows<T, DQ>(static_cast<T*>(a.dq) + bh * sq * (long long)d, acc,
-                    row0, sq, d, col0, a.scale, nullptr);
+                    row0, sq, d, col0, kF16 ? a.scale / ds_mul : a.scale,
+                    nullptr);
 }
 
 // The arguments of one call: pointers, shapes, mask and scale.
@@ -724,6 +768,20 @@ int launch_bwd_pr(const BwdArgs& a, cudaStream_t stream) {
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
       static_cast<float*>(a.delta), rows, (int)a.dv_w);
   err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // f16: the dS scale's stats, (bh, 2) floats after Delta
+  if constexpr (hopper::is_f16<T>) {
+    float* stats = static_cast<float*>(a.delta) + rows;
+    if (a.bh * kStatBlocks > 2147483647LL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaMemsetAsync(stats, 0, sizeof(float) * 2 * a.bh, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ds_stats_kernel<T>
+        <<<dim3((unsigned)(a.bh * kStatBlocks), 1, 2), kThreads, 0, stream>>>(
+            static_cast<const T*>(a.dout), static_cast<const T*>(a.v), stats,
+            (int)a.sq, (int)a.sk, (int)a.dv_w);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv_kernel<T, DQ, DV, BT, SPLIT, PR>
       <<<(unsigned)kv_blocks, kThreads, smem_kv, stream>>>(p);

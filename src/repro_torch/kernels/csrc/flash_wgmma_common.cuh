@@ -42,6 +42,13 @@ static_assert(kThreads == 128 * kWG && kRows == 64 * kWG, "warpgroups");
 // scaled back by the same power of two, exactly
 constexpr int kF16PScaleLog2 = 15;
 constexpr float kF16PScale = (float)(1 << kF16PScaleLog2);
+// f16's dS scale: dS is carried as dS * 2^e, one power of two a bh, with e
+// such that its bound 2 max_i |dO_i| max_j |V_j| (|dP_ij| <= |dO_i| |V_j|
+// and |Delta_i| <= |dO_i| max_j |V_j|, P <= 1) times 2^e lies below
+// 2^kF16DsLog2 < 65,504: no term overflows, and a dS down to 2^-28 of the
+// bound keeps normal f16 terms; dK and dQ are scaled back with the score
+// scale, exactly (flash_bwd_wgmma.cuh)
+constexpr int kF16DsLog2 = 14;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;
 
@@ -194,6 +201,50 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
+}
+
+// f16's dS scale's inputs (kF16DsLog2): the largest squared norm of a row
+// of dout (bh, sq, dv) and of v (bh, sk, dv) in each bh, into stats[2 bh]
+// and stats[2 bh + 1] (zeroed beforehand).  Block x = bh * kStatBlocks +
+// part of grid (.., 1, 2), z choosing dout or v: its warps take every
+// (kStatBlocks * 8)-th row from part * 8 + warp, and one atomicMax a block
+// on the maximum's bits (non-negative floats order as their bits; a
+// maximum is the same in any order).
+constexpr int kStatBlocks = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ds_stats_kernel(const T* __restrict__ dout, const T* __restrict__ v,
+                float* __restrict__ stats, int sq, int sk, int dv) {
+  __shared__ float warp_max[kThreads / 32];
+  const int which = blockIdx.z;  // 0: dout's rows, 1: v's
+  const long long bh = blockIdx.x / kStatBlocks;
+  const int part = (int)(blockIdx.x % kStatBlocks);
+  const int rows = which ? sk : sq;
+  const T* base = (which ? v : dout) + bh * (long long)rows * dv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float m = 0.0f;
+  for (int r = part * (kThreads / 32) + warp; r < rows;
+       r += kStatBlocks * (kThreads / 32)) {
+    float ss = 0.0f;
+    for (int c = lane; c < dv; c += 32) {
+      const float x = dtypes::to_f(base[(long long)r * dv + c]);
+      ss = fmaf(x, x, ss);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    m = fmaxf(m, ss);
+  }
+  if (lane == 0) warp_max[warp] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float b = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) b = fmaxf(b, warp_max[w]);
+    atomicMax(reinterpret_cast<int*>(stats + 2 * bh + which),
+              __float_as_int(b));
+  }
 }
 
 // The 16-bit type a dtype code names (ops.DTYPE_CODES: 1 bfloat16, 2

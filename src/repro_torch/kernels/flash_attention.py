@@ -43,12 +43,14 @@ key of every chunk it visits, padded keys included.  Its output is
 (v rounded to bf16 under ``p_dtype``), which depends on the reference's
 key chunk, so the masked entry takes ``k_chunk``.  Such queries are a
 prefix and a suffix of the queries (``keyless_rows``); after the attention
-kernel a small kernel (``repro_flash_keyless`` in
-``csrc/flash_attention.cu``, counted as ``flash_attention_keyless``)
-writes their rows, and their ``lse`` as +1e30, so that the backward's P is
-0 on them; in the backward it first sums their ``dV_j += sum_i dO_i /
-den`` (the same for every key ``j < Sk``) in float32, and the backward
-kernel adds it to dV before it rounds dV; dQ and dK get nothing from them.
+kernel a column-sum kernel (``repro_flash_keyless`` in
+``csrc/flash_attention.cu``, counted as ``flash_attention_keyless``: a
+cluster of blocks a (BH, 128-column slab) splits the rows, its partial
+sums added in a fixed order) writes their rows, and their ``lse`` as
++1e30, so that the backward's P is 0 on them; in the backward it first
+sums their ``dV_j += sum_i dO_i / den`` (the same for every key ``j <
+Sk``) in float32, and the backward kernel adds it to dV before it rounds
+dV; dQ and dK get nothing from them.
 
 A call whose inputs need a gradient goes through ``_FlashAttention``, a
 ``torch.autograd.Function``, on both devices.  Its forward also saves the
@@ -240,17 +242,16 @@ def keyless_rows(sq: int, sk: int, causal: bool = True, window: int = 0,
     """``(a, b)``: the queries ``[0, a)`` and ``[b, Sq)`` of a masked call
     have no valid key, every query of ``[a, b)`` has one.  Query i sees the
     keys ``[lo(i), hi(i))``, ``lo`` convex and ``hi`` concave in i, so the
-    queries without a key are a prefix and a suffix."""
+    queries without a key are a prefix and a suffix.  In integers, on the
+    host: with p = i + q_offset, ``[lo, hi)`` is ``[max(0, p - window + 1)
+    or 0, min(p + 1, kv_len) or kv_len)``, which is not empty iff kv_len >
+    0, p >= 0 where causal, and p <= kv_len + window - 2 under a window."""
     kvl = sk if kv_len is None else max(0, min(int(kv_len), sk))
-    ends = torch.tensor([0, max(sq - 1, 0)]) + q_offset
-    lo, hi = _key_range(ends, kvl, causal, window)
-    if sq > 0 and bool((hi > lo).all()):  # so does every query between
-        return 0, sq
-    lo, hi = _key_range(torch.arange(sq) + q_offset, kvl, causal, window)
-    has = (hi > lo).nonzero()
-    if has.numel() == 0:
+    if kvl <= 0 or sq <= 0:
         return sq, sq
-    return int(has[0]), int(has[-1]) + 1
+    a = max(0, -q_offset) if causal else 0
+    b = min(sq, kvl + window - 1 - q_offset) if window > 0 else sq
+    return (a, b) if a < b else (sq, sq)
 
 
 def keyless_den(sk: int, k_chunk: int) -> int:
@@ -428,12 +429,11 @@ def _keyless(v, o, lse, sk, a, b, p_dtype, k_chunk, fwd):
     (``v`` then the output's gradient)."""
     bh = o.shape[0]
     sq = o.shape[1] if fwd else v.shape[1]
-    with torch.cuda.device(o.device):
-        rc = library().repro_flash_keyless(
-            v.data_ptr(), o.data_ptr(), 0 if lse is None else lse.data_ptr(),
-            bh, sq, sk, v.shape[2], a, b, float(keyless_den(sk, k_chunk)),
-            int(p_dtype is not None), ops.DTYPE_CODES[v.dtype], int(fwd),
-            torch.cuda.current_stream().cuda_stream)
+    rc = ops.launch_on(
+        o.device, library().repro_flash_keyless, v.data_ptr(), o.data_ptr(),
+        0 if lse is None else lse.data_ptr(), bh, sq, sk, v.shape[2], a, b,
+        float(keyless_den(sk, k_chunk)), int(p_dtype is not None),
+        ops.DTYPE_CODES[v.dtype], int(fwd))
     ops.check_launch("flash_attention_keyless", rc, "fwd" if fwd else "bwd")
 
 
@@ -508,7 +508,9 @@ def _launch_bwd(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
                    torch.empty_like(v))
     if q.numel() == 0 or v.numel() == 0:
         return dq.zero_(), dk.zero_(), dvv.zero_()
-    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    # Delta (bh, sq), then the float16 tensor-core build's dS stats (bh, 2)
+    delta = torch.empty(bh * sq + 2 * bh, dtype=torch.float32,
+                        device=q.device)
     a, b = keyless_rows(sq, sk, causal, window, q_offset, kvl)
     keyless = a > 0 or b < sq
     path = route or bwd_route(q.dtype, d, dv)

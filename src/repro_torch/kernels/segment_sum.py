@@ -23,10 +23,12 @@ engine (``repro.core.phases.sort_unique``) and the CSR primitives
 .index_add_(-2, ids, values)``, adds in index order too; on CUDA
 ``index_add_`` and ``scatter_add_`` add with atomics, in an order that
 changes from run to run, so the port's sums there go through the CUDA
-kernel ``csrc/segment_sum.cu`` instead: no atomics, each run added left
-to right by one thread (for W = 1 found at its first entry, for W > 1 a
-warp a segment across the columns), every add ``__fadd_rn`` /
-``__dadd_rn``; bfloat16 and float16 values are added in float32 with
+kernel ``csrc/segment_sum.cu`` instead: no atomics, each column of a run
+added left to right by one thread (for W = 1 found at its first entry;
+for W > 1 each segment's bounds marked once in a scratch buffer, short
+runs packed several to a warp, and runs longer than ``long_run()`` a
+block each, their rows staged through shared memory), every add
+``__fadd_rn`` / ``__dadd_rn``; bfloat16 and float16 values are added with
 each add rounded to their type, as the CPU's ``index_add_`` and XLA's
 scatter-add add them, so a low-precision sum is the CPU's bits too.  Any
 number of value sets is taken (the kernel walks its grid's y dimension in
@@ -50,9 +52,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels._build import library
+from repro_torch.kernels._build import library, source_constants
 
 FLOATS = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
+
+
+def long_run() -> int:
+    """The kernel's ``kLongRun``: for W > 1, runs longer than it take the
+    block route (read from ``csrc/segment_sum.cu``)."""
+    return source_constants("segment_sum.cu")["kLongRun"]
+
+
+def work_len(n: int, n_out: int, width: int, long_run: int) -> int:
+    """The int64 scratch the kernel takes for W > 1 with ``kLongRun`` =
+    ``long_run``: each segment's run bounds, the long runs' count and
+    their list; 0 for one column."""
+    if width == 1:
+        return 0
+    return 2 * n_out + 2 + (n // (long_run + 1) if long_run > 0 else 0)
 
 
 def _check(ids, values, order, skip) -> None:
@@ -136,11 +153,13 @@ def _segment_sum_cuda(ids, values, n_out, order, skip=0):
                       device=values.device)
     if out.numel() == 0:
         return out
+    work = torch.empty(work_len(n, n_out, width, long_run()),
+                       dtype=torch.int64, device=values.device)
     rc = ops.launch_on(
         values.device, library().repro_segment_sum, ids.data_ptr(),
         values.data_ptr(), None if order is None else order.data_ptr(),
-        out.data_ptr(), n, n_out, width, skip, batch,
-        ops.DTYPE_CODES[values.dtype])
+        out.data_ptr(), work.data_ptr() if work.numel() else None, n, n_out,
+        width, skip, batch, ops.DTYPE_CODES[values.dtype])
     ops.check_launch("segment_sum", rc)
     return out
 

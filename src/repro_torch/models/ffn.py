@@ -19,9 +19,16 @@ sort-based dispatch, its grouped expert products as batched matmuls over
 the stacked expert weights (the reference leaves them to XLA), and a
 combine that adds each token's k contributions in the dispatch stream's
 order (ascending expert id) without atomics, so a call gives the same bits
-every run on the card.  ``moe_ffn_shard_map`` is its expert-parallel form
-under a mesh: each ``model`` rank runs its own experts on its batch
-shard's tokens, and one all-reduce over ``model`` combines them.
+every run on the card.  Its row gathers (the tokens into the dispatch
+buffer, the gates, the expert outputs back to their pairs, the combine's
+parts) go through ``sparse.ops.take_rows`` (``take_rows_padded`` where a
+dropped pair reads the zero row), whose backward adds the cotangent rows
+of a repeated row (a token's k pairs) in the stream's order, each add
+rounded to the rows' type, as the reference's gathers transpose
+(``.at[].add``), through the segment-sum kernel on the card.
+``moe_ffn_shard_map`` is its expert-parallel form under a mesh: each
+``model`` rank runs its own experts on its batch shard's tokens, and one
+all-reduce over ``model`` combines them.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from torch.distributed.tensor import Replicate
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.common import dense_init
+from repro_torch.sparse.ops import take_rows, take_rows_padded
 from repro_torch.sparse.topk import topk_rows, topk_rows_st
 
 
@@ -182,7 +190,8 @@ def _combine(contrib, order, t: int, k: int, stream, model_group=None):
     the unsharded order."""
     at = torch.empty_like(order)
     at[order] = stream  # the stream position of each (token, slot) pair
-    parts = contrib[at.reshape(t, k).sort(dim=1).values]
+    parts = take_rows(contrib, at.reshape(t, k).sort(dim=1).values
+                      .reshape(-1)).reshape(t, k, -1)
     if model_group is not None:
         from torch.distributed.nn.functional import all_reduce
         parts = all_reduce(parts, group=model_group)
@@ -248,7 +257,7 @@ def moe_ffn_shard_map(p: MoEParams, x, cfg, sh):
         flat_e = expert_idx.reshape(-1)
         order = torch.argsort(flat_e, stable=True)
         e_sorted = flat_e[order]
-        g_sorted = gates.reshape(-1)[order]
+        g_sorted = take_rows(gates.reshape(-1, 1), order)[:, 0]
         counts = torch.bincount(e_sorted, minlength=e)
         starts = torch.cumsum(counts, 0) - counts
         stream = torch.arange(t * k, device=xl.device)
@@ -257,11 +266,11 @@ def moe_ffn_shard_map(p: MoEParams, x, cfg, sh):
         mine = (e_local >= 0) & (e_local < e_loc) & (pos_in_e < cap)
         slot = torch.where(mine, e_local * cap + pos_in_e, e_loc * cap)
         buf = xl.new_zeros((e_loc * cap + 1, d))
-        buf[slot] = xt[order // k]
+        buf[slot] = take_rows(xt, order // k)
         buf = buf[:-1].reshape(e_loc, cap, d)
         h = F.silu(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
         y = torch.bmm(h, w2).reshape(e_loc * cap, d)
-        y_slot = torch.cat([y, y.new_zeros((1, d))])[slot]
+        y_slot = take_rows_padded(y, slot)
         contrib = y_slot * g_sorted[:, None].to(y.dtype)
         out = _combine(contrib, order, t, k, stream, model_group)
         aux = _aux_loss(logits, counts, e)
@@ -303,7 +312,7 @@ def moe_ffn(p: MoEParams, x, cfg, sh=None):
     order = torch.argsort(flat_e, stable=True)
     e_sorted = flat_e[order]
     t_sorted = order // k  # the token of each pair
-    g_sorted = gates.reshape(-1)[order]
+    g_sorted = take_rows(gates.reshape(-1, 1), order)[:, 0]
     counts = torch.bincount(e_sorted, minlength=e)
     starts = torch.cumsum(counts, 0) - counts
     stream = torch.arange(t * k, device=x.device)
@@ -312,7 +321,7 @@ def moe_ffn(p: MoEParams, x, cfg, sh=None):
 
     # the expert-major (E*cap, D) buffer; the overflow row is dropped
     buf = x.new_zeros((e * cap + 1, d))
-    buf[slot] = xt[t_sorted]
+    buf[slot] = take_rows(xt, t_sorted)  # backward: .at[t_sorted].add
     buf = buf[:-1].reshape(e, cap, d)
     if sh is not None:
         buf = sh.act_ecd(buf)  # experts on the model dim
@@ -325,7 +334,7 @@ def moe_ffn(p: MoEParams, x, cfg, sh=None):
     y = y.reshape(e * cap, d)
 
     # combine: each kept pair's expert output, weighted by its gate
-    y_slot = torch.cat([y, y.new_zeros((1, d))])[slot]
+    y_slot = take_rows_padded(y, slot)
     contrib = y_slot * g_sorted[:, None].to(y.dtype)
     out = _combine(contrib, order, t, k, stream).reshape(b, s, d)
     if p.shared is not None:

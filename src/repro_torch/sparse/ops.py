@@ -56,6 +56,43 @@ class _TakeRows(torch.autograd.Function):
         return index_sum(safe, ct, n), None, None
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor,
+              gather: str = "xla") -> torch.Tensor:
+    """``x[clip(idx)]``: rows of ``x`` (N, ...) at the 1-D ``idx``,
+    differentiable in ``x``.  The backward adds the cotangent's rows into
+    zeros at the clipped ids in stream order (``index_sum``: the sorted
+    segment-sum kernel on CUDA), which is how the reference's gather
+    transposes (``.at[idx].add``), every add rounded to a 16-bit type as
+    the reference's; PyTorch's own indexing backward sums a run of
+    repeated ids in its own order.  ``gather="aia"`` serves the forward
+    with the AIA row-gather kernel."""
+    return _TakeRows.apply(x, idx, gather)
+
+
+class _TakePadded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = x.shape[0]
+        return torch.cat([x, x.new_zeros((1, *x.shape[1:]))])[idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        return index_sum(idx, ct, ctx.n_rows), None
+
+
+def take_rows_padded(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``cat([x, zeros])[idx]``: rows of ``x`` at the int64 ``idx``, a zero
+    row where ``idx == len(x)`` (a dropped slot), differentiable in ``x``.
+    The backward adds the cotangent into ``x``'s rows in stream order, as
+    ``take_rows``', and leaves the dropped slots out: the reference
+    differentiates its concatenated zero row and slices its gradient off,
+    so nothing of it reaches ``x``, and a long run of dropped slots costs
+    no segment sum."""
+    return _TakePadded.apply(x, idx)
+
+
 def csr_transpose(a: CSR, capacity: int | None = None) -> CSR:
     """CSR transpose via a stable sort on column ids.
 
@@ -132,7 +169,7 @@ def csr_spmm(a: CSR, x: torch.Tensor, gather: str = "xla",
 
 
 def _csr_spmm(a: CSR, x: torch.Tensor, gather: str) -> torch.Tensor:
-    rows_of_x = _TakeRows.apply(x, a.indices, gather)  # (cap, d)
+    rows_of_x = take_rows(x, a.indices, gather)  # (cap, d)
     contrib = torch.where(a.valid_mask()[:, None],
                           a.data[:, None] * rows_of_x, 0)
     return _segment_sum(a.row_ids(), contrib, a.n_rows)

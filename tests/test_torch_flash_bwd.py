@@ -317,13 +317,26 @@ def _split(x, terms, kind="bf16", scale=1.0, bf16=False):
     return out
 
 
+def ds_scale(v, do):
+    """float16's dS scale (``flash_bwd_wgmma.cuh``'s ``ds_scale``), a
+    (BH, 1, 1) tensor of powers of two: 2^e with 2^e * 2 max_i |dO_i|
+    max_j |V_j| below 2^kF16DsLog2, 1 where that bound is 0."""
+    bound = 2 * (do.float() ** 2).sum(-1).amax(-1).sqrt() \
+        * (v.float() ** 2).sum(-1).amax(-1).sqrt()
+    e = (BWD["kF16DsLog2"] - torch.frexp(bound).exponent).clamp(-100, 100)
+    sig = torch.where((bound > 0) & torch.isfinite(bound),
+                      torch.pow(2.0, e.float()), 1.0)
+    return sig[:, None, None]
+
+
 def emulate_bwd_wgmma(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
-                      terms, p_dtype=None, k_chunk=1024):
+                      terms, p_dtype=None, k_chunk=1024, scale_ds=True):
     """The tensor-core backward's arithmetic on the CPU, from bf16 or
     float16 q, k, v, o, do and the forward's float32 lse: scores and dP
     from 16-bit products in float32; P = 2^(S * c - lse * log2 e), c the
     scale and log2(e) in one float32; dS = P (dP - Delta); P and dS split
-    into ``terms`` terms of the operands' type (f16's P as p * 2**15), each
+    into ``terms`` terms of the operands' type (f16's P as p * 2**15, its
+    dS as dS * ``ds_scale`` unless ``scale_ds`` is False), each
     multiplied into float32 sums over the passes' tiles in ascending order
     (the dK/dV pass's query tile and the dQ pass's key tile of the build
     ``bwd_widths`` names); under ``p_dtype`` V rounded to bf16 (float16's
@@ -355,16 +368,17 @@ def emulate_bwd_wgmma(q, k, v, o, lse, do, causal, window, q_offset, kv_len,
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), \
         torch.zeros_like(vf)
     p_terms = 1 if p_dtype is not None else terms
+    dscale = ds_scale(v, do) if kind == "f16" and scale_ds else 1.0
     for t0 in range(0, sq, bt_kv):
         sl = slice(t0, t0 + bt_kv)
         for tp in _split(p[:, sl], p_terms, kind, pscale,
                          bf16=p_dtype is not None):
             dv += torch.matmul(tp.transpose(1, 2), dof[:, sl])
-        for td in _split(ds[:, sl], terms, kind):
+        for td in _split(ds[:, sl], terms, kind, dscale):
             dk += torch.matmul(td.transpose(1, 2), qf[:, sl])
     for t0 in range(0, sk, bt_q):
         sl = slice(t0, t0 + bt_q)
-        for td in _split(ds[:, :, sl], terms, kind):
+        for td in _split(ds[:, :, sl], terms, kind, dscale):
             dq += torch.matmul(td, kf[:, sl])
     a, b = k7.keyless_rows(sq, sk, causal, window, q_offset, kv_len)
     if a > 0 or b < sq:
@@ -388,14 +402,15 @@ def bwd_gate_misses(got, want) -> int:
 
 
 def _bf16_case(bh, sq, sk, d, dv, causal, window, q_offset, kv_len, seed=0,
-               dtype=torch.bfloat16, p_dtype=None):
-    """16-bit operands, the plain forward's o and lse, the plain
-    backward."""
+               dtype=torch.bfloat16, p_dtype=None, scales=(1, 1, 1, 1)):
+    """16-bit operands (standard normal times ``scales``, for q, k, v and
+    do), the plain forward's o and lse, the plain backward."""
     rng = np.random.default_rng(seed)
-    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)
+    q, k, v, do = (torch.from_numpy((rng.standard_normal(shape) * sc)
                                     .astype(np.float32)).to(dtype)
-                   for shape in ((bh, sq, d), (bh, sk, d), (bh, sk, dv),
-                                 (bh, sq, dv)))
+                   for shape, sc in zip(((bh, sq, d), (bh, sk, d),
+                                         (bh, sk, dv), (bh, sq, dv)),
+                                        scales))
     args = (causal, window, q_offset, kv_len)
     o, lse = k7.flash_attention_masked_plain(q, k, v, *args, with_lse=True,
                                              p_dtype=p_dtype)
@@ -461,6 +476,91 @@ def test_bwd_wgmma_arithmetic_meets_the_f16_gate(case):
     for g, w in zip(got, want):
         assert g.dtype == torch.float16 and g.shape == w.shape
     assert bwd_gate_misses(got, want) == 0
+
+
+# float16 cases whose dS leaves f16's normal range, (scales of q, k, v, do)
+# on the causal (8, 128, 128, 64) call: a large V against small scores
+# gives |dS| up to ~88,000 > 65,504 with dQ, dK and dV in range; a small
+# dO and V every |dS| below 2^-14 (~2.5e-5 at most), where an unscaled f16
+# term is subnormal, with K large (and Q small, for scores of order 1) so
+# that dQ, ~1e-2, is the largest gradient and far from f16's subnormals
+DS_RANGE = {"large_ds": (2 ** -3, 2 ** -5, 2 ** 12, 4.0),
+            "small_ds": (2 ** -10, 2 ** 10, 2 ** -6, 2 ** -12)}
+DS_SHAPE = (8, 128, 128, 64, 64, True, 0, 0, None)
+
+
+def _ds(args):
+    """The plain backward's dS = P (dP - Delta), float32."""
+    q, k, v, o, lse, do, causal, window, q_offset, kv_len = args
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) / math.sqrt(d)
+    ok = k7._valid(sq, 0, sk, causal, window, q_offset, q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return p * (torch.matmul(do.float(), v.float().transpose(1, 2)) - delta)
+
+
+@pytest.mark.parametrize("case", sorted(DS_RANGE))
+def test_f16_plain_backward_past_ds_range_matches_jax_grad(case):
+    """The float16 calls whose dS passes 65,504 or sits below 2^-14: the
+    plain backward against ``jax.grad`` of the reference's attention on the
+    same values in float32.  On float32 operands within GRAD_TOL of each
+    gradient's largest |value|; on the float16 ones (float32 sums, each
+    gradient rounded once to f16, and Delta = sum(dO O) from the forward's
+    f16 O) within one f16 step (2^-10) of the largest |value| and of each
+    value, plus half f16's smallest step (2^-25, where a gradient rounds to
+    a subnormal or to 0), every gradient finite."""
+    args, want = _bf16_case(*DS_SHAPE, dtype=torch.float16,
+                            scales=DS_RANGE[case])
+    ds = _ds(args).abs()
+    if case == "large_ds":
+        assert float(ds.max()) > 65504
+    else:
+        assert 0 < float(ds.max()) < 2 ** -14
+    q, k, v, _, _, do = args[:6]
+    mask = args[6:]
+
+    def to_ref(x):
+        return jnp.asarray(x.float().numpy().transpose(1, 0, 2)[None])
+
+    def f(q_, k_, v_):
+        out = ref_attn.flash_attention(q_, k_, v_, causal=mask[0],
+                                       q_chunk=32, k_chunk=64)
+        return jnp.sum(out * to_ref(do))
+
+    ref = [_heads_first(np.asarray(w)) for w in
+           jax.grad(f, argnums=(0, 1, 2))(*(to_ref(x) for x in (q, k, v)))]
+    f32 = [x.float() for x in (q, k, v, do)]
+    o32, lse32 = k7.flash_attention_masked_plain(*f32[:3], *mask,
+                                                 with_lse=True)
+    got32 = k7.flash_attention_masked_bwd_plain(*f32[:3], o32, lse32, f32[3],
+                                                *mask)
+    for name, g, g16, w in zip(("dq", "dk", "dv"), got32, want, ref):
+        _close(g, w, GRAD_TOL, f"{case} {name} float32")
+        assert g16.dtype == torch.float16 and bool(torch.isfinite(g16).all())
+        err = (g16.double() - w.double()).abs()
+        gate = 2 ** -10 * (float(w.abs().max()) + w.double().abs()) \
+            + 2 ** -25
+        assert bool((err <= gate).all()), \
+            f"{case} {name} float16: max |error| {float(err.max())}"
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("case", sorted(DS_RANGE))
+def test_f16_ds_scale_meets_the_f16_gate_past_ds_range(case, scaled):
+    """The float16 tensor-core arithmetic on those calls: with dS carried
+    at ``ds_scale``'s power of two, every gradient is finite and within the
+    f16 gate of the plain backward; carried as it is (the build before the
+    scale), a large dS overflows f16 (dQ and dK not finite) and a small
+    one misses the gate."""
+    args, want = _bf16_case(*DS_SHAPE, dtype=torch.float16,
+                            scales=DS_RANGE[case])
+    got = emulate_bwd_wgmma(*args, BWD["kTermsF16"], scale_ds=scaled)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    if scaled:
+        assert finite and bwd_gate_misses(got, want) == 0
+    else:
+        assert not finite or bwd_gate_misses(got, want) > 0
 
 
 @pytest.mark.parametrize("terms,misses", [(1, True), (2, False)])

@@ -237,6 +237,109 @@ def test_moe_ffn_matches_reference(arch, drops):
     close(gates.sum(-1), np.ones(n), 1e-6, 1e-6)
 
 
+@pytest.mark.parametrize("arch,drops", [(ARCHS[0], True), (ARCHS[1], False)],
+                         ids=["deepseek-drop", "llama4-no_drop"])
+def test_moe_ffn_gradients_match_jax_grad(arch, drops):
+    """d/d(x, router, w1, w3, w2, shared) of ``<ct, moe_ffn(x)> + aux``
+    against ``jax.grad`` of the reference, float32, each within RTOL of
+    its largest |gradient| (ATOL where that is below 1): the row gathers'
+    backward (``take_rows``) adds the cotangent rows in stream order, as
+    the reference's ``.at[].add``."""
+    cfg = ref_smoke(arch)
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    moe_cfg = dataclasses.replace(cfg.moe, capacity_factor=0.5 if drops
+                                  else e / k)
+    ref_p, p = _moe(cfg, 7)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1, 32, cfg.d_model)).astype(np.float32)
+    ct = rng.standard_normal(x.shape).astype(np.float32)
+
+    def ref_loss(params, x):
+        out, aux = ref_ffn.moe_ffn(params, x, cfg=moe_cfg)
+        return jnp.sum(out * ct) + aux
+
+    want_p, want_x = jax.jit(jax.grad(ref_loss, argnums=(0, 1)))(
+        ref_p, jnp.asarray(x))
+    leaves = [w.clone().requires_grad_() for w in (p.router, p.w1, p.w3,
+                                                    p.w2)]
+    shared = None if p.shared is None else ffn.FFNParams(
+        *(w.clone().requires_grad_() for w in p.shared))
+    xt = t(x).requires_grad_()
+    out, aux = ffn.moe_ffn(ffn.MoEParams(*leaves, shared), xt, moe_cfg)
+    (torch.sum(out * t(ct)) + aux).backward()
+    got = [xt.grad, *(w.grad for w in leaves)]
+    want = [want_x, want_p.router, want_p.w1, want_p.w3, want_p.w2]
+    if shared is not None:
+        got += [w.grad for w in shared]
+        want += list(want_p.shared)
+    for name, g, w in zip(("x", "router", "w1", "w3", "w2", "shared w1",
+                           "shared w3", "shared w2"), got, want):
+        w = np.asarray(w)
+        err = float(np.abs(host(g) - w).max())
+        assert err <= RTOL * max(float(np.abs(w).max()), ATOL / RTOL), \
+            f"{arch} {name}: max |error| {err}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gather_backward_is_the_references_scatter_add(dtype,
+                                                           monkeypatch):
+    """The dispatch gather ``xt[t_sorted]`` (k = 6 pairs a token, in the
+    expert-sorted stream) through ``take_rows``: its backward equals the
+    reference's ``zeros((T, D)).at[t_sorted].add(ct)`` bit for bit, in
+    float32 and bf16 (each add rounded), for a cotangent of mixed
+    magnitude whose sums change with the order of adds; and ``moe_ffn``
+    routes its four row gathers through it (the combine's, whose dropped
+    pairs read a zero row, through ``take_rows_padded``)."""
+    rng = np.random.default_rng(12)
+    n_tok, k, d = 48, 6, 8
+    flat_e = rng.integers(0, 16, n_tok * k)
+    order = np.argsort(flat_e, kind="stable")
+    t_sorted = (order // k).astype(np.int64)
+    big = rng.random((n_tok * k, d)) < 0.3
+    ct = np.where(big, np.where(rng.random(big.shape) < 0.5, -300.0, 300.0),
+                  rng.random(big.shape) + 0.5).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    want = np.asarray(jnp.zeros((n_tok, d), jdt).at[jnp.asarray(t_sorted)]
+                      .add(jnp.asarray(ct, jdt)).astype(jnp.float32))
+    _, vjp = jax.vjp(lambda a: a[jnp.asarray(t_sorted)],
+                     jnp.zeros((n_tok, d), jdt))
+    np.testing.assert_array_equal(
+        np.asarray(vjp(jnp.asarray(ct, jdt))[0].astype(jnp.float32)), want)
+    xt = torch.zeros((n_tok, d), dtype=tdt, requires_grad=True)
+    ffn.take_rows(xt, torch.from_numpy(t_sorted)).backward(
+        torch.from_numpy(ct).to(tdt))
+    np.testing.assert_array_equal(xt.grad.float().numpy(), want)
+    # the combine's gather: dropped pairs read the concatenated zero row,
+    # and its gradient (sliced off in the reference) reaches no row
+    slot = np.where(rng.random(n_tok * k) < 0.2, n_tok,
+                    rng.integers(0, n_tok, n_tok * k)).astype(np.int64)
+    _, vjp = jax.vjp(lambda a: jnp.concatenate(
+        [a, jnp.zeros((1, d), jdt)])[jnp.asarray(slot)],
+        jnp.zeros((n_tok, d), jdt))
+    want_pad = np.asarray(vjp(jnp.asarray(ct, jdt))[0].astype(jnp.float32))
+    y = torch.zeros((n_tok, d), dtype=tdt, requires_grad=True)
+    ffn.take_rows_padded(y, torch.from_numpy(slot)).backward(
+        torch.from_numpy(ct).to(tdt))
+    np.testing.assert_array_equal(y.grad.float().numpy(), want_pad)
+    # the order of adds shows: the pairs in reverse give other bits
+    rev = np.asarray(jnp.zeros((n_tok, d), jdt)
+                     .at[jnp.asarray(t_sorted[::-1])]
+                     .add(jnp.asarray(ct[::-1], jdt)).astype(jnp.float32))
+    assert not np.array_equal(rev, want)
+    calls = []
+    for name in ("take_rows", "take_rows_padded"):
+        def spy(x, idx, *args, real=getattr(ffn, name), name=name):
+            calls.append(name)
+            return real(x, idx, *args)
+
+        monkeypatch.setattr(ffn, name, spy)
+    cfg = ref_smoke("deepseek-v2-lite-16b")
+    _, p = _moe(cfg, 9)
+    ffn.moe_ffn(p, torch.zeros((1, 16, cfg.d_model)), cfg.moe)
+    assert sorted(calls) == ["take_rows"] * 3 + ["take_rows_padded"], calls
+
+
 def test_moe_combine_adds_in_stream_order_without_index_add(monkeypatch):
     """The combine reads each token's k contributions in ascending expert
     order; no ``index_add_`` (atomics on the card) is called."""

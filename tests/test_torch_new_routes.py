@@ -24,6 +24,8 @@ are held against the JAX package:
   (whose products are exact in float32), within 1e-5 of the largest
   |value| for K6 (another order of sums).
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -216,6 +218,24 @@ def test_wgmma_widths_take_the_value_width(d, dv, want):
 ])
 def test_keyless_rows_are_a_prefix_and_a_suffix(args, want):
     assert k7.keyless_rows(*args) == want
+
+
+def test_keyless_rows_match_every_query_checked():
+    """``keyless_rows``' integer bounds against each query's key range
+    (``_key_range``) over a grid of masks: the queries with a key are
+    exactly ``[a, b)``, or none where ``(a, b) == (sq, sq)``."""
+    for sq, sk, causal, window, q_offset, kv_len in itertools.product(
+            (1, 5, 17), (1, 4, 9), (True, False), (0, 1, 3, 20),
+            range(-20, 21, 3), (None, -1, 0, 2, 100)):
+        kvl = sk if kv_len is None else max(0, min(kv_len, sk))
+        lo, hi = k7._key_range(torch.arange(sq) + q_offset, kvl, causal,
+                               window)
+        has = (hi > lo).nonzero().flatten().tolist()
+        want = (has[0], has[-1] + 1) if has else (sq, sq)
+        assert has == list(range(*want)) or not has
+        assert k7.keyless_rows(sq, sk, causal, window, q_offset,
+                               kv_len) == want, (sq, sk, causal, window,
+                                                 q_offset, kv_len)
 
 
 @pytest.mark.parametrize("sk,k_chunk,den", [(16, 1024, 16), (40, 16, 48),

@@ -5,11 +5,16 @@ Inputs are built in numpy from a seed.  Every comparison is bit for bit:
 the reference's scatter-add adds each output's updates one at a time in
 update order, and so do the plain version (``index_add_`` on the CPU) and
 the CUDA kernel.  The kernel cannot run here, so ``emulate`` repeats its
-indexing in numpy (each segment's range by a lower bound on the sorted
-ids or, for one column, a run found at its first entry and ended by
-galloping, reads through ``order``, skipped segments, adds left to right
-in the value's own dtype, the wide kernel's lane-to-column map) and is held against the plain version and, patched in
-as the plain version, through the port's call sites against the
+indexing (for one column a run found at its first entry and ended by
+galloping; for wider rows each run's bounds marked once, short runs
+packed several to a warp with the lanes' column map, runs past a
+threshold on the block route in tiles; reads through ``order``, skipped
+segments, adds left to right, each rounded to the values' type) and is
+held against the plain version and the reference in the four value
+types and, patched in as the plain version, through the port's call
+sites against the reference.  ``emulate_keyless`` repeats the keyless
+pass's split of the rows and its fixed order of partial sums
+(``csrc/flash_attention.cu``), held against the plain attention and the
 reference.  Float32 inputs mix magnitudes (1e8 and 1) over many
 duplicates, so another order of adds gives other bits; the tests check
 that it does.
@@ -30,10 +35,13 @@ from repro_torch.apps.graphs import rmat_graph
 from repro_torch.core import phases
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_sum as ss
+from repro_torch.kernels._build import source_constants
 from repro_torch.sparse import ops as sparse_ops
 from repro_torch.sparse.formats import csr_from_arrays
 
-MAX_COLS = 4  # csrc/segment_sum.cu's kMaxCols: columns a lane holds
+# the kernel's constants (csrc/segment_sum.cu): threads a block, the block
+# route's tile bytes
+KERNEL = source_constants("segment_sum.cu")
 
 
 def mixed(rng, shape, dtype=np.float32):
@@ -51,26 +59,63 @@ def sorted_ids(rng, n, n_out, empty=()):
     return np.sort(rng.choice(pool, n)).astype(np.int64)
 
 
-def ref_scatter(ids, vals, n_out):
+def ref_scatter(ids, vals, n_out, dtype=None):
     """The reference's sum: ``zeros(...).at[ids].add(vals)`` on the update
-    axis (-2)."""
-    vals = jnp.asarray(vals)
+    axis (-2), in ``dtype`` (a jnp dtype; default vals')."""
+    vals = jnp.asarray(vals, dtype)
     out = jnp.zeros(vals.shape[:-2] + (n_out, vals.shape[-1]), vals.dtype)
-    return np.asarray(out.at[..., jnp.asarray(ids), :].add(vals))
+    out = out.at[..., jnp.asarray(ids), :].add(vals)
+    return np.asarray(out.astype(jnp.float32) if dtype in (jnp.bfloat16,
+                                                           jnp.float16)
+                      else out)
 
 
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def lane_columns(width):
-    """The wide kernel's columns of lane l: ``w0 + l + 32 k`` for k < KC
-    over slabs of 32 KC columns, KC the fewest of 1-4 that cover the
-    row."""
-    kc = min(MAX_COLS, -(-width // 32))
-    return [[w0 + lane + 32 * k for w0 in range(0, width, 32 * kc)
-             for k in range(kc) if w0 + lane + 32 * k < width]
-            for lane in range(32)]
+def layout(width, itemsize):
+    """The W > 1 kernel's (vec, lanes): a lane holds one 16-byte vector of
+    ``vec`` columns where a row is whole 16-byte vectors (else vec = 1,
+    and no block route), and a segment takes the fewest lanes, a power of
+    two up to 32, that cover its ``width // vec`` vectors."""
+    vec = 16 // itemsize if width * itemsize % 16 == 0 else 1
+    lanes = 1
+    while lanes < 32 and lanes < width // vec:
+        lanes *= 2
+    return vec, lanes
+
+
+def lane_columns(width, itemsize):
+    """The columns lane ``sub`` of a segment adds: vectors sub, sub +
+    lanes, ... of ``vec`` columns each; the segments a warp packs, 32 //
+    lanes, each have their own."""
+    vec, lanes = layout(width, itemsize)
+    return [[c * vec + e for c in range(sub, width // vec, lanes)
+             for e in range(vec)] for sub in range(lanes)]
+
+
+def mark_runs(ids, n_out, skip, long_run):
+    """The kernel's ``mark_runs``: lo[s] at a run's first entry, hi[s]
+    after its last (0 and 0 for a segment without entries), and the
+    segments whose last entry i has ids[i - long_run] == s (long_run > 0):
+    the runs longer than ``long_run``.  Ids outside [0, n_out) and skipped
+    segments mark nothing."""
+    n = len(ids)
+    lo, hi = np.zeros(n_out, np.int64), np.zeros(n_out, np.int64)
+    ok = (ids >= 0) & (ids < n_out)
+    if skip:
+        ok &= ids % skip != skip - 1
+    first = ok & np.r_[True, ids[1:] != ids[:-1]][:n]
+    last = ok & np.r_[ids[:-1] != ids[1:], True][:n]
+    lo[ids[first]] = np.flatnonzero(first)
+    hi[ids[last]] = np.flatnonzero(last) + 1
+    long_runs = []
+    if long_run > 0:
+        ends = np.flatnonzero(last)
+        ends = ends[ends >= long_run]
+        long_runs = ids[ends][ids[ends - long_run] == ids[ends]].tolist()
+    return lo, hi, long_runs
 
 
 def run_end(ids, i):
@@ -90,39 +135,101 @@ def run_end(ids, i):
     return lo
 
 
-def emulate(ids, values, n_out, order=None, skip=0):
-    """The CUDA kernel's arithmetic in numpy, on torch tensors: the ids must
-    be sorted and >= 0 (those >= n_out left out); segment s sums its run
-    [lo, hi) of its value set, read through ``order``, left to right from
-    +0.0 (a skipped segment: none, and 0).  W == 1: a run is found at its first entry and
-    ended by ``run_end``; W > 1: a segment's run by two lower bounds, its
-    columns spread over the lanes as ``lane_columns`` says."""
+def chain(acc, rows, dtype):
+    """``acc`` plus each of ``rows`` in turn, as the kernel adds: float32
+    (float64 for float64) sums, each rounded to ``dtype``."""
+    for x in rows:
+        acc = acc + x.to(acc.dtype)
+        if dtype in (torch.bfloat16, torch.float16):
+            acc = acc.to(dtype).to(acc.dtype)
+    return acc
+
+
+def add_runs(out, v3, src, runs, dtype):
+    """The runs ``(seg, lo, hi)`` (arrays) added into ``out[:, seg]`` left
+    to right, a step of every run at once (a step's segments are
+    distinct)."""
+    seg, lo, hi = runs
+    length = hi - lo
+    low = dtype in (torch.bfloat16, torch.float16)
+    o, x = (out, v3) if low else (out.numpy(), v3.numpy())  # numpy: faster
+    for step in range(int(length.max(initial=0))):
+        m = length > step
+        if low:
+            o[:, seg[m]] = chain(o[:, seg[m]], [x[:, src[lo[m] + step]]],
+                                 dtype)
+        else:
+            o[:, seg[m]] = o[:, seg[m]] + x[:, src[lo[m] + step]]
+
+
+def emulate(ids, values, n_out, order=None, skip=0, long_run=None):
+    """The CUDA kernel's arithmetic and indexing on torch tensors: the ids
+    must be sorted and >= 0 (those >= n_out left out); segment s sums its
+    run [lo, hi) of its value set, read through ``order``, left to right
+    from +0.0, each add rounded to the values' type (a skipped segment:
+    none, and 0).  W == 1: a run is found at its first entry and ended by
+    ``run_end``.  W > 1: the runs' bounds marked once (``mark_runs``); a
+    run longer than ``long_run`` (default the kernel's ``kLongRun``; none
+    where a row is not whole 16-byte vectors) on the block route, added
+    in tiles of kStageBytes / (the slab's row bytes) rows of slabs of at
+    most kThreads columns (pairs of a 16-bit type); the rest on the warp
+    route, ``32 // lanes`` segments a warp, their columns spread over the
+    lanes as ``lane_columns`` says.  A 16-bit sum rounds at every add
+    whether the kernel adds in float32 and rounds or adds natively (the
+    source's ``Chains`` says why), so ``chain`` adds in float32 and
+    rounds."""
     ids_np = ids.numpy()
     assert ids.dtype == torch.int64 and ids.dim() == 1
     assert np.all(np.diff(ids_np) >= 0), "the kernel needs sorted ids"
     assert ids_np.size == 0 or ids_np[0] >= 0
-    v = values.detach().numpy()
+    v = values.detach()
     n, width = v.shape[-2:]
     v3 = v.reshape(-1, n, width)
+    acc_t = torch.float64 if v.dtype == torch.float64 else torch.float32
     src = np.arange(n) if order is None else order.numpy()
+    out = torch.zeros((v3.shape[0], n_out, width), dtype=acc_t)
     if width == 1:
         lo = np.flatnonzero(np.r_[n > 0, ids_np[1:] != ids_np[:-1]][:n])
         hi = np.array([run_end(ids_np, i) for i in lo], np.int64)
         seg = ids_np[lo]
+        keep = (seg < n_out) & ((seg % skip != skip - 1) if skip else True)
+        warp, block = (seg[keep], lo[keep], hi[keep]), []
     else:
-        cols = sorted(c for lane in lane_columns(width) for c in lane)
+        vec, lanes = layout(width, v.element_size())
+        cols = sorted(c for lane in lane_columns(width, v.element_size())
+                      for c in lane)
         assert cols == list(range(width)), "lanes must cover every column"
-        seg = np.arange(n_out)
-        lo = np.searchsorted(ids_np, seg, side="left")
-        hi = np.searchsorted(ids_np, seg + 1, side="left")
-    keep = (seg < n_out) & ((seg % skip != skip - 1) if skip else True)
-    seg, lo, hi = seg[keep], lo[keep], hi[keep]
-    out = np.zeros((v3.shape[0], n_out, width), v.dtype)
-    length = hi - lo
-    for step in range(int(length.max(initial=0))):
-        m = length > step
-        out[:, seg[m], :] = out[:, seg[m], :] + v3[:, src[lo[m] + step], :]
-    return torch.from_numpy(out.reshape(v.shape[:-2] + (n_out, width)))
+        long_run = ss.long_run() if long_run is None else long_run
+        if vec == 1 or n <= long_run:
+            long_run = 0
+        lo, hi, long_runs = mark_runs(ids_np, n_out, skip, long_run)
+        longer = set(np.flatnonzero(hi - lo > long_run).tolist()) \
+            if long_run else set()
+        assert sorted(long_runs) == sorted(longer)
+        per_warp = 32 // lanes
+        segs = [s for w0 in range(0, n_out, per_warp)
+                for s in range(w0, min(w0 + per_warp, n_out))]
+        assert segs == list(range(n_out))
+        seg = np.asarray([s for s in segs if s not in longer
+                          and not (skip and s % skip == skip - 1)], np.int64)
+        warp = (seg, lo[seg], hi[seg])
+        block = [(s, lo[s], hi[s]) for s in long_runs]
+    add_runs(out, v3, src, warp, v.dtype)
+    # the block route: a thread adds 1 column (2 of a 16-bit type)
+    cols = KERNEL["kThreads"] * (2 if v.element_size() == 2 else 1)
+    for s, a, b in block:
+        for c0 in range(0, width, cols):
+            slab = min(width - c0, cols)
+            assert slab * v.element_size() % 16 == 0  # whole 16-byte copies
+            cs = slice(c0, c0 + slab)
+            tr = KERNEL["kStageBytes"] // (slab * v.element_size())
+            tiles = [range(r0, min(r0 + tr, b)) for r0 in range(a, b, tr)]
+            assert [i for tile in tiles for i in tile] == list(range(a, b))
+            for tile in tiles:
+                out[:, s, cs] = chain(out[:, s, cs],
+                                      (v3[:, src[i], cs] for i in tile),
+                                      v.dtype)
+    return out.to(v.dtype).reshape(v.shape[:-2] + (n_out, width))
 
 
 # ---------------------------------------------------------------------------
@@ -207,28 +314,79 @@ def test_empty_segments_padding_row_batch_and_float64():
     assert ss.segment_sum(t(ids[:0]), t(vals[0][:0]), 0).shape == (0, 2)
 
 
-@pytest.mark.parametrize("width,batch,with_order,n_out,skip", [
-    (1, 1, False, 300, 0), (1, 2, True, 700, 0), (1, 1, True, 2, 0),
-    (1, 1, False, 300, 7), (3, 1, False, 45, 0), (64, 2, True, 45, 5),
-    (96, 1, True, 30, 0), (130, 1, False, 12, 0),
-])
+def _case(*args, id=None):
+    return pytest.param(*args, id=id)
+
+
+# (width, value sets, order, segments, skip, dtype, long_run: None for the
+# kernel's kLongRun); the first eight keep their ids from before the dtype
+# and the threshold were parameters
+@pytest.mark.parametrize(
+    "width,batch,with_order,n_out,skip,dtype,long_run", [
+        _case(1, 1, False, 300, 0, "float32", None, id="1-1-False-300-0"),
+        _case(1, 2, True, 700, 0, "float32", None, id="1-2-True-700-0"),
+        _case(1, 1, True, 2, 0, "float32", None, id="1-1-True-2-0"),
+        _case(1, 1, False, 300, 7, "float32", None, id="1-1-False-300-7"),
+        _case(3, 1, False, 45, 0, "float32", None, id="3-1-False-45-0"),
+        _case(64, 2, True, 45, 5, "float32", None, id="64-2-True-45-5"),
+        _case(96, 1, True, 30, 0, "float32", None, id="96-1-True-30-0"),
+        _case(130, 1, False, 12, 0, "float32", None, id="130-1-False-12-0"),
+        # the block route: runs of ~220 past a threshold of 20, in tiles of
+        # 64 float32 rows (4 a run) or 128 bf16 ones, a batch, the order
+        # route, skipped segments
+        _case(64, 1, False, 9, 0, "float32", 20, id="block-float32"),
+        _case(64, 2, True, 9, 5, "bfloat16", 20, id="block-bf16-order-skip"),
+        # 2,048 bf16 columns: one slab of 256 vectors, tiles of 4 rows; a
+        # warp a segment, 8 vectors a lane
+        _case(2048, 1, True, 12, 0, "bfloat16", 100, id="block-bf16-2048"),
+        # rows not whole 16-byte vectors: a column a lane, no block route
+        _case(3, 1, True, 9, 0, "bfloat16", 20, id="unaligned-bf16"),
+        # 32 segments a warp (a lane a row), and float64 vectors of 2
+        _case(8, 3, False, 40, 0, "float16", 30, id="packed-float16"),
+        _case(2, 1, False, 700, 0, "float64", None, id="packed-float64"),
+    ])
 def test_kernel_emulation_matches_plain(width, batch, with_order, n_out,
-                                        skip):
+                                        skip, dtype, long_run):
     """The kernel's indexing: runs of one and of hundreds (the galloping
-    end), empty segments, wide rows on 1-4 columns a lane and past one
-    slab, a batch, the order route, skipped segments."""
+    end), empty segments, the runs marked once, short runs packed several
+    to a warp, long ones on the block route in tiles, wide rows past one
+    lane and one slab, a batch, the order route, skipped segments, the four
+    value types: the emulation bit for bit the plain version and the
+    reference's ``.at[].add`` (values read through ``order``, the skipped
+    segments 0)."""
     rng = np.random.default_rng(3 + width)
     n = 2000
     ids = t(sorted_ids(rng, n, n_out, empty=[n_out // 2]))
-    vals = t(mixed(rng, (batch, n, width) if batch > 1 else (n, width)))
+    big = 1e8 if dtype in ("float32", "float64") else 300.0
+    vals_np = mixed(rng, (batch, n, width) if batch > 1 else (n, width),
+                    np.float64) * (big / 1e8)
+    vals = t(vals_np).to(getattr(torch, dtype))
     order = t(rng.permutation(n).astype(np.int64)) if with_order else None
     want = ss.segment_sum_plain(ids, vals, n_out, order, skip)
     if skip:  # the kept segments are the full sums, the skipped ones 0
         full = ss.segment_sum_plain(ids, vals, n_out, order)
         full[..., skip - 1::skip, :] = 0
-        np.testing.assert_array_equal(want.numpy(), full.numpy())
-    np.testing.assert_array_equal(
-        emulate(ids, vals, n_out, order, skip).numpy(), want.numpy())
+        np.testing.assert_array_equal(want.float().numpy(),
+                                      full.float().numpy())
+    got = emulate(ids, vals, n_out, order, skip, long_run)
+    assert got.dtype == vals.dtype
+    np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+    jdt = {"float32": jnp.float32, "float64": jnp.float64,
+           "bfloat16": jnp.bfloat16, "float16": jnp.float16}[dtype]
+    read = vals.float().numpy() if order is None \
+        else vals.float().numpy()[..., order.numpy(), :]
+    if dtype == "float64":
+        read = vals.numpy() if order is None \
+            else vals.numpy()[..., order.numpy(), :]
+        ref = np.zeros(read.shape[:-2] + (n_out, width))
+        np.add.at(ref, (..., ids.numpy(), slice(None)), read)
+    else:
+        ref = ref_scatter(ids.numpy(), read, n_out, jdt)
+    if skip:
+        ref = np.array(ref)
+        ref[..., skip - 1::skip, :] = 0
+    np.testing.assert_array_equal(got.float().numpy() if dtype != "float64"
+                                  else got.numpy(), ref)
 
 
 def test_backward_matches_reference_gradient():
@@ -416,3 +574,101 @@ def test_dense_conversions_add_repeats_in_slot_order(rows, reps, cols):
     )
     for got, want in pairs:
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# The keyless pass's split-and-combine order (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+KEYLESS = source_constants("flash_attention.cu")
+
+
+def emulate_keyless(x, den, p_bf16=False):
+    """``keyless_kernel``'s column sums of ``x`` (BH, rows, Dv) over its
+    rows, / ``den``, in its order: the rows cut into kKeylessCluster *
+    (kThreads / 32) contiguous chunks of ceil(rows / chunks), each a
+    warp's float32 chain from +0.0 (v rounded to bf16 first under
+    ``p_bf16``); a block's chunks added in warp order, then the cluster's
+    block sums in rank order.  (BH, Dv) float32."""
+    x = x.float()
+    if p_bf16:
+        x = x.bfloat16().float()
+    warps = KEYLESS["kThreads"] // 32
+    chunks = KEYLESS["kKeylessCluster"] * warps
+    n = x.shape[1]
+    length = -(-n // chunks)
+    part = []
+    for g in range(chunks):
+        acc = torch.zeros_like(x[:, 0])
+        for r in range(g * length, min(n, (g + 1) * length)):
+            acc = acc + x[:, r]
+        part.append(acc)
+    total = torch.zeros_like(x[:, 0])
+    for rank in range(KEYLESS["kKeylessCluster"]):
+        block = torch.zeros_like(x[:, 0])
+        for w in range(warps):
+            block = block + part[rank * warps + w]
+        total = total + block
+    return total / den
+
+
+@pytest.mark.parametrize("dtype,p_dtype", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.bfloat16)])
+def test_keyless_split_and_combine_matches_plain_and_reference(dtype,
+                                                               p_dtype):
+    """The keyless pass's order on the CPU: the forward's rows (every query
+    without a key, kv_len 0; and a causal call whose first queries see no
+    key) within ``chip_smoke.py``'s FLASH_TOL of the plain version and of
+    the reference's chunked attention, the same bits on a repeat; the
+    backward's dV (the keyless queries' dO) within the card's check
+    (rtol 1e-5, atol 1e-6) of the plain sum."""
+    import importlib.util
+    import pathlib
+
+    from repro.models import attention as ref_attn
+    from repro_torch.kernels import flash_attention as k7
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    chip = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip)
+    rtol, atol = chip.FLASH_TOL[str(dtype)]
+    rng = np.random.default_rng(9)
+    bh, s, d, dv = 3, 200, 16, 130  # two column slabs of 128
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)).to(dtype)
+                   for shape in ((bh, s, d), (bh, s, d), (bh, s, dv),
+                                 (bh, s, dv)))
+    den = k7.keyless_den(s, 1024)
+    mean = emulate_keyless(v, den, p_dtype is not None).to(dtype)
+    assert torch.equal(mean, emulate_keyless(v, den, p_dtype is not None)
+                       .to(dtype))
+    plain = k7.flash_attention_masked_plain(q, k, v, False, kv_len=0,
+                                            p_dtype=p_dtype)
+    got = mean[:, None].expand_as(plain)
+    diff = (got.double() - plain.double()).abs()
+    assert bool((diff <= atol + rtol * plain.double().abs()).all())
+    if p_dtype is None:
+        def nhd(x):
+            return jnp.asarray(x.float().numpy().transpose(1, 0, 2)[None])
+
+        ref = ref_attn.flash_attention(
+            nhd(q), nhd(k), nhd(v), causal=False, k_chunk=1024,
+            kv_valid_len=jnp.asarray(0, jnp.int32))
+        ref = torch.from_numpy(np.asarray(ref, np.float32)[0]
+                               .transpose(1, 0, 2).copy())
+        diff = (got.double() - ref.double()).abs()
+        assert bool((diff <= atol + rtol * ref.double().abs()).all())
+    # a causal call with q_offset -5: queries 0..4 see no key
+    a, b = k7.keyless_rows(s, s, True, 0, -5)
+    assert (a, b) == (5, s)
+    plain = k7.flash_attention_masked_plain(q, k, v, True, q_offset=-5,
+                                            p_dtype=p_dtype)
+    diff = (mean[:, None].double() - plain[:, :a].double()).abs()
+    assert bool((diff <= atol + rtol * plain[:, :a].double().abs()).all())
+    # the backward's dV: the keyless queries' dO, [0, a), summed likewise
+    g = emulate_keyless(do[:, :a], den)
+    want = do[:, :a].float().sum(1) / den
+    assert torch.allclose(g, want, rtol=1e-5, atol=1e-6)
