@@ -29,8 +29,11 @@ products run in full float32 (TF32 off).  It
    on both of its routes (``k5_edges``: d_ff at and past the shared-memory
    limit, ragged slices and chunks, few tokens, repeated and clipped ids)
    and on K6's edges (``K6_EDGES``: repeated, clipped and unpicked ids,
-   tile 1, a block every tile picks, odd widths), then on the path's own
-   inputs, where each call must add exactly one launch; and times kernel
+   tile 1, a block every tile picks, odd widths, blocks past one depth
+   panel; in every dtype, each call the same bits on a repeat), then on
+   the path's own inputs, where each call must add exactly one launch (K6
+   the same bits on a repeat, and timed beside its CUDA-core kernel); and
+   times kernel
    (CUDA events; device time of its own launches from ``torch.profiler``),
    plain version and one library call that computes the same function
    (``index_select``, ``torch.sparse_bsr_tensor @ b``,
@@ -53,7 +56,9 @@ products run in full float32 (TF32 off).  It
    ``F.scaled_dot_product_attention`` (a yardstick the port never calls),
    with its route (bf16: ``wgmma``), its rate, and ``ptxas``'s registers
    and spills and its shared memory; then holds and times the float32 route
-   (CUDA cores) at the same shape in float32; then holds and times the bf16
+   (the tensor cores: Q, K, V and P in three bf16 terms) at the same shape
+   in float32, the same bits on a repeat, beside the CUDA-core kernel and
+   SDPA on the same inputs; then holds and times the bf16
    route at DeepSeek-V2-Lite's prefill (BH 32 = 2 x 16 heads, S 4,096, qk
    192, v 128, causal) the same way; holds K7's masked entry
    (``ops.flash_attention_masked``: windows, a query offset, a key limit,
@@ -207,11 +212,13 @@ products run in full float32 (TF32 off).  It
    timed beside the CUDA-core kernel on the same inputs), at D 256 and
    320 and qk 64 / v 128 (``K7_WIDE``), in float16 and with ``p_dtype``
    at Phi-3-mini's prefill shape, its backward at D 256
-   (``K7_BWD_SLABS``) and with ``p_dtype`` and in float16 at granite's
-   training shape, and its keyless pass, each beside its bound, SDPA and
-   (16-bit) the CUDA-core kernel; K3-K6 in float16
+   (``K7_BWD_SLABS``) and with ``p_dtype``, in float16 and in float32 at
+   granite's training shape, and its keyless pass, each beside its bound,
+   SDPA and (the tensor-core routes) the CUDA-core kernel, every K7_WIDE
+   call the same bits on a repeat; K3-K6 in float16
    at the FFN shape, K3's ``"u16"``, ``"bytes"`` and strided copies and
-   K6 past the tensor-core kernel's limits (``K6_WIDE``); then
+   K6 at wider blocks (``K6_WIDE``), each K6 call on the tensor cores the
+   same bits on a repeat and timed beside the CUDA-core kernel; then
    ``refusals_phase``: every call the port once refused, made once on the
    card, each launching its kernel and matching its plain version, the
    calls that raise printed as ``refused: [...]`` (the phase fails unless
@@ -2089,10 +2096,13 @@ def ffn_shape_sweep(log):
             got, _ = routed_call(
                 "block_topk_spmm",
                 lambda: topk_spmm.block_topk_spmm(h, bidx, w2, block),
-                topk_spmm.route(dt, block, kb + 2))
+                topk_spmm.route(dt))
             e = rel_err(got, topk_spmm.block_topk_spmm_plain(h, bidx, w2,
                                                              block))
             check(e <= FFN_REL, f"{case}: {e}")
+            check(torch.equal(got, topk_spmm.block_topk_spmm(h, bidx, w2,
+                                                             block)),
+                  f"{case}: a repeat differs")
             cases += 1
     for dt, nb, r, d, n, off, path in RANGED_ROUTES:
         dt = getattr(torch, dt)
@@ -2135,8 +2145,9 @@ def k5_edges():
             (2, 1, 16, 16, "clipped"))
 
 
-# K6 (block_topk_spmm), both dtypes (bf16: the wgmma kernel of
-# csrc/block_topk_spmm_wgmma.cu; float32: the CUDA-core kernel): (n_tiles,
+# K6 (block_topk_spmm), every dtype (bf16 and float16: the wgmma kernel of
+# csrc/block_topk_spmm_wgmma.cu; float32: the CUDA-core kernel), each call
+# the same bits on a repeat: (n_tiles,
 # kb, tile, block, d, ids) over kb + 2 blocks of W2.  ids "clipped": random
 # in [-1, kb + 4), clipped at both ends; "repeat": the same, with tile 0
 # naming one block twice; "unpicked": ids below kb only, so two blocks go
@@ -2150,8 +2161,8 @@ K6_EDGES = (
     (5, 3, 8, 16, 40, "repeat"), (6, 4, 1, 16, 40, "clipped"),
     (4, 3, 5, 12, 33, "unpicked"), (300, 2, 8, 16, 64, "every"),
     (4, 3, 8, 128, 7, "clipped"), (4, 3, 8, 128, 2050, "repeat"),
-    # past the bf16 kernel's kMaxBlock (256), and past the CUDA-core
-    # kernel's one panel of 1,536 lanes
+    # past the wgmma kernel's depth panel of 256 lanes (two and eight
+    # panels), and past the CUDA-core kernel's one panel of 1,536 lanes
     (3, 2, 8, 512, 64, "clipped"), (2, 2, 8, 2048, 40, "repeat"),
 )
 
@@ -2355,7 +2366,8 @@ def ffn_kernel_records(out, w2, launches, log):
                       "excluded)", lambda: torch.bmm(hk_flat, sel_view))],
             shape={"h_kept": list(h_kept.shape), "w2": list(w2.shape)},
             route=topk_spmm.route(h_kept.dtype),
-            ptxas="block_topk_wgmma_kernel"),
+            ptxas=("block_topk_wgmma_kernel", "nv_bfloat16"),
+            trace="block_topk_wgmma_kernel"),
     }
     recs = {}
     for name, sp in specs.items():
@@ -2364,11 +2376,21 @@ def ffn_kernel_records(out, w2, launches, log):
             rec["route"] = sp["route"]
             rec["ptxas"] = ptxas_report(sp["ptxas"])
         rec.update(hold(name, sp["kernel"], sp["plain"], sp["exact"]))
+        if name == "block_topk_spmm":  # a fixed order of sums
+            first = sp["kernel"]()
+            check(torch.equal(first, sp["kernel"]()),
+                  "block_topk_spmm: a repeat differs")
+            rec["repeat_bit_identical"] = True
+            del first
+            rec["cuda_cores_ms"] = time_ms(
+                lambda: topk_spmm._block_topk_spmm_cuda(
+                    h_kept, bidx, w2, block, path="cuda_cores"), reps=3)
         reps, plain_reps = sp["reps"]
         rec["ms"] = time_ms(sp["kernel"], reps=reps)
-        # device time per call: every launch of the call (K6's bf16 route:
-        # the selection's inversion with y's zero fill, and the product),
-        # and the largest kernel's own mean
+        # device time per call: every launch of the call (K6's 16-bit
+        # route: the selection's inversion, the products into the
+        # workspace and the ordered sum into y), and the largest kernel's
+        # own mean
         _, dev, top = profile(lambda: [sp["kernel"]() for _ in range(5)])
         rec["device_ms"] = None if dev is None else dev / 5
         rec["kernel_device_ms"] = top[0][1] / top[0][2] if top else None
@@ -2644,8 +2666,9 @@ def flash_phase(log):
     DeepSeek-V2-Lite prefill shapes and at the masked shapes of
     ``FLASH_TIMED`` beside its bound, its plain version and
     ``scaled_dot_product_attention``; then hold and time the float32 route
-    at the Phi-3 shape."""
+    at the Phi-3 shape beside the CUDA-core kernel and SDPA."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as k7
     from repro_torch.kernels import ops
@@ -2686,20 +2709,50 @@ def flash_phase(log):
     rec = flash_timed(q, k, v, 32, qb, kb)
     emit({"flash_kernel": rec}, log)
 
-    # the float32 route at the same shape
+    # the float32 route at the same shape (the tensor cores: Q, K, V and P
+    # in three bf16 terms), beside the CUDA-core kernel and SDPA on the
+    # same inputs
     q, k, v = (x.float() for x in (q, k, v))
 
     def kernel():
         return ops.flash_attention_fused(q, k, v, True)
 
-    f32 = {"route": k7.route(q.dtype),
+    f32 = {"route": k7.route(q.dtype, d, d),
+           "shape": {"bh": bh, "s": s, "d": d, "dv": d, "dtype": "float32",
+                     "causal": True},
            "max_abs_err": flash_hold(q, k, v, True, qb, kb),
            "ms": time_ms(kernel, reps=3)}
-    _, _, top = profile(lambda: [kernel() for _ in range(3)])
-    f32["device_ms"] = top[0][1] / top[0][2] if top else None
-    f32["ptxas"] = ptxas_report(f"flash_kernelIfLi{(d + 15) // 16}EE")
+    first = kernel()
+    check(torch.equal(first, kernel()),
+          "flash_attention_fused float32: a repeat differs")
+    f32["repeat_bit_identical"] = True
+    del first
+    # every launch of the call: the pass that splits q, k and v into their
+    # terms, and the attention kernel
+    _, dev, top = profile(lambda: [kernel() for _ in range(3)])
+    f32["device_ms"] = None if dev is None else dev / 3
+    f32["device_kernels"] = [(name, ms / n) for name, ms, n in top]
+    f32["cuda_cores_ms"] = time_ms(lambda: k7._launch(
+        q, k, v, True, 0, 0, s, path="cuda_cores"), reps=2)
+    pairs = bh * s * (s + 1) // 2
+    f32["flops"] = 4 * pairs * d
+    f32["bytes"] = 4 * bh * s * d * q.element_size()
+    f32["bound_ms"], f32["bound_by"] = bound(f32["bytes"], f32["flops"],
+                                             q.dtype)
+    # what the tensor cores do: the term products i + j < kF32Terms
+    terms = k7.f32_constants()["kF32Terms"]
+    f32["tensor_flops"] = terms * (terms + 1) // 2 * f32["flops"]
+    f32["tensor_bound_ms"] = bound(0, f32["tensor_flops"],
+                                   torch.bfloat16)[0]
+    f32["ptxas"] = ptxas_report(f"flash_f32_kernelILi{-(-d // 32) * 32}E")
+    q4, k4, v4 = (x.view(bh // 32, 32, s, d) for x in (q, k, v))
+    f32.update(library_call([(
+        "F.scaled_dot_product_attention(is_causal=True) on "
+        f"({bh // 32}, 32, s, d), float32",
+        lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                               is_causal=True))]))
     emit({"flash_kernel_f32": f32}, log)
-    del q, k, v
+    del q, k, v, q4, k4, v4
 
     # MLA's prefill widths at DeepSeek-V2-Lite's prefill shape
     bh, s, d, dv, qb, kb = FLASH_MLA
@@ -2715,7 +2768,7 @@ def flash_phase(log):
         timed[name] = flash_timed_masked(name, *shape, rand)
         emit({f"flash_kernel_{name}": timed[name]}, log)
         torch.cuda.empty_cache()
-    return rec, mla, {"cases": len(masked), "timed": timed}
+    return rec, mla, {"cases": len(masked), "timed": timed, "float32": f32}
 
 
 def ptxas_report(kernel) -> dict:
@@ -6398,9 +6451,11 @@ K7_REFUSED = {
     "last_query_past_the_window": (64, 64, 8, 8, 4, 0, 20, None, True),
 }
 # K7's new widths timed, as (name, bh, s, d, dv, dtypes): D 256 (the
-# tensor cores' <256, 256> build; float32 in slabs on the CUDA cores), D 320
-# (the wide build <320, 160>, two value slabs, in both 16-bit types;
-# float32 in slabs), qk 64 / v 128 (the <128, 128> build), causal
+# tensor cores' <256, 256> build; float32 on the float32 tensor-core
+# build), D 320 (the wide build <320, 160>, two value slabs, in both 16-bit
+# types; float32 in slabs on the CUDA cores), qk 64 / v 128 (the <128, 128>
+# build; float32 on its own build), causal; each held, the same bits on a
+# repeat, and timed beside the CUDA-core kernel and SDPA
 K7_WIDE = (("d256", 32, 4096, 256, 256, ("bfloat16", "float32")),
            ("d320", 32, 4096, 320, 320, ("bfloat16", "float16", "float32")),
            ("qk64_v128", 32, 4096, 64, 128, ("bfloat16", "float32")))
@@ -6424,8 +6479,9 @@ P_DTYPE_MEAN = 2 ** -12
 # granite-3-2b's training shape (2 x 32 heads, S 2,048, D 64)
 K7_F16 = (64, 4096, 96)
 K7_P_DTYPE_TRAIN = (64, 2048, 64, 32)
-# the K6 routes past the tensor-core kernel's limits, timed at the FFN
-# path's shape: (block, dtype)
+# K6 at wider blocks, timed at the FFN path's shape: (block, dtype); bf16
+# at 512 lanes on the tensor cores (two depth panels of 256), float32 at
+# 2,048 on the CUDA cores
 K6_WIDE = ((512, "bfloat16"), (2048, "float32"))
 
 
@@ -6842,7 +6898,8 @@ def k7_call_hold(q, k, v, do, causal, window, q_offset, kv_len, p_dtype,
 # pass's included), by name
 KEYLESS_TYPES = ("__nv_bfloat16", "__half", "float")
 K7_FWD_KERNEL_NAMES = ("flash_wgmma_kernel", "flash_kernel",
-                       "flash_slab_kernel") \
+                       "flash_slab_kernel", "flash_f32_kernel",
+                       "split_kernel") \
     + tuple(f"keyless_kernel<{t}, true>" for t in KEYLESS_TYPES)
 K7_BWD_KERNEL_NAMES = ("delta_kernel", "dkdv_kernel", "dkdv_slab_kernel",
                        "dq_kernel", "dq_slab_kernel") \
@@ -6990,6 +7047,8 @@ def k7_timed(q, k, v, causal, p_dtype, heads, log, key) -> dict:
                      "dtype": str(q.dtype), "causal": causal,
                      "p_dtype": None if p_dtype is None else str(p_dtype)},
            "max_abs_err": k7_gate(got, want, vmax, p_dtype, key)}
+    check(torch.equal(got, kernel()), f"K7 {key}: a repeat differs")
+    rec["repeat_bit_identical"] = True
     if p_dtype is not None:  # and the build without the rounding
         rec["error_share"] = error_share(got, want)
         rec["control_error_share"] = p_dtype_control(
@@ -7009,6 +7068,12 @@ def k7_timed(q, k, v, causal, p_dtype, heads, log, key) -> dict:
     rec["bytes"] = bh * s * (2 * d + 2 * dv) * q.element_size()
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["flops"],
                                              q.dtype)
+    if q.dtype == torch.float32 and path == "wgmma":
+        # the tensor cores' own work: the term products i + j < kF32Terms
+        # at the bf16 rate (each value slab's S where D passes its build)
+        terms = k7.f32_constants()["kF32Terms"]
+        rec["tensor_bound_ms"] = bound(
+            0, terms * (terms + 1) // 2 * rec["flops"], torch.bfloat16)[0]
     q4, k4, v4 = (x.view(bh // heads, heads, s, x.shape[2])
                   for x in (q, k, v))
     rec.update(library_call([(
@@ -7205,11 +7270,13 @@ def k7_new_shapes(log) -> dict:
     recs["keyless"] = k7_keyless_timed(rand, log)
     # granite's training shape: with p_dtype (the forward on the one-term
     # build, the backward with its flag; both held beside the same builds
-    # without the rounding), and in float16
+    # without the rounding), in float16, and in float32 (the forward on the
+    # float32 tensor-core build, the backward on the CUDA cores)
     bh, s, d, heads = K7_P_DTYPE_TRAIN
     for key, dtype, pdt in (
             ("k7_bwd_p_dtype_train_shape", torch.bfloat16, torch.bfloat16),
-            ("k7_bwd_float16_train_shape", torch.float16, None)):
+            ("k7_bwd_float16_train_shape", torch.float16, None),
+            ("k7_bwd_float32_train_shape", torch.float32, None)):
         q, k, v, do = (rand(bh, s, d, dtype=dtype) for _ in range(4))
         recs[key] = k7_bwd_timed(q, k, v, do, pdt, heads, log, key,
                                  control=pdt is not None)
@@ -7233,10 +7300,12 @@ def k6_bmm(h_kept, bidx, w2, block) -> list:
 
 
 def ffn_new_routes(log) -> dict:
-    """K3-K6 in float16 at the FFN path's shape (K3's 16-byte copy, K4, K5
-    and K6 on the CUDA cores), and K6 past the tensor-core kernel's limits
-    (K6_WIDE): each held against its plain version and timed beside its
-    bound, its plain version and a library call."""
+    """K3-K6 in float16 at the FFN path's shape (K3's 16-byte copy, K4 and
+    K5 on the CUDA cores, K6 on the tensor cores), and K6 at the blocks of
+    K6_WIDE: each held against its plain version and timed beside its
+    bound, its plain version and a library call; each K6 call on the
+    tensor cores also the same bits on a repeat, and timed beside the
+    CUDA-core kernel on the same inputs."""
     import torch
     import torch.nn.functional as F
 
@@ -7251,8 +7320,11 @@ def ffn_new_routes(log) -> dict:
     recs = {}
 
     def row(name, kernel, plain, exact, nbytes, flops, dtype, library,
-            shape, expect):
+            shape, expect, cuda_cores=None):
         got, taken = routed_call(name, kernel, expect)
+        if cuda_cores is not None:  # K6 on the tensor cores: a repeat
+            check(torch.equal(got, kernel()), f"{name} {shape}: a repeat "
+                  f"differs")
         want = plain()
         if exact:
             check(torch.equal(got, want), f"{name} {shape}: differs")
@@ -7267,6 +7339,10 @@ def ffn_new_routes(log) -> dict:
                "device_ms": device_ms(kernel, reps=3),
                "plain_ms": time_ms(plain, reps=1)}
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
+        if cuda_cores is not None:
+            rec["repeat_bit_identical"] = True
+            rec["cuda_cores_ms"] = time_ms(cuda_cores, reps=3)
+            rec["cuda_cores_device_ms"] = device_ms(cuda_cores, reps=2)
         rec.update(library_call(library))
         del got, want
         return rec
@@ -7292,7 +7368,9 @@ def ffn_new_routes(log) -> dict:
         2 * h_kept.numel() * d, torch.float16,
         k6_bmm(h_kept, bidx, w2, block),
         {"h_kept": list(h_kept.shape), "w2": list(w2.shape),
-         "dtype": "float16"}, "cuda_cores")
+         "dtype": "float16"}, "wgmma",
+        lambda: topk_spmm._block_topk_spmm_cuda(h_kept, bidx, w2, block,
+                                                path="cuda_cores"))
     sel = bidx.reshape(-1)
     recs["aia_ranged_gather/float16"] = row(
         "aia_ranged_gather", lambda: ops.aia_ranged_gather(w2, sel, block),
@@ -7355,7 +7433,10 @@ def ffn_new_routes(log) -> dict:
             + int(torch.unique(bidx).numel()) * wide * d * esz + n * d * 4,
             2 * h_kept.numel() * d, dtype, k6_bmm(h_kept, bidx, w2w, wide),
             {"h_kept": list(h_kept.shape), "w2": list(w2w.shape),
-             "block": wide, "dtype": dt}, "cuda_cores")
+             "block": wide, "dtype": dt}, topk_spmm.route(dtype),
+            None if topk_spmm.route(dtype) == "cuda_cores" else
+            lambda: topk_spmm._block_topk_spmm_cuda(h_kept, bidx, w2w, wide,
+                                                    path="cuda_cores"))
         del hw, w2w, h_kept, bidx
         torch.cuda.empty_cache()
     for key, rec in recs.items():
@@ -7612,6 +7693,8 @@ def add_new_routes(kernels, new, prefill_p) -> None:
              new["k7"]["k7_bwd_p_dtype_train_shape"]),
             ("float16 granite train shape",
              new["k7"]["k7_bwd_float16_train_shape"]),
+            ("float32 granite train shape",
+             new["k7"]["k7_bwd_float32_train_shape"]),
             ("D 256", new["k7"]["k7_bwd_slabs"]))}
     rec = new["k7"]["keyless"]
     kernels.append({
@@ -7850,7 +7933,15 @@ def run_phases(args, log, smi, dryruns, t_script) -> int:
         "built_by": [f"src/repro_torch/kernels/csrc/{name}" for name in (
             "flash_attention_wgmma.cu", "flash_attention_wgmma_f16.cu",
             "flash_attention_wgmma_wide.cu")],
+        # float32 up to 256 columns: the tensor cores, three bf16 terms an
+        # operand; float32 past them and under p_dtype: the CUDA cores
+        "float32_wgmma_source":
+            "src/repro_torch/kernels/csrc/flash_attention_wgmma_f32.cu",
         "float32_source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "float32": {k: flash_masked["float32"].get(k) for k in (
+            "route", "shape", "max_abs_err", "ms", "device_ms",
+            "cuda_cores_ms", "bound_ms", "bound_by", "tensor_bound_ms",
+            "library_ms", "library_call", "repeat_bit_identical", "ptxas")},
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "tpu_kernel": "src/repro/kernels/flash_attention.py:"
                       "flash_attention_fused",

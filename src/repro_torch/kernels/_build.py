@@ -59,12 +59,13 @@ SIGNATURES = {
     # stream (the "smem" route)
     "repro_topk_spmm_smem": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _B, _P],
     # h_kept, bidx, w2, out, n_tiles, kb, tile, block, d, n_blocks, dtype
-    # code, stream (the CUDA cores); the wgmma kernel (bfloat16) has
-    # pair_ptr and pairs scratch after w2 and no dtype code
+    # code, stream (the CUDA cores); the wgmma kernel (bfloat16 and
+    # float16) has pair_ptr, pairs and the workspace (and its elements)
+    # as scratch after w2
     "repro_block_topk_spmm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _B,
                               _P],
-    "repro_block_topk_spmm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _P],
+    "repro_block_topk_spmm_wgmma": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                                    _I, _I, _I, _I, _B, _P],
     # q, k, v, o, lse (NULL: not written), bh, sq, sk, d, dv, causal,
     # q_offset, window, kv_len, scale, p_bf16, dtype code, stream: the
     # CUDA-core kernel (any type) and the tensor-core builds (bfloat16 and
@@ -74,6 +75,11 @@ SIGNATURES = {
        for name in ("repro_flash_attention", "repro_flash_attention_wgmma",
                     "repro_flash_attention_wgmma_f16",
                     "repro_flash_attention_wgmma_wide")},
+    # the same with the scratch of q, k and v's bf16 terms and its
+    # elements after lse: the float32 tensor-core build
+    "repro_flash_attention_wgmma_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _B, _I, _I, _I, _F, _B,
+                                        _B, _P],
     # v, o, lse (NULL: none), bh, sq, sk, dv, a, b, den, p_bf16, dtype
     # code, fwd (0: the backward's keyless dV into o), stream: the queries
     # without a key

@@ -2,8 +2,9 @@
 // (BH, Sq, D), k of (BH, Sk, D) and v of (BH, Sk, Dv), on the tensor cores
 // of a Hopper GPU (sm_90a): the bf16 and float16 routes of
 // ops.flash_attention_fused and ops.flash_attention_masked, for qk widths
-// up to kWideD and any value width.  float32 inputs and wider heads go to
-// flash_attention.cu.  The output is (BH, Sq, Dv).  Built by
+// up to kWideD and any value width.  float32 inputs go to
+// flash_attention_wgmma_f32.cu (up to 256 columns) and flash_attention.cu,
+// wider heads to flash_attention.cu.  The output is (BH, Sq, Dv).  Built by
 // flash_attention_wgmma.cu (bf16, D and Dv up to kMaxD),
 // flash_attention_wgmma_f16.cu (float16, the same widths) and
 // flash_attention_wgmma_wide.cu (both types past kMaxD), each an entry

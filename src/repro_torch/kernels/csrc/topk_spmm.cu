@@ -10,10 +10,11 @@
 //   each step a (tile x block) @ (block x d) MXU product on a DMA'd W2 block).
 //
 // topk_spmm takes float32, bfloat16 or float16 inputs; block_topk_spmm
-// the same (its bfloat16 calls within the tensor-core kernel's limits go to
-// block_topk_spmm_wgmma.cu: a block up to 256 lanes, up to 32,768
-// blocks); both accumulate in float32.  Ids outside W2 are clipped to its first or last row (block), so
-// no id reads outside W2.
+// the same (the wrapper sends its bfloat16 and float16 calls to
+// block_topk_spmm_wgmma.cu, the tensor cores, and brings them here only
+// when asked, for comparisons); both accumulate in float32.  Ids outside
+// W2 are clipped to its first or last row (block), so no id reads outside
+// W2.
 //
 // What bounds them on an H100: the bytes each input needs once (the
 // activations and ids, the W2 rows or blocks the ids name, y in float32)

@@ -24,12 +24,17 @@ and ``flash_attention_wgmma_f16.cu`` for float16 up to 256 columns, and by
 ``flash_attention_wgmma_wide.cu`` for both past that, its value columns in
 slabs; ``wgmma``, float32 accumulators, P carried in three bf16 or two f16
 terms so that it keeps float32 precision; ``"wgmma_p1"``, one term, under
-``p_dtype``); float32 inputs, and 16-bit qk widths past 384, to
-``csrc/flash_attention.cu``, float32 on the CUDA cores (``"cuda_cores"``
-up to 192 columns, ``"cuda_cores_slabs"`` past that: D and Dv in 64-column
-slabs).  Either is one launch per call; the tensor-core kernel's qk and
-value widths are template parameters of their own, so MLA's 192 / 128
-keeps the accumulator of a 128-wide head.
+``p_dtype``); float32 inputs with D and Dv up to 256 and no ``p_dtype`` to
+the tensor cores too (``csrc/flash_attention_wgmma_f32.cu``, ``"wgmma"``:
+Q, K, V and P each carried in three bf16 terms, the six term products
+``i + j < 3`` of each product summed in float32; a pass before the kernel
+writes the terms of Q, K and V into scratch the wrapper allocates,
+``f32_scratch_elems``); the other float32 calls, and 16-bit qk widths past
+384, to ``csrc/flash_attention.cu``, float32 on the CUDA cores
+(``"cuda_cores"`` up to 192 columns, ``"cuda_cores_slabs"`` past that: D
+and Dv in 64-column slabs).  Each is one call of one entry point; the
+16-bit tensor-core kernel's qk and value widths are template parameters of
+their own, so MLA's 192 / 128 keeps the accumulator of a 128-wide head.
 
 ``p_dtype=torch.bfloat16`` is the reference's ``p_dtype``
 (``repro.models.attention.flash_attention``): ``l`` sums the float32
@@ -102,7 +107,8 @@ TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 # build family (``wgmma_entry``), the CUDA-core kernel any call
 KERNELS = {"wgmma": ("repro_flash_attention_wgmma",
                      "repro_flash_attention_wgmma_f16",
-                     "repro_flash_attention_wgmma_wide"),
+                     "repro_flash_attention_wgmma_wide",
+                     "repro_flash_attention_wgmma_f32"),
            "cuda_cores": ("repro_flash_attention",)}
 KERNELS["wgmma_p1"] = KERNELS["wgmma"]
 KERNELS["cuda_cores_slabs"] = KERNELS["cuda_cores"]
@@ -125,6 +131,30 @@ def wgmma_constants() -> dict:
     of its two wide builds)."""
     return {**source_constants("flash_wgmma_common.cuh"),
             **source_constants("flash_wgmma.cuh")}
+
+
+def f32_constants() -> dict:
+    """The float32 tensor-core forward's integer constants, read from
+    ``csrc/flash_attention_wgmma_f32.cu``: ``kF32Terms``, the bf16 terms
+    each float32 operand is carried in (the products ``t_i u_j`` with
+    ``i + j < kF32Terms`` are summed); ``kF32MaxD``, its widest qk and
+    value width; ``kF32BK``, its key tile; ``kF32Rows``, the queries of a
+    block; ``kF32Pad``, the columns a row of a term plane is padded to a
+    multiple of."""
+    return source_constants("flash_attention_wgmma_f32.cu")
+
+
+def f32_scratch_elems(bh: int, sq: int, sk: int, d: int, dv: int) -> int:
+    """The bf16 elements of the scratch the float32 tensor-core forward
+    takes: ``kF32Terms`` planes each of q (BH * Sq rows), k and v (BH * Sk
+    rows), every row padded to a multiple of ``kF32Pad`` columns."""
+    c = f32_constants()
+
+    def plane(rows, width):
+        return rows * (-(-width // c["kF32Pad"]) * c["kF32Pad"])
+
+    return c["kF32Terms"] * (plane(bh * sq, d) + plane(bh * sk, d)
+                             + plane(bh * sk, dv))
 
 
 def bwd_constants() -> dict:
@@ -166,12 +196,17 @@ def route(dtype: torch.dtype, d: int = 1, dv: int = 1, p_dtype=None) -> str:
     """The kernel a CUDA call with ``dtype`` inputs, qk width ``d`` and
     value width ``dv`` launches: ``"wgmma"`` (bfloat16 and float16 with the
     qk width up to the source's ``kWideD``, 384, any value width, in slabs
-    past 256; tensor cores), ``"wgmma_p1"`` (the same with one P term,
-    under ``p_dtype``), else the CUDA-core kernel (``"cuda_cores"``, or
-    ``"cuda_cores_slabs"`` past 192 columns): float32, and qk widths past
-    384."""
+    past 256; float32 with D and Dv up to ``kF32MaxD``, 256, without
+    ``p_dtype``, in three bf16 terms; tensor cores), ``"wgmma_p1"`` (the
+    16-bit builds with one P term, under ``p_dtype``), else the CUDA-core
+    kernel (``"cuda_cores"``, or ``"cuda_cores_slabs"`` past 192 columns):
+    float32 past 256 columns or under ``p_dtype``, and 16-bit qk widths
+    past 384."""
     if dtype in TENSOR_CORE_DTYPES and d <= wgmma_constants()["kWideD"]:
         return "wgmma" if p_dtype is None else "wgmma_p1"
+    if (dtype == torch.float32 and p_dtype is None
+            and max(d, dv) <= f32_constants()["kF32MaxD"]):
+        return "wgmma"
     return _cuda_cores(d, dv)
 
 
@@ -199,7 +234,10 @@ def wgmma_entry(kind: str, dtype: torch.dtype, d: int, dv: int) -> str:
     """The C entry point of the tensor-core build family a call takes:
     ``kind`` ``"fwd"`` (``KERNELS``) or ``"bwd"`` (``BWD_KERNELS``); the
     bf16 and the f16 sources up to ``kMaxD`` (the backward's: up to MLA's
-    widths), the wide source past them, for both types."""
+    widths), the wide source past them, for both types; the float32
+    forward's own source."""
+    if kind == "fwd" and dtype == torch.float32:
+        return KERNELS["wgmma"][3]
     if kind == "fwd":
         wide = max(d, dv) > wgmma_constants()["kMaxD"]
         names = KERNELS["wgmma"]
@@ -470,12 +508,18 @@ def _launch(q, k, v, causal, window, q_offset, kv_len, with_lse=False,
     if a < b:
         entry = (wgmma_entry("fwd", q.dtype, d, dv)
                  if path.startswith("wgmma") else KERNELS[path][0])
+        # the float32 tensor-core build: q, k and v's bf16 terms (scratch)
+        scratch = ()
+        if entry == KERNELS["wgmma"][3]:
+            n = f32_scratch_elems(bh, sq, sk, d, dv)
+            terms = torch.empty(n, dtype=torch.bfloat16, device=q.device)
+            scratch = (terms.data_ptr(), n)
         with torch.cuda.device(q.device):
             rc = getattr(library(), entry)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                0 if lse is None else lse.data_ptr(), bh, sq, sk, d, dv,
-                int(bool(causal)), q_offset, window, kvl, 1.0 / (d ** 0.5),
-                int(p_dtype is not None), code,
+                0 if lse is None else lse.data_ptr(), *scratch, bh, sq, sk,
+                d, dv, int(bool(causal)), q_offset, window, kvl,
+                1.0 / (d ** 0.5), int(p_dtype is not None), code,
                 torch.cuda.current_stream().cuda_stream)
         ops.check_launch("flash_attention_fused", rc, path)
     if a > 0 or b < sq:

@@ -16,15 +16,17 @@
 * ``block_topk_spmm`` (per token tile): ``y[tile] = sum_{t < kb}
   h_kept[tile, t] (tile x block) @ W2[bidx[tile, t]*block : +block]``, in
   float32; the kernels and the plain version differ only in the order of
-  the sums.  On CUDA the dtype and sizes choose the kernel (``route``):
-  bfloat16 within the tensor-core kernel's limits (a block up to its
-  ``kMaxBlock``, 256 lanes, and up to ``kMaxInvertBlocks`` blocks) goes to
+  the sums, and each kernel's order is fixed, so a repeat gives the same
+  bits.  On CUDA the dtype chooses the kernel (``route``): bfloat16 and
+  float16, any block and any number of blocks, go to
   ``csrc/block_topk_spmm_wgmma.cu`` (block-major: each selected W2 block
-  read once, ``wgmma`` on the stacked tile rows that picked it, the partial
-  products added into y by float32 reductions, so the order of the sums
-  over ``t`` varies from run to run); float32, float16 and the other
-  bfloat16 calls to the CUDA-core kernel in ``csrc/topk_spmm.cu`` (tile by
-  tile, deterministic; any block, staged in panels of 1,536 lanes).
+  read once, ``wgmma`` on the stacked tile rows that picked it, a block's
+  lanes in panels of up to 256; each partial product stored to a
+  workspace slot of its own (``wgmma_workspace``), then the slots added in
+  (t, panel) order); float32 to the CUDA-core kernel in
+  ``csrc/topk_spmm.cu`` (tile by tile; any block, staged in panels of
+  1,536 lanes), which also takes the 16-bit calls when asked
+  (``path="cuda_cores"``, for comparisons).
 
 Ids outside W2 are clipped to its first or last row (block).  Replace
 ``repro.kernels.topk_spmm.topk_spmm`` and ``block_topk_spmm`` (the Pallas
@@ -42,17 +44,23 @@ KERNELS = {"wgmma": "repro_block_topk_spmm_wgmma",
            "cuda_cores": "repro_block_topk_spmm"}
 
 
-def route(dtype: torch.dtype, block: int = 128, n_blocks: int = 1) -> str:
-    """The kernel a CUDA ``block_topk_spmm`` call with ``dtype`` operands,
-    ``block``-lane blocks and ``n_blocks`` W2 blocks launches: ``"wgmma"``
-    (bfloat16 with ``block`` up to the source's ``kMaxBlock`` and
-    ``n_blocks`` up to ``kMaxInvertBlocks``; tensor cores) or
-    ``"cuda_cores"`` (everything else)."""
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA ``block_topk_spmm`` call with ``dtype`` operands
+    launches: ``"wgmma"`` (bfloat16 and float16, any block and number of
+    blocks; tensor cores) or ``"cuda_cores"`` (float32)."""
+    return "wgmma" if dtype in (torch.bfloat16, torch.float16) \
+        else "cuda_cores"
+
+
+def wgmma_workspace(n_tiles: int, kb: int, tile: int, block: int,
+                    d: int) -> int:
+    """The float32 elements of the tensor-core kernel's workspace: a slot
+    of ``tile`` rows for each (tile, t) pair and depth panel of
+    ``kPanelLanes`` lanes, each row ``d`` rounded up to ``kTN`` columns
+    (``csrc/block_topk_spmm_wgmma.cu``'s constants)."""
     c = source_constants("block_topk_spmm_wgmma.cu")
-    if dtype == torch.bfloat16 and block <= c["kMaxBlock"] \
-            and n_blocks <= c["kMaxInvertBlocks"]:
-        return "wgmma"
-    return "cuda_cores"
+    panels = -(-block // c["kPanelLanes"])
+    return n_tiles * kb * panels * tile * (-(-d // c["kTN"]) * c["kTN"])
 
 
 def _check_topk(vals, idx, w2):
@@ -162,7 +170,9 @@ def block_topk_spmm_plain(h_kept, bidx, w2, block: int = 128):
     return out.reshape(n_tiles * tile, d)
 
 
-def _block_topk_spmm_cuda(h_kept, bidx, w2, block: int = 128):
+def _block_topk_spmm_cuda(h_kept, bidx, w2, block: int = 128, path=None):
+    """One call of the route's kernel; ``path="cuda_cores"`` takes the
+    CUDA-core kernel whatever the dtype (for comparisons)."""
     _check_tiles(h_kept, bidx, w2, block)
     code = ops.expect_float(h_kept, 4, "h_kept")
     ops.expect(bidx, torch.int32, 2, "bidx")
@@ -171,7 +181,11 @@ def _block_topk_spmm_cuda(h_kept, bidx, w2, block: int = 128):
     n_tiles, kb, tile, _ = h_kept.shape
     d = w2.shape[1]
     n_blocks = w2.shape[0] // block
-    path = route(h_kept.dtype, block, n_blocks)
+    want = route(h_kept.dtype)
+    if path not in (None, want, "cuda_cores"):
+        raise ValueError(f"route {path}: a {h_kept.dtype} call takes {want} "
+                         f"or the CUDA cores")
+    path = path or want
     if n_tiles * tile * d == 0 or kb == 0:
         return torch.zeros((n_tiles * tile, d), dtype=torch.float32,
                            device=w2.device)
@@ -179,15 +193,18 @@ def _block_topk_spmm_cuda(h_kept, bidx, w2, block: int = 128):
         stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty((n_tiles * tile, d), dtype=torch.float32,
                           device=w2.device)
-        if path == "wgmma":  # the kernel's first launch also zeroes out
-            pair_ptr = torch.empty(n_blocks + 1, dtype=torch.int32,
+        if path == "wgmma":  # pair_ptr's tail: the sort's global counters
+            pair_ptr = torch.empty(2 * n_blocks + 1, dtype=torch.int32,
                                    device=w2.device)
             pairs = torch.empty(n_tiles * kb, dtype=torch.int32,
                                 device=w2.device)
+            n_ws = wgmma_workspace(n_tiles, kb, tile, block, d)
+            ws = torch.empty(n_ws, dtype=torch.float32, device=w2.device)
             rc = library().repro_block_topk_spmm_wgmma(
                 h_kept.data_ptr(), bidx.data_ptr(), w2.data_ptr(),
-                pair_ptr.data_ptr(), pairs.data_ptr(), out.data_ptr(),
-                n_tiles, kb, tile, block, d, n_blocks, stream)
+                pair_ptr.data_ptr(), pairs.data_ptr(), ws.data_ptr(), n_ws,
+                out.data_ptr(), n_tiles, kb, tile, block, d, n_blocks, code,
+                stream)
         else:
             rc = library().repro_block_topk_spmm(
                 h_kept.data_ptr(), bidx.data_ptr(), w2.data_ptr(),

@@ -129,13 +129,21 @@ def test_ops_routing():
 
 
 def test_routes_by_dtype_to_built_entry_points():
-    """bf16 and float16 go to the tensor-core kernel, float32 to the
-    CUDA-core one; each names C entry points the build binds."""
+    """bf16 and float16 go to the tensor-core kernels, float32 too up to
+    the float32 build's kF32MaxD (256) columns without ``p_dtype``, and to
+    the CUDA-core one past them; each names C entry points the build
+    binds."""
     from repro_torch.kernels._build import SIGNATURES
 
+    widest = k7.f32_constants()["kF32MaxD"]
     assert k7.route(torch.bfloat16) == "wgmma"
     assert k7.route(torch.float16) == "wgmma"
-    assert k7.route(torch.float32) == "cuda_cores"
+    assert k7.route(torch.float32) == "wgmma"
+    assert k7.route(torch.float32, widest, widest) == "wgmma"
+    assert k7.route(torch.float32, 64, widest + 1) == "cuda_cores_slabs"
+    assert k7.route(torch.float32, 96, 96, torch.bfloat16) == "cuda_cores"
+    assert k7.wgmma_entry("fwd", torch.float32, 96, 96) \
+        == "repro_flash_attention_wgmma_f32"
     assert all(name in SIGNATURES for names in k7.KERNELS.values()
                for name in names)
 
@@ -426,13 +434,17 @@ F16_GATE = CHIP.FLASH_TOL["torch.float16"]
 # value slabs of its wide builds, f16's P scale 2**kF16PScaleLog2
 WGMMA = k7.wgmma_constants()
 WGMMA_KEYS = WGMMA["kBK"]
+# the float32 build's terms of an operand kF32Terms, its key tile kF32BK
+F32 = k7.f32_constants()
+F32_GATE = CHIP.FLASH_TOL["torch.float32"]
 F16_P_SCALE = 2.0 ** WGMMA["kF16PScaleLog2"]
 
 
 def _terms(p, terms, kind, p_dtype=None):
-    """p (float32) as the kernel's ``terms`` A-operand terms, each in
-    float32: bf16 terms as they are; f16 terms of p * 2**15, scaled back
-    (exact: a power of two); under ``p_dtype`` p rounded to bf16 first."""
+    """p (float32) as the kernel's ``terms`` operand terms, each in
+    float32: bf16 terms as they are (the float32 build's terms of Q, K, V
+    and P too, ``kind`` "f32"); f16 terms of p * 2**15, scaled back (exact:
+    a power of two); under ``p_dtype`` p rounded to bf16 first."""
     scale = F16_P_SCALE if kind == "f16" else 1.0
     x = p * scale
     if p_dtype is not None:
@@ -445,31 +457,44 @@ def _terms(p, terms, kind, p_dtype=None):
     return out
 
 
+def _products(a, b, terms):
+    """sum of a_i . b_j over the term pairs i + j < ``terms``, in order."""
+    return sum(torch.matmul(a[i], b[j]) for i in range(len(a))
+               for j in range(len(b)) if i + j < terms)
+
+
 def emulate_wgmma(q, k, v, causal: bool, terms: int, window: int = 0,
                   p_dtype=None):
     """The tensor-core kernel's rounding, step by step, on the CPU (v may
     be narrower than q and k, and of another length Sk), for bf16 or
-    float16 q, k and v (the kernel's 16-bit type is q's).  Every row runs
-    every kv tile: a tile the kernel skips for a row is wholly masked for
-    it, and its terms are wiped once a real score arrives.  Under
-    ``p_dtype`` P is rounded to bf16 and taken as one term, and V is
-    rounded to bf16 (float16's kernel rounds its V tiles to
-    f16(bf16(v) / 2) in shared memory and scales the sum back by 2: the
-    same values here)."""
-    kind = "f16" if q.dtype == torch.float16 else "bf16"
+    float16 q, k and v (the kernel's 16-bit type is q's), or float32 (the
+    float32 build: Q, K, V and P each split into ``terms`` bf16 terms, and
+    each product the sum of the term products t_i u_j with i + j <
+    ``terms``; its key tile ``kF32BK``).  Every row runs every kv tile: a
+    tile the kernel skips for a row is wholly masked for it, and its terms
+    are wiped once a real score arrives.  Under ``p_dtype`` P is rounded to
+    bf16 and taken as one term, and V is rounded to bf16 (float16's kernel
+    rounds its V tiles to f16(bf16(v) / 2) in shared memory and scales the
+    sum back by 2: the same values here)."""
+    kind = {torch.float16: "f16", torch.float32: "f32"}.get(q.dtype, "bf16")
+    tile = F32["kF32BK"] if kind == "f32" else WGMMA_KEYS
     bh, s, d = q.shape
     c = float(np.float32(np.float64(np.float32(1.0 / d ** 0.5))
                          * math.log2(math.e)))
     qf, kf, vf = q.float(), k.float(), v.float()
     if p_dtype is not None:
         vf = (v.bfloat16().float() * 0.5).to(q.dtype).float() * 2.0
+    # the operands' terms: one for a 16-bit operand, taken as it is
+    qs, ks, vs = ([_terms(x, terms, kind) for x in (qf, kf, vf)]
+                  if kind == "f32" else ([qf], [kf], [vf]))
     m = torch.full((bh, s, 1), k7.NEG_INF)
     l = torch.zeros((bh, s, 1))
     acc = torch.zeros((bh, s, v.shape[2]))
     pos = torch.arange(max(s, k.shape[1]))
-    for k0 in range(0, k.shape[1], WGMMA_KEYS):
-        x = torch.matmul(qf, kf[:, k0:k0 + WGMMA_KEYS].transpose(1, 2)) * c
-        kpos = pos[None, k0:min(k0 + WGMMA_KEYS, k.shape[1])]
+    for k0 in range(0, k.shape[1], tile):
+        x = _products(qs, [t[:, k0:k0 + tile].transpose(1, 2) for t in ks],
+                      terms) * c
+        kpos = pos[None, k0:min(k0 + tile, k.shape[1])]
         ok = kpos <= pos[:s, None] if causal \
             else torch.ones_like(kpos <= pos[:s, None])
         if window:
@@ -480,9 +505,8 @@ def emulate_wgmma(q, k, v, causal: bool, terms: int, window: int = 0,
         p = torch.exp2(x - m_new)
         corr = torch.exp2(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        pv = torch.zeros_like(acc)
-        for term in _terms(p, terms, kind, p_dtype):
-            pv += torch.matmul(term, vf[:, k0:k0 + WGMMA_KEYS])
+        pv = _products(_terms(p, terms, kind, p_dtype),
+                       [t[:, k0:k0 + tile] for t in vs], terms)
         acc = acc * corr + pv
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
@@ -497,7 +521,8 @@ def emulate_wgmma_slabs(q, k, v, causal: bool, terms: int, slab: int):
 
 
 def gate_misses(got, want):
-    rtol, atol = F16_GATE if want.dtype == torch.float16 else BF16_GATE
+    rtol, atol = {torch.float16: F16_GATE,
+                  torch.float32: F32_GATE}.get(want.dtype, BF16_GATE)
     diff = (got.double() - want.double()).abs()
     return int((diff > atol + rtol * want.double().abs()).sum())
 
@@ -582,6 +607,71 @@ def test_one_f16_term_misses_the_f16_gate():
     q, k, v = bf16_qkv(0, 64, 256, 96, torch.float16)
     want = k7.flash_attention_fused_plain(q, k, v, True)
     assert gate_misses(emulate_wgmma(q, k, v, True, 1), want) > 0
+
+
+# the float32 build (csrc/flash_attention_wgmma_f32.cu) at small S, as
+# (bh, s, d, dv, causal, window): the reference test's shapes, 64 heads of
+# Phi-3's D 96 (the early causal rows: outputs near zero, where the gate's
+# atol binds), a window, MLA's qk 192 / v 128, qk 64 / v 128 and D 256
+F32_CASES = [(2, 64, 32, 32, True, 0), (3, 32, 16, 16, False, 0),
+             (64, 256, 96, 96, True, 0), (16, 256, 64, 64, True, 40),
+             (8, 256, 192, 128, True, 0), (4, 256, 64, 128, True, 0),
+             (2, 128, 256, 256, False, 0)]
+
+
+def f32_qkv(seed, bh, s, d, dv):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((bh, s, w))
+                             .astype(np.float32)) for w in (d, d, dv)]
+
+
+@pytest.mark.parametrize("bh,s,d,dv,causal,window", F32_CASES)
+def test_wgmma_f32_arithmetic_meets_the_f32_gate(bh, s, d, dv, causal,
+                                                 window):
+    """float32 on the tensor cores: Q, K, V and P in kF32Terms bf16 terms,
+    the term products i + j < kF32Terms, against the plain version under
+    ``chip_smoke.py``'s float32 gate."""
+    q, k, v = f32_qkv(0, bh, s, d, dv)
+    want = k7.flash_attention_masked_plain(q, k, v, causal, window)
+    got = emulate_wgmma(q, k, v, causal, F32["kF32Terms"], window)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert gate_misses(got, want) == 0
+
+
+@pytest.mark.parametrize("bh,s,d,dv,causal,window", [
+    (2, 64, 32, 32, True, 0), (3, 32, 16, 16, False, 0),
+    (2, 128, 96, 96, True, 0), (2, 128, 64, 64, True, 40),
+    (2, 128, 192, 128, True, 0)])
+def test_wgmma_f32_arithmetic_meets_the_reference(bh, s, d, dv, causal,
+                                                  window):
+    """The same emulation against the reference: its Pallas kernel in
+    interpret mode under the float32 gate where it takes the call (Dv == D,
+    no window; the same scale), else its chunked model attention within
+    ``K7_TOL`` (its scale 1/sqrt(float32(D)), an ulp off)."""
+    q, k, v = f32_qkv(1, bh, s, d, dv)
+    got = host(emulate_wgmma(q, k, v, causal, F32["kF32Terms"], window))
+    if dv == d and not window:
+        want = host(ref_fused(*map(jnp.asarray, (q, k, v)), causal=causal,
+                              q_blk=min(128, s), k_blk=min(128, s),
+                              interpret=True))
+        rtol, atol = F32_GATE
+    else:  # (BH, S, .) as one batch of BH heads
+        want = host(ref_attn.flash_attention(
+            *(jnp.asarray(x.numpy().transpose(1, 0, 2)[None])
+              for x in (q, k, v)), causal=causal, window=window))
+        want = want[0].transpose(1, 0, 2)
+        rtol, atol = K7_TOL
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+def test_two_term_f32_split_misses_the_f32_gate():
+    """Why each float32 operand carries three terms: with two (three term
+    products, 2^-16 of each), outputs of the early causal rows of 64 heads
+    miss the float32 gate."""
+    q, k, v = f32_qkv(0, 64, 256, 96, 96)
+    want = k7.flash_attention_fused_plain(q, k, v, True)
+    got = emulate_wgmma(q, k, v, True, F32["kF32Terms"] - 1)
+    assert gate_misses(got, want) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

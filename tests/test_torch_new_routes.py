@@ -10,13 +10,17 @@ are held against the JAX package:
   a 16-byte aligned, contiguous ``x``; else the widest of ``"words"``,
   ``"u16"`` and ``"bytes"`` dividing the range (a strided ``x``: a row and
   the pitch) and ``x``'s address.  K1's unit divides the pitch too.
-* K6 (``topk_spmm.route``): the tensor cores for bf16 within ``kMaxBlock``
-  and ``kMaxInvertBlocks``, the CUDA cores for everything else.
+* K6 (``topk_spmm.route``): the tensor cores for bf16 and float16, any
+  block (in depth panels of ``kPanelLanes``) and any number of blocks (the
+  sort's counters in global memory past ``kMaxInvertBlocks``); the CUDA
+  cores for float32.
 * K5: float16 on the ``"l2"`` kernel.  K7 (``flash_attention.route`` and
   ``bwd_route``): bf16 and float16 forwards up to a qk width of 384 on
   ``wgmma`` (``wgmma_p1`` under ``p_dtype``; values in slabs past 256),
   their backwards up to 256 columns, ``p_dtype`` and keyless queries
-  included; float32 and wider heads on the CUDA cores (in slabs past
+  included; float32 forwards up to 256 columns without ``p_dtype`` on
+  ``wgmma`` (three bf16 terms an operand), float32 backwards, float32
+  under ``p_dtype`` and wider heads on the CUDA cores (in slabs past
   192); each build family's entry point.
 * The plain versions on float16 (K3, K5, K6), a strided ``x`` (K1, K3)
   and a bf16 block of 512 lanes (K6) against the reference's Pallas kernels
@@ -98,19 +102,27 @@ def test_take_rows_keeps_a_unit_stride_view(monkeypatch):
         assert torch.equal(got, x[idx.clamp(0, x.shape[0] - 1).long()])
 
 
-@pytest.mark.parametrize("dtype,block,n_blocks,want", [
-    (torch.bfloat16, 128, 64, "wgmma"), (torch.bfloat16, 256, 32_768, "wgmma"),
-    (torch.bfloat16, 264, 3, "cuda_cores"),
-    (torch.bfloat16, 512, 16, "cuda_cores"),
-    (torch.bfloat16, 8, 32_769, "cuda_cores"),
-    (torch.float32, 2048, 4, "cuda_cores"),
-    (torch.float16, 128, 64, "cuda_cores"),
+# (dtype, block, n_blocks, route, depth panels): the 16-bit calls past 256
+# lanes or 32,768 blocks once took the CUDA cores, and float16 every call
+@pytest.mark.parametrize("dtype,block,n_blocks,want,panels", [
+    (torch.bfloat16, 128, 64, "wgmma", 1),
+    (torch.bfloat16, 256, 32_768, "wgmma", 1),
+    (torch.bfloat16, 264, 3, "wgmma", 2),
+    (torch.bfloat16, 512, 16, "wgmma", 2),
+    (torch.bfloat16, 8, 32_769, "wgmma", 1),
+    (torch.float32, 2048, 4, "cuda_cores", 8),
+    (torch.float16, 128, 64, "wgmma", 1),
 ])
 def test_block_topk_route_by_dtype_block_and_blocks(dtype, block, n_blocks,
-                                                    want):
+                                                    want, panels):
+    """The route depends on the dtype alone; the tensor-core kernel's
+    workspace holds a slot of tile rows a (pair, depth panel), whatever the
+    number of blocks."""
     c = _build.source_constants("block_topk_spmm_wgmma.cu")
-    assert (c["kMaxBlock"], c["kMaxInvertBlocks"]) == (256, 32_768)
-    assert topk_spmm.route(dtype, block, n_blocks) == want
+    assert (c["kPanelLanes"], c["kMaxInvertBlocks"]) == (256, 32_768)
+    assert topk_spmm.route(dtype) == want
+    assert topk_spmm.wgmma_workspace(3, 2, 8, block, 100) \
+        == 3 * 2 * panels * 8 * c["kTN"]
 
 
 def test_block_topk_panel_is_the_old_float32_cap():
@@ -139,7 +151,11 @@ def test_topk_spmm_route_by_dtype(dtype, d_ff, want):
     (torch.bfloat16, 64, 300, torch.bfloat16, "wgmma_p1"),
     (torch.bfloat16, 384, 512, None, "wgmma"),
     (torch.bfloat16, 385, 64, None, "cuda_cores_slabs"),
-    (torch.float32, 192, 192, None, "cuda_cores"),
+    (torch.float32, 192, 192, None, "wgmma"),
+    (torch.float32, 64, 128, None, "wgmma"),
+    (torch.float32, 256, 256, None, "wgmma"),
+    (torch.float32, 257, 64, None, "cuda_cores_slabs"),
+    (torch.float32, 96, 96, torch.bfloat16, "cuda_cores"),
     (torch.float32, 256, 256, torch.bfloat16, "cuda_cores_slabs"),
     (torch.float16, 96, 96, None, "wgmma"),
     (torch.float16, 96, 96, torch.bfloat16, "wgmma_p1"),
@@ -179,10 +195,12 @@ def test_k7_backward_routes(dtype, d, dv, want):
     (torch.float16, 200, 256, "repro_flash_attention_wgmma_f16"),
     (torch.bfloat16, 64, 300, "repro_flash_attention_wgmma_wide"),
     (torch.float16, 320, 320, "repro_flash_attention_wgmma_wide"),
+    (torch.float32, 96, 96, "repro_flash_attention_wgmma_f32"),
+    (torch.float32, 256, 200, "repro_flash_attention_wgmma_f32"),
 ])
 def test_k7_forward_entry_by_build_family(dtype, d, dv, want):
-    """bf16 and float16 up to 256 columns have a source and an entry point
-    each; the wide builds one for both types."""
+    """bf16, float16 and float32 up to 256 columns have a source and an
+    entry point each; the wide builds one for both 16-bit types."""
     assert k7.wgmma_entry("fwd", dtype, d, dv) == want
     assert want in _build.SIGNATURES
 
